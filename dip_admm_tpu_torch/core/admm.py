@@ -1,0 +1,278 @@
+"""Decentralized edge-consensus ADMM on one device.
+
+Update equations:
+  node update  : argmin 0.5||A_i x - b_i||^2 + lam*TV + (rho/2)sum_j ||x-v_ij||^2_Q
+                 with v_ij = z_ij - y_ij,i                        (eq. 1)
+  edge fusion  : z_ij = (a_i + a_j) / 2, a_i = x_i + y_ij,i       (eq. 2,
+                 the midpoint form; the weighted form is not ported yet)
+  dual update  : y_ij,i += x_i - z_ij                             (eq. 3)
+  residuals    : r^2 = sum_edges ||x_i - z||^2 + ||x_j - z||^2,
+                 s^2 = rho^2 sum_edges ||z+ - z||^2                (eqs. 4-5)
+  stop         : pri < eps_pri and dual < eps_dual                 (eq. 6)
+
+The per-pixel masks zero Q in the node subproblem; z/y/residual updates run
+on full vectors over the union-graph edges. The loop runs on the host: one
+device sync per outer iteration (the stop flag), besides the node solver's
+one per acceptance check. The edge consensus is plain torch ops; the fused
+consensus kernel is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from dip_admm_tpu_torch.config import AdmmConfig
+from dip_admm_tpu_torch.core import node_solver
+from dip_admm_tpu_torch.core.node_solver import NodeState
+from dip_admm_tpu_torch.data.loader import Problem
+
+
+class AdmmState(NamedTuple):
+    node: NodeState  # x [P, n] + TV duals (warm start)
+    Z: torch.Tensor  # [P, P, n] edge consensus variables
+    Y: torch.Tensor  # [P, P, n] scaled duals y_{(ij), i}
+    k: int  # outer iteration counter
+    stop: bool  # convergence flag
+    rho_scale: torch.Tensor  # effective rho / cfg.rho (1.0: adapt_rho off)
+
+
+class NodeBlockData(NamedTuple):
+    """Problem data the iteration body consumes."""
+
+    fwd: Callable  # [P, n] -> [P, m]
+    adj: Callable  # [P, m] -> [P, n]
+    b: torch.Tensor  # [P, m]
+    Q: torch.Tensor  # [P, P, n] masked precisions
+    adjm: torch.Tensor  # [P, P] union adjacency (float mask)
+    L: torch.Tensor  # [P] Lipschitz bounds
+    x_true: torch.Tensor  # [n]
+    N: int
+    g_scale: torch.Tensor | None = None  # [P] ||A_i^T b_i|| (eps_rel only)
+
+
+HISTORY_FIELDS = (
+    # name, per-node?
+    ("primal", False),
+    ("dual", False),
+    ("pri_per_node", True),
+    ("dual_per_node", True),
+    ("obj_per_node", True),
+    ("obj_total", False),
+    ("mse_sino_per_node", True),
+    ("mse_sino_total", False),
+    ("img_mse_per_node", True),
+    ("img_mse_total", False),
+    ("g_norm", True),
+    ("eps_target", False),
+    ("eps_per_node", True),
+    ("inner_iters", True),
+    # 0 = accepted at eps_k, 1 = plateau exit, 2 = budget exhausted
+    ("accept_code", True),
+    ("rho", False),  # effective rho this iteration
+)
+
+
+def make_history(T: int, P: int, device, dtype=torch.float32) -> dict:
+    return {
+        name: torch.full((T, P) if per_node else (T,), float("nan"),
+                         dtype=dtype, device=device)
+        for name, per_node in HISTORY_FIELDS
+    }
+
+
+def grow_history(hist: dict, max_iters: int) -> dict:
+    """NaN-pad history buffers along the iteration axis to ``max_iters``;
+    buffers already at least that long pass through."""
+    out = {}
+    for name, v in hist.items():
+        cur = v.shape[0]
+        if cur >= max_iters:
+            out[name] = v
+        else:
+            pad = torch.full((max_iters - cur,) + tuple(v.shape[1:]),
+                             float("nan"), dtype=v.dtype, device=v.device)
+            out[name] = torch.cat([v, pad], dim=0)
+    return out
+
+
+def check_config(cfg: AdmmConfig) -> None:
+    """Raise for the options this port does not implement yet."""
+    if cfg.use_pallas:
+        raise NotImplementedError(
+            "use_pallas=True: the fused consensus kernel is not ported yet"
+        )
+    if cfg.z_fusion != "midpoint":
+        raise NotImplementedError(
+            f"z_fusion={cfg.z_fusion!r} is not ported yet (only 'midpoint')"
+        )
+    if cfg.relax_alpha != 1.0:
+        raise NotImplementedError("relax_alpha != 1 is not ported yet")
+    if cfg.adapt_rho:
+        raise NotImplementedError("adapt_rho is not ported yet")
+    if cfg.node.algorithm != "cv":
+        raise NotImplementedError(
+            f"inner algorithm {cfg.node.algorithm!r} is not ported yet"
+        )
+
+
+def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
+                   hist: dict) -> AdmmState:
+    """One outer consensus iteration; writes row ``state.k`` of ``hist`` in
+    place and returns the next state."""
+    P = data.Q.shape[0]
+    k = state.k
+    X, Z, Y = state.node.x, state.Z, state.Y
+    dtype = X.dtype
+    am = data.adjm[:, :, None]
+    rho = cfg.rho
+
+    # --- neighbour terms of the node subproblems ---
+    V = Z - Y  # v_ij = z_ij - y_ij,i
+    D_vec = torch.sum(data.Q, dim=1)
+    QV = data.Q * V
+    b_cons = torch.sum(QV, dim=1)
+    c_quad = torch.sum(QV * V, dim=(1, 2))
+
+    # --- inexact node solve with the adaptive target ---
+    decay = torch.tensor(k + 1.0, dtype=dtype, device=X.device) ** (
+        1.0 + cfg.node.gamma_decay
+    )
+    eps_k = cfg.node.eps0 / decay
+    if cfg.node.eps_rel > 0:
+        eps_k = torch.maximum(eps_k, cfg.node.eps_rel * data.g_scale / decay)
+    nstate = state.node
+    if not cfg.node.warm_start:
+        nstate = node_solver.init_state(
+            P, data.N, data.b.shape[1], X.device, dtype
+        )._replace(x=state.node.x)
+    res = node_solver.solve_nodes(
+        data.fwd, data.adj, data.b, D_vec, b_cons, c_quad,
+        cfg.lam_tv, rho, data.L, nstate, eps_k, cfg.node, data.N,
+    )
+    Xn = res.state.x
+
+    # --- metrics in measurement and image space ---
+    r_meas = data.fwd(Xn) - data.b
+    mse_sino = torch.sum(r_meas * r_meas, dim=1)
+    err = Xn - data.x_true[None, :]
+    img_mse = torch.sum(err * err, dim=1)
+
+    # --- edge fusion (eq. 2), dual update (eq. 3), residuals (eqs. 4-5) ---
+    A_prop = Xn[:, None, :] + Y  # a_i = x_i + y_ij,i, laid out [i, j, n]
+    A_T = A_prop.transpose(0, 1)  # a_j = x_j + y_ij,j
+    Zn = 0.5 * (A_prop + A_T) * am
+    Yn = (A_prop - Zn) * am
+    dpri = (A_prop - Y - Zn) * am
+    pri_part = torch.sum(dpri * dpri, dim=(1, 2))  # [P]
+    dz = (Zn - Z) * am
+    dz2_part = torch.sum(dz * dz, dim=(1, 2))
+    r2 = torch.sum(pri_part)
+    s2 = 0.5 * rho**2 * torch.sum(dz2_part)
+    pri_norm = torch.sqrt(r2)
+    dual_norm = torch.sqrt(s2)
+
+    eps_vec = torch.atleast_1d(eps_k).to(dtype)
+    updates = {
+        "primal": pri_norm,
+        "dual": dual_norm,
+        "pri_per_node": torch.sqrt(pri_part),
+        "dual_per_node": torch.sqrt(rho**2 * dz2_part),
+        "obj_per_node": res.objective,
+        "obj_total": torch.sum(res.objective),
+        "mse_sino_per_node": mse_sino,
+        "mse_sino_total": torch.sum(mse_sino),
+        "img_mse_per_node": img_mse,
+        "img_mse_total": torch.sum(img_mse),
+        "g_norm": res.g_norm,
+        "eps_target": torch.max(eps_vec),
+        "eps_per_node": eps_vec.expand(P),
+        "inner_iters": res.inner_iters.to(dtype),
+        "accept_code": res.accept_code.to(dtype),
+        "rho": torch.tensor(rho, dtype=dtype, device=X.device),
+    }
+    for name, arr in hist.items():
+        arr[k] = updates[name].to(arr.dtype)
+
+    stop = bool((pri_norm < cfg.eps_pri) & (dual_norm < cfg.eps_dual))
+    return AdmmState(node=res.state, Z=Zn, Y=Yn, k=k + 1, stop=stop,
+                     rho_scale=state.rho_scale)
+
+
+def _block_data(problem: Problem, cfg: AdmmConfig) -> NodeBlockData:
+    # Lipschitz bound of the node solves: ||A^T A|| + rho * max_p sum_j Q.
+    L = problem.opnorm + cfg.rho * torch.amax(torch.sum(problem.Q, dim=1),
+                                              dim=-1)
+    g_scale = None
+    if cfg.node.eps_rel > 0:
+        g_scale = torch.linalg.norm(problem.adjoint(problem.b), dim=1)
+    return NodeBlockData(
+        fwd=problem.forward, adj=problem.adjoint, b=problem.b, Q=problem.Q,
+        adjm=problem.adj.to(problem.b.dtype), L=L, x_true=problem.x_true,
+        N=problem.N, g_scale=g_scale,
+    )
+
+
+class AdmmResult(NamedTuple):
+    x: torch.Tensor  # [P, n] final per-node reconstructions
+    history: dict  # rows >= n_iters are NaN
+    n_iters: int
+    state: AdmmState
+
+
+def init_state(problem: Problem, cfg: AdmmConfig) -> tuple[AdmmState, dict]:
+    """Fresh loop state and history buffers."""
+    dtype = problem.b.dtype
+    dev = problem.device
+    P, n, N = problem.num_nodes, problem.n, problem.N
+    state = AdmmState(
+        node=node_solver.init_state(P, N, problem.m_flat, dev, dtype),
+        Z=torch.zeros((P, P, n), dtype=dtype, device=dev),
+        Y=torch.zeros((P, P, n), dtype=dtype, device=dev),
+        k=0,
+        stop=False,
+        rho_scale=torch.tensor(1.0, dtype=dtype, device=dev),
+    )
+    return state, make_history(cfg.max_iters, P, dev, dtype)
+
+
+def run_admm(
+    problem: Problem,
+    cfg: AdmmConfig | None = None,
+    state: AdmmState | None = None,
+    hist: dict | None = None,
+    until: int | None = None,
+) -> AdmmResult:
+    """Consensus ADMM on one device, resumable: pass the ``state``/``hist``
+    of a previous (possibly partial) run to continue from ``state.k``;
+    ``until`` caps this call's last outer iteration (default
+    ``cfg.max_iters``). ``hist`` is updated in place."""
+    cfg = cfg if cfg is not None else problem.cfg.admm
+    check_config(cfg)
+    if state is None:
+        state, hist = init_state(problem, cfg)
+    if hist is None:
+        raise ValueError("run_admm: resuming needs the history with the state")
+    until = cfg.max_iters if until is None else min(until, cfg.max_iters)
+    data = _block_data(problem, cfg)
+    while state.k < until and not state.stop:
+        state = admm_iteration(data, cfg, state, hist)
+    return AdmmResult(x=state.node.x, history=hist, n_iters=state.k,
+                      state=state)
+
+
+def state_from_numpy(state, hist: dict, device) -> tuple[AdmmState, dict]:
+    """A JAX ``AdmmState`` and history (or anything with the same fields
+    that ``np.asarray`` reads) as the port's state on ``device``."""
+    def t(a):
+        return torch.as_tensor(np.array(a), device=device)
+
+    nd = state.node
+    node = NodeState(x=t(nd.x), ux=t(nd.ux), uy=t(nd.uy), ua=t(nd.ua),
+                     xp=t(nd.xp), tk=t(nd.tk))
+    st = AdmmState(node=node, Z=t(state.Z), Y=t(state.Y),
+                   k=int(np.asarray(state.k)), stop=bool(np.asarray(state.stop)),
+                   rho_scale=t(state.rho_scale))
+    return st, {name: t(v) for name, v in hist.items()}

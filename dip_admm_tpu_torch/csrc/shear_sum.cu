@@ -1,0 +1,617 @@
+// Hopper (sm_90a) kernels of the fft_skew projector: the four Pallas
+// kernels of dip_admm_tpu/ops/pallas/shear_sum.py, written again for CUDA.
+//
+//   K1 dip_skew_fwd  <- skew_sum_planes   (_skew_fwd_pallas_planes)
+//   K2 dip_skew_t    <- skew_sum_planes_t (_skew_t_pallas_planes)
+//   K3 dip_eval_fwd  <- eval_shear        (_eval_fwd_pallas, the R stage)
+//   K4 dip_eval_t    <- eval_shear_t      (_eval_t_pallas, after the Wd
+//                                          pre-contraction)
+//
+// Each computes what the TPU kernel computes and rounds to the table type
+// at the same points (bf16 tables: the image rows before the tap product,
+// the skew sum z before the DFT-back, the phase products in K2/K3 and the
+// pre-contracted cotangent in K4). f32 tables round nowhere. Accumulation
+// is always f32.
+//
+// Design: a plain shared-memory tiled product on the CUDA cores. A block
+// owns a 16 x 64 output tile; each of its 256 threads keeps one row and four
+// columns (tx + 16 j) in registers. The TPU grid's sequential axes become
+// loops inside the block: K1 loops over the row blocks whose spectra it
+// sums, K2 over the angle blocks that feed its image plane, K4 over the
+// detector blocks, so every output element is written once by one block
+// and no atomics are needed. The tap stage (about 14.5 GFLOP per apply
+// at 256^2/8, the bulk of the projector) is bound by shared-memory reads
+// in this form (5 loads per 4 FMAs); tensor cores (wgmma), TMA and fusion
+// of the two stages of K1/K2 are later work.
+//
+// C interface for ctypes: pointers and the stream as void*, sizes as int.
+// Every entry launches on the given stream, does not synchronise and
+// returns cudaGetLastError() (0 = launched).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TX = 16;   // threads along the tile's columns
+constexpr int TY = 16;   // threads along the tile's rows
+constexpr int BM = 16;   // tile rows (= TY)
+constexpr int BN = 64;   // tile columns (= 4 * TX)
+constexpr int BK = 32;   // contraction chunk of the plain products
+constexpr int DC = 16;   // tap chunk of the skew products
+constexpr int NC = 16;   // row / angle chunk of the skew products
+constexpr int NT = TX * TY;
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <typename T> __device__ __forceinline__ float ld(const T* p, long i);
+template <> __device__ __forceinline__ float ld<float>(const float* p, long i) {
+  return p[i];
+}
+template <>
+__device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat16* p,
+                                                   long i) {
+  return __bfloat162float(p[i]);
+}
+
+// Round an f32 value to the table type's precision (identity for f32).
+template <typename T> __device__ __forceinline__ float rnd(float v);
+template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
+template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// ---------------------------------------------------------------------------
+// K1, stage 1: tap product and skew sum.
+//   z[p,tb,b,t,v] = sum_d sum_n WtT[p,b,d,tb*tt+t,n] * x[n, v-(D2-1)+d]
+// with x = rows2[p, plane[p,tb], b*nb:(b+1)*nb, :] (zero outside [0, WS)).
+// Block: (v tile, t tile, (p, tb, b)). Shared: a [DC, BM, NC] tap chunk and
+// the [NC, BN+DC-1] row window that the chunk's DC shifts read.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT)
+skew_tap_fwd(const float* __restrict__ rows2, const T* __restrict__ wtt,
+             const int* __restrict__ plane, float* __restrict__ z, int NB,
+             int D2, int Tp, int nb, int TB, int WS, int WZ) {
+  __shared__ float Ws[DC][BM][NC];
+  __shared__ float Xs[NC][BN + DC];
+  const int tt = Tp / TB, N = NB * nb;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int v0 = blockIdx.x * BN, t0 = blockIdx.y * BM;
+  const int b = blockIdx.z % NB, tb = (blockIdx.z / NB) % TB;
+  const int p = blockIdx.z / (NB * TB);
+  const int pl = plane[p * TB + tb];
+  const float* x = rows2 + ((long)(p * 2 + pl) * N + (long)b * nb) * WS;
+  const T* w = wtt + (long)(p * NB + b) * D2 * Tp * nb;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int d0 = 0; d0 < D2; d0 += DC) {
+    const int ubase = v0 - (D2 - 1) + d0;  // u of window column 0
+    // Skip tap chunks whose whole row window lies outside [0, WS): they
+    // only add zeros (about half of the (v tile, d chunk) pairs, as v
+    // spans WZ >= WS + D2 - 1). The test is uniform over the block.
+    if (ubase + BN + DC - 2 < 0 || ubase >= WS) continue;
+    for (int n0 = 0; n0 < nb; n0 += NC) {
+      for (int i = tid; i < DC * BM * NC; i += NT) {
+        const int n = i % NC, t = (i / NC) % BM, dl = i / (NC * BM);
+        const int d = d0 + dl, tg = t0 + t, ng = n0 + n;
+        float val = 0.f;
+        if (d < D2 && tg < tt && ng < nb)
+          val = ld<T>(w, ((long)d * Tp + tb * tt + tg) * nb + ng);
+        Ws[dl][t][n] = val;
+      }
+      for (int i = tid; i < NC * (BN + DC - 1); i += NT) {
+        const int c = i % (BN + DC - 1), n = i / (BN + DC - 1);
+        const int u = ubase + c, ng = n0 + n;
+        float val = 0.f;
+        if (ng < nb && u >= 0 && u < WS) val = rnd<T>(x[(long)ng * WS + u]);
+        Xs[n][c] = val;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int dl = 0; dl < DC; ++dl) {
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          const float wv = Ws[dl][ty][n];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[j] += wv * Xs[n][tx + TX * j + dl];
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int tg = t0 + ty;
+  if (tg >= tt) return;
+  float* zo = z + ((long)(p * TB + tb) * NB + b) * tt * WZ + (long)tg * WZ;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int v = v0 + tx + TX * j;
+    if (v < WZ) zo[v] = acc[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1, stage 2: DFT-back, phase, and the sum over row blocks.
+//   g[p,tb*tt+t,f] = sum_b E_b * (z_b @ D)[t,f],  E_b = SE[p,b,tb*tt+t,f]
+// Block: (f tile, t tile, (p, tb)); it loops over the NB row blocks itself,
+// so g is written once, whatever order the blocks run in.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT)
+skew_dft_fwd(const float* __restrict__ z, const float* __restrict__ sere,
+             const float* __restrict__ seim, const T* __restrict__ dre,
+             const T* __restrict__ dim, float* __restrict__ gre,
+             float* __restrict__ gim, int NB, int Tp, int TB, int WZ, int F) {
+  __shared__ float Zs[BM][BK + 1];
+  __shared__ float Dr[BK][BN];
+  __shared__ float Di[BK][BN];
+  const int tt = Tp / TB;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int f0 = blockIdx.x * BN, t0 = blockIdx.y * BM;
+  const int tb = blockIdx.z % TB, p = blockIdx.z / TB;
+  const int tg = t0 + ty;
+  float gr[4] = {0.f, 0.f, 0.f, 0.f}, gi[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int b = 0; b < NB; ++b) {
+    const float* zb = z + ((long)(p * TB + tb) * NB + b) * tt * WZ;
+    float ar[4] = {0.f, 0.f, 0.f, 0.f}, ai[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < WZ; k0 += BK) {
+      for (int i = tid; i < BM * BK; i += NT) {
+        const int k = i % BK, t = i / BK;
+        float val = 0.f;
+        if (t0 + t < tt && k0 + k < WZ)
+          val = rnd<T>(zb[(long)(t0 + t) * WZ + k0 + k]);
+        Zs[t][k] = val;
+      }
+      for (int i = tid; i < BK * BN; i += NT) {
+        const int f = i % BN, k = i / BN;
+        float vr = 0.f, vi = 0.f;
+        if (k0 + k < WZ && f0 + f < F) {
+          const long o = (long)(k0 + k) * F + f0 + f;
+          vr = ld<T>(dre, o);
+          vi = ld<T>(dim, o);
+        }
+        Dr[k][f] = vr;
+        Di[k][f] = vi;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int k = 0; k < BK; ++k) {
+        const float zv = Zs[ty][k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ar[j] += zv * Dr[k][tx + TX * j];
+          ai[j] += zv * Di[k][tx + TX * j];
+        }
+      }
+      __syncthreads();
+    }
+    if (tg < tt) {
+      const long eo = ((long)(p * NB + b) * Tp + tb * tt + tg) * F;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int f = f0 + tx + TX * j;
+        if (f < F) {
+          const float er = sere[eo + f], ei = seim[eo + f];
+          gr[j] += ar[j] * er - ai[j] * ei;
+          gi[j] += ar[j] * ei + ai[j] * er;
+        }
+      }
+    }
+  }
+  if (tg >= tt) return;
+  const long go = ((long)p * Tp + tb * tt + tg) * F;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int f = f0 + tx + TX * j;
+    if (f < F) {
+      gre[go + f] = gr[j];
+      gim[go + f] = gi[j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2, stage 1: conj-phase and DFT-forward of the cotangent.
+//   zbar[p,tb,b,t,w] = sum_f Zr[t,f] DreT[f,w] + Zi[t,f] DimT[f,w]
+//   Zr = g_re*E_re + g_im*E_im,  Zi = g_im*E_re - g_re*E_im  (E = SE[p,b])
+// Block: (w tile, t tile, (p, tb, b)).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT)
+skew_dft_t(const float* __restrict__ gre, const float* __restrict__ gim,
+           const float* __restrict__ sere, const float* __restrict__ seim,
+           const T* __restrict__ dret, const T* __restrict__ dimt,
+           float* __restrict__ zbar, int NB, int Tp, int TB, int WZ, int F) {
+  __shared__ float Zr[BM][BK + 1];
+  __shared__ float Zi[BM][BK + 1];
+  __shared__ float Dr[BK][BN];
+  __shared__ float Di[BK][BN];
+  const int tt = Tp / TB;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int w0 = blockIdx.x * BN, t0 = blockIdx.y * BM;
+  const int b = blockIdx.z % NB, tb = (blockIdx.z / NB) % TB;
+  const int p = blockIdx.z / (NB * TB);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int k0 = 0; k0 < F; k0 += BK) {
+    for (int i = tid; i < BM * BK; i += NT) {
+      const int k = i % BK, t = i / BK;
+      float vr = 0.f, vi = 0.f;
+      if (t0 + t < tt && k0 + k < F) {
+        const long go = ((long)p * Tp + tb * tt + t0 + t) * F + k0 + k;
+        const long eo = ((long)(p * NB + b) * Tp + tb * tt + t0 + t) * F + k0 + k;
+        const float g_r = gre[go], g_i = gim[go];
+        const float er = sere[eo], ei = seim[eo];
+        vr = rnd<T>(g_r * er + g_i * ei);
+        vi = rnd<T>(g_i * er - g_r * ei);
+      }
+      Zr[t][k] = vr;
+      Zi[t][k] = vi;
+    }
+    for (int i = tid; i < BK * BN; i += NT) {
+      const int w = i % BN, k = i / BN;
+      float vr = 0.f, vi = 0.f;
+      if (k0 + k < F && w0 + w < WZ) {
+        const long o = (long)(k0 + k) * WZ + w0 + w;
+        vr = ld<T>(dret, o);
+        vi = ld<T>(dimt, o);
+      }
+      Dr[k][w] = vr;
+      Di[k][w] = vi;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < BK; ++k) {
+      const float zr = Zr[ty][k], zi = Zi[ty][k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[j] += zr * Dr[k][tx + TX * j] + zi * Di[k][tx + TX * j];
+    }
+    __syncthreads();
+  }
+  const int tg = t0 + ty;
+  if (tg >= tt) return;
+  float* zo = zbar + ((long)(p * TB + tb) * NB + b) * tt * WZ + (long)tg * WZ;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int w = w0 + tx + TX * j;
+    if (w < WZ) zo[w] = acc[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2, stage 2: the transposed tap product into the image planes.
+//   x2[p,pl,b*nb+n,u] = sum_{tb: plane[p,tb]=pl} sum_d sum_t
+//                       WtT[p,b,d,tb*tt+t,n] * zbar[p,tb,b,t,(D2-1-d)+u]
+// Block: (u tile, n tile, (p, pl, b)). It owns its output tile and loops
+// over the angle blocks whose plane is its own, so it writes every element
+// once, zeros included where no angle block reads the plane.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT)
+skew_tap_t(const float* __restrict__ zbar, const T* __restrict__ wtt,
+           const int* __restrict__ plane, float* __restrict__ x2, int NB,
+           int D2, int Tp, int nb, int TB, int WS, int WZ) {
+  __shared__ float Ws[DC][NC][BM];
+  __shared__ float Zs[NC][BN + DC];
+  const int tt = Tp / TB, N = NB * nb;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int u0 = blockIdx.x * BN, n0 = blockIdx.y * BM;
+  const int b = blockIdx.z % NB, pl = (blockIdx.z / NB) % 2;
+  const int p = blockIdx.z / (NB * 2);
+  const T* w = wtt + (long)(p * NB + b) * D2 * Tp * nb;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int tb = 0; tb < TB; ++tb) {
+    if (plane[p * TB + tb] != pl) continue;  // uniform over the block
+    const float* zb = zbar + ((long)(p * TB + tb) * NB + b) * tt * WZ;
+    for (int d0 = 0; d0 < D2; d0 += DC) {
+      const int wbase = (D2 - 1) - (d0 + DC - 1) + u0;  // w of column 0
+      for (int s0 = 0; s0 < tt; s0 += NC) {
+        for (int i = tid; i < DC * NC * BM; i += NT) {
+          const int n = i % BM, t = (i / BM) % NC, dl = i / (BM * NC);
+          const int d = d0 + dl, tg = s0 + t, ng = n0 + n;
+          float val = 0.f;
+          if (d < D2 && tg < tt && ng < nb)
+            val = ld<T>(w, ((long)d * Tp + tb * tt + tg) * nb + ng);
+          Ws[dl][t][n] = val;
+        }
+        for (int i = tid; i < NC * (BN + DC - 1); i += NT) {
+          const int c = i % (BN + DC - 1), t = i / (BN + DC - 1);
+          const int wi = wbase + c, tg = s0 + t;
+          float val = 0.f;
+          if (tg < tt && wi >= 0 && wi < WZ)
+            val = rnd<T>(zb[(long)tg * WZ + wi]);
+          Zs[t][c] = val;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int dl = 0; dl < DC; ++dl) {
+#pragma unroll
+          for (int t = 0; t < NC; ++t) {
+            const float wv = Ws[dl][t][ty];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[j] += wv * Zs[t][(DC - 1 - dl) + tx + TX * j];
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+  const int ng = n0 + ty;
+  if (ng >= nb) return;
+  float* xo = x2 + ((long)(p * 2 + pl) * N + (long)b * nb + ng) * WS;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int u = u0 + tx + TX * j;
+    if (u < WS) xo[u] = acc[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: phase product and PhiD contraction of the eval tail.
+//   R[p,b,t,z] = sum_f A[t,f] PhiDre[z,f] - sum_f B[t,f] PhiDim[z,f]
+//   A = g_re*TE_re - g_im*TE_im,  B = g_re*TE_im + g_im*TE_re  (TE[p,b])
+// Block: (z tile, t tile, (p, b)).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT)
+eval_fwd(const float* __restrict__ gre, const float* __restrict__ gim,
+         const float* __restrict__ tere, const float* __restrict__ teim,
+         const T* __restrict__ phre, const T* __restrict__ phim,
+         float* __restrict__ R, int DB, int Tp, int D2p, int F) {
+  __shared__ float As[BM][BK + 1];
+  __shared__ float Bs[BM][BK + 1];
+  __shared__ float Pr[BK][BN + 1];  // padded: filled along k (PhiD is [z, f])
+  __shared__ float Pi[BK][BN + 1];
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int z0 = blockIdx.x * BN, t0 = blockIdx.y * BM;
+  const int b = blockIdx.z % DB, p = blockIdx.z / DB;
+  float aa[4] = {0.f, 0.f, 0.f, 0.f}, ab[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int k0 = 0; k0 < F; k0 += BK) {
+    for (int i = tid; i < BM * BK; i += NT) {
+      const int k = i % BK, t = i / BK;
+      float va = 0.f, vb = 0.f;
+      if (t0 + t < Tp && k0 + k < F) {
+        const long go = ((long)p * Tp + t0 + t) * F + k0 + k;
+        const long eo = ((long)(p * DB + b) * Tp + t0 + t) * F + k0 + k;
+        const float g_r = gre[go], g_i = gim[go];
+        const float er = tere[eo], ei = teim[eo];
+        va = rnd<T>(g_r * er - g_i * ei);
+        vb = rnd<T>(g_r * ei + g_i * er);
+      }
+      As[t][k] = va;
+      Bs[t][k] = vb;
+    }
+    for (int i = tid; i < BK * BN; i += NT) {
+      const int k = i % BK, zz = i / BK;
+      float vr = 0.f, vi = 0.f;
+      if (k0 + k < F && z0 + zz < D2p) {
+        const long o = (long)(z0 + zz) * F + k0 + k;
+        vr = ld<T>(phre, o);
+        vi = ld<T>(phim, o);
+      }
+      Pr[k][zz] = vr;
+      Pi[k][zz] = vi;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < BK; ++k) {
+      const float a = As[ty][k], bb = Bs[ty][k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        aa[j] += a * Pr[k][tx + TX * j];
+        ab[j] += bb * Pi[k][tx + TX * j];
+      }
+    }
+    __syncthreads();
+  }
+  const int tg = t0 + ty;
+  if (tg >= Tp) return;
+  float* ro = R + ((long)(p * DB + b) * Tp + tg) * D2p;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int zz = z0 + tx + TX * j;
+    if (zz < D2p) ro[zz] = aa[j] - ab[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4: transpose of the eval tail after the Wd pre-contraction Rbar.
+//   Abar = Rbar_b @ PhiDre,  Bbar = -(Rbar_b @ PhiDim)
+//   g_re = sum_b Abar*TE_re + Bbar*TE_im,  g_im = sum_b -Abar*TE_im + Bbar*TE_re
+// Block: (f tile, t tile, p); it loops over the DB detector blocks.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT)
+eval_t(const float* __restrict__ rbar, const float* __restrict__ tere,
+       const float* __restrict__ teim, const T* __restrict__ phre,
+       const T* __restrict__ phim, float* __restrict__ gre,
+       float* __restrict__ gim, int DB, int Tp, int D2p, int F) {
+  __shared__ float Rs[BM][BK + 1];
+  __shared__ float Pr[BK][BN];
+  __shared__ float Pi[BK][BN];
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int f0 = blockIdx.x * BN, t0 = blockIdx.y * BM, p = blockIdx.z;
+  const int tg = t0 + ty;
+  float gr[4] = {0.f, 0.f, 0.f, 0.f}, gi[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int b = 0; b < DB; ++b) {
+    const float* rb = rbar + (long)(p * DB + b) * Tp * D2p;
+    float aa[4] = {0.f, 0.f, 0.f, 0.f}, ab[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < D2p; k0 += BK) {
+      for (int i = tid; i < BM * BK; i += NT) {
+        const int k = i % BK, t = i / BK;
+        float val = 0.f;
+        if (t0 + t < Tp && k0 + k < D2p)
+          val = rnd<T>(rb[(long)(t0 + t) * D2p + k0 + k]);
+        Rs[t][k] = val;
+      }
+      for (int i = tid; i < BK * BN; i += NT) {
+        const int f = i % BN, k = i / BN;
+        float vr = 0.f, vi = 0.f;
+        if (k0 + k < D2p && f0 + f < F) {
+          const long o = (long)(k0 + k) * F + f0 + f;
+          vr = ld<T>(phre, o);
+          vi = ld<T>(phim, o);
+        }
+        Pr[k][f] = vr;
+        Pi[k][f] = vi;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int k = 0; k < BK; ++k) {
+        const float r = Rs[ty][k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          aa[j] += r * Pr[k][tx + TX * j];
+          ab[j] += r * Pi[k][tx + TX * j];
+        }
+      }
+      __syncthreads();
+    }
+    if (tg < Tp) {
+      const long eo = ((long)(p * DB + b) * Tp + tg) * F;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int f = f0 + tx + TX * j;
+        if (f < F) {
+          const float er = tere[eo + f], ei = teim[eo + f];
+          const float A = aa[j], B = -ab[j];
+          gr[j] += A * er + B * ei;
+          gi[j] += -A * ei + B * er;
+        }
+      }
+    }
+  }
+  if (tg >= Tp) return;
+  const long go = ((long)p * Tp + tg) * F;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int f = f0 + tx + TX * j;
+    if (f < F) {
+      gre[go + f] = gr[j];
+      gim[go + f] = gi[j];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int dip_skew_fwd(const float* rows2, const void* wtt, const float* sere,
+                 const float* seim, const void* dre, const void* dim,
+                 const int* plane, float* z, float* gre, float* gim, int P,
+                 int NB, int D2, int Tp, int nb, int TB, int WS, int WZ, int F,
+                 int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tt = Tp / TB;
+  const dim3 blk(TX, TY);
+  const dim3 g1(cdiv(WZ, BN), cdiv(tt, BM), P * TB * NB);
+  const dim3 g2(cdiv(F, BN), cdiv(tt, BM), P * TB);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    skew_tap_fwd<T><<<g1, blk, 0, s>>>(rows2, static_cast<const T*>(wtt),
+                                       plane, z, NB, D2, Tp, nb, TB, WS, WZ);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    skew_dft_fwd<T><<<g2, blk, 0, s>>>(z, sere, seim,
+                                       static_cast<const T*>(dre),
+                                       static_cast<const T*>(dim), gre, gim,
+                                       NB, Tp, TB, WZ, F);
+  } else {
+    using T = float;
+    skew_tap_fwd<T><<<g1, blk, 0, s>>>(rows2, static_cast<const T*>(wtt),
+                                       plane, z, NB, D2, Tp, nb, TB, WS, WZ);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    skew_dft_fwd<T><<<g2, blk, 0, s>>>(z, sere, seim,
+                                       static_cast<const T*>(dre),
+                                       static_cast<const T*>(dim), gre, gim,
+                                       NB, Tp, TB, WZ, F);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dip_skew_t(const float* gre, const float* gim, const void* wtt,
+               const float* sere, const float* seim, const void* dret,
+               const void* dimt, const int* plane, float* zbar, float* x2,
+               int P, int NB, int D2, int Tp, int nb, int TB, int WS, int WZ,
+               int F, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tt = Tp / TB;
+  const dim3 blk(TX, TY);
+  const dim3 g1(cdiv(WZ, BN), cdiv(tt, BM), P * TB * NB);
+  const dim3 g2(cdiv(WS, BN), cdiv(nb, BM), P * 2 * NB);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    skew_dft_t<T><<<g1, blk, 0, s>>>(gre, gim, sere, seim,
+                                     static_cast<const T*>(dret),
+                                     static_cast<const T*>(dimt), zbar, NB, Tp,
+                                     TB, WZ, F);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    skew_tap_t<T><<<g2, blk, 0, s>>>(zbar, static_cast<const T*>(wtt), plane,
+                                     x2, NB, D2, Tp, nb, TB, WS, WZ);
+  } else {
+    using T = float;
+    skew_dft_t<T><<<g1, blk, 0, s>>>(gre, gim, sere, seim,
+                                     static_cast<const T*>(dret),
+                                     static_cast<const T*>(dimt), zbar, NB, Tp,
+                                     TB, WZ, F);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    skew_tap_t<T><<<g2, blk, 0, s>>>(zbar, static_cast<const T*>(wtt), plane,
+                                     x2, NB, D2, Tp, nb, TB, WS, WZ);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dip_eval_fwd(const float* gre, const float* gim, const float* tere,
+                 const float* teim, const void* phre, const void* phim,
+                 float* R, int P, int DB, int Tp, int D2p, int F, int bf16,
+                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 blk(TX, TY);
+  const dim3 g(cdiv(D2p, BN), cdiv(Tp, BM), P * DB);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    eval_fwd<T><<<g, blk, 0, s>>>(gre, gim, tere, teim,
+                                  static_cast<const T*>(phre),
+                                  static_cast<const T*>(phim), R, DB, Tp, D2p,
+                                  F);
+  } else {
+    using T = float;
+    eval_fwd<T><<<g, blk, 0, s>>>(gre, gim, tere, teim,
+                                  static_cast<const T*>(phre),
+                                  static_cast<const T*>(phim), R, DB, Tp, D2p,
+                                  F);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dip_eval_t(const float* rbar, const float* tere, const float* teim,
+               const void* phre, const void* phim, float* gre, float* gim,
+               int P, int DB, int Tp, int D2p, int F, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 blk(TX, TY);
+  const dim3 g(cdiv(F, BN), cdiv(Tp, BM), P);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    eval_t<T><<<g, blk, 0, s>>>(rbar, tere, teim, static_cast<const T*>(phre),
+                                static_cast<const T*>(phim), gre, gim, DB, Tp,
+                                D2p, F);
+  } else {
+    using T = float;
+    eval_t<T><<<g, blk, 0, s>>>(rbar, tere, teim, static_cast<const T*>(phre),
+                                static_cast<const T*>(phim), gre, gim, DB, Tp,
+                                D2p, F);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

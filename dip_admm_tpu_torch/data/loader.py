@@ -1,0 +1,190 @@
+"""Problem construction for projector mode ``fft_skew`` (parallel beam).
+
+A :class:`Problem` carries the per-node angle sets, the noisy sinograms
+``b_i = A_i x_true + sigma * eps`` (zero on padded angle rows), the exact
+column norms W, the per-pixel knn graph (Q, keep, adj), the power-method
+operator norms and the projector tables, all on one device. Measurements
+are angle-major: row r = angle * n_det + det.
+
+Random draws (the measurement noise and the power-method start) come from
+``torch.Generator``s seeded from the config; callers that must match
+another implementation pass them in explicitly (``noise``, ``opnorm_v0``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from dip_admm_tpu_torch.config import GeometryConfig, ProblemConfig
+from dip_admm_tpu_torch.graph import precisions, topology
+from dip_admm_tpu_torch.ops import phantoms, radon, radon_fft
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class Problem:
+    """All device-resident problem data."""
+
+    cfg: ProblemConfig
+    mode: str
+    angles: torch.Tensor  # [P, m_max]
+    angle_valid: torch.Tensor  # [P, m_max] bool
+    b: torch.Tensor  # [P, m_max * D] flattened noisy sinograms
+    W: torch.Tensor  # [P, n] column-norm weights
+    Q: torch.Tensor  # [P, P, n] per-pixel masked precisions
+    keep: torch.Tensor  # [P, P, n] bool per-pixel masks
+    adj: torch.Tensor  # [P, P] bool union adjacency
+    x_true: torch.Tensor  # [n]
+    opnorm: torch.Tensor  # [P] estimates of ||A_i^T A_i||_2
+    fft_tables: dict
+
+    @property
+    def num_nodes(self) -> int:
+        return self.cfg.geometry.num_nodes
+
+    @property
+    def N(self) -> int:
+        return self.cfg.geometry.N
+
+    @property
+    def n(self) -> int:
+        return self.cfg.geometry.n
+
+    @property
+    def m_flat(self) -> int:
+        return self.b.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.b.device
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[P, n] images -> [P, m_max * D] measurements."""
+        return make_node_ops(self.mode, self.cfg.geometry, self.fft_tables)[0](x)
+
+    def adjoint(self, r: torch.Tensor) -> torch.Tensor:
+        """[P, m_max * D] residuals -> [P, n] backprojections."""
+        return make_node_ops(self.mode, self.cfg.geometry, self.fft_tables)[1](r)
+
+
+def _check_mode(mode: str, geo: GeometryConfig) -> None:
+    if mode != "fft_skew":
+        raise NotImplementedError(
+            f"projector mode {mode!r} is not ported yet (only 'fft_skew')"
+        )
+    if geo.fan_beam:
+        raise NotImplementedError("fan beam is not ported yet")
+
+
+def make_node_ops(mode: str, geo: GeometryConfig, tables: dict):
+    """Batched per-node (forward, adjoint) callables on flattened data."""
+    _check_mode(mode, geo)
+    N, D = geo.N, geo.n_det
+
+    def fwd(x):
+        return radon_fft.project_nodes_skew(
+            geo, x.reshape(-1, N, N), tables
+        ).reshape(x.shape[0], -1)
+
+    def adj(r):
+        return radon_fft.backproject_nodes_skew(
+            geo, r.reshape(r.shape[0], -1, D), tables
+        ).reshape(r.shape[0], -1)
+
+    return fwd, adj
+
+
+def build_fft_tables(cfg: ProblemConfig, angles, valid,
+                     mode: str = "fft_skew") -> dict:
+    """Projector tables in ``cfg.fft_table_dtype``."""
+    _check_mode(mode, cfg.geometry)
+    tdt = _DTYPES[cfg.fft_table_dtype]
+    return radon_fft.precompute_shear(cfg.geometry, angles, valid, tdt)
+
+
+def node_colnorms(geo: GeometryConfig, angles, valid) -> torch.Tensor:
+    """W[i, p] = ||A_i[:, p]||^2 of the operator in use, floored at EPS."""
+    W = torch.stack([
+        radon_fft.colnorms_sq(geo, angles[i], valid[i])
+        for i in range(angles.shape[0])
+    ])
+    return torch.clamp(W.reshape(W.shape[0], -1), min=precisions.EPS)
+
+
+def build_graph_layer(W, q_mode: str, strategy: str, k: int):
+    """Pairwise precisions, per-pixel masks and the union adjacency."""
+    q_full = precisions.pairwise_q(W, q_mode)
+    keep = topology.build_pixel_masks(q_full, strategy=strategy, k=k)
+    Q = q_full * keep
+    adj = topology.union_adjacency(keep)
+    return Q, keep, adj
+
+
+def estimate_opnorms(fwd, adj, P: int, n: int, device, iters: int = 30,
+                     v0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batched power-method estimates of ||A_i^T A_i||. ``v0`` [P, n] is the
+    start (default: a normal draw from a generator seeded with 7)."""
+    if v0 is None:
+        gen = torch.Generator(device=device).manual_seed(7)
+        v0 = torch.randn((P, n), generator=gen, device=device)
+    v = v0.to(device=device, dtype=torch.float32)
+    v = v / torch.linalg.norm(v, dim=1, keepdim=True)
+    lam = torch.zeros(P, device=device)
+    for _ in range(iters):
+        w = adj(fwd(v))
+        lam = torch.linalg.norm(w, dim=1)
+        v = w / torch.clamp(lam[:, None], min=1e-30)
+    return lam
+
+
+def build_problem(
+    cfg: ProblemConfig,
+    device: torch.device | str,
+    mode: Optional[str] = None,
+    noise: Optional[torch.Tensor] = None,
+    opnorm_v0: Optional[torch.Tensor] = None,
+) -> Problem:
+    """Assemble a :class:`Problem` on ``device``.
+
+    ``mode=None`` resolves to "fft_skew", the only projector ported so far
+    (the JAX loader picks "dense" at N <= 128). ``noise`` [P, m] replaces
+    the standard-normal draw (a generator seeded with ``cfg.noise_seed``);
+    ``opnorm_v0`` [P, n] replaces the power-method start."""
+    device = torch.device(device)
+    mode = "fft_skew" if mode is None else mode
+    geo = cfg.geometry
+    _check_mode(mode, geo)
+    if cfg.dtype != "float32":
+        raise NotImplementedError("only dtype='float32' is ported")
+    N, P, D, n = geo.N, geo.num_nodes, geo.n_det, geo.n
+
+    angles_np, valid_np, _ = radon.node_angles(geo)
+    angles = torch.as_tensor(angles_np, dtype=torch.float32, device=device)
+    valid = torch.as_tensor(valid_np, device=device)
+
+    phantom = phantoms.make_phantom(cfg.phantom, N, seed=cfg.noise_seed)
+    x_true = torch.as_tensor(phantom, dtype=torch.float32,
+                             device=device).reshape(-1)
+
+    tables = build_fft_tables(cfg, angles, valid, mode)
+    fwd, adj = make_node_ops(mode, geo, tables)
+    clean = fwd(x_true[None].expand(P, n).contiguous())
+
+    if noise is None:
+        gen = torch.Generator(device=device).manual_seed(cfg.noise_seed)
+        noise = torch.randn(clean.shape, generator=gen, device=device)
+    row_valid = valid.repeat_interleave(D, dim=1).to(torch.float32)
+    b = clean + cfg.noise_level * noise.to(device) * row_valid
+
+    W = node_colnorms(geo, angles, valid)
+    g = cfg.graph
+    Q, keep, adjm = build_graph_layer(W, g.q_mode, g.strategy, g.k)
+    opnorm = estimate_opnorms(fwd, adj, P, n, device, v0=opnorm_v0)
+    return Problem(
+        cfg=cfg, mode=mode, angles=angles, angle_valid=valid, b=b, W=W, Q=Q,
+        keep=keep, adj=adjm, x_true=x_true, opnorm=opnorm, fft_tables=tables,
+    )

@@ -1,0 +1,101 @@
+"""Loading the JAX package's problem bundle (``save_problem`` .npz).
+
+The bundle holds ``__cfg__`` (the ProblemConfig as JSON bytes),
+``__mode__``, the problem arrays, and the projector tables flattened with
+"/" under ``__tbl__/`` (stored as they are) and ``__tbl16__/`` (bfloat16
+stored as uint16 bit patterns, since numpy's zip format cannot hold
+bfloat16). Loading it is how the JAX package's problem state crosses over
+to the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+import torch
+
+from dip_admm_tpu_torch.config import (
+    AdmmConfig,
+    GeometryConfig,
+    GraphConfig,
+    NodeSolverConfig,
+    ProblemConfig,
+)
+from dip_admm_tpu_torch.data.loader import Problem, build_fft_tables
+
+_TBL = "__tbl__/"
+_TBL16 = "__tbl16__/"
+
+
+def _known(cls, d: dict) -> dict:
+    """Drop keys that are not dataclass fields (bundles from other
+    versions stay loadable)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in names}
+
+
+def cfg_from_json(s: str) -> ProblemConfig:
+    d = json.loads(s)
+    return ProblemConfig(
+        geometry=GeometryConfig(**_known(GeometryConfig, d["geometry"])),
+        graph=GraphConfig(**_known(GraphConfig, d["graph"])),
+        admm=AdmmConfig(**{
+            **_known(AdmmConfig, d["admm"]),
+            "node": NodeSolverConfig(**_known(NodeSolverConfig, d["admm"]["node"])),
+        }),
+        **_known(ProblemConfig, {k: v for k, v in d.items()
+                                 if k not in ("geometry", "graph", "admm")}),
+    )
+
+
+def _unflatten(flat: dict) -> dict:
+    out: dict = {}
+    for k, v in flat.items():
+        parts = k.split("/")
+        cur = out
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+    return out
+
+
+def load_problem(path: str, device: torch.device | str) -> Problem:
+    """Read a JAX ``save_problem`` bundle onto ``device``. Only mode
+    ``fft_skew`` bundles are supported."""
+    device = torch.device(device)
+    with np.load(path) as z:
+        cfg = cfg_from_json(bytes(z["__cfg__"]).decode())
+        mode = bytes(z["__mode__"]).decode()
+        if mode != "fft_skew":
+            raise NotImplementedError(
+                f"bundle mode {mode!r} is not ported yet (only 'fft_skew')"
+            )
+
+        def t(a):
+            return torch.as_tensor(np.array(a), device=device)
+
+        flat = {}
+        for k in z.files:
+            if k.startswith(_TBL):
+                flat[k[len(_TBL):]] = t(z[k])
+            elif k.startswith(_TBL16):
+                bits = torch.as_tensor(np.array(z[k]).view(np.int16))
+                flat[k[len(_TBL16):]] = bits.view(torch.bfloat16).to(device)
+        angles, valid = t(z["angles"]), t(z["angle_valid"])
+        if flat:
+            tables = _unflatten(flat)
+            if "WtT" not in tables:  # bundles that carry only the t-major Wt
+                tables["WtT"] = tables["Wt"].permute(0, 1, 3, 2, 4).contiguous()
+            tables.pop("Wt", None)
+            for key in ("plane", "posfull", "invposfull", "pfirst"):
+                tables[key] = tables[key].to(torch.int32)
+        else:
+            tables = build_fft_tables(cfg, angles, valid, mode)
+        return Problem(
+            cfg=cfg, mode=mode, angles=angles, angle_valid=valid,
+            b=t(z["b"]), W=t(z["W"]), Q=t(z["Q"]), keep=t(z["keep"]),
+            adj=t(z["adj"]), x_true=t(z["x_true"]), opnorm=t(z["opnorm"]),
+            fft_tables=tables,
+        )

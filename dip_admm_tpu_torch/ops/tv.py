@@ -1,0 +1,61 @@
+"""Isotropic total-variation operators on [..., N, N] tensors.
+
+``grad(x) -> (gx, gy)`` with
+  gx[i, j] = x[i+1, j] - x[i, j]  (last row zero)
+  gy[i, j] = x[i, j+1] - x[i, j]  (last column zero)
+
+``grad_adjoint`` is the exact adjoint of ``grad``; ``||K||^2 <= 8`` bounds
+the primal-dual step sizes.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+GRAD_OPNORM_SQ = 8.0  # classical bound for the forward-difference 2-D gradient
+
+
+def grad(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward-difference gradient of [..., N, N] -> two [..., N, N] fields."""
+    gx = F.pad(x[..., 1:, :] - x[..., :-1, :], (0, 0, 0, 1))
+    gy = F.pad(x[..., :, 1:] - x[..., :, :-1], (0, 1))
+    return gx, gy
+
+
+def grad_adjoint(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """(K^T p)[a, b] = p_x[a-1, b] - p_x[a, b] + p_y[a, b-1] - p_y[a, b],
+    out-of-range entries zero; the structurally-zero last row of p_x and
+    last column of p_y are ignored."""
+    px = gx[..., :-1, :]
+    py = gy[..., :, :-1]
+    out = F.pad(px, (0, 0, 1, 0)) - F.pad(px, (0, 0, 0, 1))
+    return out + F.pad(py, (1, 0)) - F.pad(py, (0, 1))
+
+
+def tv_value(x: torch.Tensor) -> torch.Tensor:
+    """Isotropic TV: sum over pixels of sqrt(gx^2 + gy^2)."""
+    gx, gy = grad(x)
+    return torch.sum(torch.sqrt(gx**2 + gy**2), dim=(-2, -1))
+
+
+def tv_subgradient(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """K^T (Kx / |Kx|), zero where |Kx| <= eps: the normalized-field
+    subgradient of the stationarity acceptance test."""
+    gx, gy = grad(x)
+    mag = torch.sqrt(gx**2 + gy**2)
+    scale = torch.where(mag > eps, 1.0 / torch.clamp(mag, min=eps), 0.0)
+    return grad_adjoint(gx * scale, gy * scale)
+
+
+def project_l2_ball(
+    gx: torch.Tensor, gy: torch.Tensor, radius: float | torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel projection of the dual field onto {|(px,py)|_2 <= radius}
+    (the prox of the conjugate of ``radius * ||.||_{2,1}``). ``radius == 0``
+    projects to zero."""
+    mag = torch.sqrt(gx**2 + gy**2)
+    r = torch.as_tensor(radius, dtype=mag.dtype, device=mag.device)
+    safe_r = torch.clamp(r, min=1e-30)
+    factor = torch.where(r > 0, 1.0 / torch.clamp(mag / safe_r, min=1.0), 0.0)
+    return gx * factor, gy * factor

@@ -1,0 +1,138 @@
+"""Command-line interface of the port.
+
+    python -m dip_admm_tpu_torch.runners.cli --device cuda --N 256 --nodes 8 \\
+        --phantom shepp --fft-table-dtype bfloat16 --max-iters 20
+
+Builds the problem (projector mode ``fft_skew``), runs decentralized
+consensus ADMM and prints the JSON summary the JAX CLI prints
+(``{strategy: {tag, n_iters, final_primal, final_dual, mean_psnr,
+graph}}``). It takes the subset of the JAX CLI's flags that the port
+implements; any other flag or value is rejected. ``--device`` has no
+default, and ``--device cuda`` on a host without a GPU is an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
+    )
+    p.add_argument("--device", required=True,
+                   help="torch device to run on, e.g. 'cuda' or 'cpu'")
+    p.add_argument("--N", type=int, default=64)
+    p.add_argument("--nodes", type=int, default=5)
+    p.add_argument("--angles", type=int, default=None)
+    p.add_argument("--strategy", choices=["knn"], default="knn")
+    p.add_argument("--k", type=int, default=2)
+    p.add_argument("--seed", type=int, default=123)
+    p.add_argument("--q-mode", choices=["arithmetic", "harmonic"],
+                   default="arithmetic")
+    p.add_argument("--lam-tv", type=float, default=0.02)
+    p.add_argument("--rho", type=float, default=2.0)
+    p.add_argument("--max-iters", type=int, default=200)
+    p.add_argument("--eps-pri", type=float, default=1e-3)
+    p.add_argument("--eps-dual", type=float, default=1e-3)
+    p.add_argument("--max-inner", type=int, default=200,
+                   help="inner iteration budget per node solve")
+    p.add_argument("--check-every", type=int, default=10,
+                   help="inner iterations between stationarity checks")
+    p.add_argument("--eps0", type=float, default=2.0,
+                   help="inexactness schedule eps_k = eps0/(k+1)^(1+gamma)")
+    p.add_argument("--plateau-tol", type=float, default=0.01,
+                   help="stop the inner loop when no node's stationarity "
+                        "residual improves by this relative amount between "
+                        "checks (0 disables)")
+    p.add_argument("--z-fusion", choices=["midpoint"], default="midpoint")
+    p.add_argument("--noise", type=float, default=0.005)
+    p.add_argument("--phantom", choices=["const", "rand", "shepp"],
+                   default="const")
+    p.add_argument("--fft-table-dtype", choices=["float32", "bfloat16"],
+                   default="float32",
+                   help="storage dtype of the projector tables")
+    p.add_argument("--mode", choices=["auto", "fft_skew"], default="auto",
+                   help="projector (auto = fft_skew, the only one ported)")
+    p.add_argument("--use-pallas", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="fused edge-consensus kernel (not ported yet: only "
+                        "the default or --no-use-pallas are accepted)")
+    return p
+
+
+def config_from_args(args):
+    from dip_admm_tpu_torch.config import (
+        AdmmConfig, GeometryConfig, GraphConfig, NodeSolverConfig,
+        ProblemConfig,
+    )
+
+    return ProblemConfig(
+        geometry=GeometryConfig(N=args.N, num_nodes=args.nodes,
+                                angles_total=args.angles),
+        graph=GraphConfig(strategy=args.strategy, k=args.k, seed=args.seed,
+                          q_mode=args.q_mode),
+        admm=AdmmConfig(
+            lam_tv=args.lam_tv, rho=args.rho, max_iters=args.max_iters,
+            eps_pri=args.eps_pri, eps_dual=args.eps_dual,
+            z_fusion=args.z_fusion, use_pallas=args.use_pallas,
+            node=NodeSolverConfig(
+                max_inner=args.max_inner, check_every=args.check_every,
+                eps0=args.eps0, plateau_tol=args.plateau_tol,
+            ),
+        ),
+        noise_level=args.noise,
+        phantom=args.phantom,
+        fft_table_dtype=args.fft_table_dtype,
+    )
+
+
+def main(argv=None) -> dict:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.use_pallas:
+        parser.error("--use-pallas: the fused consensus kernel is not "
+                     "ported yet")
+    if args.check_every < 1:
+        parser.error("--check-every must be >= 1")
+
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        parser.error("--device cuda: no CUDA device is available")
+
+    from dip_admm_tpu_torch.core import admm
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.graph import topology
+    from dip_admm_tpu_torch.utils.imaging import psnr
+
+    cfg = config_from_args(args)
+    mode = None if args.mode == "auto" else args.mode
+    problem = loader.build_problem(cfg, device, mode=mode)
+    res = admm.run_admm(problem, cfg.admm)
+    n_iters = res.n_iters
+    x = res.x.cpu().numpy()
+    x_true = problem.x_true.cpu().numpy()
+    hist = {k: v.cpu().numpy() for k, v in res.history.items()}
+    tag = f"{cfg.graph.strategy}_k{cfg.graph.k}"
+    summary = {
+        "tag": tag,
+        "n_iters": n_iters,
+        "final_primal": float(hist["primal"][n_iters - 1]),
+        "final_dual": float(hist["dual"][n_iters - 1]),
+        "mean_psnr": float(np.mean(
+            [psnr(xi, x_true, data_range=x_true.max()) for xi in x]
+        )),
+        "graph": topology.union_summary(problem.keep),
+    }
+    results = {args.strategy: summary}
+    print(json.dumps(results, indent=2, default=str))
+    return results
+
+
+if __name__ == "__main__":
+    main()

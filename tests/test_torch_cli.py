@@ -1,0 +1,57 @@
+"""The PyTorch port's command line, on the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _cli(*args, timeout=300):
+    return subprocess.run(
+        [sys.executable, "-m", "dip_admm_tpu_torch.runners.cli", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+        env={**os.environ, "OMP_NUM_THREADS": "2", "PYTHONPATH": str(ROOT)},
+    )
+
+
+def test_cli_prints_summary():
+    out = _cli("--device", "cpu", "--N", "32", "--nodes", "3",
+               "--max-iters", "2")
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout)["knn"]
+    assert summary["n_iters"] == 2
+    for key in ("mean_psnr", "final_primal", "final_dual"):
+        assert isinstance(summary[key], float)
+    assert summary["graph"]["num_nodes"] == 3
+    assert summary["graph"]["connected"] is True
+
+
+@pytest.mark.parametrize("args", [
+    ("--N", "32"),  # no --device
+    ("--device", "cpu", "--strategy", "mst"),
+    ("--device", "cpu", "--mode", "dense"),
+    ("--device", "cpu", "--use-pallas"),
+    ("--device", "cpu", "--algorithm", "fcv"),
+    ("--device", "cpu", "--relax-alpha", "1.8"),
+])
+def test_cli_rejects_unported_flags(args):
+    out = _cli(*args)
+    assert out.returncode != 0
+    assert "error" in out.stderr
+
+
+def test_cli_cuda_without_a_card_fails():
+    code = ("import torch, sys; sys.exit(0 if torch.cuda.is_available() "
+            "else 1)")
+    if subprocess.run([sys.executable, "-c", code]).returncode == 0:
+        pytest.skip("this host has a CUDA device")
+    out = _cli("--device", "cuda", "--N", "32", "--nodes", "3",
+               "--max-iters", "2")
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert out.stdout == ""

@@ -1,0 +1,168 @@
+"""The four ``fft_skew`` kernels of the PyTorch port against the JAX
+package's Pallas kernels (interpret mode on the CPU), on the same tables
+and the same seeded inputs, with f32 tables (relative 1e-5) and bf16
+tables (relative 2e-3: the sums run in another order, and a bf16 rounding
+of an intermediate can land on the other side). On the CPU every port
+wrapper runs its plain PyTorch version; the CUDA kernels are held against
+the same plain versions on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``)."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from dip_admm_tpu import config as jcfg
+from dip_admm_tpu.ops import radon_fft as jfft
+from dip_admm_tpu.ops.pallas import shear_sum as jss
+from dip_admm_tpu_torch import config as tcfg
+from dip_admm_tpu_torch.ops import radon as tradon
+from dip_admm_tpu_torch.ops import radon_fft as tfft
+from dip_admm_tpu_torch.ops.kernels import shear_sum as tss
+
+torch.set_num_threads(2)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+RTOL = {"float32": 1e-5, "bfloat16": 2e-3}
+
+
+def _to_torch(a):
+    a = np.array(a)  # a writable copy
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.as_tensor(a.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(a)
+
+
+def _tables_to_torch(t):
+    out = {k: _to_torch(v) for k, v in t.items() if k != "shared"}
+    out["shared"] = {k: _to_torch(v) for k, v in t["shared"].items()}
+    for k in ("plane", "posfull", "invposfull", "pfirst"):
+        out[k] = out[k].to(torch.int32)
+    return out
+
+
+def _setup(dtype_name, N=32, P=3, angles_total=30, nb=16):
+    geo_t = tcfg.GeometryConfig(N=N, num_nodes=P, angles_total=angles_total)
+    geo_j = jcfg.GeometryConfig(**dataclasses.asdict(geo_t))
+    a, v, _ = tradon.node_angles(geo_t)
+    tj = jfft.precompute_shear(geo_j, jnp.asarray(a, jnp.float32),
+                               jnp.asarray(v), jnp.dtype(dtype_name), nb=nb)
+    return geo_t, geo_j, tj, _tables_to_torch(tj)
+
+
+def _close(got, want, rtol):
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * scale)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_skew_sum_planes_matches_jax(dtype_name):
+    _, _, tj, tt = _setup(dtype_name)
+    P, NB, D2, Tp, nb = tt["WtT"].shape
+    N = NB * nb
+    rows2 = np.random.default_rng(0).standard_normal((P, 2, N, N)).astype(
+        np.float32)
+    sh, jsh = tt["shared"], tj["shared"]
+    want = jss.skew_sum_planes(jnp.asarray(rows2), tj["WtT"], tj["SEre"],
+                               tj["SEim"], jsh["Dre"], jsh["Dim"], tj["plane"])
+    got = tss.skew_sum_planes(torch.as_tensor(rows2), tt["WtT"], tt["SEre"],
+                              tt["SEim"], sh["Dre"], sh["Dim"], tt["plane"])
+    for g, w in zip(got, want):
+        _close(g, w, RTOL[dtype_name])
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_skew_sum_planes_t_matches_jax(dtype_name):
+    _, _, tj, tt = _setup(dtype_name)
+    P, NB, D2, Tp, nb = tt["WtT"].shape
+    F = tt["SEre"].shape[-1]
+    rng = np.random.default_rng(1)
+    gre = rng.standard_normal((P, Tp, F)).astype(np.float32)
+    gim = rng.standard_normal((P, Tp, F)).astype(np.float32)
+    sh, jsh = tt["shared"], tj["shared"]
+    want = jss.skew_sum_planes_t(
+        jnp.asarray(gre), jnp.asarray(gim), tj["WtT"], tj["SEre"], tj["SEim"],
+        jsh["DreT"], jsh["DimT"], tj["plane"], tj["pfirst"])
+    vis = np.asarray(tj["pvisited"])[:, :, None, None] > 0
+    want = np.where(vis, np.asarray(want), 0.0)
+    got = tss.skew_sum_planes_t(
+        torch.as_tensor(gre), torch.as_tensor(gim), tt["WtT"], tt["SEre"],
+        tt["SEim"], sh["DreT"], sh["DimT"], tt["plane"])
+    _close(got, want, RTOL[dtype_name])
+    # planes no angle block reads come out zero, not uninitialized
+    assert (got.numpy()[~np.broadcast_to(vis, got.shape)] == 0).all()
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_eval_shear_matches_jax(dtype_name):
+    _, _, tj, tt = _setup(dtype_name)
+    P, DB, Tp, D2p, db = tt["Wd"].shape
+    F = tt["TEre"].shape[-1]
+    rng = np.random.default_rng(2)
+    gre = rng.standard_normal((P, Tp, F)).astype(np.float32)
+    gim = rng.standard_normal((P, Tp, F)).astype(np.float32)
+    sh, jsh = tt["shared"], tj["shared"]
+    want = jss.eval_shear(jnp.asarray(gre), jnp.asarray(gim), tj["Wd"],
+                          tj["TEre"], tj["TEim"], jsh["PhiDre"], jsh["PhiDim"])
+    got = tss.eval_shear(torch.as_tensor(gre), torch.as_tensor(gim),
+                         tt["Wd"], tt["TEre"], tt["TEim"], sh["PhiDre"],
+                         sh["PhiDim"])
+    _close(got, want, RTOL[dtype_name])
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_eval_shear_t_matches_jax(dtype_name):
+    _, _, tj, tt = _setup(dtype_name)
+    P, DB, Tp, D2p, db = tt["Wd"].shape
+    ob = np.random.default_rng(3).standard_normal((P, Tp, DB * db)).astype(
+        np.float32)
+    sh, jsh = tt["shared"], tj["shared"]
+    want = jss.eval_shear_t(jnp.asarray(ob), tj["Wd"], tj["TEre"],
+                            tj["TEim"], jsh["PhiDre"], jsh["PhiDim"])
+    got = tss.eval_shear_t(torch.as_tensor(ob), tt["Wd"], tt["TEre"],
+                           tt["TEim"], sh["PhiDre"], sh["PhiDim"])
+    for g, w in zip(got, want):
+        _close(g, w, RTOL[dtype_name])
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_project_backproject_match_jax(dtype_name):
+    geo_t, geo_j, tj, tt = _setup(dtype_name)
+    P, N = geo_t.num_nodes, geo_t.N
+    T = max(geo_t.angles_per_node())
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((P, N, N)).astype(np.float32)
+    y = rng.standard_normal((P, T, geo_t.n_det)).astype(np.float32)
+    _close(tfft.project_nodes_skew(geo_t, torch.as_tensor(x), tt),
+           jfft.project_nodes_skew(geo_j, jnp.asarray(x), tj),
+           RTOL[dtype_name])
+    _close(tfft.backproject_nodes_skew(geo_t, torch.as_tensor(y), tt),
+           jfft.backproject_nodes_skew(geo_j, jnp.asarray(y), tj),
+           RTOL[dtype_name])
+
+
+@pytest.mark.parametrize("N,angles_total", [(32, 30), (40, 45)])
+def test_port_adjoint_identity(N, angles_total):
+    """<Ax, y> = <x, A^T y> on the port's own tables (f32), with two 16-row
+    blocks (N = 32) and with five 8-row blocks (N = 40)."""
+    geo = tcfg.GeometryConfig(N=N, num_nodes=3, angles_total=angles_total)
+    a, v, _ = tradon.node_angles(geo)
+    t = tfft.precompute_shear(geo, torch.as_tensor(a, dtype=torch.float32),
+                              torch.as_tensor(v), nb=16)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((3, N, N), generator=gen, dtype=torch.float64).float()
+    y = torch.randn((3, a.shape[1], N), generator=gen,
+                    dtype=torch.float64).float()
+    Ax = tfft.project_nodes_skew(geo, x, t)
+    Aty = tfft.backproject_nodes_skew(geo, y, t)
+    lhs = float(torch.sum(Ax.double() * y.double()))
+    rhs = float(torch.sum(x.double() * Aty.double()))
+    rel = abs(lhs - rhs) / float(torch.linalg.norm(Ax) * torch.linalg.norm(y))
+    assert rel <= 1e-5, rel
