@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -61,11 +61,11 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists.
-    Returns {"path", "built", "seconds", "log"} (``log``: nvcc's output,
-    with ptxas' register and shared-memory report)."""
+    Returns {"path", "built", "seconds"}; ``seconds`` is nvcc's wall time,
+    None when the library was already built."""
     out = library_path(name)
     if out.exists():
-        return {"path": str(out), "built": False, "seconds": 0.0, "log": ""}
+        return {"path": str(out), "built": False, "seconds": None}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -80,8 +80,7 @@ def build(name: str) -> dict:
             f"{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, out)
-    return {"path": str(out), "built": True, "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    return {"path": str(out), "built": True, "seconds": seconds}
 
 
 @functools.lru_cache(maxsize=None)

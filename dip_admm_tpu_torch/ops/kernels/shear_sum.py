@@ -280,9 +280,9 @@ def skew_sum_planes_t(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane):
     tt = Tp // TB
     dev = gre_b.device
     zbar = torch.empty((P, TB, NB, tt, WZ), dtype=torch.float32, device=dev)
-    # Every output element is written by the block that owns it (zero where
-    # no angle block reads the plane), so no zero fill is needed.
-    x2 = torch.empty((P, 2, NB * nb, WS), dtype=torch.float32, device=dev)
+    # Zero-filled, so a plane that no angle block reads is zero whatever the
+    # kernel does with it (the JAX kernel leaves it uninitialized).
+    x2 = torch.zeros((P, 2, NB * nb, WS), dtype=torch.float32, device=dev)
     lib = _build.load("shear_sum")
     rc = lib.dip_skew_t(
         *(t.data_ptr() for t in (

@@ -246,15 +246,15 @@ def _pad_unpermute(bar: torch.Tensor, t: dict) -> torch.Tensor:
     return filter_mxu.permute_rows(bar_full, t["invposfull"])
 
 
-def project_nodes_skew(cfg: GeometryConfig, imgs: torch.Tensor, tables: dict,
-                       n_rows: int | None = None) -> torch.Tensor:
+def project_nodes_skew(cfg: GeometryConfig, imgs: torch.Tensor,
+                       tables: dict) -> torch.Tensor:
     """Batched forward projection [P, N, N] -> [P, T, D]: the skew row stage
     (K1), the factored eval tail (K3) and the slot unpermute."""
     if cfg.fan_beam:
         raise NotImplementedError("fft_skew: fan beam is not ported yet")
     t = tables
     sh = t["shared"]
-    T = max(cfg.angles_per_node()) if n_rows is None else n_rows
+    T = max(cfg.angles_per_node())
     dtype = imgs.dtype
     imgs = imgs.to(torch.float32)
     rows2 = torch.stack([imgs, imgs.transpose(1, 2)], dim=1).contiguous()

@@ -84,6 +84,21 @@ def test_kernel_matches_plain(name, dtype):
         assert float((a - b).abs().max()) <= RTOL[dtype] * scale, name
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_skew_t_leaves_unread_plane_zero(dtype):
+    # Every angle block on plane 0: no angle block reads plane 1.
+    dev = _device()
+    _, t = _tables(dtype, dev)
+    kern, ref, args = _cases(t, dev)["skew_sum_planes_t"]
+    args = (*args[:-1], torch.zeros_like(args[-1]))
+    got, want = kern(*args), ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 1], torch.zeros_like(got[:, 1]))
+    scale = float(want[:, 0].abs().max())
+    assert scale > 0
+    assert float((got - want).abs().max()) <= RTOL[dtype] * scale
+
+
 def test_adjoint_identity_through_kernels():
     dev = _device()
     geo, t = _tables(torch.float32, dev)
