@@ -3,53 +3,78 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line of numbers:
+Phases, each printing one line of numbers (the kernels phase one a kernel):
 
-1. build    - compiles ``dip_admm_tpu_torch/csrc/shear_sum.cu`` with nvcc
-              (sm_90a) and prints the card's name and power limit.
-2. kernels  - at the 256^2/8 bench shapes, with the port's own bf16 tables
-              and seeded inputs on the card, runs each of the four projector
-              kernels and its plain PyTorch version, checks the error
-              (<= 2e-3 of the output's max) and times both (median of 20
-              runs after warm-up, CUDA events).
-3. adjoint  - <Ax, y> = <x, A^T y> through the kernels with f32 tables at
-              256^2/8, relative error <= 1e-5.
-4. main     - builds the bench problem with the port's loader on the card
-              (Shepp-Logan 256^2, 8 nodes, 768 angles, knn k=2, bf16 tables)
-              and runs 20 outers of the <=200-inner Condat-Vu parity
-              contract through ``run_admm``; every kernel must launch in
-              the outers, the residuals must be finite and the mean PSNR
-              within 0.5 dB of the JAX package's 30.51 dB. It prints the
-              launches of the build and of the outers apart.
+1. build       - compiles every ``dip_admm_tpu_torch/csrc/*.cu`` with nvcc
+                 (sm_90a), all at once, and prints each one's nvcc seconds
+                 (or ``cached``).
+2. problem     - builds the bench problem once with the port's loader on the
+                 card (Shepp-Logan 256^2, 8 nodes, 768 angles, knn k=2, bf16
+                 tables); the main and recommended phases share it.
+3. kernels     - at the 256^2/8 bench shapes, with the problem's bf16
+                 tables and seeded inputs on the card, runs each of the four
+                 projector kernels (error <= 2e-3 of the output's max) and
+                 the consensus kernel K5 at [8, 8, 65536] with the problem's
+                 union graph and weights, both fusions (error <= 1e-5 of the
+                 output's max, two calls bitwise equal) against its plain
+                 PyTorch version, and times both (median of 20 runs after
+                 warm-up, CUDA events).
+4. adjoint     - <Ax, y> = <x, A^T y> through the kernels with f32 tables at
+                 256^2/8, relative error <= 1e-5.
+5. main        - 20 outers of the <=200-inner Condat-Vu parity contract
+                 through ``run_admm`` (fused consensus on by the auto rule):
+                 K1-K4 must launch, K5 exactly once per outer, the residuals
+                 must be finite and the mean PSNR within 0.5 dB of the JAX
+                 package's 30.51 dB.
+6. recommended - 20 outers of the recommended operating point (fcv, 15
+                 inner checked once, over-relaxation 1.8) through
+                 ``run_admm``: the same launch checks, finite residuals, and
+                 a mean PSNR within 0.5 dB of the JAX package's 34.19 dB. It
+                 prints the preconditioner's build seconds (the process's
+                 first FFT and eigvalsh included, then warm), each node's
+                 certified step and final step, and the step halvings of the
+                 divergence monitor.
 
-Then a JSON line with each kernel's route, source, launches on the main
-path (build and outers together), error and times; the ``nvidia-smi``
-name/power-limit line; and last
-``{"ok": true, "device": {...}}``. Without a CUDA device, or when any phase
-fails, it exits non-zero and prints no result.
+The launch counters are set to 0 just before each of the two runs and read
+just after. Then a JSON line with each kernel's route, source, launches in
+the two runs together, error and times; the ``nvidia-smi`` name/power-limit
+line; and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+when any phase fails, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 REF_PSNR = 30.51  # JAX package, 20 outers of the cv parity contract, 256^2/8
+REF_REC_PSNR = 34.19  # JAX package, 20 outers of the recommended preset
 PSNR_TOL = 0.5
 KERNEL_RTOL = 2e-3
+K5_RTOL = 1e-5
 ADJOINT_TOL = 1e-5
 TIMED_RUNS = 20
-SOURCE = "dip_admm_tpu_torch/csrc/shear_sum.cu"
+LIBRARIES = ("shear_sum", "consensus")
+SOURCE = {
+    "skew_sum_planes": "dip_admm_tpu_torch/csrc/shear_sum.cu",
+    "skew_sum_planes_t": "dip_admm_tpu_torch/csrc/shear_sum.cu",
+    "eval_shear": "dip_admm_tpu_torch/csrc/shear_sum.cu",
+    "eval_shear_t": "dip_admm_tpu_torch/csrc/shear_sum.cu",
+    "consensus_update": "dip_admm_tpu_torch/csrc/consensus.cu",
+}
 REPLACES = {
     "skew_sum_planes": "dip_admm_tpu/ops/pallas/shear_sum.py:983",
     "skew_sum_planes_t": "dip_admm_tpu/ops/pallas/shear_sum.py:1002",
     "eval_shear": "dip_admm_tpu/ops/pallas/shear_sum.py:490",
     "eval_shear_t": "dip_admm_tpu/ops/pallas/shear_sum.py:511",
+    "consensus_update": "dip_admm_tpu/ops/pallas/consensus.py:107",
 }
 
 
@@ -65,13 +90,19 @@ def _bench_cfg(table_dtype: str):
         admm=AdmmConfig(
             lam_tv=0.02, rho=2.0, max_iters=20,
             eps_pri=0.0, eps_dual=0.0,  # never stop early
-            # The fused consensus kernel is not ported yet: the consensus
-            # runs as torch ops, a configuration the JAX package supports.
-            use_pallas=False,
             node=NodeSolverConfig(max_inner=200, check_every=25),
         ),
         noise_level=0.005, noise_seed=0, phantom="shepp",
         fft_table_dtype=table_dtype,
+    )
+
+
+def _recommended(admm_cfg):
+    """The recommended operating point on top of the parity contract."""
+    return dataclasses.replace(
+        admm_cfg, relax_alpha=1.8,
+        node=dataclasses.replace(admm_cfg.node, algorithm="fcv",
+                                 max_inner=15, check_every=15),
     )
 
 
@@ -91,29 +122,74 @@ def _time_ms(torch, fn) -> float:
     return float(np.median(times))
 
 
-def _tables(torch, cfg, dev):
-    from dip_admm_tpu_torch.data import loader
-    from dip_admm_tpu_torch.ops import radon
+def _counts() -> dict:
+    from dip_admm_tpu_torch.ops.kernels import consensus, shear_sum
 
-    a, v, _ = radon.node_angles(cfg.geometry)
-    angles = torch.as_tensor(a, dtype=torch.float32, device=dev)
-    valid = torch.as_tensor(v, device=dev)
-    return loader.build_fft_tables(cfg, angles, valid)
+    return {**shear_sum.launch_counts(), **consensus.launch_counts()}
 
 
-def phase_build(torch) -> None:
+def _reset_counts() -> None:
+    from dip_admm_tpu_torch.ops.kernels import consensus, shear_sum
+
+    shear_sum.reset_launch_counts()
+    consensus.reset_launch_counts()
+
+
+def phase_build() -> None:
     from dip_admm_tpu_torch.ops.kernels import _build
 
-    info = _build.build("shear_sum")
-    _build.load("shear_sum")
-    nvcc = "cached" if info["seconds"] is None else f"{info['seconds']:.3f}"
-    print(f"build: nvcc_s={nvcc}", flush=True)
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        infos = dict(zip(LIBRARIES, ex.map(_build.build, LIBRARIES)))
+    for name in LIBRARIES:
+        _build.load(name)
+    print("build: " + " ".join(
+        f"{name}_nvcc_s={'cached' if i['seconds'] is None else i['seconds']}"
+        for name, i in infos.items()), flush=True)
 
 
-def phase_kernels(torch, dev, failures) -> dict:
+def phase_problem(torch, dev):
+    from dip_admm_tpu_torch.data import loader
+
+    cfg = _bench_cfg("bfloat16")
+    _reset_counts()
+    t0 = time.perf_counter()
+    problem = loader.build_problem(cfg, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"problem: build_s={build_s} build_launches={json.dumps(_counts())} "
+          f"union_edges={int(problem.adj.sum()) // 2}", flush=True)
+    return cfg, problem
+
+
+def _compare(torch, name, kern, ref, args, rtol, failures, note=""):
+    got, want = kern(*args), ref(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    # Error of each output relative to that output's max.
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    rels = [e / float(b.abs().max()) if float(b.abs().max()) > 0 else math.inf
+            for e, b in zip(errs, want)]
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    ms = _time_ms(torch, lambda: kern(*args))
+    plain_ms = _time_ms(torch, lambda: ref(*args))
+    ok = finite and max(rels) <= rtol
+    if not ok:
+        failures.append(f"kernel {name}{note}: rel err {max(rels)} "
+                        f"(finite={finite})")
+    print(f"kernels: {name}{note} shape={tuple(got[0].shape)} "
+          f"max_abs_err={max(errs)} max_rel_err={max(rels)} ms={ms} "
+          f"plain_ms={plain_ms} ok={ok}", flush=True)
+    return got, dict(max_abs_err=max(errs), max_rel_err=max(rels), ms=ms,
+                     plain_ms=plain_ms)
+
+
+def phase_kernels(torch, dev, problem, failures) -> dict:
+    from dip_admm_tpu_torch.ops import radon_fft
+    from dip_admm_tpu_torch.ops.kernels import consensus as cons
     from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
 
-    t = _tables(torch, _bench_cfg("bfloat16"), dev)
+    t = problem.fft_tables
     sh = t["shared"]
     P, NB, D2, Tp, nb = t["WtT"].shape
     N, F, D = NB * nb, t["SEre"].shape[-1], t["Wd"].shape[1] * t["Wd"].shape[-1]
@@ -138,49 +214,60 @@ def phase_kernels(torch, dev, failures) -> dict:
     }
     out = {}
     for name, (kern, ref, args) in cases.items():
-        got, want = kern(*args), ref(*args)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        scale = max(float(b.abs().max()) for b in want)
-        finite = all(bool(torch.isfinite(a).all()) for a in got)
-        rel = err / scale if scale > 0 else math.inf
-        ms = _time_ms(torch, lambda: kern(*args))
-        plain_ms = _time_ms(torch, lambda: ref(*args))
-        ok = finite and rel <= KERNEL_RTOL
-        if not ok:
-            failures.append(f"kernel {name}: rel err {rel} (finite={finite})")
-        out[name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms,
-                         plain_ms=plain_ms)
-        print(f"kernels: {name} shape={tuple(got[0].shape)} max_abs_err={err} "
-              f"max_rel_err={rel} ms={ms} plain_ms={plain_ms} "
-              f"ok={ok}", flush=True)
+        _, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
+                                failures)
 
-    from dip_admm_tpu_torch.ops import radon_fft
-
-    geo = _bench_cfg("bfloat16").geometry
-    x = img
+    geo = problem.cfg.geometry
 
     def pair():
         return radon_fft.backproject_nodes_skew(
-            geo, radon_fft.project_nodes_skew(geo, x, t), t)
+            geo, radon_fft.project_nodes_skew(geo, img, t), t)
 
     pair_ms = _time_ms(torch, pair)
     print(f"kernels: apply_pair_ms={pair_ms} (project + backproject, bf16 "
           f"tables, P={P} N={N} Tp={Tp} F={F})", flush=True)
     out["apply_pair_ms"] = pair_ms
-    del t
+
+    # K5 at the edge-state shape of the main path, on its graph and weights.
+    n = geo.n
+    a, y, z = (torch.randn((P, P, n), generator=gen, device=dev)
+               for _ in range(3))
+    adjm = problem.adj.to(torch.float32)
+    nbytes = 6 * P * P * n * 4  # a, a^T, y, z read; z', y' written
+    res = []
+    for fusion in ("midpoint", "weighted"):
+        args = (a, y, z, adjm, problem.W, fusion)
+        got, r = _compare(torch, "consensus_update", cons.consensus_update,
+                          cons.consensus_update_ref, args, K5_RTOL, failures,
+                          note=f"[{fusion}]")
+        again = cons.consensus_update(*args)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
+        if not bitwise:
+            failures.append(f"kernel consensus_update[{fusion}]: two calls "
+                            "differ")
+        print(f"kernels: consensus_update[{fusion}] bitwise_repeat={bitwise} "
+              f"bytes={nbytes} GB_per_s={nbytes / r['ms'] / 1e6} "
+              f"plain_GB_per_s={nbytes / r['plain_ms'] / 1e6}", flush=True)
+        res.append(r)
+    # The main path runs the midpoint fusion: its times represent K5.
+    out["consensus_update"] = dict(
+        res[0], max_abs_err=max(r["max_abs_err"] for r in res))
+    del a, y, z
     torch.cuda.empty_cache()
     return out
 
 
 def phase_adjoint(torch, dev, failures) -> None:
-    from dip_admm_tpu_torch.ops import radon_fft
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.ops import radon, radon_fft
 
     cfg = _bench_cfg("float32")
     geo = cfg.geometry
-    t = _tables(torch, cfg, dev)
+    a, v, _ = radon.node_angles(geo)
+    t = loader.build_fft_tables(
+        cfg, torch.as_tensor(a, dtype=torch.float32, device=dev),
+        torch.as_tensor(v, device=dev))
     gen = torch.Generator(device=dev).manual_seed(1)
     P, N, T = geo.num_nodes, geo.N, max(geo.angles_per_node())
     x = torch.randn((P, N, N), generator=gen, device=dev)
@@ -199,25 +286,20 @@ def phase_adjoint(torch, dev, failures) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_main(torch, dev, failures) -> dict:
+def _drive(torch, problem, admm_cfg, ref_psnr, tag, failures):
+    """Run ``admm_cfg`` through ``run_admm`` with the counters zeroed just
+    before and read just after; check it; return (result, counts, line)."""
     from dip_admm_tpu_torch.core import admm
-    from dip_admm_tpu_torch.data import loader
-    from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
     from dip_admm_tpu_torch.utils.imaging import psnr
 
-    cfg = _bench_cfg("bfloat16")
-    ss.reset_launch_counts()
-    t0 = time.perf_counter()
-    problem = loader.build_problem(cfg, dev)
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    build_counts = ss.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
     t0 = time.perf_counter()
-    res = admm.run_admm(problem, cfg.admm)
+    res = admm.run_admm(problem, admm_cfg)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts = ss.launch_counts()
-    run_counts = {k: counts[k] - build_counts[k] for k in counts}
+    counts = _counts()
 
     n = res.n_iters
     pri = float(res.history["primal"][n - 1])
@@ -228,23 +310,60 @@ def phase_main(torch, dev, failures) -> dict:
     mean_psnr = float(np.mean([psnr(xi, x_true, data_range=x_true.max())
                                for xi in x]))
     checks = {
-        "outers": n == cfg.admm.max_iters,
-        "shape": x.shape == (cfg.geometry.num_nodes, cfg.geometry.n),
+        "outers": n == admm_cfg.max_iters,
+        "shape": x.shape == (problem.num_nodes, problem.n),
         "finite": bool(np.isfinite(x).all()) and math.isfinite(pri)
         and math.isfinite(dual),
-        "psnr": abs(mean_psnr - REF_PSNR) <= PSNR_TOL,
-        "launches": all(c > 0 for c in run_counts.values()),
+        "psnr": abs(mean_psnr - ref_psnr) <= PSNR_TOL,
+        "launches": all(c > 0 for c in counts.values()),
+        "k5_once_per_outer": counts["consensus_update"] == n,
     }
     for k, ok in checks.items():
         if not ok:
-            failures.append(f"main path check {k} failed")
-    print(f"main: build_s={build_s} run_s={run_s} outer_iters={n} "
-          f"outer_it_per_s={n / run_s} mean_inner_iters={inner} "
-          f"final_primal={pri} final_dual={dual} mean_psnr={mean_psnr} "
-          f"ref_psnr={REF_PSNR} build_launches={json.dumps(build_counts)} "
-          f"run_launches={json.dumps(run_counts)} "
-          f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30} "
-          f"ok={all(checks.values())}", flush=True)
+            failures.append(f"{tag} path check {k} failed")
+    line = (f"run_s={run_s} outer_iters={n} outer_it_per_s={n / run_s} "
+            f"mean_inner_iters={inner} final_primal={pri} final_dual={dual} "
+            f"mean_psnr={mean_psnr} ref_psnr={ref_psnr} "
+            f"run_launches={json.dumps(counts)} "
+            f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30} "
+            f"ok={all(checks.values())}")
+    return res, counts, line
+
+
+def phase_main(torch, cfg, problem, failures) -> dict:
+    _, counts, line = _drive(torch, problem, cfg.admm, REF_PSNR, "main",
+                             failures)
+    print(f"main: {line}", flush=True)
+    return counts
+
+
+def phase_recommended(torch, cfg, problem, failures) -> dict:
+    from dip_admm_tpu_torch.core import node_solver
+
+    rec = _recommended(cfg.admm)
+    # The preconditioner alone, as run_admm builds it (same default start):
+    # first the process's first FFT and eigvalsh (library set-up included),
+    # then warm.
+    precond_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fp = node_solver.build_fourier_precond(
+            problem.forward, problem.adjoint, torch.sum(problem.Q, dim=1),
+            rec.rho, rec.node, problem.N)
+        step = fp.step.cpu().numpy()
+        precond_s.append(time.perf_counter() - t0)
+
+    res, counts, line = _drive(torch, problem, rec, REF_REC_PSNR,
+                               "recommended", failures)
+    tk = res.state.node.tk.cpu().numpy()
+    halvings = int(np.rint(np.log2(step / tk)).sum())
+    if not (np.isfinite(step).all() and (step > 0).all()):
+        failures.append(f"recommended: certified steps {step}")
+    print(f"recommended: precond_build_s={precond_s[0]} "
+          f"precond_build_warm_s={precond_s[1]} {line} "
+          f"certified_step={step.tolist()} final_tk={tk.tolist()} "
+          f"monitor_halvings={halvings}", flush=True)
     return counts
 
 
@@ -274,17 +393,20 @@ def main() -> int:
     print(f"gpu: {smi[0] if smi else 'nvidia-smi gave nothing'}", flush=True)
 
     failures: list[str] = []
-    phase_build(torch)
-    kern = phase_kernels(torch, dev, failures)
+    phase_build()
+    cfg, problem = phase_problem(torch, dev)
+    kern = phase_kernels(torch, dev, problem, failures)
     phase_adjoint(torch, dev, failures)
-    counts = phase_main(torch, dev, failures)
+    main_counts = phase_main(torch, cfg, problem, failures)
+    rec_counts = phase_recommended(torch, cfg, problem, failures)
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED {f}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": counts[name],
+        {"name": name, "route": "cuda", "source": SOURCE[name],
+         "replaces": REPLACES[name],
+         "launches": main_counts[name] + rec_counts[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"]}
         for name in REPLACES

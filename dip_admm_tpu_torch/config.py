@@ -68,15 +68,16 @@ class NodeSolverConfig:
 
     The node update minimizes
         0.5||A_i x - b_i||^2 + lam_tv*TV(x) + (rho/2) sum_j ||x - v_ij||^2_{Q_ij}
-    by Condat-Vu (``algorithm="cv"``, the only one ported so far), checking
-    the stationarity residual every ``check_every`` iterations against
-    eps_k = eps0 / (k+1)^(1+gamma_decay) until every node meets it, the
-    residual plateaus, or ``max_inner`` iterations ran.
+    by Condat-Vu, checking the stationarity residual every ``check_every``
+    iterations against eps_k = eps0 / (k+1)^(1+gamma_decay) until every
+    node meets it, the residual plateaus, or ``max_inner`` iterations ran.
     """
 
     max_inner: int = 200
     check_every: int = 10
-    algorithm: str = "cv"  # "cv" | "fcv" | "pcv" | "ppdhg" | "fista"
+    # "cv" (plain steps) or "fcv" (steps in a circulant Fourier metric with
+    # a Lanczos-certified scale) are ported; "pcv" | "ppdhg" | "fista" raise.
+    algorithm: str = "cv"
     fista_prox_iters: int = 8
     eps0: float = 2.0
     gamma_decay: float = 0.005
@@ -99,12 +100,16 @@ class AdmmConfig:
     max_iters: int = 200
     eps_pri: float = 1e-3
     eps_dual: float = 1e-3
-    z_fusion: str = "midpoint"  # "midpoint" | "weighted" (not ported yet)
-    relax_alpha: float = 1.0  # only 1.0 is ported
-    # Fused edge-consensus kernel. The CUDA kernel is not ported yet, so
-    # None (auto) resolves to the torch-op consensus everywhere, as the JAX
-    # auto rule does off a TPU; True raises NotImplementedError. Once the
-    # kernel lands, auto becomes "on CUDA with >= 8 graph nodes".
+    # Edge fusion: "midpoint" (a_i + a_j)/2, or "weighted" by the column
+    # norms W, (W_i a_i + W_j a_j)/(W_i + W_j).
+    z_fusion: str = "midpoint"
+    # Over-relaxation: x^ = alpha*x + (1-alpha)*z in the z/y updates and
+    # residuals (1.0 = the reference algorithm).
+    relax_alpha: float = 1.0
+    # Fused edge-consensus kernel K5 (the name is the JAX package's).
+    # None (auto) = the CUDA kernel on a CUDA device with >= 8 graph nodes,
+    # else the torch-op consensus; True = the kernel (its plain version for
+    # CPU tensors); False = the torch-op consensus.
     use_pallas: Optional[bool] = None
     adapt_rho: bool = False  # not ported yet
     rho_mu: float = 10.0

@@ -3,9 +3,10 @@
 Update equations:
   node update  : argmin 0.5||A_i x - b_i||^2 + lam*TV + (rho/2)sum_j ||x-v_ij||^2_Q
                  with v_ij = z_ij - y_ij,i                        (eq. 1)
-  edge fusion  : z_ij = (a_i + a_j) / 2, a_i = x_i + y_ij,i       (eq. 2,
-                 the midpoint form; the weighted form is not ported yet)
-  dual update  : y_ij,i += x_i - z_ij                             (eq. 3)
+  edge fusion  : z_ij = (a_i + a_j) / 2 (midpoint) or
+                 (W_i a_i + W_j a_j) / (W_i + W_j) (weighted),
+                 a_i = x^_ij + y_ij,i, x^_ij = alpha x_i + (1-alpha) z_ij (eq. 2)
+  dual update  : y_ij,i += x^_ij - z_ij                           (eq. 3)
   residuals    : r^2 = sum_edges ||x_i - z||^2 + ||x_j - z||^2,
                  s^2 = rho^2 sum_edges ||z+ - z||^2                (eqs. 4-5)
   stop         : pri < eps_pri and dual < eps_dual                 (eq. 6)
@@ -13,8 +14,8 @@ Update equations:
 The per-pixel masks zero Q in the node subproblem; z/y/residual updates run
 on full vectors over the union-graph edges. The loop runs on the host: one
 device sync per outer iteration (the stop flag), besides the node solver's
-one per acceptance check. The edge consensus is plain torch ops; the fused
-consensus kernel is not ported yet.
+one per acceptance check. The edge consensus is the fused kernel K5
+(``ops/kernels/consensus.py``) or its plain torch version.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from dip_admm_tpu_torch.config import AdmmConfig
 from dip_admm_tpu_torch.core import node_solver
 from dip_admm_tpu_torch.core.node_solver import NodeState
 from dip_admm_tpu_torch.data.loader import Problem
+from dip_admm_tpu_torch.ops.kernels import consensus
 
 
 class AdmmState(NamedTuple):
@@ -47,10 +49,13 @@ class NodeBlockData(NamedTuple):
     b: torch.Tensor  # [P, m]
     Q: torch.Tensor  # [P, P, n] masked precisions
     adjm: torch.Tensor  # [P, P] union adjacency (float mask)
+    W: torch.Tensor  # [P, n] fusion weights (weighted fusion)
     L: torch.Tensor  # [P] Lipschitz bounds
     x_true: torch.Tensor  # [n]
     N: int
     g_scale: torch.Tensor | None = None  # [P] ||A_i^T b_i|| (eps_rel only)
+    # Circulant metric of algorithm="fcv", built once per run_admm call.
+    fprecond: node_solver.FourierPrecond | None = None
 
 
 HISTORY_FIELDS = (
@@ -100,19 +105,11 @@ def grow_history(hist: dict, max_iters: int) -> dict:
 
 def check_config(cfg: AdmmConfig) -> None:
     """Raise for the options this port does not implement yet."""
-    if cfg.use_pallas:
-        raise NotImplementedError(
-            "use_pallas=True: the fused consensus kernel is not ported yet"
-        )
-    if cfg.z_fusion != "midpoint":
-        raise NotImplementedError(
-            f"z_fusion={cfg.z_fusion!r} is not ported yet (only 'midpoint')"
-        )
-    if cfg.relax_alpha != 1.0:
-        raise NotImplementedError("relax_alpha != 1 is not ported yet")
+    if cfg.z_fusion not in consensus.FUSIONS:
+        raise ValueError("z_fusion must be 'midpoint' or 'weighted'")
     if cfg.adapt_rho:
         raise NotImplementedError("adapt_rho is not ported yet")
-    if cfg.node.algorithm != "cv":
+    if cfg.node.algorithm not in node_solver.ALGORITHMS:
         raise NotImplementedError(
             f"inner algorithm {cfg.node.algorithm!r} is not ported yet"
         )
@@ -126,7 +123,6 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
     k = state.k
     X, Z, Y = state.node.x, state.Z, state.Y
     dtype = X.dtype
-    am = data.adjm[:, :, None]
     rho = cfg.rho
 
     # --- neighbour terms of the node subproblems ---
@@ -151,6 +147,7 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
     res = node_solver.solve_nodes(
         data.fwd, data.adj, data.b, D_vec, b_cons, c_quad,
         cfg.lam_tv, rho, data.L, nstate, eps_k, cfg.node, data.N,
+        fprecond=data.fprecond,
     )
     Xn = res.state.x
 
@@ -161,14 +158,23 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
     img_mse = torch.sum(err * err, dim=1)
 
     # --- edge fusion (eq. 2), dual update (eq. 3), residuals (eqs. 4-5) ---
-    A_prop = Xn[:, None, :] + Y  # a_i = x_i + y_ij,i, laid out [i, j, n]
-    A_T = A_prop.transpose(0, 1)  # a_j = x_j + y_ij,j
-    Zn = 0.5 * (A_prop + A_T) * am
-    Yn = (A_prop - Zn) * am
-    dpri = (A_prop - Y - Zn) * am
-    pri_part = torch.sum(dpri * dpri, dim=(1, 2))  # [P]
-    dz = (Zn - Z) * am
-    dz2_part = torch.sum(dz * dz, dim=(1, 2))
+    # Over-relaxation: x^_ij = alpha x_i + (1 - alpha) z_ij replaces x_i in
+    # the z/y updates and residuals (x^ - z = a - y - z). a_i = x^_ij + y_ij,i
+    # laid out [i, j, n].
+    if cfg.relax_alpha != 1.0:
+        Xh = cfg.relax_alpha * Xn[:, None, :] + (1.0 - cfg.relax_alpha) * Z
+        A_prop = Xh + Y
+    else:
+        A_prop = Xn[:, None, :] + Y
+    use_pallas = cfg.use_pallas
+    if use_pallas is None:  # auto: the fused kernel on a card at >= 8 nodes
+        use_pallas = X.device.type == "cuda" and P >= 8
+    update = (consensus.consensus_update if use_pallas
+              else consensus.consensus_update_ref)
+    Zn, Yn, pri_pair, dz2_pair = update(A_prop, Y, Z, data.adjm, data.W,
+                                        cfg.z_fusion)
+    pri_part = torch.sum(pri_pair, dim=1)  # [P]
+    dz2_part = torch.sum(dz2_pair, dim=1)
     r2 = torch.sum(pri_part)
     s2 = 0.5 * rho**2 * torch.sum(dz2_part)
     pri_norm = torch.sqrt(r2)
@@ -201,17 +207,25 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
                      rho_scale=state.rho_scale)
 
 
-def _block_data(problem: Problem, cfg: AdmmConfig) -> NodeBlockData:
+def _block_data(problem: Problem, cfg: AdmmConfig,
+                lanczos_v0: torch.Tensor | None = None) -> NodeBlockData:
     # Lipschitz bound of the node solves: ||A^T A|| + rho * max_p sum_j Q.
-    L = problem.opnorm + cfg.rho * torch.amax(torch.sum(problem.Q, dim=1),
-                                              dim=-1)
+    D_vec = torch.sum(problem.Q, dim=1)
+    L = problem.opnorm + cfg.rho * torch.amax(D_vec, dim=-1)
     g_scale = None
     if cfg.node.eps_rel > 0:
         g_scale = torch.linalg.norm(problem.adjoint(problem.b), dim=1)
+    fprecond = None
+    if cfg.node.algorithm == "fcv":
+        fprecond = node_solver.build_fourier_precond(
+            problem.forward, problem.adjoint, D_vec, cfg.rho, cfg.node,
+            problem.N, v0=lanczos_v0,
+        )
     return NodeBlockData(
         fwd=problem.forward, adj=problem.adjoint, b=problem.b, Q=problem.Q,
-        adjm=problem.adj.to(problem.b.dtype), L=L, x_true=problem.x_true,
-        N=problem.N, g_scale=g_scale,
+        adjm=problem.adj.to(problem.b.dtype), W=problem.W, L=L,
+        x_true=problem.x_true, N=problem.N, g_scale=g_scale,
+        fprecond=fprecond,
     )
 
 
@@ -244,11 +258,18 @@ def run_admm(
     state: AdmmState | None = None,
     hist: dict | None = None,
     until: int | None = None,
+    lanczos_v0: torch.Tensor | None = None,
 ) -> AdmmResult:
     """Consensus ADMM on one device, resumable: pass the ``state``/``hist``
     of a previous (possibly partial) run to continue from ``state.k``;
     ``until`` caps this call's last outer iteration (default
-    ``cfg.max_iters``). ``hist`` is updated in place."""
+    ``cfg.max_iters``). ``hist`` is updated in place.
+
+    ``lanczos_v0`` [n] is the start of fcv's Lanczos step certificate
+    (``node_solver.build_fourier_precond``). The JAX package draws it with
+    ``jax.random``, which torch cannot reproduce, so a caller that must
+    land where the JAX package does passes JAX's draw; by default the port
+    draws its own from a seeded generator."""
     cfg = cfg if cfg is not None else problem.cfg.admm
     check_config(cfg)
     if state is None:
@@ -256,7 +277,7 @@ def run_admm(
     if hist is None:
         raise ValueError("run_admm: resuming needs the history with the state")
     until = cfg.max_iters if until is None else min(until, cfg.max_iters)
-    data = _block_data(problem, cfg)
+    data = _block_data(problem, cfg, lanczos_v0)
     while state.k < until and not state.stop:
         state = admm_iteration(data, cfg, state, hist)
     return AdmmResult(x=state.node.x, history=hist, n_iters=state.k,

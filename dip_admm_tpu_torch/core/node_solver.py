@@ -9,11 +9,12 @@ split as f(x) + h(Kx): f = smooth LS + diagonal quadratic (gradient
 A^T(Ax-b) + rho*(D x - b_cons) with D = sum_j Q_ij, b_cons = sum_j Q_ij v_ij),
 h = lam_tv * ||.||_{2,1}, K = the forward-difference gradient. Condat-Vu:
 
-    x+ = x - tau * (grad f(x) + K^T u)
+    x+ = x - T (grad f(x) + K^T u)
     u+ = Proj_{|.| <= lam_tv} (u + sigma * K (2 x+ - x))
 
-All P node problems run as one batched iteration. Every ``check_every``
-steps the stationarity residual
+with T = tau (``cv``) or T = s M^-1 in a circulant Fourier metric M
+(``fcv``, see :func:`build_fourier_precond`). All P node problems run as
+one batched iteration. Every ``check_every`` steps the stationarity residual
     g = A^T(Ax - b) + rho*(D x - b_cons) + lam_tv * K^T(Kx/|Kx|)
 is checked against the target eps_k; the loop stops when every node meets
 it, when no node improved by ``plateau_tol`` since the last check, or at
@@ -30,18 +31,31 @@ import torch
 from dip_admm_tpu_torch.config import NodeSolverConfig
 from dip_admm_tpu_torch.ops import tv
 
+ALGORITHMS = ("cv", "fcv")  # the inner algorithms ported so far
+
 
 class NodeState(NamedTuple):
-    """Warm-started inner-solver state (per node, batched). ``ua``, ``xp``
-    and ``tk`` belong to the algorithms not ported yet; ``cv`` carries them
-    unchanged so the state matches the JAX package's field for field."""
+    """Warm-started inner-solver state (per node, batched). ``ua`` belongs
+    to an algorithm not ported yet and rides along unchanged, so the state
+    matches the JAX package's field for field."""
 
     x: torch.Tensor  # [P, n]
     ux: torch.Tensor  # [P, N, N] TV dual, x-component
     uy: torch.Tensor  # [P, N, N] TV dual, y-component
     ua: torch.Tensor  # [P, m]
-    xp: torch.Tensor  # [P, n]
-    tk: torch.Tensor  # [P]
+    xp: torch.Tensor  # [P, n] fcv: x at the last check (rollback point)
+    tk: torch.Tensor  # [P] fcv: the adapted step (inf when fresh)
+
+
+class FourierPrecond(NamedTuple):
+    """Circulant (Fourier-diagonal) metric M = F^-1 diag(m_hat) F of
+    ``fcv``: the parallel-beam normal operator A_i^T A_i is close to
+    shift-invariant, so one per-node transfer function captures its
+    spectrum."""
+
+    m_hat: torch.Tensor  # [P, N, N//2+1] real positive symbol of M
+    step: torch.Tensor  # [P] certified primal step scale s: T = s M^-1
+    sigma: torch.Tensor  # [P] dual (TV) step
 
 
 class NodeSolveResult(NamedTuple):
@@ -62,8 +76,116 @@ def init_state(P: int, N: int, m: int, device, dtype=torch.float32) -> NodeState
     return NodeState(
         x=z(P, N * N), ux=z(P, N, N), uy=z(P, N, N), ua=z(P, m),
         xp=z(P, N * N),
+        # inf = fresh: fcv takes min(tk, certified step), the full step.
         tk=torch.full((P,), float("inf"), dtype=dtype, device=device),
     )
+
+
+def _m_apply(m_hat: torch.Tensor, v: torch.Tensor, N: int) -> torch.Tensor:
+    """M v = F^-1 diag(m_hat) F v for [P, n] images."""
+    V = torch.fft.rfft2(v.reshape(-1, N, N))
+    return torch.fft.irfft2(m_hat * V, s=(N, N)).reshape(v.shape[0], -1)
+
+
+def _m_inv(m_hat: torch.Tensor, r: torch.Tensor, N: int) -> torch.Tensor:
+    """M^-1 r = F^-1 (F r / m_hat) for [P, n] images."""
+    R = torch.fft.rfft2(r.reshape(-1, N, N))
+    return torch.fft.irfft2(R / m_hat, s=(N, N)).reshape(r.shape[0], -1)
+
+
+def build_fourier_precond(
+    fwd: Callable[[torch.Tensor], torch.Tensor],
+    adj: Callable[[torch.Tensor], torch.Tensor],
+    D_vec: torch.Tensor,  # [P, n] = sum_j Q_ij
+    rho: float,
+    cfg: NodeSolverConfig,
+    N: int,
+    n_lanczos: int = 25,
+    v0: torch.Tensor | None = None,
+) -> FourierPrecond:
+    """Per-node circulant symbol and certified steps of ``fcv``.
+
+    m_hat = |F[PSF]| + rho*mean(D) + sigma*l_hat, floored at 1e-6 of its
+    max, with PSF = A^T A delta_center (one operator pair per node) and
+    l_hat the symbol of K^T K. The step s = 0.95 / lambda_max, where
+    lambda_max is the top Ritz value of ``n_lanczos`` Lanczos steps on
+    M^-1 (H/2 + sigma K^T K) in the M inner product (H = A^T A +
+    rho diag(D)): the Condat-Vu metric condition holds iff s <= 1/lambda.
+
+    ``v0`` [n] is the Lanczos start, shared by every node. JAX draws it
+    with ``jax.random.normal(PRNGKey(0))``, which torch cannot reproduce;
+    the default is a normal draw from a generator seeded with 0, and a
+    caller that must match the JAX package passes JAX's draw."""
+    P, n = D_vec.shape
+    dtype, dev = D_vec.dtype, D_vec.device
+    center = (N // 2) * N + (N // 2)
+    e = torch.zeros((P, n), dtype=dtype, device=dev)
+    e[:, center] = 1.0
+    psf = adj(fwd(e)).reshape(P, N, N)
+    # The probe sits half a pixel off the periodic center (even N): the
+    # modulus drops the residual linear phase ramp.
+    psf = torch.roll(psf, (-(N // 2), -(N // 2)), dims=(1, 2))
+    m_hat_A = torch.abs(torch.fft.rfft2(psf))
+    d_mean = torch.mean(D_vec, dim=1)
+
+    # Dual step on cv's local scale; without a consensus quadratic
+    # (rho*D = 0) fall back to the operator's own spectral scale.
+    Ksq = tv.GRAD_OPNORM_SQ
+    scale = rho * d_mean
+    scale = torch.where(scale > 0, scale, 4.0 * torch.amax(m_hat_A, dim=(1, 2)))
+    sigma = (cfg.sigma_scale * scale / (2.0 * Ksq)).to(dtype)
+
+    # The symbol of sigma K^T K (the periodic Laplacian), where CT's
+    # spectrum decays and K's peaks.
+    kx = torch.arange(N, device=dev, dtype=dtype)[:, None]
+    ky = torch.arange(N // 2 + 1, device=dev, dtype=dtype)[None, :]
+    l_hat = (4.0 * torch.sin(torch.pi * kx / N) ** 2
+             + 4.0 * torch.sin(torch.pi * ky / N) ** 2)
+    m_hat = m_hat_A + rho * d_mean[:, None, None] + sigma[:, None, None] * l_hat
+    m_hat = torch.maximum(
+        m_hat, 1e-6 * torch.amax(m_hat, dim=(1, 2), keepdim=True)
+    ).to(dtype)
+
+    def S(x):  # H/2 + sigma K^T K
+        gx, gy = tv.grad(x.reshape(P, N, N))
+        ktk = tv.grad_adjoint(gx, gy).reshape(P, -1)
+        return 0.5 * (adj(fwd(x)) + rho * (D_vec * x)) + sigma[:, None] * ktk
+
+    def m_norm_sq(v):
+        return torch.sum(v * _m_apply(m_hat, v, N), dim=1)
+
+    # Lanczos on G = M^-1 S in the M inner product:
+    #   alpha_j = v_j^T S v_j, w = G v_j - alpha_j v_j - beta_{j-1} v_{j-1},
+    #   beta_j = ||w||_M; a breakdown (beta ~ 0) freezes the recurrence.
+    if v0 is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        v0 = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+    v = v0.to(device=dev, dtype=dtype).expand(P, n)
+    b0 = torch.sqrt(torch.clamp(m_norm_sq(v), min=1e-30))
+    v = v / b0[:, None]
+    v_prev = torch.zeros_like(v)
+    beta_prev = torch.zeros((P,), dtype=dtype, device=dev)
+    alphas, betas = [], []
+    for _ in range(n_lanczos):
+        Sv = S(v)
+        alpha = torch.sum(v * Sv, dim=1)
+        w = (_m_inv(m_hat, Sv, N) - alpha[:, None] * v
+             - beta_prev[:, None] * v_prev)
+        beta = torch.sqrt(torch.clamp(m_norm_sq(w), min=0.0))
+        live = beta > 1e-12 * torch.clamp(torch.abs(alpha), min=1.0)
+        v_next = torch.where(live[:, None],
+                             w / torch.clamp(beta, min=1e-30)[:, None], 0.0)
+        v_prev, v, beta_prev = v, v_next, beta
+        alphas.append(alpha)
+        betas.append(beta)
+    a = torch.stack(alphas, dim=1)  # [P, k]
+    b = torch.stack(betas, dim=1)[:, :-1]  # beta_j couples v_j and v_{j+1}
+    T = torch.diag_embed(a) + torch.diag_embed(b, 1) + torch.diag_embed(b, -1)
+    lam_max = torch.linalg.eigvalsh(T)[:, -1]
+    # Ritz values lower-bound the spectral radius; 0.95 covers what 25
+    # steps leave, and the divergence monitor of solve_nodes the rest.
+    step = (0.95 / torch.clamp(lam_max, min=1e-30)).to(dtype)
+    return FourierPrecond(m_hat=m_hat, step=step, sigma=sigma)
 
 
 def solve_nodes(
@@ -80,10 +202,12 @@ def solve_nodes(
     eps_k: torch.Tensor,  # scalar or [P] adaptive stationarity target
     cfg: NodeSolverConfig,
     N: int,
+    fprecond: FourierPrecond | None = None,  # required for algorithm="fcv"
 ) -> NodeSolveResult:
-    if cfg.algorithm != "cv":
+    if cfg.algorithm not in ALGORITHMS:
         raise NotImplementedError(
-            f"inner algorithm {cfg.algorithm!r} is not ported yet (only 'cv')"
+            f"inner algorithm {cfg.algorithm!r} is not ported yet "
+            f"(only {ALGORITHMS})"
         )
     P = b.shape[0]
     dtype = state.x.dtype
@@ -97,28 +221,59 @@ def solve_nodes(
         sub = tv.tv_subgradient(x.reshape(P, N, N)).reshape(P, -1)
         return grad_f(x) + lam * sub
 
-    # Balanced steps: sigma*||K||^2 = L/2 => tau = 0.99/(L/2 + sigma*||K||^2).
-    Ksq = tv.GRAD_OPNORM_SQ
-    sigma = (cfg.sigma_scale * L / (2.0 * Ksq)).to(dtype)
-    tau = (0.99 / (L / 2.0 + sigma * Ksq)).to(dtype)
-    tau_c = tau[:, None]
+    x, ux, uy, xp, tk = state.x, state.ux, state.uy, state.xp, state.tk
+    fcv = cfg.algorithm == "fcv"
+    if fcv:
+        if fprecond is None:
+            raise ValueError("algorithm='fcv' requires fprecond "
+                             "(build_fourier_precond)")
+        # The step lives in ``tk`` so the divergence monitor can adapt it
+        # and warm starts carry it; min() maps a fresh state (inf) to the
+        # full certified step. ``xp`` is the rollback point.
+        tk = torch.minimum(tk, fprecond.step)
+        xp = x
+        m_hat = fprecond.m_hat
+        sigma = fprecond.sigma
+    else:
+        # Balanced steps: sigma*||K||^2 = L/2 => tau = 0.99/(L/2 + sigma*||K||^2).
+        Ksq = tv.GRAD_OPNORM_SQ
+        sigma = (cfg.sigma_scale * L / (2.0 * Ksq)).to(dtype)
+        tau_c = (0.99 / (L / 2.0 + sigma * Ksq)).to(dtype)[:, None]
     sig_im = sigma[:, None, None]
 
-    x, ux, uy = state.x, state.ux, state.uy
     k = 0
     g_prev = torch.full((P,), float("inf"), dtype=dtype, device=dev)
     g_norm = g_prev
+    g_min = g_prev
     acc = torch.full((P,), -1, dtype=torch.int32, device=dev)
     active = True
     while k < cfg.max_inner and active:
         for _ in range(cfg.check_every):
             ktu = tv.grad_adjoint(ux, uy).reshape(P, -1)
-            x_new = x - tau_c * (grad_f(x) + ktu)
+            d = grad_f(x) + ktu
+            if fcv:  # T = tk * M^-1
+                x_new = x - tk[:, None] * _m_inv(m_hat, d, N)
+            else:
+                x_new = x - tau_c * d
             gx, gy = tv.grad((2.0 * x_new - x).reshape(P, N, N))
             ux, uy = tv.project_l2_ball(ux + sig_im * gx, uy + sig_im * gy,
                                         lam)
             x = x_new
         g_norm = torch.linalg.norm(g_residual(x), dim=1)
+        adjusted = False
+        if fcv:
+            # Divergence monitor: a node whose residual is not finite or
+            # grew past 5x its running minimum halves its step and rolls x
+            # back to the last check; it reports its previous residual.
+            # The TV duals are ball projections, bounded, and stay.
+            bad = ~torch.isfinite(g_norm) | (g_norm > 5.0 * g_min)
+            tk = torch.where(bad, tk * 0.5, tk)
+            x = torch.where(bad[:, None], xp, x)
+            xp = x
+            g_norm = torch.where(bad, g_prev, g_norm)
+            adjusted = torch.any(bad)
+        g_min = torch.minimum(
+            g_min, torch.where(torch.isfinite(g_norm), g_norm, float("inf")))
         acc = torch.where((acc < 0) & (g_norm <= eps_k),
                           k + cfg.check_every, acc).to(torch.int32)
         unmet = torch.any(g_norm > eps_k)
@@ -127,12 +282,17 @@ def solve_nodes(
                 torch.isinf(g_prev), True,
                 (g_prev - g_norm) > cfg.plateau_tol * torch.abs(g_prev),
             ))
-            unmet = unmet & improving
+            # A step adjustment is progress, though the rolled-back
+            # residual shows none.
+            unmet = unmet & (improving | adjusted)
         active = bool(unmet)  # the one host sync per check
         g_prev = g_norm
         k += cfg.check_every
-    if k == 0:  # the loop never ran: compute the residual once
-        g_norm = torch.linalg.norm(g_residual(x), dim=1)
+    # A residual still at inf (the loop never ran, or every check rolled a
+    # node back from its first one) is recomputed, as the JAX solver does.
+    if bool(torch.isinf(g_norm).any()):
+        g_norm = torch.where(torch.isinf(g_norm),
+                             torch.linalg.norm(g_residual(x), dim=1), g_norm)
 
     inner_per_node = torch.where(acc >= 0, acc, k)
     r = fwd(x) - b
@@ -145,6 +305,6 @@ def solve_nodes(
     accept_code = torch.where(
         acc >= 0, 0, 1 if k < cfg.max_inner else 2
     ).to(torch.int32)
-    st = state._replace(x=x, ux=ux, uy=uy)
+    st = state._replace(x=x, ux=ux, uy=uy, xp=xp, tk=tk)
     return NodeSolveResult(st, g_norm, data_term + tv_term + quad,
                            inner_per_node, k, accept_code)

@@ -38,6 +38,9 @@ SIGNATURES = {
         "dip_eval_fwd": [_P] * 7 + [_I] * 6 + [_P],
         "dip_eval_t": [_P] * 7 + [_I] * 6 + [_P],
     },
+    "consensus": {
+        "dip_consensus": [_P] * 10 + [_I] * 4 + [_P],
+    },
 }
 
 

@@ -1,7 +1,8 @@
 """Command-line interface of the port.
 
     python -m dip_admm_tpu_torch.runners.cli --device cuda --N 256 --nodes 8 \\
-        --phantom shepp --fft-table-dtype bfloat16 --max-iters 20
+        --phantom shepp --fft-table-dtype bfloat16 --max-iters 20 \\
+        --recommended
 
 Builds the problem (projector mode ``fft_skew``), runs decentralized
 consensus ADMM and prints the JSON summary the JAX CLI prints
@@ -38,17 +39,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-iters", type=int, default=200)
     p.add_argument("--eps-pri", type=float, default=1e-3)
     p.add_argument("--eps-dual", type=float, default=1e-3)
-    p.add_argument("--max-inner", type=int, default=200,
-                   help="inner iteration budget per node solve")
-    p.add_argument("--check-every", type=int, default=10,
-                   help="inner iterations between stationarity checks")
+    p.add_argument("--max-inner", type=int, default=None,
+                   help="inner iteration budget per node solve (default 200; "
+                        "15 under --recommended)")
+    p.add_argument("--algorithm", choices=["cv", "fcv"], default="cv",
+                   help="inner node solver: cv = Condat-Vu, fcv = Condat-Vu "
+                        "in a circulant Fourier metric with a "
+                        "Lanczos-certified step")
+    p.add_argument("--check-every", type=int, default=None,
+                   help="inner iterations between stationarity checks "
+                        "(default 10; 15 under --recommended)")
     p.add_argument("--eps0", type=float, default=2.0,
                    help="inexactness schedule eps_k = eps0/(k+1)^(1+gamma)")
     p.add_argument("--plateau-tol", type=float, default=0.01,
                    help="stop the inner loop when no node's stationarity "
                         "residual improves by this relative amount between "
                         "checks (0 disables)")
-    p.add_argument("--z-fusion", choices=["midpoint"], default="midpoint")
+    p.add_argument("--eps-rel", type=float, default=0.0,
+                   help="widen the acceptance target to "
+                        "eps_rel*||A_i^T b_i||/(k+1)^(1+gamma) per node "
+                        "(0 = the absolute eps0 schedule only)")
+    p.add_argument("--z-fusion", choices=["midpoint", "weighted"],
+                   default="midpoint")
+    p.add_argument("--relax-alpha", type=float, default=1.0,
+                   help="ADMM over-relaxation factor (1.0 = reference)")
+    p.add_argument("--recommended", action="store_true",
+                   help="the recommended operating point: fcv, "
+                        "over-relaxation 1.8 and a 15-iteration inner budget "
+                        "checked once; explicit flags win over it")
     p.add_argument("--noise", type=float, default=0.005)
     p.add_argument("--phantom", choices=["const", "rand", "shepp"],
                    default="const")
@@ -59,9 +77,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="projector (auto = fft_skew, the only one ported)")
     p.add_argument("--use-pallas", action=argparse.BooleanOptionalAction,
                    default=None,
-                   help="fused edge-consensus kernel (not ported yet: only "
-                        "the default or --no-use-pallas are accepted)")
+                   help="fused edge-consensus kernel (default: auto, on a "
+                        "CUDA device with >= 8 nodes)")
     return p
+
+
+def resolve_preset(args) -> None:
+    """Fill the preset-dependent flags in place, as the JAX CLI does:
+    ``--recommended`` turns cv into fcv, relax 1.0 into 1.8 and unset
+    budgets into 15/15; other unset budgets become 200/10."""
+    if args.recommended:
+        if args.relax_alpha == 1.0:
+            args.relax_alpha = 1.8
+        if args.algorithm == "cv":
+            args.algorithm = "fcv"
+        if args.max_inner is None:
+            args.max_inner = 15
+        if args.check_every is None:
+            args.check_every = 15
+    if args.max_inner is None:
+        args.max_inner = 200
+    if args.check_every is None:
+        args.check_every = 10
 
 
 def config_from_args(args):
@@ -78,10 +115,12 @@ def config_from_args(args):
         admm=AdmmConfig(
             lam_tv=args.lam_tv, rho=args.rho, max_iters=args.max_iters,
             eps_pri=args.eps_pri, eps_dual=args.eps_dual,
-            z_fusion=args.z_fusion, use_pallas=args.use_pallas,
+            z_fusion=args.z_fusion, relax_alpha=args.relax_alpha,
+            use_pallas=args.use_pallas,
             node=NodeSolverConfig(
                 max_inner=args.max_inner, check_every=args.check_every,
-                eps0=args.eps0, plateau_tol=args.plateau_tol,
+                algorithm=args.algorithm, eps0=args.eps0,
+                plateau_tol=args.plateau_tol, eps_rel=args.eps_rel,
             ),
         ),
         noise_level=args.noise,
@@ -93,9 +132,7 @@ def config_from_args(args):
 def main(argv=None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.use_pallas:
-        parser.error("--use-pallas: the fused consensus kernel is not "
-                     "ported yet")
+    resolve_preset(args)
     if args.check_every < 1:
         parser.error("--check-every must be >= 1")
 

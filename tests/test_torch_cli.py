@@ -31,13 +31,44 @@ def test_cli_prints_summary():
     assert summary["graph"]["connected"] is True
 
 
+def test_cli_recommended_prints_summary():
+    out = _cli("--recommended", "--device", "cpu", "--N", "32", "--nodes",
+               "8", "--max-iters", "2")
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout)["knn"]
+    assert summary["n_iters"] == 2
+    assert summary["graph"]["num_nodes"] == 8
+    for key in ("mean_psnr", "final_primal", "final_dual"):
+        assert isinstance(summary[key], float)
+
+
+@pytest.mark.parametrize("argv, want", [
+    ([], dict(algorithm="cv", relax_alpha=1.0, max_inner=200,
+              check_every=10)),
+    (["--recommended"], dict(algorithm="fcv", relax_alpha=1.8, max_inner=15,
+                             check_every=15)),
+    (["--recommended", "--max-inner", "5", "--relax-alpha", "1.5"],
+     dict(algorithm="fcv", relax_alpha=1.5, max_inner=5, check_every=15)),
+])
+def test_cli_preset_resolution(argv, want):
+    """``--recommended`` fills what is unset; explicit flags win."""
+    from dip_admm_tpu_torch.runners import cli
+
+    args = cli.build_parser().parse_args(["--device", "cpu", *argv])
+    cli.resolve_preset(args)
+    node = cli.config_from_args(args).admm.node
+    assert {k: getattr(args, k) for k in want} == want
+    assert (node.algorithm, node.max_inner, node.check_every) == (
+        want["algorithm"], want["max_inner"], want["check_every"])
+
+
 @pytest.mark.parametrize("args", [
     ("--N", "32"),  # no --device
     ("--device", "cpu", "--strategy", "mst"),
     ("--device", "cpu", "--mode", "dense"),
-    ("--device", "cpu", "--use-pallas"),
-    ("--device", "cpu", "--algorithm", "fcv"),
-    ("--device", "cpu", "--relax-alpha", "1.8"),
+    ("--device", "cpu", "--adapt-rho"),
+    ("--device", "cpu", "--algorithm", "pcv"),
+    ("--device", "cpu", "--z-fusion", "mean"),
 ])
 def test_cli_rejects_unported_flags(args):
     out = _cli(*args)

@@ -8,13 +8,16 @@ GPU host without them. There, skip ``tests/conftest.py`` (it sets up JAX):
 Every test needs a CUDA device and the CUDA toolkit, and skips without
 them. Tolerance: 2e-3 of the output's max with bf16 tables (the sums run in
 another order, so a bf16 rounding of an intermediate can land on the other
-side), 1e-5 with f32 tables."""
+side), 1e-5 with f32 tables and for the consensus kernel K5 (the same
+elementwise f32 ops, and its per-pair sums taken in another order); two
+K5 calls on the same inputs must agree bit for bit."""
 
 import pytest
 import torch
 
 from dip_admm_tpu_torch.config import GeometryConfig
 from dip_admm_tpu_torch.ops import radon, radon_fft
+from dip_admm_tpu_torch.ops.kernels import consensus as cons
 from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
 
 pytestmark = pytest.mark.cuda
@@ -129,3 +132,47 @@ def test_wrappers_reject_bad_inputs():
         kern(rows2, *rest[:-1], rest[-1].long())  # plane must be int32
     with pytest.raises(ValueError):
         kern(rows2, *[a.cpu() if a is rest[0] else a for a in rest])  # device
+
+
+def _consensus_inputs(dev, n, P=8):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    a, y, z = (torch.randn((P, P, n), generator=gen, device=dev)
+               for _ in range(3))
+    adjm = (torch.rand((P, P), generator=gen, device=dev) > 0.4).float()
+    w = torch.rand((P, n), generator=gen, device=dev) + 0.1
+    return a, y, z, adjm, w
+
+
+@pytest.mark.parametrize("n", [3000, 65536])  # 3000: not a multiple of TILE
+@pytest.mark.parametrize("fusion", ["midpoint", "weighted"])
+def test_consensus_matches_plain_and_is_deterministic(fusion, n):
+    dev = _device()
+    args = _consensus_inputs(dev, n)
+    before = cons.consensus_update.launches
+    got = cons.consensus_update(*args, fusion=fusion)
+    again = cons.consensus_update(*args, fusion=fusion)
+    want = cons.consensus_update_ref(*args, fusion=fusion)
+    torch.cuda.synchronize()
+    assert cons.consensus_update.launches == before + 2
+    for g, g2, w in zip(got, again, want):
+        assert g.shape == w.shape and g.device.type == "cuda"
+        assert torch.equal(g, g2)
+        scale = float(w.abs().max())
+        assert scale > 0
+        assert float((g - w).abs().max()) <= 1e-5 * scale
+
+
+def test_consensus_rejects_bad_inputs():
+    dev = _device()
+    a, y, z, adjm, w = _consensus_inputs(dev, 512)
+    with pytest.raises(TypeError):
+        cons.consensus_update(a.double(), y, z, adjm)
+    with pytest.raises(ValueError):
+        cons.consensus_update(a.transpose(0, 1), y, z, adjm)  # not contiguous
+    with pytest.raises(ValueError):
+        cons.consensus_update(a, y[:, :, :256].contiguous(), z, adjm)
+    with pytest.raises(ValueError):
+        cons.consensus_update(a, y, z, adjm, w[:, :256].contiguous(),
+                              "weighted")
+    with pytest.raises(ValueError):
+        cons.consensus_update(a, y, z, adjm.cpu())  # device
