@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line of numbers (the kernels phase one a kernel):
+Phases, each printing one line of numbers (the kernels phases one a
+kernel):
 
 1. build       - compiles every ``dip_admm_tpu_torch/csrc/*.cu`` with nvcc
                  (sm_90a), all at once, and prints each one's nvcc seconds
@@ -34,12 +35,34 @@ Phases, each printing one line of numbers (the kernels phase one a kernel):
                  first FFT and eigvalsh included, then warm), each node's
                  certified step and final step, and the step halvings of the
                  divergence monitor.
+7. fan_problem - builds the fan-beam bench problem (Shepp-Logan 256^2, 8
+                 nodes, 768 fan angles over [0, 2 pi), 96 per node, rebinned
+                 to 48 parallel angles; knn k=2, bf16 tables) twice, for
+                 ``fft_skew`` and ``fft_grouped``, and prints each build's
+                 seconds and the exact fan column norms' seconds.
+8. fan_kernels - at the fan shapes (8 node images against one shared table
+                 set, PT = 1), K1-K4 against their plain versions (error <=
+                 2e-3 of the output's max) and the grouped filter-sum K13/K14
+                 with bf16 H (error <= 2e-3 of the output's max, two calls
+                 bitwise equal), timed as in phase 3; and both fan apply
+                 pairs.
+9. fan_adjoint - <Ax, y> = <x, A^T y> with f32 tables through fan
+                 ``fft_skew``, fan ``fft_grouped`` and parallel
+                 ``fft_grouped`` at 256^2/8 (PT = PB = 8), relative error
+                 <= 1e-5 each.
+10. fan_skew, fan_grouped - 20 outers of the recommended preset on each fan
+                 problem through ``run_admm``: K1-K4 must launch on the skew
+                 run, K13/K14 on the grouped run, K5 exactly once per outer
+                 on both; finite residuals and a mean PSNR within 0.5 dB of
+                 the JAX package's 12.66 dB.
 
-The launch counters are set to 0 just before each of the two runs and read
-just after. Then a JSON line with each kernel's route, source, launches in
-the two runs together, error and times; the ``nvidia-smi`` name/power-limit
-line; and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-when any phase fails, it exits non-zero and prints no result.
+The launch counters are set to 0 just before each of the four runs and
+read just after. Then a JSON line with each kernel's route, source,
+launches in the four runs together, error and times (K1-K4 at the parallel
+shapes, K13/K14 at the fan shapes; the largest error of either); the
+``nvidia-smi`` name/power-limit line; and last ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or when any phase fails, it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -56,18 +79,23 @@ import numpy as np
 
 REF_PSNR = 30.51  # JAX package, 20 outers of the cv parity contract, 256^2/8
 REF_REC_PSNR = 34.19  # JAX package, 20 outers of the recommended preset
+# JAX package, fan 256^2/8, 20 outers of the recommended preset
+# (RESULTS.md, scripts/bench_budget12_regimes.py).
+REF_FAN_PSNR = 12.66
 PSNR_TOL = 0.5
 KERNEL_RTOL = 2e-3
 K5_RTOL = 1e-5
 ADJOINT_TOL = 1e-5
 TIMED_RUNS = 20
-LIBRARIES = ("shear_sum", "consensus")
+LIBRARIES = ("shear_sum", "consensus", "filter_sum")
 SOURCE = {
     "skew_sum_planes": "dip_admm_tpu_torch/csrc/shear_sum.cu",
     "skew_sum_planes_t": "dip_admm_tpu_torch/csrc/shear_sum.cu",
     "eval_shear": "dip_admm_tpu_torch/csrc/shear_sum.cu",
     "eval_shear_t": "dip_admm_tpu_torch/csrc/shear_sum.cu",
     "consensus_update": "dip_admm_tpu_torch/csrc/consensus.cu",
+    "filter_sum_grouped": "dip_admm_tpu_torch/csrc/filter_sum.cu",
+    "filter_sum_grouped_t": "dip_admm_tpu_torch/csrc/filter_sum.cu",
 }
 REPLACES = {
     "skew_sum_planes": "dip_admm_tpu/ops/pallas/shear_sum.py:983",
@@ -75,17 +103,21 @@ REPLACES = {
     "eval_shear": "dip_admm_tpu/ops/pallas/shear_sum.py:490",
     "eval_shear_t": "dip_admm_tpu/ops/pallas/shear_sum.py:511",
     "consensus_update": "dip_admm_tpu/ops/pallas/consensus.py:107",
+    "filter_sum_grouped": "dip_admm_tpu/ops/pallas/filter_sum.py:410",
+    "filter_sum_grouped_t": "dip_admm_tpu/ops/pallas/filter_sum.py:434",
 }
+SKEW = ("skew_sum_planes", "skew_sum_planes_t", "eval_shear", "eval_shear_t")
+GROUPED = ("filter_sum_grouped", "filter_sum_grouped_t")
 
 
-def _bench_cfg(table_dtype: str):
+def _bench_cfg(table_dtype: str, fan_beam: bool = False):
     from dip_admm_tpu_torch.config import (
         AdmmConfig, GeometryConfig, GraphConfig, NodeSolverConfig,
         ProblemConfig,
     )
 
     return ProblemConfig(
-        geometry=GeometryConfig(N=256, num_nodes=8),
+        geometry=GeometryConfig(N=256, num_nodes=8, fan_beam=fan_beam),
         graph=GraphConfig(strategy="knn", k=2, seed=123),
         admm=AdmmConfig(
             lam_tv=0.02, rho=2.0, max_iters=20,
@@ -123,16 +155,18 @@ def _time_ms(torch, fn) -> float:
 
 
 def _counts() -> dict:
-    from dip_admm_tpu_torch.ops.kernels import consensus, shear_sum
+    from dip_admm_tpu_torch.ops.kernels import consensus, filter_sum, shear_sum
 
-    return {**shear_sum.launch_counts(), **consensus.launch_counts()}
+    return {**shear_sum.launch_counts(), **consensus.launch_counts(),
+            **filter_sum.launch_counts()}
 
 
 def _reset_counts() -> None:
-    from dip_admm_tpu_torch.ops.kernels import consensus, shear_sum
+    from dip_admm_tpu_torch.ops.kernels import consensus, filter_sum, shear_sum
 
     shear_sum.reset_launch_counts()
     consensus.reset_launch_counts()
+    filter_sum.reset_launch_counts()
 
 
 def phase_build() -> None:
@@ -184,22 +218,20 @@ def _compare(torch, name, kern, ref, args, rtol, failures, note=""):
                      plain_ms=plain_ms)
 
 
-def phase_kernels(torch, dev, problem, failures) -> dict:
-    from dip_admm_tpu_torch.ops import radon_fft
-    from dip_admm_tpu_torch.ops.kernels import consensus as cons
+def _skew_cases(torch, dev, t, P, gen):
+    """Inputs of P images drawn from ``gen`` and each of K1-K4's (wrapper,
+    plain version, arguments) on the skew tables ``t``."""
     from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
 
-    t = problem.fft_tables
     sh = t["shared"]
-    P, NB, D2, Tp, nb = t["WtT"].shape
+    _, NB, D2, Tp, nb = t["WtT"].shape
     N, F, D = NB * nb, t["SEre"].shape[-1], t["Wd"].shape[1] * t["Wd"].shape[-1]
-    gen = torch.Generator(device=dev).manual_seed(0)
     img = torch.randn((P, N, N), generator=gen, device=dev)
     rows2 = torch.stack([img, img.transpose(1, 2)], dim=1).contiguous()
     g_re = torch.randn((P, Tp, F), generator=gen, device=dev)
     g_im = torch.randn((P, Tp, F), generator=gen, device=dev)
     ob = torch.randn((P, Tp, D), generator=gen, device=dev)
-    cases = {
+    return img, {
         "skew_sum_planes": (ss.skew_sum_planes, ss.skew_sum_planes_ref, (
             rows2, t["WtT"], t["SEre"], t["SEim"], sh["Dre"], sh["Dim"],
             t["plane"])),
@@ -212,6 +244,17 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
         "eval_shear_t": (ss.eval_shear_t, ss.eval_shear_t_ref, (
             ob, t["Wd"], t["TEre"], t["TEim"], sh["PhiDre"], sh["PhiDim"])),
     }
+
+
+def phase_kernels(torch, dev, problem, failures) -> dict:
+    from dip_admm_tpu_torch.ops import radon_fft
+    from dip_admm_tpu_torch.ops.kernels import consensus as cons
+
+    t = problem.fft_tables
+    P, NB, D2, Tp, nb = t["WtT"].shape
+    N, F = NB * nb, t["SEre"].shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    img, cases = _skew_cases(torch, dev, t, P, gen)
     out = {}
     for name, (kern, ref, args) in cases.items():
         _, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
@@ -286,9 +329,11 @@ def phase_adjoint(torch, dev, failures) -> None:
     torch.cuda.empty_cache()
 
 
-def _drive(torch, problem, admm_cfg, ref_psnr, tag, failures):
+def _drive(torch, problem, admm_cfg, ref_psnr, tag, failures,
+           kernels=SKEW):
     """Run ``admm_cfg`` through ``run_admm`` with the counters zeroed just
-    before and read just after; check it; return (result, counts, line)."""
+    before and read just after; check it (each of ``kernels`` and K5 must
+    launch); return (result, counts, line)."""
     from dip_admm_tpu_torch.core import admm
     from dip_admm_tpu_torch.utils.imaging import psnr
 
@@ -315,7 +360,7 @@ def _drive(torch, problem, admm_cfg, ref_psnr, tag, failures):
         "finite": bool(np.isfinite(x).all()) and math.isfinite(pri)
         and math.isfinite(dual),
         "psnr": abs(mean_psnr - ref_psnr) <= PSNR_TOL,
-        "launches": all(c > 0 for c in counts.values()),
+        "launches": all(counts[k] > 0 for k in kernels),
         "k5_once_per_outer": counts["consensus_update"] == n,
     }
     for k, ok in checks.items():
@@ -367,6 +412,139 @@ def phase_recommended(torch, cfg, problem, failures) -> dict:
     return counts
 
 
+def _adjoint_rel(torch, fwd, adj, x, y) -> float:
+    Ax, Aty = fwd(x), adj(y)
+    lhs = float(torch.sum(Ax.double() * y.double()))
+    rhs = float(torch.sum(x.double() * Aty.double()))
+    return abs(lhs - rhs) / float(torch.linalg.norm(Ax.double())
+                                  * torch.linalg.norm(y.double()))
+
+
+def phase_fan_problem(torch, dev):
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.ops import radon_fan
+
+    cfg = _bench_cfg("bfloat16", fan_beam=True)
+    problems = {}
+    for mode in ("fft_skew", "fft_grouped"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        problems[mode] = loader.build_problem(cfg, dev, mode=mode)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        p = problems[mode]
+        t0 = time.perf_counter()
+        radon_fan.colnorms_sq_nodes(cfg.geometry, p.angles, p.angle_valid)
+        torch.cuda.synchronize()
+        print(f"fan_problem: mode={mode} build_s={build_s} "
+              f"colnorms_s={time.perf_counter() - t0} "
+              f"fan_angles={tuple(p.angles.shape)} "
+              f"union_edges={int(p.adj.sum()) // 2}", flush=True)
+    return cfg, problems
+
+
+def phase_fan_kernels(torch, dev, problems, failures) -> dict:
+    from dip_admm_tpu_torch.ops import radon_fan
+    from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
+
+    ts = problems["fft_skew"].fft_tables
+    tg = problems["fft_grouped"].fft_tables
+    P = ts["fan_valid"].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    img, cases = _skew_cases(torch, dev, ts["shared"]["par"], P, gen)
+    out = {}
+    for name, (kern, ref, args) in cases.items():
+        _, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
+                                failures, note="[fan PT=1]")
+
+    par = tg["shared"]["par"]
+    PT, Tp, N, F = par["Hre_g"].shape
+    TB = par["onehot"].shape[1]
+    r = [torch.randn((P, TB, N, F), generator=gen, device=dev)
+         for _ in range(2)]
+    g = [torch.randn((P, Tp, F), generator=gen, device=dev)
+         for _ in range(2)]
+    H = (par["Hre_g"], par["Him_g"])
+    # Each reads H once (per call, not per image) and reads or writes the
+    # r_s pair once.
+    nbytes = 2 * H[0].numel() * H[0].element_size() + 2 * r[0].numel() * 4
+    for name, kern, ref, args in (
+            ("filter_sum_grouped", fs.filter_sum_grouped,
+             fs.filter_sum_grouped_ref, (*r, *H)),
+            ("filter_sum_grouped_t", fs.filter_sum_grouped_t,
+             fs.filter_sum_grouped_t_ref, (*g, *H, TB))):
+        got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
+                                  failures, note="[fan PT=1]")
+        again = kern(*args)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not bitwise:
+            failures.append(f"kernel {name}: two calls differ")
+        print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} "
+              f"TB={TB} Tp={Tp} N={N} F={F} H={H[0].dtype} "
+              f"bytes_once={nbytes} GB_per_s_once={nbytes / out[name]['ms'] / 1e6}",
+              flush=True)
+
+    geo = problems["fft_skew"].cfg.geometry
+    for mode, t, fwd, adj in (
+            ("fft_skew", ts, radon_fan.project_nodes_fan_skew,
+             radon_fan.backproject_nodes_fan_skew),
+            ("fft_grouped", tg, radon_fan.project_nodes_fan_grouped,
+             radon_fan.backproject_nodes_fan_grouped)):
+        pair_ms = _time_ms(torch, lambda: adj(geo, fwd(geo, img, t), t))
+        out[f"fan_{mode}_apply_pair_ms"] = pair_ms
+        print(f"fan_kernels: mode={mode} apply_pair_ms={pair_ms} (project + "
+              f"backproject, bf16 tables, P={P} N={N} fan angles "
+              f"{ts['fan_valid'].shape[1]})", flush=True)
+    return out
+
+
+def phase_fan_adjoint(torch, dev, failures) -> None:
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.ops import radon, radon_fan, radon_fft
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ops = {
+        "fan_fft_skew": (True, "fft_skew", radon_fan.project_nodes_fan_skew,
+                         radon_fan.backproject_nodes_fan_skew),
+        "fan_fft_grouped": (True, "fft_grouped",
+                            radon_fan.project_nodes_fan_grouped,
+                            radon_fan.backproject_nodes_fan_grouped),
+        "parallel_fft_grouped": (False, "fft_grouped",
+                                 radon_fft.project_nodes_grouped,
+                                 radon_fft.backproject_nodes_grouped),
+    }
+    for tag, (fan, mode, fwd, adj) in ops.items():
+        cfg = _bench_cfg("float32", fan_beam=fan)
+        geo = cfg.geometry
+        a, v, _ = radon.node_angles(geo)
+        t = loader.build_fft_tables(
+            cfg, torch.as_tensor(a, dtype=torch.float32, device=dev),
+            torch.as_tensor(v, device=dev), mode)
+        P, N, m = geo.num_nodes, geo.N, a.shape[1]
+        x = torch.randn((P, N, N), generator=gen, device=dev)
+        y = torch.randn((P, m, geo.n_det), generator=gen, device=dev)
+        rel = _adjoint_rel(torch, lambda u: fwd(geo, u, t),
+                           lambda u: adj(geo, u, t), x, y)
+        ok = math.isfinite(rel) and rel <= ADJOINT_TOL
+        if not ok:
+            failures.append(f"fan_adjoint {tag}: rel {rel}")
+        print(f"fan_adjoint: {tag} rel_err={rel} ok={ok}", flush=True)
+        del t
+        torch.cuda.empty_cache()
+
+
+def phase_fan_runs(torch, cfg, problems, failures) -> dict:
+    rec = _recommended(cfg.admm)
+    counts = {}
+    for mode, kernels in (("fft_skew", SKEW), ("fft_grouped", GROUPED)):
+        tag = f"fan_{mode.removeprefix('fft_')}"
+        _, counts[mode], line = _drive(torch, problems[mode], rec,
+                                       REF_FAN_PSNR, tag, failures, kernels)
+        print(f"{tag}: {line}", flush=True)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -399,6 +577,14 @@ def main() -> int:
     phase_adjoint(torch, dev, failures)
     main_counts = phase_main(torch, cfg, problem, failures)
     rec_counts = phase_recommended(torch, cfg, problem, failures)
+    del problem
+    torch.cuda.empty_cache()
+    fan_cfg, fan_problems = phase_fan_problem(torch, dev)
+    kern.update({f"fan_{k}" if k in SKEW else k: v for k, v in
+                 phase_fan_kernels(torch, dev, fan_problems, failures).items()})
+    phase_fan_adjoint(torch, dev, failures)
+    fan_counts = phase_fan_runs(torch, fan_cfg, fan_problems, failures)
+    runs = (main_counts, rec_counts, *fan_counts.values())
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED {f}", file=sys.stderr)
@@ -406,9 +592,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
-         "launches": main_counts[name] + rec_counts[name],
-         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"]}
+         "launches": sum(c[name] for c in runs),
+         "max_abs_err": max(kern[k]["max_abs_err"]
+                            for k in (name, f"fan_{name}") if k in kern),
+         "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]}
         for name in REPLACES
     ]}))
     print(smi[0] if smi else "nvidia-smi gave nothing")

@@ -4,9 +4,10 @@ Decentralized edge-consensus ADMM for TV-regularized least-squares CT
 reconstruction, written in PyTorch for one NVIDIA Hopper GPU. The module
 names mirror the JAX package so each counterpart is easy to find:
 
-- ``ops``     : phantoms, angle split, TV operators, the ``fft_skew``
-                projector (``radon_fft``) and its hand-written CUDA kernels
-                (``ops/kernels/shear_sum.py`` + ``csrc/shear_sum.cu``).
+- ``ops``     : phantoms, angle split, TV operators, the ``fft_skew`` and
+                ``fft_grouped`` projectors (``radon_fft``), fan beam by
+                rebinning (``radon_fan``) and the hand-written CUDA kernels
+                (``ops/kernels/*.py`` + ``csrc/*.cu``).
 - ``graph``   : precision weights Q and per-pixel knn graphs.
 - ``data``    : problem construction and loading the JAX problem bundle.
 - ``core``    : the Condat-Vu node solver and the consensus loop.

@@ -17,17 +17,19 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class GeometryConfig:
-    """Parallel-beam acquisition geometry: image on [-1,1]^2 with N x N
-    pixels, ``angles_total = max(180, 3N)`` split evenly over nodes
-    (remainder to the first nodes), a detector of N cells spanning
-    ``det_width_factor * 2.0``, angles uniform on [0, pi)."""
+    """Acquisition geometry: image on [-1,1]^2 with N x N pixels,
+    ``angles_total = max(180, 3N)`` split evenly over nodes (remainder to
+    the first nodes), a detector of N cells spanning
+    ``det_width_factor * 2.0``. Parallel beam: angles uniform on [0, pi).
+    Fan beam (``fan_beam``): source angles uniform on [0, 2 pi), source at
+    ``src_radius`` and a flat detector at ``det_radius`` from the centre."""
 
     N: int = 64
     num_nodes: int = 5
     angles_total: Optional[int] = None  # default: max(180, 3N)
     det_pixels: Optional[int] = None  # default: N
     det_width_factor: float = 1.0
-    fan_beam: bool = False  # not ported yet: raises in the loader
+    fan_beam: bool = False
     src_radius: float = 4.0
     det_radius: float = 4.0
 

@@ -13,6 +13,11 @@
 // pre-contracted cotangent in K4). f32 tables round nowhere. Accumulation
 // is always f32.
 //
+// Node-shared tables: every entry takes an image batch PB and a table batch
+// PT that divides it; image p reads table set p % PT (the rule of the JAX
+// kernels' vmap, which folds an image batch into the node axis and keeps one
+// table set). The parallel paths run PT = PB, the fan-beam path PT = 1.
+//
 // Design: a plain shared-memory tiled product on the CUDA cores. A block
 // owns a 16 x 64 output tile; each of its 256 threads keeps one row and four
 // columns (tx + 16 j) in registers. The TPU grid's sequential axes become
@@ -71,18 +76,18 @@ template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
 template <typename T>
 __global__ void __launch_bounds__(NT)
 skew_tap_fwd(const float* __restrict__ rows2, const T* __restrict__ wtt,
-             const int* __restrict__ plane, float* __restrict__ z, int NB,
-             int D2, int Tp, int nb, int TB, int WS, int WZ) {
+             const int* __restrict__ plane, float* __restrict__ z, int PT,
+             int NB, int D2, int Tp, int nb, int TB, int WS, int WZ) {
   __shared__ float Ws[DC][BM][NC];
   __shared__ float Xs[NC][BN + DC];
   const int tt = Tp / TB, N = NB * nb;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int v0 = blockIdx.x * BN, t0 = blockIdx.y * BM;
   const int b = blockIdx.z % NB, tb = (blockIdx.z / NB) % TB;
-  const int p = blockIdx.z / (NB * TB);
-  const int pl = plane[p * TB + tb];
+  const int p = blockIdx.z / (NB * TB), pt = p % PT;
+  const int pl = plane[pt * TB + tb];
   const float* x = rows2 + ((long)(p * 2 + pl) * N + (long)b * nb) * WS;
-  const T* w = wtt + (long)(p * NB + b) * D2 * Tp * nb;
+  const T* w = wtt + (long)(pt * NB + b) * D2 * Tp * nb;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
 
   for (int d0 = 0; d0 < D2; d0 += DC) {
@@ -141,14 +146,15 @@ __global__ void __launch_bounds__(NT)
 skew_dft_fwd(const float* __restrict__ z, const float* __restrict__ sere,
              const float* __restrict__ seim, const T* __restrict__ dre,
              const T* __restrict__ dim, float* __restrict__ gre,
-             float* __restrict__ gim, int NB, int Tp, int TB, int WZ, int F) {
+             float* __restrict__ gim, int PT, int NB, int Tp, int TB, int WZ,
+             int F) {
   __shared__ float Zs[BM][BK + 1];
   __shared__ float Dr[BK][BN];
   __shared__ float Di[BK][BN];
   const int tt = Tp / TB;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int f0 = blockIdx.x * BN, t0 = blockIdx.y * BM;
-  const int tb = blockIdx.z % TB, p = blockIdx.z / TB;
+  const int tb = blockIdx.z % TB, p = blockIdx.z / TB, pt = p % PT;
   const int tg = t0 + ty;
   float gr[4] = {0.f, 0.f, 0.f, 0.f}, gi[4] = {0.f, 0.f, 0.f, 0.f};
 
@@ -187,7 +193,7 @@ skew_dft_fwd(const float* __restrict__ z, const float* __restrict__ sere,
       __syncthreads();
     }
     if (tg < tt) {
-      const long eo = ((long)(p * NB + b) * Tp + tb * tt + tg) * F;
+      const long eo = ((long)(pt * NB + b) * Tp + tb * tt + tg) * F;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int f = f0 + tx + TX * j;
@@ -222,7 +228,8 @@ __global__ void __launch_bounds__(NT)
 skew_dft_t(const float* __restrict__ gre, const float* __restrict__ gim,
            const float* __restrict__ sere, const float* __restrict__ seim,
            const T* __restrict__ dret, const T* __restrict__ dimt,
-           float* __restrict__ zbar, int NB, int Tp, int TB, int WZ, int F) {
+           float* __restrict__ zbar, int PT, int NB, int Tp, int TB, int WZ,
+           int F) {
   __shared__ float Zr[BM][BK + 1];
   __shared__ float Zi[BM][BK + 1];
   __shared__ float Dr[BK][BN];
@@ -231,7 +238,7 @@ skew_dft_t(const float* __restrict__ gre, const float* __restrict__ gim,
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int w0 = blockIdx.x * BN, t0 = blockIdx.y * BM;
   const int b = blockIdx.z % NB, tb = (blockIdx.z / NB) % TB;
-  const int p = blockIdx.z / (NB * TB);
+  const int p = blockIdx.z / (NB * TB), pt = p % PT;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
 
   for (int k0 = 0; k0 < F; k0 += BK) {
@@ -240,7 +247,7 @@ skew_dft_t(const float* __restrict__ gre, const float* __restrict__ gim,
       float vr = 0.f, vi = 0.f;
       if (t0 + t < tt && k0 + k < F) {
         const long go = ((long)p * Tp + tb * tt + t0 + t) * F + k0 + k;
-        const long eo = ((long)(p * NB + b) * Tp + tb * tt + t0 + t) * F + k0 + k;
+        const long eo = ((long)(pt * NB + b) * Tp + tb * tt + t0 + t) * F + k0 + k;
         const float g_r = gre[go], g_i = gim[go];
         const float er = sere[eo], ei = seim[eo];
         vr = rnd<T>(g_r * er + g_i * ei);
@@ -291,20 +298,20 @@ skew_dft_t(const float* __restrict__ gre, const float* __restrict__ gim,
 template <typename T>
 __global__ void __launch_bounds__(NT)
 skew_tap_t(const float* __restrict__ zbar, const T* __restrict__ wtt,
-           const int* __restrict__ plane, float* __restrict__ x2, int NB,
-           int D2, int Tp, int nb, int TB, int WS, int WZ) {
+           const int* __restrict__ plane, float* __restrict__ x2, int PT,
+           int NB, int D2, int Tp, int nb, int TB, int WS, int WZ) {
   __shared__ float Ws[DC][NC][BM];
   __shared__ float Zs[NC][BN + DC];
   const int tt = Tp / TB, N = NB * nb;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int u0 = blockIdx.x * BN, n0 = blockIdx.y * BM;
   const int b = blockIdx.z % NB, pl = (blockIdx.z / NB) % 2;
-  const int p = blockIdx.z / (NB * 2);
-  const T* w = wtt + (long)(p * NB + b) * D2 * Tp * nb;
+  const int p = blockIdx.z / (NB * 2), pt = p % PT;
+  const T* w = wtt + (long)(pt * NB + b) * D2 * Tp * nb;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
 
   for (int tb = 0; tb < TB; ++tb) {
-    if (plane[p * TB + tb] != pl) continue;  // uniform over the block
+    if (plane[pt * TB + tb] != pl) continue;  // uniform over the block
     const float* zb = zbar + ((long)(p * TB + tb) * NB + b) * tt * WZ;
     for (int d0 = 0; d0 < D2; d0 += DC) {
       const int wbase = (D2 - 1) - (d0 + DC - 1) + u0;  // w of column 0
@@ -361,14 +368,14 @@ __global__ void __launch_bounds__(NT)
 eval_fwd(const float* __restrict__ gre, const float* __restrict__ gim,
          const float* __restrict__ tere, const float* __restrict__ teim,
          const T* __restrict__ phre, const T* __restrict__ phim,
-         float* __restrict__ R, int DB, int Tp, int D2p, int F) {
+         float* __restrict__ R, int PT, int DB, int Tp, int D2p, int F) {
   __shared__ float As[BM][BK + 1];
   __shared__ float Bs[BM][BK + 1];
   __shared__ float Pr[BK][BN + 1];  // padded: filled along k (PhiD is [z, f])
   __shared__ float Pi[BK][BN + 1];
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int z0 = blockIdx.x * BN, t0 = blockIdx.y * BM;
-  const int b = blockIdx.z % DB, p = blockIdx.z / DB;
+  const int b = blockIdx.z % DB, p = blockIdx.z / DB, pt = p % PT;
   float aa[4] = {0.f, 0.f, 0.f, 0.f}, ab[4] = {0.f, 0.f, 0.f, 0.f};
 
   for (int k0 = 0; k0 < F; k0 += BK) {
@@ -377,7 +384,7 @@ eval_fwd(const float* __restrict__ gre, const float* __restrict__ gim,
       float va = 0.f, vb = 0.f;
       if (t0 + t < Tp && k0 + k < F) {
         const long go = ((long)p * Tp + t0 + t) * F + k0 + k;
-        const long eo = ((long)(p * DB + b) * Tp + t0 + t) * F + k0 + k;
+        const long eo = ((long)(pt * DB + b) * Tp + t0 + t) * F + k0 + k;
         const float g_r = gre[go], g_i = gim[go];
         const float er = tere[eo], ei = teim[eo];
         va = rnd<T>(g_r * er - g_i * ei);
@@ -430,12 +437,13 @@ __global__ void __launch_bounds__(NT)
 eval_t(const float* __restrict__ rbar, const float* __restrict__ tere,
        const float* __restrict__ teim, const T* __restrict__ phre,
        const T* __restrict__ phim, float* __restrict__ gre,
-       float* __restrict__ gim, int DB, int Tp, int D2p, int F) {
+       float* __restrict__ gim, int PT, int DB, int Tp, int D2p, int F) {
   __shared__ float Rs[BM][BK + 1];
   __shared__ float Pr[BK][BN];
   __shared__ float Pi[BK][BN];
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int f0 = blockIdx.x * BN, t0 = blockIdx.y * BM, p = blockIdx.z;
+  const int pt = p % PT;
   const int tg = t0 + ty;
   float gr[4] = {0.f, 0.f, 0.f, 0.f}, gi[4] = {0.f, 0.f, 0.f, 0.f};
 
@@ -474,7 +482,7 @@ eval_t(const float* __restrict__ rbar, const float* __restrict__ tere,
       __syncthreads();
     }
     if (tg < Tp) {
-      const long eo = ((long)(p * DB + b) * Tp + tg) * F;
+      const long eo = ((long)(pt * DB + b) * Tp + tg) * F;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int f = f0 + tx + TX * j;
@@ -499,117 +507,122 @@ eval_t(const float* __restrict__ rbar, const float* __restrict__ tere,
   }
 }
 
+template <typename T>
+cudaError_t launch_skew_fwd(const float* rows2, const void* wtt,
+                            const float* sere, const float* seim,
+                            const void* dre, const void* dim, const int* plane,
+                            float* z, float* gre, float* gim, int PB, int PT,
+                            int NB, int D2, int Tp, int nb, int TB, int WS,
+                            int WZ, int F, cudaStream_t s) {
+  const int tt = Tp / TB;
+  const dim3 blk(TX, TY);
+  const dim3 g1(cdiv(WZ, BN), cdiv(tt, BM), PB * TB * NB);
+  const dim3 g2(cdiv(F, BN), cdiv(tt, BM), PB * TB);
+  skew_tap_fwd<T><<<g1, blk, 0, s>>>(rows2, static_cast<const T*>(wtt), plane,
+                                     z, PT, NB, D2, Tp, nb, TB, WS, WZ);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  skew_dft_fwd<T><<<g2, blk, 0, s>>>(z, sere, seim, static_cast<const T*>(dre),
+                                     static_cast<const T*>(dim), gre, gim, PT,
+                                     NB, Tp, TB, WZ, F);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_skew_t(const float* gre, const float* gim, const void* wtt,
+                          const float* sere, const float* seim,
+                          const void* dret, const void* dimt, const int* plane,
+                          float* zbar, float* x2, int PB, int PT, int NB,
+                          int D2, int Tp, int nb, int TB, int WS, int WZ,
+                          int F, cudaStream_t s) {
+  const int tt = Tp / TB;
+  const dim3 blk(TX, TY);
+  const dim3 g1(cdiv(WZ, BN), cdiv(tt, BM), PB * TB * NB);
+  const dim3 g2(cdiv(WS, BN), cdiv(nb, BM), PB * 2 * NB);
+  skew_dft_t<T><<<g1, blk, 0, s>>>(gre, gim, sere, seim,
+                                   static_cast<const T*>(dret),
+                                   static_cast<const T*>(dimt), zbar, PT, NB,
+                                   Tp, TB, WZ, F);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  skew_tap_t<T><<<g2, blk, 0, s>>>(zbar, static_cast<const T*>(wtt), plane, x2,
+                                   PT, NB, D2, Tp, nb, TB, WS, WZ);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int dip_skew_fwd(const float* rows2, const void* wtt, const float* sere,
                  const float* seim, const void* dre, const void* dim,
-                 const int* plane, float* z, float* gre, float* gim, int P,
-                 int NB, int D2, int Tp, int nb, int TB, int WS, int WZ, int F,
-                 int bf16, void* stream) {
+                 const int* plane, float* z, float* gre, float* gim, int PB,
+                 int PT, int NB, int D2, int Tp, int nb, int TB, int WS,
+                 int WZ, int F, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tt = Tp / TB;
-  const dim3 blk(TX, TY);
-  const dim3 g1(cdiv(WZ, BN), cdiv(tt, BM), P * TB * NB);
-  const dim3 g2(cdiv(F, BN), cdiv(tt, BM), P * TB);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    skew_tap_fwd<T><<<g1, blk, 0, s>>>(rows2, static_cast<const T*>(wtt),
-                                       plane, z, NB, D2, Tp, nb, TB, WS, WZ);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    skew_dft_fwd<T><<<g2, blk, 0, s>>>(z, sere, seim,
-                                       static_cast<const T*>(dre),
-                                       static_cast<const T*>(dim), gre, gim,
-                                       NB, Tp, TB, WZ, F);
-  } else {
-    using T = float;
-    skew_tap_fwd<T><<<g1, blk, 0, s>>>(rows2, static_cast<const T*>(wtt),
-                                       plane, z, NB, D2, Tp, nb, TB, WS, WZ);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    skew_dft_fwd<T><<<g2, blk, 0, s>>>(z, sere, seim,
-                                       static_cast<const T*>(dre),
-                                       static_cast<const T*>(dim), gre, gim,
-                                       NB, Tp, TB, WZ, F);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      bf16 ? launch_skew_fwd<__nv_bfloat16>(rows2, wtt, sere, seim, dre, dim,
+                                            plane, z, gre, gim, PB, PT, NB, D2,
+                                            Tp, nb, TB, WS, WZ, F, s)
+           : launch_skew_fwd<float>(rows2, wtt, sere, seim, dre, dim, plane, z,
+                                    gre, gim, PB, PT, NB, D2, Tp, nb, TB, WS,
+                                    WZ, F, s));
 }
 
 int dip_skew_t(const float* gre, const float* gim, const void* wtt,
                const float* sere, const float* seim, const void* dret,
                const void* dimt, const int* plane, float* zbar, float* x2,
-               int P, int NB, int D2, int Tp, int nb, int TB, int WS, int WZ,
-               int F, int bf16, void* stream) {
+               int PB, int PT, int NB, int D2, int Tp, int nb, int TB, int WS,
+               int WZ, int F, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tt = Tp / TB;
-  const dim3 blk(TX, TY);
-  const dim3 g1(cdiv(WZ, BN), cdiv(tt, BM), P * TB * NB);
-  const dim3 g2(cdiv(WS, BN), cdiv(nb, BM), P * 2 * NB);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    skew_dft_t<T><<<g1, blk, 0, s>>>(gre, gim, sere, seim,
-                                     static_cast<const T*>(dret),
-                                     static_cast<const T*>(dimt), zbar, NB, Tp,
-                                     TB, WZ, F);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    skew_tap_t<T><<<g2, blk, 0, s>>>(zbar, static_cast<const T*>(wtt), plane,
-                                     x2, NB, D2, Tp, nb, TB, WS, WZ);
-  } else {
-    using T = float;
-    skew_dft_t<T><<<g1, blk, 0, s>>>(gre, gim, sere, seim,
-                                     static_cast<const T*>(dret),
-                                     static_cast<const T*>(dimt), zbar, NB, Tp,
-                                     TB, WZ, F);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    skew_tap_t<T><<<g2, blk, 0, s>>>(zbar, static_cast<const T*>(wtt), plane,
-                                     x2, NB, D2, Tp, nb, TB, WS, WZ);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      bf16 ? launch_skew_t<__nv_bfloat16>(gre, gim, wtt, sere, seim, dret,
+                                          dimt, plane, zbar, x2, PB, PT, NB,
+                                          D2, Tp, nb, TB, WS, WZ, F, s)
+           : launch_skew_t<float>(gre, gim, wtt, sere, seim, dret, dimt, plane,
+                                  zbar, x2, PB, PT, NB, D2, Tp, nb, TB, WS, WZ,
+                                  F, s));
 }
 
 int dip_eval_fwd(const float* gre, const float* gim, const float* tere,
                  const float* teim, const void* phre, const void* phim,
-                 float* R, int P, int DB, int Tp, int D2p, int F, int bf16,
-                 void* stream) {
+                 float* R, int PB, int PT, int DB, int Tp, int D2p, int F,
+                 int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 blk(TX, TY);
-  const dim3 g(cdiv(D2p, BN), cdiv(Tp, BM), P * DB);
+  const dim3 g(cdiv(D2p, BN), cdiv(Tp, BM), PB * DB);
   if (bf16) {
     using T = __nv_bfloat16;
     eval_fwd<T><<<g, blk, 0, s>>>(gre, gim, tere, teim,
                                   static_cast<const T*>(phre),
-                                  static_cast<const T*>(phim), R, DB, Tp, D2p,
-                                  F);
+                                  static_cast<const T*>(phim), R, PT, DB, Tp,
+                                  D2p, F);
   } else {
-    using T = float;
-    eval_fwd<T><<<g, blk, 0, s>>>(gre, gim, tere, teim,
-                                  static_cast<const T*>(phre),
-                                  static_cast<const T*>(phim), R, DB, Tp, D2p,
-                                  F);
+    eval_fwd<float><<<g, blk, 0, s>>>(gre, gim, tere, teim,
+                                      static_cast<const float*>(phre),
+                                      static_cast<const float*>(phim), R, PT,
+                                      DB, Tp, D2p, F);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int dip_eval_t(const float* rbar, const float* tere, const float* teim,
                const void* phre, const void* phim, float* gre, float* gim,
-               int P, int DB, int Tp, int D2p, int F, int bf16, void* stream) {
+               int PB, int PT, int DB, int Tp, int D2p, int F, int bf16,
+               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 blk(TX, TY);
-  const dim3 g(cdiv(F, BN), cdiv(Tp, BM), P);
+  const dim3 g(cdiv(F, BN), cdiv(Tp, BM), PB);
   if (bf16) {
     using T = __nv_bfloat16;
     eval_t<T><<<g, blk, 0, s>>>(rbar, tere, teim, static_cast<const T*>(phre),
-                                static_cast<const T*>(phim), gre, gim, DB, Tp,
-                                D2p, F);
+                                static_cast<const T*>(phim), gre, gim, PT, DB,
+                                Tp, D2p, F);
   } else {
-    using T = float;
-    eval_t<T><<<g, blk, 0, s>>>(rbar, tere, teim, static_cast<const T*>(phre),
-                                static_cast<const T*>(phim), gre, gim, DB, Tp,
-                                D2p, F);
+    eval_t<float><<<g, blk, 0, s>>>(rbar, tere, teim,
+                                    static_cast<const float*>(phre),
+                                    static_cast<const float*>(phim), gre, gim,
+                                    PT, DB, Tp, D2p, F);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-"""Problem construction for projector mode ``fft_skew`` (parallel beam).
+"""Problem construction for projector modes ``fft_skew`` and
+``fft_grouped``, in parallel and fan beam.
 
 A :class:`Problem` carries the per-node angle sets, the noisy sinograms
 ``b_i = A_i x_true + sigma * eps`` (zero on padded angle rows), the exact
@@ -20,9 +21,21 @@ import torch
 
 from dip_admm_tpu_torch.config import GeometryConfig, ProblemConfig
 from dip_admm_tpu_torch.graph import precisions, topology
-from dip_admm_tpu_torch.ops import phantoms, radon, radon_fft
+from dip_admm_tpu_torch.ops import phantoms, radon, radon_fan, radon_fft
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+MODES = ("fft_skew", "fft_grouped")
+# (forward, adjoint) of each ported mode, by fan_beam.
+_OPS = {
+    ("fft_skew", False): (radon_fft.project_nodes_skew,
+                          radon_fft.backproject_nodes_skew),
+    ("fft_skew", True): (radon_fan.project_nodes_fan_skew,
+                         radon_fan.backproject_nodes_fan_skew),
+    ("fft_grouped", False): (radon_fft.project_nodes_grouped,
+                             radon_fft.backproject_nodes_grouped),
+    ("fft_grouped", True): (radon_fan.project_nodes_fan_grouped,
+                            radon_fan.backproject_nodes_fan_grouped),
+}
 
 
 @dataclasses.dataclass
@@ -71,27 +84,24 @@ class Problem:
         return make_node_ops(self.mode, self.cfg.geometry, self.fft_tables)[1](r)
 
 
-def _check_mode(mode: str, geo: GeometryConfig) -> None:
-    if mode != "fft_skew":
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
         raise NotImplementedError(
-            f"projector mode {mode!r} is not ported yet (only 'fft_skew')"
+            f"projector mode {mode!r} is not ported yet (only {MODES})"
         )
-    if geo.fan_beam:
-        raise NotImplementedError("fan beam is not ported yet")
 
 
 def make_node_ops(mode: str, geo: GeometryConfig, tables: dict):
     """Batched per-node (forward, adjoint) callables on flattened data."""
-    _check_mode(mode, geo)
+    _check_mode(mode)
+    project, backproject = _OPS[mode, geo.fan_beam]
     N, D = geo.N, geo.n_det
 
     def fwd(x):
-        return radon_fft.project_nodes_skew(
-            geo, x.reshape(-1, N, N), tables
-        ).reshape(x.shape[0], -1)
+        return project(geo, x.reshape(-1, N, N), tables).reshape(x.shape[0], -1)
 
     def adj(r):
-        return radon_fft.backproject_nodes_skew(
+        return backproject(
             geo, r.reshape(r.shape[0], -1, D), tables
         ).reshape(r.shape[0], -1)
 
@@ -100,18 +110,30 @@ def make_node_ops(mode: str, geo: GeometryConfig, tables: dict):
 
 def build_fft_tables(cfg: ProblemConfig, angles, valid,
                      mode: str = "fft_skew") -> dict:
-    """Projector tables in ``cfg.fft_table_dtype``."""
-    _check_mode(mode, cfg.geometry)
+    """Projector tables in ``cfg.fft_table_dtype``. Fan beam shares one
+    parallel-stage table set among the nodes (``ops/radon_fan.py``)."""
+    _check_mode(mode)
+    geo = cfg.geometry
     tdt = _DTYPES[cfg.fft_table_dtype]
-    return radon_fft.precompute_shear(cfg.geometry, angles, valid, tdt)
+    if geo.fan_beam:
+        pre = (radon_fan.precompute_fan_skew if mode == "fft_skew"
+               else radon_fan.precompute_fan_grouped)
+        return pre(geo, angles, valid, tdt)
+    pre = (radon_fft.precompute_shear if mode == "fft_skew"
+           else radon_fft.precompute_grouped)
+    return pre(geo, angles, valid, tdt)
 
 
 def node_colnorms(geo: GeometryConfig, angles, valid) -> torch.Tensor:
-    """W[i, p] = ||A_i[:, p]||^2 of the operator in use, floored at EPS."""
-    W = torch.stack([
-        radon_fft.colnorms_sq(geo, angles[i], valid[i])
-        for i in range(angles.shape[0])
-    ])
+    """W[i, p] = ||A_i[:, p]||^2 of the operator in use (both ported modes
+    apply the same operator), floored at EPS."""
+    if geo.fan_beam:
+        W = radon_fan.colnorms_sq_nodes(geo, angles, valid)
+    else:
+        W = torch.stack([
+            radon_fft.colnorms_sq(geo, angles[i], valid[i])
+            for i in range(angles.shape[0])
+        ])
     return torch.clamp(W.reshape(W.shape[0], -1), min=precisions.EPS)
 
 
@@ -150,14 +172,16 @@ def build_problem(
 ) -> Problem:
     """Assemble a :class:`Problem` on ``device``.
 
-    ``mode=None`` resolves to "fft_skew", the only projector ported so far
-    (the JAX loader picks "dense" at N <= 128). ``noise`` [P, m] replaces
+    ``mode`` is "fft_skew" or "fft_grouped". ``mode=None`` resolves to
+    "fft_skew", parallel or fan beam, which the JAX loader picks above
+    N = 128; at N <= 128 it picks "dense", which is not ported. ``noise``
+    [P, m] replaces
     the standard-normal draw (a generator seeded with ``cfg.noise_seed``);
     ``opnorm_v0`` [P, n] replaces the power-method start."""
     device = torch.device(device)
     mode = "fft_skew" if mode is None else mode
     geo = cfg.geometry
-    _check_mode(mode, geo)
+    _check_mode(mode)
     if cfg.dtype != "float32":
         raise NotImplementedError("only dtype='float32' is ported")
     N, P, D, n = geo.N, geo.num_nodes, geo.n_det, geo.n

@@ -33,10 +33,14 @@ _I = ctypes.c_int
 # argtypes of every C entry point, by library.
 SIGNATURES = {
     "shear_sum": {
-        "dip_skew_fwd": [_P] * 10 + [_I] * 10 + [_P],
-        "dip_skew_t": [_P] * 10 + [_I] * 10 + [_P],
-        "dip_eval_fwd": [_P] * 7 + [_I] * 6 + [_P],
-        "dip_eval_t": [_P] * 7 + [_I] * 6 + [_P],
+        "dip_skew_fwd": [_P] * 10 + [_I] * 11 + [_P],
+        "dip_skew_t": [_P] * 10 + [_I] * 11 + [_P],
+        "dip_eval_fwd": [_P] * 7 + [_I] * 7 + [_P],
+        "dip_eval_t": [_P] * 7 + [_I] * 7 + [_P],
+    },
+    "filter_sum": {
+        "dip_grp_fwd": [_P] * 6 + [_I] * 7 + [_P],
+        "dip_grp_t": [_P] * 6 + [_I] * 7 + [_P],
     },
     "consensus": {
         "dip_consensus": [_P] * 10 + [_I] * 4 + [_P],

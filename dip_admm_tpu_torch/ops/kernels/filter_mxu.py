@@ -2,8 +2,8 @@
 
 No kernel lives here: the JAX module of the same name also holds the
 ``filter_sum_mxu`` Pallas kernels of projector mode ``fft_mxu``, which is
-not ported yet. The skew projector needs only the planner and the row
-gather.
+not ported yet. The skew and grouped projectors need only the planner and
+the row gather.
 
 Every node's angles are regrouped at table-build time so that each
 tt-angle block reads one image orientation ("plane": 0 = the image,
@@ -100,7 +100,9 @@ def plan_branch_groups(
 
 
 def permute_rows(g: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """y[p, i] = g[p, perm[p, i]], a bijective row gather. Its transpose is
-    the same gather with the inverse permutation."""
-    idx = perm.long()[:, :, None].expand(-1, -1, g.shape[2])
+    """y[p, i] = g[p, perm[p % PT, i]], a bijective row gather of g [PB, Tp,
+    ...] by the PT plans of ``perm`` [PT, Tp] (PT divides PB). Its transpose
+    is the same gather with the inverse permutation."""
+    perm = perm.long().repeat(g.shape[0] // perm.shape[0], 1)
+    idx = perm[:, :, None].expand(-1, -1, g.shape[2])
     return torch.gather(g, 1, idx)

@@ -33,6 +33,13 @@ What bounds them on an H100, and what the simple design does about it:
   and pre-contraction stay ``torch.einsum`` outside the kernel, as they
   are XLA einsums outside Pallas in the JAX package.
 
+Node-shared tables: every wrapper takes an image batch PB and a table batch
+PT that divides it (the leading dims of the image-side and table-side
+arguments); image p reads table set p % PT, the rule of the JAX kernels'
+vmap, which folds an image batch into the node axis and keeps one table
+set. The parallel paths run PT = PB; the fan-beam path runs its PB = P node
+images against the one shared parallel-stage table set (PT = 1).
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` (one per
 call that launches, none for the plain version); ``launch_counts`` and
 ``reset_launch_counts`` read and clear them.
@@ -50,18 +57,30 @@ def _rnd(x: torch.Tensor, lowp: bool) -> torch.Tensor:
     return x.to(torch.bfloat16).float() if lowp else x
 
 
+def _per_image(PB: int, *tables):
+    """Tables [PT, ...] tiled to [PB, ...], so that image p reads table set
+    p % PT (the plain versions' form of the node-shared table batch)."""
+    out = []
+    for t in tables:
+        PT = t.shape[0]
+        _batches("plain version", PB, PT)
+        out.append(t if PT == PB else t.repeat(PB // PT, *[1] * (t.dim() - 1)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path, and the reference on the card)
 # ---------------------------------------------------------------------------
 
 
 def skew_sum_planes_ref(rows2, WtT, SEre, SEim, Dre, Dim, plane):
-    """Spatial skew row stage forward: two-plane image rows [P, 2, N, WS]
-    -> slot-order spectrum pair [P, Tp, F].
+    """Spatial skew row stage forward: two-plane image rows [PB, 2, N, WS]
+    -> slot-order spectrum pair [PB, Tp, F], on tables of batch PT.
 
-    Per (node p, angle block tb, row block b) on plane ``plane[p, tb]``:
+    Per (image p, angle block tb, row block b) on plane ``plane[p, tb]``:
     sigma[d,t,u] = sum_n WtT[d,t,n] x[n,u]; z[t,(D2-1-d)+u] += sigma[d,t,u];
     g += E_b * (z @ D), summed over the row blocks."""
+    WtT, SEre, SEim, plane = _per_image(rows2.shape[0], WtT, SEre, SEim, plane)
     P, NB, D2, Tp, nb = WtT.shape
     WS = rows2.shape[-1]
     WZ, F = Dre.shape
@@ -89,10 +108,11 @@ def skew_sum_planes_ref(rows2, WtT, SEre, SEim, Dre, Dim, plane):
 
 
 def skew_sum_planes_t_ref(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane):
-    """Exact transpose of :func:`skew_sum_planes_ref`: [P, Tp, F] pair ->
-    row cotangents of both planes [P, 2, N, WS]. Planes that no angle block
+    """Exact transpose of :func:`skew_sum_planes_ref`: [PB, Tp, F] pair ->
+    row cotangents of both planes [PB, 2, N, WS]. Planes that no angle block
     reads come out zero (the JAX kernel leaves them uninitialized and
     masks them with ``pvisited`` afterwards)."""
+    WtT, SEre, SEim, plane = _per_image(gre_b.shape[0], WtT, SEre, SEim, plane)
     P, NB, D2, Tp, nb = WtT.shape
     F, WZ = DreT.shape
     TB = plane.shape[1]
@@ -122,28 +142,34 @@ def skew_sum_planes_t_ref(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane):
 
 
 def _eval_epilogue(R, Wd):
-    """out[p,t,b*db+d] = sum_z R[p,b,t,z] Wd[p,b,t,z,d] (f32 x upcast Wd)."""
-    P, DB, Tp, D2p, db = Wd.shape
-    out = torch.einsum("pbtz,pbtzd->ptbd", R, Wd.float())
-    return out.reshape(P, Tp, DB * db)
+    """out[p,t,b*db+d] = sum_z R[p,b,t,z] Wd[p%PT,b,t,z,d] (f32 x upcast
+    Wd), R [PB, DB, Tp, D2p]."""
+    PT, DB, Tp, D2p, db = Wd.shape
+    PB = R.shape[0]
+    out = torch.einsum("kpbtz,pbtzd->kptbd",
+                       R.reshape(PB // PT, PT, DB, Tp, D2p), Wd.float())
+    return out.reshape(PB, Tp, DB * db)
 
 
 def _eval_t_prologue(ob, Wd):
-    """Rbar[p,b,t,z] = sum_d ob[p,t,b*db+d] Wd[p,b,t,z,d]."""
-    P, DB, Tp, D2p, db = Wd.shape
-    return torch.einsum("ptbd,pbtzd->pbtz", ob.reshape(P, Tp, DB, db),
-                        Wd.float()).contiguous()
+    """Rbar[p,b,t,z] = sum_d ob[p,t,b*db+d] Wd[p%PT,b,t,z,d]."""
+    PT, DB, Tp, D2p, db = Wd.shape
+    PB = ob.shape[0]
+    Rbar = torch.einsum("kptbd,pbtzd->kpbtz",
+                        ob.reshape(PB // PT, PT, Tp, DB, db), Wd.float())
+    return Rbar.reshape(PB, DB, Tp, D2p).contiguous()
 
 
 def _eval_r_ref(gre, gim, TEre, TEim, PhiDre, PhiDim, lowp):
+    TEre, TEim = _per_image(gre.shape[0], TEre, TEim)
     A = _rnd(gre[:, None] * TEre - gim[:, None] * TEim, lowp)
     B = _rnd(gre[:, None] * TEim + gim[:, None] * TEre, lowp)
     return A @ PhiDre.float().T - B @ PhiDim.float().T  # [P,DB,Tp,D2p]
 
 
 def eval_shear_ref(gre, gim, Wd, TEre, TEim, PhiDre, PhiDim):
-    """Factored hat-evaluation tail: slot-order spectra [P, Tp, F] pair ->
-    slot-order sinograms [P, Tp, D] (branch scale and row masks are folded
+    """Factored hat-evaluation tail: slot-order spectra [PB, Tp, F] pair ->
+    slot-order sinograms [PB, Tp, D] (branch scale and row masks are folded
     into Wd). PhiD is cast to Wd's dtype, as the JAX kernel's caller does."""
     lowp = Wd.dtype == torch.bfloat16
     R = _eval_r_ref(gre, gim, TEre, TEim, PhiDre.to(Wd.dtype),
@@ -157,6 +183,7 @@ def eval_shear_t_ref(ob, Wd, TEre, TEim, PhiDre, PhiDim):
     Rbar = _rnd(_eval_t_prologue(ob, Wd), lowp)
     phr = PhiDre.to(Wd.dtype).float()
     phi = PhiDim.to(Wd.dtype).float()
+    TEre, TEim = _per_image(ob.shape[0], TEre, TEim)
     A = Rbar @ phr  # [P,DB,Tp,F]
     B = -(Rbar @ phi)
     gre = (A * TEre + B * TEim).sum(dim=1)
@@ -186,7 +213,7 @@ def _check(name: str, tensors: dict, device, table_dtype):
             if t.dtype != torch.int32:
                 raise TypeError(f"{name}: {k} must be int32, got {t.dtype}")
         elif k in ("WtT", "Dre", "Dim", "DreT", "DimT", "PhiDre", "PhiDim",
-                   "Wd"):
+                   "Wd", "Hre_g", "Him_g"):
             if t.dtype != table_dtype:
                 raise TypeError(
                     f"{name}: {k} is {t.dtype}, the tables are {table_dtype}"
@@ -219,36 +246,44 @@ def _on_cpu(t: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _batches(name: str, PB: int, PT: int) -> None:
+    if PT < 1 or PB % PT:
+        raise ValueError(f"{name}: image batch {PB} is not a multiple of the "
+                         f"table batch {PT}")
+
+
 def skew_sum_planes(rows2, WtT, SEre, SEim, Dre, Dim, plane):
     """K1: see :func:`skew_sum_planes_ref`."""
     if _on_cpu(rows2):
         return skew_sum_planes_ref(rows2, WtT, SEre, SEim, Dre, Dim, plane)
     name = "skew_sum_planes"
-    P, NB, D2, Tp, nb = WtT.shape
+    PT, NB, D2, Tp, nb = WtT.shape
+    PB = rows2.shape[0]
     WZ, F = Dre.shape
     TB = plane.shape[1]
     WS = rows2.shape[-1]
     _check(name, dict(rows2=rows2, WtT=WtT, SEre=SEre, SEim=SEim, Dre=Dre,
                       Dim=Dim, plane=plane), rows2.device, WtT.dtype)
-    _shape(name, rows2, (P, 2, NB * nb, WS), "rows2")
-    _shape(name, SEre, (P, NB, Tp, F), "SEre")
-    _shape(name, SEim, (P, NB, Tp, F), "SEim")
+    _batches(name, PB, PT)
+    _shape(name, rows2, (PB, 2, NB * nb, WS), "rows2")
+    _shape(name, SEre, (PT, NB, Tp, F), "SEre")
+    _shape(name, SEim, (PT, NB, Tp, F), "SEim")
     _shape(name, Dim, (WZ, F), "Dim")
-    _shape(name, plane, (P, TB), "plane")
+    _shape(name, plane, (PT, TB), "plane")
     if Tp % TB or WS + D2 - 1 > WZ:
         raise ValueError(f"{name}: inconsistent Tp={Tp}, TB={TB}, WS={WS}, "
                          f"D2={D2}, WZ={WZ}")
     tt = Tp // TB
     dev = rows2.device
-    z = torch.empty((P, TB, NB, tt, WZ), dtype=torch.float32, device=dev)
-    gre = torch.empty((P, Tp, F), dtype=torch.float32, device=dev)
+    z = torch.empty((PB, TB, NB, tt, WZ), dtype=torch.float32, device=dev)
+    gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=dev)
     gim = torch.empty_like(gre)
     lib = _build.load("shear_sum")
     rc = lib.dip_skew_fwd(
         *(t.data_ptr() for t in (
             rows2, WtT, SEre, SEim, Dre, Dim, plane, z, gre, gim)),
-        P, NB, D2, Tp, nb, TB, WS, WZ, F, int(WtT.dtype == torch.bfloat16),
-        _stream(),
+        PB, PT, NB, D2, Tp, nb, TB, WS, WZ, F,
+        int(WtT.dtype == torch.bfloat16), _stream(),
     )
     _raise_if(rc, name)
     skew_sum_planes.launches += 1
@@ -261,34 +296,36 @@ def skew_sum_planes_t(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane):
         return skew_sum_planes_t_ref(gre_b, gim_b, WtT, SEre, SEim, DreT,
                                      DimT, plane)
     name = "skew_sum_planes_t"
-    P, NB, D2, Tp, nb = WtT.shape
+    PT, NB, D2, Tp, nb = WtT.shape
+    PB = gre_b.shape[0]
     F, WZ = DreT.shape
     TB = plane.shape[1]
     WS = NB * nb
     _check(name, dict(gre_b=gre_b, gim_b=gim_b, WtT=WtT, SEre=SEre,
                       SEim=SEim, DreT=DreT, DimT=DimT, plane=plane),
            gre_b.device, WtT.dtype)
-    _shape(name, gre_b, (P, Tp, F), "gre_b")
-    _shape(name, gim_b, (P, Tp, F), "gim_b")
-    _shape(name, SEre, (P, NB, Tp, F), "SEre")
-    _shape(name, SEim, (P, NB, Tp, F), "SEim")
+    _batches(name, PB, PT)
+    _shape(name, gre_b, (PB, Tp, F), "gre_b")
+    _shape(name, gim_b, (PB, Tp, F), "gim_b")
+    _shape(name, SEre, (PT, NB, Tp, F), "SEre")
+    _shape(name, SEim, (PT, NB, Tp, F), "SEim")
     _shape(name, DimT, (F, WZ), "DimT")
-    _shape(name, plane, (P, TB), "plane")
+    _shape(name, plane, (PT, TB), "plane")
     if Tp % TB or WS + D2 - 1 > WZ:
         raise ValueError(f"{name}: inconsistent Tp={Tp}, TB={TB}, WS={WS}, "
                          f"D2={D2}, WZ={WZ}")
     tt = Tp // TB
     dev = gre_b.device
-    zbar = torch.empty((P, TB, NB, tt, WZ), dtype=torch.float32, device=dev)
+    zbar = torch.empty((PB, TB, NB, tt, WZ), dtype=torch.float32, device=dev)
     # Zero-filled, so a plane that no angle block reads is zero whatever the
     # kernel does with it (the JAX kernel leaves it uninitialized).
-    x2 = torch.zeros((P, 2, NB * nb, WS), dtype=torch.float32, device=dev)
+    x2 = torch.zeros((PB, 2, NB * nb, WS), dtype=torch.float32, device=dev)
     lib = _build.load("shear_sum")
     rc = lib.dip_skew_t(
         *(t.data_ptr() for t in (
             gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane, zbar, x2)),
-        P, NB, D2, Tp, nb, TB, WS, WZ, F, int(WtT.dtype == torch.bfloat16),
-        _stream(),
+        PB, PT, NB, D2, Tp, nb, TB, WS, WZ, F,
+        int(WtT.dtype == torch.bfloat16), _stream(),
     )
     _raise_if(rc, name)
     skew_sum_planes_t.launches += 1
@@ -301,24 +338,25 @@ def eval_shear(gre, gim, Wd, TEre, TEim, PhiDre, PhiDim):
     if _on_cpu(gre):
         return eval_shear_ref(gre, gim, Wd, TEre, TEim, PhiDre, PhiDim)
     name = "eval_shear"
-    P, DB, Tp, D2p, db = Wd.shape
-    F = gre.shape[-1]
+    PT, DB, Tp, D2p, db = Wd.shape
+    PB, F = gre.shape[0], gre.shape[-1]
     phr = PhiDre.to(Wd.dtype).contiguous()
     phi = PhiDim.to(Wd.dtype).contiguous()
     _check(name, dict(gre=gre, gim=gim, Wd=Wd, TEre=TEre, TEim=TEim,
                       PhiDre=phr, PhiDim=phi), gre.device, Wd.dtype)
-    _shape(name, gre, (P, Tp, F), "gre")
-    _shape(name, gim, (P, Tp, F), "gim")
-    _shape(name, TEre, (P, DB, Tp, F), "TEre")
-    _shape(name, TEim, (P, DB, Tp, F), "TEim")
+    _batches(name, PB, PT)
+    _shape(name, gre, (PB, Tp, F), "gre")
+    _shape(name, gim, (PB, Tp, F), "gim")
+    _shape(name, TEre, (PT, DB, Tp, F), "TEre")
+    _shape(name, TEim, (PT, DB, Tp, F), "TEim")
     _shape(name, phr, (D2p, F), "PhiDre")
     _shape(name, phi, (D2p, F), "PhiDim")
-    R = torch.empty((P, DB, Tp, D2p), dtype=torch.float32, device=gre.device)
+    R = torch.empty((PB, DB, Tp, D2p), dtype=torch.float32, device=gre.device)
     lib = _build.load("shear_sum")
     rc = lib.dip_eval_fwd(
         *(t.data_ptr() for t in (
             gre, gim, TEre, TEim, phr, phi, R)),
-        P, DB, Tp, D2p, F, int(Wd.dtype == torch.bfloat16), _stream(),
+        PB, PT, DB, Tp, D2p, F, int(Wd.dtype == torch.bfloat16), _stream(),
     )
     _raise_if(rc, name)
     eval_shear.launches += 1
@@ -331,24 +369,26 @@ def eval_shear_t(ob, Wd, TEre, TEim, PhiDre, PhiDim):
     if _on_cpu(ob):
         return eval_shear_t_ref(ob, Wd, TEre, TEim, PhiDre, PhiDim)
     name = "eval_shear_t"
-    P, DB, Tp, D2p, db = Wd.shape
-    F = TEre.shape[-1]
+    PT, DB, Tp, D2p, db = Wd.shape
+    PB, F = ob.shape[0], TEre.shape[-1]
     phr = PhiDre.to(Wd.dtype).contiguous()
     phi = PhiDim.to(Wd.dtype).contiguous()
     _check(name, dict(ob=ob, Wd=Wd, TEre=TEre, TEim=TEim, PhiDre=phr,
                       PhiDim=phi), ob.device, Wd.dtype)
-    _shape(name, ob, (P, Tp, DB * db), "ob")
-    _shape(name, TEim, (P, DB, Tp, F), "TEim")
+    _batches(name, PB, PT)
+    _shape(name, ob, (PB, Tp, DB * db), "ob")
+    _shape(name, TEre, (PT, DB, Tp, F), "TEre")
+    _shape(name, TEim, (PT, DB, Tp, F), "TEim")
     _shape(name, phr, (D2p, F), "PhiDre")
     _shape(name, phi, (D2p, F), "PhiDim")
     Rbar = _eval_t_prologue(ob, Wd)
-    gre = torch.empty((P, Tp, F), dtype=torch.float32, device=ob.device)
+    gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=ob.device)
     gim = torch.empty_like(gre)
     lib = _build.load("shear_sum")
     rc = lib.dip_eval_t(
         *(t.data_ptr() for t in (
             Rbar, TEre, TEim, phr, phi, gre, gim)),
-        P, DB, Tp, D2p, F, int(Wd.dtype == torch.bfloat16), _stream(),
+        PB, PT, DB, Tp, D2p, F, int(Wd.dtype == torch.bfloat16), _stream(),
     )
     _raise_if(rc, name)
     eval_shear_t.launches += 1

@@ -1,5 +1,8 @@
-"""The ``fft_skew`` parallel-beam projector: factored shear tables, the
-forward/adjoint chains around the four kernels, and exact column norms.
+"""The parallel-beam projectors ``fft_skew`` and ``fft_grouped``: their
+tables, the forward/adjoint chains around their kernels, and exact column
+norms. The fan-beam path (``ops/radon_fan.py``) runs either one as its
+parallel stage, on explicit detector positions (``dets``) and with all of
+its node images against one shared table set.
 
 For parallel-beam angle t (Joseph branch: integrate along the row axis a,
 interpolate along the in-row axis) the interpolation coordinate is affine,
@@ -13,9 +16,19 @@ weights ``WtT``, a per-(angle, block) phase ``SE`` and one shared DFT
 matrix ``D``; the evaluation tail factors the same way into ``Wd``, ``TE``
 and ``PhiD``. See ``ops/kernels/shear_sum.py`` for the kernels.
 
+``fft_grouped`` keeps the dense merged phase table H [P, T, N, F] instead,
+its rows permuted into branch-grouped slot order; the row DFT, the inverse
+DFT and the hat evaluation are torch matmuls and einsums (XLA ops in the
+JAX package) around the filter-sum kernels of ``ops/kernels/filter_sum.py``.
+
 The tables mirror ``dip_admm_tpu.ops.radon_fft.precompute_shear`` (the
-d-major ``WtT`` layout only, which is all the skew path reads) and are
-built in float32 on the device the caller names.
+d-major ``WtT`` layout only, which is all the skew path reads) and
+``precompute_grouped``, and are built in float32 on the device the caller
+names.
+
+Node-shared tables: every projector takes PB images against tables of
+batch PT that divides PB, image p using table set p % PT. The parallel
+paths run PT = PB; the fan path PT = 1.
 """
 
 from __future__ import annotations
@@ -27,6 +40,9 @@ import torch
 
 from dip_admm_tpu_torch.config import GeometryConfig
 from dip_admm_tpu_torch.ops.kernels import filter_mxu
+from dip_admm_tpu_torch.ops.kernels.filter_sum import (
+    filter_sum_grouped, filter_sum_grouped_t,
+)
 from dip_admm_tpu_torch.ops.kernels.shear_sum import (
     eval_shear, eval_shear_t, skew_sum_planes, skew_sum_planes_t,
 )
@@ -51,26 +67,34 @@ def _fma(a, b, c) -> torch.Tensor:
     return (a * b + c).to(torch.float32)
 
 
-def _coeffs(cfg: GeometryConfig, angles: torch.Tensor):
+def _cos_sin(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin of float32 ``x`` in float64, rounded once to float32:
+    correctly rounded, as XLA's are (torch's float32 ones can be an ulp
+    off, which moves a shift by an ulp of its magnitude)."""
+    x64 = x.to(torch.float64)
+    return torch.cos(x64).to(torch.float32), torch.sin(x64).to(torch.float32)
+
+
+def _coeffs(cfg: GeometryConfig, angles: torch.Tensor, dets=None):
     """Coefficients of fb(t, l, a) = P(t, l) + B_t a + C_t for both Joseph
     branches, in float32 (pixel centres c(i) = -1 + (i+.5) h, detector
     centres likewise). ``angles`` [..., T] -> per branch (P [..., T, D],
-    B, C, scale [..., T]) and the branch-R selector use_r [..., T]."""
+    B, C, scale [..., T]) and the branch-R selector use_r [..., T].
+    ``dets`` [D] replaces the uniform detector grid by explicit, possibly
+    nonuniform positions (the fan-beam rebinned grid)."""
     N, D = cfg.N, cfg.n_det
     h = 2.0 / N
-    det_w = cfg.det_width_factor * 2.0
-    dd = det_w / D
-    dets = _fma(
-        torch.arange(D, dtype=torch.float32, device=angles.device) + 0.5,
-        torch.tensor(dd, dtype=torch.float32), -det_w / 2.0,
-    )
+    if dets is None:
+        det_w = cfg.det_width_factor * 2.0
+        dd = det_w / D
+        dets = _fma(
+            torch.arange(D, dtype=torch.float32, device=angles.device) + 0.5,
+            torch.tensor(dd, dtype=torch.float32), -det_w / 2.0,
+        )
+    else:
+        dets = torch.as_tensor(dets, dtype=torch.float32, device=angles.device)
     c0 = -1.0 + 0.5 * h
-    # float64 sine and cosine rounded once to float32: correctly rounded,
-    # as XLA's are (torch's float32 ones can be an ulp off, which moves
-    # sigma by an ulp of its magnitude).
-    a64 = angles.to(torch.float64)
-    sin = torch.sin(a64).to(torch.float32)
-    cos = torch.cos(a64).to(torch.float32)
+    cos, sin = _cos_sin(angles)
 
     def branch(s, c):
         safe = torch.where(torch.abs(s) < 1e-9, 1e-9, s)
@@ -88,13 +112,14 @@ def _coeffs(cfg: GeometryConfig, angles: torch.Tensor):
 
 def precompute_shear(
     cfg: GeometryConfig, angles: torch.Tensor, valid: torch.Tensor,
-    table_dtype=torch.float32, nb: int = 128,
+    table_dtype=torch.float32, nb: int = 128, dets=None,
 ) -> dict:
     """Factored shear tables for :func:`project_nodes_skew`.
 
     ``angles`` [P, T] float32 and ``valid`` [P, T] bool, on the device the
     tables are built on. ``nb`` caps the row block (largest multiple of 8
-    dividing N, at most ``nb``; N itself if none)."""
+    dividing N, at most ``nb``; N itself if none). ``dets`` [D] moves only
+    the eval tail's coordinates; its tap span D2p follows from the data."""
     dev = angles.device
     P, T = angles.shape
     N, D = cfg.N, cfg.n_det
@@ -111,7 +136,7 @@ def precompute_shear(
     f32 = torch.float32
 
     (Pr, Br, Cr, sr), (Pc, Bc, Cc, sc), use_r = _coeffs(
-        cfg, angles.to(f32)
+        cfg, angles.to(f32), dets
     )
     a_idx = torch.arange(N, dtype=f32, device=dev)
     d_r = torch.floor(Pr.min(dim=-1).values)  # [P, T]
@@ -247,14 +272,16 @@ def _pad_unpermute(bar: torch.Tensor, t: dict) -> torch.Tensor:
 
 
 def project_nodes_skew(cfg: GeometryConfig, imgs: torch.Tensor,
-                       tables: dict) -> torch.Tensor:
-    """Batched forward projection [P, N, N] -> [P, T, D]: the skew row stage
-    (K1), the factored eval tail (K3) and the slot unpermute."""
+                       tables: dict, n_rows: int | None = None) -> torch.Tensor:
+    """Batched forward projection [PB, N, N] -> [PB, T, D]: the skew row
+    stage (K1), the factored eval tail (K3) and the slot unpermute.
+    ``n_rows`` overrides the per-node angle count T (the fan rebin runs this
+    stage on T_fan/2 shared parallel angles)."""
     if cfg.fan_beam:
-        raise NotImplementedError("fft_skew: fan beam is not ported yet")
+        raise NotImplementedError("fft_skew supports parallel beam only")
     t = tables
     sh = t["shared"]
-    T = max(cfg.angles_per_node())
+    T = max(cfg.angles_per_node()) if n_rows is None else n_rows
     dtype = imgs.dtype
     imgs = imgs.to(torch.float32)
     rows2 = torch.stack([imgs, imgs.transpose(1, 2)], dim=1).contiguous()
@@ -271,7 +298,8 @@ def project_nodes_skew(cfg: GeometryConfig, imgs: torch.Tensor,
 def backproject_nodes_skew(cfg: GeometryConfig, sinos: torch.Tensor,
                            tables: dict) -> torch.Tensor:
     """Exact adjoint of :func:`project_nodes_skew`, composed by hand: slot
-    re-permute, eval-tail transpose (K4), skew transpose (K2), plane sum."""
+    re-permute, eval-tail transpose (K4), skew transpose (K2), plane sum.
+    ``sinos`` [PB, T, D]; T may be below the slot count Tp."""
     t = tables
     sh = t["shared"]
     ob = _pad_unpermute(sinos.to(torch.float32), t).contiguous()
@@ -283,6 +311,236 @@ def backproject_nodes_skew(cfg: GeometryConfig, sinos: torch.Tensor,
         sh["DreT"], sh["DimT"], t["plane"],
     )
     return (rows2_bar[:, 0] + rows2_bar[:, 1].transpose(1, 2)).to(sinos.dtype)
+
+
+# ---------------------------------------------------------------------------
+# fft_grouped: merged phase tables in branch-grouped slot order
+# ---------------------------------------------------------------------------
+
+# Past this many bytes of materialized hat weights per table set the JAX
+# package evaluates the tail with its on-the-fly Pallas kernels hat_eval /
+# hat_eval_t (K17/K18), which are not ported.
+_HAT_MAX_BYTES = 1.5e9
+
+
+def _dft_mats(N: int, Np: int, device=None):
+    """DFT matrices that replace rfft/irfft by matmuls: the forward DFT of
+    rows zero-padded N -> Np (its first N rows), Ere/Eim [N, F], and the
+    irfft coefficients Cre/Cim [F, Np] (interior bins doubled, the
+    imaginary parts of DC and Nyquist dropped)."""
+    f32 = torch.float32
+    F = Np // 2 + 1
+    f = torch.arange(F, dtype=f32, device=device)
+    v = torch.arange(N, dtype=f32, device=device)
+    Ere, Eim = _cos_sin((2.0 * math.pi / Np) * v[:, None] * f[None, :])
+    c = torch.full((F,), 2.0, dtype=f32, device=device)
+    c[0] = 1.0
+    c[-1] = 1.0
+    vv = torch.arange(Np, dtype=f32, device=device)
+    cos2, sin2 = _cos_sin((2.0 * math.pi / Np) * f[:, None] * vv[None, :])
+    Np_ = torch.tensor(float(Np), dtype=f32, device=device)
+    return Ere, -Eim, c[:, None] * cos2 / Np_, -c[:, None] * sin2 / Np_
+
+
+def _branch_phases(P, B, C, N: int, Np: int, mask):
+    """Shift-filter phase table H [T, N, F] of one branch, as (re, im):
+    H = e^{i w k} ((1 - fr) + fr e^{i w}) at the row shift k + fr = sigma,
+    w = 2 pi f / Np; rows of angles outside ``mask`` are zero."""
+    dev = B.device
+    f32 = torch.float32
+    F = Np // 2 + 1
+    f = torch.arange(F, dtype=f32, device=dev)
+    a_idx = torch.arange(N, dtype=f32, device=dev)
+    delta = torch.floor(P.min(dim=1).values)  # [T]
+    sigma = _fma(B[:, None], a_idx, C[:, None]) + delta[:, None]  # [T, N]
+    k = torch.floor(sigma)
+    fr = (sigma - k)[:, :, None]
+    ang = (2.0 * math.pi / Np) * f  # [F]
+    bre, bim = _cos_sin(ang * k[:, :, None])  # [T, N, F]
+    ca, sa = _cos_sin(ang)
+    tre = (1.0 - fr) + fr * ca
+    tim = fr * sa
+    m = mask[:, None, None]
+    return (bre * tre - bim * tim) * m, (bre * tim + bim * tre) * m, delta
+
+
+def precompute_merged(cfg: GeometryConfig, angles: torch.Tensor,
+                      valid: torch.Tensor, table_dtype=torch.float32,
+                      dets=None) -> dict:
+    """Branch-merged tables of one node (``angles``, ``valid`` [T]): one
+    phase table pair H [T, N, F] (per angle exactly one branch is nonzero),
+    the selector ``sel`` [T, 1] (1 = the transposed image's spectrum), the
+    recentred evaluation coordinates ``p`` [T, D], the branch scale ``s``
+    [T] and the DFT matrices."""
+    N = cfg.N
+    Np = _padded_len(N, cfg.n_det)
+    (Pr, Br, Cr, sr), (Pc, Bc, Cc, sc), use_r = _coeffs(
+        cfg, angles.to(torch.float32), dets
+    )
+    vm = valid.to(torch.float32)
+    m_r = use_r.to(torch.float32) * vm
+    m_c = (1.0 - use_r.to(torch.float32)) * vm
+    Hr_re, Hr_im, d_r = _branch_phases(Pr, Br, Cr, N, Np, m_r)
+    Hc_re, Hc_im, d_c = _branch_phases(Pc, Bc, Cc, N, Np, m_c)
+    Ere, Eim, Cre, Cim = _dft_mats(N, Np, angles.device)
+    return {
+        "Hre": (Hr_re + Hc_re).to(table_dtype),
+        "Him": (Hr_im + Hc_im).to(table_dtype),
+        "p": torch.where(use_r[:, None], Pr - d_r[:, None], Pc - d_c[:, None]),
+        "s": torch.where(use_r, sr, sc),
+        "sel": m_c[:, None],
+        "Ere": Ere, "Eim": Eim, "Cre": Cre, "Cim": Cim,
+    }
+
+
+def precompute_grouped(cfg: GeometryConfig, angles: torch.Tensor,
+                       valid: torch.Tensor, table_dtype=torch.float32,
+                       fold_eval: bool | None = None, dets=None) -> dict:
+    """Branch-grouped merged tables for :func:`project_nodes_grouped`:
+    each node's :func:`precompute_merged` tables, the H rows permuted into
+    ``plan_branch_groups`` slot order (every tt-angle block single-branch,
+    slack rows zero). ``angles``, ``valid`` [P, T]. ``fold_eval`` (the JAX
+    package's precomputed irfft + hat tail, off by default and measured
+    slower there) is not ported."""
+    if fold_eval:
+        raise NotImplementedError("precompute_grouped: fold_eval is not "
+                                  "ported (off by default in the JAX package)")
+    P = angles.shape[0]
+    nodes = [precompute_merged(cfg, angles[i], valid[i], table_dtype, dets)
+             for i in range(P)]
+    merged = {k: torch.stack([m[k] for m in nodes]) for k in nodes[0]}
+    del nodes
+    use_c = merged["sel"][:, :, 0] > 0.5
+    plan = filter_mxu.plan_branch_groups(use_c.cpu().numpy(),
+                                         valid.cpu().numpy())
+    dev = angles.device
+    src = torch.as_tensor(plan["src_slot"], device=dev).long()
+    idx = src.clamp(min=0)[:, :, None, None].expand(
+        -1, -1, *merged["Hre"].shape[2:])
+    keep = (src >= 0)[:, :, None, None].to(table_dtype)
+
+    def i32(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+    return {
+        "Hre_g": torch.gather(merged["Hre"], 1, idx) * keep,
+        "Him_g": torch.gather(merged["Him"], 1, idx) * keep,
+        "onehot": torch.as_tensor(plan["onehot"], device=dev),
+        "posfull": i32(plan["posfull"]),
+        "invposfull": i32(plan["invposfull"]),
+        **{k: merged[k] for k in ("p", "s", "Ere", "Eim", "Cre", "Cim")},
+    }
+
+
+def _kview(x: torch.Tensor, PT: int) -> torch.Tensor:
+    """[PB, ...] -> [PB // PT, PT, ...]: image p = k * PT + (p % PT)."""
+    return x.reshape(x.shape[0] // PT, PT, *x.shape[1:])
+
+
+def _plane_spectra(imgs, t):
+    """Forward DFT of both image orientations' rows: [PB, N, N] ->
+    ([PB, 2, N, F], [PB, 2, N, F]) real/imaginary planes."""
+    PT = t["Ere"].shape[0]
+    rows2 = _kview(torch.stack([imgs, imgs.transpose(1, 2)], dim=1), PT)
+    shape = (imgs.shape[0], 2, imgs.shape[1], t["Ere"].shape[-1])
+    rre2 = torch.einsum("kponv,pvf->kponf", rows2, t["Ere"]).reshape(shape)
+    rim2 = torch.einsum("kponv,pvf->kponf", rows2, t["Eim"]).reshape(shape)
+    return rre2, rim2
+
+
+def _plane_spectra_t(rre2_bar, rim2_bar, t, dtype):
+    """Exact transpose of :func:`_plane_spectra`."""
+    PT = t["Ere"].shape[0]
+    PB, _, N, _ = rre2_bar.shape
+    rows2_bar = (
+        torch.einsum("kponf,pvf->kponv", _kview(rre2_bar, PT), t["Ere"])
+        + torch.einsum("kponf,pvf->kponv", _kview(rim2_bar, PT), t["Eim"])
+    ).reshape(PB, 2, N, N)
+    return (rows2_bar[:, 0] + rows2_bar[:, 1].transpose(1, 2)).to(dtype)
+
+
+def _hat_weights(t, dtype):
+    """The materialized hat w[p, t, d, v] = max(0, 1 - |p[p,t,d] - v|)."""
+    PT, T, D = t["p"].shape
+    Np = t["Cre"].shape[-1]
+    if PT * T * D * Np * 4 > _HAT_MAX_BYTES:
+        raise NotImplementedError(
+            "fft_grouped eval tail: the hat weights would take "
+            f"{PT * T * D * Np * 4:.3g} bytes; the on-the-fly kernels "
+            "hat_eval/hat_eval_t (K17/K18) that take over there are not "
+            "ported")
+    v_idx = torch.arange(Np, dtype=dtype, device=t["p"].device)
+    return torch.clamp(1.0 - torch.abs(t["p"][..., None] - v_idx), min=0.0)
+
+
+def _eval_tail(g_re, g_im, t, dtype):
+    """irfft matmul + hat evaluation + branch scale: [PB, T, F] spectra ->
+    [PB, T, D] sinograms (the JAX package's materialized-hat branch)."""
+    PT = t["Cre"].shape[0]
+    PB, T, _ = g_re.shape
+    g = (torch.einsum("kptf,pfv->kptv", _kview(g_re, PT), t["Cre"])
+         + torch.einsum("kptf,pfv->kptv", _kview(g_im, PT), t["Cim"]))
+    out = torch.einsum("ptdv,kptv->kptd", _hat_weights(t, dtype), g.to(dtype))
+    return (t["s"][..., None] * out).reshape(PB, T, -1)
+
+
+def _eval_tail_t(sinos, t):
+    """Exact transpose of :func:`_eval_tail`: [PB, T, D] cotangents ->
+    ([PB, T, F], [PB, T, F]) spectrum cotangents."""
+    PT = t["Cre"].shape[0]
+    PB, T, _ = sinos.shape
+    g_bar = torch.einsum("ptdv,kptd->kptv", _hat_weights(t, sinos.dtype),
+                         t["s"][..., None] * _kview(sinos, PT))
+    g_re_bar = torch.einsum("kptv,pfv->kptf", g_bar, t["Cre"])
+    g_im_bar = torch.einsum("kptv,pfv->kptf", g_bar, t["Cim"])
+    return g_re_bar.reshape(PB, T, -1), g_im_bar.reshape(PB, T, -1)
+
+
+def project_nodes_grouped(cfg: GeometryConfig, imgs: torch.Tensor,
+                          tables: dict) -> torch.Tensor:
+    """Batched forward projection [PB, N, N] -> [PB, T, D] on branch-grouped
+    tables: row DFTs, the one-hot gather of each slot block's spectrum
+    plane, the grouped filter-sum (K13), the slot unpermute and the hat
+    evaluation."""
+    if cfg.fan_beam:
+        raise NotImplementedError("fft_grouped supports parallel beam only")
+    t = tables
+    PT, TB = t["onehot"].shape[:2]
+    PB, N = imgs.shape[:2]
+    T = t["p"].shape[-2]
+    F = t["Ere"].shape[-1]
+    rre2, rim2 = _plane_spectra(imgs, t)
+    rre_s, rim_s = (
+        torch.einsum("kponf,pto->kptnf", _kview(r, PT), t["onehot"])
+        .reshape(PB, TB, N, F).contiguous()
+        for r in (rre2, rim2)
+    )
+    g_re, g_im = filter_sum_grouped(rre_s, rim_s, t["Hre_g"], t["Him_g"])
+    g_re = filter_mxu.permute_rows(g_re, t["posfull"])[:, :T]
+    g_im = filter_mxu.permute_rows(g_im, t["posfull"])[:, :T]
+    return _eval_tail(g_re, g_im, t, imgs.dtype)
+
+
+def backproject_nodes_grouped(cfg: GeometryConfig, sinos: torch.Tensor,
+                              tables: dict) -> torch.Tensor:
+    """Exact adjoint of :func:`project_nodes_grouped`, composed by hand:
+    hat-tail transpose, slot re-permute, the grouped transpose (K14), the
+    transposed one-hot gather and the row-DFT transpose."""
+    t = tables
+    PT, TB = t["onehot"].shape[:2]
+    PB = sinos.shape[0]
+    g_re_bar, g_im_bar = _eval_tail_t(sinos, t)
+    g_re_bar = _pad_unpermute(g_re_bar, t).contiguous()
+    g_im_bar = _pad_unpermute(g_im_bar, t).contiguous()
+    rre_s_bar, rim_s_bar = filter_sum_grouped_t(
+        g_re_bar, g_im_bar, t["Hre_g"], t["Him_g"], TB)
+    N, F = rre_s_bar.shape[2:]
+    rre2_bar, rim2_bar = (
+        torch.einsum("kptnf,pto->kponf", _kview(r, PT), t["onehot"])
+        .reshape(PB, 2, N, F)
+        for r in (rre_s_bar, rim_s_bar)
+    )
+    return _plane_spectra_t(rre2_bar, rim2_bar, t, sinos.dtype)
 
 
 def colnorms_sq(cfg: GeometryConfig, angles: torch.Tensor,

@@ -2,9 +2,10 @@
 
     python -m dip_admm_tpu_torch.runners.cli --device cuda --N 256 --nodes 8 \\
         --phantom shepp --fft-table-dtype bfloat16 --max-iters 20 \\
-        --recommended
+        --recommended [--fan-beam] [--mode fft_grouped]
 
-Builds the problem (projector mode ``fft_skew``), runs decentralized
+Builds the problem (projector mode ``fft_skew`` or ``fft_grouped``, parallel
+or fan beam), runs decentralized
 consensus ADMM and prints the JSON summary the JAX CLI prints
 (``{strategy: {tag, n_iters, final_primal, final_dual, mean_psnr,
 graph}}``). It takes the subset of the JAX CLI's flags that the port
@@ -29,6 +30,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--N", type=int, default=64)
     p.add_argument("--nodes", type=int, default=5)
     p.add_argument("--angles", type=int, default=None)
+    p.add_argument("--fan-beam", action="store_true",
+                   help="flat-detector fan beam over [0, 2 pi), projected by "
+                        "rebinning to a shared parallel stage")
     p.add_argument("--strategy", choices=["knn"], default="knn")
     p.add_argument("--k", type=int, default=2)
     p.add_argument("--seed", type=int, default=123)
@@ -73,8 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fft-table-dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="storage dtype of the projector tables")
-    p.add_argument("--mode", choices=["auto", "fft_skew"], default="auto",
-                   help="projector (auto = fft_skew, the only one ported)")
+    p.add_argument("--mode", choices=["auto", "fft_skew", "fft_grouped"],
+                   default="auto",
+                   help="projector (auto = fft_skew, which the JAX package "
+                        "picks above N = 128; its dense mode at N <= 128 is "
+                        "not ported)")
     p.add_argument("--use-pallas", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="fused edge-consensus kernel (default: auto, on a "
@@ -109,7 +116,8 @@ def config_from_args(args):
 
     return ProblemConfig(
         geometry=GeometryConfig(N=args.N, num_nodes=args.nodes,
-                                angles_total=args.angles),
+                                angles_total=args.angles,
+                                fan_beam=args.fan_beam),
         graph=GraphConfig(strategy=args.strategy, k=args.k, seed=args.seed,
                           q_mode=args.q_mode),
         admm=AdmmConfig(

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,6 +43,24 @@ def test_cli_recommended_prints_summary():
         assert isinstance(summary[key], float)
 
 
+@pytest.mark.parametrize("argv, nodes", [
+    (["--fan-beam", "--N", "32", "--nodes", "2", "--angles", "64"], 2),
+    (["--fan-beam", "--mode", "fft_grouped", "--N", "24", "--nodes", "2",
+      "--angles", "64"], 2),
+    (["--mode", "fft_grouped", "--N", "32", "--nodes", "3"], 3),
+], ids=["fan", "fan_grouped", "grouped"])
+def test_cli_geometry_and_mode_print_summary(argv, nodes):
+    """``--fan-beam`` and ``--mode fft_grouped``, under the recommended
+    preset."""
+    out = _cli("--device", "cpu", "--recommended", "--max-iters", "2", *argv)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout)["knn"]
+    assert summary["n_iters"] == 2
+    assert summary["graph"]["num_nodes"] == nodes
+    for key in ("mean_psnr", "final_primal", "final_dual"):
+        assert np.isfinite(summary[key])
+
+
 @pytest.mark.parametrize("argv, want", [
     ([], dict(algorithm="cv", relax_alpha=1.0, max_inner=200,
               check_every=10)),
@@ -66,6 +85,7 @@ def test_cli_preset_resolution(argv, want):
     ("--N", "32"),  # no --device
     ("--device", "cpu", "--strategy", "mst"),
     ("--device", "cpu", "--mode", "dense"),
+    ("--device", "cpu", "--mode", "fft_pallas"),
     ("--device", "cpu", "--adapt-rho"),
     ("--device", "cpu", "--algorithm", "pcv"),
     ("--device", "cpu", "--z-fusion", "mean"),

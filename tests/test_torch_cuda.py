@@ -9,15 +9,19 @@ Every test needs a CUDA device and the CUDA toolkit, and skips without
 them. Tolerance: 2e-3 of the output's max with bf16 tables (the sums run in
 another order, so a bf16 rounding of an intermediate can land on the other
 side), 1e-5 with f32 tables and for the consensus kernel K5 (the same
-elementwise f32 ops, and its per-pair sums taken in another order); two
-K5 calls on the same inputs must agree bit for bit."""
+elementwise f32 ops, and its per-pair sums taken in another order), and
+1e-5 for the grouped filter-sum kernels K13/K14 with either table type (a
+bf16 table is upcast exactly; only the order of the f32 sums differs); two
+K5 calls, and two K13/K14 calls, on the same inputs must agree bit for
+bit."""
 
 import pytest
 import torch
 
 from dip_admm_tpu_torch.config import GeometryConfig
-from dip_admm_tpu_torch.ops import radon, radon_fft
+from dip_admm_tpu_torch.ops import radon, radon_fan, radon_fft
 from dip_admm_tpu_torch.ops.kernels import consensus as cons
+from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
 from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
 
 pytestmark = pytest.mark.cuda
@@ -41,9 +45,12 @@ def _tables(dtype, dev, N=48, P=3, angles_total=45):
     return geo, t
 
 
-def _cases(t, dev):
+def _cases(t, dev, P=None):
+    """Each kernel's (wrapper, plain version, arguments) on the tables ``t``
+    with P images (default: one per table set)."""
     sh = t["shared"]
-    P, NB, D2, Tp, nb = t["WtT"].shape
+    PT, NB, D2, Tp, nb = t["WtT"].shape
+    P = PT if P is None else P
     N, F = NB * nb, t["SEre"].shape[-1]
     D = t["Wd"].shape[1] * t["Wd"].shape[-1]
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -85,6 +92,98 @@ def test_kernel_matches_plain(name, dtype):
         scale = float(b.abs().max())
         assert scale > 0
         assert float((a - b).abs().max()) <= RTOL[dtype] * scale, name
+
+
+def _assert_close(got, want, rtol):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.device.type == "cuda"
+        scale = float(b.abs().max())
+        assert scale > 0
+        assert float((a - b).abs().max()) <= rtol * scale
+
+
+@pytest.mark.parametrize("name", ["skew_sum_planes", "skew_sum_planes_t",
+                                  "eval_shear", "eval_shear_t"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_shared_table_matches_plain(name, dtype):
+    """Three images against one shared table set (PT = 1), as the fan-beam
+    path runs them."""
+    dev = _device()
+    geo = GeometryConfig(N=48, num_nodes=3, angles_total=96, fan_beam=True)
+    a, v, _ = radon.node_angles(geo)
+    t = radon_fan.precompute_fan_skew(
+        geo, torch.as_tensor(a, dtype=torch.float32, device=dev),
+        torch.as_tensor(v, device=dev), dtype, nb=16)["shared"]["par"]
+    assert t["WtT"].shape[0] == 1
+    kern, ref, args = _cases(t, dev, P=3)[name]
+    before = kern.launches
+    got, want = kern(*args), ref(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    _assert_close(got, want, RTOL[dtype])
+
+
+def _grouped_inputs(dev, dtype, PB, PT, TB, tt, N, F, seed=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Tp = TB * tt
+    H = [torch.randn((PT, Tp, N, F), generator=gen, device=dev).to(dtype)
+         for _ in range(2)]
+    r = [torch.randn((PB, TB, N, F), generator=gen, device=dev)
+         for _ in range(2)]
+    g = [torch.randn((PB, Tp, F), generator=gen, device=dev)
+         for _ in range(2)]
+    return H, r, g
+
+
+# (PB, PT, TB, tt, N, F): the fan 256^2/8 grouped shapes at a smaller N,
+# tiles that divide neither N nor F, a slot block that is not a multiple of
+# the kernel's 8-slot chunk, and one table set per image.
+GROUPED_SHAPES = [(8, 1, 6, 8, 64, 129), (3, 1, 2, 12, 45, 70),
+                  (4, 4, 3, 16, 40, 65)]
+
+
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_kernels_match_plain_and_repeat(shape, dtype):
+    dev = _device()
+    PB, PT, TB, tt, N, F = shape
+    (hr, hi), (rr, ri), (gr, gi) = _grouped_inputs(dev, dtype, *shape)
+    before = fs.launch_counts()
+    for kern, ref, args in (
+            (fs.filter_sum_grouped, fs.filter_sum_grouped_ref,
+             (rr, ri, hr, hi)),
+            (fs.filter_sum_grouped_t, fs.filter_sum_grouped_t_ref,
+             (gr, gi, hr, hi, TB))):
+        got, again, want = kern(*args), kern(*args), ref(*args)
+        torch.cuda.synchronize()
+        _assert_close(got, want, 1e-5)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert fs.launch_counts() == {k: c + 2 for k, c in before.items()}
+
+
+def test_grouped_wrappers_reject_bad_inputs():
+    dev = _device()
+    (hr, hi), (rr, ri), (gr, gi) = _grouped_inputs(dev, torch.bfloat16, 4, 2,
+                                                   2, 8, 32, 33)
+    with pytest.raises(TypeError):
+        fs.filter_sum_grouped(rr.double(), ri, hr, hi)  # spectra f32
+    with pytest.raises(TypeError):
+        fs.filter_sum_grouped(rr, ri, hr, hi.float())  # one table dtype
+    with pytest.raises(TypeError):
+        fs.filter_sum_grouped(rr, ri, hr.half(), hi.half())  # f32 or bf16
+    with pytest.raises(ValueError):
+        fs.filter_sum_grouped(rr[:3].contiguous(), ri[:3].contiguous(), hr,
+                              hi)  # 3 images, 2 table sets
+    with pytest.raises(ValueError):
+        fs.filter_sum_grouped(rr[:, :, :16].contiguous(), ri, hr, hi)
+    with pytest.raises(ValueError):
+        fs.filter_sum_grouped_t(gr, gi, hr, hi, 3)  # Tp = 16 not a multiple
+    with pytest.raises(ValueError):
+        fs.filter_sum_grouped_t(gr.transpose(1, 2), gi, hr, hi, 2)
+    with pytest.raises(ValueError):
+        fs.filter_sum_grouped_t(gr, gi.cpu(), hr, hi, 2)  # device
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
