@@ -55,14 +55,41 @@ kernel):
                  run, K13/K14 on the grouped run, K5 exactly once per outer
                  on both; finite residuals and a mean PSNR within 0.5 dB of
                  the JAX package's 12.66 dB.
+11. p512_problem - builds the 512^2/8 parallel problem (Shepp-Logan, 1536
+                 angles, 192 per node, knn k=2, bf16 tables) twice, for
+                 ``fft_pallas`` and ``fft_grouped``, and prints each build's
+                 seconds and table GiB.
+12. p512_kernels - at the 512^2/8 shapes, the select filter-sum K11/K12
+                 with bf16 H (error <= 2e-3 of the output's max) and the
+                 hat kernels K17/K18 (error <= 1e-5), each against its
+                 plain version, two calls bitwise equal, timed as in phase
+                 3; both 512^2 apply pairs (and the ``fft_skew`` one); and
+                 the 256^2/8 ``fft_pallas`` pair with its tail materialized
+                 and through K17/K18.
+13. p512_adjoint - <Ax, y> = <x, A^T y> with f32 tables through
+                 ``fft_pallas`` at 256^2/8 (materialized tail) and 512^2/8
+                 (K17/K18), and ``fft_grouped`` at 512^2/8, relative error
+                 <= 1e-5 each.
+14. p512_pallas, p512_grouped - 20 outers of the recommended preset on each
+                 512^2 problem through ``run_admm``: K11/K12 and K17/K18
+                 must launch on the pallas run, K13/K14 and K17/K18 on the
+                 grouped run, K5 exactly once per outer on both; finite
+                 residuals and a mean PSNR within 0.5 dB of the JAX
+                 package's 39.7 dB. Each prints its preconditioner's build
+                 seconds.
 
-The launch counters are set to 0 just before each of the four runs and
-read just after. Then a JSON line with each kernel's route, source,
-launches in the four runs together, error and times (K1-K4 at the parallel
-shapes, K13/K14 at the fan shapes; the largest error of either); the
-``nvidia-smi`` name/power-limit line; and last ``{"ok": true, "device":
-{...}}``. Without a CUDA device, or when any phase fails, it exits non-zero
-and prints no result.
+Every kernel line gives the kernel's time, its plain version's, its bound
+(the larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s f32
+or 989 TFLOP/s bf16, counted from this call's inputs) and, where one
+PyTorch call computes the same function, that call's time
+(``library_ms``). The launch counters are set to 0 just before each of the
+six runs and read just after. Then a JSON line with each kernel's route,
+source, launches in the six runs together, error, times and bound (K1-K5
+at the parallel 256^2 shapes, K13/K14 at the fan shapes, K11/K12/K17/K18
+at the 512^2 shapes; the largest error of any call); the ``nvidia-smi``
+name/power-limit line; and last ``{"ok": true, "device": {...}}``. Without
+a CUDA device, or when any phase fails, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -82,12 +109,19 @@ REF_REC_PSNR = 34.19  # JAX package, 20 outers of the recommended preset
 # JAX package, fan 256^2/8, 20 outers of the recommended preset
 # (RESULTS.md, scripts/bench_budget12_regimes.py).
 REF_FAN_PSNR = 12.66
+# JAX package, parallel 512^2/8, 20 outers of the recommended preset
+# (RESULTS.md:51-52).
+REF_512_PSNR = 39.7
 PSNR_TOL = 0.5
 KERNEL_RTOL = 2e-3
 K5_RTOL = 1e-5
 ADJOINT_TOL = 1e-5
 TIMED_RUNS = 20
-LIBRARIES = ("shear_sum", "consensus", "filter_sum")
+HAT_RTOL = 1e-5
+LIBRARIES = ("shear_sum", "consensus", "filter_sum", "hat_eval")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
+F32_FLOPS = 67e12  # off the tensor cores
+BF16_FLOPS = 989e12  # dense, on the tensor cores
 SOURCE = {
     "skew_sum_planes": "dip_admm_tpu_torch/csrc/shear_sum.cu",
     "skew_sum_planes_t": "dip_admm_tpu_torch/csrc/shear_sum.cu",
@@ -96,6 +130,10 @@ SOURCE = {
     "consensus_update": "dip_admm_tpu_torch/csrc/consensus.cu",
     "filter_sum_grouped": "dip_admm_tpu_torch/csrc/filter_sum.cu",
     "filter_sum_grouped_t": "dip_admm_tpu_torch/csrc/filter_sum.cu",
+    "filter_sum_sel": "dip_admm_tpu_torch/csrc/filter_sum.cu",
+    "filter_sum_sel_t": "dip_admm_tpu_torch/csrc/filter_sum.cu",
+    "hat_eval": "dip_admm_tpu_torch/csrc/hat_eval.cu",
+    "hat_eval_t": "dip_admm_tpu_torch/csrc/hat_eval.cu",
 }
 REPLACES = {
     "skew_sum_planes": "dip_admm_tpu/ops/pallas/shear_sum.py:983",
@@ -105,19 +143,25 @@ REPLACES = {
     "consensus_update": "dip_admm_tpu/ops/pallas/consensus.py:107",
     "filter_sum_grouped": "dip_admm_tpu/ops/pallas/filter_sum.py:410",
     "filter_sum_grouped_t": "dip_admm_tpu/ops/pallas/filter_sum.py:434",
+    "filter_sum_sel": "dip_admm_tpu/ops/pallas/filter_sum.py:373",
+    "filter_sum_sel_t": "dip_admm_tpu/ops/pallas/filter_sum.py:394",
+    "hat_eval": "dip_admm_tpu/ops/pallas/hat_eval.py:147",
+    "hat_eval_t": "dip_admm_tpu/ops/pallas/hat_eval.py:166",
 }
 SKEW = ("skew_sum_planes", "skew_sum_planes_t", "eval_shear", "eval_shear_t")
 GROUPED = ("filter_sum_grouped", "filter_sum_grouped_t")
+HAT = ("hat_eval", "hat_eval_t")
+PALLAS = ("filter_sum_sel", "filter_sum_sel_t")
 
 
-def _bench_cfg(table_dtype: str, fan_beam: bool = False):
+def _bench_cfg(table_dtype: str, fan_beam: bool = False, N: int = 256):
     from dip_admm_tpu_torch.config import (
         AdmmConfig, GeometryConfig, GraphConfig, NodeSolverConfig,
         ProblemConfig,
     )
 
     return ProblemConfig(
-        geometry=GeometryConfig(N=256, num_nodes=8, fan_beam=fan_beam),
+        geometry=GeometryConfig(N=N, num_nodes=8, fan_beam=fan_beam),
         graph=GraphConfig(strategy="knn", k=2, seed=123),
         admm=AdmmConfig(
             lam_tv=0.02, rho=2.0, max_iters=20,
@@ -154,19 +198,94 @@ def _time_ms(torch, fn) -> float:
     return float(np.median(times))
 
 
-def _counts() -> dict:
-    from dip_admm_tpu_torch.ops.kernels import consensus, filter_sum, shear_sum
+def _kernel_modules():
+    from dip_admm_tpu_torch.ops.kernels import (
+        consensus, filter_sum, hat_eval, shear_sum,
+    )
 
-    return {**shear_sum.launch_counts(), **consensus.launch_counts(),
-            **filter_sum.launch_counts()}
+    return shear_sum, consensus, filter_sum, hat_eval
+
+
+def _counts() -> dict:
+    out = {}
+    for m in _kernel_modules():
+        out.update(m.launch_counts())
+    return out
 
 
 def _reset_counts() -> None:
-    from dip_admm_tpu_torch.ops.kernels import consensus, filter_sum, shear_sum
+    for m in _kernel_modules():
+        m.reset_launch_counts()
 
-    shear_sum.reset_launch_counts()
-    consensus.reset_launch_counts()
-    filter_sum.reset_launch_counts()
+
+def _nbytes(x) -> int:
+    if isinstance(x, (tuple, list)):
+        return sum(_nbytes(a) for a in x)
+    return x.numel() * x.element_size() if hasattr(x, "numel") else 0
+
+
+def _work(name, args, got):
+    """(bytes, f32 FLOPs, bf16 FLOPs) that kernel ``name`` must do on
+    ``args``: each input read once, each output written once (K17 reads
+    only the profile taps this call's coordinates touch), the FLOPs of the
+    function's arithmetic by the type it runs in (bf16 where the JAX kernel
+    rounds both factors to bf16)."""
+    nbytes = _nbytes([a for a in args if hasattr(a, "numel")]) + _nbytes(got)
+    f32 = bf16 = 0
+    if name in ("skew_sum_planes", "skew_sum_planes_t"):
+        fwd = name == "skew_sum_planes"
+        W = args[1] if fwd else args[2]  # WtT [PT, NB, D2, Tp, nb]
+        PB = args[0].shape[0]
+        _, NB, D2, Tp, nb = W.shape
+        WZ = args[4].shape[0] if fwd else args[5].shape[1]
+        F = args[2 if fwd else 3].shape[-1]
+        taps = 2 * PB * Tp * D2 * nb * NB * (NB * nb)
+        dft = 4 * PB * NB * Tp * WZ * F
+        lowp = W.dtype != args[0].dtype
+        f32 += 8 * PB * NB * Tp * F + (0 if lowp else taps + dft)
+        bf16 += taps + dft if lowp else 0
+    elif name in ("eval_shear", "eval_shear_t"):
+        Wd = args[2] if name == "eval_shear" else args[1]
+        PB = args[0].shape[0]
+        _, DB, Tp, D2p, db = Wd.shape
+        F = args[-3].shape[-1]
+        mm = 4 * PB * DB * Tp * F * D2p
+        lowp = Wd.dtype != args[0].dtype
+        f32 += 8 * PB * DB * Tp * F + 2 * PB * Tp * DB * D2p * db
+        f32 += 0 if lowp else mm
+        bf16 += mm if lowp else 0
+    elif name == "consensus_update":
+        f32 += 12 * args[0].numel()
+    elif name.startswith("filter_sum"):
+        PB = args[0].shape[0]
+        _, T, N, F = args[2].shape
+        f32 += 8 * PB * T * N * F
+    elif name in HAT:
+        pc = args[1]
+        PB, PT = args[0].shape[0], pc.shape[0]
+        f32 += 13 * PB * pc[0].numel()
+        if name == "hat_eval":
+            import torch
+
+            g = args[0]
+            Np = g.shape[-1]
+            v0 = torch.floor(pc).long()
+            hit = torch.zeros((PT, pc.shape[1], Np + 3), dtype=torch.bool,
+                              device=pc.device)
+            for k in (0, 1):
+                hit.scatter_(2, (v0 + k + 1).clamp(0, Np + 2), True)
+            taps = int(hit[..., 1:Np + 1].sum())
+            nbytes += (PB // PT) * taps * 4 - _nbytes(g)
+    return nbytes, f32, bf16
+
+
+def _bound(nbytes, f32, bf16):
+    """(ms, "bytes" or "operations"): the least time of the card for this
+    work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f32 / F32_FLOPS + bf16 / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def phase_build() -> None:
@@ -195,7 +314,11 @@ def phase_problem(torch, dev):
     return cfg, problem
 
 
-def _compare(torch, name, kern, ref, args, rtol, failures, note=""):
+def _compare(torch, name, kern, ref, args, rtol, failures, note="",
+             library=None):
+    """Kernel against plain version on ``args``; times both, and
+    ``library`` (one PyTorch call computing the same function on inputs
+    prepared from ``args``) where given. Returns (outputs, numbers)."""
     got, want = kern(*args), ref(*args)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -205,17 +328,23 @@ def _compare(torch, name, kern, ref, args, rtol, failures, note=""):
     rels = [e / float(b.abs().max()) if float(b.abs().max()) > 0 else math.inf
             for e, b in zip(errs, want)]
     finite = all(bool(torch.isfinite(a).all()) for a in got)
+    del want
     ms = _time_ms(torch, lambda: kern(*args))
     plain_ms = _time_ms(torch, lambda: ref(*args))
+    library_ms = None if library is None else _time_ms(torch, library)
+    bound_ms, bound_by = _bound(*_work(name, args, got))
     ok = finite and max(rels) <= rtol
     if not ok:
         failures.append(f"kernel {name}{note}: rel err {max(rels)} "
                         f"(finite={finite})")
     print(f"kernels: {name}{note} shape={tuple(got[0].shape)} "
           f"max_abs_err={max(errs)} max_rel_err={max(rels)} ms={ms} "
-          f"plain_ms={plain_ms} ok={ok}", flush=True)
+          f"plain_ms={plain_ms} library_ms={library_ms} bound_ms={bound_ms} "
+          f"bound_by={bound_by} share_of_bound={bound_ms / ms} ok={ok}",
+          flush=True)
     return got, dict(max_abs_err=max(errs), max_rel_err=max(rels), ms=ms,
-                     plain_ms=plain_ms)
+                     plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _skew_cases(torch, dev, t, P, gen):
@@ -420,6 +549,10 @@ def _adjoint_rel(torch, fwd, adj, x, y) -> float:
                                   * torch.linalg.norm(y.double()))
 
 
+def _pair_ms(torch, fwd, adj, geo, t, img):
+    return _time_ms(torch, lambda: adj(geo, fwd(geo, img, t), t))
+
+
 def phase_fan_problem(torch, dev):
     from dip_admm_tpu_torch.data import loader
     from dip_admm_tpu_torch.ops import radon_fan
@@ -468,13 +601,22 @@ def phase_fan_kernels(torch, dev, problems, failures) -> dict:
     # Each reads H once (per call, not per image) and reads or writes the
     # r_s pair once.
     nbytes = 2 * H[0].numel() * H[0].element_size() + 2 * r[0].numel() * 4
-    for name, kern, ref, args in (
+    # The library yardstick: one complex einsum on complex copies of the
+    # same inputs (the transpose as conj(sum_t H conj(g))).
+    tt = Tp // TB
+    Hc = torch.complex(H[0].float(), H[1].float()).reshape(PT, TB, tt, N, F)
+    rc = torch.complex(*r).reshape(P // PT, PT, TB, N, F)
+    gcc = torch.complex(*g).conj().resolve_conj().reshape(P // PT, PT, TB,
+                                                         tt, F)
+    for name, kern, ref, args, lib in (
             ("filter_sum_grouped", fs.filter_sum_grouped,
-             fs.filter_sum_grouped_ref, (*r, *H)),
+             fs.filter_sum_grouped_ref, (*r, *H),
+             lambda: torch.einsum("kpbnf,pbtnf->kpbtf", rc, Hc)),
             ("filter_sum_grouped_t", fs.filter_sum_grouped_t,
-             fs.filter_sum_grouped_t_ref, (*g, *H, TB))):
+             fs.filter_sum_grouped_t_ref, (*g, *H, TB),
+             lambda: torch.einsum("kpbtf,pbtnf->kpbnf", gcc, Hc))):
         got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
-                                  failures, note="[fan PT=1]")
+                                  failures, note="[fan PT=1]", library=lib)
         again = kern(*args)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -484,6 +626,8 @@ def phase_fan_kernels(torch, dev, problems, failures) -> dict:
               f"TB={TB} Tp={Tp} N={N} F={F} H={H[0].dtype} "
               f"bytes_once={nbytes} GB_per_s_once={nbytes / out[name]['ms'] / 1e6}",
               flush=True)
+    del Hc, rc, gcc
+    torch.cuda.empty_cache()
 
     geo = problems["fft_skew"].cfg.geometry
     for mode, t, fwd, adj in (
@@ -491,7 +635,7 @@ def phase_fan_kernels(torch, dev, problems, failures) -> dict:
              radon_fan.backproject_nodes_fan_skew),
             ("fft_grouped", tg, radon_fan.project_nodes_fan_grouped,
              radon_fan.backproject_nodes_fan_grouped)):
-        pair_ms = _time_ms(torch, lambda: adj(geo, fwd(geo, img, t), t))
+        pair_ms = _pair_ms(torch, fwd, adj, geo, t, img)
         out[f"fan_{mode}_apply_pair_ms"] = pair_ms
         print(f"fan_kernels: mode={mode} apply_pair_ms={pair_ms} (project + "
               f"backproject, bf16 tables, P={P} N={N} fan angles "
@@ -545,6 +689,216 @@ def phase_fan_runs(torch, cfg, problems, failures) -> dict:
     return counts
 
 
+def _table_gib(t) -> float:
+    if isinstance(t, dict):
+        return sum(_table_gib(v) for v in t.values())
+    return _nbytes(t) / 2**30
+
+
+def phase_p512_problem(torch, dev):
+    from dip_admm_tpu_torch.data import loader
+
+    cfg = _bench_cfg("bfloat16", N=512)
+    problems = {}
+    for mode in ("fft_pallas", "fft_grouped"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        problems[mode] = loader.build_problem(cfg, dev, mode=mode)
+        torch.cuda.synchronize()
+        p = problems[mode]
+        print(f"p512_problem: mode={mode} build_s={time.perf_counter() - t0} "
+              f"table_gib={_table_gib(p.fft_tables)} "
+              f"angles={tuple(p.angles.shape)} "
+              f"union_edges={int(p.adj.sum()) // 2}", flush=True)
+    return cfg, problems
+
+
+def phase_p512_kernels(torch, dev, problems, failures) -> dict:
+    import torch.nn.functional as fn
+
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.ops import radon, radon_fft
+    from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
+    from dip_admm_tpu_torch.ops.kernels import hat_eval as he
+
+    tp = problems["fft_pallas"].fft_tables
+    PT, T, N, F = tp["Hre"].shape
+    P = problems["fft_pallas"].num_nodes
+    gen = torch.Generator(device=dev).manual_seed(5)
+    H, sel = (tp["Hre"], tp["Him"]), tp["sel"]
+    r = [torch.randn((P, 2, N, F), generator=gen, device=dev)
+         for _ in range(2)]
+    g = [torch.randn((P, T, F), generator=gen, device=dev) for _ in range(2)]
+    # Library yardstick: one complex einsum on complex copies of the same
+    # inputs, the plane select as a one-hot factor (the transpose as
+    # conj(sum_t H conj(g))).
+    Hc = torch.complex(H[0].float(), H[1].float())
+    onehot = torch.cat([1.0 - sel, sel], dim=-1).to(Hc.dtype)  # [PT, T, 2]
+    rc = torch.complex(*r).reshape(P // PT, PT, 2, N, F)
+    gcc = torch.complex(*g).conj().resolve_conj().reshape(P // PT, PT, T, F)
+    out = {}
+    for name, kern, ref, args, lib in (
+            ("filter_sum_sel", fs.filter_sum_sel, fs.filter_sum_sel_ref,
+             (*r, *H, sel),
+             lambda: torch.einsum("kponf,pto,ptnf->kptf", rc, onehot, Hc)),
+            ("filter_sum_sel_t", fs.filter_sum_sel_t,
+             fs.filter_sum_sel_t_ref, (*g, *H, sel),
+             lambda: torch.einsum("kptf,pto,ptnf->kponf", gcc, onehot, Hc))):
+        got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
+                                  failures, note="[512^2/8]", library=lib)
+        again = kern(*args)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not bitwise:
+            failures.append(f"kernel {name}: two calls differ")
+        print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} T={T} "
+              f"N={N} F={F} H={H[0].dtype} GB_per_s="
+              f"{_work(name, args, got)[0] / out[name]['ms'] / 1e6}",
+              flush=True)
+        del got, again
+    del Hc, onehot, rc, gcc, r, g
+    torch.cuda.empty_cache()
+
+    # K17/K18 on the problem's evaluation coordinates and scales.
+    pc, s = tp["p"], tp["s"][..., None]
+    Np = tp["Cre"].shape[-1]
+    D = pc.shape[-1]
+    prof = torch.randn((P, T, Np), generator=gen, device=dev)
+    ob = torch.randn((P, T, D), generator=gen, device=dev)
+    # Library yardstick for K17: grid_sample, 1-D linear with zero padding
+    # (align_corners: x = -1 is v = 0, x = 1 is v = Np - 1), times s.
+    x = (2.0 * pc / (Np - 1) - 1.0).repeat(P // PT, 1, 1)
+    grid = torch.stack([x, torch.zeros_like(x)], -1).reshape(P * T, 1, D, 2)
+    s_b = s.repeat(P // PT, 1, 1)
+    img = prof.reshape(P * T, 1, 1, Np)
+    for name, kern, ref, args, lib in (
+            ("hat_eval", he.hat_eval, he.hat_eval_ref, (prof, pc, s),
+             lambda: fn.grid_sample(img, grid, mode="bilinear",
+                                    padding_mode="zeros", align_corners=True
+                                    ).reshape(P, T, D) * s_b),
+            ("hat_eval_t", he.hat_eval_t, he.hat_eval_t_ref,
+             (ob, pc, s, Np), None)):
+        got, out[name] = _compare(torch, name, kern, ref, args, HAT_RTOL,
+                                  failures, note="[512^2/8]", library=lib)
+        again = kern(*args)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got[0], again)
+        if not bitwise:
+            failures.append(f"kernel {name}: two calls differ")
+        lib_err = None if lib is None else float((lib() - got[0]).abs().max())
+        print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} T={T} "
+              f"D={D} Np={Np} library_max_abs_err={lib_err}", flush=True)
+    del prof, ob, grid, img, x
+    torch.cuda.empty_cache()
+
+    # Apply pairs: both 512^2 modes, and fft_pallas at 256^2/8 with its tail
+    # materialized (below the threshold) and through K17/K18.
+    geo = problems["fft_pallas"].cfg.geometry
+    im = torch.randn((P, N, N), generator=gen, device=dev)
+    for mode, fwd, adj in (
+            ("fft_pallas", radon_fft.project_nodes_merged,
+             radon_fft.backproject_nodes_merged),
+            ("fft_grouped", radon_fft.project_nodes_grouped,
+             radon_fft.backproject_nodes_grouped)):
+        t = problems[mode].fft_tables
+        out[f"p512_{mode}_apply_pair_ms"] = ms = _pair_ms(torch, fwd, adj,
+                                                          geo, t, im)
+        print(f"p512_kernels: mode={mode} apply_pair_ms={ms} (project + "
+              f"backproject, bf16 tables, P={P} N={N} T={T}, hat tail "
+              f"{'K17/K18' if radon_fft._hat_on_the_fly(t) else 'einsum'})",
+              flush=True)
+    # The third parallel mode at the same size, for comparison.
+    cfg = problems["fft_pallas"].cfg
+    a, v = problems["fft_pallas"].angles, problems["fft_pallas"].angle_valid
+    t = loader.build_fft_tables(cfg, a, v, "fft_skew")
+    out["p512_fft_skew_apply_pair_ms"] = ms = _pair_ms(
+        torch, radon_fft.project_nodes_skew, radon_fft.backproject_nodes_skew,
+        geo, t, im)
+    print(f"p512_kernels: mode=fft_skew apply_pair_ms={ms} (bf16 tables, "
+          f"P={P} N={N} T={T})", flush=True)
+    del t
+    cfg = _bench_cfg("bfloat16")
+    geo = cfg.geometry
+    a, v, _ = radon.node_angles(geo)
+    t = loader.build_fft_tables(
+        cfg, torch.as_tensor(a, dtype=torch.float32, device=dev),
+        torch.as_tensor(v, device=dev), "fft_pallas")
+    im = torch.randn((P, geo.N, geo.N), generator=gen, device=dev)
+    limit = radon_fft._HAT_MAX_BYTES
+    for tail, lim in (("einsum", limit), ("K17/K18", 0)):
+        radon_fft._HAT_MAX_BYTES = lim
+        try:
+            ms = _pair_ms(torch, radon_fft.project_nodes_merged,
+                          radon_fft.backproject_nodes_merged, geo, t, im)
+        finally:
+            radon_fft._HAT_MAX_BYTES = limit
+        out[f"p256_pallas_{tail}_apply_pair_ms"] = ms
+        print(f"p512_kernels: mode=fft_pallas N={geo.N} apply_pair_ms={ms} "
+              f"(bf16 tables, P={P}, hat tail {tail})", flush=True)
+    del t, im
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_p512_adjoint(torch, dev, failures) -> None:
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.ops import radon, radon_fft
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    pairs = {"fft_pallas": (radon_fft.project_nodes_merged,
+                            radon_fft.backproject_nodes_merged),
+             "fft_grouped": (radon_fft.project_nodes_grouped,
+                             radon_fft.backproject_nodes_grouped)}
+    for N, mode in ((256, "fft_pallas"), (512, "fft_pallas"),
+                    (512, "fft_grouped")):
+        cfg = _bench_cfg("float32", N=N)
+        geo = cfg.geometry
+        a, v, _ = radon.node_angles(geo)
+        t = loader.build_fft_tables(
+            cfg, torch.as_tensor(a, dtype=torch.float32, device=dev),
+            torch.as_tensor(v, device=dev), mode)
+        P, m = geo.num_nodes, a.shape[1]
+        x = torch.randn((P, geo.N, geo.N), generator=gen, device=dev)
+        y = torch.randn((P, m, geo.n_det), generator=gen, device=dev)
+        fwd, adj = pairs[mode]
+        _reset_counts()
+        rel = _adjoint_rel(torch, lambda u: fwd(geo, u, t),
+                           lambda u: adj(geo, u, t), x, y)
+        hat = {k: _counts()[k] for k in HAT}
+        tail = "K17/K18" if radon_fft._hat_on_the_fly(t) else "einsum"
+        ok = (math.isfinite(rel) and rel <= ADJOINT_TOL
+              and all(hat.values()) == (tail == "K17/K18"))
+        if not ok:
+            failures.append(f"p512_adjoint {mode} {geo.N}: rel {rel}, {hat}")
+        print(f"p512_adjoint: {mode} N={geo.N} tail={tail} rel_err={rel} "
+              f"hat_launches={json.dumps(hat)} ok={ok}", flush=True)
+        del t, x, y
+        torch.cuda.empty_cache()
+
+
+def phase_p512_runs(torch, cfg, problems, failures) -> dict:
+    from dip_admm_tpu_torch.core import node_solver
+
+    rec = _recommended(cfg.admm)
+    counts = {}
+    for mode, kernels in (("fft_pallas", PALLAS + HAT),
+                          ("fft_grouped", GROUPED + HAT)):
+        problem = problems[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fp = node_solver.build_fourier_precond(
+            problem.forward, problem.adjoint, torch.sum(problem.Q, dim=1),
+            rec.rho, rec.node, problem.N)
+        step = fp.step.cpu().numpy()
+        precond_s = time.perf_counter() - t0
+        tag = f"p512_{mode.removeprefix('fft_')}"
+        _, counts[mode], line = _drive(torch, problem, rec, REF_512_PSNR, tag,
+                                       failures, kernels)
+        print(f"{tag}: precond_build_s={precond_s} certified_step="
+              f"{step.tolist()} {line}", flush=True)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -584,7 +938,14 @@ def main() -> int:
                  phase_fan_kernels(torch, dev, fan_problems, failures).items()})
     phase_fan_adjoint(torch, dev, failures)
     fan_counts = phase_fan_runs(torch, fan_cfg, fan_problems, failures)
-    runs = (main_counts, rec_counts, *fan_counts.values())
+    del fan_problems
+    torch.cuda.empty_cache()
+    p512_cfg, p512_problems = phase_p512_problem(torch, dev)
+    kern.update(phase_p512_kernels(torch, dev, p512_problems, failures))
+    phase_p512_adjoint(torch, dev, failures)
+    p512_counts = phase_p512_runs(torch, p512_cfg, p512_problems, failures)
+    runs = (main_counts, rec_counts, *fan_counts.values(),
+            *p512_counts.values())
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED {f}", file=sys.stderr)
@@ -595,7 +956,8 @@ def main() -> int:
          "launches": sum(c[name] for c in runs),
          "max_abs_err": max(kern[k]["max_abs_err"]
                             for k in (name, f"fan_{name}") if k in kern),
-         "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]}
+         **{k: kern[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}}
         for name in REPLACES
     ]}))
     print(smi[0] if smi else "nvidia-smi gave nothing")

@@ -1,5 +1,6 @@
 """Problem construction for projector modes ``fft_skew`` and
-``fft_grouped``, in parallel and fan beam.
+``fft_grouped``, in parallel and fan beam, and ``fft_pallas``, in parallel
+beam.
 
 A :class:`Problem` carries the per-node angle sets, the noisy sinograms
 ``b_i = A_i x_true + sigma * eps`` (zero on padded angle rows), the exact
@@ -24,7 +25,7 @@ from dip_admm_tpu_torch.graph import precisions, topology
 from dip_admm_tpu_torch.ops import phantoms, radon, radon_fan, radon_fft
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-MODES = ("fft_skew", "fft_grouped")
+MODES = ("fft_skew", "fft_grouped", "fft_pallas")
 # (forward, adjoint) of each ported mode, by fan_beam.
 _OPS = {
     ("fft_skew", False): (radon_fft.project_nodes_skew,
@@ -35,6 +36,8 @@ _OPS = {
                              radon_fft.backproject_nodes_grouped),
     ("fft_grouped", True): (radon_fan.project_nodes_fan_grouped,
                             radon_fan.backproject_nodes_fan_grouped),
+    ("fft_pallas", False): (radon_fft.project_nodes_merged,
+                            radon_fft.backproject_nodes_merged),
 }
 
 
@@ -84,16 +87,18 @@ class Problem:
         return make_node_ops(self.mode, self.cfg.geometry, self.fft_tables)[1](r)
 
 
-def _check_mode(mode: str) -> None:
+def _check_mode(mode: str, geo: GeometryConfig) -> None:
     if mode not in MODES:
         raise NotImplementedError(
             f"projector mode {mode!r} is not ported yet (only {MODES})"
         )
+    if (mode, geo.fan_beam) not in _OPS:
+        raise NotImplementedError(f"{mode} supports parallel beam only")
 
 
 def make_node_ops(mode: str, geo: GeometryConfig, tables: dict):
     """Batched per-node (forward, adjoint) callables on flattened data."""
-    _check_mode(mode)
+    _check_mode(mode, geo)
     project, backproject = _OPS[mode, geo.fan_beam]
     N, D = geo.N, geo.n_det
 
@@ -112,21 +117,22 @@ def build_fft_tables(cfg: ProblemConfig, angles, valid,
                      mode: str = "fft_skew") -> dict:
     """Projector tables in ``cfg.fft_table_dtype``. Fan beam shares one
     parallel-stage table set among the nodes (``ops/radon_fan.py``)."""
-    _check_mode(mode)
     geo = cfg.geometry
+    _check_mode(mode, geo)
     tdt = _DTYPES[cfg.fft_table_dtype]
     if geo.fan_beam:
         pre = (radon_fan.precompute_fan_skew if mode == "fft_skew"
                else radon_fan.precompute_fan_grouped)
         return pre(geo, angles, valid, tdt)
-    pre = (radon_fft.precompute_shear if mode == "fft_skew"
-           else radon_fft.precompute_grouped)
+    pre = {"fft_skew": radon_fft.precompute_shear,
+           "fft_grouped": radon_fft.precompute_grouped,
+           "fft_pallas": radon_fft.precompute_merged_nodes}[mode]
     return pre(geo, angles, valid, tdt)
 
 
 def node_colnorms(geo: GeometryConfig, angles, valid) -> torch.Tensor:
-    """W[i, p] = ||A_i[:, p]||^2 of the operator in use (both ported modes
-    apply the same operator), floored at EPS."""
+    """W[i, p] = ||A_i[:, p]||^2 of the operator in use (every ported mode
+    applies the same operator), floored at EPS."""
     if geo.fan_beam:
         W = radon_fan.colnorms_sq_nodes(geo, angles, valid)
     else:
@@ -172,16 +178,16 @@ def build_problem(
 ) -> Problem:
     """Assemble a :class:`Problem` on ``device``.
 
-    ``mode`` is "fft_skew" or "fft_grouped". ``mode=None`` resolves to
-    "fft_skew", parallel or fan beam, which the JAX loader picks above
-    N = 128; at N <= 128 it picks "dense", which is not ported. ``noise``
-    [P, m] replaces
+    ``mode`` is "fft_skew", "fft_grouped" or (parallel beam only)
+    "fft_pallas". ``mode=None`` resolves to "fft_skew", parallel or fan
+    beam, which the JAX loader picks above N = 128; at N <= 128 it picks
+    "dense", which is not ported. ``noise`` [P, m] replaces
     the standard-normal draw (a generator seeded with ``cfg.noise_seed``);
     ``opnorm_v0`` [P, n] replaces the power-method start."""
     device = torch.device(device)
     mode = "fft_skew" if mode is None else mode
     geo = cfg.geometry
-    _check_mode(mode)
+    _check_mode(mode, geo)
     if cfg.dtype != "float32":
         raise NotImplementedError("only dtype='float32' is ported")
     N, P, D, n = geo.N, geo.num_nodes, geo.n_det, geo.n

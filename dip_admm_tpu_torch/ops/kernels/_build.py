@@ -39,8 +39,14 @@ SIGNATURES = {
         "dip_eval_t": [_P] * 7 + [_I] * 7 + [_P],
     },
     "filter_sum": {
+        "dip_sel_fwd": [_P] * 7 + [_I] * 6 + [_P],
+        "dip_sel_t": [_P] * 7 + [_I] * 6 + [_P],
         "dip_grp_fwd": [_P] * 6 + [_I] * 7 + [_P],
         "dip_grp_t": [_P] * 6 + [_I] * 7 + [_P],
+    },
+    "hat_eval": {
+        "dip_hat_fwd": [_P] * 4 + [_I] * 5 + [_P],
+        "dip_hat_t": [_P] * 4 + [_I] * 5 + [_P],
     },
     "consensus": {
         "dip_consensus": [_P] * 10 + [_I] * 4 + [_P],

@@ -1,4 +1,5 @@
-"""The two kernels of the ``fft_grouped`` projector, with their plain versions.
+"""The filter-sum kernels of the ``fft_pallas`` and ``fft_grouped``
+projectors, with their plain versions.
 
 Each wrapper replaces one Pallas kernel of
 ``dip_admm_tpu/ops/pallas/filter_sum.py``:
@@ -6,21 +7,37 @@ Each wrapper replaces one Pallas kernel of
 ===================== ================================================ ===========
 wrapper               TPU kernel it replaces                           CUDA entry
 ===================== ================================================ ===========
+filter_sum_sel        filter_sum_sel (_fwd_sel_pallas)                 dip_sel_fwd
+filter_sum_sel_t      filter_sum_sel_t (_t_sel_pallas)                 dip_sel_t
 filter_sum_grouped    filter_sum_grouped (_fwd_grp_pallas)             dip_grp_fwd
 filter_sum_grouped_t  filter_sum_grouped_t (_t_grp_pallas)             dip_grp_t
 ===================== ================================================ ===========
 
-The branch-grouped filter-sum contracts each slot block's spectrum plane
-with the merged phase table, as a complex product in re/im planes:
+The merged-branch filter-sum (``fft_pallas``) contracts, per angle t, the
+spectrum plane that the selector picks (0 = image rows, 1 = transposed
+image rows) with the merged phase table, as a complex product in re/im
+planes:
+
+    g[p, t, f] = sum_n r[p, sel[p % PT, t], n, f] * H[p % PT, t, n, f]
+
+r [PB, 2, N, F] f32, H [PT, T, N, F] f32 or bf16 (upcast, f32
+accumulation), sel [PT, T, 1] f32 in {0, 1}, g [PB, T, F] f32. Its
+transpose routes each angle's conj(H) contraction to the selected plane;
+a plane that no angle selects comes out zero.
+
+The branch-grouped filter-sum (``fft_grouped``) contracts each slot block's
+spectrum plane instead:
 
     g[p, t, f] = sum_n r_s[p, blk(t), n, f] * H[p % PT, t, n, f]
 
 r_s [PB, TB, N, F] f32 (the block's selected spectrum plane), H [PT, Tp, N,
-F] f32 or bf16 (upcast, f32 accumulation), g [PB, Tp, F] f32. The image
-batch PB is a multiple of the table batch PT: the parallel path runs
-PT = PB, the fan-beam path its node images against one shared table set
+F], g [PB, Tp, F]. Its transpose is a pure map: each slot block owns its
+output block.
+
+The image batch PB is a multiple of the table batch PT: the parallel paths
+run PT = PB, the fan-beam path its node images against one shared table set
 (PT = 1), as the JAX kernels' vmap rule folds an image batch into the node
-axis. The transpose is a pure map: each slot block owns its output block.
+axis.
 
 On a CPU tensor a wrapper runs its plain PyTorch version (``*_ref``); on a
 CUDA tensor it launches the hand-written kernel of ``csrc/filter_sum.cu``
@@ -43,6 +60,46 @@ from dip_admm_tpu_torch.ops.kernels.shear_sum import (
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path, and the reference on the card)
 # ---------------------------------------------------------------------------
+
+
+def filter_sum_sel_ref(rre2, rim2, Hre, Him, sel):
+    """Merged-branch contraction (see the module docstring), as the JAX
+    package's ``filter_sum_sel_reference`` computes it: both planes read and
+    blended by ``sel``."""
+    PT, T, N, F = Hre.shape
+    PB = rre2.shape[0]
+    _batches("plain version", PB, PT)
+    s = sel.reshape(1, PT, T, 1, 1)
+    xr = rre2.reshape(PB // PT, PT, 1, 2, N, F)
+    xi = rim2.reshape(PB // PT, PT, 1, 2, N, F)
+    rre = xr[:, :, :, 0] + s * (xr[:, :, :, 1] - xr[:, :, :, 0])
+    rim = xi[:, :, :, 0] + s * (xi[:, :, :, 1] - xi[:, :, :, 0])
+    hr, hi = Hre.float(), Him.float()
+    g_re = (rre * hr - rim * hi).sum(dim=3)  # [K, PT, T, F]
+    g_im = (rre * hi + rim * hr).sum(dim=3)
+    return g_re.reshape(PB, T, F), g_im.reshape(PB, T, F)
+
+
+def filter_sum_sel_t_ref(gre_b, gim_b, Hre, Him, sel):
+    """Exact transpose of :func:`filter_sum_sel_ref` with respect to
+    (rre2, rim2): [PB, T, F] pair -> [PB, 2, N, F] pair, each angle's
+    cotangent gated onto its plane as the JAX kernel gates it."""
+    PT, T, N, F = Hre.shape
+    PB = gre_b.shape[0]
+    _batches("plain version", PB, PT)
+    s = sel.reshape(1, PT, T, 1)
+    gr = gre_b.reshape(PB // PT, PT, T, F)
+    gi = gim_b.reshape(PB // PT, PT, T, F)
+    hr, hi = Hre.float(), Him.float()
+    planes_re, planes_im = [], []
+    for gate in (1.0 - s, s):
+        a, b = gr * gate, gi * gate
+        planes_re.append(torch.einsum("kptf,ptnf->kpnf", a, hr)
+                         + torch.einsum("kptf,ptnf->kpnf", b, hi))
+        planes_im.append(torch.einsum("kptf,ptnf->kpnf", b, hr)
+                         - torch.einsum("kptf,ptnf->kpnf", a, hi))
+    return (torch.stack(planes_re, dim=2).reshape(PB, 2, N, F),
+            torch.stack(planes_im, dim=2).reshape(PB, 2, N, F))
 
 
 def filter_sum_grouped_ref(rre_s, rim_s, Hre_g, Him_g):
@@ -85,6 +142,62 @@ def _check_tables(name, Hre_g, Him_g, TB):
     if TB < 1 or Tp % TB:
         raise ValueError(f"{name}: Tp={Tp} is not a multiple of TB={TB}")
     return PT, Tp, N, F
+
+
+def _check_sel_tables(name, Hre, Him, sel):
+    PT, T, N, F = Hre.shape
+    _shape(name, Him, (PT, T, N, F), "Him")
+    _shape(name, sel, (PT, T, 1), "sel")
+    return PT, T, N, F
+
+
+def filter_sum_sel(rre2, rim2, Hre, Him, sel):
+    """K11: see :func:`filter_sum_sel_ref`. The kernel reads only the plane
+    each angle selects (sel > 0.5); for sel in {0, 1} that is the same sum."""
+    if _on_cpu(rre2):
+        return filter_sum_sel_ref(rre2, rim2, Hre, Him, sel)
+    name = "filter_sum_sel"
+    PB = rre2.shape[0]
+    PT, T, N, F = _check_sel_tables(name, Hre, Him, sel)
+    _check(name, dict(rre2=rre2, rim2=rim2, Hre=Hre, Him=Him, sel=sel),
+           rre2.device, Hre.dtype)
+    _batches(name, PB, PT)
+    _shape(name, rre2, (PB, 2, N, F), "rre2")
+    _shape(name, rim2, (PB, 2, N, F), "rim2")
+    gre = torch.empty((PB, T, F), dtype=torch.float32, device=rre2.device)
+    gim = torch.empty_like(gre)
+    lib = _build.load("filter_sum")
+    rc = lib.dip_sel_fwd(
+        *(t.data_ptr() for t in (rre2, rim2, Hre, Him, sel, gre, gim)),
+        PB, PT, T, N, F, int(Hre.dtype == torch.bfloat16), _stream(),
+    )
+    _raise_if(rc, name)
+    filter_sum_sel.launches += 1
+    return gre, gim
+
+
+def filter_sum_sel_t(gre_b, gim_b, Hre, Him, sel):
+    """K12: see :func:`filter_sum_sel_t_ref`."""
+    if _on_cpu(gre_b):
+        return filter_sum_sel_t_ref(gre_b, gim_b, Hre, Him, sel)
+    name = "filter_sum_sel_t"
+    PB = gre_b.shape[0]
+    PT, T, N, F = _check_sel_tables(name, Hre, Him, sel)
+    _check(name, dict(gre_b=gre_b, gim_b=gim_b, Hre=Hre, Him=Him, sel=sel),
+           gre_b.device, Hre.dtype)
+    _batches(name, PB, PT)
+    _shape(name, gre_b, (PB, T, F), "gre_b")
+    _shape(name, gim_b, (PB, T, F), "gim_b")
+    rre = torch.empty((PB, 2, N, F), dtype=torch.float32, device=gre_b.device)
+    rim = torch.empty_like(rre)
+    lib = _build.load("filter_sum")
+    rc = lib.dip_sel_t(
+        *(t.data_ptr() for t in (gre_b, gim_b, Hre, Him, sel, rre, rim)),
+        PB, PT, T, N, F, int(Hre.dtype == torch.bfloat16), _stream(),
+    )
+    _raise_if(rc, name)
+    filter_sum_sel_t.launches += 1
+    return rre, rim
 
 
 def filter_sum_grouped(rre_s, rim_s, Hre_g, Him_g):
@@ -136,7 +249,8 @@ def filter_sum_grouped_t(gre_b, gim_b, Hre_g, Him_g, TB: int):
     return rre, rim
 
 
-KERNELS = (filter_sum_grouped, filter_sum_grouped_t)
+KERNELS = (filter_sum_sel, filter_sum_sel_t, filter_sum_grouped,
+           filter_sum_grouped_t)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -213,7 +213,7 @@ def _check(name: str, tensors: dict, device, table_dtype):
             if t.dtype != torch.int32:
                 raise TypeError(f"{name}: {k} must be int32, got {t.dtype}")
         elif k in ("WtT", "Dre", "Dim", "DreT", "DimT", "PhiDre", "PhiDim",
-                   "Wd", "Hre_g", "Him_g"):
+                   "Wd", "Hre", "Him", "Hre_g", "Him_g"):
             if t.dtype != table_dtype:
                 raise TypeError(
                     f"{name}: {k} is {t.dtype}, the tables are {table_dtype}"

@@ -1,8 +1,9 @@
-"""The parallel-beam projectors ``fft_skew`` and ``fft_grouped``: their
-tables, the forward/adjoint chains around their kernels, and exact column
-norms. The fan-beam path (``ops/radon_fan.py``) runs either one as its
-parallel stage, on explicit detector positions (``dets``) and with all of
-its node images against one shared table set.
+"""The parallel-beam projectors ``fft_skew``, ``fft_grouped`` and
+``fft_pallas``: their tables, the forward/adjoint chains around their
+kernels, and exact column norms. The fan-beam path (``ops/radon_fan.py``)
+runs ``fft_skew`` or ``fft_grouped`` as its parallel stage, on explicit
+detector positions (``dets``) and with all of its node images against one
+shared table set.
 
 For parallel-beam angle t (Joseph branch: integrate along the row axis a,
 interpolate along the in-row axis) the interpolation coordinate is affine,
@@ -16,13 +17,18 @@ weights ``WtT``, a per-(angle, block) phase ``SE`` and one shared DFT
 matrix ``D``; the evaluation tail factors the same way into ``Wd``, ``TE``
 and ``PhiD``. See ``ops/kernels/shear_sum.py`` for the kernels.
 
-``fft_grouped`` keeps the dense merged phase table H [P, T, N, F] instead,
-its rows permuted into branch-grouped slot order; the row DFT, the inverse
-DFT and the hat evaluation are torch matmuls and einsums (XLA ops in the
-JAX package) around the filter-sum kernels of ``ops/kernels/filter_sum.py``.
+``fft_pallas`` keeps the dense merged phase table H [P, T, N, F] instead,
+with a per-angle selector of the image orientation; ``fft_grouped`` keeps
+it with its rows permuted into branch-grouped slot order. Around their
+filter-sum kernels (``ops/kernels/filter_sum.py``) the row DFT and the
+inverse DFT are torch matmuls (XLA ops in the JAX package), and so is the
+hat evaluation while its materialized weights stay below
+``_HAT_MAX_BYTES``; past that the hat kernels of ``ops/kernels/hat_eval.py``
+evaluate it on the fly, as in the JAX package.
 
 The tables mirror ``dip_admm_tpu.ops.radon_fft.precompute_shear`` (the
-d-major ``WtT`` layout only, which is all the skew path reads) and
+d-major ``WtT`` layout only, which is all the skew path reads),
+``precompute_merged`` (node-batched as the JAX loader builds it) and
 ``precompute_grouped``, and are built in float32 on the device the caller
 names.
 
@@ -41,8 +47,10 @@ import torch
 from dip_admm_tpu_torch.config import GeometryConfig
 from dip_admm_tpu_torch.ops.kernels import filter_mxu
 from dip_admm_tpu_torch.ops.kernels.filter_sum import (
-    filter_sum_grouped, filter_sum_grouped_t,
+    filter_sum_grouped, filter_sum_grouped_t, filter_sum_sel,
+    filter_sum_sel_t,
 )
+from dip_admm_tpu_torch.ops.kernels.hat_eval import hat_eval, hat_eval_t
 from dip_admm_tpu_torch.ops.kernels.shear_sum import (
     eval_shear, eval_shear_t, skew_sum_planes, skew_sum_planes_t,
 )
@@ -314,12 +322,12 @@ def backproject_nodes_skew(cfg: GeometryConfig, sinos: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# fft_grouped: merged phase tables in branch-grouped slot order
+# fft_pallas and fft_grouped: merged phase tables
 # ---------------------------------------------------------------------------
 
-# Past this many bytes of materialized hat weights per table set the JAX
-# package evaluates the tail with its on-the-fly Pallas kernels hat_eval /
-# hat_eval_t (K17/K18), which are not ported.
+# Past this many bytes of materialized hat weights w [PT, T, D, Np] the eval
+# tail runs the on-the-fly hat kernels K17/K18 instead of the einsums (the
+# JAX package's rule and threshold; 512^2/8 parallel beam is past it).
 _HAT_MAX_BYTES = 1.5e9
 
 
@@ -393,6 +401,17 @@ def precompute_merged(cfg: GeometryConfig, angles: torch.Tensor,
     }
 
 
+def precompute_merged_nodes(cfg: GeometryConfig, angles: torch.Tensor,
+                            valid: torch.Tensor, table_dtype=torch.float32,
+                            dets=None) -> dict:
+    """Node-batched :func:`precompute_merged` tables for
+    :func:`project_nodes_merged` (``angles``, ``valid`` [P, T]): each
+    node's tables stacked, as the JAX loader vmaps them."""
+    nodes = [precompute_merged(cfg, angles[i], valid[i], table_dtype, dets)
+             for i in range(angles.shape[0])]
+    return {k: torch.stack([m[k] for m in nodes]) for k in nodes[0]}
+
+
 def precompute_grouped(cfg: GeometryConfig, angles: torch.Tensor,
                        valid: torch.Tensor, table_dtype=torch.float32,
                        fold_eval: bool | None = None, dets=None) -> dict:
@@ -405,11 +424,7 @@ def precompute_grouped(cfg: GeometryConfig, angles: torch.Tensor,
     if fold_eval:
         raise NotImplementedError("precompute_grouped: fold_eval is not "
                                   "ported (off by default in the JAX package)")
-    P = angles.shape[0]
-    nodes = [precompute_merged(cfg, angles[i], valid[i], table_dtype, dets)
-             for i in range(P)]
-    merged = {k: torch.stack([m[k] for m in nodes]) for k in nodes[0]}
-    del nodes
+    merged = precompute_merged_nodes(cfg, angles, valid, table_dtype, dets)
     use_c = merged["sel"][:, :, 0] > 0.5
     plan = filter_mxu.plan_branch_groups(use_c.cpu().numpy(),
                                          valid.cpu().numpy())
@@ -459,27 +474,32 @@ def _plane_spectra_t(rre2_bar, rim2_bar, t, dtype):
     return (rows2_bar[:, 0] + rows2_bar[:, 1].transpose(1, 2)).to(dtype)
 
 
+def _hat_on_the_fly(t) -> bool:
+    """Whether the materialized hat weights w [PT, T, D, Np] would pass
+    ``_HAT_MAX_BYTES``, so that the eval tail runs K17/K18."""
+    PT, T, D = t["p"].shape
+    return PT * T * D * t["Cre"].shape[-1] * 4 > _HAT_MAX_BYTES
+
+
 def _hat_weights(t, dtype):
     """The materialized hat w[p, t, d, v] = max(0, 1 - |p[p,t,d] - v|)."""
-    PT, T, D = t["p"].shape
     Np = t["Cre"].shape[-1]
-    if PT * T * D * Np * 4 > _HAT_MAX_BYTES:
-        raise NotImplementedError(
-            "fft_grouped eval tail: the hat weights would take "
-            f"{PT * T * D * Np * 4:.3g} bytes; the on-the-fly kernels "
-            "hat_eval/hat_eval_t (K17/K18) that take over there are not "
-            "ported")
     v_idx = torch.arange(Np, dtype=dtype, device=t["p"].device)
     return torch.clamp(1.0 - torch.abs(t["p"][..., None] - v_idx), min=0.0)
 
 
 def _eval_tail(g_re, g_im, t, dtype):
     """irfft matmul + hat evaluation + branch scale: [PB, T, F] spectra ->
-    [PB, T, D] sinograms (the JAX package's materialized-hat branch)."""
+    [PB, T, D] sinograms, through K17 past ``_HAT_MAX_BYTES`` and the
+    materialized hat weights below it."""
     PT = t["Cre"].shape[0]
     PB, T, _ = g_re.shape
     g = (torch.einsum("kptf,pfv->kptv", _kview(g_re, PT), t["Cre"])
          + torch.einsum("kptf,pfv->kptv", _kview(g_im, PT), t["Cim"]))
+    if _hat_on_the_fly(t):
+        out = hat_eval(g.reshape(PB, T, -1).contiguous(), t["p"],
+                       t["s"][..., None])
+        return out.to(dtype)
     out = torch.einsum("ptdv,kptv->kptd", _hat_weights(t, dtype), g.to(dtype))
     return (t["s"][..., None] * out).reshape(PB, T, -1)
 
@@ -489,11 +509,45 @@ def _eval_tail_t(sinos, t):
     ([PB, T, F], [PB, T, F]) spectrum cotangents."""
     PT = t["Cre"].shape[0]
     PB, T, _ = sinos.shape
-    g_bar = torch.einsum("ptdv,kptd->kptv", _hat_weights(t, sinos.dtype),
-                         t["s"][..., None] * _kview(sinos, PT))
+    if _hat_on_the_fly(t):
+        g_bar = _kview(hat_eval_t(sinos.to(torch.float32).contiguous(),
+                                  t["p"], t["s"][..., None],
+                                  t["Cre"].shape[-1]), PT)
+    else:
+        g_bar = torch.einsum("ptdv,kptd->kptv", _hat_weights(t, sinos.dtype),
+                             t["s"][..., None] * _kview(sinos, PT))
     g_re_bar = torch.einsum("kptv,pfv->kptf", g_bar, t["Cre"])
     g_im_bar = torch.einsum("kptv,pfv->kptf", g_bar, t["Cim"])
     return g_re_bar.reshape(PB, T, -1), g_im_bar.reshape(PB, T, -1)
+
+
+def project_nodes_merged(cfg: GeometryConfig, imgs: torch.Tensor,
+                         tables: dict) -> torch.Tensor:
+    """Batched forward projection [PB, N, N] -> [PB, T, D] on merged tables
+    (:func:`precompute_merged_nodes`): row DFTs, the select filter-sum (K11)
+    and the eval tail. Parallel beam only."""
+    if cfg.fan_beam:
+        raise NotImplementedError("fft_pallas supports parallel beam only")
+    t = tables
+    rre2, rim2 = _plane_spectra(imgs, t)
+    g_re, g_im = filter_sum_sel(rre2.contiguous(), rim2.contiguous(),
+                                t["Hre"], t["Him"], t["sel"])
+    return _eval_tail(g_re, g_im, t, imgs.dtype)
+
+
+def backproject_nodes_merged(cfg: GeometryConfig, sinos: torch.Tensor,
+                             tables: dict) -> torch.Tensor:
+    """Exact adjoint of :func:`project_nodes_merged`, composed by hand:
+    eval-tail transpose, the select transpose (K12) and the row-DFT
+    transpose."""
+    if cfg.fan_beam:
+        raise NotImplementedError("fft_pallas supports parallel beam only")
+    t = tables
+    g_re_bar, g_im_bar = _eval_tail_t(sinos, t)
+    rre2_bar, rim2_bar = filter_sum_sel_t(
+        g_re_bar.contiguous(), g_im_bar.contiguous(), t["Hre"], t["Him"],
+        t["sel"])
+    return _plane_spectra_t(rre2_bar, rim2_bar, t, sinos.dtype)
 
 
 def project_nodes_grouped(cfg: GeometryConfig, imgs: torch.Tensor,

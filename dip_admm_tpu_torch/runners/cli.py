@@ -5,7 +5,7 @@
         --recommended [--fan-beam] [--mode fft_grouped]
 
 Builds the problem (projector mode ``fft_skew`` or ``fft_grouped``, parallel
-or fan beam), runs decentralized
+or fan beam, or ``fft_pallas``, parallel beam), runs decentralized
 consensus ADMM and prints the JSON summary the JAX CLI prints
 (``{strategy: {tag, n_iters, final_primal, final_dual, mean_psnr,
 graph}}``). It takes the subset of the JAX CLI's flags that the port
@@ -77,11 +77,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fft-table-dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="storage dtype of the projector tables")
-    p.add_argument("--mode", choices=["auto", "fft_skew", "fft_grouped"],
+    p.add_argument("--mode",
+                   choices=["auto", "fft_skew", "fft_grouped", "fft_pallas"],
                    default="auto",
                    help="projector (auto = fft_skew, which the JAX package "
                         "picks above N = 128; its dense mode at N <= 128 is "
-                        "not ported)")
+                        "not ported; fft_pallas is parallel beam only)")
     p.add_argument("--use-pallas", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="fused edge-consensus kernel (default: auto, on a "

@@ -48,10 +48,11 @@ def test_cli_recommended_prints_summary():
     (["--fan-beam", "--mode", "fft_grouped", "--N", "24", "--nodes", "2",
       "--angles", "64"], 2),
     (["--mode", "fft_grouped", "--N", "32", "--nodes", "3"], 3),
-], ids=["fan", "fan_grouped", "grouped"])
+    (["--mode", "fft_pallas", "--N", "32", "--nodes", "3"], 3),
+], ids=["fan", "fan_grouped", "grouped", "pallas"])
 def test_cli_geometry_and_mode_print_summary(argv, nodes):
-    """``--fan-beam`` and ``--mode fft_grouped``, under the recommended
-    preset."""
+    """``--fan-beam``, ``--mode fft_grouped`` and ``--mode fft_pallas``,
+    under the recommended preset."""
     out = _cli("--device", "cpu", "--recommended", "--max-iters", "2", *argv)
     assert out.returncode == 0, out.stderr
     summary = json.loads(out.stdout)["knn"]
@@ -85,7 +86,7 @@ def test_cli_preset_resolution(argv, want):
     ("--N", "32"),  # no --device
     ("--device", "cpu", "--strategy", "mst"),
     ("--device", "cpu", "--mode", "dense"),
-    ("--device", "cpu", "--mode", "fft_pallas"),
+    ("--device", "cpu", "--mode", "fft_shear"),
     ("--device", "cpu", "--adapt-rho"),
     ("--device", "cpu", "--algorithm", "pcv"),
     ("--device", "cpu", "--z-fusion", "mean"),
@@ -94,6 +95,15 @@ def test_cli_rejects_unported_flags(args):
     out = _cli(*args)
     assert out.returncode != 0
     assert "error" in out.stderr
+
+
+def test_cli_rejects_fan_beam_fft_pallas():
+    out = _cli("--device", "cpu", "--fan-beam", "--mode", "fft_pallas",
+               "--N", "24", "--nodes", "2", "--angles", "64",
+               "--max-iters", "1")
+    assert out.returncode != 0
+    assert "parallel beam only" in out.stderr
+    assert out.stdout == ""
 
 
 def test_cli_cuda_without_a_card_fails():
@@ -105,4 +115,25 @@ def test_cli_cuda_without_a_card_fails():
                "--max-iters", "2")
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
+    assert out.stdout == ""
+
+
+def test_profile_busy_time_is_the_union_of_intervals():
+    from dip_admm_tpu_torch.runners import profile
+
+    assert profile._busy_us([(5, 7), (0, 2), (1, 3), (6, 6.5)]) == 5.0
+    assert profile._busy_us([]) == 0.0
+
+
+def test_profile_without_a_card_fails():
+    code = ("import torch, sys; sys.exit(0 if torch.cuda.is_available() "
+            "else 1)")
+    if subprocess.run([sys.executable, "-c", code]).returncode == 0:
+        pytest.skip("this host has a CUDA device")
+    out = subprocess.run(
+        [sys.executable, "-m", "dip_admm_tpu_torch.runners.profile", "--N",
+         "32", "--nodes", "3"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode != 0
+    assert "needs a CUDA device" in out.stderr
     assert out.stdout == ""

@@ -13,7 +13,12 @@ elementwise f32 ops, and its per-pair sums taken in another order), and
 1e-5 for the grouped filter-sum kernels K13/K14 with either table type (a
 bf16 table is upcast exactly; only the order of the f32 sums differs); two
 K5 calls, and two K13/K14 calls, on the same inputs must agree bit for
-bit."""
+bit. The select filter-sum kernels K11/K12 are held to 1e-5 with either
+table type (a bf16 table is upcast exactly; the sums run in another order,
+and the plain forward blends both planes by sel where the kernel reads the
+selected one, an f32 rounding per term), and the hat kernels K17/K18 to
+1e-5 (f32 throughout, other sum order). Two calls of each must agree bit
+for bit."""
 
 import pytest
 import torch
@@ -22,6 +27,7 @@ from dip_admm_tpu_torch.config import GeometryConfig
 from dip_admm_tpu_torch.ops import radon, radon_fan, radon_fft
 from dip_admm_tpu_torch.ops.kernels import consensus as cons
 from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
+from dip_admm_tpu_torch.ops.kernels import hat_eval as he
 from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
 
 pytestmark = pytest.mark.cuda
@@ -160,7 +166,9 @@ def test_grouped_kernels_match_plain_and_repeat(shape, dtype):
         torch.cuda.synchronize()
         _assert_close(got, want, 1e-5)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
-    assert fs.launch_counts() == {k: c + 2 for k, c in before.items()}
+    after = fs.launch_counts()
+    for k in ("filter_sum_grouped", "filter_sum_grouped_t"):
+        assert after[k] == before[k] + 2
 
 
 def test_grouped_wrappers_reject_bad_inputs():
@@ -275,3 +283,153 @@ def test_consensus_rejects_bad_inputs():
                               "weighted")
     with pytest.raises(ValueError):
         cons.consensus_update(a, y, z, adjm.cpu())  # device
+
+
+def _sel_inputs(dev, dtype, PB, PT, T, N, F, seed=5):
+    """Tables of PT sets (set 0 all plane 0, set 1 all plane 1, the rest
+    mixed), spectra and cotangents of PB images."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    H = [torch.randn((PT, T, N, F), generator=gen, device=dev).to(dtype)
+         for _ in range(2)]
+    sel = (torch.rand((PT, T, 1), generator=gen, device=dev) > 0.5).float()
+    sel[0] = 0.0
+    if PT > 1:
+        sel[1] = 1.0
+    r = [torch.randn((PB, 2, N, F), generator=gen, device=dev)
+         for _ in range(2)]
+    g = [torch.randn((PB, T, F), generator=gen, device=dev)
+         for _ in range(2)]
+    return H, sel, r, g
+
+
+# (PB, PT, T, N, F): the 512^2/8 shapes at a smaller N and F, tiles that
+# divide neither T, N nor F, and three images per table set.
+SEL_SHAPES = [(8, 8, 192, 64, 129), (3, 3, 13, 45, 70), (6, 2, 16, 40, 65)]
+
+
+@pytest.mark.parametrize("shape", SEL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sel_kernels_match_plain_and_repeat(shape, dtype):
+    dev = _device()
+    PB, PT, T, N, F = shape
+    (hr, hi), sel, (rr, ri), (gr, gi) = _sel_inputs(dev, dtype, *shape)
+    before = fs.launch_counts()
+    for kern, ref, args in (
+            (fs.filter_sum_sel, fs.filter_sum_sel_ref, (rr, ri, hr, hi, sel)),
+            (fs.filter_sum_sel_t, fs.filter_sum_sel_t_ref,
+             (gr, gi, hr, hi, sel))):
+        got, again, want = kern(*args), kern(*args), ref(*args)
+        torch.cuda.synchronize()
+        _assert_close(got, want, 1e-5)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    after = fs.launch_counts()
+    assert after["filter_sum_sel"] == before["filter_sum_sel"] + 2
+    assert after["filter_sum_sel_t"] == before["filter_sum_sel_t"] + 2
+
+
+def test_sel_t_writes_zero_to_a_plane_no_angle_selects():
+    dev = _device()
+    (hr, hi), sel, _, (gr, gi) = _sel_inputs(dev, torch.bfloat16, 4, 2, 24,
+                                             32, 65)
+    rre, rim = fs.filter_sum_sel_t(gr, gi, hr, hi, sel)
+    torch.cuda.synchronize()
+    for p in range(4):  # table set 0 reads plane 0 only, set 1 plane 1 only
+        unread = 1 - p % 2
+        for out in (rre, rim):
+            assert torch.equal(out[p, unread], torch.zeros_like(out[p, 0]))
+            assert float(out[p, 1 - unread].abs().max()) > 0
+
+
+def test_sel_wrappers_reject_bad_inputs():
+    dev = _device()
+    (hr, hi), sel, (rr, ri), (gr, gi) = _sel_inputs(dev, torch.bfloat16, 4,
+                                                    2, 8, 32, 33)
+    with pytest.raises(TypeError):
+        fs.filter_sum_sel(rr.double(), ri, hr, hi, sel)  # spectra f32
+    with pytest.raises(TypeError):
+        fs.filter_sum_sel(rr, ri, hr, hi.float(), sel)  # one table dtype
+    with pytest.raises(ValueError):
+        fs.filter_sum_sel(rr[:3].contiguous(), ri[:3].contiguous(), hr, hi,
+                          sel)  # 3 images, 2 table sets
+    with pytest.raises(ValueError):
+        fs.filter_sum_sel(rr, ri, hr, hi, sel[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        fs.filter_sum_sel_t(gr.transpose(1, 2), gi, hr, hi, sel)
+    with pytest.raises(ValueError):
+        fs.filter_sum_sel_t(gr, gi.cpu(), hr, hi, sel)  # device
+
+
+def _hat_inputs(dev, PB, PT, T, D, Np, seed=6):
+    """Coordinates that rise along d, fall along d (every other row) and, in
+    row 1 of each set, jump about (not monotone); a third of the taps fall
+    outside [0, Np)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pc = torch.rand((PT, T, D), generator=gen, device=dev) * (Np + 5) - 3
+    pc = torch.sort(pc, dim=-1).values
+    pc[:, ::2] = pc[:, ::2].flip(-1)
+    pc[:, 1] = pc[:, 1, torch.randperm(D, generator=gen, device=dev)]
+    s = torch.rand((PT, T, 1), generator=gen, device=dev) + 0.5
+    g = torch.randn((PB, T, Np), generator=gen, device=dev)
+    ob = torch.randn((PB, T, D), generator=gen, device=dev)
+    return pc.contiguous(), s, g, ob
+
+
+# (PB, PT, T, D, Np): the 512^2/8 shapes, odd sizes, three images per set.
+HAT_SHAPES = [(8, 8, 192, 512, 2048), (3, 3, 7, 45, 97), (6, 2, 16, 40, 128)]
+
+
+@pytest.mark.parametrize("shape", HAT_SHAPES)
+def test_hat_kernels_match_plain_and_repeat(shape):
+    dev = _device()
+    PB, PT, T, D, Np = shape
+    pc, s, g, ob = _hat_inputs(dev, *shape)
+    before = he.launch_counts()
+    for kern, ref, args in ((he.hat_eval, he.hat_eval_ref, (g, pc, s)),
+                            (he.hat_eval_t, he.hat_eval_t_ref,
+                             (ob, pc, s, Np))):
+        got, again, want = kern(*args), kern(*args), ref(*args)
+        torch.cuda.synchronize()
+        _assert_close(got, want, 1e-5)
+        assert torch.equal(got, again)
+    assert he.launch_counts() == {k: c + 2 for k, c in before.items()}
+
+
+def test_hat_wrappers_reject_bad_inputs():
+    dev = _device()
+    pc, s, g, ob = _hat_inputs(dev, 4, 2, 8, 32, 64)
+    with pytest.raises(TypeError):
+        he.hat_eval(g.double(), pc, s)
+    with pytest.raises(ValueError):
+        he.hat_eval(g[:3].contiguous(), pc, s)  # 3 images, 2 geometry sets
+    with pytest.raises(ValueError):
+        he.hat_eval(g, pc, s[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        he.hat_eval_t(ob.transpose(1, 2), pc, s, 64)
+    with pytest.raises(ValueError):
+        he.hat_eval_t(ob, pc.cpu(), s, 64)  # device
+
+
+def test_pallas_adjoint_identity_through_kernels(monkeypatch):
+    """fft_pallas through K11/K12 and, with the threshold at 0, K17/K18."""
+    dev = _device()
+    geo = GeometryConfig(N=48, num_nodes=3, angles_total=45)
+    a, v, _ = radon.node_angles(geo)
+    t = radon_fft.precompute_merged_nodes(
+        geo, torch.as_tensor(a, dtype=torch.float32, device=dev),
+        torch.as_tensor(v, device=dev))
+    monkeypatch.setattr(radon_fft, "_HAT_MAX_BYTES", 0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((3, geo.N, geo.N), generator=gen, device=dev)
+    y = torch.randn((3, max(geo.angles_per_node()), geo.N), generator=gen,
+                    device=dev)
+    before = {**fs.launch_counts(), **he.launch_counts()}
+    Ax = radon_fft.project_nodes_merged(geo, x, t)
+    Aty = radon_fft.backproject_nodes_merged(geo, y, t)
+    after = {**fs.launch_counts(), **he.launch_counts()}
+    for k in ("filter_sum_sel", "filter_sum_sel_t", "hat_eval",
+              "hat_eval_t"):
+        assert after[k] == before[k] + 1, k
+    lhs = float(torch.sum(Ax.double() * y.double()))
+    rhs = float(torch.sum(x.double() * Aty.double()))
+    rel = abs(lhs - rhs) / float(torch.linalg.norm(Ax) * torch.linalg.norm(y))
+    assert rel <= 1e-5, rel

@@ -127,5 +127,6 @@ def test_cpu_path_counts_no_launch():
     tfs.filter_sum_grouped(r, r, ht, hit)
     tfs.filter_sum_grouped_t(torch.zeros((2, TP, F)), torch.zeros((2, TP, F)),
                              ht, hit, TB)
-    assert tfs.launch_counts() == {"filter_sum_grouped": 0,
-                                   "filter_sum_grouped_t": 0}
+    assert tfs.launch_counts() == {
+        "filter_sum_sel": 0, "filter_sum_sel_t": 0,
+        "filter_sum_grouped": 0, "filter_sum_grouped_t": 0}

@@ -1,0 +1,205 @@
+"""The hat-evaluation kernels K17/K18 of the PyTorch port against the JAX
+package, on the CPU: their plain versions against the JAX Pallas kernels
+``hat_eval``/``hat_eval_t`` in interpret mode on numpy-seeded inputs (taps
+inside and outside [0, Np), one geometry set per image and three images per
+set), and the projectors' eval tail through its kernel branch, which no CPU
+test reaches at its real threshold (1.5e9 bytes of hat weights): with
+``_HAT_MAX_BYTES`` monkeypatched to 0 the port's tail runs the kernels'
+plain versions and is held to the JAX package's materialized tail and to
+its ``hat_eval`` in interpret mode.
+
+Tolerance: 1e-5 of the output's max (every weight and product is f32 on
+both sides; only the order of the sums differs, and the TPU forward kernel
+scales each v tile's partial sum before adding it)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dip_admm_tpu.ops import radon_fft as jfft
+from dip_admm_tpu.ops.pallas import hat_eval as jhe
+from dip_admm_tpu_torch import config as tcfg
+from dip_admm_tpu_torch.ops import radon as tradon
+from dip_admm_tpu_torch.ops import radon_fft as tfft
+from dip_admm_tpu_torch.ops.kernels import hat_eval as the
+
+torch.set_num_threads(2)
+
+RTOL = 1e-5
+T, D, NP = 8, 16, 64
+
+
+def _close(got, want, rtol=RTOL):
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * scale)
+
+
+def _geometry(PT, seed=0):
+    """pc [PT, T, D] sorted along d (as the projectors' coordinates are), a
+    third of each row below 0 or above Np - 1, and s [PT, T, 1]."""
+    rng = np.random.default_rng(seed)
+    pc = np.sort(rng.uniform(-3.0, NP + 2.0, (PT, T, D)), axis=-1)
+    pc[:, ::2] = pc[:, ::2, ::-1]  # every other row falls along d
+    s = rng.uniform(0.5, 1.5, (PT, T, 1))
+    return pc.astype(np.float32), s.astype(np.float32)
+
+
+def _jax_batched(fn, x, PB, PT):
+    """fn over PB images against PT geometry sets, as the JAX package runs
+    it: directly when PB = PT, else vmapped over PB // PT groups."""
+    if PB == PT:
+        return np.asarray(fn(x))
+    out = jax.vmap(fn)(x.reshape((PB // PT, PT) + x.shape[1:]))
+    return np.asarray(out).reshape((PB,) + out.shape[2:])
+
+
+BATCHES = [(2, 2), (6, 2)]
+
+
+@pytest.mark.parametrize("batch", BATCHES, ids=["PB2PT2", "PB6PT2"])
+def test_hat_eval_matches_jax(batch):
+    PB, PT = batch
+    pc, s = _geometry(PT)
+    g = np.random.default_rng(1).standard_normal((PB, T, NP)).astype(
+        np.float32)
+    want = _jax_batched(
+        lambda a: jhe.hat_eval(a, jnp.asarray(pc), jnp.asarray(s)),
+        jnp.asarray(g), PB, PT)
+    got = the.hat_eval(torch.as_tensor(g), torch.as_tensor(pc),
+                       torch.as_tensor(s))
+    assert got.shape == (PB, T, D)
+    _close(got, want)
+    if PB == PT:
+        _close(got, jhe.hat_eval_reference(jnp.asarray(g), jnp.asarray(pc),
+                                           jnp.asarray(s)))
+
+
+@pytest.mark.parametrize("batch", BATCHES, ids=["PB2PT2", "PB6PT2"])
+def test_hat_eval_t_matches_jax(batch):
+    PB, PT = batch
+    pc, s = _geometry(PT)
+    ob = np.random.default_rng(2).standard_normal((PB, T, D)).astype(
+        np.float32)
+    want = _jax_batched(
+        lambda a: jhe.hat_eval_t(a, jnp.asarray(pc), jnp.asarray(s),
+                                 jnp.zeros((NP,))),
+        jnp.asarray(ob), PB, PT)
+    got = the.hat_eval_t(torch.as_tensor(ob), torch.as_tensor(pc),
+                         torch.as_tensor(s), NP)
+    assert got.shape == (PB, T, NP)
+    _close(got, want)
+
+
+def test_hat_pair_is_a_transpose():
+    pc, s = _geometry(2, seed=3)
+    gen = torch.Generator().manual_seed(4)
+    g = torch.randn((6, T, NP), generator=gen, dtype=torch.float64)
+    ob = torch.randn((6, T, D), generator=gen, dtype=torch.float64)
+    pct, st = torch.as_tensor(pc), torch.as_tensor(s)
+    lhs = float((the.hat_eval(g.float(), pct, st).double() * ob).sum())
+    rhs = float((g * the.hat_eval_t(ob.float(), pct, st, NP).double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+def test_hat_cpu_path_counts_no_launch():
+    pc, s = _geometry(1)
+    pct, st = torch.as_tensor(pc), torch.as_tensor(s)
+    the.reset_launch_counts()
+    the.hat_eval(torch.zeros((2, T, NP)), pct, st)
+    the.hat_eval_t(torch.zeros((2, T, D)), pct, st, NP)
+    assert the.launch_counts() == {"hat_eval": 0, "hat_eval_t": 0}
+
+
+def test_hat_rejects_a_geometry_batch_that_does_not_divide():
+    pc, s = _geometry(2)
+    with pytest.raises(ValueError):  # 3 images, 2 geometry sets
+        the.hat_eval(torch.zeros((3, T, NP)), torch.as_tensor(pc),
+                     torch.as_tensor(s))
+
+
+# ---------------------------------------------------------------------------
+# The eval tail's kernel branch
+# ---------------------------------------------------------------------------
+
+
+def _tables(N=32, P=3, angles_total=30):
+    geo = tcfg.GeometryConfig(N=N, num_nodes=P, angles_total=angles_total)
+    a, v, _ = tradon.node_angles(geo)
+    tt = tfft.precompute_merged_nodes(
+        geo, torch.as_tensor(a, dtype=torch.float32), torch.as_tensor(v))
+    # The JAX tail reads p, s and the irfft matrices: give it the port's.
+    tj = {k: jnp.asarray(tt[k].numpy()) for k in ("p", "s", "Cre", "Cim")}
+    return geo, tt, tj
+
+
+def _spectra(tt, seed=0):
+    P, T_, _ = tt["p"].shape
+    F = tt["Cre"].shape[1]
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((2, P, T_, F)).astype(np.float32)
+
+
+@pytest.fixture
+def kernel_branch(monkeypatch):
+    """The eval tail as it runs past the threshold."""
+    monkeypatch.setattr(tfft, "_HAT_MAX_BYTES", 0)
+
+
+def test_tail_threshold_rule():
+    _, tt, _ = _tables()
+    assert not tfft._hat_on_the_fly(tt)  # 3 * 10 * 32 * 128 * 4 bytes
+
+
+def test_eval_tail_kernel_branch_matches_jax(kernel_branch):
+    _, tt, tj = _tables()
+    assert tfft._hat_on_the_fly(tt)
+    g = _spectra(tt)
+    got = tfft._eval_tail(torch.as_tensor(g[0]), torch.as_tensor(g[1]), tt,
+                          torch.float32)
+    # JAX's tail at this size takes its materialized branch ...
+    want = jfft._eval_tail(jnp.asarray(g[0]), jnp.asarray(g[1]), tj,
+                           jnp.float32)
+    _close(got, want)
+    # ... and its kernel, on the same profile, gives the same.
+    prof = jfft._ein32("ptf,pfv->ptv", jnp.asarray(g[0]), tj["Cre"]) \
+        + jfft._ein32("ptf,pfv->ptv", jnp.asarray(g[1]), tj["Cim"])
+    _close(got, jhe.hat_eval(prof, tj["p"], tj["s"][..., None]))
+
+
+def test_eval_tail_t_kernel_branch_matches_jax(kernel_branch):
+    _, tt, tj = _tables()
+    P, T_, D_ = tt["p"].shape
+    ob = np.random.default_rng(1).standard_normal((P, T_, D_)).astype(
+        np.float32)
+    got = tfft._eval_tail_t(torch.as_tensor(ob), tt)
+    want = jfft._eval_tail_t(jnp.asarray(ob), tj)
+    for a, w in zip(got, want):
+        _close(a, w)
+
+
+@pytest.mark.parametrize("mode", ["merged", "grouped"])
+def test_operators_through_kernel_branch_match_materialized(mode,
+                                                            monkeypatch):
+    """The fft_pallas and fft_grouped pairs give the same operator through
+    either tail."""
+    geo, _, _ = _tables()
+    a, v, _ = tradon.node_angles(geo)
+    at, vt = torch.as_tensor(a, dtype=torch.float32), torch.as_tensor(v)
+    pre = (tfft.precompute_merged_nodes if mode == "merged"
+           else tfft.precompute_grouped)
+    t = pre(geo, at, vt)
+    fwd = getattr(tfft, f"project_nodes_{mode}")
+    adj = getattr(tfft, f"backproject_nodes_{mode}")
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.standard_normal((3, 32, 32)).astype(np.float32))
+    y = torch.as_tensor(rng.standard_normal((3, 10, 32)).astype(np.float32))
+    want = fwd(geo, x, t), adj(geo, y, t)
+    monkeypatch.setattr(tfft, "_HAT_MAX_BYTES", 0)
+    got = fwd(geo, x, t), adj(geo, y, t)
+    for g_, w in zip(got, want):
+        _close(g_, w.numpy())
