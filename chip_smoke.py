@@ -63,9 +63,8 @@ kernel):
                  with bf16 H (error <= 2e-3 of the output's max) and the
                  hat kernels K17/K18 (error <= 1e-5), each against its
                  plain version, two calls bitwise equal, timed as in phase
-                 3; both 512^2 apply pairs (and the ``fft_skew`` one); and
-                 the 256^2/8 ``fft_pallas`` pair with its tail materialized
-                 and through K17/K18.
+                 3; both 512^2 apply pairs; and the 256^2/8 ``fft_pallas``
+                 pair with its tail materialized and through K17/K18.
 13. p512_adjoint - <Ax, y> = <x, A^T y> with f32 tables through
                  ``fft_pallas`` at 256^2/8 (materialized tail) and 512^2/8
                  (K17/K18), and ``fft_grouped`` at 512^2/8, relative error
@@ -76,7 +75,9 @@ kernel):
                  grouped run, K5 exactly once per outer on both; finite
                  residuals and a mean PSNR within 0.5 dB of the JAX
                  package's 39.7 dB. Each prints its preconditioner's build
-                 seconds.
+                 seconds, then a ``torch.profiler`` profile of one more
+                 outer after two warm ones: host seconds, the device's busy
+                 seconds and idle share, and its eight costliest ops.
 
 Every kernel line gives the kernel's time, its plain version's, its bound
 (the larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s f32
@@ -765,8 +766,10 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
     D = pc.shape[-1]
     prof = torch.randn((P, T, Np), generator=gen, device=dev)
     ob = torch.randn((P, T, D), generator=gen, device=dev)
-    # Library yardstick for K17: grid_sample, 1-D linear with zero padding
-    # (align_corners: x = -1 is v = 0, x = 1 is v = Np - 1), times s.
+    # Library yardsticks: grid_sample, 1-D linear with zero padding
+    # (align_corners: x = -1 is v = 0, x = 1 is v = Np - 1), times s for
+    # K17; for K18 its input gradient (grid_sample's backward, bilinear =
+    # 0, zeros = 0) at s * ob.
     x = (2.0 * pc / (Np - 1) - 1.0).repeat(P // PT, 1, 1)
     grid = torch.stack([x, torch.zeros_like(x)], -1).reshape(P * T, 1, D, 2)
     s_b = s.repeat(P // PT, 1, 1)
@@ -777,7 +780,10 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
                                     padding_mode="zeros", align_corners=True
                                     ).reshape(P, T, D) * s_b),
             ("hat_eval_t", he.hat_eval_t, he.hat_eval_t_ref,
-             (ob, pc, s, Np), None)):
+             (ob, pc, s, Np),
+             lambda: torch.ops.aten.grid_sampler_2d_backward(
+                 (ob * s_b).reshape(P * T, 1, 1, D), img, grid, 0, 0, True,
+                 [True, False])[0].reshape(P, T, Np))):
         got, out[name] = _compare(torch, name, kern, ref, args, HAT_RTOL,
                                   failures, note="[512^2/8]", library=lib)
         again = kern(*args)
@@ -807,16 +813,6 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
               f"backproject, bf16 tables, P={P} N={N} T={T}, hat tail "
               f"{'K17/K18' if radon_fft._hat_on_the_fly(t) else 'einsum'})",
               flush=True)
-    # The third parallel mode at the same size, for comparison.
-    cfg = problems["fft_pallas"].cfg
-    a, v = problems["fft_pallas"].angles, problems["fft_pallas"].angle_valid
-    t = loader.build_fft_tables(cfg, a, v, "fft_skew")
-    out["p512_fft_skew_apply_pair_ms"] = ms = _pair_ms(
-        torch, radon_fft.project_nodes_skew, radon_fft.backproject_nodes_skew,
-        geo, t, im)
-    print(f"p512_kernels: mode=fft_skew apply_pair_ms={ms} (bf16 tables, "
-          f"P={P} N={N} T={T})", flush=True)
-    del t
     cfg = _bench_cfg("bfloat16")
     geo = cfg.geometry
     a, v, _ = radon.node_angles(geo)
@@ -896,7 +892,56 @@ def phase_p512_runs(torch, cfg, problems, failures) -> dict:
                                        failures, kernels)
         print(f"{tag}: precond_build_s={precond_s} certified_step="
               f"{step.tolist()} {line}", flush=True)
+        print(f"{tag}_profile: {_profile_outer(torch, problem, rec)}",
+              flush=True)
     return counts
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _profile_outer(torch, problem, admm_cfg, warmup=2, top=8) -> str:
+    """Device profile of one outer of ``admm_cfg`` after ``warmup`` outers
+    (the preconditioner built before, as ``run_admm`` does): the host
+    seconds under ``torch.profiler`` (whose per-op cost inflates them), the
+    device's busy seconds (the union of its kernel, copy and set intervals),
+    its idle share, and the ``top`` device ops by total time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dip_admm_tpu_torch.core import admm
+
+    state, hist = admm.init_state(problem, admm_cfg)
+    data = admm.block_data(problem, admm_cfg)
+    for _ in range(warmup):
+        state = admm.admm_iteration(data, admm_cfg, state, hist)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        admm.admm_iteration(data, admm_cfg, state, hist)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_s = 1e-6 * _busy_us((e.time_range.start, e.time_range.end)
+                             for e in events)
+    by_name: dict = {}
+    for e in events:
+        ms, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + 1e-3 * (e.time_range.end - e.time_range.start),
+                           calls + 1)
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return (f"host_s={host_s} device_busy_s={busy_s} "
+            f"device_idle_share={1.0 - busy_s / host_s} top_device_ms="
+            + json.dumps([{"name": n[:80], "ms": ms, "calls": c}
+                          for n, (ms, c) in ops]))
 
 
 def main() -> int:

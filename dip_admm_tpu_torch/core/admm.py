@@ -207,8 +207,10 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
                      rho_scale=state.rho_scale)
 
 
-def _block_data(problem: Problem, cfg: AdmmConfig,
-                lanczos_v0: torch.Tensor | None = None) -> NodeBlockData:
+def block_data(problem: Problem, cfg: AdmmConfig,
+               lanczos_v0: torch.Tensor | None = None) -> NodeBlockData:
+    """The constants of a run that ``admm_iteration`` reads (operators,
+    Lipschitz bound, fcv preconditioner), as ``run_admm`` builds them."""
     # Lipschitz bound of the node solves: ||A^T A|| + rho * max_p sum_j Q.
     D_vec = torch.sum(problem.Q, dim=1)
     L = problem.opnorm + cfg.rho * torch.amax(D_vec, dim=-1)
@@ -277,7 +279,7 @@ def run_admm(
     if hist is None:
         raise ValueError("run_admm: resuming needs the history with the state")
     until = cfg.max_iters if until is None else min(until, cfg.max_iters)
-    data = _block_data(problem, cfg, lanczos_v0)
+    data = block_data(problem, cfg, lanczos_v0)
     while state.k < until and not state.stop:
         state = admm_iteration(data, cfg, state, hist)
     return AdmmResult(x=state.node.x, history=hist, n_iters=state.k,

@@ -203,6 +203,23 @@ def test_resume_equals_straight_run(bundle):
                                           v.numpy())
 
 
+def test_stepping_outers_equals_run_admm(bundle):
+    """``block_data`` and ``admm_iteration``, one outer at a time (as the
+    chip smoke's profile steps them), give what ``run_admm`` gives, bit for
+    bit, under the recommended preset."""
+    _, _, path = bundle
+    tp = tser.load_problem(path, "cpu")
+    cfg = _over(tp.cfg.admm, RECOMMENDED)
+    straight = tadmm.run_admm(tp, cfg)
+    state, hist = tadmm.init_state(tp, cfg)
+    data = tadmm.block_data(tp, cfg)
+    while state.k < cfg.max_iters:
+        state = tadmm.admm_iteration(data, cfg, state, hist)
+    np.testing.assert_array_equal(state.node.x.numpy(), straight.x.numpy())
+    for name, v in straight.history.items():
+        np.testing.assert_array_equal(hist[name].numpy(), v.numpy())
+
+
 def test_resume_from_jax_state(bundle, jax_run, jax_rec_run):
     """JAX runs two outers; the port continues from JAX's state and
     history (state_from_numpy) and lands where JAX's third outer does,

@@ -118,22 +118,25 @@ def test_cli_cuda_without_a_card_fails():
     assert out.stdout == ""
 
 
-def test_profile_busy_time_is_the_union_of_intervals():
-    from dip_admm_tpu_torch.runners import profile
+def test_smoke_busy_time_is_the_union_of_intervals():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
 
-    assert profile._busy_us([(5, 7), (0, 2), (1, 3), (6, 6.5)]) == 5.0
-    assert profile._busy_us([]) == 0.0
+    assert chip_smoke._busy_us([(5, 7), (0, 2), (1, 3), (6, 6.5)]) == 5.0
+    assert chip_smoke._busy_us([]) == 0.0
 
 
-def test_profile_without_a_card_fails():
+def test_smoke_without_a_card_fails():
     code = ("import torch, sys; sys.exit(0 if torch.cuda.is_available() "
             "else 1)")
     if subprocess.run([sys.executable, "-c", code]).returncode == 0:
         pytest.skip("this host has a CUDA device")
     out = subprocess.run(
-        [sys.executable, "-m", "dip_admm_tpu_torch.runners.profile", "--N",
-         "32", "--nodes", "3"], cwd=ROOT, capture_output=True, text=True,
-        timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode != 0
-    assert "needs a CUDA device" in out.stderr
+    assert "no CUDA device" in out.stderr
     assert out.stdout == ""

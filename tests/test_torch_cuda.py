@@ -166,9 +166,9 @@ def test_grouped_kernels_match_plain_and_repeat(shape, dtype):
         torch.cuda.synchronize()
         _assert_close(got, want, 1e-5)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
-    after = fs.launch_counts()
-    for k in ("filter_sum_grouped", "filter_sum_grouped_t"):
-        assert after[k] == before[k] + 2
+    assert fs.launch_counts() == {
+        **before, "filter_sum_grouped": before["filter_sum_grouped"] + 2,
+        "filter_sum_grouped_t": before["filter_sum_grouped_t"] + 2}
 
 
 def test_grouped_wrappers_reject_bad_inputs():
@@ -322,9 +322,9 @@ def test_sel_kernels_match_plain_and_repeat(shape, dtype):
         torch.cuda.synchronize()
         _assert_close(got, want, 1e-5)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
-    after = fs.launch_counts()
-    assert after["filter_sum_sel"] == before["filter_sum_sel"] + 2
-    assert after["filter_sum_sel_t"] == before["filter_sum_sel_t"] + 2
+    assert fs.launch_counts() == {
+        **before, "filter_sum_sel": before["filter_sum_sel"] + 2,
+        "filter_sum_sel_t": before["filter_sum_sel_t"] + 2}
 
 
 def test_sel_t_writes_zero_to_a_plane_no_angle_selects():
@@ -425,10 +425,9 @@ def test_pallas_adjoint_identity_through_kernels(monkeypatch):
     before = {**fs.launch_counts(), **he.launch_counts()}
     Ax = radon_fft.project_nodes_merged(geo, x, t)
     Aty = radon_fft.backproject_nodes_merged(geo, y, t)
-    after = {**fs.launch_counts(), **he.launch_counts()}
-    for k in ("filter_sum_sel", "filter_sum_sel_t", "hat_eval",
-              "hat_eval_t"):
-        assert after[k] == before[k] + 1, k
+    assert {**fs.launch_counts(), **he.launch_counts()} == {
+        **before, **{k: before[k] + 1 for k in (
+            "filter_sum_sel", "filter_sum_sel_t", "hat_eval", "hat_eval_t")}}
     lhs = float(torch.sum(Ax.double() * y.double()))
     rhs = float(torch.sum(x.double() * Aty.double()))
     rel = abs(lhs - rhs) / float(torch.linalg.norm(Ax) * torch.linalg.norm(y))
