@@ -78,16 +78,35 @@ kernel):
                  seconds, then a ``torch.profiler`` profile of one more
                  outer after two warm ones: host seconds, the device's busy
                  seconds and idle share, and its eight costliest ops.
+15. sm_problem - builds the 256^2/8 bench problem (bf16 tables) twice, for
+                 ``fft_shear`` and ``fft_mxu``, and prints each build's
+                 seconds and table GiB.
+16. sm_kernels - at those shapes, with the problems' bf16 tables, the shear
+                 kernels K7/K8 and the tiled filter-sums K15/K16 against
+                 their plain versions (error <= 2e-3 of the output's max,
+                 two calls bitwise equal), timed as in phase 3; both apply
+                 pairs at 256^2/8, and both at 512^2/8 from their tables
+                 alone.
+17. sm_adjoint - <Ax, y> = <x, A^T y> with f32 tables through ``fft_shear``
+                 and ``fft_mxu`` at 256^2/8, relative error <= 1e-5 each.
+18. sm_shear, sm_mxu - 20 outers of the recommended preset on each problem
+                 through ``run_admm``: K7, K8, K3 and K4 must launch on the
+                 shear run and K1/K2 must not, K15/K16 must launch on the
+                 mxu run, K5 exactly once per outer on both; finite
+                 residuals and a mean PSNR within 0.5 dB of 34.19 dB. Each
+                 prints its preconditioner's build seconds and a profile of
+                 one more outer, as phase 14 does.
 
 Every kernel line gives the kernel's time, its plain version's, its bound
 (the larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s f32
 or 989 TFLOP/s bf16, counted from this call's inputs) and, where one
 PyTorch call computes the same function, that call's time
 (``library_ms``). The launch counters are set to 0 just before each of the
-six runs and read just after. Then a JSON line with each kernel's route,
-source, launches in the six runs together, error, times and bound (K1-K5
-at the parallel 256^2 shapes, K13/K14 at the fan shapes, K11/K12/K17/K18
-at the 512^2 shapes; the largest error of any call); the ``nvidia-smi``
+eight runs and read just after. Then a JSON line with each kernel's route,
+source, launches in the eight runs together, error, times and bound
+(K1-K5, K7, K8, K15 and K16 at the parallel 256^2 shapes, K13/K14 at the
+fan shapes, K11/K12/K17/K18 at the 512^2 shapes; the largest error of any
+call); the ``nvidia-smi``
 name/power-limit line; and last ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or when any phase fails, it exits non-zero and prints no
 result.
@@ -119,7 +138,7 @@ K5_RTOL = 1e-5
 ADJOINT_TOL = 1e-5
 TIMED_RUNS = 20
 HAT_RTOL = 1e-5
-LIBRARIES = ("shear_sum", "consensus", "filter_sum", "hat_eval")
+LIBRARIES = ("shear_sum", "consensus", "filter_sum", "hat_eval", "filter_mxu")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 F32_FLOPS = 67e12  # off the tensor cores
 BF16_FLOPS = 989e12  # dense, on the tensor cores
@@ -135,6 +154,10 @@ SOURCE = {
     "filter_sum_sel_t": "dip_admm_tpu_torch/csrc/filter_sum.cu",
     "hat_eval": "dip_admm_tpu_torch/csrc/hat_eval.cu",
     "hat_eval_t": "dip_admm_tpu_torch/csrc/hat_eval.cu",
+    "shear_sum_planes": "dip_admm_tpu_torch/csrc/shear_sum.cu",
+    "shear_sum_planes_t": "dip_admm_tpu_torch/csrc/shear_sum.cu",
+    "filter_sum_mxu": "dip_admm_tpu_torch/csrc/filter_mxu.cu",
+    "filter_sum_mxu_t": "dip_admm_tpu_torch/csrc/filter_mxu.cu",
 }
 REPLACES = {
     "skew_sum_planes": "dip_admm_tpu/ops/pallas/shear_sum.py:983",
@@ -148,11 +171,18 @@ REPLACES = {
     "filter_sum_sel_t": "dip_admm_tpu/ops/pallas/filter_sum.py:394",
     "hat_eval": "dip_admm_tpu/ops/pallas/hat_eval.py:147",
     "hat_eval_t": "dip_admm_tpu/ops/pallas/hat_eval.py:166",
+    "shear_sum_planes": "dip_admm_tpu/ops/pallas/shear_sum.py:685",
+    "shear_sum_planes_t": "dip_admm_tpu/ops/pallas/shear_sum.py:703",
+    "filter_sum_mxu": "dip_admm_tpu/ops/pallas/filter_mxu.py:314",
+    "filter_sum_mxu_t": "dip_admm_tpu/ops/pallas/filter_mxu.py:341",
 }
 SKEW = ("skew_sum_planes", "skew_sum_planes_t", "eval_shear", "eval_shear_t")
 GROUPED = ("filter_sum_grouped", "filter_sum_grouped_t")
 HAT = ("hat_eval", "hat_eval_t")
 PALLAS = ("filter_sum_sel", "filter_sum_sel_t")
+SHEAR = ("shear_sum_planes", "shear_sum_planes_t", "eval_shear",
+         "eval_shear_t")
+MXU = ("filter_sum_mxu", "filter_sum_mxu_t")
 
 
 def _bench_cfg(table_dtype: str, fan_beam: bool = False, N: int = 256):
@@ -201,10 +231,10 @@ def _time_ms(torch, fn) -> float:
 
 def _kernel_modules():
     from dip_admm_tpu_torch.ops.kernels import (
-        consensus, filter_sum, hat_eval, shear_sum,
+        consensus, filter_mxu, filter_sum, hat_eval, shear_sum,
     )
 
-    return shear_sum, consensus, filter_sum, hat_eval
+    return shear_sum, consensus, filter_sum, hat_eval, filter_mxu
 
 
 def _counts() -> dict:
@@ -225,22 +255,31 @@ def _nbytes(x) -> int:
     return x.numel() * x.element_size() if hasattr(x, "numel") else 0
 
 
+def _nnz_taps(W, PB) -> int:
+    """Nonzero taps that PB images read from the tap table ``W``
+    [PT, ...]: image p reads table set p % PT."""
+    import torch
+
+    return (PB // W.shape[0]) * int(torch.count_nonzero(W))
+
+
 def _work(name, args, got):
     """(bytes, f32 FLOPs, bf16 FLOPs) that kernel ``name`` must do on
     ``args``: each input read once, each output written once (K17 reads
     only the profile taps this call's coordinates touch), the FLOPs of the
     function's arithmetic by the type it runs in (bf16 where the JAX kernel
-    rounds both factors to bf16)."""
+    rounds both factors to bf16). A tap product counts the nonzero taps of
+    its table (at most two of D2 per row), not the dense contraction."""
     nbytes = _nbytes([a for a in args if hasattr(a, "numel")]) + _nbytes(got)
     f32 = bf16 = 0
     if name in ("skew_sum_planes", "skew_sum_planes_t"):
         fwd = name == "skew_sum_planes"
         W = args[1] if fwd else args[2]  # WtT [PT, NB, D2, Tp, nb]
         PB = args[0].shape[0]
-        _, NB, D2, Tp, nb = W.shape
+        _, NB, _, Tp, nb = W.shape
         WZ = args[4].shape[0] if fwd else args[5].shape[1]
         F = args[2 if fwd else 3].shape[-1]
-        taps = 2 * PB * Tp * D2 * nb * NB * (NB * nb)
+        taps = 2 * _nnz_taps(W, PB) * (NB * nb)
         dft = 4 * PB * NB * Tp * WZ * F
         lowp = W.dtype != args[0].dtype
         f32 += 8 * PB * NB * Tp * F + (0 if lowp else taps + dft)
@@ -248,15 +287,26 @@ def _work(name, args, got):
     elif name in ("eval_shear", "eval_shear_t"):
         Wd = args[2] if name == "eval_shear" else args[1]
         PB = args[0].shape[0]
-        _, DB, Tp, D2p, db = Wd.shape
+        _, DB, Tp, D2p, _ = Wd.shape
         F = args[-3].shape[-1]
         mm = 4 * PB * DB * Tp * F * D2p
         lowp = Wd.dtype != args[0].dtype
-        f32 += 8 * PB * DB * Tp * F + 2 * PB * Tp * DB * D2p * db
+        f32 += 8 * PB * DB * Tp * F + 2 * _nnz_taps(Wd, PB)
         f32 += 0 if lowp else mm
         bf16 += mm if lowp else 0
+    elif name in ("shear_sum_planes", "shear_sum_planes_t"):
+        Wt = args[2]  # [PT, NB, Tp, D2, nb]
+        PB, F = args[0].shape[0], args[3].shape[-1]
+        _, NB, Tp, D2, _ = Wt.shape
+        taps = 4 * _nnz_taps(Wt, PB) * F
+        lowp = Wt.dtype != args[0].dtype
+        f32 += 8 * PB * NB * Tp * (D2 + 1) * F + (0 if lowp else taps)
+        bf16 += taps if lowp else 0
     elif name == "consensus_update":
         f32 += 12 * args[0].numel()
+    elif name in MXU:  # the contraction, on the tiled table
+        _, FB, NBt, Tp, L = args[2].shape
+        f32 += 8 * args[0].shape[0] * Tp * NBt * L * FB
     elif name.startswith("filter_sum"):
         PB = args[0].shape[0]
         _, T, N, F = args[2].shape
@@ -348,6 +398,18 @@ def _compare(torch, name, kern, ref, args, rtol, failures, note="",
                      bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _check_repeat(torch, name, kern, args, got, failures) -> bool:
+    """Whether a second call of ``kern`` on ``args`` gives ``got`` (the
+    first call's outputs, as ``_compare`` returns them) bit for bit."""
+    again = kern(*args)
+    torch.cuda.synchronize()
+    again = again if isinstance(again, tuple) else (again,)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not bitwise:
+        failures.append(f"kernel {name}: two calls differ")
+    return bitwise
+
+
 def _skew_cases(torch, dev, t, P, gen):
     """Inputs of P images drawn from ``gen`` and each of K1-K4's (wrapper,
     plain version, arguments) on the skew tables ``t``."""
@@ -413,12 +475,8 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
         got, r = _compare(torch, "consensus_update", cons.consensus_update,
                           cons.consensus_update_ref, args, K5_RTOL, failures,
                           note=f"[{fusion}]")
-        again = cons.consensus_update(*args)
-        torch.cuda.synchronize()
-        bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
-        if not bitwise:
-            failures.append(f"kernel consensus_update[{fusion}]: two calls "
-                            "differ")
+        bitwise = _check_repeat(torch, f"consensus_update[{fusion}]",
+                                cons.consensus_update, args, got, failures)
         print(f"kernels: consensus_update[{fusion}] bitwise_repeat={bitwise} "
               f"bytes={nbytes} GB_per_s={nbytes / r['ms'] / 1e6} "
               f"plain_GB_per_s={nbytes / r['plain_ms'] / 1e6}", flush=True)
@@ -618,11 +676,7 @@ def phase_fan_kernels(torch, dev, problems, failures) -> dict:
              lambda: torch.einsum("kpbtf,pbtnf->kpbnf", gcc, Hc))):
         got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
                                   failures, note="[fan PT=1]", library=lib)
-        again = kern(*args)
-        torch.cuda.synchronize()
-        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-        if not bitwise:
-            failures.append(f"kernel {name}: two calls differ")
+        bitwise = _check_repeat(torch, name, kern, args, got, failures)
         print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} "
               f"TB={TB} Tp={Tp} N={N} F={F} H={H[0].dtype} "
               f"bytes_once={nbytes} GB_per_s_once={nbytes / out[name]['ms'] / 1e6}",
@@ -747,16 +801,12 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
              lambda: torch.einsum("kptf,pto,ptnf->kponf", gcc, onehot, Hc))):
         got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
                                   failures, note="[512^2/8]", library=lib)
-        again = kern(*args)
-        torch.cuda.synchronize()
-        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-        if not bitwise:
-            failures.append(f"kernel {name}: two calls differ")
+        bitwise = _check_repeat(torch, name, kern, args, got, failures)
         print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} T={T} "
               f"N={N} F={F} H={H[0].dtype} GB_per_s="
               f"{_work(name, args, got)[0] / out[name]['ms'] / 1e6}",
               flush=True)
-        del got, again
+        del got
     del Hc, onehot, rc, gcc, r, g
     torch.cuda.empty_cache()
 
@@ -786,11 +836,7 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
                  [True, False])[0].reshape(P, T, Np))):
         got, out[name] = _compare(torch, name, kern, ref, args, HAT_RTOL,
                                   failures, note="[512^2/8]", library=lib)
-        again = kern(*args)
-        torch.cuda.synchronize()
-        bitwise = torch.equal(got[0], again)
-        if not bitwise:
-            failures.append(f"kernel {name}: two calls differ")
+        bitwise = _check_repeat(torch, name, kern, args, got, failures)
         lib_err = None if lib is None else float((lib() - got[0]).abs().max())
         print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} T={T} "
               f"D={D} Np={Np} library_max_abs_err={lib_err}", flush=True)
@@ -897,6 +943,189 @@ def phase_p512_runs(torch, cfg, problems, failures) -> dict:
     return counts
 
 
+SM_MODES = {
+    "fft_shear": ("project_nodes_shear", "backproject_nodes_shear"),
+    "fft_mxu": ("project_nodes_mxu", "backproject_nodes_mxu"),
+}
+
+
+def _sm_pair(mode):
+    from dip_admm_tpu_torch.ops import radon_fft
+
+    return tuple(getattr(radon_fft, f) for f in SM_MODES[mode])
+
+
+def _tables_at(torch, dev, table_dtype, N, mode):
+    """One mode's tables of the bench geometry at N, without a problem."""
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.ops import radon
+
+    cfg = _bench_cfg(table_dtype, N=N)
+    a, v, _ = radon.node_angles(cfg.geometry)
+    return cfg, loader.build_fft_tables(
+        cfg, torch.as_tensor(a, dtype=torch.float32, device=dev),
+        torch.as_tensor(v, device=dev), mode)
+
+
+def phase_sm_problem(torch, dev):
+    from dip_admm_tpu_torch.data import loader
+
+    cfg = _bench_cfg("bfloat16")
+    problems = {}
+    for mode in SM_MODES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        problems[mode] = loader.build_problem(cfg, dev, mode=mode)
+        torch.cuda.synchronize()
+        p = problems[mode]
+        print(f"sm_problem: mode={mode} build_s={time.perf_counter() - t0} "
+              f"table_gib={_table_gib(p.fft_tables)} "
+              f"angles={tuple(p.angles.shape)} "
+              f"union_edges={int(p.adj.sum()) // 2}", flush=True)
+    return cfg, problems
+
+
+def phase_sm_kernels(torch, dev, problems, failures) -> dict:
+    from dip_admm_tpu_torch.ops.kernels import filter_mxu as fm
+    from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    # K7/K8 on the fft_shear problem's tables.
+    t = problems["fft_shear"].fft_tables
+    P, NB, Tp, D2, nb = t["Wt"].shape
+    F = t["SEre"].shape[-1]
+    tabs = (t["Wt"], t["SEre"], t["SEim"], t["shared"]["Phire"],
+            t["shared"]["Phiim"], t["plane"])
+    r = [torch.randn((P, 2, NB * nb, F), generator=gen, device=dev)
+         for _ in range(2)]
+    g = [torch.randn((P, Tp, F), generator=gen, device=dev) for _ in range(2)]
+    for name, kern, ref, args in (
+            ("shear_sum_planes", ss.shear_sum_planes,
+             ss.shear_sum_planes_ref, (*r, *tabs)),
+            ("shear_sum_planes_t", ss.shear_sum_planes_t,
+             ss.shear_sum_planes_t_ref, (*g, *tabs))):
+        got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
+                                  failures, note="[256^2/8]")
+        bitwise = _check_repeat(torch, name, kern, args, got, failures)
+        print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} NB={NB} "
+              f"Tp={Tp} D2={D2} nb={nb} F={F} Wt={t['Wt'].dtype} "
+              f"TFLOP_per_s="
+              f"{sum(_work(name, args, got)[1:]) / out[name]['ms'] / 1e9}",
+              flush=True)
+        del got
+    del r, g
+
+    # K15/K16 on the fft_mxu problem's tables; the library yardstick is one
+    # complex einsum on the untiled table (the transpose as
+    # conj(sum_t H conj(g))).
+    t = problems["fft_mxu"].fft_tables
+    H = (t["Hre_t"], t["Him_t"])
+    PT, FB, NBt, Tp, L = H[0].shape
+    TB = t["onehot"].shape[1]
+    tt, N, Fpad = Tp // TB, NBt * L // 128, FB * 128
+    r = [torch.randn((P, TB, N, Fpad), generator=gen, device=dev)
+         for _ in range(2)]
+    g = [torch.randn((P, Tp, Fpad), generator=gen, device=dev)
+         for _ in range(2)]
+    Hc = torch.complex(fm.untile_table(H[0]).float(),
+                       fm.untile_table(H[1]).float()).reshape(
+        PT, TB, tt, N, Fpad)
+    rc = torch.complex(*r).reshape(P // PT, PT, TB, N, Fpad)
+    gcc = torch.complex(*g).conj().resolve_conj().reshape(P // PT, PT, TB,
+                                                         tt, Fpad)
+    for name, kern, ref, args, lib in (
+            ("filter_sum_mxu", fm.filter_sum_mxu, fm.filter_sum_mxu_ref,
+             (*r, *H), lambda: torch.einsum("kpbnf,pbtnf->kpbtf", rc, Hc)),
+            ("filter_sum_mxu_t", fm.filter_sum_mxu_t, fm.filter_sum_mxu_t_ref,
+             (*g, *H, TB),
+             lambda: torch.einsum("kpbtf,pbtnf->kpbnf", gcc, Hc))):
+        got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
+                                  failures, note="[256^2/8]", library=lib)
+        bitwise = _check_repeat(torch, name, kern, args, got, failures)
+        print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} "
+              f"TB={TB} Tp={Tp} N={N} Fpad={Fpad} H={H[0].dtype} GB_per_s="
+              f"{_work(name, args, got)[0] / out[name]['ms'] / 1e6}",
+              flush=True)
+        del got
+    del Hc, rc, gcc, r, g
+    torch.cuda.empty_cache()
+
+    # Apply pairs: both modes at 256^2/8 on the problems' tables, and at
+    # 512^2/8 from their tables alone.
+    geo = problems["fft_shear"].cfg.geometry
+    im = torch.randn((P, geo.N, geo.N), generator=gen, device=dev)
+    for mode in SM_MODES:
+        fwd, adj = _sm_pair(mode)
+        out[f"p256_{mode}_apply_pair_ms"] = ms = _pair_ms(
+            torch, fwd, adj, geo, problems[mode].fft_tables, im)
+        print(f"sm_kernels: mode={mode} N={geo.N} apply_pair_ms={ms} "
+              f"(project + backproject, bf16 tables, P={P})", flush=True)
+    for mode in SM_MODES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg, t = _tables_at(torch, dev, "bfloat16", 512, mode)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        geo = cfg.geometry
+        im = torch.randn((P, geo.N, geo.N), generator=gen, device=dev)
+        fwd, adj = _sm_pair(mode)
+        out[f"p512_{mode}_apply_pair_ms"] = ms = _pair_ms(torch, fwd, adj,
+                                                          geo, t, im)
+        print(f"sm_kernels: mode={mode} N={geo.N} apply_pair_ms={ms} "
+              f"(bf16 tables, P={P}) table_build_s={build_s} "
+              f"table_gib={_table_gib(t)}", flush=True)
+        del t, im
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sm_adjoint(torch, dev, failures) -> None:
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for mode in SM_MODES:
+        cfg, t = _tables_at(torch, dev, "float32", 256, mode)
+        geo = cfg.geometry
+        P, m = geo.num_nodes, max(geo.angles_per_node())
+        x = torch.randn((P, geo.N, geo.N), generator=gen, device=dev)
+        y = torch.randn((P, m, geo.n_det), generator=gen, device=dev)
+        fwd, adj = _sm_pair(mode)
+        rel = _adjoint_rel(torch, lambda u: fwd(geo, u, t),
+                           lambda u: adj(geo, u, t), x, y)
+        ok = math.isfinite(rel) and rel <= ADJOINT_TOL
+        if not ok:
+            failures.append(f"sm_adjoint {mode}: rel {rel}")
+        print(f"sm_adjoint: {mode} N={geo.N} rel_err={rel} ok={ok}",
+              flush=True)
+        del t, x, y
+        torch.cuda.empty_cache()
+
+
+def phase_sm_runs(torch, cfg, problems, failures) -> dict:
+    from dip_admm_tpu_torch.core import node_solver
+
+    rec = _recommended(cfg.admm)
+    counts = {}
+    for mode, kernels in (("fft_shear", SHEAR), ("fft_mxu", MXU)):
+        problem = problems[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fp = node_solver.build_fourier_precond(
+            problem.forward, problem.adjoint, torch.sum(problem.Q, dim=1),
+            rec.rho, rec.node, problem.N)
+        step = fp.step.cpu().numpy()
+        precond_s = time.perf_counter() - t0
+        tag = f"sm_{mode.removeprefix('fft_')}"
+        _, counts[mode], line = _drive(torch, problem, rec, REF_REC_PSNR, tag,
+                                       failures, kernels)
+        if mode == "fft_shear" and any(counts[mode][k] for k in SKEW[:2]):
+            failures.append(f"{tag}: the skew row stage K1/K2 launched")
+        print(f"{tag}: precond_build_s={precond_s} certified_step="
+              f"{step.tolist()} {line}", flush=True)
+        print(f"{tag}_profile: {_profile_outer(torch, problem, rec)}",
+              flush=True)
+    return counts
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -989,8 +1218,14 @@ def main() -> int:
     kern.update(phase_p512_kernels(torch, dev, p512_problems, failures))
     phase_p512_adjoint(torch, dev, failures)
     p512_counts = phase_p512_runs(torch, p512_cfg, p512_problems, failures)
+    del p512_problems
+    torch.cuda.empty_cache()
+    sm_cfg, sm_problems = phase_sm_problem(torch, dev)
+    kern.update(phase_sm_kernels(torch, dev, sm_problems, failures))
+    phase_sm_adjoint(torch, dev, failures)
+    sm_counts = phase_sm_runs(torch, sm_cfg, sm_problems, failures)
     runs = (main_counts, rec_counts, *fan_counts.values(),
-            *p512_counts.values())
+            *p512_counts.values(), *sm_counts.values())
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED {f}", file=sys.stderr)

@@ -5,8 +5,8 @@ reconstruction, written in PyTorch for one NVIDIA Hopper GPU. The module
 names mirror the JAX package so each counterpart is easy to find:
 
 - ``ops``     : phantoms, angle split, TV operators, the ``fft_skew``,
-                ``fft_grouped`` and ``fft_pallas`` projectors
-                (``radon_fft``), fan beam by
+                ``fft_shear``, ``fft_grouped``, ``fft_pallas`` and
+                ``fft_mxu`` projectors (``radon_fft``), fan beam by
                 rebinning (``radon_fan``) and the hand-written CUDA kernels
                 (``ops/kernels/*.py`` + ``csrc/*.cu``).
 - ``graph``   : precision weights Q and per-pixel knn graphs.

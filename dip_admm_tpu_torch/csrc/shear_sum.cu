@@ -1,17 +1,21 @@
-// Hopper (sm_90a) kernels of the fft_skew projector: the four Pallas
-// kernels of dip_admm_tpu/ops/pallas/shear_sum.py, written again for CUDA.
+// Hopper (sm_90a) kernels of the fft_skew and fft_shear projectors: six
+// Pallas kernels of dip_admm_tpu/ops/pallas/shear_sum.py, written again for
+// CUDA.
 //
-//   K1 dip_skew_fwd  <- skew_sum_planes   (_skew_fwd_pallas_planes)
-//   K2 dip_skew_t    <- skew_sum_planes_t (_skew_t_pallas_planes)
-//   K3 dip_eval_fwd  <- eval_shear        (_eval_fwd_pallas, the R stage)
-//   K4 dip_eval_t    <- eval_shear_t      (_eval_t_pallas, after the Wd
-//                                          pre-contraction)
+//   K1 dip_skew_fwd  <- skew_sum_planes    (_skew_fwd_pallas_planes)
+//   K2 dip_skew_t    <- skew_sum_planes_t  (_skew_t_pallas_planes)
+//   K3 dip_eval_fwd  <- eval_shear         (_eval_fwd_pallas, the R stage)
+//   K4 dip_eval_t    <- eval_shear_t       (_eval_t_pallas, after the Wd
+//                                           pre-contraction)
+//   K7 dip_shear_fwd <- shear_sum_planes   (_fwd_pallas_planes)
+//   K8 dip_shear_t   <- shear_sum_planes_t (_t_pallas_planes)
 //
 // Each computes what the TPU kernel computes and rounds to the table type
 // at the same points (bf16 tables: the image rows before the tap product,
 // the skew sum z before the DFT-back, the phase products in K2/K3 and the
-// pre-contracted cotangent in K4). f32 tables round nowhere. Accumulation
-// is always f32.
+// pre-contracted cotangent in K4; the row spectra before K7's tap product
+// and the phased cotangent S before K8's). f32 tables round nowhere.
+// Accumulation is always f32.
 //
 // Node-shared tables: every entry takes an image batch PB and a table batch
 // PT that divides it; image p reads table set p % PT (the rule of the JAX
@@ -28,6 +32,22 @@
 // at 256^2/8, the bulk of the projector) is bound by shared-memory reads
 // in this form (5 loads per 4 FMAs); tensor cores (wgmma), TMA and fusion
 // of the two stages of K1/K2 are later work.
+//
+// K7/K8 carry fft_shear's tap contraction on the row spectra as the TPU
+// kernel does it: the dense [tt*D2, nb] x [nb, F] product, re and im, ~58
+// GFLOP per direction at 256^2/8 (4x K1's, as it runs on F = 513 spectrum
+// columns instead of N = 256 pixel columns), ~0.9 ms on the f32 CUDA cores
+// used here. Only two of a row's D2 taps are nonzero, so the function needs
+// ~0.8 GFLOP of taps, and its bound is set by the ~0.1 GB it must move
+// (~0.03 ms at 3.35 TB/s); skipping the zero taps is later work. Each
+// thread keeps a register tile (K7: 1 angle x 8 taps x 4
+// frequencies of S; K8: 4 rows x 4 frequencies), 4 FMAs per shared-memory
+// load. K7's block owns g[p, angle tile, f tile] and loops over the row
+// blocks and the taps, applying Phi and E as each tap chunk's S completes
+// (the TPU kernel's f-chunked VMEM temp has no counterpart). K8's block owns
+// one (image, plane, row block, n tile, f tile) and adds the angle blocks
+// whose plane is its own, in order, forming S = conj(Phi) conj(E) gbar on
+// the fly; a plane that no angle block selects is written as zeros.
 //
 // C interface for ctypes: pointers and the stream as void*, sizes as int.
 // Every entry launches on the given stream, does not synchronise and
@@ -507,6 +527,280 @@ eval_t(const float* __restrict__ rbar, const float* __restrict__ tere,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7: the fft_shear row stage on the two spectrum planes.
+//   S_b[t,d,f] = sum_n Wt[p,b,tb*tt+t,d,n] * r[b*nb+n, f]   (re and im)
+//   g[p,tb*tt+t,f] = sum_b E_b[t,f] * sum_d Phi[d,f] * S_b[t,d,f]
+// with r = rre2/rim2[p, plane[p,tb]] rounded to the table type and
+// E_b = SE[p,b,tb*tt+t,f]. Block: (f tile, t tile, (p, tb)).
+// ---------------------------------------------------------------------------
+constexpr int SX = 16;           // threads along f
+constexpr int SY = 8;            // threads along t (K7) or n (K8)
+constexpr int SN = SX * SY;
+constexpr int S_MF = 4;          // frequencies per thread
+constexpr int S_BF = SX * S_MF;  // f tile
+constexpr int K7_MT = 1;         // angles per thread
+constexpr int K7_BT = SY * K7_MT;
+constexpr int K7_DC = 8;         // taps per chunk (their S in registers)
+constexpr int K7_NC = 32;        // rows per chunk
+constexpr int K8_MN = 4;         // rows per thread
+constexpr int K8_BN = SY * K8_MN;
+constexpr int K8_TC = 4;         // angles per chunk
+constexpr int K8_DC = 8;         // taps per chunk
+constexpr int K8_KC = K8_TC * K8_DC;
+
+template <typename T>
+__global__ void __launch_bounds__(SN)
+shear_fwd(const float* __restrict__ rre2, const float* __restrict__ rim2,
+          const T* __restrict__ wt, const float* __restrict__ sere,
+          const float* __restrict__ seim, const float* __restrict__ phre,
+          const float* __restrict__ phim, const int* __restrict__ plane,
+          float* __restrict__ gre, float* __restrict__ gim, int PT, int NB,
+          int Tp, int D2, int nb, int TB, int F) {
+  __shared__ float Ws[K7_DC][K7_BT][K7_NC + 1];
+  __shared__ float Xr[K7_NC][S_BF];
+  __shared__ float Xi[K7_NC][S_BF];
+  const int tt = Tp / TB, N = NB * nb;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * SX + tx;
+  const int f0 = blockIdx.x * S_BF, t0 = blockIdx.y * K7_BT;
+  const int tb = blockIdx.z % TB, p = blockIdx.z / TB, pt = p % PT;
+  const int pl = plane[pt * TB + tb];
+  float gr[K7_MT][S_MF] = {}, gi[K7_MT][S_MF] = {};
+
+  for (int b = 0; b < NB; ++b) {
+    const long xo = ((long)(p * 2 + pl) * N + (long)b * nb) * F;
+    // Wt[pt, b, tb*tt:(tb+1)*tt] as [tt, D2, nb]
+    const T* w = wt + ((long)(pt * NB + b) * Tp + tb * tt) * D2 * nb;
+    float tr[K7_MT][S_MF] = {}, ti[K7_MT][S_MF] = {};
+    for (int d0 = 0; d0 < D2; d0 += K7_DC) {
+      float sr[K7_DC][K7_MT][S_MF] = {}, si[K7_DC][K7_MT][S_MF] = {};
+      for (int n0 = 0; n0 < nb; n0 += K7_NC) {
+        for (int i = tid; i < K7_DC * K7_BT * K7_NC; i += SN) {
+          const int n = i % K7_NC, t = (i / K7_NC) % K7_BT;
+          const int dl = i / (K7_NC * K7_BT);
+          const int d = d0 + dl, tg = t0 + t, ng = n0 + n;
+          float val = 0.f;
+          if (d < D2 && tg < tt && ng < nb)
+            val = ld<T>(w, ((long)tg * D2 + d) * nb + ng);
+          Ws[dl][t][n] = val;
+        }
+        for (int i = tid; i < K7_NC * S_BF; i += SN) {
+          const int f = i % S_BF, n = i / S_BF;
+          float vr = 0.f, vi = 0.f;
+          if (n0 + n < nb && f0 + f < F) {
+            const long o = xo + (long)(n0 + n) * F + f0 + f;
+            vr = rnd<T>(rre2[o]);
+            vi = rnd<T>(rim2[o]);
+          }
+          Xr[n][f] = vr;
+          Xi[n][f] = vi;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int n = 0; n < K7_NC; ++n) {
+          float xr[S_MF], xi[S_MF];
+#pragma unroll
+          for (int j = 0; j < S_MF; ++j) {
+            xr[j] = Xr[n][tx + SX * j];
+            xi[j] = Xi[n][tx + SX * j];
+          }
+#pragma unroll
+          for (int dl = 0; dl < K7_DC; ++dl) {
+#pragma unroll
+            for (int i = 0; i < K7_MT; ++i) {
+              const float a = Ws[dl][ty + SY * i][n];
+#pragma unroll
+              for (int j = 0; j < S_MF; ++j) {
+                sr[dl][i][j] += a * xr[j];
+                si[dl][i][j] += a * xi[j];
+              }
+            }
+          }
+        }
+        __syncthreads();
+      }
+      // The chunk's S is complete: apply Phi[d, f] and sum over the taps.
+#pragma unroll
+      for (int dl = 0; dl < K7_DC; ++dl) {
+        const int d = d0 + dl;
+        if (d >= D2) break;
+#pragma unroll
+        for (int j = 0; j < S_MF; ++j) {
+          const int f = f0 + tx + SX * j;
+          if (f >= F) continue;
+          const float pr = phre[(long)d * F + f], pi = phim[(long)d * F + f];
+#pragma unroll
+          for (int i = 0; i < K7_MT; ++i) {
+            tr[i][j] += sr[dl][i][j] * pr - si[dl][i][j] * pi;
+            ti[i][j] += sr[dl][i][j] * pi + si[dl][i][j] * pr;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < K7_MT; ++i) {
+      const int tg = t0 + ty + SY * i;
+      if (tg >= tt) continue;
+      const long eo = ((long)(pt * NB + b) * Tp + tb * tt + tg) * F;
+#pragma unroll
+      for (int j = 0; j < S_MF; ++j) {
+        const int f = f0 + tx + SX * j;
+        if (f >= F) continue;
+        const float er = sere[eo + f], ei = seim[eo + f];
+        gr[i][j] += tr[i][j] * er - ti[i][j] * ei;
+        gi[i][j] += tr[i][j] * ei + ti[i][j] * er;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < K7_MT; ++i) {
+    const int tg = t0 + ty + SY * i;
+    if (tg >= tt) continue;
+    const long go = ((long)p * Tp + tb * tt + tg) * F;
+#pragma unroll
+    for (int j = 0; j < S_MF; ++j) {
+      const int f = f0 + tx + SX * j;
+      if (f < F) {
+        gre[go + f] = gr[i][j];
+        gim[go + f] = gi[i][j];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K8: transpose of K7 into the two spectrum planes.
+//   rbar[p,pl,b*nb+n,f] = sum_{tb: plane[p,tb]=pl} sum_t sum_d
+//                         Wt[p,b,tb*tt+t,d,n] * S[t,d,f]   (re and im)
+//   T = conj(E_b) gbar:  Tre = g_re*E_re + g_im*E_im, Tim = g_im*E_re - g_re*E_im
+//   S = conj(Phi) T:     Sre = Tre*Phire + Tim*Phiim, Sim = Tim*Phire - Tre*Phiim
+// with S rounded to the table type. Block: (f tile, n tile, (p, pl, b)).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(SN)
+shear_t(const float* __restrict__ gre, const float* __restrict__ gim,
+        const T* __restrict__ wt, const float* __restrict__ sere,
+        const float* __restrict__ seim, const float* __restrict__ phre,
+        const float* __restrict__ phim, const int* __restrict__ plane,
+        float* __restrict__ rre2, float* __restrict__ rim2, int PT, int NB,
+        int Tp, int D2, int nb, int TB, int F) {
+  __shared__ float Tr[K8_TC][S_BF];
+  __shared__ float Ti[K8_TC][S_BF];
+  __shared__ float Ws[K8_KC][K8_BN];
+  __shared__ float Sr[K8_KC][S_BF];
+  __shared__ float Si[K8_KC][S_BF];
+  const int tt = Tp / TB, N = NB * nb;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * SX + tx;
+  const int f0 = blockIdx.x * S_BF, n0 = blockIdx.y * K8_BN;
+  const int b = blockIdx.z % NB, pl = (blockIdx.z / NB) % 2;
+  const int p = blockIdx.z / (NB * 2), pt = p % PT;
+  float ar[K8_MN][S_MF] = {}, ai[K8_MN][S_MF] = {};
+
+  for (int tb = 0; tb < TB; ++tb) {
+    if (plane[pt * TB + tb] != pl) continue;  // uniform over the block
+    const T* w = wt + ((long)(pt * NB + b) * Tp + tb * tt) * D2 * nb;
+    for (int s0 = 0; s0 < tt; s0 += K8_TC) {
+      for (int i = tid; i < K8_TC * S_BF; i += SN) {
+        const int f = i % S_BF, tl = i / S_BF, tg = s0 + tl;
+        float vr = 0.f, vi = 0.f;
+        if (tg < tt && f0 + f < F) {
+          const long go = ((long)p * Tp + tb * tt + tg) * F + f0 + f;
+          const long eo =
+              ((long)(pt * NB + b) * Tp + tb * tt + tg) * F + f0 + f;
+          const float g_r = gre[go], g_i = gim[go];
+          const float er = sere[eo], ei = seim[eo];
+          vr = g_r * er + g_i * ei;
+          vi = g_i * er - g_r * ei;
+        }
+        Tr[tl][f] = vr;
+        Ti[tl][f] = vi;
+      }
+      __syncthreads();
+      for (int d0 = 0; d0 < D2; d0 += K8_DC) {
+        for (int i = tid; i < K8_KC * K8_BN; i += SN) {
+          const int n = i % K8_BN, k = i / K8_BN;
+          const int tg = s0 + k / K8_DC, d = d0 + k % K8_DC, ng = n0 + n;
+          float val = 0.f;
+          if (tg < tt && d < D2 && ng < nb)
+            val = ld<T>(w, ((long)tg * D2 + d) * nb + ng);
+          Ws[k][n] = val;
+        }
+        for (int i = tid; i < K8_KC * S_BF; i += SN) {
+          const int f = i % S_BF, k = i / S_BF;
+          const int tl = k / K8_DC, d = d0 + k % K8_DC;
+          float vr = 0.f, vi = 0.f;
+          if (d < D2 && f0 + f < F) {
+            const long o = (long)d * F + f0 + f;
+            const float pr = phre[o], pi = phim[o];
+            const float a = Tr[tl][f], c = Ti[tl][f];
+            vr = rnd<T>(a * pr + c * pi);
+            vi = rnd<T>(c * pr - a * pi);
+          }
+          Sr[k][f] = vr;
+          Si[k][f] = vi;
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int k = 0; k < K8_KC; ++k) {
+          float wv[K8_MN], xr[S_MF], xi[S_MF];
+#pragma unroll
+          for (int i = 0; i < K8_MN; ++i) wv[i] = Ws[k][ty + SY * i];
+#pragma unroll
+          for (int j = 0; j < S_MF; ++j) {
+            xr[j] = Sr[k][tx + SX * j];
+            xi[j] = Si[k][tx + SX * j];
+          }
+#pragma unroll
+          for (int i = 0; i < K8_MN; ++i) {
+#pragma unroll
+            for (int j = 0; j < S_MF; ++j) {
+              ar[i][j] += wv[i] * xr[j];
+              ai[i][j] += wv[i] * xi[j];
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < K8_MN; ++i) {
+    const int ng = n0 + ty + SY * i;
+    if (ng >= nb) continue;
+    const long ro = ((long)(p * 2 + pl) * N + (long)b * nb + ng) * F;
+#pragma unroll
+    for (int j = 0; j < S_MF; ++j) {
+      const int f = f0 + tx + SX * j;
+      if (f < F) {
+        rre2[ro + f] = ar[i][j];
+        rim2[ro + f] = ai[i][j];
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_shear(bool fwd, const float* a_re, const float* a_im,
+                         const void* wt, const float* sere, const float* seim,
+                         const float* phre, const float* phim,
+                         const int* plane, float* o_re, float* o_im, int PB,
+                         int PT, int NB, int Tp, int D2, int nb, int TB, int F,
+                         cudaStream_t s) {
+  const dim3 blk(SX, SY);
+  const T* w = static_cast<const T*>(wt);
+  if (fwd) {
+    const dim3 g(cdiv(F, S_BF), cdiv(Tp / TB, K7_BT), PB * TB);
+    shear_fwd<T><<<g, blk, 0, s>>>(a_re, a_im, w, sere, seim, phre, phim,
+                                   plane, o_re, o_im, PT, NB, Tp, D2, nb, TB,
+                                   F);
+  } else {
+    const dim3 g(cdiv(F, S_BF), cdiv(nb, K8_BN), PB * 2 * NB);
+    shear_t<T><<<g, blk, 0, s>>>(a_re, a_im, w, sere, seim, phre, phim, plane,
+                                 o_re, o_im, PT, NB, Tp, D2, nb, TB, F);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_skew_fwd(const float* rows2, const void* wtt,
                             const float* sere, const float* seim,
@@ -625,6 +919,36 @@ int dip_eval_t(const float* rbar, const float* tere, const float* teim,
                                     PT, DB, Tp, D2p, F);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int dip_shear_fwd(const float* rre2, const float* rim2, const void* wt,
+                  const float* sere, const float* seim, const float* phre,
+                  const float* phim, const int* plane, float* gre, float* gim,
+                  int PB, int PT, int NB, int Tp, int D2, int nb, int TB,
+                  int F, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bf16 ? launch_shear<__nv_bfloat16>(true, rre2, rim2, wt, sere, seim,
+                                         phre, phim, plane, gre, gim, PB, PT,
+                                         NB, Tp, D2, nb, TB, F, s)
+           : launch_shear<float>(true, rre2, rim2, wt, sere, seim, phre, phim,
+                                 plane, gre, gim, PB, PT, NB, Tp, D2, nb, TB,
+                                 F, s));
+}
+
+int dip_shear_t(const float* gre, const float* gim, const void* wt,
+                const float* sere, const float* seim, const float* phre,
+                const float* phim, const int* plane, float* rre2, float* rim2,
+                int PB, int PT, int NB, int Tp, int D2, int nb, int TB, int F,
+                int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bf16 ? launch_shear<__nv_bfloat16>(false, gre, gim, wt, sere, seim,
+                                         phre, phim, plane, rre2, rim2, PB,
+                                         PT, NB, Tp, D2, nb, TB, F, s)
+           : launch_shear<float>(false, gre, gim, wt, sere, seim, phre, phim,
+                                 plane, rre2, rim2, PB, PT, NB, Tp, D2, nb,
+                                 TB, F, s));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Problem construction for projector modes ``fft_skew`` and
-``fft_grouped``, in parallel and fan beam, and ``fft_pallas``, in parallel
-beam.
+``fft_grouped``, in parallel and fan beam, and ``fft_shear``,
+``fft_pallas`` and ``fft_mxu``, in parallel beam.
 
 A :class:`Problem` carries the per-node angle sets, the noisy sinograms
 ``b_i = A_i x_true + sigma * eps`` (zero on padded angle rows), the exact
@@ -25,7 +25,7 @@ from dip_admm_tpu_torch.graph import precisions, topology
 from dip_admm_tpu_torch.ops import phantoms, radon, radon_fan, radon_fft
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-MODES = ("fft_skew", "fft_grouped", "fft_pallas")
+MODES = ("fft_skew", "fft_grouped", "fft_pallas", "fft_shear", "fft_mxu")
 # (forward, adjoint) of each ported mode, by fan_beam.
 _OPS = {
     ("fft_skew", False): (radon_fft.project_nodes_skew,
@@ -38,6 +38,10 @@ _OPS = {
                             radon_fan.backproject_nodes_fan_grouped),
     ("fft_pallas", False): (radon_fft.project_nodes_merged,
                             radon_fft.backproject_nodes_merged),
+    ("fft_shear", False): (radon_fft.project_nodes_shear,
+                           radon_fft.backproject_nodes_shear),
+    ("fft_mxu", False): (radon_fft.project_nodes_mxu,
+                         radon_fft.backproject_nodes_mxu),
 }
 
 
@@ -124,9 +128,12 @@ def build_fft_tables(cfg: ProblemConfig, angles, valid,
         pre = (radon_fan.precompute_fan_skew if mode == "fft_skew"
                else radon_fan.precompute_fan_grouped)
         return pre(geo, angles, valid, tdt)
-    pre = {"fft_skew": radon_fft.precompute_shear,
-           "fft_grouped": radon_fft.precompute_grouped,
-           "fft_pallas": radon_fft.precompute_merged_nodes}[mode]
+    if mode in ("fft_skew", "fft_shear"):
+        return radon_fft.precompute_shear(
+            geo, angles, valid, tdt, layout=mode.removeprefix("fft_"))
+    pre = {"fft_grouped": radon_fft.precompute_grouped,
+           "fft_pallas": radon_fft.precompute_merged_nodes,
+           "fft_mxu": radon_fft.precompute_merged_mxu}[mode]
     return pre(geo, angles, valid, tdt)
 
 
@@ -179,7 +186,7 @@ def build_problem(
     """Assemble a :class:`Problem` on ``device``.
 
     ``mode`` is "fft_skew", "fft_grouped" or (parallel beam only)
-    "fft_pallas". ``mode=None`` resolves to "fft_skew", parallel or fan
+    "fft_shear", "fft_pallas" or "fft_mxu". ``mode=None`` resolves to "fft_skew", parallel or fan
     beam, which the JAX loader picks above N = 128; at N <= 128 it picks
     "dense", which is not ported. ``noise`` [P, m] replaces
     the standard-normal draw (a generator seeded with ``cfg.noise_seed``);

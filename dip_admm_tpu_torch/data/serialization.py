@@ -61,16 +61,23 @@ def _unflatten(flat: dict) -> dict:
     return out
 
 
+_MODES = ("fft_skew", "fft_shear", "fft_mxu")
+
+
 def load_problem(path: str, device: torch.device | str) -> Problem:
-    """Read a JAX ``save_problem`` bundle onto ``device``. Only mode
-    ``fft_skew`` bundles are supported."""
+    """Read a JAX ``save_problem`` bundle onto ``device``. Parallel-beam
+    bundles of modes ``fft_skew``, ``fft_shear`` and ``fft_mxu`` are
+    supported; each keeps only the tap layout its mode reads (d-major
+    ``WtT`` for ``fft_skew``, derived from a t-major ``Wt`` if the bundle
+    has only that; t-major ``Wt`` for ``fft_shear``)."""
     device = torch.device(device)
     with np.load(path) as z:
         cfg = cfg_from_json(bytes(z["__cfg__"]).decode())
         mode = bytes(z["__mode__"]).decode()
-        if mode != "fft_skew":
+        if mode not in _MODES or cfg.geometry.fan_beam:
             raise NotImplementedError(
-                f"bundle mode {mode!r} is not ported yet (only 'fft_skew')"
+                f"bundle mode {mode!r} (fan_beam={cfg.geometry.fan_beam}) is "
+                f"not ported yet (only parallel {_MODES})"
             )
 
         def t(a):
@@ -86,11 +93,13 @@ def load_problem(path: str, device: torch.device | str) -> Problem:
         angles, valid = t(z["angles"]), t(z["angle_valid"])
         if flat:
             tables = _unflatten(flat)
-            if "WtT" not in tables:  # bundles that carry only the t-major Wt
+            if mode == "fft_skew" and "WtT" not in tables:
+                # bundles that carry only the t-major Wt
                 tables["WtT"] = tables["Wt"].permute(0, 1, 3, 2, 4).contiguous()
-            tables.pop("Wt", None)
+            tables.pop("Wt" if mode == "fft_skew" else "WtT", None)
             for key in ("plane", "posfull", "invposfull", "pfirst"):
-                tables[key] = tables[key].to(torch.int32)
+                if key in tables:
+                    tables[key] = tables[key].to(torch.int32)
         else:
             tables = build_fft_tables(cfg, angles, valid, mode)
         return Problem(

@@ -37,6 +37,12 @@ SIGNATURES = {
         "dip_skew_t": [_P] * 10 + [_I] * 11 + [_P],
         "dip_eval_fwd": [_P] * 7 + [_I] * 7 + [_P],
         "dip_eval_t": [_P] * 7 + [_I] * 7 + [_P],
+        "dip_shear_fwd": [_P] * 10 + [_I] * 9 + [_P],
+        "dip_shear_t": [_P] * 10 + [_I] * 9 + [_P],
+    },
+    "filter_mxu": {
+        "dip_mxu_fwd": [_P] * 6 + [_I] * 8 + [_P],
+        "dip_mxu_t": [_P] * 6 + [_I] * 8 + [_P],
     },
     "filter_sum": {
         "dip_sel_fwd": [_P] * 7 + [_I] * 6 + [_P],

@@ -1,23 +1,28 @@
-"""The four kernels of the ``fft_skew`` projector, with their plain versions.
+"""The six kernels of the ``fft_skew`` and ``fft_shear`` projectors, with
+their plain versions.
 
 Each wrapper replaces one Pallas kernel of
 ``dip_admm_tpu/ops/pallas/shear_sum.py``:
 
-=================== ============================================= ==========
+=================== ============================================= =============
 wrapper             TPU kernel it replaces                        CUDA entry
-=================== ============================================= ==========
+=================== ============================================= =============
 skew_sum_planes     skew_sum_planes (_skew_fwd_pallas_planes)     dip_skew_fwd
 skew_sum_planes_t   skew_sum_planes_t (_skew_t_pallas_planes)     dip_skew_t
 eval_shear          eval_shear (_eval_fwd_pallas, _eval_r_kernel) dip_eval_fwd
 eval_shear_t        eval_shear_t (_eval_t_pallas, _eval_t_kernel) dip_eval_t
-=================== ============================================= ==========
+shear_sum_planes    shear_sum_planes (_fwd_pallas_planes)         dip_shear_fwd
+shear_sum_planes_t  shear_sum_planes_t (_t_pallas_planes)         dip_shear_t
+=================== ============================================= =============
 
+``fft_skew`` runs K1-K4, ``fft_shear`` K7, K8, K3 and K4 (its row stage on
+the row spectra instead of the pixel rows, with the t-major taps ``Wt``).
 On a CPU tensor a wrapper runs its plain PyTorch version (``*_ref``); on a
 CUDA tensor it launches the hand-written kernel of ``csrc/shear_sum.cu`` or
 raises. Both round to the table type at the JAX kernel's points (bf16
-tables: image rows before the tap product, the skew sum before the
-DFT-back, the phase products of the transpose and of the eval tail, the
-pre-contracted eval cotangent); f32 tables round nowhere.
+tables: image rows or row spectra before the tap product, the skew sum
+before the DFT-back, the phase products of the transposes and of the eval
+tail, the pre-contracted eval cotangent); f32 tables round nowhere.
 
 What bounds them on an H100, and what the simple design does about it:
 
@@ -32,6 +37,14 @@ What bounds them on an H100, and what the simple design does about it:
 - K3/K4 (eval tail) are small products (~0.6 GFLOP); their Wd epilogue
   and pre-contraction stay ``torch.einsum`` outside the kernel, as they
   are XLA einsums outside Pallas in the JAX package.
+- K7/K8 (shear stages) compute the TPU kernel's dense tap product on the
+  row spectra, 4*P*Tp*D2*nb*NB*F FLOPs (~58 GFLOP per direction at
+  256^2/8), register-tiled on the CUDA cores, one launch each, no scratch.
+  Only two of a row's D2 taps are nonzero (~0.8 GFLOP needed), so the
+  least time of the function is that of its bytes, not of those FLOPs.
+  K7's block owns its output tile and loops over the row blocks; K8's
+  owns one (image, plane, row block) tile and loops over the angle blocks
+  on that plane. The source note in ``csrc/shear_sum.cu`` has the details.
 
 Node-shared tables: every wrapper takes an image batch PB and a table batch
 PT that divides it (the leading dims of the image-side and table-side
@@ -141,6 +154,73 @@ def skew_sum_planes_t_ref(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane):
     return x2.reshape(P, 2, NB * nb, WS)
 
 
+def shear_sum_planes_ref(rre2, rim2, Wt, SEre, SEim, Phire, Phiim, plane):
+    """Spectral shear row stage forward: two-plane row spectra [PB, 2, N, F]
+    pair -> slot-order spectrum pair [PB, Tp, F], on tables of batch PT.
+
+    Per (image p, angle block tb, row block b) on plane ``plane[p, tb]``:
+    S[t,d,f] = sum_n Wt[t,d,n] r[n,f] (r rounded to bf16 with bf16 taps);
+    g += E_b * sum_d Phi[d,f] S[t,d,f], summed over the row blocks."""
+    Wt, SEre, SEim, plane = _per_image(rre2.shape[0], Wt, SEre, SEim, plane)
+    P, NB, Tp, D2, nb = Wt.shape
+    F = rre2.shape[-1]
+    TB = plane.shape[1]
+    tt = Tp // TB
+    lowp = Wt.dtype == torch.bfloat16
+    pidx = torch.arange(P, device=rre2.device)[:, None]
+    xr, xi = (_rnd(r[pidx, plane.long()].float(), lowp).reshape(
+        P, TB, NB, nb, F) for r in (rre2, rim2))
+    W = Wt.float().reshape(P, NB, TB, tt, D2, nb)
+    Sre = torch.einsum("pbktdn,pkbnf->pbktdf", W, xr)  # [P,NB,TB,tt,D2,F]
+    Sim = torch.einsum("pbktdn,pkbnf->pbktdf", W, xi)
+    phr, phi = Phire.float(), Phiim.float()
+    Tre = (Sre * phr - Sim * phi).sum(dim=4)  # [P, NB, TB, tt, F]
+    Tim = (Sre * phi + Sim * phr).sum(dim=4)
+    del Sre, Sim
+    ere = SEre.reshape(P, NB, TB, tt, F)
+    eim = SEim.reshape(P, NB, TB, tt, F)
+    gre = (Tre * ere - Tim * eim).sum(dim=1).reshape(P, Tp, F)
+    gim = (Tre * eim + Tim * ere).sum(dim=1).reshape(P, Tp, F)
+    return gre, gim
+
+
+def shear_sum_planes_t_ref(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim,
+                           plane):
+    """Exact transpose of :func:`shear_sum_planes_ref` with respect to the
+    (rounded) spectra: [PB, Tp, F] pair -> [PB, 2, N, F] pair. S =
+    conj(Phi) conj(E) g_bar is formed in f32 in the JAX kernel's order and
+    rounded to bf16 with bf16 taps. A plane that no angle block reads comes
+    out zero (the JAX kernel leaves it undefined and masks it with
+    ``pvisited`` afterwards)."""
+    Wt, SEre, SEim, plane = _per_image(gre_b.shape[0], Wt, SEre, SEim, plane)
+    P, NB, Tp, D2, nb = Wt.shape
+    F = gre_b.shape[-1]
+    TB = plane.shape[1]
+    tt = Tp // TB
+    lowp = Wt.dtype == torch.bfloat16
+    g_r = gre_b.reshape(P, 1, TB, tt, 1, F)
+    g_i = gim_b.reshape(P, 1, TB, tt, 1, F)
+    ere = SEre.reshape(P, NB, TB, tt, 1, F)
+    eim = SEim.reshape(P, NB, TB, tt, 1, F)
+    Tre = g_r * ere + g_i * eim  # conj(E) * g_bar
+    Tim = g_i * ere - g_r * eim
+    phr, phi = Phire.float(), Phiim.float()
+    Sre = _rnd(Tre * phr + Tim * phi, lowp)  # conj(Phi): [P,NB,TB,tt,D2,F]
+    Sim = _rnd(Tim * phr - Tre * phi, lowp)
+    del Tre, Tim
+    W = Wt.float().reshape(P, NB, TB, tt, D2, nb)
+    dst = (torch.arange(P, device=plane.device)[:, None] * 2
+           + plane.long()).reshape(-1)
+    out = []
+    for S in (Sre, Sim):
+        part = torch.einsum("pbktdn,pbktdf->pkbnf", W, S)  # [P,TB,NB,nb,F]
+        x2 = torch.zeros((P * 2, NB, nb, F), dtype=torch.float32,
+                         device=gre_b.device)
+        x2.index_add_(0, dst, part.reshape(P * TB, NB, nb, F))
+        out.append(x2.reshape(P, 2, NB * nb, F))
+    return out[0], out[1]
+
+
 def _eval_epilogue(R, Wd):
     """out[p,t,b*db+d] = sum_z R[p,b,t,z] Wd[p%PT,b,t,z,d] (f32 x upcast
     Wd), R [PB, DB, Tp, D2p]."""
@@ -212,8 +292,9 @@ def _check(name: str, tensors: dict, device, table_dtype):
         if k == "plane":
             if t.dtype != torch.int32:
                 raise TypeError(f"{name}: {k} must be int32, got {t.dtype}")
-        elif k in ("WtT", "Dre", "Dim", "DreT", "DimT", "PhiDre", "PhiDim",
-                   "Wd", "Hre", "Him", "Hre_g", "Him_g"):
+        elif k in ("WtT", "Wt", "Dre", "Dim", "DreT", "DimT", "PhiDre",
+                   "PhiDim", "Wd", "Hre", "Him", "Hre_g", "Him_g", "Hre_t",
+                   "Him_t"):
             if t.dtype != table_dtype:
                 raise TypeError(
                     f"{name}: {k} is {t.dtype}, the tables are {table_dtype}"
@@ -332,6 +413,77 @@ def skew_sum_planes_t(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane):
     return x2
 
 
+def _check_shear(name, spectra, Wt, SEre, SEim, Phire, Phiim, plane):
+    """Checks of K7/K8's arguments; returns (PB, PT, NB, Tp, D2, nb, TB,
+    F). ``spectra``: the image-side pair by name."""
+    first = next(iter(spectra.values()))
+    _check(name, dict(**spectra, Wt=Wt, SEre=SEre, SEim=SEim, Phire=Phire,
+                      Phiim=Phiim, plane=plane), first.device, Wt.dtype)
+    PT, NB, Tp, D2, nb = Wt.shape
+    PB, F = first.shape[0], first.shape[-1]
+    TB = plane.shape[1]
+    _batches(name, PB, PT)
+    _shape(name, SEre, (PT, NB, Tp, F), "SEre")
+    _shape(name, SEim, (PT, NB, Tp, F), "SEim")
+    _shape(name, Phire, (D2, F), "Phire")
+    _shape(name, Phiim, (D2, F), "Phiim")
+    _shape(name, plane, (PT, TB), "plane")
+    if Tp % TB:
+        raise ValueError(f"{name}: Tp={Tp} is not a multiple of TB={TB}")
+    return PB, PT, NB, Tp, D2, nb, TB, F
+
+
+def shear_sum_planes(rre2, rim2, Wt, SEre, SEim, Phire, Phiim, plane):
+    """K7: see :func:`shear_sum_planes_ref`."""
+    if _on_cpu(rre2):
+        return shear_sum_planes_ref(rre2, rim2, Wt, SEre, SEim, Phire, Phiim,
+                                    plane)
+    name = "shear_sum_planes"
+    PB, PT, NB, Tp, D2, nb, TB, F = _check_shear(
+        name, dict(rre2=rre2, rim2=rim2), Wt, SEre, SEim, Phire, Phiim, plane)
+    _shape(name, rre2, (PB, 2, NB * nb, F), "rre2")
+    _shape(name, rim2, (PB, 2, NB * nb, F), "rim2")
+    gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=rre2.device)
+    gim = torch.empty_like(gre)
+    lib = _build.load("shear_sum")
+    rc = lib.dip_shear_fwd(
+        *(t.data_ptr() for t in (
+            rre2, rim2, Wt, SEre, SEim, Phire, Phiim, plane, gre, gim)),
+        PB, PT, NB, Tp, D2, nb, TB, F, int(Wt.dtype == torch.bfloat16),
+        _stream(),
+    )
+    _raise_if(rc, name)
+    shear_sum_planes.launches += 1
+    return gre, gim
+
+
+def shear_sum_planes_t(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, plane):
+    """K8: see :func:`shear_sum_planes_t_ref`. The kernel writes every
+    element of both planes, zeros where no angle block reads a plane."""
+    if _on_cpu(gre_b):
+        return shear_sum_planes_t_ref(gre_b, gim_b, Wt, SEre, SEim, Phire,
+                                      Phiim, plane)
+    name = "shear_sum_planes_t"
+    PB, PT, NB, Tp, D2, nb, TB, F = _check_shear(
+        name, dict(gre_b=gre_b, gim_b=gim_b), Wt, SEre, SEim, Phire, Phiim,
+        plane)
+    _shape(name, gre_b, (PB, Tp, F), "gre_b")
+    _shape(name, gim_b, (PB, Tp, F), "gim_b")
+    rre2 = torch.empty((PB, 2, NB * nb, F), dtype=torch.float32,
+                       device=gre_b.device)
+    rim2 = torch.empty_like(rre2)
+    lib = _build.load("shear_sum")
+    rc = lib.dip_shear_t(
+        *(t.data_ptr() for t in (
+            gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, plane, rre2, rim2)),
+        PB, PT, NB, Tp, D2, nb, TB, F, int(Wt.dtype == torch.bfloat16),
+        _stream(),
+    )
+    _raise_if(rc, name)
+    shear_sum_planes_t.launches += 1
+    return rre2, rim2
+
+
 def eval_shear(gre, gim, Wd, TEre, TEim, PhiDre, PhiDim):
     """K3: see :func:`eval_shear_ref`. The kernel forms R; the Wd epilogue
     is a torch einsum, as it is an XLA einsum in the JAX package."""
@@ -395,7 +547,8 @@ def eval_shear_t(ob, Wd, TEre, TEim, PhiDre, PhiDim):
     return gre, gim
 
 
-KERNELS = (skew_sum_planes, skew_sum_planes_t, eval_shear, eval_shear_t)
+KERNELS = (skew_sum_planes, skew_sum_planes_t, eval_shear, eval_shear_t,
+           shear_sum_planes, shear_sum_planes_t)
 for _k in KERNELS:
     _k.launches = 0
 

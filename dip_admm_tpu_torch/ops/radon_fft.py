@@ -1,9 +1,9 @@
-"""The parallel-beam projectors ``fft_skew``, ``fft_grouped`` and
-``fft_pallas``: their tables, the forward/adjoint chains around their
-kernels, and exact column norms. The fan-beam path (``ops/radon_fan.py``)
-runs ``fft_skew`` or ``fft_grouped`` as its parallel stage, on explicit
-detector positions (``dets``) and with all of its node images against one
-shared table set.
+"""The parallel-beam projectors ``fft_skew``, ``fft_shear``,
+``fft_grouped``, ``fft_pallas`` and ``fft_mxu``: their tables, the
+forward/adjoint chains around their kernels, and exact column norms. The
+fan-beam path (``ops/radon_fan.py``) runs ``fft_skew`` or ``fft_grouped``
+as its parallel stage, on explicit detector positions (``dets``) and with
+all of its node images against one shared table set.
 
 For parallel-beam angle t (Joseph branch: integrate along the row axis a,
 interpolate along the in-row axis) the interpolation coordinate is affine,
@@ -13,24 +13,27 @@ are summed, and the summed profile is evaluated at the detector grid
 through a second 2-tap hat. Angles with |cos| > |sin| use the transposed
 image (branch C). Within a row block the integer shifts span at most nb+1
 consecutive values, so the shift tables factor exactly into real tap
-weights ``WtT``, a per-(angle, block) phase ``SE`` and one shared DFT
-matrix ``D``; the evaluation tail factors the same way into ``Wd``, ``TE``
-and ``PhiD``. See ``ops/kernels/shear_sum.py`` for the kernels.
+weights, a per-(angle, block) phase ``SE`` and a shared matrix: ``fft_skew``
+applies the taps ``WtT`` to the pixel rows and one DFT matrix ``D``;
+``fft_shear`` applies the taps ``Wt`` to the row spectra and the twiddles
+``Phi``. The evaluation tail factors the same way into ``Wd``, ``TE`` and
+``PhiD``. See ``ops/kernels/shear_sum.py`` for the kernels.
 
 ``fft_pallas`` keeps the dense merged phase table H [P, T, N, F] instead,
 with a per-angle selector of the image orientation; ``fft_grouped`` keeps
-it with its rows permuted into branch-grouped slot order. Around their
-filter-sum kernels (``ops/kernels/filter_sum.py``) the row DFT and the
-inverse DFT are torch matmuls (XLA ops in the JAX package), and so is the
-hat evaluation while its materialized weights stay below
-``_HAT_MAX_BYTES``; past that the hat kernels of ``ops/kernels/hat_eval.py``
-evaluate it on the fly, as in the JAX package.
+it with its rows permuted into branch-grouped slot order, and ``fft_mxu``
+so permuted and pre-tiled with F padded to a multiple of 128. Around their
+filter-sum kernels (``ops/kernels/filter_sum.py``, ``filter_mxu.py``) the
+row DFT and the inverse DFT are torch matmuls (XLA ops in the JAX
+package), and so is the hat evaluation while its materialized weights stay
+below ``_HAT_MAX_BYTES``; past that the hat kernels of
+``ops/kernels/hat_eval.py`` evaluate it on the fly, as in the JAX package.
 
-The tables mirror ``dip_admm_tpu.ops.radon_fft.precompute_shear`` (the
-d-major ``WtT`` layout only, which is all the skew path reads),
-``precompute_merged`` (node-batched as the JAX loader builds it) and
-``precompute_grouped``, and are built in float32 on the device the caller
-names.
+The tables mirror ``dip_admm_tpu.ops.radon_fft.precompute_shear`` (one tap
+layout per mode, as the JAX loader keeps them), ``precompute_merged``
+(node-batched as the JAX loader builds it), ``precompute_grouped`` and
+``precompute_merged_mxu``, and are built in float32 on the device the
+caller names.
 
 Node-shared tables: every projector takes PB images against tables of
 batch PT that divides PB, image p using table set p % PT. The parallel
@@ -52,7 +55,8 @@ from dip_admm_tpu_torch.ops.kernels.filter_sum import (
 )
 from dip_admm_tpu_torch.ops.kernels.hat_eval import hat_eval, hat_eval_t
 from dip_admm_tpu_torch.ops.kernels.shear_sum import (
-    eval_shear, eval_shear_t, skew_sum_planes, skew_sum_planes_t,
+    eval_shear, eval_shear_t, shear_sum_planes, shear_sum_planes_t,
+    skew_sum_planes, skew_sum_planes_t,
 )
 
 # Window slack multiplier: Np >= (sqrt(2) + 1) * max(N, D) + margin keeps
@@ -121,13 +125,22 @@ def _coeffs(cfg: GeometryConfig, angles: torch.Tensor, dets=None):
 def precompute_shear(
     cfg: GeometryConfig, angles: torch.Tensor, valid: torch.Tensor,
     table_dtype=torch.float32, nb: int = 128, dets=None,
+    layout: str = "skew",
 ) -> dict:
-    """Factored shear tables for :func:`project_nodes_skew`.
+    """Factored shear tables for :func:`project_nodes_skew` (``layout``
+    "skew") or :func:`project_nodes_shear` ("shear").
 
     ``angles`` [P, T] float32 and ``valid`` [P, T] bool, on the device the
     tables are built on. ``nb`` caps the row block (largest multiple of 8
     dividing N, at most ``nb``; N itself if none). ``dets`` [D] moves only
-    the eval tail's coordinates; its tap span D2p follows from the data."""
+    the eval tail's coordinates; its tap span D2p follows from the data.
+    Each layout holds only what its mode reads, as the JAX loader keeps
+    only one tap layout: "skew" the d-major taps ``WtT`` [P, NB, D2, Tp,
+    nb] and the DFT-back matrices ``D*``; "shear" the t-major taps ``Wt``
+    [P, NB, Tp, D2, nb], the tap twiddles ``Phire``/``Phiim`` [D2, F] and
+    the row-DFT matrices ``Ere``/``Eim`` [P, N, F]."""
+    if layout not in ("skew", "shear"):
+        raise ValueError(f"precompute_shear: unknown layout {layout!r}")
     dev = angles.device
     P, T = angles.shape
     N, D = cfg.N, cfg.n_det
@@ -180,7 +193,8 @@ def precompute_shear(
         + (delta[..., None, :] + 1 == d_rng[:, None]) * frb[..., None, :]
     )  # [P, Tp, NB, D2, nb]
     w_tap = w_tap * keep[:, :, None, None, None]
-    WtT = w_tap.permute(0, 2, 3, 1, 4).to(table_dtype).contiguous()
+    taps = w_tap.permute(*((0, 2, 3, 1, 4) if layout == "skew"
+                           else (0, 2, 1, 3, 4))).to(table_dtype).contiguous()
     del w_tap
 
     f_idx = torch.arange(F, dtype=f32, device=dev)
@@ -190,12 +204,25 @@ def precompute_shear(
     SEim = torch.sin(ph).transpose(1, 2).contiguous()
     del ph
 
-    # DFT-back of the skew sum: g[t, f] = E sum_v z[t, v] W^{-f (v-(D2-1))}.
-    WZ = -(-(N + D2 - 1) // 128) * 128
-    v = torch.arange(WZ, dtype=f32, device=dev) - float(D2 - 1)
-    ang3 = (2.0 * math.pi / Np) * v[:, None] * f_idx[None, :]
-    Dre = torch.cos(ang3).to(table_dtype)  # [WZ, F]
-    Dim = (-torch.sin(ang3)).to(table_dtype)
+    if layout == "skew":
+        # DFT-back of the skew sum:
+        # g[t, f] = E sum_v z[t, v] W^{-f (v-(D2-1))}.
+        WZ = -(-(N + D2 - 1) // 128) * 128
+        v = torch.arange(WZ, dtype=f32, device=dev) - float(D2 - 1)
+        ang3 = (2.0 * math.pi / Np) * v[:, None] * f_idx[None, :]
+        Dre = torch.cos(ang3).to(table_dtype)  # [WZ, F]
+        Dim = (-torch.sin(ang3)).to(table_dtype)
+        row_stage = {"WtT": taps}
+        mats = {"Dre": Dre, "Dim": Dim, "DreT": Dre.T.contiguous(),
+                "DimT": Dim.T.contiguous()}
+    else:
+        # Tap twiddles Phi[d, f] = W^{f d} and the row DFT of the spectra.
+        ph_t = ang[None, :] * torch.arange(D2, dtype=f32, device=dev)[:, None]
+        Ere, Eim = _dft_mats(N, Np, dev)[:2]
+        row_stage = {"Wt": taps,
+                     "Ere": Ere.expand(P, -1, -1).contiguous(),
+                     "Eim": Eim.expand(P, -1, -1).contiguous()}
+        mats = {"Phire": torch.cos(ph_t), "Phiim": torch.sin(ph_t)}
 
     # Per-block plane index; pure-slack blocks inherit the previous block's
     # plane, so the sequence is monotone per node.
@@ -250,21 +277,19 @@ def precompute_shear(
         return torch.as_tensor(a, dtype=torch.int32, device=dev)
 
     return {
-        "WtT": WtT,
+        **row_stage,
         "SEre": SEre, "SEim": SEim,
         "Wd": Wd,
         "TEre": TEre, "TEim": TEim,
         "shared": {
-            "PhiDre": torch.cos(ph_d), "PhiDim": torch.sin(ph_d),
-            "Dre": Dre, "Dim": Dim,
-            "DreT": Dre.T.contiguous(), "DimT": Dim.T.contiguous(),
+            "PhiDre": torch.cos(ph_d), "PhiDim": torch.sin(ph_d), **mats,
         },
         "posfull": i32(plan["posfull"]),
         "invposfull": i32(plan["invposfull"]),
         "plane": i32(plane_np),
-        # The JAX transpose kernel's plane bookkeeping (first visit, visited
-        # planes). The port's K2 writes every plane itself and reads
-        # neither; they stay so the tables match the JAX package's.
+        # The JAX transpose kernels' plane bookkeeping (first visit, visited
+        # planes). The port's K2 and K8 write every plane themselves and
+        # read neither; they stay so the tables match the JAX package's.
         "pfirst": i32(pfirst_np),
         "pvisited": torch.as_tensor(pvisited_np, device=dev),
     }
@@ -321,8 +346,52 @@ def backproject_nodes_skew(cfg: GeometryConfig, sinos: torch.Tensor,
     return (rows2_bar[:, 0] + rows2_bar[:, 1].transpose(1, 2)).to(sinos.dtype)
 
 
+def project_nodes_shear(cfg: GeometryConfig, imgs: torch.Tensor,
+                        tables: dict) -> torch.Tensor:
+    """Batched forward projection [PB, N, N] -> [PB, T, D] on the "shear"
+    layout of :func:`precompute_shear`: row DFTs, the spectral shear row
+    stage (K7), the factored eval tail (K3) and the slot unpermute.
+    Parallel beam only."""
+    if cfg.fan_beam:
+        raise NotImplementedError("fft_shear supports parallel beam only")
+    t = tables
+    sh = t["shared"]
+    T = max(cfg.angles_per_node())
+    rre2, rim2 = _plane_spectra(imgs, t)
+    g_re, g_im = shear_sum_planes(
+        rre2.contiguous(), rim2.contiguous(), t["Wt"], t["SEre"], t["SEim"],
+        sh["Phire"], sh["Phiim"], t["plane"],
+    )
+    out_slot = eval_shear(
+        g_re, g_im, t["Wd"], t["TEre"], t["TEim"], sh["PhiDre"], sh["PhiDim"]
+    )  # [P, Tp, D] in slot order
+    return filter_mxu.permute_rows(out_slot, t["posfull"])[:, :T].to(
+        imgs.dtype)
+
+
+def backproject_nodes_shear(cfg: GeometryConfig, sinos: torch.Tensor,
+                            tables: dict) -> torch.Tensor:
+    """Exact adjoint of :func:`project_nodes_shear`, composed by hand: slot
+    re-permute, eval-tail transpose (K4), shear transpose (K8) and the
+    row-DFT transpose. K8 writes zeros to a plane that no angle block
+    reads, which is what the JAX chain's ``pvisited`` mask does."""
+    if cfg.fan_beam:
+        raise NotImplementedError("fft_shear supports parallel beam only")
+    t = tables
+    sh = t["shared"]
+    ob = _pad_unpermute(sinos.to(torch.float32), t).contiguous()
+    g_re_bar, g_im_bar = eval_shear_t(
+        ob, t["Wd"], t["TEre"], t["TEim"], sh["PhiDre"], sh["PhiDim"]
+    )
+    rre2_bar, rim2_bar = shear_sum_planes_t(
+        g_re_bar, g_im_bar, t["Wt"], t["SEre"], t["SEim"], sh["Phire"],
+        sh["Phiim"], t["plane"],
+    )
+    return _plane_spectra_t(rre2_bar, rim2_bar, t, sinos.dtype)
+
+
 # ---------------------------------------------------------------------------
-# fft_pallas and fft_grouped: merged phase tables
+# fft_pallas, fft_grouped and fft_mxu: merged phase tables
 # ---------------------------------------------------------------------------
 
 # Past this many bytes of materialized hat weights w [PT, T, D, Np] the eval
@@ -447,6 +516,45 @@ def precompute_grouped(cfg: GeometryConfig, angles: torch.Tensor,
     }
 
 
+def precompute_merged_mxu(cfg: GeometryConfig, angles: torch.Tensor,
+                          valid: torch.Tensor,
+                          table_dtype=torch.float32) -> dict:
+    """Tiled branch-grouped tables for :func:`project_nodes_mxu`: each
+    node's :func:`precompute_merged` tables, the H rows in
+    ``plan_branch_groups`` slot order and tiled to [P, Fpad/128, N/tn, Tp,
+    tn*128] (``filter_mxu.tile_table``), F padded with zeros to Fpad =
+    ceil(F/128)*128 in the table, the row-DFT columns ``Ere``/``Eim`` and
+    the irfft rows ``Cre``/``Cim``. ``p``/``s`` stay in angle order; the
+    projector unpermutes the spectra after the kernel."""
+    merged = precompute_merged_nodes(cfg, angles, valid, table_dtype)
+    use_c = merged["sel"][:, :, 0] > 0.5
+    plan = filter_mxu.plan_branch_groups(use_c.cpu().numpy(),
+                                         valid.cpu().numpy())
+    dev = angles.device
+    F = merged["Hre"].shape[-1]
+    Fpad = -(-F // 128) * 128
+    tn = filter_mxu.pick_tn(cfg.N)
+    src = torch.as_tensor(plan["src_slot"], device=dev)
+
+    def i32(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+    pad_cols = (0, Fpad - F)
+    pad_rows = (0, 0, 0, Fpad - F)
+    return {
+        "Hre_t": filter_mxu.tile_table(merged.pop("Hre"), src, Fpad, tn),
+        "Him_t": filter_mxu.tile_table(merged.pop("Him"), src, Fpad, tn),
+        "onehot": torch.as_tensor(plan["onehot"], device=dev),
+        "posfull": i32(plan["posfull"]),
+        "invposfull": i32(plan["invposfull"]),
+        "p": merged["p"], "s": merged["s"],
+        "Ere": torch.nn.functional.pad(merged["Ere"], pad_cols),
+        "Eim": torch.nn.functional.pad(merged["Eim"], pad_cols),
+        "Cre": torch.nn.functional.pad(merged["Cre"], pad_rows),
+        "Cim": torch.nn.functional.pad(merged["Cim"], pad_rows),
+    }
+
+
 def _kview(x: torch.Tensor, PT: int) -> torch.Tensor:
     """[PB, ...] -> [PB // PT, PT, ...]: image p = k * PT + (p % PT)."""
     return x.reshape(x.shape[0] // PT, PT, *x.shape[1:])
@@ -550,6 +658,48 @@ def backproject_nodes_merged(cfg: GeometryConfig, sinos: torch.Tensor,
     return _plane_spectra_t(rre2_bar, rim2_bar, t, sinos.dtype)
 
 
+def _slot_spectra(imgs, t):
+    """Row spectra of the plane that each slot block reads: [PB, N, N] ->
+    ([PB, TB, N, F], [PB, TB, N, F]), the one-hot gather of the plan's
+    ``onehot`` [PT, TB, 2] (a torch einsum, an XLA einsum in JAX)."""
+    PT, TB = t["onehot"].shape[:2]
+    PB, N = imgs.shape[:2]
+    F = t["Ere"].shape[-1]
+    rre2, rim2 = _plane_spectra(imgs, t)
+    return tuple(
+        torch.einsum("kponf,pto->kptnf", _kview(r, PT), t["onehot"])
+        .reshape(PB, TB, N, F).contiguous()
+        for r in (rre2, rim2)
+    )
+
+
+def _slot_spectra_t(rre_s_bar, rim_s_bar, t, dtype):
+    """Exact transpose of :func:`_slot_spectra`."""
+    PT = t["onehot"].shape[0]
+    PB, _, N, F = rre_s_bar.shape
+    rre2_bar, rim2_bar = (
+        torch.einsum("kptnf,pto->kponf", _kview(r, PT), t["onehot"])
+        .reshape(PB, 2, N, F)
+        for r in (rre_s_bar, rim_s_bar)
+    )
+    return _plane_spectra_t(rre2_bar, rim2_bar, t, dtype)
+
+
+def _slot_tail(g_re, g_im, t, dtype):
+    """Slot unpermute of the [PB, Tp, F] spectra and the eval tail."""
+    T = t["p"].shape[-2]
+    g_re = filter_mxu.permute_rows(g_re, t["posfull"])[:, :T]
+    g_im = filter_mxu.permute_rows(g_im, t["posfull"])[:, :T]
+    return _eval_tail(g_re, g_im, t, dtype)
+
+
+def _slot_tail_t(sinos, t):
+    """Exact transpose of :func:`_slot_tail`: [PB, Tp, F] cotangents."""
+    g_re_bar, g_im_bar = _eval_tail_t(sinos, t)
+    return (_pad_unpermute(g_re_bar, t).contiguous(),
+            _pad_unpermute(g_im_bar, t).contiguous())
+
+
 def project_nodes_grouped(cfg: GeometryConfig, imgs: torch.Tensor,
                           tables: dict) -> torch.Tensor:
     """Batched forward projection [PB, N, N] -> [PB, T, D] on branch-grouped
@@ -559,20 +709,9 @@ def project_nodes_grouped(cfg: GeometryConfig, imgs: torch.Tensor,
     if cfg.fan_beam:
         raise NotImplementedError("fft_grouped supports parallel beam only")
     t = tables
-    PT, TB = t["onehot"].shape[:2]
-    PB, N = imgs.shape[:2]
-    T = t["p"].shape[-2]
-    F = t["Ere"].shape[-1]
-    rre2, rim2 = _plane_spectra(imgs, t)
-    rre_s, rim_s = (
-        torch.einsum("kponf,pto->kptnf", _kview(r, PT), t["onehot"])
-        .reshape(PB, TB, N, F).contiguous()
-        for r in (rre2, rim2)
-    )
-    g_re, g_im = filter_sum_grouped(rre_s, rim_s, t["Hre_g"], t["Him_g"])
-    g_re = filter_mxu.permute_rows(g_re, t["posfull"])[:, :T]
-    g_im = filter_mxu.permute_rows(g_im, t["posfull"])[:, :T]
-    return _eval_tail(g_re, g_im, t, imgs.dtype)
+    g_re, g_im = filter_sum_grouped(*_slot_spectra(imgs, t), t["Hre_g"],
+                                    t["Him_g"])
+    return _slot_tail(g_re, g_im, t, imgs.dtype)
 
 
 def backproject_nodes_grouped(cfg: GeometryConfig, sinos: torch.Tensor,
@@ -581,20 +720,38 @@ def backproject_nodes_grouped(cfg: GeometryConfig, sinos: torch.Tensor,
     hat-tail transpose, slot re-permute, the grouped transpose (K14), the
     transposed one-hot gather and the row-DFT transpose."""
     t = tables
-    PT, TB = t["onehot"].shape[:2]
-    PB = sinos.shape[0]
-    g_re_bar, g_im_bar = _eval_tail_t(sinos, t)
-    g_re_bar = _pad_unpermute(g_re_bar, t).contiguous()
-    g_im_bar = _pad_unpermute(g_im_bar, t).contiguous()
     rre_s_bar, rim_s_bar = filter_sum_grouped_t(
-        g_re_bar, g_im_bar, t["Hre_g"], t["Him_g"], TB)
-    N, F = rre_s_bar.shape[2:]
-    rre2_bar, rim2_bar = (
-        torch.einsum("kptnf,pto->kponf", _kview(r, PT), t["onehot"])
-        .reshape(PB, 2, N, F)
-        for r in (rre_s_bar, rim_s_bar)
-    )
-    return _plane_spectra_t(rre2_bar, rim2_bar, t, sinos.dtype)
+        *_slot_tail_t(sinos, t), t["Hre_g"], t["Him_g"],
+        t["onehot"].shape[1])
+    return _slot_spectra_t(rre_s_bar, rim_s_bar, t, sinos.dtype)
+
+
+def project_nodes_mxu(cfg: GeometryConfig, imgs: torch.Tensor,
+                      tables: dict) -> torch.Tensor:
+    """Batched forward projection [PB, N, N] -> [PB, T, D] on tiled tables
+    (:func:`precompute_merged_mxu`): row DFTs, the one-hot gather of each
+    slot block's spectrum plane, the tiled filter-sum (K15), the slot
+    unpermute and the hat evaluation. Parallel beam only."""
+    if cfg.fan_beam:
+        raise NotImplementedError("fft_mxu supports parallel beam only")
+    t = tables
+    g_re, g_im = filter_mxu.filter_sum_mxu(*_slot_spectra(imgs, t),
+                                           t["Hre_t"], t["Him_t"])
+    return _slot_tail(g_re, g_im, t, imgs.dtype)
+
+
+def backproject_nodes_mxu(cfg: GeometryConfig, sinos: torch.Tensor,
+                          tables: dict) -> torch.Tensor:
+    """Exact adjoint of :func:`project_nodes_mxu`, composed by hand:
+    hat-tail transpose, slot re-permute, the tiled transpose (K16), the
+    transposed one-hot gather and the row-DFT transpose."""
+    if cfg.fan_beam:
+        raise NotImplementedError("fft_mxu supports parallel beam only")
+    t = tables
+    rre_s_bar, rim_s_bar = filter_mxu.filter_sum_mxu_t(
+        *_slot_tail_t(sinos, t), t["Hre_t"], t["Him_t"],
+        t["onehot"].shape[1])
+    return _slot_spectra_t(rre_s_bar, rim_s_bar, t, sinos.dtype)
 
 
 def colnorms_sq(cfg: GeometryConfig, angles: torch.Tensor,

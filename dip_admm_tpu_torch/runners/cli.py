@@ -5,7 +5,8 @@
         --recommended [--fan-beam] [--mode fft_grouped]
 
 Builds the problem (projector mode ``fft_skew`` or ``fft_grouped``, parallel
-or fan beam, or ``fft_pallas``, parallel beam), runs decentralized
+or fan beam, or ``fft_shear``, ``fft_pallas`` or ``fft_mxu``, parallel
+beam), runs decentralized
 consensus ADMM and prints the JSON summary the JAX CLI prints
 (``{strategy: {tag, n_iters, final_primal, final_dual, mean_psnr,
 graph}}``). It takes the subset of the JAX CLI's flags that the port
@@ -78,11 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default="float32",
                    help="storage dtype of the projector tables")
     p.add_argument("--mode",
-                   choices=["auto", "fft_skew", "fft_grouped", "fft_pallas"],
+                   choices=["auto", "fft_skew", "fft_grouped", "fft_pallas",
+                            "fft_shear", "fft_mxu"],
                    default="auto",
                    help="projector (auto = fft_skew, which the JAX package "
                         "picks above N = 128; its dense mode at N <= 128 is "
-                        "not ported; fft_pallas is parallel beam only)")
+                        "not ported; fft_pallas, fft_shear and fft_mxu are "
+                        "parallel beam only)")
     p.add_argument("--use-pallas", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="fused edge-consensus kernel (default: auto, on a "

@@ -49,10 +49,12 @@ def test_cli_recommended_prints_summary():
       "--angles", "64"], 2),
     (["--mode", "fft_grouped", "--N", "32", "--nodes", "3"], 3),
     (["--mode", "fft_pallas", "--N", "32", "--nodes", "3"], 3),
-], ids=["fan", "fan_grouped", "grouped", "pallas"])
+    (["--mode", "fft_shear", "--N", "32", "--nodes", "3"], 3),
+    (["--mode", "fft_mxu", "--N", "32", "--nodes", "3"], 3),
+], ids=["fan", "fan_grouped", "grouped", "pallas", "shear", "mxu"])
 def test_cli_geometry_and_mode_print_summary(argv, nodes):
-    """``--fan-beam``, ``--mode fft_grouped`` and ``--mode fft_pallas``,
-    under the recommended preset."""
+    """``--fan-beam`` and ``--mode fft_grouped``, ``fft_pallas``,
+    ``fft_shear`` and ``fft_mxu``, under the recommended preset."""
     out = _cli("--device", "cpu", "--recommended", "--max-iters", "2", *argv)
     assert out.returncode == 0, out.stderr
     summary = json.loads(out.stdout)["knn"]
@@ -86,7 +88,7 @@ def test_cli_preset_resolution(argv, want):
     ("--N", "32"),  # no --device
     ("--device", "cpu", "--strategy", "mst"),
     ("--device", "cpu", "--mode", "dense"),
-    ("--device", "cpu", "--mode", "fft_shear"),
+    ("--device", "cpu", "--mode", "fft"),
     ("--device", "cpu", "--adapt-rho"),
     ("--device", "cpu", "--algorithm", "pcv"),
     ("--device", "cpu", "--z-fusion", "mean"),

@@ -17,8 +17,11 @@ bit. The select filter-sum kernels K11/K12 are held to 1e-5 with either
 table type (a bf16 table is upcast exactly; the sums run in another order,
 and the plain forward blends both planes by sel where the kernel reads the
 selected one, an f32 rounding per term), and the hat kernels K17/K18 to
-1e-5 (f32 throughout, other sum order). Two calls of each must agree bit
-for bit."""
+1e-5 (f32 throughout, other sum order). The shear kernels K7/K8 are held
+to 1e-5 with f32 tables and 2e-3 with bf16 tables (K8 rounds S to bf16
+from an f32 value whose last bit may differ), the tiled filter-sums
+K15/K16 to 1e-5 with either (products exact, other sum order). Two calls
+of each must agree bit for bit."""
 
 import pytest
 import torch
@@ -26,6 +29,7 @@ import torch
 from dip_admm_tpu_torch.config import GeometryConfig
 from dip_admm_tpu_torch.ops import radon, radon_fan, radon_fft
 from dip_admm_tpu_torch.ops.kernels import consensus as cons
+from dip_admm_tpu_torch.ops.kernels import filter_mxu as fm
 from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
 from dip_admm_tpu_torch.ops.kernels import hat_eval as he
 from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
@@ -428,6 +432,164 @@ def test_pallas_adjoint_identity_through_kernels(monkeypatch):
     assert {**fs.launch_counts(), **he.launch_counts()} == {
         **before, **{k: before[k] + 1 for k in (
             "filter_sum_sel", "filter_sum_sel_t", "hat_eval", "hat_eval_t")}}
+    lhs = float(torch.sum(Ax.double() * y.double()))
+    rhs = float(torch.sum(x.double() * Aty.double()))
+    rel = abs(lhs - rhs) / float(torch.linalg.norm(Ax) * torch.linalg.norm(y))
+    assert rel <= 1e-5, rel
+
+
+def _shear_cases(dtype, dev, plane=None):
+    """K7 and K8 (wrapper, plain version, arguments) on the "shear" tables
+    at N = 48 (16-row blocks: NB = 3), P = 3; ``plane`` replaces the
+    tables' plane of every angle block."""
+    geo = GeometryConfig(N=48, num_nodes=3, angles_total=45)
+    a, v, _ = radon.node_angles(geo)
+    t = radon_fft.precompute_shear(
+        geo, torch.as_tensor(a, dtype=torch.float32, device=dev),
+        torch.as_tensor(v, device=dev), dtype, nb=16, layout="shear")
+    sh = t["shared"]
+    P, NB, Tp, D2, nb = t["Wt"].shape
+    F = t["SEre"].shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    r = [torch.randn((P, 2, NB * nb, F), generator=gen, device=dev)
+         for _ in range(2)]
+    g = [torch.randn((P, Tp, F), generator=gen, device=dev)
+         for _ in range(2)]
+    pl = t["plane"] if plane is None else plane
+    tabs = (t["Wt"], t["SEre"], t["SEim"], sh["Phire"], sh["Phiim"], pl)
+    return {
+        "shear_sum_planes": (ss.shear_sum_planes, ss.shear_sum_planes_ref,
+                             (*r, *tabs)),
+        "shear_sum_planes_t": (ss.shear_sum_planes_t,
+                               ss.shear_sum_planes_t_ref, (*g, *tabs)),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shear_kernels_match_plain_and_repeat(dtype):
+    dev = _device()
+    cases = _shear_cases(dtype, dev)
+    before = ss.launch_counts()
+    for name, (kern, ref, args) in cases.items():
+        got, again, want = kern(*args), kern(*args), ref(*args)
+        torch.cuda.synchronize()
+        _assert_close(got, want, RTOL[dtype])
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+    assert ss.launch_counts() == {
+        **before, "shear_sum_planes": before["shear_sum_planes"] + 2,
+        "shear_sum_planes_t": before["shear_sum_planes_t"] + 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shear_t_writes_zero_to_a_plane_no_block_reads(dtype):
+    dev = _device()
+    plane = torch.zeros((3, 2), dtype=torch.int32, device=dev)
+    plane[1] = 1  # node 1 reads plane 1 only, nodes 0 and 2 plane 0 only
+    for name, (kern, ref, args) in _shear_cases(dtype, dev, plane).items():
+        got, want = kern(*args), ref(*args)
+        torch.cuda.synchronize()
+        _assert_close(got, want, RTOL[dtype])
+        if name == "shear_sum_planes_t":
+            for out in got:
+                for p in range(3):
+                    unread = 1 - int(plane[p, 0])
+                    assert torch.equal(out[p, unread],
+                                       torch.zeros_like(out[p, 0]))
+
+
+def _mxu_inputs(dev, dtype, PB, PT, TB, tt, N, F, seed=9):
+    """Tiled random tables of PT sets (slot order with slack slots, F padded
+    to a multiple of 128), spectra and cotangents of PB images."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Tp, Fpad, tn = TB * tt, -(-F // 128) * 128, fm.pick_tn(N)
+    src = torch.full((PT, Tp), -1, dtype=torch.int32, device=dev)
+    for i in range(PT):
+        slots = torch.randperm(Tp, generator=gen, device=dev)[:Tp - 2]
+        src[i, slots] = torch.arange(Tp - 2, dtype=torch.int32, device=dev)
+    H = [fm.tile_table(torch.randn((PT, Tp - 2, N, F), generator=gen,
+                                   device=dev).to(dtype), src, Fpad, tn)
+         for _ in range(2)]
+    r = [torch.randn((PB, TB, N, Fpad), generator=gen, device=dev)
+         for _ in range(2)]
+    g = [torch.randn((PB, Tp, Fpad), generator=gen, device=dev)
+         for _ in range(2)]
+    return H, r, g
+
+
+# (PB, PT, TB, tt, N, F): the 256^2/8 shapes at a smaller N, a slot chunk
+# that is not a multiple of the kernel's 4 slots with rows that do not fill
+# a row tile, and three images per table set.
+MXU_SHAPES = [(8, 8, 3, 32, 64, 513), (3, 3, 2, 10, 40, 130),
+              (6, 2, 1, 8, 24, 65)]
+
+
+@pytest.mark.parametrize("shape", MXU_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mxu_kernels_match_plain_and_repeat(shape, dtype):
+    dev = _device()
+    PB, PT, TB, tt, N, F = shape
+    (hr, hi), (rr, ri), (gr, gi) = _mxu_inputs(dev, dtype, *shape)
+    before = fm.launch_counts()
+    for kern, ref, args in (
+            (fm.filter_sum_mxu, fm.filter_sum_mxu_ref, (rr, ri, hr, hi)),
+            (fm.filter_sum_mxu_t, fm.filter_sum_mxu_t_ref,
+             (gr, gi, hr, hi, TB))):
+        got, again, want = kern(*args), kern(*args), ref(*args)
+        torch.cuda.synchronize()
+        _assert_close(got, want, 1e-5)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert fm.launch_counts() == {k: c + 2 for k, c in before.items()}
+
+
+def test_mxu_wrappers_reject_bad_inputs():
+    dev = _device()
+    (hr, hi), (rr, ri), (gr, gi) = _mxu_inputs(dev, torch.bfloat16, 4, 2, 2,
+                                               8, 32, 65)
+    with pytest.raises(TypeError):
+        fm.filter_sum_mxu(rr.double(), ri, hr, hi)  # spectra f32
+    with pytest.raises(TypeError):
+        fm.filter_sum_mxu(rr, ri, hr, hi.float())  # one table dtype
+    with pytest.raises(ValueError):
+        fm.filter_sum_mxu(rr[:3].contiguous(), ri[:3].contiguous(), hr,
+                          hi)  # 3 images, 2 table sets
+    with pytest.raises(ValueError):
+        fm.filter_sum_mxu(rr[..., :64].contiguous(), ri, hr, hi)  # Fpad
+    with pytest.raises(ValueError):
+        fm.filter_sum_mxu_t(gr, gi, hr, hi, 3)  # Tp = 16 not a multiple
+    with pytest.raises(ValueError):
+        fm.filter_sum_mxu_t(gr, gi.cpu(), hr, hi, 2)  # device
+    misaligned = torch.empty(gr.numel() + 1, device=dev)[1:].view(gr.shape)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        fm.filter_sum_mxu_t(misaligned, gi, hr, hi, 2)
+
+
+@pytest.mark.parametrize("mode", ["fft_shear", "fft_mxu"])
+def test_adjoint_identity_through_new_modes(mode):
+    """fft_shear through K7/K8 and K3/K4, fft_mxu through K15/K16, with f32
+    tables."""
+    dev = _device()
+    geo = GeometryConfig(N=48, num_nodes=3, angles_total=45)
+    a, v, _ = radon.node_angles(geo)
+    at = torch.as_tensor(a, dtype=torch.float32, device=dev)
+    vt = torch.as_tensor(v, device=dev)
+    if mode == "fft_shear":
+        t = radon_fft.precompute_shear(geo, at, vt, nb=16, layout="shear")
+        fwd, adj = (radon_fft.project_nodes_shear,
+                    radon_fft.backproject_nodes_shear)
+        kernels = ("shear_sum_planes", "shear_sum_planes_t", "eval_shear",
+                   "eval_shear_t")
+    else:
+        t = radon_fft.precompute_merged_mxu(geo, at, vt)
+        fwd, adj = radon_fft.project_nodes_mxu, radon_fft.backproject_nodes_mxu
+        kernels = ("filter_sum_mxu", "filter_sum_mxu_t")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((3, geo.N, geo.N), generator=gen, device=dev)
+    y = torch.randn((3, max(geo.angles_per_node()), geo.N), generator=gen,
+                    device=dev)
+    before = {**ss.launch_counts(), **fm.launch_counts()}
+    Ax, Aty = fwd(geo, x, t), adj(geo, y, t)
+    after = {**ss.launch_counts(), **fm.launch_counts()}
+    assert after == {**before, **{k: before[k] + 1 for k in kernels}}
     lhs = float(torch.sum(Ax.double() * y.double()))
     rhs = float(torch.sum(x.double() * Aty.double()))
     rel = abs(lhs - rhs) / float(torch.linalg.norm(Ax) * torch.linalg.norm(y))
