@@ -14,12 +14,20 @@ kernel):
                  tables); the main and recommended phases share it.
 3. kernels     - at the 256^2/8 bench shapes, with the problem's bf16
                  tables and seeded inputs on the card, runs each of the four
-                 projector kernels (error <= 2e-3 of the output's max) and
-                 the consensus kernel K5 at [8, 8, 65536] with the problem's
-                 union graph and weights, both fusions (error <= 1e-5 of the
-                 output's max, two calls bitwise equal) against its plain
-                 PyTorch version, and times both (median of 20 runs after
-                 warm-up, CUDA events).
+                 projector kernels (error <= 2e-3 of the output's max), K1
+                 and K6 as the ranks of the 2 x 2 mesh run them (node block
+                 1 of 2, each row shard of the 2-wide pixel axis: K1 on the
+                 shard's rows, K6 at the full row width; two calls bitwise
+                 equal; the shards' K1 outputs summed hold to K1 on all
+                 rows, their K6 outputs concatenated equal K2's bit for
+                 bit), and the consensus kernel K5 at [8, 8,
+                 65536] with the problem's union graph and weights, both
+                 fusions, and its sharded form at one rank's block of the
+                 2 x 2 mesh ([4, 8, 32768], explicit a_t; its z and y equal
+                 the single-device kernel's on the block) (error <= 1e-5 of
+                 the output's max, two calls bitwise equal), each against
+                 its plain PyTorch version, and times both (median of 20
+                 runs after warm-up, CUDA events).
 4. adjoint     - <Ax, y> = <x, A^T y> through the kernels with f32 tables at
                  256^2/8, relative error <= 1e-5.
 5. main        - 20 outers of the <=200-inner Condat-Vu parity contract
@@ -35,6 +43,24 @@ kernel):
                  first FFT and eigvalsh included, then warm), each node's
                  certified step and final step, and the step halvings of the
                  divergence monitor.
+6b. mesh_bench - the recommended run on a 2 x 2 node x pixel mesh of four
+                 processes sharing the card, over gloo with the collectives'
+                 payloads staged through host memory
+                 (``parallel/admm_sharded.py``): each rank builds the bench
+                 problem, zeroes its counts, runs 20 outers (row-sharded
+                 fft_skew: K1 and K6 must launch on every rank, K2 must not,
+                 K5's sharded form once per outer) and reads its counts;
+                 mean PSNR within 0.5 dB of 34.19 dB and within 0.05 dB of
+                 phase 6's, the state (x, Z, Y) after 3 outers within 1e-3
+                 (relative norm) of the single-device run's with fcv's
+                 preconditioner built per node block, as each node shard
+                 builds it. It prints the outer rate, the transport, each
+                 rank's collectives and their share of its run time, and how
+                 far the per-block build moves the certified steps and the
+                 3-outer state from the build over every node.
+6c. mesh_fan   - the fan bench problem on a 1 x 2 pixel mesh (two processes),
+                 20 recommended outers, the same launch checks, mean PSNR
+                 within 0.5 dB of 12.66 dB.
 7. fan_problem - builds the fan-beam bench problem (Shepp-Logan 256^2, 8
                  nodes, 768 fan angles over [0, 2 pi), 96 per node, rebinned
                  to 48 parallel angles; knn k=2, bf16 tables) twice, for
@@ -42,7 +68,9 @@ kernel):
                  seconds and the exact fan column norms' seconds.
 8. fan_kernels - at the fan shapes (8 node images against one shared table
                  set, PT = 1), K1-K4 against their plain versions (error <=
-                 2e-3 of the output's max) and the grouped filter-sum K13/K14
+                 2e-3 of the output's max), K1 and K6 on each row shard as
+                 the 1 x 2 fan mesh runs them (the checks of phase 3), and
+                 the grouped filter-sum K13/K14
                  with bf16 H (error <= 2e-3 of the output's max, two calls
                  bitwise equal), timed as in phase 3; and both fan apply
                  pairs.
@@ -96,17 +124,29 @@ kernel):
                  residuals and a mean PSNR within 0.5 dB of 34.19 dB. Each
                  prints its preconditioner's build seconds and a profile of
                  one more outer, as phase 14 does.
+19. stages     - the stages of the JAX package's
+                 ``scripts/bench_shear_stages.py`` at 256^2/8 with bf16
+                 tables: the fft_shear pipeline on slot spectra gathered
+                 one-hot (plane spectra, select, K9, eval tail K3, K4, K10),
+                 run once with the counts zeroed (the path of K9/K10), then
+                 K9/K10 against their plain versions (two calls bitwise
+                 equal), K9 against K7 on the gathered spectra (bit for bit)
+                 and K10 summed back over the one-hot against K8 (2e-3), and
+                 each stage's time, the skew row stages K1, K2 and K6 (two
+                 shards) and both full pairs included.
 
 Every kernel line gives the kernel's time, its plain version's, its bound
 (the larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s f32
 or 989 TFLOP/s bf16, counted from this call's inputs) and, where one
 PyTorch call computes the same function, that call's time
 (``library_ms``). The launch counters are set to 0 just before each of the
-eight runs and read just after. Then a JSON line with each kernel's route,
-source, launches in the eight runs together, error, times and bound
-(K1-K5, K7, K8, K15 and K16 at the parallel 256^2 shapes, K13/K14 at the
-fan shapes, K11/K12/K17/K18 at the 512^2 shapes; the largest error of any
-call); the ``nvidia-smi``
+ten runs (on each rank of the mesh runs) and before the stage path, and
+read just after. Then a JSON line with each kernel's route, source,
+launches in those runs together (a kernel that launched in none fails the
+run), error, times and bound (K1-K5, K7-K10, K15 and K16 at the parallel
+256^2 shapes, K6 and K5's sharded form at a 2 x 2 mesh rank's,
+K13/K14 at the fan shapes, K11/K12/K17/K18 at the 512^2 shapes; the largest
+error of any call, row shards and fan shapes included); the ``nvidia-smi``
 name/power-limit line; and last ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or when any phase fails, it exits non-zero and prints no
 result.
@@ -158,6 +198,10 @@ SOURCE = {
     "shear_sum_planes_t": "dip_admm_tpu_torch/csrc/shear_sum.cu",
     "filter_sum_mxu": "dip_admm_tpu_torch/csrc/filter_mxu.cu",
     "filter_sum_mxu_t": "dip_admm_tpu_torch/csrc/filter_mxu.cu",
+    "skew_sum_planes_t_rows": "dip_admm_tpu_torch/csrc/shear_sum.cu",
+    "consensus_update_sharded": "dip_admm_tpu_torch/csrc/consensus.cu",
+    "shear_sum": "dip_admm_tpu_torch/csrc/shear_sum.cu",
+    "shear_sum_t": "dip_admm_tpu_torch/csrc/shear_sum.cu",
 }
 REPLACES = {
     "skew_sum_planes": "dip_admm_tpu/ops/pallas/shear_sum.py:983",
@@ -175,6 +219,10 @@ REPLACES = {
     "shear_sum_planes_t": "dip_admm_tpu/ops/pallas/shear_sum.py:703",
     "filter_sum_mxu": "dip_admm_tpu/ops/pallas/filter_mxu.py:314",
     "filter_sum_mxu_t": "dip_admm_tpu/ops/pallas/filter_mxu.py:341",
+    "skew_sum_planes_t_rows": "dip_admm_tpu/ops/pallas/shear_sum.py:1014",
+    "consensus_update_sharded": "dip_admm_tpu/ops/pallas/consensus.py:107",
+    "shear_sum": "dip_admm_tpu/ops/pallas/shear_sum.py:235",
+    "shear_sum_t": "dip_admm_tpu/ops/pallas/shear_sum.py:253",
 }
 SKEW = ("skew_sum_planes", "skew_sum_planes_t", "eval_shear", "eval_shear_t")
 GROUPED = ("filter_sum_grouped", "filter_sum_grouped_t")
@@ -183,6 +231,10 @@ PALLAS = ("filter_sum_sel", "filter_sum_sel_t")
 SHEAR = ("shear_sum_planes", "shear_sum_planes_t", "eval_shear",
          "eval_shear_t")
 MXU = ("filter_sum_mxu", "filter_sum_mxu_t")
+# The mesh runs' checks, and the single-device state they are held to.
+MESH_PSNR_TOL = 0.05  # dB from the single-device recommended run
+MESH_STATE_OUTERS = 3
+MESH_STATE_RTOL = 1e-3
 
 
 def _bench_cfg(table_dtype: str, fan_beam: bool = False, N: int = 256):
@@ -272,14 +324,16 @@ def _work(name, args, got):
     its table (at most two of D2 per row), not the dense contraction."""
     nbytes = _nbytes([a for a in args if hasattr(a, "numel")]) + _nbytes(got)
     f32 = bf16 = 0
-    if name in ("skew_sum_planes", "skew_sum_planes_t"):
+    if name in ("skew_sum_planes", "skew_sum_planes_t",
+                "skew_sum_planes_t_rows"):
         fwd = name == "skew_sum_planes"
         W = args[1] if fwd else args[2]  # WtT [PT, NB, D2, Tp, nb]
         PB = args[0].shape[0]
         _, NB, _, Tp, nb = W.shape
         WZ = args[4].shape[0] if fwd else args[5].shape[1]
         F = args[2 if fwd else 3].shape[-1]
-        taps = 2 * _nnz_taps(W, PB) * (NB * nb)
+        WS = (args[0] if fwd else got[0]).shape[-1]  # the row width
+        taps = 2 * _nnz_taps(W, PB) * WS
         dft = 4 * PB * NB * Tp * WZ * F
         lowp = W.dtype != args[0].dtype
         f32 += 8 * PB * NB * Tp * F + (0 if lowp else taps + dft)
@@ -294,7 +348,8 @@ def _work(name, args, got):
         f32 += 8 * PB * DB * Tp * F + 2 * _nnz_taps(Wd, PB)
         f32 += 0 if lowp else mm
         bf16 += mm if lowp else 0
-    elif name in ("shear_sum_planes", "shear_sum_planes_t"):
+    elif name in ("shear_sum_planes", "shear_sum_planes_t", "shear_sum",
+                  "shear_sum_t"):
         Wt = args[2]  # [PT, NB, Tp, D2, nb]
         PB, F = args[0].shape[0], args[3].shape[-1]
         _, NB, Tp, D2, _ = Wt.shape
@@ -302,7 +357,7 @@ def _work(name, args, got):
         lowp = Wt.dtype != args[0].dtype
         f32 += 8 * PB * NB * Tp * (D2 + 1) * F + (0 if lowp else taps)
         bf16 += taps if lowp else 0
-    elif name == "consensus_update":
+    elif name in ("consensus_update", "consensus_update_sharded"):
         f32 += 12 * args[0].numel()
     elif name in MXU:  # the contraction, on the tiled table
         _, FB, NBt, Tp, L = args[2].shape
@@ -438,6 +493,69 @@ def _skew_cases(torch, dev, t, P, gen):
     }
 
 
+def _row_shard_checks(torch, t, num_nodes, nodes, img, g, failures, note,
+                      shards=2) -> dict:
+    """K1 and K6 as each shard of a ``shards``-wide pixel axis runs them on
+    the skew tables ``t`` (``WtT``/``SEre``/``SEim``/``plane`` and their
+    ``shared``) of the graph nodes ``nodes``: K1 on the shard's rows of the
+    images ``img`` [PB, N, N] and K6 from the slot spectra ``g`` at the full
+    row width, each against its plain version and twice bitwise. The
+    shards' K1 outputs summed, as the pixel-axis sum adds them, must hold
+    to K1 on all rows (error <= 2e-3 of its max), and their K6 outputs
+    concatenated must equal K2's bit for bit. Returns each kernel's numbers
+    (the first shard's times, the largest error) under ``rows_`` + K1's
+    name and K6's name."""
+    from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
+    from dip_admm_tpu_torch.parallel.mesh import slice_tables
+
+    whole = slice_tables(t, num_nodes, nodes)
+    sh = whole["shared"]
+    N = img.shape[-1]
+    k1 = ss.skew_sum_planes(
+        torch.stack([img, img.transpose(1, 2)], dim=1).contiguous(),
+        whole["WtT"], whole["SEre"], whole["SEim"], sh["Dre"], sh["Dim"],
+        whole["plane"])
+    k2 = ss.skew_sum_planes_t(*g, whole["WtT"], whole["SEre"],
+                              whole["SEim"], sh["DreT"], sh["DimT"],
+                              whole["plane"])
+    got_all = {"skew_sum_planes": [], "skew_sum_planes_t_rows": []}
+    res = {"skew_sum_planes": [], "skew_sum_planes_t_rows": []}
+    for s in range(shards):
+        loc = slice_tables(t, num_nodes, nodes, (s, shards))
+        tabs = (loc["WtT"], loc["SEre"], loc["SEim"])
+        rows = slice(s * N // shards, (s + 1) * N // shards)
+        rows2 = torch.stack([img[:, rows], img.transpose(1, 2)[:, rows]],
+                            dim=1).contiguous()
+        for name, kern, ref, args in (
+                ("skew_sum_planes", ss.skew_sum_planes,
+                 ss.skew_sum_planes_ref,
+                 (rows2, *tabs, sh["Dre"], sh["Dim"], loc["plane"])),
+                ("skew_sum_planes_t_rows", ss.skew_sum_planes_t_rows,
+                 ss.skew_sum_planes_t_rows_ref,
+                 (*g, *tabs, sh["DreT"], sh["DimT"], loc["plane"], N))):
+            tag = f"{name}{note}[row shard {s} of {shards}]"
+            got, r = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
+                              failures, note=tag[len(name):])
+            bitwise = _check_repeat(torch, tag, kern, args, got, failures)
+            print(f"kernels: {tag} bitwise_repeat={bitwise}", flush=True)
+            got_all[name].append(got)
+            res[name].append(r)
+    k1_rel = max(
+        float((sum(p[i] for p in got_all["skew_sum_planes"]) - k1[i])
+              .abs().max() / k1[i].abs().max()) for i in range(2))
+    tiles = torch.equal(torch.cat(
+        [p[0] for p in got_all["skew_sum_planes_t_rows"]], dim=2), k2)
+    if k1_rel > KERNEL_RTOL or not tiles:
+        failures.append(f"row shards{note}: K1 summed vs all rows {k1_rel}, "
+                        f"K6 concatenated equals K2 {tiles}")
+    print(f"kernels: row shards{note} k1_sum_vs_all_rows_rel_err={k1_rel} "
+          f"k6_concat_equal_k2={tiles}", flush=True)
+    return {key: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+            for key, rs in (("rows_skew_sum_planes", res["skew_sum_planes"]),
+                            ("skew_sum_planes_t_rows",
+                             res["skew_sum_planes_t_rows"]))}
+
+
 def phase_kernels(torch, dev, problem, failures) -> dict:
     from dip_admm_tpu_torch.ops import radon_fft
     from dip_admm_tpu_torch.ops.kernels import consensus as cons
@@ -451,6 +569,14 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
     for name, (kern, ref, args) in cases.items():
         _, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
                                 failures)
+
+    # K1 and K6 as the ranks of the 2 x 2 mesh run them: node block 1 of 2,
+    # each row shard of the pixel axis.
+    g = cases["skew_sum_planes_t"][2][:2]
+    blk = slice(P // 2, P)
+    out.update(_row_shard_checks(torch, t, P, blk, img[blk],
+                                 [v[blk] for v in g], failures,
+                                 f"[P_loc={P // 2} of {P}]"))
 
     geo = problem.cfg.geometry
 
@@ -484,7 +610,46 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
     # The main path runs the midpoint fusion: its times represent K5.
     out["consensus_update"] = dict(
         res[0], max_abs_err=max(r["max_abs_err"] for r in res))
-    del a, y, z
+
+    # K5's sharded form at a rank's block of the 2 x 2 mesh run: node block
+    # 1 of 2 and pixel block 1 of 2, a_t gathered as the mesh's all_to_all
+    # gathers it; its z and y equal the single-device kernel's on the block.
+    rows, cols = slice(P // 2, P), slice(n // 2, n)
+    blk = [v[rows][..., cols].contiguous() for v in (a, y, z, a.transpose(0, 1))]
+    blk.append(adjm[rows].contiguous())
+    w_blk = (problem.W[rows, cols].contiguous(), problem.W[:, cols].contiguous())
+    res = []
+    for fusion in ("midpoint", "weighted"):
+        ws = w_blk if fusion == "weighted" else (None, None)
+
+        def kern(a_, y_, z_, at_, m_, *w, _f=fusion):
+            return cons.consensus_update(
+                a_, y_, z_, m_, fusion=_f, a_t=at_, w_own=w[0] if w else None,
+                w_all=w[1] if w else None)
+
+        def ref(a_, y_, z_, at_, m_, *w, _f=fusion):
+            return cons.consensus_update_ref(
+                a_, y_, z_, m_, fusion=_f, a_t=at_, w_own=w[0] if w else None,
+                w_all=w[1] if w else None)
+
+        args = (*blk, *(w for w in ws if w is not None))
+        got, r = _compare(torch, "consensus_update_sharded", kern, ref, args,
+                          K5_RTOL, failures, note=f"[{fusion}, P_loc={P // 2}"
+                          f" of {P}, n_loc={n // 2}]")
+        bitwise = _check_repeat(torch, f"consensus_update_sharded[{fusion}]",
+                                kern, args, got, failures)
+        single = cons.consensus_update(a, y, z, adjm, problem.W, fusion)
+        block = all(torch.equal(g, f[rows][..., cols])
+                    for g, f in zip(got[:2], single[:2]))
+        if not block:
+            failures.append(f"kernel consensus_update_sharded[{fusion}]: z, y"
+                            " differ from the single-device kernel's block")
+        print(f"kernels: consensus_update_sharded[{fusion}] bitwise_repeat="
+              f"{bitwise} equals_single_device_block={block}", flush=True)
+        res.append(r)
+    out["consensus_update_sharded"] = dict(
+        res[0], max_abs_err=max(r["max_abs_err"] for r in res))
+    del a, y, z, blk
     torch.cuda.empty_cache()
     return out
 
@@ -517,13 +682,20 @@ def phase_adjoint(torch, dev, failures) -> None:
     torch.cuda.empty_cache()
 
 
+def _mean_psnr(x, x_true) -> float:
+    """Mean PSNR over the nodes' images x [P, n] (numpy)."""
+    from dip_admm_tpu_torch.utils.imaging import psnr
+
+    return float(np.mean([psnr(xi, x_true, data_range=x_true.max())
+                          for xi in x]))
+
+
 def _drive(torch, problem, admm_cfg, ref_psnr, tag, failures,
            kernels=SKEW):
     """Run ``admm_cfg`` through ``run_admm`` with the counters zeroed just
     before and read just after; check it (each of ``kernels`` and K5 must
     launch); return (result, counts, line)."""
     from dip_admm_tpu_torch.core import admm
-    from dip_admm_tpu_torch.utils.imaging import psnr
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -539,9 +711,7 @@ def _drive(torch, problem, admm_cfg, ref_psnr, tag, failures,
     dual = float(res.history["dual"][n - 1])
     inner = res.history["inner_iters"][:n].float().mean().item()
     x = res.x.cpu().numpy()
-    x_true = problem.x_true.cpu().numpy()
-    mean_psnr = float(np.mean([psnr(xi, x_true, data_range=x_true.max())
-                               for xi in x]))
+    mean_psnr = _mean_psnr(x, problem.x_true.cpu().numpy())
     checks = {
         "outers": n == admm_cfg.max_iters,
         "shape": x.shape == (problem.num_nodes, problem.n),
@@ -597,6 +767,167 @@ def phase_recommended(torch, cfg, problem, failures) -> dict:
           f"precond_build_warm_s={precond_s[1]} {line} "
           f"certified_step={step.tolist()} final_tk={tk.tolist()} "
           f"monitor_halvings={halvings}", flush=True)
+    return counts, _mean_psnr(res.x.cpu().numpy(),
+                              problem.x_true.cpu().numpy())
+
+
+def _mesh_rank(rank, device, fan, n_node, pixel, state_outers):
+    """One rank of a mesh phase: builds the fan or parallel 256^2/8 bench
+    problem on ``device``, zeroes its launch counts, runs 20 recommended
+    outers through ``run_admm_sharded`` and reads its counts; with
+    ``state_outers``, also a run of that many outers. Rank 0 returns the
+    gathered results besides its counts."""
+    import torch
+
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.parallel import admm_sharded
+    from dip_admm_tpu_torch.parallel import mesh as meshlib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(device)
+    cfg = _bench_cfg("bfloat16", fan_beam=fan)
+    rec = _recommended(cfg.admm)
+    problem = loader.build_problem(cfg, device)
+    mesh = meshlib.make_mesh(n_node, pixel, device)
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = admm_sharded.run_admm_sharded(problem, rec, mesh)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    out = {"counts": _counts(), "run_s": run_s, "n_iters": res.n_iters,
+           "comm": dict(mesh.stats),
+           "transport": mesh.transport,
+           "pixel_compute": admm_sharded.pixel_compute(problem, mesh),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    full = admm_sharded.gather_result(res, mesh)
+    n = res.n_iters
+    out.update(x=full.x.cpu().numpy(), x_true=problem.x_true.cpu().numpy(),
+               primal=float(full.history["primal"][n - 1]),
+               dual=float(full.history["dual"][n - 1]))
+    if state_outers:
+        part = admm_sharded.gather_result(admm_sharded.run_admm_sharded(
+            problem, rec, mesh, until=state_outers), mesh)
+        out["state"] = _state_np(part.state)
+    return out if rank == 0 else {"counts": out["counts"], "comm": out["comm"],
+                                  "run_s": run_s}
+
+
+def _rel(a, b) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _state_np(st) -> list:
+    return [v.cpu().numpy() for v in (st.node.x, st.Z, st.Y)]
+
+
+def _node_block_reference(torch, problem, n_node) -> tuple[list, list, float]:
+    """The single-device recommended run after ``MESH_STATE_OUTERS`` outers
+    twice: with fcv's preconditioner built per node block of an
+    ``n_node``-wide node axis, as each node shard of the mesh builds it
+    (its Lanczos sums run over that block's batch), and built over every
+    node, as ``run_admm`` builds it. Returns both states (x, Z, Y) and the
+    largest relative shift of the block-built certified steps."""
+    from dip_admm_tpu_torch.core import admm, node_solver
+    from dip_admm_tpu_torch.data.loader import make_node_ops
+    from dip_admm_tpu_torch.parallel.mesh import slice_tables
+
+    rec = _recommended(problem.cfg.admm)
+    P = problem.num_nodes
+    P_loc = P // n_node
+    D = torch.sum(problem.Q, dim=1)
+    blocks = []
+    for i in range(n_node):
+        nodes = slice(i * P_loc, (i + 1) * P_loc)
+        fwd, adj = make_node_ops(problem.mode, problem.cfg.geometry,
+                                 slice_tables(problem.fft_tables, P, nodes))
+        blocks.append(node_solver.build_fourier_precond(
+            fwd, adj, D[nodes], rec.rho, rec.node, problem.N))
+    data = admm.block_data(problem, rec)
+    fp = type(data.fprecond)(*(torch.cat(v) for v in zip(*blocks)))
+    step = data.fprecond.step
+    shift = float(((fp.step - step).abs() / step).max())
+    states = []
+    for d in (data._replace(fprecond=fp), data):
+        state, hist = admm.init_state(problem, rec)
+        for _ in range(MESH_STATE_OUTERS):
+            state = admm.admm_iteration(d, rec, state, hist)
+        states.append(_state_np(state))
+    return states[0], states[1], shift
+
+
+def _mesh_run(torch, tag, fan, n_node, pixel, ref_psnr, failures,
+              single=None):
+    """A mesh phase: ``_mesh_rank`` on n_node x pixel ranks sharing the
+    card. ``single`` = (mean PSNR, problem) of the single-device
+    recommended run: the mesh's PSNR is held to it, and its state after
+    ``MESH_STATE_OUTERS`` outers to that run's with the preconditioner
+    built per node block as the mesh builds it. Returns the launch counts
+    summed over the ranks."""
+    from dip_admm_tpu_torch.parallel import mesh as meshlib
+
+    if single is not None:
+        ref_state, whole_state, step_shift = _node_block_reference(
+            torch, single[1], n_node)
+    world = n_node * pixel
+    t0 = time.perf_counter()
+    outs = meshlib.launch(
+        _mesh_rank, world, torch.device("cuda", 0),
+        args=(fan, n_node, pixel, MESH_STATE_OUTERS if single else 0))
+    wall_s = time.perf_counter() - t0
+    r0 = outs[0]
+    n = r0["n_iters"]
+    mean_psnr = _mean_psnr(r0["x"], r0["x_true"])
+    checks = {
+        "outers": n == 20,
+        "finite": bool(np.isfinite(r0["x"]).all())
+        and math.isfinite(r0["primal"]) and math.isfinite(r0["dual"]),
+        "psnr": abs(mean_psnr - ref_psnr) <= PSNR_TOL,
+        "pixel_compute": r0["pixel_compute"],
+        # Every rank: K1 and K6 launch, K2 does not (the problem build's
+        # power method ran it before the counts were zeroed), K5's sharded
+        # form once per outer and its single-device form never.
+        "launches": all(
+            o["counts"]["skew_sum_planes"] > 0
+            and o["counts"]["skew_sum_planes_t_rows"] > 0
+            and o["counts"]["skew_sum_planes_t"] == 0
+            and o["counts"]["consensus_update_sharded"] == n
+            and o["counts"]["consensus_update"] == 0 for o in outs),
+    }
+    line = ""
+    if single is not None:
+        rel = max(_rel(a, b) for a, b in zip(r0["state"], ref_state))
+        checks["psnr_vs_single_device"] = (
+            abs(mean_psnr - single[0]) <= MESH_PSNR_TOL)
+        checks["state_vs_single_device"] = rel <= MESH_STATE_RTOL
+        whole_rel = max(_rel(a, b) for a, b in zip(ref_state, whole_state))
+        line = (f" single_device_psnr={single[0]} state_rel_diff_after_"
+                f"{MESH_STATE_OUTERS}={rel} (single device, preconditioner "
+                f"per node block) precond_step_rel_shift_block_vs_whole="
+                f"{step_shift} block_vs_whole_precond_state_rel_diff_after_"
+                f"{MESH_STATE_OUTERS}={whole_rel}")
+    for k, ok in checks.items():
+        if not ok:
+            failures.append(f"{tag} check {k} failed")
+    counts = {k: sum(o["counts"][k] for o in outs) for k in r0["counts"]}
+    how = (f"host-staged, {world} processes on one card"
+           if r0["transport"] == "gloo" else f"{world} cards")
+    comm = [o["comm"]["seconds"] / o["run_s"] for o in outs]
+    print(f"{tag}: mesh={n_node}x{pixel} transport={r0['transport']} "
+          f"({how}) run_s={r0['run_s']} "
+          f"outer_iters={n} outer_it_per_s={n / r0['run_s']} "
+          f"rank0_collectives={r0['comm']['collectives']} "
+          f"rank0_collective_s={r0['comm']['seconds']} "
+          f"rank0_collective_bytes={r0['comm']['bytes']} "
+          f"collective_share_per_rank={comm} "
+          f"launch_wall_s={wall_s} final_primal={r0['primal']} "
+          f"final_dual={r0['dual']} mean_psnr={mean_psnr} ref_psnr="
+          f"{ref_psnr}{line} rank0_peak_mem_gib={r0['peak_mem_gib']} "
+          f"rank_launches={json.dumps([o['counts'] for o in outs])} "
+          f"ok={all(checks.values())}", flush=True)
     return counts
 
 
@@ -648,6 +979,12 @@ def phase_fan_kernels(torch, dev, problems, failures) -> dict:
     for name, (kern, ref, args) in cases.items():
         _, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
                                 failures, note="[fan PT=1]")
+    # K1 and K6 as the 1 x 2 fan mesh runs them: every node's image against
+    # the row shards of the node-shared tables.
+    rows = _row_shard_checks(torch, ts["shared"]["par"], P, slice(None), img,
+                             cases["skew_sum_planes_t"][2][:2], failures,
+                             "[fan PT=1]")
+    out.update({f"fan_{k}": v for k, v in rows.items()})
 
     par = tg["shared"]["par"]
     PT, Tp, N, F = par["Hre_g"].shape
@@ -1126,6 +1463,124 @@ def phase_sm_runs(torch, cfg, problems, failures) -> dict:
     return counts
 
 
+def phase_stages(torch, dev, failures) -> tuple[dict, dict]:
+    """The stages of ``scripts/bench_shear_stages.py`` at 256^2/8 with bf16
+    tables: the fft_shear pipeline on gathered slot spectra (plane spectra,
+    one-hot select, K9, the eval tail K3 and their transposes K4, K10) and
+    the skew row stages K1, K2 and K6 (two row shards). The pipeline runs
+    once with the counts zeroed (the path of K9/K10); then K9/K10 against
+    their plain versions, K9 against K7 on the gathered spectra (bit for
+    bit) and K10 summed back over the one-hot against K8, and each stage's
+    time. Returns (kernel numbers, the path's counts)."""
+    from dip_admm_tpu_torch.ops import radon_fft
+    from dip_admm_tpu_torch.ops.kernels import filter_mxu
+    from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
+
+    cfg, ts = _tables_at(torch, dev, "bfloat16", 256, "fft_shear")
+    _, tk = _tables_at(torch, dev, "bfloat16", 256, "fft_skew")
+    geo = cfg.geometry
+    P, N, T = geo.num_nodes, geo.N, max(geo.angles_per_node())
+    sh, shk = ts["shared"], tk["shared"]
+    plane = ts["plane"]
+    TB = plane.shape[1]
+    pidx = torch.arange(P, device=dev)[:, None]
+    tabs = (ts["Wt"], ts["SEre"], ts["SEim"], sh["Phire"], sh["Phiim"])
+    gen = torch.Generator(device=dev).manual_seed(13)
+    imgs = torch.randn((P, N, N), generator=gen, device=dev)
+
+    def spectra():
+        return [v.contiguous() for v in radon_fft._plane_spectra(imgs, ts)]
+
+    def select(r2):
+        return [v[pidx, plane.long()].contiguous() for v in r2]
+
+    def tail(g):
+        out = ss.eval_shear(*g, ts["Wd"], ts["TEre"], ts["TEim"],
+                            sh["PhiDre"], sh["PhiDim"])
+        return filter_mxu.permute_rows(out, ts["posfull"])[:, :T]
+
+    def tail_t(sino):
+        ob = radon_fft._pad_unpermute(sino, ts).contiguous()
+        return ss.eval_shear_t(ob, ts["Wd"], ts["TEre"], ts["TEim"],
+                               sh["PhiDre"], sh["PhiDim"])
+
+    # The path once: forward through K9, back through K10.
+    torch.cuda.synchronize()
+    _reset_counts()
+    r2 = spectra()
+    r_s = select(r2)
+    g = ss.shear_sum(*r_s, *tabs)
+    sino = tail(g)
+    g_bar = tail_t(sino)
+    rs_bar = ss.shear_sum_t(*g_bar, *tabs, TB)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if not (counts["shear_sum"] == counts["shear_sum_t"] == 1):
+        failures.append(f"stages: K9/K10 launches {counts}")
+
+    out = {}
+    for name, kern, ref, args in (
+            ("shear_sum", ss.shear_sum, ss.shear_sum_ref, (*r_s, *tabs)),
+            ("shear_sum_t", ss.shear_sum_t, ss.shear_sum_t_ref,
+             (*g_bar, *tabs, TB))):
+        got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
+                                  failures, note="[256^2/8]")
+        bitwise = _check_repeat(torch, name, kern, args, got, failures)
+        print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} TB={TB} "
+              f"Wt={ts['Wt'].dtype}", flush=True)
+    k7 = ss.shear_sum_planes(*r2, *tabs, plane)
+    k9_is_k7 = all(torch.equal(a, b) for a, b in zip(g, k7))
+    onehot = torch.nn.functional.one_hot(plane.long(), 2).float()
+    k8 = ss.shear_sum_planes_t(*g_bar, *tabs, plane)
+    k10_rel = max(float((torch.einsum("ptnf,pto->ponf", a, onehot) - b)
+                        .abs().max() / b.abs().max())
+                  for a, b in zip(rs_bar, k8))
+    if not k9_is_k7 or k10_rel > KERNEL_RTOL:
+        failures.append(f"stages: K9 equals K7 {k9_is_k7}, K10 summed over "
+                        f"the one-hot against K8 {k10_rel}")
+    print(f"stages: k9_equals_k7_on_gathered={k9_is_k7} "
+          f"k10_onehot_sum_vs_k8_rel_err={k10_rel}", flush=True)
+    del k7, k8
+
+    rows2 = torch.stack([imgs, imgs.transpose(1, 2)], dim=1).contiguous()
+    skew_t = (*g, tk["WtT"], tk["SEre"], tk["SEim"], shk["DreT"],
+              shk["DimT"], tk["plane"])
+    NB = tk["WtT"].shape[1]
+
+    def skew_rows_t():  # K6 on each row shard, as the pixel shards run it
+        return [ss.skew_sum_planes_t_rows(
+            *g, *(tk[k][:, b:b + 1].contiguous()
+                  for k in ("WtT", "SEre", "SEim")),
+            shk["DreT"], shk["DimT"], tk["plane"], N) for b in range(NB)]
+
+    stages = (
+        ("plane_spectra", spectra),
+        ("onehot_select", lambda: select(r2)),
+        ("shear_sum K9", lambda: ss.shear_sum(*r_s, *tabs)),
+        ("permute+eval_tail K3", lambda: tail(g)),
+        ("FULL forward shear", lambda: radon_fft.project_nodes_shear(
+            geo, imgs, ts)),
+        ("eval_tail_t K4", lambda: tail_t(sino)),
+        ("shear_sum_t K10", lambda: ss.shear_sum_t(*g_bar, *tabs, TB)),
+        ("FULL adjoint shear", lambda: radon_fft.backproject_nodes_shear(
+            geo, sino, ts)),
+        ("skew row stage K1", lambda: ss.skew_sum_planes(
+            rows2, tk["WtT"], tk["SEre"], tk["SEim"], shk["Dre"], shk["Dim"],
+            tk["plane"])),
+        ("skew row stage T K2", lambda: ss.skew_sum_planes_t(*skew_t)),
+        (f"skew row stage T K6 x{NB} shards", skew_rows_t),
+        ("FULL forward skew", lambda: radon_fft.project_nodes_skew(
+            geo, imgs, tk)),
+        ("FULL adjoint skew", lambda: radon_fft.backproject_nodes_skew(
+            geo, sino, tk)),
+    )
+    for name, fn in stages:
+        print(f"stages: {name} ms={_time_ms(torch, fn)}", flush=True)
+    del ts, tk
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -1204,9 +1659,13 @@ def main() -> int:
     kern = phase_kernels(torch, dev, problem, failures)
     phase_adjoint(torch, dev, failures)
     main_counts = phase_main(torch, cfg, problem, failures)
-    rec_counts = phase_recommended(torch, cfg, problem, failures)
+    rec_counts, rec_psnr = phase_recommended(torch, cfg, problem, failures)
+    mesh_counts = _mesh_run(torch, "mesh_bench", False, 2, 2, REF_REC_PSNR,
+                            failures, single=(rec_psnr, problem))
     del problem
     torch.cuda.empty_cache()
+    mesh_fan_counts = _mesh_run(torch, "mesh_fan", True, 1, 2, REF_FAN_PSNR,
+                                failures)
     fan_cfg, fan_problems = phase_fan_problem(torch, dev)
     kern.update({f"fan_{k}" if k in SKEW else k: v for k, v in
                  phase_fan_kernels(torch, dev, fan_problems, failures).items()})
@@ -1224,8 +1683,16 @@ def main() -> int:
     kern.update(phase_sm_kernels(torch, dev, sm_problems, failures))
     phase_sm_adjoint(torch, dev, failures)
     sm_counts = phase_sm_runs(torch, sm_cfg, sm_problems, failures)
-    runs = (main_counts, rec_counts, *fan_counts.values(),
-            *p512_counts.values(), *sm_counts.values())
+    del sm_problems
+    torch.cuda.empty_cache()
+    stage_kern, stage_counts = phase_stages(torch, dev, failures)
+    kern.update(stage_kern)
+    runs = (main_counts, rec_counts, mesh_counts, mesh_fan_counts,
+            *fan_counts.values(), *p512_counts.values(), *sm_counts.values(),
+            stage_counts)
+    launches = {name: sum(c[name] for c in runs) for name in REPLACES}
+    failures += [f"kernel {name} launched in none of the runs"
+                 for name, n in launches.items() if n == 0]
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED {f}", file=sys.stderr)
@@ -1233,9 +1700,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
-         "launches": sum(c[name] for c in runs),
-         "max_abs_err": max(kern[k]["max_abs_err"]
-                            for k in (name, f"fan_{name}") if k in kern),
+         "launches": launches[name],
+         "max_abs_err": max(kern[k]["max_abs_err"] for k in (
+             name, f"fan_{name}", f"rows_{name}", f"fan_rows_{name}")
+             if k in kern),
          **{k: kern[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}}
         for name in REPLACES

@@ -16,6 +16,13 @@ on full vectors over the union-graph edges. The loop runs on the host: one
 device sync per outer iteration (the stop flag), besides the node solver's
 one per acceptance check. The edge consensus is the fused kernel K5
 (``ops/kernels/consensus.py``) or its plain torch version.
+
+The iteration body is written against ``CommOps``, as in the JAX package:
+one implementation serves the single device (``LOCAL_COMM``, all
+identities) and the node x pixel mesh of ``parallel/admm_sharded.py``,
+where a rank holds the node block [P_loc] of the node-solve tensors, with
+full images, and the [P_loc, P, n_loc] edge state (Z, Y, Q) over its pixel
+block.
 """
 
 from __future__ import annotations
@@ -32,10 +39,45 @@ from dip_admm_tpu_torch.data.loader import Problem
 from dip_admm_tpu_torch.ops.kernels import consensus
 
 
+def _identity(v):
+    return v
+
+
+class CommOps(NamedTuple):
+    """Collective hooks of the iteration body (the JAX package's
+    ``core.admm.CommOps``).
+
+    - ``pair_transpose``: [P_loc, P, n_loc] -> the value at the swapped
+      (j, i) pair (an all_to_all over the node axis). None on one device,
+      where the consensus update reads a_ji from its own input.
+    - ``psum``: total of pixel-partial quantities (node and pixel axes).
+    - ``any_reduce``: OR of a boolean tensor across the shards (the node
+      solver's continue flag, so every shard runs the same inner trip).
+    - ``psum_repl``: node-axis total of pixel-replicated quantities (the
+      node-solve outputs).
+    - ``pmax_repl``: node-axis max of pixel-replicated quantities.
+    - ``psum_pixel``: pixel-axis completion of per-node partial sums.
+    - ``gather_pixels``: [..., n_loc] -> [..., n] (pixel-axis all-gather).
+    - ``my_pixels``: [..., n] -> [..., n_loc] (this shard's pixel block).
+    """
+
+    pair_transpose: Callable | None = None
+    psum: Callable = _identity
+    any_reduce: Callable = _identity
+    psum_repl: Callable = _identity
+    pmax_repl: Callable = _identity
+    psum_pixel: Callable = _identity
+    gather_pixels: Callable = _identity
+    my_pixels: Callable = _identity
+
+
+LOCAL_COMM = CommOps()
+
+
 class AdmmState(NamedTuple):
-    node: NodeState  # x [P, n] + TV duals (warm start)
-    Z: torch.Tensor  # [P, P, n] edge consensus variables
-    Y: torch.Tensor  # [P, P, n] scaled duals y_{(ij), i}
+    node: NodeState  # x [P_loc, n] + TV duals (warm start)
+    Z: torch.Tensor  # [P_loc, P, n_loc] edge consensus variables
+    Y: torch.Tensor  # [P_loc, P, n_loc] scaled duals y_{(ij), i}
     k: int  # outer iteration counter
     stop: bool  # convergence flag
     rho_scale: torch.Tensor  # effective rho / cfg.rho (1.0: adapt_rho off)
@@ -44,18 +86,19 @@ class AdmmState(NamedTuple):
 class NodeBlockData(NamedTuple):
     """Problem data the iteration body consumes."""
 
-    fwd: Callable  # [P, n] -> [P, m]
-    adj: Callable  # [P, m] -> [P, n]
-    b: torch.Tensor  # [P, m]
-    Q: torch.Tensor  # [P, P, n] masked precisions
-    adjm: torch.Tensor  # [P, P] union adjacency (float mask)
-    W: torch.Tensor  # [P, n] fusion weights (weighted fusion)
-    L: torch.Tensor  # [P] Lipschitz bounds
+    fwd: Callable  # [P_loc, n] -> [P_loc, m]
+    adj: Callable  # [P_loc, m] -> [P_loc, n]
+    b: torch.Tensor  # [P_loc, m]
+    Q: torch.Tensor  # [P_loc, P, n_loc] masked precisions
+    adjm: torch.Tensor  # [P_loc, P] union adjacency (float mask)
+    W: torch.Tensor  # [P_loc, n] own fusion weights (weighted fusion)
+    L: torch.Tensor  # [P_loc] Lipschitz bounds
     x_true: torch.Tensor  # [n]
     N: int
-    g_scale: torch.Tensor | None = None  # [P] ||A_i^T b_i|| (eps_rel only)
+    g_scale: torch.Tensor | None = None  # [P_loc] ||A_i^T b_i|| (eps_rel)
     # Circulant metric of algorithm="fcv", built once per run_admm call.
     fprecond: node_solver.FourierPrecond | None = None
+    W_all: torch.Tensor | None = None  # [P, n] every node's weights (mesh)
 
 
 HISTORY_FIELDS = (
@@ -116,10 +159,12 @@ def check_config(cfg: AdmmConfig) -> None:
 
 
 def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
-                   hist: dict) -> AdmmState:
-    """One outer consensus iteration; writes row ``state.k`` of ``hist`` in
-    place and returns the next state."""
-    P = data.Q.shape[0]
+                   hist: dict, comm: CommOps = LOCAL_COMM) -> AdmmState:
+    """One outer consensus iteration over this shard's node block; writes
+    row ``state.k`` of ``hist`` in place and returns the next state. The
+    edge state may carry only this shard's pixel block; ``comm`` bridges it
+    to the node solves, which see full images."""
+    P_loc, P, _ = data.Q.shape
     k = state.k
     X, Z, Y = state.node.x, state.Z, state.Y
     dtype = X.dtype
@@ -127,10 +172,10 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
 
     # --- neighbour terms of the node subproblems ---
     V = Z - Y  # v_ij = z_ij - y_ij,i
-    D_vec = torch.sum(data.Q, dim=1)
+    D_vec = comm.gather_pixels(torch.sum(data.Q, dim=1))
     QV = data.Q * V
-    b_cons = torch.sum(QV, dim=1)
-    c_quad = torch.sum(QV * V, dim=(1, 2))
+    b_cons = comm.gather_pixels(torch.sum(QV, dim=1))
+    c_quad = comm.psum_pixel(torch.sum(QV * V, dim=(1, 2)))
 
     # --- inexact node solve with the adaptive target ---
     decay = torch.tensor(k + 1.0, dtype=dtype, device=X.device) ** (
@@ -142,12 +187,12 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
     nstate = state.node
     if not cfg.node.warm_start:
         nstate = node_solver.init_state(
-            P, data.N, data.b.shape[1], X.device, dtype
+            P_loc, data.N, data.b.shape[1], X.device, dtype
         )._replace(x=state.node.x)
     res = node_solver.solve_nodes(
         data.fwd, data.adj, data.b, D_vec, b_cons, c_quad,
         cfg.lam_tv, rho, data.L, nstate, eps_k, cfg.node, data.N,
-        fprecond=data.fprecond,
+        fprecond=data.fprecond, any_reduce=comm.any_reduce,
     )
     Xn = res.state.x
 
@@ -160,23 +205,31 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
     # --- edge fusion (eq. 2), dual update (eq. 3), residuals (eqs. 4-5) ---
     # Over-relaxation: x^_ij = alpha x_i + (1 - alpha) z_ij replaces x_i in
     # the z/y updates and residuals (x^ - z = a - y - z). a_i = x^_ij + y_ij,i
-    # laid out [i, j, n].
+    # laid out [i_loc, j, n_loc].
+    Xn_e = comm.my_pixels(Xn)  # this shard's pixel block of the new iterate
     if cfg.relax_alpha != 1.0:
-        Xh = cfg.relax_alpha * Xn[:, None, :] + (1.0 - cfg.relax_alpha) * Z
+        Xh = cfg.relax_alpha * Xn_e[:, None, :] + (1.0 - cfg.relax_alpha) * Z
         A_prop = Xh + Y
     else:
-        A_prop = Xn[:, None, :] + Y
+        A_prop = Xn_e[:, None, :] + Y
     use_pallas = cfg.use_pallas
     if use_pallas is None:  # auto: the fused kernel on a card at >= 8 nodes
         use_pallas = X.device.type == "cuda" and P >= 8
     update = (consensus.consensus_update if use_pallas
               else consensus.consensus_update_ref)
-    Zn, Yn, pri_pair, dz2_pair = update(A_prop, Y, Z, data.adjm, data.W,
-                                        cfg.z_fusion)
-    pri_part = torch.sum(pri_pair, dim=1)  # [P]
+    if comm.pair_transpose is None:  # every pair is local
+        Zn, Yn, pri_pair, dz2_pair = update(A_prop, Y, Z, data.adjm, data.W,
+                                            cfg.z_fusion)
+    else:
+        Zn, Yn, pri_pair, dz2_pair = update(
+            A_prop, Y, Z, data.adjm, fusion=cfg.z_fusion,
+            a_t=comm.pair_transpose(A_prop),
+            w_own=comm.my_pixels(data.W).contiguous(),
+            w_all=comm.my_pixels(data.W_all).contiguous())
+    pri_part = torch.sum(pri_pair, dim=1)  # [P_loc], pixel-partial
     dz2_part = torch.sum(dz2_pair, dim=1)
-    r2 = torch.sum(pri_part)
-    s2 = 0.5 * rho**2 * torch.sum(dz2_part)
+    r2 = comm.psum(torch.sum(pri_part))
+    s2 = 0.5 * rho**2 * comm.psum(torch.sum(dz2_part))
     pri_norm = torch.sqrt(r2)
     dual_norm = torch.sqrt(s2)
 
@@ -184,17 +237,17 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
     updates = {
         "primal": pri_norm,
         "dual": dual_norm,
-        "pri_per_node": torch.sqrt(pri_part),
-        "dual_per_node": torch.sqrt(rho**2 * dz2_part),
+        "pri_per_node": torch.sqrt(comm.psum_pixel(pri_part)),
+        "dual_per_node": torch.sqrt(rho**2 * comm.psum_pixel(dz2_part)),
         "obj_per_node": res.objective,
-        "obj_total": torch.sum(res.objective),
+        "obj_total": comm.psum_repl(torch.sum(res.objective)),
         "mse_sino_per_node": mse_sino,
-        "mse_sino_total": torch.sum(mse_sino),
+        "mse_sino_total": comm.psum_repl(torch.sum(mse_sino)),
         "img_mse_per_node": img_mse,
-        "img_mse_total": torch.sum(img_mse),
+        "img_mse_total": comm.psum_repl(torch.sum(img_mse)),
         "g_norm": res.g_norm,
-        "eps_target": torch.max(eps_vec),
-        "eps_per_node": eps_vec.expand(P),
+        "eps_target": comm.pmax_repl(torch.max(eps_vec)),
+        "eps_per_node": eps_vec.expand(P_loc),
         "inner_iters": res.inner_iters.to(dtype),
         "accept_code": res.accept_code.to(dtype),
         "rho": torch.tensor(rho, dtype=dtype, device=X.device),

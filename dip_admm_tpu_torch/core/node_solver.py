@@ -203,7 +203,12 @@ def solve_nodes(
     cfg: NodeSolverConfig,
     N: int,
     fprecond: FourierPrecond | None = None,  # required for algorithm="fcv"
+    any_reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> NodeSolveResult:
+    """Batched inexact node solves. ``any_reduce`` ORs the continue flag
+    (and the final residual's recompute flag) across the shards of a mesh,
+    so every shard runs the same inner trip count and the same collectives;
+    it is applied where the host syncs on the flag anyway."""
     if cfg.algorithm not in ALGORITHMS:
         raise NotImplementedError(
             f"inner algorithm {cfg.algorithm!r} is not ported yet "
@@ -213,6 +218,8 @@ def solve_nodes(
     dtype = state.x.dtype
     dev = state.x.device
     lam = float(lam_tv)
+    if any_reduce is None:
+        any_reduce = lambda v: v  # noqa: E731
 
     def grad_f(x):
         return adj(fwd(x) - b) + rho * (D_vec * x - b_cons)
@@ -285,12 +292,12 @@ def solve_nodes(
             # A step adjustment is progress, though the rolled-back
             # residual shows none.
             unmet = unmet & (improving | adjusted)
-        active = bool(unmet)  # the one host sync per check
+        active = bool(any_reduce(unmet))  # the one host sync per check
         g_prev = g_norm
         k += cfg.check_every
     # A residual still at inf (the loop never ran, or every check rolled a
     # node back from its first one) is recomputed, as the JAX solver does.
-    if bool(torch.isinf(g_norm).any()):
+    if bool(any_reduce(torch.isinf(g_norm).any())):
         g_norm = torch.where(torch.isinf(g_norm),
                              torch.linalg.norm(g_residual(x), dim=1), g_norm)
 

@@ -2,7 +2,8 @@
 // kernel consensus_update of dip_admm_tpu/ops/pallas/consensus.py (both
 // bodies, _kernel_midpoint and _kernel_weighted), written again for CUDA.
 //
-//   K5 dip_consensus <- consensus_update
+//   K5 dip_consensus         <- consensus_update, single device
+//   K5 dip_consensus_sharded <- consensus_update with its caller's a_t
 //
 // For every edge slot (i, j) and pixel p, with a the proposals x^ + y:
 //   z'  = adj_ij * fuse(a[i,j,p], a[j,i,p])   midpoint: (a + aT) / 2
@@ -35,6 +36,15 @@
 // The same inputs therefore give bitwise-equal outputs on every call. The
 // tile need not divide n: the last tile of a row is masked.
 //
+// Sharded form (the node x pixel mesh): a rank holds the rows i of its node
+// block, [P_loc, P, n_loc] over its pixel block, and a_ji lies on another
+// rank. The caller gathers it with an all_to_all into a_t [P_loc, P, n_loc],
+// which the kernel reads in place of a[j, i], and passes its own weights
+// w_own [P_loc, n_loc] beside every node's w_all [P, n_loc] (the TPU
+// kernel's contract). The same two passes run over P_loc * P pairs; the
+// single-device entry is this form with a_t read from a by index and
+// w_own = w_all = w.
+//
 // C interface for ctypes: pointers and the stream as void*, sizes as int.
 // The entry launches on the given stream, does not synchronise and returns
 // cudaGetLastError() (0 = launched).
@@ -52,29 +62,32 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;  // lane 0 holds the sum
 }
 
-template <bool WEIGHTED>
+template <bool WEIGHTED, bool SHARDED>
 __global__ void __launch_bounds__(NT)
 consensus_tile(const float* __restrict__ a, const float* __restrict__ y,
-               const float* __restrict__ z, const float* __restrict__ adjm,
-               const float* __restrict__ w, float* __restrict__ zn,
+               const float* __restrict__ z, const float* __restrict__ at,
+               const float* __restrict__ adjm,
+               const float* __restrict__ w_own,
+               const float* __restrict__ w_all, float* __restrict__ zn,
                float* __restrict__ yn, float* __restrict__ part, int P, int n,
                int tile, int n_tiles) {
-  const int pair = blockIdx.y;  // i * P + j
+  const int pair = blockIdx.y;  // i * P + j, i local to the rank
   const int i = pair / P, j = pair % P;
   const int t = blockIdx.x;
   const long row = (long)pair * n;
-  const long row_t = ((long)j * P + i) * n;  // a[j, i, :]
+  // a_ji: the caller's a_t at this pair (sharded), else a[j, i, :].
+  const float* src_t = SHARDED ? at + row : a + ((long)j * P + i) * n;
   const float adj = adjm[pair];
   const int p1 = min((t + 1) * tile, n);
   float pri = 0.f, dz2 = 0.f;
   for (int p = t * tile + threadIdx.x; p < p1; p += NT) {
-    const float av = a[row + p], at = a[row_t + p];
+    const float av = a[row + p], atv = src_t[p];
     float zv;
     if (WEIGHTED) {
-      const float wi = w[(long)i * n + p], wj = w[(long)j * n + p];
-      zv = ((wi * av + wj * at) / (wi + wj)) * adj;
+      const float wi = w_own[(long)i * n + p], wj = w_all[(long)j * n + p];
+      zv = ((wi * av + wj * atv) / (wi + wj)) * adj;
     } else {
-      zv = 0.5f * (av + at) * adj;
+      zv = 0.5f * (av + atv) * adj;
     }
     const float dp = (av - y[row + p] - zv) * adj;
     const float dz = (zv - z[row + p]) * adj;
@@ -98,7 +111,7 @@ consensus_tile(const float* __restrict__ a, const float* __restrict__ y,
     if (lane == 0) {
       const long k = (long)pair * n_tiles + t;
       part[k] = pri;
-      part[(long)P * P * n_tiles + k] = dz2;
+      part[(long)gridDim.y * n_tiles + k] = dz2;  // after the P_loc*P pri rows
     }
   }
 }
@@ -122,6 +135,38 @@ consensus_sum(const float* __restrict__ part, float* __restrict__ pri,
   }
 }
 
+template <bool SHARDED>
+cudaError_t launch(const void* a, const void* y, const void* z, const void* at,
+                   const void* adjm, const void* w_own, const void* w_all,
+                   void* zn, void* yn, void* part, void* pri, void* dz2,
+                   int P_loc, int P, int n, int tile, int weighted,
+                   cudaStream_t s) {
+  const int n_tiles = (n + tile - 1) / tile;
+  const dim3 grid(n_tiles, P_loc * P);
+  const float* fa = static_cast<const float*>(a);
+  const float* fy = static_cast<const float*>(y);
+  const float* fz = static_cast<const float*>(z);
+  const float* fat = static_cast<const float*>(at);
+  const float* fm = static_cast<const float*>(adjm);
+  const float* fwo = static_cast<const float*>(w_own);
+  const float* fwa = static_cast<const float*>(w_all);
+  float* fzn = static_cast<float*>(zn);
+  float* fyn = static_cast<float*>(yn);
+  float* fp = static_cast<float*>(part);
+  if (weighted)
+    consensus_tile<true, SHARDED><<<grid, NT, 0, s>>>(
+        fa, fy, fz, fat, fm, fwo, fwa, fzn, fyn, fp, P, n, tile, n_tiles);
+  else
+    consensus_tile<false, SHARDED><<<grid, NT, 0, s>>>(
+        fa, fy, fz, fat, fm, fwo, fwa, fzn, fyn, fp, P, n, tile, n_tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  consensus_sum<<<P_loc * P, 32, 0, s>>>(fp, static_cast<float*>(pri),
+                                         static_cast<float*>(dz2), P_loc * P,
+                                         n_tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // a, y, z: [P, P, n] f32; adjm: [P, P] f32; w: [P, n] f32 (weighted only,
@@ -132,26 +177,23 @@ extern "C" int dip_consensus(const void* a, const void* y, const void* z,
                              const void* adjm, const void* w, void* zn,
                              void* yn, void* part, void* pri, void* dz2, int P,
                              int n, int tile, int weighted, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (n + tile - 1) / tile;
-  const dim3 grid(n_tiles, P * P);
-  const float* fa = static_cast<const float*>(a);
-  const float* fy = static_cast<const float*>(y);
-  const float* fz = static_cast<const float*>(z);
-  const float* fm = static_cast<const float*>(adjm);
-  const float* fw = static_cast<const float*>(w);
-  float* fzn = static_cast<float*>(zn);
-  float* fyn = static_cast<float*>(yn);
-  float* fp = static_cast<float*>(part);
-  if (weighted)
-    consensus_tile<true><<<grid, NT, 0, s>>>(fa, fy, fz, fm, fw, fzn, fyn, fp,
-                                             P, n, tile, n_tiles);
-  else
-    consensus_tile<false><<<grid, NT, 0, s>>>(fa, fy, fz, fm, fw, fzn, fyn,
-                                              fp, P, n, tile, n_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  consensus_sum<<<P * P, 32, 0, s>>>(fp, static_cast<float*>(pri),
-                                     static_cast<float*>(dz2), P * P, n_tiles);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch<false>(
+      a, y, z, nullptr, adjm, w, w, zn, yn, part, pri, dz2, P, P, n, tile,
+      weighted, static_cast<cudaStream_t>(stream)));
+}
+
+// The sharded form: a, y, z, a_t: [P_loc, P, n] f32 over this rank's pixel
+// block (n = n_loc); adjm: [P_loc, P] f32; w_own: [P_loc, n], w_all: [P, n]
+// f32 (weighted only, else ignored); zn, yn: [P_loc, P, n] f32 out; part:
+// [2, P_loc*P, n_tiles] f32 scratch; pri, dz2: [P_loc, P] f32 out.
+extern "C" int dip_consensus_sharded(const void* a, const void* y,
+                                     const void* z, const void* a_t,
+                                     const void* adjm, const void* w_own,
+                                     const void* w_all, void* zn, void* yn,
+                                     void* part, void* pri, void* dz2,
+                                     int P_loc, int P, int n, int tile,
+                                     int weighted, void* stream) {
+  return static_cast<int>(launch<true>(
+      a, y, z, a_t, adjm, w_own, w_all, zn, yn, part, pri, dz2, P_loc, P, n,
+      tile, weighted, static_cast<cudaStream_t>(stream)));
 }

@@ -7,8 +7,13 @@
 //   K3 dip_eval_fwd  <- eval_shear         (_eval_fwd_pallas, the R stage)
 //   K4 dip_eval_t    <- eval_shear_t       (_eval_t_pallas, after the Wd
 //                                           pre-contraction)
+//   K6 dip_skew_t    <- skew_sum_planes_t_rows (_skew_t_pallas_planes with
+//                       row_width: K2 at a row width WS above the row count
+//                       NB * nb of one pixel shard's row blocks)
 //   K7 dip_shear_fwd <- shear_sum_planes   (_fwd_pallas_planes)
 //   K8 dip_shear_t   <- shear_sum_planes_t (_t_pallas_planes)
+//   K9 dip_shear_fwd <- shear_sum          (_fwd_pallas; plane null)
+//   K10 dip_shear_t  <- shear_sum_t        (_t_pallas; plane null)
 //
 // Each computes what the TPU kernel computes and rounds to the table type
 // at the same points (bf16 tables: the image rows before the tap product,
@@ -48,6 +53,14 @@
 // one (image, plane, row block, n tile, f tile) and adds the angle blocks
 // whose plane is its own, in order, forming S = conj(Phi) conj(E) gbar on
 // the fly; a plane that no angle block selects is written as zeros.
+//
+// K9/K10 are K7/K8 on slot spectra [PB, TB, N, F] gathered one-hot per angle
+// block instead of the two planes: the same kernels with the source index
+// the angle block tb itself (no plane table) and TB sources per image. K9
+// gives K7's bits on the gathered spectra; K10 is K8 as a pure map, each
+// block writing slot tb from angle block tb alone (no plane accumulation,
+// nothing left unwritten). Their work and bounds are K7's and K8's; they are
+// on no path of the system (the JAX package's stage bench alone runs them).
 //
 // C interface for ctypes: pointers and the stream as void*, sizes as int.
 // Every entry launches on the given stream, does not synchronise and
@@ -556,7 +569,7 @@ shear_fwd(const float* __restrict__ rre2, const float* __restrict__ rim2,
           const float* __restrict__ seim, const float* __restrict__ phre,
           const float* __restrict__ phim, const int* __restrict__ plane,
           float* __restrict__ gre, float* __restrict__ gim, int PT, int NB,
-          int Tp, int D2, int nb, int TB, int F) {
+          int Tp, int D2, int nb, int TB, int F, int nsrc) {
   __shared__ float Ws[K7_DC][K7_BT][K7_NC + 1];
   __shared__ float Xr[K7_NC][S_BF];
   __shared__ float Xi[K7_NC][S_BF];
@@ -564,11 +577,12 @@ shear_fwd(const float* __restrict__ rre2, const float* __restrict__ rim2,
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * SX + tx;
   const int f0 = blockIdx.x * S_BF, t0 = blockIdx.y * K7_BT;
   const int tb = blockIdx.z % TB, p = blockIdx.z / TB, pt = p % PT;
-  const int pl = plane[pt * TB + tb];
+  // Source spectrum: the angle block's plane (K7) or its own slot (K9).
+  const int pl = plane ? plane[pt * TB + tb] : tb;
   float gr[K7_MT][S_MF] = {}, gi[K7_MT][S_MF] = {};
 
   for (int b = 0; b < NB; ++b) {
-    const long xo = ((long)(p * 2 + pl) * N + (long)b * nb) * F;
+    const long xo = ((long)(p * nsrc + pl) * N + (long)b * nb) * F;
     // Wt[pt, b, tb*tt:(tb+1)*tt] as [tt, D2, nb]
     const T* w = wt + ((long)(pt * NB + b) * Tp + tb * tt) * D2 * nb;
     float tr[K7_MT][S_MF] = {}, ti[K7_MT][S_MF] = {};
@@ -683,7 +697,7 @@ shear_t(const float* __restrict__ gre, const float* __restrict__ gim,
         const float* __restrict__ seim, const float* __restrict__ phre,
         const float* __restrict__ phim, const int* __restrict__ plane,
         float* __restrict__ rre2, float* __restrict__ rim2, int PT, int NB,
-        int Tp, int D2, int nb, int TB, int F) {
+        int Tp, int D2, int nb, int TB, int F, int nsrc) {
   __shared__ float Tr[K8_TC][S_BF];
   __shared__ float Ti[K8_TC][S_BF];
   __shared__ float Ws[K8_KC][K8_BN];
@@ -692,12 +706,14 @@ shear_t(const float* __restrict__ gre, const float* __restrict__ gim,
   const int tt = Tp / TB, N = NB * nb;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * SX + tx;
   const int f0 = blockIdx.x * S_BF, n0 = blockIdx.y * K8_BN;
-  const int b = blockIdx.z % NB, pl = (blockIdx.z / NB) % 2;
-  const int p = blockIdx.z / (NB * 2), pt = p % PT;
+  const int b = blockIdx.z % NB, pl = (blockIdx.z / NB) % nsrc;
+  const int p = blockIdx.z / (NB * nsrc), pt = p % PT;
   float ar[K8_MN][S_MF] = {}, ai[K8_MN][S_MF] = {};
 
   for (int tb = 0; tb < TB; ++tb) {
-    if (plane[pt * TB + tb] != pl) continue;  // uniform over the block
+    // Uniform over the block: the angle blocks on this plane (K8), or the
+    // one angle block of this slot (K10).
+    if ((plane ? plane[pt * TB + tb] : tb) != pl) continue;
     const T* w = wt + ((long)(pt * NB + b) * Tp + tb * tt) * D2 * nb;
     for (int s0 = 0; s0 < tt; s0 += K8_TC) {
       for (int i = tid; i < K8_TC * S_BF; i += SN) {
@@ -767,7 +783,7 @@ shear_t(const float* __restrict__ gre, const float* __restrict__ gim,
   for (int i = 0; i < K8_MN; ++i) {
     const int ng = n0 + ty + SY * i;
     if (ng >= nb) continue;
-    const long ro = ((long)(p * 2 + pl) * N + (long)b * nb + ng) * F;
+    const long ro = ((long)(p * nsrc + pl) * N + (long)b * nb + ng) * F;
 #pragma unroll
     for (int j = 0; j < S_MF; ++j) {
       const int f = f0 + tx + SX * j;
@@ -786,17 +802,20 @@ cudaError_t launch_shear(bool fwd, const float* a_re, const float* a_im,
                          const int* plane, float* o_re, float* o_im, int PB,
                          int PT, int NB, int Tp, int D2, int nb, int TB, int F,
                          cudaStream_t s) {
+  // K7/K8 read and write the two planes of a plane table; K9/K10 (plane
+  // null) the TB slots.
+  const int nsrc = plane ? 2 : TB;
   const dim3 blk(SX, SY);
   const T* w = static_cast<const T*>(wt);
   if (fwd) {
     const dim3 g(cdiv(F, S_BF), cdiv(Tp / TB, K7_BT), PB * TB);
     shear_fwd<T><<<g, blk, 0, s>>>(a_re, a_im, w, sere, seim, phre, phim,
                                    plane, o_re, o_im, PT, NB, Tp, D2, nb, TB,
-                                   F);
+                                   F, nsrc);
   } else {
-    const dim3 g(cdiv(F, S_BF), cdiv(nb, K8_BN), PB * 2 * NB);
+    const dim3 g(cdiv(F, S_BF), cdiv(nb, K8_BN), PB * nsrc * NB);
     shear_t<T><<<g, blk, 0, s>>>(a_re, a_im, w, sere, seim, phre, phim, plane,
-                                 o_re, o_im, PT, NB, Tp, D2, nb, TB, F);
+                                 o_re, o_im, PT, NB, Tp, D2, nb, TB, F, nsrc);
   }
   return cudaGetLastError();
 }

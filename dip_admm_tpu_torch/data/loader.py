@@ -118,19 +118,25 @@ def make_node_ops(mode: str, geo: GeometryConfig, tables: dict):
 
 
 def build_fft_tables(cfg: ProblemConfig, angles, valid,
-                     mode: str = "fft_skew") -> dict:
+                     mode: str = "fft_skew",
+                     row_block: Optional[int] = None) -> dict:
     """Projector tables in ``cfg.fft_table_dtype``. Fan beam shares one
-    parallel-stage table set among the nodes (``ops/radon_fan.py``)."""
+    parallel-stage table set among the nodes (``ops/radon_fan.py``).
+    ``row_block`` overrides the row-block size nb (default 128) of the
+    ``fft_skew``/``fft_shear`` factorization: the pixel axis of a mesh
+    shards the skew tables along their NB = N / nb row blocks, so smaller
+    blocks admit more pixel shards."""
     geo = cfg.geometry
     _check_mode(mode, geo)
     tdt = _DTYPES[cfg.fft_table_dtype]
+    nb = {} if row_block is None else {"nb": row_block}
     if geo.fan_beam:
-        pre = (radon_fan.precompute_fan_skew if mode == "fft_skew"
-               else radon_fan.precompute_fan_grouped)
-        return pre(geo, angles, valid, tdt)
+        if mode == "fft_skew":
+            return radon_fan.precompute_fan_skew(geo, angles, valid, tdt, **nb)
+        return radon_fan.precompute_fan_grouped(geo, angles, valid, tdt)
     if mode in ("fft_skew", "fft_shear"):
         return radon_fft.precompute_shear(
-            geo, angles, valid, tdt, layout=mode.removeprefix("fft_"))
+            geo, angles, valid, tdt, layout=mode.removeprefix("fft_"), **nb)
     pre = {"fft_grouped": radon_fft.precompute_grouped,
            "fft_pallas": radon_fft.precompute_merged_nodes,
            "fft_mxu": radon_fft.precompute_merged_mxu}[mode]
@@ -182,6 +188,7 @@ def build_problem(
     mode: Optional[str] = None,
     noise: Optional[torch.Tensor] = None,
     opnorm_v0: Optional[torch.Tensor] = None,
+    row_block: Optional[int] = None,
 ) -> Problem:
     """Assemble a :class:`Problem` on ``device``.
 
@@ -190,7 +197,8 @@ def build_problem(
     beam, which the JAX loader picks above N = 128; at N <= 128 it picks
     "dense", which is not ported. ``noise`` [P, m] replaces
     the standard-normal draw (a generator seeded with ``cfg.noise_seed``);
-    ``opnorm_v0`` [P, n] replaces the power-method start."""
+    ``opnorm_v0`` [P, n] replaces the power-method start. ``row_block``
+    is :func:`build_fft_tables`'s."""
     device = torch.device(device)
     mode = "fft_skew" if mode is None else mode
     geo = cfg.geometry
@@ -207,7 +215,7 @@ def build_problem(
     x_true = torch.as_tensor(phantom, dtype=torch.float32,
                              device=device).reshape(-1)
 
-    tables = build_fft_tables(cfg, angles, valid, mode)
+    tables = build_fft_tables(cfg, angles, valid, mode, row_block)
     fwd, adj = make_node_ops(mode, geo, tables)
     clean = fwd(x_true[None].expand(P, n).contiguous())
 

@@ -56,6 +56,7 @@ SIGNATURES = {
     },
     "consensus": {
         "dip_consensus": [_P] * 10 + [_I] * 4 + [_P],
+        "dip_consensus_sharded": [_P] * 12 + [_I] * 5 + [_P],
     },
 }
 

@@ -6,16 +6,20 @@ on a CUDA tensor it launches ``dip_consensus`` of ``csrc/consensus.cu``,
 on a CPU tensor it runs :func:`consensus_update_ref`.
 
 Single device: the transposed proposals a_ji are read by index from ``a``
-itself, so the caller passes no ``a_t`` (the JAX kernel takes one because
-its sharded caller gathers it with an ``all_to_all``). The kernel's tile
-need not divide n (the ragged last tile is masked), so the JAX package's
-``pick_tile`` has no counterpart. What bounds it and why its reduction is
-deterministic is in the source note of ``csrc/consensus.cu``.
+itself, so the caller passes no ``a_t``. The sharded form takes the JAX
+kernel's contract: the node x pixel mesh (``parallel/admm_sharded.py``)
+gathers ``a_t`` [P_loc, P, n_loc] with an ``all_to_all`` and passes the
+fusion weights as ``w_own`` [P_loc, n_loc] and ``w_all`` [P, n_loc]; it
+launches ``dip_consensus_sharded``. The kernel's tile need not divide n
+(the ragged last tile is masked), so the JAX package's ``pick_tile`` has no
+counterpart. What bounds it and why its reduction is deterministic is in
+the source note of ``csrc/consensus.cu``.
 
-``consensus_update.launches`` counts the calls that launch the kernel (one
+``consensus_update.launches`` counts the single-device calls that launch
+the kernel and ``consensus_update.sharded_launches`` the sharded ones (one
 per call, though a call is two launches: the fused pass and the sum of its
 per-tile partials); ``launch_counts`` and ``reset_launch_counts`` read and
-clear it.
+clear them.
 """
 
 from __future__ import annotations
@@ -29,21 +33,28 @@ TILE = 2048  # pixels per block of the fused pass
 FUSIONS = ("midpoint", "weighted")
 
 
-def consensus_update_ref(a, y, z, adjm, w=None, fusion="midpoint"):
+def consensus_update_ref(a, y, z, adjm, w=None, fusion="midpoint", *,
+                         a_t=None, w_own=None, w_all=None):
     """Fused z/y/residual update of every edge slot, in plain torch ops.
 
     a, y, z: [P, P, n] proposals a_ij = x^_ij + y_ij, duals and previous
     consensus; adjm: [P, P] edge mask; w: [P, n] fusion weights (weighted
     only). Returns (z_new, y_new, pri_pair, dz2_pair) with the per-(i, j)
     partials pri = sum_p (a - y - z_new)^2 and dz2 = sum_p (z_new - z)^2
-    over [P, P], masked."""
-    a_t = a.transpose(0, 1)
+    over [P, P], masked.
+
+    Sharded form: ``a_t`` [P_loc, P, n] holds a_ji for a, y, z [P_loc, P,
+    n] and adjm [P_loc, P], with the weights ``w_own`` [P_loc, n] and
+    ``w_all`` [P, n] in place of ``w``."""
+    if a_t is None:
+        a_t = a.transpose(0, 1)
+        w_own = w_all = w
     am = adjm[:, :, None].to(a.dtype)
     if fusion == "midpoint":
         zn = 0.5 * (a + a_t) * am
     else:
-        wi = w[:, None, :]
-        wj = w[None, :, :]
+        wi = w_own[:, None, :]
+        wj = w_all[None, :, :]
         zn = ((wi * a + wj * a_t) / (wi + wj)) * am
     yn = (a - zn) * am
     dpri = (a - y - zn) * am
@@ -51,21 +62,36 @@ def consensus_update_ref(a, y, z, adjm, w=None, fusion="midpoint"):
     return zn, yn, torch.sum(dpri * dpri, -1), torch.sum(dz * dz, -1)
 
 
-def consensus_update(a, y, z, adjm, w=None, fusion="midpoint"):
-    """K5: see :func:`consensus_update_ref`."""
+def consensus_update(a, y, z, adjm, w=None, fusion="midpoint", *,
+                     a_t=None, w_own=None, w_all=None):
+    """K5: see :func:`consensus_update_ref` (its sharded form with
+    ``a_t``)."""
     if fusion not in FUSIONS:
         raise ValueError(f"fusion must be one of {FUSIONS}, got {fusion!r}")
-    if fusion == "weighted" and w is None:
-        raise ValueError("weighted fusion needs the weights w")
+    sharded = a_t is not None
+    if fusion == "weighted" and (
+            (w_own is None or w_all is None) if sharded else w is None):
+        raise ValueError("weighted fusion needs the weights "
+                         + ("w_own and w_all" if sharded else "w"))
     if _on_cpu(a):
-        return consensus_update_ref(a, y, z, adjm, w, fusion)
+        return consensus_update_ref(a, y, z, adjm, w, fusion, a_t=a_t,
+                                    w_own=w_own, w_all=w_all)
     name = "consensus_update"
-    P, _, n = a.shape
+    P_loc, P, n = a.shape
     tensors = dict(a=a, y=y, z=z, adjm=adjm)
-    if fusion == "weighted":
-        tensors["w"] = w
-    shapes = dict(a=(P, P, n), y=(P, P, n), z=(P, P, n), adjm=(P, P),
-                  w=(P, n))
+    shapes = dict(a=(P_loc, P, n), y=(P_loc, P, n), z=(P_loc, P, n),
+                  a_t=(P_loc, P, n), adjm=(P_loc, P), w=(P, n),
+                  w_own=(P_loc, n), w_all=(P, n))
+    if sharded:
+        tensors["a_t"] = a_t
+        if fusion == "weighted":
+            tensors.update(w_own=w_own, w_all=w_all)
+    else:
+        if P_loc != P:
+            raise ValueError(f"{name}: a is {tuple(a.shape)}; a [P_loc, P, "
+                             "n] needs the sharded form's a_t")
+        if fusion == "weighted":
+            tensors["w"] = w
     for k, t in tensors.items():
         if t.device != a.device:
             raise ValueError(f"{name}: {k} is on {t.device}, expected {a.device}")
@@ -76,33 +102,50 @@ def consensus_update(a, y, z, adjm, w=None, fusion="midpoint"):
         if tuple(t.shape) != shapes[k]:
             raise ValueError(f"{name}: {k} has shape {tuple(t.shape)}, "
                              f"expected {shapes[k]}")
-    if P * P > 65535:
-        raise ValueError(f"{name}: {P} nodes exceed the grid's pair axis")
+    if P_loc * P > 65535:
+        raise ValueError(f"{name}: {P_loc} x {P} pairs exceed the grid's "
+                         "pair axis")
     n_tiles = -(-n // TILE)
     zn = torch.empty_like(a)
     yn = torch.empty_like(a)
-    part = torch.empty((2, P * P, n_tiles), dtype=torch.float32,
+    part = torch.empty((2, P_loc * P, n_tiles), dtype=torch.float32,
                        device=a.device)
-    pri = torch.empty((P, P), dtype=torch.float32, device=a.device)
+    pri = torch.empty((P_loc, P), dtype=torch.float32, device=a.device)
     dz2 = torch.empty_like(pri)
+    weighted = fusion == "weighted"
+    outs = (zn.data_ptr(), yn.data_ptr(), part.data_ptr(), pri.data_ptr(),
+            dz2.data_ptr())
     lib = _build.load("consensus")
-    rc = lib.dip_consensus(
-        a.data_ptr(), y.data_ptr(), z.data_ptr(), adjm.data_ptr(),
-        w.data_ptr() if fusion == "weighted" else None,
-        zn.data_ptr(), yn.data_ptr(), part.data_ptr(), pri.data_ptr(),
-        dz2.data_ptr(), P, n, TILE, int(fusion == "weighted"), _stream(),
-    )
+    if sharded:
+        rc = lib.dip_consensus_sharded(
+            a.data_ptr(), y.data_ptr(), z.data_ptr(), a_t.data_ptr(),
+            adjm.data_ptr(), w_own.data_ptr() if weighted else None,
+            w_all.data_ptr() if weighted else None, *outs, P_loc, P, n, TILE,
+            int(weighted), _stream(),
+        )
+    else:
+        rc = lib.dip_consensus(
+            a.data_ptr(), y.data_ptr(), z.data_ptr(), adjm.data_ptr(),
+            w.data_ptr() if weighted else None, *outs, P, n, TILE,
+            int(weighted), _stream(),
+        )
     _raise_if(rc, name)
-    consensus_update.launches += 1
+    if sharded:
+        consensus_update.sharded_launches += 1
+    else:
+        consensus_update.launches += 1
     return zn, yn, pri, dz2
 
 
 consensus_update.launches = 0
+consensus_update.sharded_launches = 0
 
 
 def launch_counts() -> dict:
-    return {"consensus_update": consensus_update.launches}
+    return {"consensus_update": consensus_update.launches,
+            "consensus_update_sharded": consensus_update.sharded_launches}
 
 
 def reset_launch_counts() -> None:
     consensus_update.launches = 0
+    consensus_update.sharded_launches = 0

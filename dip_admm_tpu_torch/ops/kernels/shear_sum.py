@@ -1,22 +1,30 @@
-"""The six kernels of the ``fft_skew`` and ``fft_shear`` projectors, with
+"""The nine kernels of the ``fft_skew`` and ``fft_shear`` projectors, with
 their plain versions.
 
 Each wrapper replaces one Pallas kernel of
 ``dip_admm_tpu/ops/pallas/shear_sum.py``:
 
-=================== ============================================= =============
-wrapper             TPU kernel it replaces                        CUDA entry
-=================== ============================================= =============
-skew_sum_planes     skew_sum_planes (_skew_fwd_pallas_planes)     dip_skew_fwd
-skew_sum_planes_t   skew_sum_planes_t (_skew_t_pallas_planes)     dip_skew_t
-eval_shear          eval_shear (_eval_fwd_pallas, _eval_r_kernel) dip_eval_fwd
-eval_shear_t        eval_shear_t (_eval_t_pallas, _eval_t_kernel) dip_eval_t
-shear_sum_planes    shear_sum_planes (_fwd_pallas_planes)         dip_shear_fwd
-shear_sum_planes_t  shear_sum_planes_t (_t_pallas_planes)         dip_shear_t
-=================== ============================================= =============
+====================== ============================================ ===================
+wrapper                TPU kernel it replaces                       CUDA entry
+====================== ============================================ ===================
+skew_sum_planes        K1 skew_sum_planes (_skew_fwd_pallas_planes) dip_skew_fwd
+skew_sum_planes_t      K2 skew_sum_planes_t (_skew_t_pallas_planes) dip_skew_t
+eval_shear             K3 eval_shear (_eval_fwd_pallas)             dip_eval_fwd
+eval_shear_t           K4 eval_shear_t (_eval_t_pallas)             dip_eval_t
+skew_sum_planes_t_rows K6 skew_sum_planes_t_rows (row_width)        dip_skew_t
+shear_sum_planes       K7 shear_sum_planes (_fwd_pallas_planes)     dip_shear_fwd
+shear_sum_planes_t     K8 shear_sum_planes_t (_t_pallas_planes)     dip_shear_t
+shear_sum              K9 shear_sum (_fwd_pallas)                   dip_shear_fwd
+shear_sum_t            K10 shear_sum_t (_t_pallas)                  dip_shear_t
+====================== ============================================ ===================
 
 ``fft_skew`` runs K1-K4, ``fft_shear`` K7, K8, K3 and K4 (its row stage on
 the row spectra instead of the pixel rows, with the t-major taps ``Wt``).
+Under pixel compute on a mesh (``parallel/admm_sharded.py``) ``fft_skew``
+runs K1 on one shard's rows and K6 in place of K2: K2's kernel on the
+shard's row blocks at the full row width. K9/K10 are K7/K8 on slot spectra
+gathered one-hot per angle block [PB, TB, N, F] (K10 a pure map); no path
+of the system runs them, only the stage phase of ``chip_smoke.py``.
 On a CPU tensor a wrapper runs its plain PyTorch version (``*_ref``); on a
 CUDA tensor it launches the hand-written kernel of ``csrc/shear_sum.cu`` or
 raises. Both round to the table type at the JAX kernel's points (bf16
@@ -122,15 +130,24 @@ def skew_sum_planes_ref(rows2, WtT, SEre, SEim, Dre, Dim, plane):
 
 def skew_sum_planes_t_ref(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane):
     """Exact transpose of :func:`skew_sum_planes_ref`: [PB, Tp, F] pair ->
-    row cotangents of both planes [PB, 2, N, WS]. Planes that no angle block
+    row cotangents of both planes [PB, 2, N, N]. Planes that no angle block
     reads come out zero (the JAX kernel leaves them uninitialized and
     masks them with ``pvisited`` afterwards)."""
+    return skew_sum_planes_t_rows_ref(gre_b, gim_b, WtT, SEre, SEim, DreT,
+                                      DimT, plane, WtT.shape[1] * WtT.shape[-1])
+
+
+def skew_sum_planes_t_rows_ref(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT,
+                               plane, row_width):
+    """:func:`skew_sum_planes_t_ref` on the NB row blocks that ``WtT`` and
+    ``SE*`` carry (one pixel shard's, under row sharding) at the full row
+    width ``row_width``: [PB, Tp, F] pair -> [PB, 2, NB * nb, row_width]."""
     WtT, SEre, SEim, plane = _per_image(gre_b.shape[0], WtT, SEre, SEim, plane)
     P, NB, D2, Tp, nb = WtT.shape
     F, WZ = DreT.shape
     TB = plane.shape[1]
     tt = Tp // TB
-    WS = nb * NB
+    WS = row_width
     lowp = WtT.dtype == torch.bfloat16
     g_r = gre_b.reshape(P, TB, 1, tt, F)
     g_i = gim_b.reshape(P, TB, 1, tt, F)
@@ -161,15 +178,22 @@ def shear_sum_planes_ref(rre2, rim2, Wt, SEre, SEim, Phire, Phiim, plane):
     Per (image p, angle block tb, row block b) on plane ``plane[p, tb]``:
     S[t,d,f] = sum_n Wt[t,d,n] r[n,f] (r rounded to bf16 with bf16 taps);
     g += E_b * sum_d Phi[d,f] S[t,d,f], summed over the row blocks."""
-    Wt, SEre, SEim, plane = _per_image(rre2.shape[0], Wt, SEre, SEim, plane)
+    plane = _per_image(rre2.shape[0], plane)[0]
+    pidx = torch.arange(rre2.shape[0], device=rre2.device)[:, None]
+    return shear_sum_ref(rre2[pidx, plane.long()], rim2[pidx, plane.long()],
+                         Wt, SEre, SEim, Phire, Phiim)
+
+
+def shear_sum_ref(rre_s, rim_s, Wt, SEre, SEim, Phire, Phiim):
+    """K7 on slot spectra already gathered per angle block: [PB, TB, N, F]
+    pair -> [PB, Tp, F] pair; angle block tb reads ``rre_s[:, tb]``."""
+    Wt, SEre, SEim = _per_image(rre_s.shape[0], Wt, SEre, SEim)
     P, NB, Tp, D2, nb = Wt.shape
-    F = rre2.shape[-1]
-    TB = plane.shape[1]
+    TB, F = rre_s.shape[1], rre_s.shape[-1]
     tt = Tp // TB
     lowp = Wt.dtype == torch.bfloat16
-    pidx = torch.arange(P, device=rre2.device)[:, None]
-    xr, xi = (_rnd(r[pidx, plane.long()].float(), lowp).reshape(
-        P, TB, NB, nb, F) for r in (rre2, rim2))
+    xr, xi = (_rnd(r.float(), lowp).reshape(P, TB, NB, nb, F)
+              for r in (rre_s, rim_s))
     W = Wt.float().reshape(P, NB, TB, tt, D2, nb)
     Sre = torch.einsum("pbktdn,pkbnf->pbktdf", W, xr)  # [P,NB,TB,tt,D2,F]
     Sim = torch.einsum("pbktdn,pkbnf->pbktdf", W, xi)
@@ -192,10 +216,26 @@ def shear_sum_planes_t_ref(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim,
     rounded to bf16 with bf16 taps. A plane that no angle block reads comes
     out zero (the JAX kernel leaves it undefined and masks it with
     ``pvisited`` afterwards)."""
-    Wt, SEre, SEim, plane = _per_image(gre_b.shape[0], Wt, SEre, SEim, plane)
+    plane = _per_image(gre_b.shape[0], plane)[0]
+    P, TB = plane.shape
+    dst = (torch.arange(P, device=plane.device)[:, None] * 2
+           + plane.long()).reshape(-1)
+    out = []
+    for part in shear_sum_t_ref(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim,
+                                TB):
+        x2 = torch.zeros((P * 2,) + part.shape[2:], dtype=torch.float32,
+                         device=gre_b.device)
+        x2.index_add_(0, dst, part.reshape((P * TB,) + part.shape[2:]))
+        out.append(x2.reshape((P, 2) + part.shape[2:]))
+    return out[0], out[1]
+
+
+def shear_sum_t_ref(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, TB: int):
+    """Exact transpose of :func:`shear_sum_ref`, a pure map: [PB, Tp, F]
+    pair -> [PB, TB, N, F] pair, angle block tb's cotangent in slot tb."""
+    Wt, SEre, SEim = _per_image(gre_b.shape[0], Wt, SEre, SEim)
     P, NB, Tp, D2, nb = Wt.shape
     F = gre_b.shape[-1]
-    TB = plane.shape[1]
     tt = Tp // TB
     lowp = Wt.dtype == torch.bfloat16
     g_r = gre_b.reshape(P, 1, TB, tt, 1, F)
@@ -209,16 +249,8 @@ def shear_sum_planes_t_ref(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim,
     Sim = _rnd(Tim * phr - Tre * phi, lowp)
     del Tre, Tim
     W = Wt.float().reshape(P, NB, TB, tt, D2, nb)
-    dst = (torch.arange(P, device=plane.device)[:, None] * 2
-           + plane.long()).reshape(-1)
-    out = []
-    for S in (Sre, Sim):
-        part = torch.einsum("pbktdn,pbktdf->pkbnf", W, S)  # [P,TB,NB,nb,F]
-        x2 = torch.zeros((P * 2, NB, nb, F), dtype=torch.float32,
-                         device=gre_b.device)
-        x2.index_add_(0, dst, part.reshape(P * TB, NB, nb, F))
-        out.append(x2.reshape(P, 2, NB * nb, F))
-    return out[0], out[1]
+    return tuple(torch.einsum("pbktdn,pbktdf->pkbnf", W, S).reshape(
+        P, TB, NB * nb, F) for S in (Sre, Sim))
 
 
 def _eval_epilogue(R, Wd):
@@ -376,12 +408,32 @@ def skew_sum_planes_t(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane):
     if _on_cpu(gre_b):
         return skew_sum_planes_t_ref(gre_b, gim_b, WtT, SEre, SEim, DreT,
                                      DimT, plane)
-    name = "skew_sum_planes_t"
+    x2 = _skew_t_launch("skew_sum_planes_t", gre_b, gim_b, WtT, SEre, SEim,
+                        DreT, DimT, plane, WtT.shape[1] * WtT.shape[-1])
+    skew_sum_planes_t.launches += 1
+    return x2
+
+
+def skew_sum_planes_t_rows(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane,
+                           row_width):
+    """K6: see :func:`skew_sum_planes_t_rows_ref`. K2's kernel at the full
+    row width ``row_width`` on the row blocks that ``WtT``/``SE*`` carry."""
+    if _on_cpu(gre_b):
+        return skew_sum_planes_t_rows_ref(gre_b, gim_b, WtT, SEre, SEim, DreT,
+                                          DimT, plane, row_width)
+    x2 = _skew_t_launch("skew_sum_planes_t_rows", gre_b, gim_b, WtT, SEre,
+                        SEim, DreT, DimT, plane, row_width)
+    skew_sum_planes_t_rows.launches += 1
+    return x2
+
+
+def _skew_t_launch(name, gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane,
+                   WS):
+    """Checks and launch of ``dip_skew_t`` (K2, and K6 at WS > NB * nb)."""
     PT, NB, D2, Tp, nb = WtT.shape
     PB = gre_b.shape[0]
     F, WZ = DreT.shape
     TB = plane.shape[1]
-    WS = NB * nb
     _check(name, dict(gre_b=gre_b, gim_b=gim_b, WtT=WtT, SEre=SEre,
                       SEim=SEim, DreT=DreT, DimT=DimT, plane=plane),
            gre_b.device, WtT.dtype)
@@ -409,26 +461,31 @@ def skew_sum_planes_t(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane):
         int(WtT.dtype == torch.bfloat16), _stream(),
     )
     _raise_if(rc, name)
-    skew_sum_planes_t.launches += 1
     return x2
 
 
-def _check_shear(name, spectra, Wt, SEre, SEim, Phire, Phiim, plane):
-    """Checks of K7/K8's arguments; returns (PB, PT, NB, Tp, D2, nb, TB,
-    F). ``spectra``: the image-side pair by name."""
+def _check_shear(name, spectra, Wt, SEre, SEim, Phire, Phiim, plane=None,
+                 TB=None):
+    """Checks of K7-K10's arguments; returns (PB, PT, NB, Tp, D2, nb, TB,
+    F). ``spectra``: the image-side pair by name; K7/K8 pass ``plane``,
+    K9/K10 the angle-block count ``TB``."""
     first = next(iter(spectra.values()))
-    _check(name, dict(**spectra, Wt=Wt, SEre=SEre, SEim=SEim, Phire=Phire,
-                      Phiim=Phiim, plane=plane), first.device, Wt.dtype)
+    tensors = dict(**spectra, Wt=Wt, SEre=SEre, SEim=SEim, Phire=Phire,
+                   Phiim=Phiim)
+    if plane is not None:
+        tensors["plane"] = plane
+    _check(name, tensors, first.device, Wt.dtype)
     PT, NB, Tp, D2, nb = Wt.shape
     PB, F = first.shape[0], first.shape[-1]
-    TB = plane.shape[1]
+    TB = plane.shape[1] if plane is not None else TB
     _batches(name, PB, PT)
     _shape(name, SEre, (PT, NB, Tp, F), "SEre")
     _shape(name, SEim, (PT, NB, Tp, F), "SEim")
     _shape(name, Phire, (D2, F), "Phire")
     _shape(name, Phiim, (D2, F), "Phiim")
-    _shape(name, plane, (PT, TB), "plane")
-    if Tp % TB:
+    if plane is not None:
+        _shape(name, plane, (PT, TB), "plane")
+    if TB < 1 or Tp % TB:
         raise ValueError(f"{name}: Tp={Tp} is not a multiple of TB={TB}")
     return PB, PT, NB, Tp, D2, nb, TB, F
 
@@ -482,6 +539,58 @@ def shear_sum_planes_t(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, plane):
     _raise_if(rc, name)
     shear_sum_planes_t.launches += 1
     return rre2, rim2
+
+
+def shear_sum(rre_s, rim_s, Wt, SEre, SEim, Phire, Phiim):
+    """K9: see :func:`shear_sum_ref`. K7's kernel with angle block tb
+    reading slot tb of the gathered spectra instead of a plane."""
+    if _on_cpu(rre_s):
+        return shear_sum_ref(rre_s, rim_s, Wt, SEre, SEim, Phire, Phiim)
+    name = "shear_sum"
+    PB, PT, NB, Tp, D2, nb, TB, F = _check_shear(
+        name, dict(rre_s=rre_s, rim_s=rim_s), Wt, SEre, SEim, Phire, Phiim,
+        TB=rre_s.shape[1])
+    _shape(name, rre_s, (PB, TB, NB * nb, F), "rre_s")
+    _shape(name, rim_s, (PB, TB, NB * nb, F), "rim_s")
+    gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=rre_s.device)
+    gim = torch.empty_like(gre)
+    lib = _build.load("shear_sum")
+    rc = lib.dip_shear_fwd(  # no plane table: angle block tb reads slot tb
+        *(t.data_ptr() for t in (rre_s, rim_s, Wt, SEre, SEim, Phire, Phiim)),
+        None, gre.data_ptr(), gim.data_ptr(),
+        PB, PT, NB, Tp, D2, nb, TB, F, int(Wt.dtype == torch.bfloat16),
+        _stream(),
+    )
+    _raise_if(rc, name)
+    shear_sum.launches += 1
+    return gre, gim
+
+
+def shear_sum_t(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, TB: int):
+    """K10: see :func:`shear_sum_t_ref`. K8's kernel as a pure map: each
+    block writes slot tb of its row block from angle block tb alone."""
+    if _on_cpu(gre_b):
+        return shear_sum_t_ref(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim,
+                               TB)
+    name = "shear_sum_t"
+    PB, PT, NB, Tp, D2, nb, TB, F = _check_shear(
+        name, dict(gre_b=gre_b, gim_b=gim_b), Wt, SEre, SEim, Phire, Phiim,
+        TB=TB)
+    _shape(name, gre_b, (PB, Tp, F), "gre_b")
+    _shape(name, gim_b, (PB, Tp, F), "gim_b")
+    rre_s = torch.empty((PB, TB, NB * nb, F), dtype=torch.float32,
+                        device=gre_b.device)
+    rim_s = torch.empty_like(rre_s)
+    lib = _build.load("shear_sum")
+    rc = lib.dip_shear_t(  # no plane table: slot tb from angle block tb
+        *(t.data_ptr() for t in (gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim)),
+        None, rre_s.data_ptr(), rim_s.data_ptr(),
+        PB, PT, NB, Tp, D2, nb, TB, F, int(Wt.dtype == torch.bfloat16),
+        _stream(),
+    )
+    _raise_if(rc, name)
+    shear_sum_t.launches += 1
+    return rre_s, rim_s
 
 
 def eval_shear(gre, gim, Wd, TEre, TEim, PhiDre, PhiDim):
@@ -548,7 +657,8 @@ def eval_shear_t(ob, Wd, TEre, TEim, PhiDre, PhiDim):
 
 
 KERNELS = (skew_sum_planes, skew_sum_planes_t, eval_shear, eval_shear_t,
-           shear_sum_planes, shear_sum_planes_t)
+           skew_sum_planes_t_rows, shear_sum_planes, shear_sum_planes_t,
+           shear_sum, shear_sum_t)
 for _k in KERNELS:
     _k.launches = 0
 

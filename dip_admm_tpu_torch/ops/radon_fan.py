@@ -188,6 +188,32 @@ def backproject_nodes_fan_skew(cfg: GeometryConfig, sinos: torch.Tensor,
     return _backproject(radon_fft.backproject_nodes_skew, cfg, sinos, tables)
 
 
+def project_nodes_fan_skew_rowshard(cfg: GeometryConfig, imgs: torch.Tensor,
+                                    tables: dict,
+                                    shard: radon_fft.RowShard) -> torch.Tensor:
+    """:func:`project_nodes_fan_skew` with the shared parallel stage split
+    over the pixel axis (``radon_fft.project_nodes_skew_rowshard`` on the
+    ``shared.par`` tables, which carry this shard's row blocks); the rebin
+    tail stays replicated. The nodes fold into the kernels' image batch
+    (PB = P against PT = 1) as on the unsharded fan path."""
+    def par(cfg_par, x, t, n_rows):
+        return radon_fft.project_nodes_skew_rowshard(cfg_par, x, t, shard,
+                                                     n_rows)
+
+    return _project(par, cfg, imgs, tables)
+
+
+def backproject_nodes_fan_skew_rowshard(cfg: GeometryConfig,
+                                        sinos: torch.Tensor, tables: dict,
+                                        shard: radon_fft.RowShard
+                                        ) -> torch.Tensor:
+    """Exact adjoint of :func:`project_nodes_fan_skew_rowshard`."""
+    def par(cfg_par, s, t):
+        return radon_fft.backproject_nodes_skew_rowshard(cfg_par, s, t, shard)
+
+    return _backproject(par, cfg, sinos, tables)
+
+
 def project_nodes_fan_grouped(cfg: GeometryConfig, imgs: torch.Tensor,
                               tables: dict) -> torch.Tensor:
     """Batched fan forward projection [P, N, N] -> [P, m, D] on the shared

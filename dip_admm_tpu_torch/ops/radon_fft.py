@@ -43,6 +43,7 @@ paths run PT = PB; the fan path PT = 1.
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -56,7 +57,7 @@ from dip_admm_tpu_torch.ops.kernels.filter_sum import (
 from dip_admm_tpu_torch.ops.kernels.hat_eval import hat_eval, hat_eval_t
 from dip_admm_tpu_torch.ops.kernels.shear_sum import (
     eval_shear, eval_shear_t, shear_sum_planes, shear_sum_planes_t,
-    skew_sum_planes, skew_sum_planes_t,
+    skew_sum_planes, skew_sum_planes_t, skew_sum_planes_t_rows,
 )
 
 # Window slack multiplier: Np >= (sqrt(2) + 1) * max(N, D) + margin keeps
@@ -343,6 +344,69 @@ def backproject_nodes_skew(cfg: GeometryConfig, sinos: torch.Tensor,
         g_re_bar, g_im_bar, t["WtT"], t["SEre"], t["SEim"],
         sh["DreT"], sh["DimT"], t["plane"],
     )
+    return (rows2_bar[:, 0] + rows2_bar[:, 1].transpose(1, 2)).to(sinos.dtype)
+
+
+class RowShard(NamedTuple):
+    """One pixel shard of the row-sharded skew projector: its position on
+    the pixel axis and that axis's two collectives, in place of the JAX
+    package's ``axis_name``. The shard's tables carry only its NB_loc row
+    blocks of ``WtT``/``SEre``/``SEim``; the shards own consecutive row
+    blocks in the order of ``index``."""
+
+    index: int
+    psum: Callable[[torch.Tensor], torch.Tensor]  # sum over the pixel axis
+    # (t, dim) -> the shards' t concatenated along dim, in index order
+    gather: Callable[[torch.Tensor, int], torch.Tensor]
+
+
+def project_nodes_skew_rowshard(cfg: GeometryConfig, imgs: torch.Tensor,
+                                tables: dict, shard: RowShard,
+                                n_rows: int | None = None) -> torch.Tensor:
+    """:func:`project_nodes_skew` with the row stage split over the pixel
+    axis: K1 on this shard's rows [r0, r0 + NB_loc * nb) of both planes
+    (its tap product, the projector's bulk, divides by the shard count),
+    one pixel-axis sum of the slot spectra, then the eval tail (K3),
+    replicated on every shard."""
+    t = tables
+    sh = t["shared"]
+    T = max(cfg.angles_per_node()) if n_rows is None else n_rows
+    dtype = imgs.dtype
+    NB_loc, nb = t["WtT"].shape[1], t["WtT"].shape[-1]
+    r0 = shard.index * NB_loc * nb
+    imgs = imgs.to(torch.float32)
+    rows2 = torch.stack([imgs[:, r0:r0 + NB_loc * nb],
+                         imgs.transpose(1, 2)[:, r0:r0 + NB_loc * nb]], dim=1)
+    g = torch.stack(skew_sum_planes(
+        rows2.contiguous(), t["WtT"], t["SEre"], t["SEim"], sh["Dre"],
+        sh["Dim"], t["plane"],
+    ))
+    g_re, g_im = shard.psum(g)
+    out_slot = eval_shear(
+        g_re.contiguous(), g_im.contiguous(), t["Wd"], t["TEre"], t["TEim"],
+        sh["PhiDre"], sh["PhiDim"],
+    )
+    return filter_mxu.permute_rows(out_slot, t["posfull"])[:, :T].to(dtype)
+
+
+def backproject_nodes_skew_rowshard(cfg: GeometryConfig, sinos: torch.Tensor,
+                                    tables: dict,
+                                    shard: RowShard) -> torch.Tensor:
+    """Exact adjoint of :func:`project_nodes_skew_rowshard`: the eval-tail
+    transpose (K4) replicated, K6 on this shard's row blocks at the full row
+    width, and one pixel-axis all-gather of the row blocks. K6 writes zeros
+    to a plane that no angle block reads, as K2 does, so the JAX package's
+    ``pvisited`` mask has nothing left to clear."""
+    t = tables
+    sh = t["shared"]
+    ob = _pad_unpermute(sinos.to(torch.float32), t).contiguous()
+    g_re_bar, g_im_bar = eval_shear_t(
+        ob, t["Wd"], t["TEre"], t["TEim"], sh["PhiDre"], sh["PhiDim"]
+    )
+    rows2_bar = shard.gather(skew_sum_planes_t_rows(
+        g_re_bar, g_im_bar, t["WtT"], t["SEre"], t["SEim"],
+        sh["DreT"], sh["DimT"], t["plane"], cfg.N,
+    ), 2)  # [PB, 2, N, N]
     return (rows2_bar[:, 0] + rows2_bar[:, 1].transpose(1, 2)).to(sinos.dtype)
 
 

@@ -3,6 +3,8 @@
     python -m dip_admm_tpu_torch.runners.cli --device cuda --N 256 --nodes 8 \\
         --phantom shepp --fft-table-dtype bfloat16 --max-iters 20 \\
         --recommended [--fan-beam] [--mode fft_grouped]
+    python -m dip_admm_tpu_torch.runners.cli --device cpu --mesh 2 \
+        --mesh-pixel 2 --N 32 --nodes 4 --max-iters 2
 
 Builds the problem (projector mode ``fft_skew`` or ``fft_grouped``, parallel
 or fan beam, or ``fft_shear``, ``fft_pallas`` or ``fft_mxu``, parallel
@@ -12,6 +14,14 @@ consensus ADMM and prints the JSON summary the JAX CLI prints
 graph}}``). It takes the subset of the JAX CLI's flags that the port
 implements; any other flag or value is rejected. ``--device`` has no
 default, and ``--device cuda`` on a host without a GPU is an error.
+
+``--mesh N [--mesh-pixel K]`` runs the loop on an N x K node x pixel mesh
+(``parallel/admm_sharded.py``): the CLI starts the N*K ranks itself
+(``torch.multiprocessing``, spawn), each builds the problem on
+``--device``, and rank 0's gathered result gives the same summary. On a
+host with a card per rank they talk over NCCL, each on its own card;
+otherwise over gloo, every rank on ``--device`` (on a one-card host the
+ranks share the card and their collectives pass through host memory).
 """
 
 from __future__ import annotations
@@ -86,6 +96,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "picks above N = 128; its dense mode at N <= 128 is "
                         "not ported; fft_pallas, fft_shear and fft_mxu are "
                         "parallel beam only)")
+    p.add_argument("--mesh", type=int, default=None,
+                   help="shard the nodes over this many ranks")
+    p.add_argument("--mesh-pixel", type=int, default=1,
+                   help="also shard the [P, P, n] edge state (and, for "
+                        "fft_skew, the projector's row blocks) over this "
+                        "many ranks along the pixel axis (ranks = --mesh * "
+                        "--mesh-pixel)")
     p.add_argument("--use-pallas", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="fused edge-consensus kernel (default: auto, on a "
@@ -141,19 +158,9 @@ def config_from_args(args):
     )
 
 
-def main(argv=None) -> dict:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    resolve_preset(args)
-    if args.check_every < 1:
-        parser.error("--check-every must be >= 1")
-
-    import torch
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        parser.error("--device cuda: no CUDA device is available")
-
+def _run(args, device, mesh=None) -> dict | None:
+    """Build the problem on ``device``, run the loop (on ``mesh`` when
+    given) and return the summary (None on ranks other than 0)."""
     from dip_admm_tpu_torch.core import admm
     from dip_admm_tpu_torch.data import loader
     from dip_admm_tpu_torch.graph import topology
@@ -162,7 +169,15 @@ def main(argv=None) -> dict:
     cfg = config_from_args(args)
     mode = None if args.mode == "auto" else args.mode
     problem = loader.build_problem(cfg, device, mode=mode)
-    res = admm.run_admm(problem, cfg.admm)
+    if mesh is None:
+        res = admm.run_admm(problem, cfg.admm)
+    else:
+        from dip_admm_tpu_torch.parallel import admm_sharded
+
+        res = admm_sharded.gather_result(
+            admm_sharded.run_admm_sharded(problem, cfg.admm, mesh), mesh)
+        if mesh.rank != 0:
+            return None
     n_iters = res.n_iters
     x = res.x.cpu().numpy()
     x_true = problem.x_true.cpu().numpy()
@@ -178,7 +193,48 @@ def main(argv=None) -> dict:
         )),
         "graph": topology.union_summary(problem.keep),
     }
-    results = {args.strategy: summary}
+    return {args.strategy: summary}
+
+
+def _rank(rank, device, argv):
+    """One rank of ``--mesh``: its summary on rank 0, else None."""
+    from dip_admm_tpu_torch.parallel import mesh as meshlib
+
+    args = build_parser().parse_args(argv)
+    resolve_preset(args)
+    mesh = meshlib.make_mesh(args.mesh, args.mesh_pixel, device)
+    return _run(args, device, mesh)
+
+
+def main(argv=None) -> dict:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    resolve_preset(args)
+    if args.check_every < 1:
+        parser.error("--check-every must be >= 1")
+    if args.mesh is not None and (args.mesh < 1 or args.mesh_pixel < 1):
+        parser.error("--mesh and --mesh-pixel must be >= 1")
+    if args.mesh is None and args.mesh_pixel != 1:
+        parser.error("--mesh-pixel needs --mesh")
+
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        parser.error("--device cuda: no CUDA device is available")
+
+    if args.mesh is None:
+        results = _run(args, device)
+    else:
+        import sys
+
+        from dip_admm_tpu_torch.parallel import mesh as meshlib
+
+        world = args.mesh * args.mesh_pixel
+        argv = sys.argv[1:] if argv is None else list(argv)
+        results = meshlib.launch(
+            _rank, world, device, args=(argv,),
+            threads=max(1, torch.get_num_threads() // world))[0]
     print(json.dumps(results, indent=2, default=str))
     return results
 

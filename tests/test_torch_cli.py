@@ -99,6 +99,36 @@ def test_cli_rejects_unported_flags(args):
     assert "error" in out.stderr
 
 
+def test_cli_mesh_matches_single_process():
+    """``--mesh 2 --mesh-pixel 2`` (four gloo ranks on the CPU) prints the
+    single-process run's keys and numbers: rtol 2e-3 on the residuals and
+    the PSNR (the histories' tolerance of ``test_torch_sharded.py``)."""
+    argv = ("--device", "cpu", "--N", "32", "--nodes", "4", "--max-iters",
+            "2")
+    one = _cli(*argv)
+    mesh = _cli(*argv, "--mesh", "2", "--mesh-pixel", "2")
+    assert one.returncode == 0, one.stderr
+    assert mesh.returncode == 0, mesh.stderr
+    want, got = json.loads(one.stdout)["knn"], json.loads(mesh.stdout)["knn"]
+    assert set(got) == set(want)
+    for key in ("tag", "n_iters", "graph"):
+        assert got[key] == want[key], key
+    for key in ("final_primal", "final_dual", "mean_psnr"):
+        np.testing.assert_allclose(got[key], want[key], rtol=2e-3,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("args", [
+    ("--mesh-pixel", "2"),  # without --mesh
+    ("--mesh", "0"),
+])
+def test_cli_rejects_a_bad_mesh(args):
+    out = _cli("--device", "cpu", "--N", "32", "--nodes", "4", *args)
+    assert out.returncode != 0
+    assert "--mesh" in out.stderr
+    assert out.stdout == ""
+
+
 def test_cli_rejects_fan_beam_fft_pallas():
     out = _cli("--device", "cpu", "--fan-beam", "--mode", "fft_pallas",
                "--N", "24", "--nodes", "2", "--angles", "64",

@@ -1,7 +1,9 @@
 """The port's fused consensus update (K5) against the JAX package's, on the
 CPU: the port's ``consensus_update`` (its plain version for CPU tensors)
 against the JAX Pallas kernel in interpret mode and its jnp reference, at
-P=8 with a random adjacency that masks some pairs, for both fusions.
+P=8 with a random adjacency that masks some pairs, for both fusions, in
+its single-device form and in its sharded form (one node x pixel block,
+with the explicit a_t and weights of the JAX kernel's contract).
 Tolerance: rtol 1e-6 on z and y (the same elementwise float32 ops, with an
 absolute floor of 1e-6 times the output max for values near 0), rtol 1e-5
 on the per-pair partials (sums of n squares taken in another order)."""
@@ -56,6 +58,34 @@ def test_matches_jax_kernel_and_reference(fusion, n):
     assert torch.equal(got[0][adjm == 0], torch.zeros_like(got[0][adjm == 0]))
 
 
+@pytest.mark.parametrize("fusion", ["midpoint", "weighted"])
+def test_sharded_form_matches_jax_kernel(fusion):
+    """The sharded form: node block 1 of 2 (P_loc = 4 of P = 8), pixel block
+    1 of 2, with an explicit a_t, w_own and w_all, against JAX's kernel on
+    the same block (interpret mode) and against the single-device update's
+    slice of the same block."""
+    n = 4096
+    a, y, z, adjm, w = _data(n)
+    rows, cols = slice(4, 8), slice(n // 2, n)
+    a_t = np.swapaxes(a, 0, 1)
+    blk = [np.ascontiguousarray(v[rows][..., cols]) for v in (a, y, z, a_t)]
+    w_own = np.ascontiguousarray(w[rows, cols])
+    w_all = np.ascontiguousarray(w[:, cols])
+    got = tcons.consensus_update(
+        *(torch.as_tensor(v) for v in blk[:3]), torch.as_tensor(adjm[rows]),
+        fusion=fusion, a_t=torch.as_tensor(blk[3]),
+        w_own=torch.as_tensor(w_own), w_all=torch.as_tensor(w_all))
+    kern = jcons.consensus_update(
+        *(jnp.asarray(v) for v in blk), jnp.asarray(adjm[rows]),
+        jnp.asarray(w_own), jnp.asarray(w_all), fusion=fusion,
+        tile=jcons.pick_tile(n // 2), interpret=True)
+    _close(got, kern)
+    whole = tcons.consensus_update_ref(
+        *(torch.as_tensor(v) for v in (a, y, z, adjm, w)), fusion=fusion)
+    for g, full in zip(got[:2], whole[:2]):
+        assert torch.equal(g, full[rows][..., cols])
+
+
 def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
     a, y, z, adjm, w = (torch.as_tensor(v) for v in _data(256))
     tcons.reset_launch_counts()
@@ -63,12 +93,20 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
     want = tcons.consensus_update_ref(a, y, z, adjm, w, "weighted")
     for g, r in zip(got, want):
         assert torch.equal(g, r)
-    assert tcons.launch_counts() == {"consensus_update": 0}
+    got = tcons.consensus_update(a, y, z, adjm, fusion="weighted",
+                                 a_t=a.transpose(0, 1).contiguous(), w_own=w,
+                                 w_all=w)
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+    assert tcons.launch_counts() == {"consensus_update": 0,
+                                     "consensus_update_sharded": 0}
 
 
 def test_bad_fusion_raises():
-    a, y, z, adjm, _ = (torch.as_tensor(v) for v in _data(128))
+    a, y, z, adjm, w = (torch.as_tensor(v) for v in _data(128))
     with pytest.raises(ValueError):
         tcons.consensus_update(a, y, z, adjm, fusion="mean")
     with pytest.raises(ValueError):
         tcons.consensus_update(a, y, z, adjm, fusion="weighted")  # no w
+    with pytest.raises(ValueError):  # the sharded form needs w_own, w_all
+        tcons.consensus_update(a, y, z, adjm, w, "weighted", a_t=a)

@@ -20,8 +20,11 @@ selected one, an f32 rounding per term), and the hat kernels K17/K18 to
 1e-5 (f32 throughout, other sum order). The shear kernels K7/K8 are held
 to 1e-5 with f32 tables and 2e-3 with bf16 tables (K8 rounds S to bf16
 from an f32 value whose last bit may differ), the tiled filter-sums
-K15/K16 to 1e-5 with either (products exact, other sum order). Two calls
-of each must agree bit for bit."""
+K15/K16 to 1e-5 with either (products exact, other sum order). K6 (K2's
+kernel on one shard's row blocks at the full row width), K9/K10 (K7/K8 on
+gathered slot spectra) and K5's sharded form are held to their plain
+versions as K2, K7/K8 and K5 are. Two calls of each must agree bit for
+bit."""
 
 import pytest
 import torch
@@ -594,3 +597,92 @@ def test_adjoint_identity_through_new_modes(mode):
     rhs = float(torch.sum(x.double() * Aty.double()))
     rel = abs(lhs - rhs) / float(torch.linalg.norm(Ax) * torch.linalg.norm(y))
     assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_skew_t_rows_matches_plain_repeats_and_tiles_k2(dtype):
+    """K6 on each of three one-block row shards at the full row width:
+    against its plain version, bit for bit on a second call, and the
+    shards' outputs concatenated along the rows equal K2's, bit for bit
+    (each row block keeps K2's order of angle blocks)."""
+    dev = _device()
+    geo, t = _tables(dtype, dev)
+    kern, ref, args = _cases(t, dev)["skew_sum_planes_t"]
+    g, g2, WtT, SEre, SEim, DreT, DimT, plane = args
+    NB = WtT.shape[1]
+    assert NB == 3
+    whole = kern(*args)
+    parts = []
+    before = ss.skew_sum_planes_t_rows.launches
+    for s in range(NB):
+        loc = [v[:, s:s + 1].contiguous() for v in (WtT, SEre, SEim)]
+        sargs = (g, g2, *loc, DreT, DimT, plane, geo.N)
+        got, again = (ss.skew_sum_planes_t_rows(*sargs),
+                      ss.skew_sum_planes_t_rows(*sargs))
+        want = ss.skew_sum_planes_t_rows_ref(*sargs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_close(got, want, RTOL[dtype])
+        parts.append(got)
+    assert ss.skew_sum_planes_t_rows.launches == before + 2 * NB
+    assert torch.equal(torch.cat(parts, dim=2), whole)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shear_slot_kernels_match_plain_repeat_and_k7_k8(dtype):
+    """K9/K10 against their plain versions, bit for bit on a second call;
+    K9 on the planes gathered one-hot is K7 bit for bit, and K10 summed
+    back over the one-hot is K8 (the RTOL of K7/K8)."""
+    dev = _device()
+    cases = _shear_cases(dtype, dev)
+    _, k7_args = cases["shear_sum_planes"][1:]
+    _, k8_args = cases["shear_sum_planes_t"][1:]
+    r2, tabs, plane = k7_args[:2], k7_args[2:7], k7_args[7]
+    g = k8_args[:2]
+    P, TB = plane.shape
+    pidx = torch.arange(P, device=dev)[:, None]
+    r_s = [v[pidx, plane.long()].contiguous() for v in r2]
+    before = (ss.shear_sum.launches, ss.shear_sum_t.launches)
+    for kern, ref, args in ((ss.shear_sum, ss.shear_sum_ref, (*r_s, *tabs)),
+                            (ss.shear_sum_t, ss.shear_sum_t_ref,
+                             (*g, *tabs, TB))):
+        got, again, want = kern(*args), kern(*args), ref(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _assert_close(got, want, RTOL[dtype])
+    assert (ss.shear_sum.launches, ss.shear_sum_t.launches) == (
+        before[0] + 2, before[1] + 2)
+    for a, b in zip(ss.shear_sum(*r_s, *tabs),
+                    ss.shear_sum_planes(*k7_args)):
+        assert torch.equal(a, b)
+    onehot = torch.nn.functional.one_hot(plane.long(), 2).float()
+    _assert_close(tuple(torch.einsum("ptnf,pto->ponf", a, onehot)
+                        for a in ss.shear_sum_t(*g, *tabs, TB)),
+                  ss.shear_sum_planes_t(*k8_args), RTOL[dtype])
+
+
+@pytest.mark.parametrize("fusion", ["midpoint", "weighted"])
+def test_consensus_sharded_matches_plain_and_repeats(fusion):
+    """K5's sharded form on node block 1 of 2 and pixel block 1 of 2 (3000
+    of 6000 pixels: not a multiple of TILE), with the explicit a_t and
+    weights, against its plain version and bit for bit on a second call;
+    its z and y equal the single-device kernel's on the same block."""
+    dev = _device()
+    a, y, z, adjm, w = _consensus_inputs(dev, 6000)
+    rows, cols = slice(4, 8), slice(3000, 6000)
+    blk = [v[rows][..., cols].contiguous()
+           for v in (a, y, z, a.transpose(0, 1))]
+    kw = dict(fusion=fusion, a_t=blk[3], w_own=w[rows, cols].contiguous(),
+              w_all=w[:, cols].contiguous())
+    args = (*blk[:3], adjm[rows].contiguous())
+    before = cons.consensus_update.sharded_launches
+    got, again = (cons.consensus_update(*args, **kw),
+                  cons.consensus_update(*args, **kw))
+    want = cons.consensus_update_ref(*args, **kw)
+    whole = cons.consensus_update(a, y, z, adjm, w, fusion)
+    torch.cuda.synchronize()
+    assert cons.consensus_update.sharded_launches == before + 2
+    assert all(torch.equal(g1, g2) for g1, g2 in zip(got, again))
+    _assert_close(got, want, 1e-5)
+    for g1, full in zip(got[:2], whole[:2]):
+        assert torch.equal(g1, full[rows][..., cols])

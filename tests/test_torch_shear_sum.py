@@ -1,6 +1,7 @@
-"""The four ``fft_skew`` kernels of the PyTorch port against the JAX
-package's Pallas kernels (interpret mode on the CPU), on the same tables
-and the same seeded inputs, with f32 tables (relative 1e-5) and bf16
+"""The four ``fft_skew`` kernels of the PyTorch port, and K9/K10 (the shear
+stage on gathered slot spectra), against the JAX package's Pallas kernels
+(interpret mode on the CPU), on the same tables and the same seeded
+inputs, with f32 tables (relative 1e-5) and bf16
 tables (relative 2e-3: the sums run in another order, and a bf16 rounding
 of an intermediate can land on the other side). On the CPU every port
 wrapper runs its plain PyTorch version; the CUDA kernels are held against
@@ -9,6 +10,7 @@ the same plain versions on the card (``tests/test_torch_cuda.py`` and
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -166,3 +168,83 @@ def test_port_adjoint_identity(N, angles_total):
     rhs = float(torch.sum(x.double() * Aty.double()))
     rel = abs(lhs - rhs) / float(torch.linalg.norm(Ax) * torch.linalg.norm(y))
     assert rel <= 1e-5, rel
+
+
+# ---------------------------------------------------------------------------
+# K9/K10: the shear stage on slot spectra gathered one-hot per angle block
+# (tests/test_fft_shear.py:80-105 in the JAX package's tests)
+
+
+def _shear_setup(dtype_name):
+    _, _, tj, tt = _setup(dtype_name, N=16, P=3, angles_total=24)
+    P, NB, Tp, D2, nb = tt["Wt"].shape
+    TB, F = tt["onehot"].shape[1], tt["SEre"].shape[-1]
+    rng = np.random.default_rng(5)
+    r = [rng.standard_normal((P, TB, NB * nb, F)).astype(np.float32)
+         for _ in range(2)]
+    g = [rng.standard_normal((P, Tp, F)).astype(np.float32) for _ in range(2)]
+    keys = ("Wt", "SEre", "SEim")
+    jtabs = (*(tj[k] for k in keys), tj["shared"]["Phire"],
+             tj["shared"]["Phiim"])
+    ttabs = (*(tt[k] for k in keys), tt["shared"]["Phire"],
+             tt["shared"]["Phiim"])
+    return tj, tt, r, g, jtabs, ttabs
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_shear_sum_matches_jax(dtype_name):
+    """K9 against JAX's interpret-mode ``shear_sum`` and, with f32 tables,
+    its plain ``shear_sum_reference`` (which does not round the spectra to
+    the table type, as the kernel does with bf16 tables)."""
+    _, _, r, _, jtabs, ttabs = _shear_setup(dtype_name)
+    got = tss.shear_sum(*(torch.as_tensor(v) for v in r), *ttabs)
+    want = jss.shear_sum(*(jnp.asarray(v) for v in r), *jtabs)
+    for gt, w in zip(got, want):
+        _close(gt, w, RTOL[dtype_name])
+    if dtype_name == "float32":
+        ref = jss.shear_sum_reference(*(jnp.asarray(v) for v in r), *jtabs)
+        for gt, w in zip(got, ref):
+            _close(gt, w, RTOL[dtype_name])
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_shear_sum_t_matches_jax(dtype_name):
+    """K10 against JAX's interpret-mode ``shear_sum_t`` and, with f32
+    tables, the ``jax.linear_transpose`` of ``shear_sum_reference``."""
+    tj, tt, r, g, jtabs, ttabs = _shear_setup(dtype_name)
+    TB = tt["onehot"].shape[1]
+    got = tss.shear_sum_t(*(torch.as_tensor(v) for v in g), *ttabs, TB)
+    assert got[0].shape == r[0].shape
+    want = jss.shear_sum_t(*(jnp.asarray(v) for v in g), *jtabs, tj["onehot"])
+    for gt, w in zip(got, want):
+        _close(gt, w, RTOL[dtype_name])
+    if dtype_name == "float32":
+        ref = jax.linear_transpose(
+            lambda a, b: jss.shear_sum_reference(a, b, *jtabs),
+            *(jnp.asarray(v) for v in r))(tuple(jnp.asarray(v) for v in g))
+        for gt, w in zip(got, ref):
+            _close(gt, w, RTOL[dtype_name])
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_shear_sum_pair_is_k7_k8_on_gathered_spectra(dtype_name):
+    """K9 on the planes gathered one-hot by ``plane`` is K7, bit for bit;
+    K10 summed back over the one-hot is K8 (1e-6 of the output's max: the
+    angle blocks of a plane added after the tap sums instead of inside)."""
+    _, tt, _, g, _, ttabs = _shear_setup(dtype_name)
+    P, NB, Tp, D2, nb = tt["Wt"].shape
+    F = tt["SEre"].shape[-1]
+    plane = tt["plane"]
+    rng = np.random.default_rng(6)
+    r2 = [torch.as_tensor(rng.standard_normal((P, 2, NB * nb, F)).astype(
+        np.float32)) for _ in range(2)]
+    pidx = torch.arange(P)[:, None]
+    gathered = [v[pidx, plane.long()] for v in r2]
+    for a, b in zip(tss.shear_sum(*gathered, *ttabs),
+                    tss.shear_sum_planes(*r2, *ttabs, plane)):
+        assert torch.equal(a, b)
+    gt = [torch.as_tensor(v) for v in g]
+    onehot = torch.nn.functional.one_hot(plane.long(), 2).float()
+    for a, b in zip(tss.shear_sum_t(*gt, *ttabs, plane.shape[1]),
+                    tss.shear_sum_planes_t(*gt, *ttabs, plane)):
+        _close(torch.einsum("ptnf,pto->ponf", a, onehot), b.numpy(), 1e-6)
