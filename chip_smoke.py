@@ -27,7 +27,11 @@ kernel):
                  the single-device kernel's on the block) (error <= 1e-5 of
                  the output's max, two calls bitwise equal), each against
                  its plain PyTorch version, and times both (median of 20
-                 runs after warm-up, CUDA events).
+                 runs after warm-up, CUDA events). K1 also runs twice
+                 bitwise equal here and at the fan shapes (phase 8), and
+                 prints its device time by launch (``torch.profiler``) and
+                 the share of its taps and tensor-core tap tiles that hold
+                 a nonzero.
 4. adjoint     - <Ax, y> = <x, A^T y> through the kernels with f32 tables at
                  256^2/8, relative error <= 1e-5.
 5. main        - 20 outers of the <=200-inner Condat-Vu parity contract
@@ -91,7 +95,8 @@ kernel):
                  with bf16 H (error <= 2e-3 of the output's max) and the
                  hat kernels K17/K18 (error <= 1e-5), each against its
                  plain version, two calls bitwise equal, timed as in phase
-                 3; both 512^2 apply pairs; and the 256^2/8 ``fft_pallas``
+                 3 and by their device time alone beside their library
+                 calls'; both 512^2 apply pairs; and the 256^2/8 ``fft_pallas``
                  pair with its tail materialized and through K17/K18.
 13. p512_adjoint - <Ax, y> = <x, A^T y> with f32 tables through
                  ``fft_pallas`` at 256^2/8 (materialized tail) and 512^2/8
@@ -465,6 +470,50 @@ def _check_repeat(torch, name, kern, args, got, failures) -> bool:
     return bitwise
 
 
+def _device_ms(torch, fn, calls=10) -> tuple[float, dict]:
+    """The device time of one call of ``fn`` from ``torch.profiler`` (the
+    host's dispatch excluded): the per-call sum over its kernels, in ms,
+    and each kernel's per-call ms by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = e.name[:60]
+            by[k] = by.get(k, 0.0) + 1e-3 * (
+                e.time_range.end - e.time_range.start) / calls
+    return sum(by.values()), by
+
+
+def _k1_checks(torch, args, got, failures, note="") -> None:
+    """K1 (bf16 tables) beyond ``_compare``: bitwise on a second call, its
+    device time by launch, and the share of its taps and of its tensor-core
+    tap tiles (d, 16 rows, 8 slots) that hold a nonzero."""
+    from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
+
+    bitwise = _check_repeat(torch, f"skew_sum_planes{note}",
+                            ss.skew_sum_planes, args, got, failures)
+    dev_ms, by = _device_ms(torch, lambda: ss.skew_sum_planes(*args))
+    W = args[1]
+    PT, NB, D2, Tp, nb = W.shape
+    nz = W != 0
+    tiles = None
+    if Tp % 8 == 0 and nb % 16 == 0:
+        tiles = float(nz.reshape(PT, NB, D2, Tp // 8, 8, nb // 16, 16)
+                      .any(dim=-1).any(dim=-2).float().mean())
+    print(f"kernels: skew_sum_planes{note} bitwise_repeat={bitwise} "
+          f"device_ms={dev_ms} device_ms_by_kernel={json.dumps(by)} "
+          f"nonzero_tap_share={float(nz.float().mean())} "
+          f"nonzero_tap_tile_share={tiles}", flush=True)
+
+
 def _skew_cases(torch, dev, t, P, gen):
     """Inputs of P images drawn from ``gen`` and each of K1-K4's (wrapper,
     plain version, arguments) on the skew tables ``t``."""
@@ -567,8 +616,10 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
     img, cases = _skew_cases(torch, dev, t, P, gen)
     out = {}
     for name, (kern, ref, args) in cases.items():
-        _, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
-                                failures)
+        got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
+                                  failures)
+        if name == "skew_sum_planes":
+            _k1_checks(torch, args, got, failures)
 
     # K1 and K6 as the ranks of the 2 x 2 mesh run them: node block 1 of 2,
     # each row shard of the pixel axis.
@@ -977,8 +1028,10 @@ def phase_fan_kernels(torch, dev, problems, failures) -> dict:
     img, cases = _skew_cases(torch, dev, ts["shared"]["par"], P, gen)
     out = {}
     for name, (kern, ref, args) in cases.items():
-        _, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
-                                failures, note="[fan PT=1]")
+        got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
+                                  failures, note="[fan PT=1]")
+        if name == "skew_sum_planes":
+            _k1_checks(torch, args, got, failures, "[fan PT=1]")
     # K1 and K6 as the 1 x 2 fan mesh runs them: every node's image against
     # the row shards of the node-shared tables.
     rows = _row_shard_checks(torch, ts["shared"]["par"], P, slice(None), img,
@@ -1175,8 +1228,14 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
                                   failures, note="[512^2/8]", library=lib)
         bitwise = _check_repeat(torch, name, kern, args, got, failures)
         lib_err = None if lib is None else float((lib() - got[0]).abs().max())
+        # Device time alone (the host's dispatch of one call is most of a
+        # single call's ms at these sizes), of the kernel and of the
+        # library call with its input preparation.
+        dev_ms = _device_ms(torch, lambda: kern(*args))[0]
+        lib_dev_ms = _device_ms(torch, lib)[0]
         print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} T={T} "
-              f"D={D} Np={Np} library_max_abs_err={lib_err}", flush=True)
+              f"D={D} Np={Np} library_max_abs_err={lib_err} "
+              f"device_ms={dev_ms} library_device_ms={lib_dev_ms}", flush=True)
     del prof, ob, grid, img, x
     torch.cuda.empty_cache()
 

@@ -27,16 +27,46 @@
 // kernels' vmap, which folds an image batch into the node axis and keeps one
 // table set). The parallel paths run PT = PB, the fan-beam path PT = 1.
 //
-// Design: a plain shared-memory tiled product on the CUDA cores. A block
-// owns a 16 x 64 output tile; each of its 256 threads keeps one row and four
-// columns (tx + 16 j) in registers. The TPU grid's sequential axes become
-// loops inside the block: K1 loops over the row blocks whose spectra it
-// sums, K2 over the angle blocks that feed its image plane, K4 over the
-// detector blocks, so every output element is written once by one block
-// and no atomics are needed. The tap stage (about 14.5 GFLOP per apply
-// at 256^2/8, the bulk of the projector) is bound by shared-memory reads
-// in this form (5 loads per 4 FMAs); tensor cores (wgmma), TMA and fusion
-// of the two stages of K1/K2 are later work.
+// Design of K2-K4, and of K1 with f32 tables: a plain shared-memory tiled
+// product on the CUDA cores. A block owns a 16 x 64 output tile; each of
+// its 256 threads keeps one row and four columns (tx + 16 j) in registers.
+// The TPU grid's sequential axes become loops inside the block: K1 loops
+// over the row blocks whose spectra it sums, K2 over the angle blocks that
+// feed its image plane, K4 over the detector blocks, so every output
+// element is written once by one block and no atomics are needed. The tap
+// stage (about 14.5 GFLOP per apply at 256^2/8, the bulk of the projector)
+// is bound by shared-memory reads in this form (5 loads per 4 FMAs).
+//
+// K1 with bf16 tables (redesigned; every card path runs bf16 tables) runs
+// both stages on the tensor cores. The TPU kernel (_skew_fwd_body) runs
+// them on the MXU with the rows, taps, z and D in bf16 and f32 sums, so a
+// bf16 mma.sync (m16n8k16, f32 accumulators) gives exactly its products.
+// On the CUDA cores the tap product was bound by shared-memory reads and
+// the f32 FMA rate (2.26 ms at 256^2/8, 0.94% of the bytes bound). Now:
+// - two layout passes: the rows are rounded to bf16 once and transposed
+//   (xT [..., u, n]), and D is copied to 16-byte rows (its F = 513
+//   columns are not), so every later load is a 16-byte cp.async;
+// - the tap product is one contraction over K = (d, n), with v as the M
+//   dimension and 8 slots t as N: the row window is staged [column][row],
+//   so the shift by tap d is a row offset of the ldmatrix A operand and no
+//   window is staged again per tap; a block takes all v of its angle block
+//   (where the grid stays wide enough), so each tap is read from memory
+//   once; 32 taps a stage stream through a cp.async ring;
+// - the tap table is 98.6% zeros (two adjacent taps of D2 per row): the
+//   block marks which (d, 16 rows, 8 slots) tiles hold a nonzero, 19% of
+//   them at 256^2/8, and the warps run the MMAs of those only (a zero tile
+//   adds exact zeros for finite rows; a NaN pixel still reaches every real
+//   slot, since each real slot has a nonzero tap on its row);
+// - z leaves stage 1 already rounded to bf16 (the TPU kernel's rounding
+//   point) and the DFT-back reads D through ldmatrix.trans as a second
+//   bf16 product; each row block's term E_b * (z_b @ D) is formed whole in
+//   registers and added to the running f32 sum in ascending b, so a pixel
+//   mesh's sum of per-shard K1 outputs equals K1 on all rows bit for bit.
+//   No sum depends on the tiling.
+// What bounds it now: the tap product's shared-memory fragment loads (an
+// m16 A fragment per MMA, as N is only 8 slots) and MMAs on the nonzero
+// tiles; then the DFT-back, latency-bound for its 0.8 GFLOP. PERF.md has
+// the times.
 //
 // K7/K8 carry fft_shear's tap contraction on the row spectra as the TPU
 // kernel does it: the dense [tt*D2, nb] x [nb, F] product, re and im, ~58
@@ -248,6 +278,415 @@ skew_dft_fwd(const float* __restrict__ z, const float* __restrict__ sere,
       gim[go + f] = gi[j];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K1 with bf16 tables, on the tensor cores (bf16 mma.sync m16n8k16, f32
+// accumulators in registers). Four launches: two layout passes, the tap
+// product, the DFT-back. Their scratch, in one bf16 buffer (see
+// skew_scratch): z [PB, TB, NB, tt, ZS], the rounded rows transposed
+// xT [PB, 2, NB, WS, nbp], and D padded to 16-byte rows [2, ZS, Fp].
+// ---------------------------------------------------------------------------
+using B16 = __nv_bfloat16;
+constexpr int TC_NT = 128;      // 4 warps (DFT-back)
+constexpr int TC_WARPS1 = 8;    // tap product
+constexpr int TC_NT1 = 32 * TC_WARPS1;
+constexpr int TC_STAGES = 3;    // tap stages in flight (cp.async ring)
+constexpr int TC_DS = 32;       // taps d per stage
+constexpr int TC_NCH = 32;      // image rows n per window chunk, at most
+constexpr int TC_PAD = 8;       // bf16 padding of a shared-memory row
+constexpr int TC_KC = 64;       // v per DFT-back stage
+constexpr int TC_DSTAGES = 4;   // DFT-back stages in flight
+constexpr int TC_MAX_SMEM = 232448;
+
+struct SkewScratch {
+  int ZS, NCH, nbp, Fp;
+  long x_off, d_off, total;  // bf16 elements; z at 0
+};
+
+// The layout of K1's bf16 scratch (the wrapper allocates `total` elements,
+// asking dip_skew_fwd_scratch).
+SkewScratch skew_scratch(int PB, int TB, int NB, int tt, int nb, int D2,
+                         int WS, int F) {
+  SkewScratch s;
+  s.ZS = cdiv(WS + D2 - 1, 64) * 64;  // z columns that can be nonzero
+  s.NCH = nb >= TC_NCH ? TC_NCH : cdiv(nb, 16) * 16;
+  s.nbp = cdiv(nb, s.NCH) * s.NCH;
+  s.Fp = cdiv(F, 64) * 64;
+  s.x_off = (long)PB * TB * NB * tt * s.ZS;
+  s.d_off = s.x_off + (long)PB * 2 * NB * WS * s.nbp;
+  s.total = s.d_off + 2L * s.ZS * s.Fp;
+  return s;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8.
+// With .trans each thread receives the transposed fragments.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned& r0, unsigned& r1,
+                                        const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_u32(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 products summed in f32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared, zero-filled when !full.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// B fragments of NT8 n8 tiles (rows t of a [t][k] bf16 tile with row
+// stride ld; rows up to 8 * NT8 rounded up to 16 staged) at k offset kk.
+template <int NT8>
+__device__ __forceinline__ void load_b(unsigned (&bf)[NT8 + 1][2],
+                                       const B16* tile, int ld, int kk,
+                                       int lane) {
+#pragma unroll
+  for (int j = 0; j < NT8; j += 2) {
+    unsigned r[4];
+    ldsm_x4(r, tile + (8 * (j + (lane >> 4)) + (lane & 7)) * ld + kk +
+                   ((lane >> 3) & 1) * 8);
+    bf[j][0] = r[0];
+    bf[j][1] = r[1];
+    bf[j + 1][0] = r[2];
+    bf[j + 1][1] = r[3];
+  }
+}
+
+// Layout pass 1: xT[p, pl, b, u, n] = bf16(rows2[p, pl, b*nb + n, u]),
+// zero for n >= nb: the rows rounded to bf16 once (the TPU kernel's
+// rounding point) and transposed, so that a window row is 16-byte pieces.
+__global__ void __launch_bounds__(256)
+skew_prep_x(const float* __restrict__ rows2, B16* __restrict__ xT, int NB,
+            int nb, int nbp, int WS) {
+  __shared__ float tile[32][33];
+  const int u0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+  const long q = blockIdx.z;  // (p * 2 + pl) * NB + b
+  const float* src = rows2 + q * nb * WS;
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int n = n0 + j, u = u0 + threadIdx.x;
+    tile[j][threadIdx.x] = n < nb && u < WS ? src[(long)n * WS + u] : 0.f;
+  }
+  __syncthreads();
+  B16* dst = xT + q * WS * nbp;
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int u = u0 + j, n = n0 + threadIdx.x;
+    if (u < WS && n < nbp)
+      dst[(long)u * nbp + n] = __float2bfloat16_rn(tile[threadIdx.x][j]);
+  }
+}
+
+// Layout pass 2: D (rows of F bf16, an odd count, so not 16-byte aligned)
+// copied to rows of Fp, zero past F and for v >= WZ: dp [2, ZS, Fp].
+__global__ void __launch_bounds__(256)
+skew_prep_d(const B16* __restrict__ dre, const B16* __restrict__ dim,
+            B16* __restrict__ dp, int WZ, int F, int ZS, int Fp) {
+  const long i = (long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long)ZS * Fp) return;
+  const int v = (int)(i / Fp), f = (int)(i % Fp);
+  const bool in = v < WZ && f < F;
+  const long o = (long)v * F + f;
+  dp[i] = in ? dre[o] : __float2bfloat16_rn(0.f);
+  dp[(long)ZS * Fp + i] = in ? dim[o] : __float2bfloat16_rn(0.f);
+}
+
+// Tap product as one contraction over K = (d, n),
+//   zT[v, t] = sum_d sum_n X[v + d, n] * WtT[d, t, n],
+// X[r, n] = xT[u = v0 - (D2-1) + r, n] the row window in [column][row]
+// form, so the shift by d is a row offset of the A operand. Block: (v tile
+// of BV = 128*MT, 8 slots t, (p, tb, b)); warp w owns v rows
+// [16*MT*w, 16*MT*(w+1)). Per stage TC_DS taps of the window chunk's NCH
+// rows arrive by cp.async; the block marks which (d, 16 rows) tap tiles
+// hold a nonzero (at most 64 a stage, one bit each) and every warp walks
+// the set bits only: an all-zero tile adds exact zeros for finite rows. A
+// warp also passes over a tap whose window rows all lie outside [0, WS).
+// The K order (chunk, d, 16 rows) is fixed, so an element's sum does not
+// depend on the tiling. z is written rounded to bf16 with row stride ZS.
+template <int MT>
+__global__ void __launch_bounds__(TC_NT1)
+skew_tap_fwd_tc(const B16* __restrict__ xT, const B16* __restrict__ wtt,
+                const int* __restrict__ plane, B16* __restrict__ z, int PT,
+                int NB, int D2, int Tp, int nb, int TB, int WS, int ZS,
+                int NCH, int nbp, int vec) {
+  constexpr int BV = 16 * MT * TC_WARPS1, WV = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned smask[TC_WARPS1];
+  const int LD = NCH + TC_PAD, RW = BV + D2 - 1, per = NCH / 8;
+  const int KU = NCH / 16, units = TC_DS * KU;  // tap tiles a stage, <= 64
+  B16* Xs = reinterpret_cast<B16*>(smem);  // [RW][LD]
+  B16* Ws = Xs + (size_t)RW * LD;          // [TC_STAGES][TC_DS][8][LD]
+  const int tt = Tp / TB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int v0 = blockIdx.x * BV, t0 = blockIdx.y * 8;
+  const int b = blockIdx.z % NB, tb = (blockIdx.z / NB) % TB;
+  const int p = blockIdx.z / (NB * TB), pt = p % PT;
+  const int pl = plane[pt * TB + tb];
+  const B16* xw = xT + (long)((p * 2 + pl) * NB + b) * WS * nbp;
+  // tap (d, t, n) of these 8 slots at w[(d * Tp + t) * nb + n]
+  const B16* w =
+      wtt + (long)(pt * NB + b) * D2 * Tp * nb + (long)(tb * tt + t0) * nb;
+  // Taps whose window columns all lie outside [0, WS) only add zeros.
+  const int dlo = max(0, D2 - BV - v0), dhi = min(D2, WS + D2 - 1 - v0);
+  const int ng = max(0, cdiv(dhi - dlo, TC_DS)), nch = nbp / NCH;
+  const int total = ng * nch;
+  const int ubase = v0 - (D2 - 1);  // u of window row 0
+  const int uw = ubase + WV * warp;  // u of this warp's first row at d = 0
+  float acc[MT][4] = {};
+
+  auto load_taps = [&](int i) {
+    if (i < total) {
+      const int dg = dlo + (i % ng) * TC_DS, n0 = (i / ng) * NCH;
+      B16* dst = Ws + (size_t)(i % TC_STAGES) * TC_DS * 8 * LD;
+      for (int k = threadIdx.x; k < TC_DS * 8 * per; k += TC_NT1) {
+        const int q = k % per, t = (k / per) % 8, dd = k / (per * 8);
+        const int d = dg + dd, n = n0 + 8 * q;
+        const bool in = d < dhi && t0 + t < tt && n < nb;
+        const B16* src = w + ((long)d * Tp + t) * nb + n;
+        B16* o = dst + (dd * 8 + t) * LD + 8 * q;
+        if (vec) {
+          cp_async16(o, in ? src : w, in);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            o[e] = in && n + e < nb ? src[e] : __float2bfloat16_rn(0.f);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto load_window = [&](int c) {
+    const int n0 = c * NCH;
+    for (int k = threadIdx.x; k < RW * per; k += TC_NT1) {
+      const int r = k / per, q = k % per, u = ubase + r;
+      const bool in = u >= 0 && u < WS;
+      cp_async16(Xs + (size_t)r * LD + 8 * q,
+                 in ? xw + (long)u * nbp + n0 + 8 * q : xw, in);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) load_taps(s);
+  for (int i = 0; i < total; ++i) {
+    const int c = i / ng, dg = dlo + (i % ng) * TC_DS;
+    if (i % ng == 0) {  // a new window chunk, once every warp is done
+      __syncthreads();
+      load_window(c);
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<TC_STAGES - 2>();
+    }
+    __syncthreads();
+    load_taps(i + TC_STAGES - 1);  // into the buffer computed at i - 1
+    const B16* Wb = Ws + (size_t)(i % TC_STAGES) * TC_DS * 8 * LD;
+    {  // 4 threads a tile (rows 2j, 2j + 1, two 16-byte pieces each)
+      const int u = threadIdx.x >> 2, t = 2 * (threadIdx.x & 3);
+      bool nz = false;
+      if (u < units) {
+        const B16* r = Wb + ((u / KU) * 8 + t) * LD + (u % KU) * 16;
+        const uint4* q0 = reinterpret_cast<const uint4*>(r);
+        const uint4* q1 = reinterpret_cast<const uint4*>(r + LD);
+        const uint4 x0 = q0[0], x1 = q0[1], x2 = q1[0], x3 = q1[1];
+        nz = (x0.x | x0.y | x0.z | x0.w | x1.x | x1.y | x1.z | x1.w | x2.x |
+              x2.y | x2.z | x2.w | x3.x | x3.y | x3.z | x3.w) != 0u;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, nz);
+      if (lane == 0) {
+        unsigned bits = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bits |= (((bal >> (4 * j)) & 0xfu) != 0u) << j;
+        smask[warp] = bits;  // tiles 8 * warp + j
+      }
+    }
+    __syncthreads();
+    unsigned long long mask = 0;
+#pragma unroll
+    for (int j = 0; j < TC_WARPS1; ++j)
+      mask |= (unsigned long long)smask[j] << (8 * j);
+    while (mask) {
+      const int u = __ffsll(mask) - 1;
+      mask &= mask - 1;
+      const int dd = u / KU, kk = (u % KU) * 16, d = dg + dd;
+      if (uw + d + WV - 1 < 0 || uw + d >= WS) continue;  // warp-uniform
+      unsigned b0, b1;
+      ldsm_x2(b0, b1, Wb + (dd * 8 + (lane & 7)) * LD + kk +
+                          ((lane >> 3) & 1) * 8);
+      unsigned a[MT][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+        ldsm_x4(a[mi], Xs + (size_t)(WV * warp + 16 * mi + (lane & 15) + d) *
+                               LD + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) mma_bf16(acc[mi], a[mi], b0, b1);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // zT -> z [t][v] through shared memory, then 16-byte stores.
+  const int LZ = BV + 8;
+  B16* Zt = Xs;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int v = WV * warp + 16 * mi + (lane >> 2) + (e >> 1) * 8;
+      Zt[(2 * (lane & 3) + (e & 1)) * LZ + v] = __float2bfloat16_rn(acc[mi][e]);
+    }
+  __syncthreads();
+  B16* zo = z + ((long)(p * TB + tb) * NB + b) * tt * ZS;
+  for (int k = threadIdx.x; k < 8 * (BV / 8); k += TC_NT1) {
+    const int t = k / (BV / 8), v = v0 + 8 * (k % (BV / 8));
+    if (t0 + t < tt && v < ZS)
+      *reinterpret_cast<uint4*>(zo + (long)(t0 + t) * ZS + v) =
+          *reinterpret_cast<const uint4*>(Zt + t * LZ + v - v0);
+  }
+}
+
+// DFT-back, phase, and the sum over row blocks, on the tensor cores:
+// gT[f, t] = sum_b E_b[t, f] * sum_v D[v, f] z_b[t, v], D read through
+// ldmatrix.trans as the A operand [f][v], z_b as B. Block: (64
+// frequencies, t group of 8*NT8, (p, tb)); warp w owns frequencies
+// [16w, 16w+16). The (b, 64-column v chunk) stages stream through a
+// TC_DSTAGES-deep cp.async ring in dynamic shared memory. Each row block's
+// term is formed whole in registers and added to the running f32 sum in
+// ascending b.
+template <int NT8>
+__global__ void __launch_bounds__(TC_NT)
+skew_dft_fwd_tc(const B16* __restrict__ z, const float* __restrict__ sere,
+                const float* __restrict__ seim, const B16* __restrict__ dp,
+                float* __restrict__ gre, float* __restrict__ gim, int PT,
+                int NB, int Tp, int TB, int ZS, int Fp, int F) {
+  constexpr int NP = (NT8 + 1) / 2 * 2, TG = 8 * NT8;
+  constexpr int LD = TC_KC + TC_PAD;  // z tile [8 * NP][LD]
+  constexpr int LF = 64 + TC_PAD;     // D tiles [TC_KC][LF]
+  constexpr int STAGE = 2 * TC_KC * LF + 8 * NP * LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  B16* sm = reinterpret_cast<B16*>(smem);
+  const int tt = Tp / TB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int f0 = blockIdx.x * 64, t0 = blockIdx.y * TG;
+  const int tb = blockIdx.z % TB, p = blockIdx.z / TB, pt = p % PT;
+  const bool busy = f0 + 16 * warp < F;  // warp-uniform
+  const int nk = ZS / TC_KC, total = NB * nk;
+
+  auto load = [&](int i) {
+    if (i < total) {
+      const int b = i / nk, k0 = (i % nk) * TC_KC;
+      B16* Dr = sm + (size_t)(i % TC_DSTAGES) * STAGE;
+      B16* Di = Dr + TC_KC * LF;
+      B16* Zs = Di + TC_KC * LF;
+      const B16* zb = z + ((long)(p * TB + tb) * NB + b) * tt * ZS;
+      for (int k = threadIdx.x; k < 8 * NP * (TC_KC / 8); k += TC_NT) {
+        const int t = k / (TC_KC / 8), q = k % (TC_KC / 8), tg = t0 + t;
+        const bool in = t < TG && tg < tt;
+        cp_async16(Zs + t * LD + 8 * q,
+                   in ? zb + (long)tg * ZS + k0 + 8 * q : zb, in);
+      }
+      for (int k = threadIdx.x; k < TC_KC * 8; k += TC_NT) {
+        const int v = k / 8, q = k % 8;
+        const long o = (long)(k0 + v) * Fp + f0 + 8 * q;
+        cp_async16(Dr + v * LF + 8 * q, dp + o, true);
+        cp_async16(Di + v * LF + 8 * q, dp + (long)ZS * Fp + o, true);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float gr[NT8][4] = {}, gi[NT8][4] = {}, ar[NT8][4], ai[NT8][4];
+#pragma unroll
+  for (int s = 0; s < TC_DSTAGES - 1; ++s) load(s);
+  for (int i = 0; i < total; ++i) {
+    const int b = i / nk;
+    cp_async_wait<TC_DSTAGES - 2>();
+    __syncthreads();
+    load(i + TC_DSTAGES - 1);  // into the buffer computed at i - 1
+    const B16* Dr = sm + (size_t)(i % TC_DSTAGES) * STAGE;
+    const B16* Di = Dr + TC_KC * LF;
+    const B16* Zs = Di + TC_KC * LF;
+    if (i % nk == 0) {
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ar[j][e] = ai[j][e] = 0.f;
+    }
+    if (busy) {
+#pragma unroll
+      for (int kk = 0; kk < TC_KC; kk += 16) {
+        unsigned bf[NT8 + 1][2], a_r[4], a_i[4];
+        load_b<NT8>(bf, Zs, LD, kk, lane);
+        const int m = lane >> 3;
+        const int o = (kk + (lane & 7) + (m >> 1) * 8) * LF + 16 * warp +
+                      (m & 1) * 8;
+        ldsm_x4_t(a_r, Dr + o);
+        ldsm_x4_t(a_i, Di + o);
+#pragma unroll
+        for (int j = 0; j < NT8; ++j) {
+          mma_bf16(ar[j], a_r, bf[j][0], bf[j][1]);
+          mma_bf16(ai[j], a_i, bf[j][0], bf[j][1]);
+        }
+      }
+    }
+    if (i % nk == nk - 1) {  // row block b is complete
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int f = f0 + 16 * warp + (lane >> 2) + (e >> 1) * 8;
+          const int tg = t0 + 8 * j + 2 * (lane & 3) + (e & 1);
+          if (f < F && tg < tt) {
+            const long eo = ((long)(pt * NB + b) * Tp + tb * tt + tg) * F + f;
+            const float er = sere[eo], ei = seim[eo];
+            gr[j][e] += ar[j][e] * er - ai[j][e] * ei;
+            gi[j][e] += ar[j][e] * ei + ai[j][e] * er;
+          }
+        }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int j = 0; j < NT8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int f = f0 + 16 * warp + (lane >> 2) + (e >> 1) * 8;
+      const int tg = t0 + 8 * j + 2 * (lane & 3) + (e & 1);
+      if (f < F && tg < tt) {
+        const long go = ((long)p * Tp + tb * tt + tg) * F + f;
+        gre[go] = gr[j][e];
+        gim[go] = gi[j][e];
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -841,6 +1280,113 @@ cudaError_t launch_skew_fwd(const float* rows2, const void* wtt,
   return cudaGetLastError();
 }
 
+// The t group (in n8 tiles) the DFT-back takes for tt slots, and the next
+// smaller one it instantiates.
+int nt8_for(int tt) { return cdiv(tt, 8) >= 5 ? 6 : cdiv(tt, 8); }
+int nt8_down(int n) { return n == 6 ? 3 : n == 4 || n == 3 ? 2 : 1; }
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// Launch with the kernel's dynamic shared memory limit raised to at least
+// smem (raised: the limit set so far for this kernel).
+template <typename K, typename... A>
+cudaError_t launch_big(K kernel, dim3 g, int threads, size_t smem,
+                       cudaStream_t s, size_t& raised, A... args) {
+  if (smem > raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    raised = smem;
+  }
+  kernel<<<g, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+// K1 with bf16 tables. The tap product takes all v of an angle block in one
+// block (BV = 512) where that still gives a block for every other SM, else
+// halves the v tile: 256^2/8, 192 blocks of 512 v x 8 slots, each tap read
+// once; fan (8 images on one table set), 96 blocks of 512 v; a 2 x 2 mesh
+// rank's shard, 96 blocks of 256 v (the fewer, wider blocks measured
+// faster on an H100 than a block per SM). The DFT-back takes the whole
+// angle block as its t group, smaller groups only to reach a block per SM.
+// None of it changes a sum's order.
+cudaError_t launch_skew_fwd_tc(const float* rows2, const void* wtt,
+                               const float* sere, const float* seim,
+                               const void* dre, const void* dim,
+                               const int* plane, void* scratch, float* gre,
+                               float* gim, int PB, int PT, int NB, int D2,
+                               int Tp, int nb, int TB, int WS, int WZ, int F,
+                               cudaStream_t s) {
+  const B16* w = static_cast<const B16*>(wtt);
+  const int tt = Tp / TB;
+  const SkewScratch sc = skew_scratch(PB, TB, NB, tt, nb, D2, WS, F);
+  B16* z = static_cast<B16*>(scratch);
+  B16* xT = z + sc.x_off;
+  B16* dp = z + sc.d_off;
+  const int vec =
+      nb % 8 == 0 && reinterpret_cast<unsigned long long>(wtt) % 16 == 0;
+  const long tri = (long)PB * TB * NB, sms = sm_count();
+
+  skew_prep_x<<<dim3(cdiv(WS, 32), cdiv(sc.nbp, 32), PB * 2 * NB),
+                dim3(32, 8), 0, s>>>(rows2, xT, NB, nb, sc.nbp, WS);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  skew_prep_d<<<(unsigned)cdiv(sc.ZS * sc.Fp, 256), 256, 0, s>>>(
+      static_cast<const B16*>(dre), static_cast<const B16*>(dim), dp, WZ, F,
+      sc.ZS, sc.Fp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  int mt = 4;
+  auto blocks1 = [&] { return cdiv(sc.ZS, 128 * mt) * (long)cdiv(tt, 8) * tri; };
+  while (2 * blocks1() < sms && mt > 1) mt /= 2;
+  const int LD = sc.NCH + TC_PAD, BV = 128 * mt;
+  const size_t win =
+      (size_t)(BV + D2 - 1) * LD + (size_t)TC_STAGES * TC_DS * 8 * LD;
+  const size_t epi = (size_t)8 * (BV + 8);
+  const size_t smem = 2 * (win > epi ? win : epi);
+  if (smem + sizeof(unsigned) * TC_WARPS1 > (size_t)TC_MAX_SMEM)
+    return cudaErrorInvalidValue;
+  const dim3 g1(cdiv(sc.ZS, BV), cdiv(tt, 8), (unsigned)tri);
+  static size_t raised1[3] = {0, 0, 0};
+#define DIP_TAP(M, I)                                                         \
+  case M:                                                                     \
+    e = launch_big(skew_tap_fwd_tc<M>, g1, TC_NT1, smem, s, raised1[I], xT, w, \
+                   plane, z, PT, NB, D2, Tp, nb, TB, WS, sc.ZS, sc.NCH,       \
+                   sc.nbp, vec);                                              \
+    break;
+  switch (mt) { DIP_TAP(1, 0) DIP_TAP(2, 1) default: DIP_TAP(4, 2) }
+#undef DIP_TAP
+  if (e != cudaSuccess) return e;
+
+  int nt2 = nt8_for(tt);
+  auto blocks2 = [&] { return cdiv(F, 64) * (long)cdiv(tt, 8 * nt2) * PB * TB; };
+  while (blocks2() < sms && nt2 > 1) nt2 = nt8_down(nt2);
+  const dim3 g2(cdiv(F, 64), cdiv(tt, 8 * nt2), PB * TB);
+  const size_t smem2 = 2 * (size_t)TC_DSTAGES *
+                       (2 * TC_KC * (64 + TC_PAD) +
+                        8 * ((nt2 + 1) / 2 * 2) * (TC_KC + TC_PAD));
+  static size_t raised2[5] = {0, 0, 0, 0, 0};
+#define DIP_DFT(N, I)                                                       \
+  case N:                                                                   \
+    e = launch_big(skew_dft_fwd_tc<N>, g2, TC_NT, smem2, s, raised2[I], z,  \
+                   sere, seim, (const B16*)dp, gre, gim, PT, NB, Tp, TB,    \
+                   sc.ZS, sc.Fp, F);                                        \
+    break;
+  switch (nt2) { DIP_DFT(1, 0) DIP_DFT(2, 1) DIP_DFT(3, 2) DIP_DFT(4, 3) default: DIP_DFT(6, 4) }
+#undef DIP_DFT
+  return e;
+}
+
 template <typename T>
 cudaError_t launch_skew_t(const float* gre, const float* gim, const void* wtt,
                           const float* sere, const float* seim,
@@ -867,19 +1413,27 @@ cudaError_t launch_skew_t(const float* gre, const float* gim, const void* wtt,
 
 extern "C" {
 
+// Elements of K1's bf16 scratch (bf16 tables) at these shapes.
+int dip_skew_fwd_scratch(int PB, int TB, int NB, int tt, int nb, int D2,
+                         int WS, int F) {
+  return static_cast<int>(skew_scratch(PB, TB, NB, tt, nb, D2, WS, F).total);
+}
+
+// z: the wrapper's scratch, [PB, TB, NB, tt, WZ] f32 with f32 tables, and
+// dip_skew_fwd_scratch's count of bf16 elements with bf16 ones.
 int dip_skew_fwd(const float* rows2, const void* wtt, const float* sere,
                  const float* seim, const void* dre, const void* dim,
-                 const int* plane, float* z, float* gre, float* gim, int PB,
+                 const int* plane, void* z, float* gre, float* gim, int PB,
                  int PT, int NB, int D2, int Tp, int nb, int TB, int WS,
                  int WZ, int F, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      bf16 ? launch_skew_fwd<__nv_bfloat16>(rows2, wtt, sere, seim, dre, dim,
-                                            plane, z, gre, gim, PB, PT, NB, D2,
-                                            Tp, nb, TB, WS, WZ, F, s)
-           : launch_skew_fwd<float>(rows2, wtt, sere, seim, dre, dim, plane, z,
-                                    gre, gim, PB, PT, NB, D2, Tp, nb, TB, WS,
-                                    WZ, F, s));
+      bf16 ? launch_skew_fwd_tc(rows2, wtt, sere, seim, dre, dim, plane, z,
+                                gre, gim, PB, PT, NB, D2, Tp, nb, TB, WS, WZ,
+                                F, s)
+           : launch_skew_fwd<float>(rows2, wtt, sere, seim, dre, dim, plane,
+                                    static_cast<float*>(z), gre, gim, PB, PT,
+                                    NB, D2, Tp, nb, TB, WS, WZ, F, s));
 }
 
 int dip_skew_t(const float* gre, const float* gim, const void* wtt,

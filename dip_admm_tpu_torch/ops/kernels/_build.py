@@ -34,6 +34,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "shear_sum": {
         "dip_skew_fwd": [_P] * 10 + [_I] * 11 + [_P],
+        "dip_skew_fwd_scratch": [_I] * 8,
         "dip_skew_t": [_P] * 10 + [_I] * 11 + [_P],
         "dip_eval_fwd": [_P] * 7 + [_I] * 7 + [_P],
         "dip_eval_t": [_P] * 7 + [_I] * 7 + [_P],

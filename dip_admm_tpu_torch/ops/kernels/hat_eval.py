@@ -41,8 +41,14 @@ from dip_admm_tpu_torch.ops.kernels.shear_sum import (
     _batches, _check, _on_cpu, _raise_if, _shape, _stream,
 )
 
-# K18 stages a row of pc and s*ob in 48 KB of shared memory.
-_MAX_D = 48 * 1024 // 8
+# K18 stages, per row, pc and s*ob (f32, [D]) and two boundary tables (u16,
+# [Np]) in the shared memory of one block, at most 227 KB.
+_MAX_SMEM = 232448
+
+
+def _row_smem(D: int, Np: int) -> int:
+    """Bytes of shared memory K18 stages for one row (a multiple of 16)."""
+    return -(-(8 * D + 4 * Np) // 16) * 16
 
 
 # ---------------------------------------------------------------------------
@@ -120,9 +126,10 @@ def hat_eval_t(ob, pc, s, Np: int):
     _check(name, dict(ob=ob, pc=pc, s=s), ob.device, torch.float32)
     _batches(name, PB, PT)
     _shape(name, ob, (PB, T, D), "ob")
-    if D > _MAX_D:
-        raise ValueError(f"{name}: D={D} detectors exceed the kernel's "
-                         f"{_MAX_D}")
+    if _row_smem(D, Np) > _MAX_SMEM:
+        raise ValueError(f"{name}: a row of D={D} detectors and Np={Np} "
+                         f"profile points needs {_row_smem(D, Np)} bytes of "
+                         f"shared memory, above the kernel's {_MAX_SMEM}")
     gbar = torch.empty((PB, T, Np), dtype=torch.float32, device=ob.device)
     lib = _build.load("hat_eval")
     rc = lib.dip_hat_t(*(t.data_ptr() for t in (ob, pc, s, gbar)),

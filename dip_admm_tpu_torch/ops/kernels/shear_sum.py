@@ -35,13 +35,17 @@ tail, the pre-contracted eval cotangent); f32 tables round nowhere.
 What bounds them on an H100, and what the simple design does about it:
 
 - K1/K2 (skew stages) carry the projector's FLOPs: 2*P*Tp*D2*N*N for the
-  tap product, ~14.5 GFLOP per direction at 256^2/8. The kernels are
-  shared-memory tiled products on the CUDA cores with f32 accumulation
-  (bound by shared-memory reads: 5 loads per 4 FMAs). The TPU kernel's
-  sequential accumulation axis becomes a loop inside the block that owns
-  the output tile, so nothing relies on block order and nothing needs
-  atomics. Each runs as two launches (tap product, then DFT; or DFT, then
-  tap product) through an f32 scratch of [P, TB, NB, tt, WZ].
+  tap product, ~14.5 GFLOP per direction at 256^2/8. K2, and K1 with f32
+  tables, are shared-memory tiled products on the CUDA cores with f32
+  accumulation (bound by shared-memory reads: 5 loads per 4 FMAs), two
+  launches each (tap product, then DFT; or DFT, then tap product) through
+  an f32 scratch of [P, TB, NB, tt, WZ]. K1 with bf16 tables, the tables
+  of every card path, runs both stages as bf16 mma.sync products with f32
+  accumulators (the TPU kernel's MXU products): two layout passes, the tap
+  product over the tap tiles that hold a nonzero, and the DFT-back,
+  through one bf16 scratch. The TPU kernel's sequential accumulation axis
+  becomes a loop inside the block that owns the output tile, so nothing
+  relies on block order and nothing needs atomics.
 - K3/K4 (eval tail) are small products (~0.6 GFLOP); their Wd epilogue
   and pre-contraction stay ``torch.einsum`` outside the kernel, as they
   are XLA einsums outside Pallas in the JAX package.
@@ -309,7 +313,10 @@ def eval_shear_t_ref(ob, Wd, TEre, TEim, PhiDre, PhiDim):
 
 
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream of the current device, as an int. The raw
+    query skips the ``torch.cuda.Stream`` object that ``current_stream()``
+    builds (about 6 us of host time per launch on an H100 host)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def _check(name: str, tensors: dict, device, table_dtype):
@@ -388,10 +395,17 @@ def skew_sum_planes(rows2, WtT, SEre, SEim, Dre, Dim, plane):
                          f"D2={D2}, WZ={WZ}")
     tt = Tp // TB
     dev = rows2.device
-    z = torch.empty((PB, TB, NB, tt, WZ), dtype=torch.float32, device=dev)
+    lib = _build.load("shear_sum")
+    # The kernel's scratch: with f32 tables the skew sum z in f32; with
+    # bf16 tables one bf16 buffer for z, the rounded rows and D in the
+    # tensor-core kernels' layouts, sized by the library.
+    if WtT.dtype == torch.bfloat16:
+        n = lib.dip_skew_fwd_scratch(PB, TB, NB, tt, nb, D2, WS, F)
+        z = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    else:
+        z = torch.empty((PB, TB, NB, tt, WZ), dtype=torch.float32, device=dev)
     gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=dev)
     gim = torch.empty_like(gre)
-    lib = _build.load("shear_sum")
     rc = lib.dip_skew_fwd(
         *(t.data_ptr() for t in (
             rows2, WtT, SEre, SEim, Dre, Dim, plane, z, gre, gim)),

@@ -49,12 +49,12 @@ def _device():
     return torch.device("cuda")
 
 
-def _tables(dtype, dev, N=48, P=3, angles_total=45):
+def _tables(dtype, dev, N=48, P=3, angles_total=45, nb=16):
     geo = GeometryConfig(N=N, num_nodes=P, angles_total=angles_total)
     a, v, _ = radon.node_angles(geo)
     t = radon_fft.precompute_shear(
         geo, torch.as_tensor(a, dtype=torch.float32, device=dev),
-        torch.as_tensor(v, device=dev), dtype, nb=16)
+        torch.as_tensor(v, device=dev), dtype, nb=nb)
     return geo, t
 
 
@@ -686,3 +686,136 @@ def test_consensus_sharded_matches_plain_and_repeats(fusion):
     _assert_close(got, want, 1e-5)
     for g1, full in zip(got[:2], whole[:2]):
         assert torch.equal(g1, full[rows][..., cols])
+
+
+def _skew_synthetic(dev, PB, PT, NB, nb, TB, tt, seed=11):
+    """K1's arguments with bf16 tables of PT sets built as the loader
+    builds them (two adjacent taps per (row block, slot, row), phases of
+    unit modulus, the DFT-back D), for PB images."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    N, Tp = NB * nb, TB * tt
+    D2 = -(-(nb + 2) // 16) * 16
+    WZ = -(-(N + D2 - 1) // 128) * 128
+    F = N // 2 + 1
+    d0 = torch.randint(0, D2 - 1, (PT, NB, 1, Tp, nb), generator=gen,
+                       device=dev)
+    fr = torch.rand((PT, NB, 1, Tp, nb), generator=gen, device=dev)
+    d = torch.arange(D2, device=dev)[:, None, None]
+    W = (d0 == d) * (1.0 - fr) + (d0 + 1 == d) * fr  # [PT, NB, D2, Tp, nb]
+    ph = torch.rand((PT, NB, Tp, F), generator=gen, device=dev) * 6.2831855
+    ang = (3.14159265 / N) * torch.outer(
+        torch.arange(WZ, device=dev) - (D2 - 1.0),
+        torch.arange(F, device=dev, dtype=torch.float32))
+    rows2 = torch.randn((PB, 2, N, N), generator=gen, device=dev)
+    plane = torch.randint(0, 2, (PT, TB), generator=gen, device=dev)
+    return (rows2, W.to(torch.bfloat16).contiguous(), torch.cos(ph),
+            torch.sin(ph), torch.cos(ang).to(torch.bfloat16),
+            (-torch.sin(ang)).to(torch.bfloat16), plane.to(torch.int32))
+
+
+def _k1_case(name, dev):
+    """K1's arguments for the card cases of the bf16 tensor-core kernel
+    (and the f32 CUDA-core one)."""
+    if name in ("small-f32", "small-bf16"):
+        dtype = torch.float32 if name == "small-f32" else torch.bfloat16
+        return _cases(_tables(dtype, dev)[1], dev)["skew_sum_planes"][2]
+    if name == "fan-tt8-PT1-PB3":
+        return _skew_synthetic(dev, 3, 1, 2, 16, 6, 8)
+    if name == "row-shard-NB1":
+        return _skew_synthetic(dev, 2, 2, 1, 16, 2, 48)
+    # the 256^2/8 bench tables: nb = 128, tt = 48
+    _, t = _tables(torch.bfloat16, dev, N=256, P=8, angles_total=768,
+                   nb=128)
+    assert t["WtT"].shape[-1] == 128
+    assert t["WtT"].shape[3] // t["plane"].shape[1] == 48
+    return _cases(t, dev)["skew_sum_planes"][2]
+
+
+K1_CASES = ["small-f32", "small-bf16", "fan-tt8-PT1-PB3", "row-shard-NB1",
+            "bench-256"]
+
+
+@pytest.mark.parametrize("name", K1_CASES)
+def test_skew_fwd_matches_plain_and_repeats(name):
+    """K1 against its plain version (RTOL of its table type) and bit for
+    bit on a second call: the f32 CUDA-core kernel, and the bf16
+    tensor-core kernel at the small shapes, a fan table (8-slot blocks, one
+    table set for three images), a one-block row shard and the bench
+    shapes."""
+    dev = _device()
+    args = _k1_case(name, dev)
+    before = ss.skew_sum_planes.launches
+    got, again = ss.skew_sum_planes(*args), ss.skew_sum_planes(*args)
+    want = ss.skew_sum_planes_ref(*args)
+    torch.cuda.synchronize()
+    assert ss.skew_sum_planes.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_close(got, want, RTOL[args[1].dtype])
+
+
+@pytest.mark.parametrize("name", ["small-bf16", "bench-256"])
+def test_skew_fwd_row_shards_sum_to_all_rows_bit_for_bit(name):
+    """K1 on each of two row shards (its rows, its row block of the
+    tables), the outputs summed as the pixel axis sums them, equals K1 on
+    all rows bit for bit: each row block's term is formed whole and added
+    in ascending b."""
+    dev = _device()
+    rows2, WtT, SEre, SEim, Dre, Dim, plane = _k1_case(name, dev)
+    NB, nb = WtT.shape[1], WtT.shape[-1]
+    if name == "small-bf16":  # three row blocks: shards of 2 and 1
+        cuts = [(0, 2), (2, 3)]
+    else:
+        assert NB == 2
+        cuts = [(0, 1), (1, 2)]
+    whole = ss.skew_sum_planes(rows2, WtT, SEre, SEim, Dre, Dim, plane)
+    parts = []
+    for b0, b1 in cuts:
+        loc = [v[:, b0:b1].contiguous() for v in (WtT, SEre, SEim)]
+        parts.append(ss.skew_sum_planes(
+            rows2[:, :, b0 * nb:b1 * nb].contiguous(), *loc, Dre, Dim, plane))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert torch.equal(parts[0][i] + parts[1][i], whole[i])
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["real", "integer"])
+def test_hat_t_rows_of_every_kind_repeat(integer):
+    """K18 against its plain version (1e-5) and bit for bit on a second
+    call, on rising, falling and non-monotone rows with a third of the
+    coordinates outside [0, Np), real- or integer-valued, two images per
+    geometry set (PB = 2 PT)."""
+    dev = _device()
+    pc, s, _, ob = _hat_inputs(dev, 8, 4, 16, 64, 256, seed=12)
+    if integer:
+        pc = torch.round(pc)
+    before = he.hat_eval_t.launches
+    got, again = he.hat_eval_t(ob, pc, s, 256), he.hat_eval_t(ob, pc, s, 256)
+    want = he.hat_eval_t_ref(ob, pc, s, 256)
+    torch.cuda.synchronize()
+    assert he.hat_eval_t.launches == before + 2
+    assert torch.equal(got, again)
+    _assert_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("N,nb", [(48, 16), (128, 64)])
+def test_skew_projector_nan_pixel_pattern_matches_plain(N, nb):
+    """K1 runs MMAs only on the tap tiles that hold a nonzero. A NaN pixel
+    must still reach every real slot as the plain version's dense product
+    carries it: the projector's output (real slots only) through the
+    kernels has the plain path's NaN pattern (the same tables on the CPU)."""
+    dev = _device()
+    geo, t = _tables(torch.bfloat16, dev, N=N, P=3,
+                     angles_total=45 if N == 48 else 180, nb=nb)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    img = torch.randn((3, N, N), generator=gen, device=dev)
+    img[1, N // 3, N // 2] = float("nan")
+
+    def to_cpu(v):
+        return {k: to_cpu(x) for k, x in v.items()} if isinstance(
+            v, dict) else v.cpu()
+
+    got = radon_fft.project_nodes_skew(geo, img, t)
+    want = radon_fft.project_nodes_skew(geo, img.cpu(), to_cpu(t))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want).any())
+    assert torch.equal(torch.isnan(got).cpu(), torch.isnan(want))

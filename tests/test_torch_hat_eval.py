@@ -203,3 +203,113 @@ def test_operators_through_kernel_branch_match_materialized(mode,
     got = fwd(geo, x, t), adj(geo, y, t)
     for g_, w in zip(got, want):
         _close(g_, w.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The algebra of K18's kernel (boundary tables), mirrored in numpy and held
+# to the JAX package's kernel in interpret mode.
+
+
+def _boundary_ranges(x, Np):
+    """K18's ranges of one row x [D] (f32): for a monotone row the boundary
+    tables lo, hi [Np] (boundary d in [0, D], between detectors d - 1 and
+    d, writes lo[v] = d for the v with x[d-1] <= v - 1 < x[d] on a rising
+    row, and likewise hi, over the row's span [vs, ve) only), else None.
+    Returns (lo, hi, vs, ve)."""
+    D = x.shape[0]
+    rising = bool(np.all(x[1:] >= x[:-1]))
+    if not (rising or np.all(x[1:] <= x[:-1])):
+        return None, None, 0, Np
+    c = np.clip(x, -4.0, Np + 4.0)
+    mn, mx = (c[0], c[-1]) if rising else (c[-1], c[0])
+    vs, ve = max(0, int(np.floor(mn)) - 1), min(Np, int(np.ceil(mx)) + 2)
+    lo = np.full(Np, -1)
+    hi = np.full(Np, -1)
+    for d in range(D + 1):
+        a, e = (c[d - 1] if d > 0 else None), (c[d] if d < D else None)
+        if rising:
+            l0 = vs if a is None else int(np.ceil(a)) + 1
+            l1 = ve if e is None else int(np.ceil(e)) + 1
+            h0 = vs if a is None else int(np.floor(a))
+            h1 = ve if e is None else int(np.floor(e))
+        else:
+            l0 = vs if e is None else int(np.floor(e))
+            l1 = ve if a is None else int(np.floor(a))
+            h0 = vs if e is None else int(np.ceil(e)) + 1
+            h1 = ve if a is None else int(np.ceil(a)) + 1
+        for v in range(max(l0, vs), min(l1, ve)):
+            assert lo[v] == -1  # each v is written by one boundary
+            lo[v] = d
+        for v in range(max(h0, vs), min(h1, ve)):
+            assert hi[v] == -1
+            hi[v] = d
+    assert (lo[vs:ve] >= 0).all() and (hi[vs:ve] >= 0).all()
+    return lo, hi, vs, ve
+
+
+def _k18_mirror(ob, pc, s, Np):
+    """K18 as its kernel computes it: each v of a row sums the terms
+    w = 1 - |pc - v| > 0 of its boundary-table range (every d on a row that
+    is not monotone) in ascending d, in f32; zero outside the row's span."""
+    PT, T, D = pc.shape
+    PB = ob.shape[0]
+    out = np.zeros((PB, T, Np), np.float32)
+    for p in range(PB):
+        for t in range(T):
+            x = pc[p % PT, t]
+            y = (s[p % PT, t, 0] * ob[p, t]).astype(np.float32)
+            lo, hi, vs, ve = _boundary_ranges(x, Np)
+            for v in range(vs, ve):
+                d0, d1 = (0, D) if lo is None else (lo[v], hi[v])
+                acc = np.float32(0.0)
+                for d in range(d0, d1):
+                    w = np.float32(1.0) - np.abs(x[d] - np.float32(v))
+                    if w > 0:
+                        acc = np.float32(acc + w * y[d])
+                out[p, t, v] = acc
+    return out
+
+
+def _rows_of_every_kind(PT, integer, seed=9):
+    """pc [PT, T, D]: rising, falling and (row 1) not monotone rows, a third
+    of each below 0 or above Np - 1; integer-valued when ``integer``."""
+    pc, s = _geometry(PT, seed)
+    rng = np.random.default_rng(seed + 1)
+    pc[:, 1] = pc[:, 1, rng.permutation(D)]
+    if integer:
+        pc = np.round(pc)
+    return pc.astype(np.float32), s
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["real", "integer"])
+@pytest.mark.parametrize("batch", BATCHES, ids=["PB2PT2", "PB6PT2"])
+def test_k18_boundary_tables_match_jax(batch, integer):
+    """The mirror of K18's boundary-table kernel against JAX's
+    interpret-mode ``hat_eval_t`` (1e-5 of the output's max: f32 on both
+    sides, other sum order), and its ranges against the binary searches of
+    the first CUDA design (first d with pc > v - 1, first with
+    pc >= v + 1 on a rising row), which it replaces term for term."""
+    PB, PT = batch
+    pc, s = _rows_of_every_kind(PT, integer)
+    ob = np.random.default_rng(3).standard_normal((PB, T, D)).astype(
+        np.float32)
+    want = _jax_batched(
+        lambda a: jhe.hat_eval_t(a, jnp.asarray(pc), jnp.asarray(s),
+                                 jnp.zeros((NP,))),
+        jnp.asarray(ob), PB, PT)
+    _close(_k18_mirror(ob, pc, s, NP), want)
+    kinds = set()
+    for x in pc.reshape(-1, D):
+        lo, hi, vs, ve = _boundary_ranges(x, NP)
+        if lo is None:
+            kinds.add("other")
+            continue
+        rising = bool(np.all(x[1:] >= x[:-1]))
+        kinds.add("rising" if rising else "falling")
+        for v in range(vs, ve):
+            fv = np.float32(v)
+            first = (x > fv - 1, x >= fv + 1) if rising else (x < fv + 1,
+                                                              x <= fv - 1)
+            a, b = (int(np.argmax(q)) if q.any() else D for q in first)
+            assert (lo[v], hi[v]) == (a, b), (v, lo[v], hi[v], a, b)
+    assert kinds == {"rising", "falling", "other"}

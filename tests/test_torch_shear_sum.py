@@ -248,3 +248,118 @@ def test_shear_sum_pair_is_k7_k8_on_gathered_spectra(dtype_name):
     for a, b in zip(tss.shear_sum_t(*gt, *ttabs, plane.shape[1]),
                     tss.shear_sum_planes_t(*gt, *ttabs, plane)):
         _close(torch.einsum("ptnf,pto->ponf", a, onehot), b.numpy(), 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The algebra of K1's tensor-core kernel (bf16 tables), mirrored in numpy
+# and held to the JAX package's kernel in interpret mode.
+
+
+def _bf16(a):
+    return np.asarray(a, np.float32).astype(ml_dtypes.bfloat16)
+
+
+def _k1_inputs(PB, PT, NB, nb, TB, tt, seed):
+    """Tables of PT sets built as the loader builds them (two adjacent taps
+    per (row block, slot, row), phases E of unit modulus, a DFT-back D),
+    bf16, and the rows of PB images [PB, 2, N, N]."""
+    rng = np.random.default_rng(seed)
+    N, Tp = NB * nb, TB * tt
+    D2 = -(-(nb + 2) // 16) * 16
+    WZ = -(-(N + D2 - 1) // 128) * 128
+    F = N // 2 + 1
+    WtT = np.zeros((PT, NB, D2, Tp, nb), np.float32)
+    d0 = rng.integers(0, D2 - 1, (PT, NB, Tp, nb))
+    fr = rng.uniform(0.0, 1.0, (PT, NB, Tp, nb)).astype(np.float32)
+    i = np.indices(d0.shape)
+    WtT[i[0], i[1], d0, i[2], i[3]] = 1.0 - fr
+    WtT[i[0], i[1], d0 + 1, i[2], i[3]] += fr
+    ph = rng.uniform(0.0, 2.0 * np.pi, (PT, NB, Tp, F))
+    ang = 2.0 * np.pi / (2 * N) * np.outer(np.arange(WZ) - (D2 - 1),
+                                           np.arange(F))
+    return dict(
+        rows2=rng.standard_normal((PB, 2, N, N)).astype(np.float32),
+        WtT=_bf16(WtT), SEre=np.cos(ph).astype(np.float32),
+        SEim=np.sin(ph).astype(np.float32), Dre=_bf16(np.cos(ang)),
+        Dim=_bf16(-np.sin(ang)),
+        plane=rng.integers(0, 2, (PT, TB)).astype(np.int32))
+
+
+def _k1_tensor_core_mirror(rows2, WtT, SEre, SEim, Dre, Dim, plane):
+    """K1 as its bf16 tensor-core kernel computes it. Per (image p, angle
+    block tb, row block b): the row window rounded to bf16 once, in its
+    Hankel view H[v, (d, n)] = x[n, v - (D2-1) + d] (zero outside the row),
+    times the taps as a [(d, n), t] matrix, summed in f32; z rounded to
+    bf16 over the columns v < WS + D2 - 1 that can be nonzero; then each
+    row block's term E_b * (z_b @ D) formed whole and added to the running
+    f32 sum in ascending b."""
+    PB, _, N, WS = rows2.shape
+    PT, NB, D2, Tp, nb = WtT.shape
+    TB = plane.shape[1]
+    tt = Tp // TB
+    F = Dre.shape[1]
+    vmax = WS + D2 - 1
+    W = WtT.astype(np.float32)
+    D = Dre.astype(np.float32)[:vmax], Dim.astype(np.float32)[:vmax]
+    gre = np.zeros((PB, Tp, F), np.float32)
+    gim = np.zeros((PB, Tp, F), np.float32)
+    for p in range(PB):
+        pt = p % PT
+        for tb in range(TB):
+            ts = slice(tb * tt, (tb + 1) * tt)
+            for b in range(NB):
+                x = _bf16(rows2[p, plane[pt, tb], b * nb:(b + 1) * nb])
+                xp = np.zeros((nb, WS + 2 * (D2 - 1)), np.float32)
+                xp[:, D2 - 1:D2 - 1 + WS] = x.astype(np.float32)
+                win = np.lib.stride_tricks.sliding_window_view(
+                    xp.T, D2, axis=0)  # [v, n, d] = xp[n, v + d]
+                H = win.transpose(0, 2, 1).reshape(vmax, D2 * nb)
+                A = W[pt, b, :, ts, :].transpose(0, 2, 1).reshape(D2 * nb, tt)
+                z = _bf16((H @ A).T).astype(np.float32)  # [tt, vmax]
+                zr, zi = z @ D[0], z @ D[1]
+                er, ei = SEre[pt, b, ts], SEim[pt, b, ts]
+                gre[p, ts] += zr * er - zi * ei
+                gim[p, ts] += zr * ei + zi * er
+    return gre, gim
+
+
+# (PB, PT, NB, nb, TB, tt): the fan's 8-slot blocks on one shared table
+# set, the bench's 48-slot blocks, each on one row block (a row shard) and
+# on two.
+K1_SHAPES = [(3, 1, 2, 16, 3, 8), (2, 1, 1, 16, 2, 8), (2, 2, 2, 16, 2, 48),
+             (2, 1, 1, 24, 2, 48)]
+
+
+@pytest.mark.parametrize("shape", K1_SHAPES,
+                         ids=["tt8-NB2-PT1", "tt8-NB1-PT1", "tt48-NB2-PT2",
+                              "tt48-NB1-PT1"])
+def test_k1_tensor_core_algebra_matches_jax(shape):
+    """The mirror of K1's tensor-core kernel, and the port's plain version,
+    against JAX's interpret-mode ``skew_sum_planes`` (relative 2e-3 with
+    bf16 tables: z rounds to bf16 after sums taken in another order)."""
+    k = _k1_inputs(*shape, seed=7)
+    order = ("rows2", "WtT", "SEre", "SEim", "Dre", "Dim", "plane")
+    want = jss.skew_sum_planes(*(jnp.asarray(k[n]) for n in order))
+    mirror = _k1_tensor_core_mirror(*(k[n] for n in order))
+    plain = tss.skew_sum_planes(*(_to_torch(k[n]) for n in order))
+    for m, pl_, w in zip(mirror, plain, want):
+        _close(m, w, RTOL["bfloat16"])
+        _close(pl_, w, RTOL["bfloat16"])
+
+
+def test_k1_row_block_terms_sum_as_the_row_shards_do():
+    """Each row block's term is formed whole: K1's mirror on the two row
+    blocks' tables summed, as the pixel axis sums two shards' outputs, is
+    the mirror on both row blocks bit for bit."""
+    k = _k1_inputs(2, 2, 2, 16, 2, 8, seed=8)
+    order = ("rows2", "WtT", "SEre", "SEim", "Dre", "Dim", "plane")
+    whole = _k1_tensor_core_mirror(*(k[n] for n in order))
+    parts = []
+    for s in range(2):
+        loc = dict(k, rows2=np.ascontiguousarray(
+            k["rows2"][:, :, 16 * s:16 * (s + 1)]))
+        for n in ("WtT", "SEre", "SEim"):
+            loc[n] = np.ascontiguousarray(k[n][:, s:s + 1])
+        parts.append(_k1_tensor_core_mirror(*(loc[n] for n in order)))
+    for i in range(2):
+        np.testing.assert_array_equal(parts[0][i] + parts[1][i], whole[i])
