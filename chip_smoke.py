@@ -27,11 +27,11 @@ kernel):
                  the single-device kernel's on the block) (error <= 1e-5 of
                  the output's max, two calls bitwise equal), each against
                  its plain PyTorch version, and times both (median of 20
-                 runs after warm-up, CUDA events). K1 also runs twice
-                 bitwise equal here and at the fan shapes (phase 8), and
-                 prints its device time by launch (``torch.profiler``) and
-                 the share of its taps and tensor-core tap tiles that hold
-                 a nonzero.
+                 runs after warm-up, CUDA events). K1 and K2, here and at
+                 the fan shapes (phase 8), and K1 and K6 on each row shard,
+                 also run twice bitwise equal, and each prints its device
+                 time by launch (``torch.profiler``) and the share of its
+                 taps and tensor-core tap tiles that hold a nonzero.
 4. adjoint     - <Ax, y> = <x, A^T y> through the kernels with f32 tables at
                  256^2/8, relative error <= 1e-5.
 5. main        - 20 outers of the <=200-inner Condat-Vu parity contract
@@ -492,23 +492,31 @@ def _device_ms(torch, fn, calls=10) -> tuple[float, dict]:
     return sum(by.values()), by
 
 
-def _k1_checks(torch, args, got, failures, note="") -> None:
-    """K1 (bf16 tables) beyond ``_compare``: bitwise on a second call, its
-    device time by launch, and the share of its taps and of its tensor-core
-    tap tiles (d, 16 rows, 8 slots) that hold a nonzero."""
+def _skew_checks(torch, kern, args, got, failures, note="") -> None:
+    """K1, K2 or K6 (``kern``) with bf16 tables beyond ``_compare``:
+    bitwise on a second call, its device time by launch, and the share of
+    its taps and of its tensor-core tap tiles that hold a nonzero (K1: d,
+    16 rows n, 8 slots; K2/K6: a k16 step of (d, t) in the order d then t,
+    8 rows n)."""
     from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
 
-    bitwise = _check_repeat(torch, f"skew_sum_planes{note}",
-                            ss.skew_sum_planes, args, got, failures)
-    dev_ms, by = _device_ms(torch, lambda: ss.skew_sum_planes(*args))
-    W = args[1]
+    name = kern.__name__
+    bitwise = _check_repeat(torch, f"{name}{note}", kern, args, got, failures)
+    dev_ms, by = _device_ms(torch, lambda: kern(*args))
+    fwd = kern is ss.skew_sum_planes
+    W = args[1] if fwd else args[2]  # WtT [PT, NB, D2, Tp, nb]
     PT, NB, D2, Tp, nb = W.shape
+    tt = Tp // args[6 if fwd else 7].shape[1]  # plane [PT, TB]
     nz = W != 0
     tiles = None
-    if Tp % 8 == 0 and nb % 16 == 0:
-        tiles = float(nz.reshape(PT, NB, D2, Tp // 8, 8, nb // 16, 16)
-                      .any(dim=-1).any(dim=-2).float().mean())
-    print(f"kernels: skew_sum_planes{note} bitwise_repeat={bitwise} "
+    if fwd and Tp % 8 == 0 and nb % 16 == 0:
+        tiles = nz.reshape(PT, NB, D2, Tp // 8, 8, nb // 16, 16)
+    elif not fwd and tt % 8 == 0 and nb % 8 == 0 and D2 * tt % 16 == 0:
+        tiles = nz.reshape(PT, NB, D2, Tp // tt, tt, nb).transpose(2, 3) \
+            .reshape(PT, NB, Tp // tt, D2 * tt // 16, 16, nb // 8, 8)
+    if tiles is not None:
+        tiles = float(tiles.any(dim=-1).any(dim=-2).float().mean())
+    print(f"kernels: {name}{note} bitwise_repeat={bitwise} "
           f"device_ms={dev_ms} device_ms_by_kernel={json.dumps(by)} "
           f"nonzero_tap_share={float(nz.float().mean())} "
           f"nonzero_tap_tile_share={tiles}", flush=True)
@@ -585,8 +593,7 @@ def _row_shard_checks(torch, t, num_nodes, nodes, img, g, failures, note,
             tag = f"{name}{note}[row shard {s} of {shards}]"
             got, r = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
                               failures, note=tag[len(name):])
-            bitwise = _check_repeat(torch, tag, kern, args, got, failures)
-            print(f"kernels: {tag} bitwise_repeat={bitwise}", flush=True)
+            _skew_checks(torch, kern, args, got, failures, tag[len(name):])
             got_all[name].append(got)
             res[name].append(r)
     k1_rel = max(
@@ -618,8 +625,8 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
     for name, (kern, ref, args) in cases.items():
         got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
                                   failures)
-        if name == "skew_sum_planes":
-            _k1_checks(torch, args, got, failures)
+        if name in ("skew_sum_planes", "skew_sum_planes_t"):
+            _skew_checks(torch, kern, args, got, failures)
 
     # K1 and K6 as the ranks of the 2 x 2 mesh run them: node block 1 of 2,
     # each row shard of the pixel axis.
@@ -1030,8 +1037,8 @@ def phase_fan_kernels(torch, dev, problems, failures) -> dict:
     for name, (kern, ref, args) in cases.items():
         got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
                                   failures, note="[fan PT=1]")
-        if name == "skew_sum_planes":
-            _k1_checks(torch, args, got, failures, "[fan PT=1]")
+        if name in ("skew_sum_planes", "skew_sum_planes_t"):
+            _skew_checks(torch, kern, args, got, failures, "[fan PT=1]")
     # K1 and K6 as the 1 x 2 fan mesh runs them: every node's image against
     # the row shards of the node-shared tables.
     rows = _row_shard_checks(torch, ts["shared"]["par"], P, slice(None), img,

@@ -27,7 +27,7 @@
 // kernels' vmap, which folds an image batch into the node axis and keeps one
 // table set). The parallel paths run PT = PB, the fan-beam path PT = 1.
 //
-// Design of K2-K4, and of K1 with f32 tables: a plain shared-memory tiled
+// Design of K3/K4, and of K1/K2 with f32 tables: a plain shared-memory tiled
 // product on the CUDA cores. A block owns a 16 x 64 output tile; each of
 // its 256 threads keeps one row and four columns (tx + 16 j) in registers.
 // The TPU grid's sequential axes become loops inside the block: K1 loops
@@ -67,6 +67,36 @@
 // m16 A fragment per MMA, as N is only 8 slots) and MMAs on the nonzero
 // tiles; then the DFT-back, latency-bound for its 0.8 GFLOP. PERF.md has
 // the times.
+//
+// K2 with bf16 tables (redesigned) is K1's design transposed. The TPU
+// kernel (_skew_t_pallas_planes) rounds the phased cotangent Zr/Zi to bf16
+// before the DFT-forward and the zbar windows before the tap product, and
+// sums in f32, so both products are exact on bf16 mma.sync. On the CUDA
+// cores the tap product ran all ~14.5 GFLOP of the dense product at
+// 256^2/8 (1.6-1.7 ms, 1.3% of the bytes bound). Now three launches:
+// - a phase pass forms Zr/Zi in f32 and rounds them once into 16-byte rows
+//   (g and SE have F = 513 columns, so they are not);
+// - the DFT-forward reads D*T [f][w] (rows of WZ bf16) through
+//   ldmatrix.trans as the A operand, w as M and the slots as N, over the
+//   columns w a tap can read, and writes zbar already rounded to bf16 and
+//   transposed, zT [w][t], so the tap product needs no layout pass;
+// - the tap product is one contraction over K = (tb, d, t) with u as M and
+//   the image rows n as N: the angle block's zT window is staged [w][t]
+//   once, so tap d is a row offset of the A operand; K runs in units of 8
+//   slots, so an 8-slot fan block pairs taps d and d + 1 in one k16 step
+//   (the second half a row offset one smaller) instead of padding t to 16;
+//   the block marks which (k16 step, 8 n) tap tiles hold a nonzero and the
+//   warps run the MMAs of those only; each output tile is written once by
+//   the block that owns it, zeros included for a plane no angle block
+//   reads, so the output needs no memset.
+// The K order of every element is fixed (tb ascending, then d, then t), so
+// no sum depends on the grid, which adapts to the batch, and K6's one-block
+// row shards concatenated equal K2 bit for bit. What bounds it now: the
+// tap product's walk over the nonzero tiles, one visited k16 step after
+// another (latency, not MMA throughput: the tensor cores are mostly idle),
+// and its per-stage marking of the tiles, more than the wait for the dense
+// tap table (98.6% zeros); then the DFT-forward, latency-bound for its
+// ~1.5 GFLOP. PERF.md has the times.
 //
 // K7/K8 carry fft_shear's tap contraction on the row spectra as the TPU
 // kernel does it: the dense [tt*D2, nb] x [nb, F] product, re and im, ~58
@@ -830,6 +860,376 @@ skew_tap_t(const float* __restrict__ zbar, const T* __restrict__ wtt,
 }
 
 // ---------------------------------------------------------------------------
+// K2 with bf16 tables, on the tensor cores. Three launches: the phase pass,
+// the DFT-forward, the transposed tap product. Their scratch, in one bf16
+// buffer (see skew_t_scratch): zT [PB, TB, NB, ZW, ttp], zbar rounded to
+// bf16 and transposed (rows w < ZW, the columns a tap reads, rounded up to
+// 16; slots padded to ttp = 8 * cdiv(tt, 8)), and the phased cotangent
+// Z [PB, TB, NB, 2, ttp, Fp] (re, im; zero past tt and F).
+// ---------------------------------------------------------------------------
+constexpr int T2_FC = 64;       // f per DFT-forward stage
+constexpr int T2_FSTAGES = 4;   // DFT-forward stages in flight
+constexpr int T2_STAGES = 3;    // tap stages in flight
+constexpr int T2_MAX_TTP = 64;  // slots of an angle block the window holds
+constexpr int T2_MAX_TB = 64;   // angle blocks per image
+
+struct SkewTScratch {
+  int ttp, ZW, Fp;
+  long z_off, total;  // bf16 elements; zT at 0
+};
+
+// The layout of K2's bf16 scratch (the wrapper allocates `total` elements,
+// asking dip_skew_t_scratch).
+SkewTScratch skew_t_scratch(int PB, int TB, int NB, int tt, int D2, int WS,
+                            int F) {
+  SkewTScratch s;
+  s.ttp = cdiv(tt, 8) * 8;
+  s.ZW = cdiv(WS + D2 - 1, 16) * 16;
+  s.Fp = cdiv(F, T2_FC) * T2_FC;
+  const long Q = (long)PB * TB * NB;
+  s.z_off = Q * s.ZW * s.ttp;
+  s.total = s.z_off + Q * 2 * s.ttp * s.Fp;
+  return s;
+}
+
+// The row length of a shared-memory tile of n bf16 columns: an odd count of
+// 16-byte pieces, so the 8 rows an ldmatrix reads fall in distinct banks.
+__host__ __device__ constexpr int odd_ld(int n) {
+  return (n / 8) % 2 ? n : n + 8;
+}
+
+// Phase pass: Z[q, 0, t, f] = bf16(g_re E_re + g_im E_im) and Z[q, 1, t, f]
+// = bf16(g_im E_re - g_re E_im), E = SE[p % PT, b, tb*tt + t, f], formed in
+// f32 and rounded once (the TPU kernel's rounding point); zero for t >= tt
+// or f >= F. q = (p * TB + tb) * NB + b.
+__global__ void __launch_bounds__(256)
+skew_phase_t(const float* __restrict__ gre, const float* __restrict__ gim,
+             const float* __restrict__ sere, const float* __restrict__ seim,
+             B16* __restrict__ zph, int PT, int NB, int Tp, int TB, int F,
+             int ttp, int Fp) {
+  const int f = blockIdx.x * 256 + threadIdx.x, t = blockIdx.y;
+  const long q = blockIdx.z;
+  if (f >= Fp) return;
+  const int b = q % NB, tb = (q / NB) % TB, p = q / (NB * TB), pt = p % PT;
+  const int tt = Tp / TB;
+  float zr = 0.f, zi = 0.f;
+  if (t < tt && f < F) {
+    const long go = ((long)p * Tp + tb * tt + t) * F + f;
+    const long eo = ((long)(pt * NB + b) * Tp + tb * tt + t) * F + f;
+    const float g_r = gre[go], g_i = gim[go], er = sere[eo], ei = seim[eo];
+    zr = g_r * er + g_i * ei;
+    zi = g_i * er - g_r * ei;
+  }
+  B16* o = zph + (q * 2 * ttp + t) * Fp + f;
+  o[0] = __float2bfloat16_rn(zr);
+  o[(long)ttp * Fp] = __float2bfloat16_rn(zi);
+}
+
+// DFT-forward on the tensor cores:
+//   zT[q, w, t] = bf16(sum_f DreT[f, w] Z[q,0,t,f] + DimT[f, w] Z[q,1,t,f]),
+// D*T read through ldmatrix.trans as the A operand [w][f] (rows of WZ bf16,
+// 16-byte pieces: no layout pass), Z as B. K runs over (re, im) x f in
+// stages of T2_FC frequencies through a T2_FSTAGES-deep cp.async ring, into
+// one f32 sum per element, rounded to bf16 once (the TPU kernel's rounding
+// point of the windows). Block: (128 w, t group of 8*NT8 slots, q); warp w
+// owns w rows [16w, 16w+16).
+template <int NT8>
+__global__ void __launch_bounds__(TC_NT1)
+skew_dft_t_tc(const B16* __restrict__ zph, const B16* __restrict__ dret,
+              const B16* __restrict__ dimt, B16* __restrict__ zT, int WZ,
+              int F, int ttp, int ZW, int Fp) {
+  constexpr int NP = (NT8 + 1) / 2 * 2, TG = 8 * NT8;
+  constexpr int BW = 16 * TC_WARPS1;
+  constexpr int LW = odd_ld(BW);     // D tile [T2_FC][LW]
+  constexpr int LZ = odd_ld(T2_FC);  // Z tile [8 * NP][LZ]
+  constexpr int STAGE = T2_FC * LW + 8 * NP * LZ;
+  extern __shared__ __align__(16) unsigned char smem[];
+  B16* sm = reinterpret_cast<B16*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w0 = blockIdx.x * BW, t0 = blockIdx.y * TG;
+  const long q = blockIdx.z;
+  const bool busy = w0 + 16 * warp < ZW;  // warp-uniform
+  const int nf = Fp / T2_FC, total = 2 * nf;
+  const B16* zq = zph + q * 2 * ttp * Fp;
+
+  auto load = [&](int i) {
+    if (i < total) {
+      const int c = i / nf, f0 = (i % nf) * T2_FC;
+      B16* Ds = sm + (size_t)(i % T2_FSTAGES) * STAGE;
+      B16* Zs = Ds + T2_FC * LW;
+      const B16* dt = c ? dimt : dret;
+      for (int k = threadIdx.x; k < T2_FC * (BW / 8); k += TC_NT1) {
+        const int r = k / (BW / 8), w = w0 + 8 * (k % (BW / 8));
+        const bool in = f0 + r < F && w < WZ;
+        cp_async16(Ds + r * LW + w - w0,
+                   in ? dt + (long)(f0 + r) * WZ + w : dt, in);
+      }
+      const B16* zc = zq + (long)c * ttp * Fp + f0;
+      for (int k = threadIdx.x; k < 8 * NP * (T2_FC / 8); k += TC_NT1) {
+        const int t = k / (T2_FC / 8), o = 8 * (k % (T2_FC / 8));
+        const bool in = t < TG && t0 + t < ttp;
+        cp_async16(Zs + t * LZ + o, in ? zc + (long)(t0 + t) * Fp + o : zc,
+                   in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[NT8][4] = {};
+#pragma unroll
+  for (int s = 0; s < T2_FSTAGES - 1; ++s) load(s);
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<T2_FSTAGES - 2>();
+    __syncthreads();
+    load(i + T2_FSTAGES - 1);  // into the buffer computed at i - 1
+    const B16* Ds = sm + (size_t)(i % T2_FSTAGES) * STAGE;
+    const B16* Zs = Ds + T2_FC * LW;
+    if (busy) {
+#pragma unroll
+      for (int kk = 0; kk < T2_FC; kk += 16) {
+        unsigned bf[NT8 + 1][2], a[4];
+        load_b<NT8>(bf, Zs, LZ, kk, lane);
+        const int m = lane >> 3;
+        ldsm_x4_t(a, Ds + (kk + (lane & 7) + (m >> 1) * 8) * LW + 16 * warp +
+                         (m & 1) * 8);
+#pragma unroll
+        for (int j = 0; j < NT8; ++j) mma_bf16(acc[j], a, bf[j][0], bf[j][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!busy) return;
+  B16* zo = zT + q * ZW * ttp;
+#pragma unroll
+  for (int j = 0; j < NT8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int w = w0 + 16 * warp + (lane >> 2) + 8 * h;
+      const int t = t0 + 8 * j + 2 * (lane & 3);
+      if (w < ZW && t < ttp)
+        *reinterpret_cast<__nv_bfloat162*>(zo + (long)w * ttp + t) =
+            __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+}
+
+// The transposed tap product on the tensor cores, one contraction over
+// K = (tb, d, t) with u as the M dimension and n as N:
+//   x2[p, pl, b*nb + n, u] = sum_{tb: plane = pl} sum_d sum_t
+//       zT[p, tb, b][u + D2-1-d, t] * WtT[p % PT, b, d, tb*tt + t, n].
+// The zT window of an angle block is staged [w][t] once, so tap d is a row
+// offset of the ldmatrix A operand. K runs in units of 8 slots, unit
+// j = d * C8 + c (slots 8c..8c+7, C8 = ttp / 8), and a k16 step pairs units
+// 2s and 2s + 1: with 8-slot angle blocks that is taps d and d + 1, the
+// second half one window row up. The taps stream through a cp.async ring in
+// stages of 128 / NT8 units, staged [unit][8 slots][n] and read through
+// ldmatrix.trans as B. Per stage the block marks which (k16 step, 8 n)
+// tiles hold a nonzero (64 a stage, one bit each) and the warps run the
+// MMAs of those only (a zero tile adds exact zeros for finite zbar; a NaN
+// in a real slot still reaches every row, since each row has a nonzero tap
+// in every real slot). Block: (u tile of BU = 128*MT, n group of 8*NT8,
+// (p, pl, b)); warp w owns u rows [16*MT*w, 16*MT*(w+1)) and all n of the
+// group. The block writes every element of its tile once, zeros where no
+// angle block reads the plane. The K order is fixed, so no sum depends on
+// the tiling or on the row blocks a call carries.
+template <int MT, int NT8>
+__global__ void __launch_bounds__(TC_NT1)
+skew_tap_t_tc(const B16* __restrict__ zT, const B16* __restrict__ wtt,
+              const int* __restrict__ plane, float* __restrict__ x2, int PT,
+              int NB, int D2, int Tp, int nb, int TB, int WS, int ZW, int ttp,
+              int vec) {
+  constexpr int BU = 16 * MT * TC_WARPS1, WU = 16 * MT, BN = 8 * NT8;
+  constexpr int KS = 64 / NT8, UNITS = 2 * KS;  // k16 steps, units a stage
+  constexpr int LN = odd_ld(BN), SROWS = 8 * UNITS;
+  static_assert(NT8 % 2 == 0, "B fragments are loaded in n8 tile pairs");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned smask[TC_WARPS1];
+  __shared__ int tbl[T2_MAX_TB];
+  const int LW = odd_ld(ttp), RW = BU + D2 - 1;
+  B16* Xs = reinterpret_cast<B16*>(smem);  // [RW][LW]
+  B16* Ws = Xs + (size_t)RW * LW;          // [T2_STAGES][SROWS][LN]
+  const int tt = Tp / TB, C8 = ttp / 8, N = NB * nb;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int u0 = blockIdx.x * BU, n0 = blockIdx.y * BN;
+  const int b = blockIdx.z % NB, pl = (blockIdx.z / NB) % 2;
+  const int p = blockIdx.z / (NB * 2), pt = p % PT;
+  const bool active = u0 + WU * warp < WS;  // warp-uniform
+  // Lane bases of the fragments: A rows u + D2 - 1 (tap d subtracts d rows),
+  // B rows k (lane & 15) of n8 tile pair 2 * (lane >> 4).
+  const B16* xa = Xs + (size_t)(WU * warp + (lane & 15) + D2 - 1) * LW;
+  const int wl = (lane & 15) * LN + 8 * (lane >> 4);
+  // tap (d, slot t, row n) of angle block tb at w[(d * Tp + tb * tt + t) * nb + n]
+  const B16* w = wtt + (long)(pt * NB + b) * D2 * Tp * nb + n0;
+  const int nunits = D2 * C8, spt = cdiv(nunits, UNITS);  // stages a tb
+  // U / C8 as (U * MC) >> 16, exact while U * C8 < 65536 (the host checks)
+  const unsigned MC = (65536u + C8 - 1) / C8;
+  int ntb = 0;
+  for (int tb = 0; tb < TB; ++tb)
+    if (plane[pt * TB + tb] == pl) {
+      if (threadIdx.x == 0) tbl[ntb] = tb;
+      ++ntb;
+    }
+  __syncthreads();
+  const int total = ntb * spt;
+  float acc[MT][NT8][4] = {};
+
+  // This thread's tap pieces of a stage: rows rb + j * RSTEP, 8 n at qn.
+  constexpr int RSTEP = TC_NT1 / NT8, PER = SROWS / RSTEP;
+  const int qn = 8 * (threadIdx.x % NT8), rb = threadIdx.x / NT8;
+  const bool nin = n0 + qn < nb;
+  auto load_taps = [&](int i) {
+    if (i < total) {
+      const int tb = tbl[i / spt], U0 = (i % spt) * UNITS + rb / 8;
+      B16* dst = Ws + (size_t)(i % T2_STAGES) * SROWS * LN + rb * LN + qn;
+      const B16* wt = w + tb * tt * nb + qn;
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int U = U0 + j * (RSTEP / 8);
+        const int d = (int)((U * MC) >> 16), t = 8 * (U - d * C8) + rb % 8;
+        const bool in = nin && U < nunits && t < tt;
+        const B16* src = wt + (d * Tp + t) * nb;
+        B16* o = dst + j * RSTEP * LN;
+        if (vec) {
+          cp_async16(o, in ? src : wtt, in);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            o[e] = in && n0 + qn + e < nb ? src[e] : __float2bfloat16_rn(0.f);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto load_window = [&](int tb) {
+    const B16* src = zT + ((long)(p * TB + tb) * NB + b) * ZW * ttp;
+    for (int k = threadIdx.x; k < RW * C8; k += TC_NT1) {
+      const int r = k / C8, o = 8 * (k % C8), wr = u0 + r;
+      const bool in = wr < ZW;
+      cp_async16(Xs + (size_t)r * LW + o, in ? src + (long)wr * ttp + o : src,
+                 in);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < T2_STAGES - 1; ++s) load_taps(s);
+  for (int i = 0; i < total; ++i) {
+    const int s = i % spt;
+    if (s == 0) {  // a new angle block's window, once every warp is done
+      __syncthreads();
+      load_window(tbl[i / spt]);
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<T2_STAGES - 2>();
+    }
+    __syncthreads();
+    load_taps(i + T2_STAGES - 1);  // into the buffer computed at i - 1
+    const B16* Wb = Ws + (size_t)(i % T2_STAGES) * SROWS * LN;
+    {  // 4 threads a tile, 4 of its 16 rows each
+      const int tile = threadIdx.x >> 2, sub = threadIdx.x & 3;
+      const B16* r = Wb + (16 * (tile / NT8) + 4 * sub) * LN + 8 * (tile % NT8);
+      unsigned o = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint4 x = *reinterpret_cast<const uint4*>(r + e * LN);
+        o |= x.x | x.y | x.z | x.w;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, o != 0u);
+      if (lane == 0) {
+        unsigned bits = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bits |= (((bal >> (4 * j)) & 0xfu) != 0u) << j;
+        smask[warp] = bits;  // tiles 8 * warp + j
+      }
+    }
+    __syncthreads();
+    if (!active) continue;
+    unsigned long long mask = 0;
+#pragma unroll
+    for (int j = 0; j < TC_WARPS1; ++j)
+      mask |= (unsigned long long)smask[j] << (8 * j);
+    constexpr unsigned long long JM = (1ull << NT8) - 1;
+    if (!mask) continue;
+    // Walk the k16 steps with a nonzero tile, loading the next step's A
+    // and B fragments before the MMAs of this one.
+    const int Us = (i % spt) * UNITS + (lane >> 4);
+    const B16* Wl = Ws + (size_t)(i % T2_STAGES) * SROWS * LN + wl;
+    auto load_ab = [&](int ks, unsigned (&a)[MT][4], unsigned (&bf)[NT8][2]) {
+      // this lane's unit: 2 ks (k 0-7) or 2 ks + 1 (k 8-15)
+      const int U = Us + 2 * ks, dq = (int)((U * MC) >> 16);
+      const int d = min(dq, D2 - 1);  // past D2: zero taps
+      const B16* pa = xa + 8 * (U - dq * C8) - d * LW;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) ldsm_x4(a[mi], pa + 16 * mi * LW);
+#pragma unroll
+      for (int j = 0; j < NT8; j += 2) {
+        unsigned r[4];
+        ldsm_x4_t(r, Wl + 16 * ks * LN + 8 * j);
+        bf[j][0] = r[0];
+        bf[j][1] = r[1];
+        bf[j + 1][0] = r[2];
+        bf[j + 1][1] = r[3];
+      }
+    };
+    int ks = (__ffsll(mask) - 1) / NT8;
+    unsigned a[MT][4], bf[NT8][2];
+    load_ab(ks, a, bf);
+    while (true) {
+      const unsigned bits = (unsigned)((mask >> (NT8 * ks)) & JM);
+      mask &= ~(JM << (NT8 * ks));
+      const int kn = mask ? (__ffsll(mask) - 1) / NT8 : -1;
+      unsigned an[MT][4], bn[NT8][2];
+      if (kn >= 0) load_ab(kn, an, bn);
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        if (!((bits >> j) & 1u)) continue;
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+          mma_bf16(acc[mi][j], a[mi], bf[j][0], bf[j][1]);
+      }
+      if (kn < 0) break;
+      ks = kn;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[mi][e] = an[mi][e];
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        bf[j][0] = bn[j][0];
+        bf[j][1] = bn[j][1];
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // acc -> [n][u] through shared memory, then 16-byte stores of x2's rows.
+  constexpr int LO = BU + 4;
+  float* Os = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int u = WU * warp + 16 * mi + (lane >> 2) + (e >> 1) * 8;
+        Os[(8 * j + 2 * (lane & 3) + (e & 1)) * LO + u] = acc[mi][j][e];
+      }
+  __syncthreads();
+  float* xo = x2 + ((long)(p * 2 + pl) * N + (long)b * nb) * WS;
+  for (int k = threadIdx.x; k < BN * (BU / 4); k += TC_NT1) {
+    const int nl = k / (BU / 4), ul = 4 * (k % (BU / 4));
+    const int n = n0 + nl, u = u0 + ul;
+    if (n >= nb || u >= WS) continue;
+    const float* src = Os + nl * LO + ul;
+    float* dst = xo + (long)n * WS + u;
+    if (WS % 4 == 0) {
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+    } else {
+      for (int e = 0; e < 4 && u + e < WS; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K3: phase product and PhiD contraction of the eval tail.
 //   R[p,b,t,z] = sum_f A[t,f] PhiDre[z,f] - sum_f B[t,f] PhiDim[z,f]
 //   A = g_re*TE_re - g_im*TE_im,  B = g_re*TE_im + g_im*TE_re  (TE[p,b])
@@ -1409,6 +1809,95 @@ cudaError_t launch_skew_t(const float* gre, const float* gim, const void* wtt,
   return cudaGetLastError();
 }
 
+// K2 with bf16 tables. The DFT-forward takes the whole angle block as its t
+// group, smaller groups only to reach a block per SM; the tap product takes
+// 256 u x 32 n a block (each tap read once), halving n, then u, while the
+// grid has fewer blocks than every other SM: 256^2/8 and the fan, 128
+// blocks of 256 u x 32 n; a fan shard, 128 of 256 u x 16 n; a 2 x 2 mesh
+// rank's shard, 128 of 128 u x 16 n (a wider u tile reads each tap fewer
+// times; a narrower n group visits fewer k16 steps). None of it changes a
+// sum's order.
+cudaError_t launch_skew_t_tc(const float* gre, const float* gim,
+                             const void* wtt, const float* sere,
+                             const float* seim, const void* dret,
+                             const void* dimt, const int* plane,
+                             void* scratch, float* x2, int PB, int PT, int NB,
+                             int D2, int Tp, int nb, int TB, int WS, int WZ,
+                             int F, cudaStream_t s) {
+  const int tt = Tp / TB;
+  const SkewTScratch sc = skew_t_scratch(PB, TB, NB, tt, D2, WS, F);
+  const unsigned long long al =
+      reinterpret_cast<unsigned long long>(dret) |
+      reinterpret_cast<unsigned long long>(dimt);
+  const long C8 = sc.ttp / 8;
+  if (sc.ttp > T2_MAX_TTP || TB > T2_MAX_TB || WZ % 8 != 0 || al % 16 != 0 ||
+      (D2 * C8 + 128) * C8 >= 65536)
+    return cudaErrorInvalidValue;
+  B16* zT = static_cast<B16*>(scratch);
+  B16* zph = zT + sc.z_off;
+  const long Q = (long)PB * TB * NB, sms = sm_count();
+
+  skew_phase_t<<<dim3(cdiv(sc.Fp, 256), sc.ttp, (unsigned)Q), 256, 0, s>>>(
+      gre, gim, sere, seim, zph, PT, NB, Tp, TB, F, sc.ttp, sc.Fp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  int nt = nt8_for(tt);
+  auto blocks1 = [&] {
+    return cdiv(sc.ZW, 16 * TC_WARPS1) * (long)cdiv(sc.ttp, 8 * nt) * Q;
+  };
+  while (blocks1() < sms && nt > 1) nt = nt8_down(nt);
+  const dim3 g1(cdiv(sc.ZW, 16 * TC_WARPS1), cdiv(sc.ttp, 8 * nt), (unsigned)Q);
+  const size_t smem1 =
+      2 * (size_t)T2_FSTAGES *
+      (T2_FC * odd_ld(16 * TC_WARPS1) + 8 * ((nt + 1) / 2 * 2) * odd_ld(T2_FC));
+  static size_t raised1[5] = {0, 0, 0, 0, 0};
+#define DIP_DFT_T(N, I)                                                     \
+  case N:                                                                   \
+    e = launch_big(skew_dft_t_tc<N>, g1, TC_NT1, smem1, s, raised1[I],      \
+                   (const B16*)zph, static_cast<const B16*>(dret),          \
+                   static_cast<const B16*>(dimt), zT, WZ, F, sc.ttp, sc.ZW, \
+                   sc.Fp);                                                  \
+    break;
+  switch (nt) { DIP_DFT_T(1, 0) DIP_DFT_T(2, 1) DIP_DFT_T(3, 2) DIP_DFT_T(4, 3) default: DIP_DFT_T(6, 4) }
+#undef DIP_DFT_T
+  if (e != cudaSuccess) return e;
+
+  int mt = 2, nt2 = 4;
+  auto blocks2 = [&] {
+    return cdiv(WS, 16 * mt * TC_WARPS1) * (long)cdiv(nb, 8 * nt2) * PB * 2 * NB;
+  };
+  while (2 * blocks2() < sms && (mt > 1 || nt2 > 2)) {
+    if (nt2 > 2)
+      nt2 = 2;
+    else
+      mt = 1;
+  }
+  const int BU = 16 * mt * TC_WARPS1, BN = 8 * nt2;
+  const size_t win = (size_t)(BU + D2 - 1) * odd_ld(sc.ttp) +
+                     (size_t)T2_STAGES * 8 * (128 / nt2) * odd_ld(BN);
+  const size_t epi = 2 * (size_t)BN * (BU + 4);  // f32 tile, in bf16 units
+  const size_t smem2 = 2 * (win > epi ? win : epi);
+  if (smem2 + sizeof(unsigned) * TC_WARPS1 + sizeof(int) * T2_MAX_TB >
+      (size_t)TC_MAX_SMEM)
+    return cudaErrorInvalidValue;
+  const int vec =
+      nb % 8 == 0 && reinterpret_cast<unsigned long long>(wtt) % 16 == 0;
+  const dim3 g2(cdiv(WS, BU), cdiv(nb, BN), (unsigned)(PB * 2 * NB));
+  static size_t raised2[4] = {0, 0, 0, 0};
+#define DIP_TAP_T(M, N, I)                                                    \
+  case 10 * M + N:                                                            \
+    e = launch_big(skew_tap_t_tc<M, N>, g2, TC_NT1, smem2, s, raised2[I],     \
+                   (const B16*)zT, static_cast<const B16*>(wtt), plane, x2,   \
+                   PT, NB, D2, Tp, nb, TB, WS, sc.ZW, sc.ttp, vec);           \
+    break;
+  switch (10 * mt + nt2) {
+    DIP_TAP_T(1, 2, 0) DIP_TAP_T(1, 4, 1) DIP_TAP_T(2, 2, 2) default: DIP_TAP_T(2, 4, 3)
+  }
+#undef DIP_TAP_T
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1436,19 +1925,27 @@ int dip_skew_fwd(const float* rows2, const void* wtt, const float* sere,
                                     NB, D2, Tp, nb, TB, WS, WZ, F, s));
 }
 
+// Elements of K2's bf16 scratch (bf16 tables) at these shapes.
+int dip_skew_t_scratch(int PB, int TB, int NB, int tt, int D2, int WS,
+                       int F) {
+  return static_cast<int>(skew_t_scratch(PB, TB, NB, tt, D2, WS, F).total);
+}
+
+// zbar: the wrapper's scratch, [PB, TB, NB, tt, WZ] f32 with f32 tables, and
+// dip_skew_t_scratch's count of bf16 elements with bf16 ones.
 int dip_skew_t(const float* gre, const float* gim, const void* wtt,
                const float* sere, const float* seim, const void* dret,
-               const void* dimt, const int* plane, float* zbar, float* x2,
+               const void* dimt, const int* plane, void* zbar, float* x2,
                int PB, int PT, int NB, int D2, int Tp, int nb, int TB, int WS,
                int WZ, int F, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      bf16 ? launch_skew_t<__nv_bfloat16>(gre, gim, wtt, sere, seim, dret,
-                                          dimt, plane, zbar, x2, PB, PT, NB,
-                                          D2, Tp, nb, TB, WS, WZ, F, s)
+      bf16 ? launch_skew_t_tc(gre, gim, wtt, sere, seim, dret, dimt, plane,
+                              zbar, x2, PB, PT, NB, D2, Tp, nb, TB, WS, WZ, F,
+                              s)
            : launch_skew_t<float>(gre, gim, wtt, sere, seim, dret, dimt, plane,
-                                  zbar, x2, PB, PT, NB, D2, Tp, nb, TB, WS, WZ,
-                                  F, s));
+                                  static_cast<float*>(zbar), x2, PB, PT, NB,
+                                  D2, Tp, nb, TB, WS, WZ, F, s));
 }
 
 int dip_eval_fwd(const float* gre, const float* gim, const float* tere,

@@ -35,17 +35,23 @@ tail, the pre-contracted eval cotangent); f32 tables round nowhere.
 What bounds them on an H100, and what the simple design does about it:
 
 - K1/K2 (skew stages) carry the projector's FLOPs: 2*P*Tp*D2*N*N for the
-  tap product, ~14.5 GFLOP per direction at 256^2/8. K2, and K1 with f32
-  tables, are shared-memory tiled products on the CUDA cores with f32
-  accumulation (bound by shared-memory reads: 5 loads per 4 FMAs), two
-  launches each (tap product, then DFT; or DFT, then tap product) through
-  an f32 scratch of [P, TB, NB, tt, WZ]. K1 with bf16 tables, the tables
-  of every card path, runs both stages as bf16 mma.sync products with f32
-  accumulators (the TPU kernel's MXU products): two layout passes, the tap
-  product over the tap tiles that hold a nonzero, and the DFT-back,
-  through one bf16 scratch. The TPU kernel's sequential accumulation axis
-  becomes a loop inside the block that owns the output tile, so nothing
-  relies on block order and nothing needs atomics.
+  dense tap product, ~14.5 GFLOP per direction at 256^2/8, of which only
+  the two nonzero taps of D2 per row are needed. With f32 tables both are
+  shared-memory tiled products on the CUDA cores with f32 accumulation
+  (bound by shared-memory reads: 5 loads per 4 FMAs), two launches each
+  (tap product, then DFT; or DFT, then tap product) through an f32 scratch
+  of [P, TB, NB, tt, WZ]. With bf16 tables, the tables of every card path,
+  both run their two products as bf16 mma.sync with f32 accumulators (the
+  TPU kernel's MXU products) over the tap tiles that hold a nonzero,
+  through one bf16 scratch sized by the library: K1 as two layout passes,
+  the tap product and the DFT-back; K2 as a phase pass, the DFT-forward
+  (zbar leaves it rounded to bf16 and transposed) and the tap product,
+  which writes every element, so ``x2`` needs no memset. What bounds both
+  now is the tap product's walk over its nonzero tiles (latency more than
+  MMA throughput) and its per-stage marking of them; the source note in
+  ``csrc/shear_sum.cu`` has the details. The TPU kernel's sequential
+  accumulation axis becomes a loop inside the block that owns the output
+  tile, so nothing relies on block order and nothing needs atomics.
 - K3/K4 (eval tail) are small products (~0.6 GFLOP); their Wd epilogue
   and pre-contraction stay ``torch.einsum`` outside the kernel, as they
   are XLA einsums outside Pallas in the JAX package.
@@ -462,12 +468,27 @@ def _skew_t_launch(name, gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane,
         raise ValueError(f"{name}: inconsistent Tp={Tp}, TB={TB}, WS={WS}, "
                          f"D2={D2}, WZ={WZ}")
     tt = Tp // TB
+    C8 = -(-tt // 8)
+    if WtT.dtype == torch.bfloat16 and (WZ % 8 or C8 > 8 or TB > 64 or (
+            D2 * C8 + 128) * C8 >= 65536):
+        raise ValueError(f"{name}: the bf16 kernels take WZ % 8 == 0, at "
+                         f"most 64 slots and 64 angle blocks, and "
+                         f"(D2 * C8 + 128) * C8 < 65536 for C8 = ceil(tt / 8) "
+                         f"(WZ={WZ}, tt={tt}, TB={TB}, D2={D2})")
     dev = gre_b.device
-    zbar = torch.empty((PB, TB, NB, tt, WZ), dtype=torch.float32, device=dev)
-    # Zero-filled, so a plane that no angle block reads is zero whatever the
-    # kernel does with it (the JAX kernel leaves it uninitialized).
-    x2 = torch.zeros((PB, 2, NB * nb, WS), dtype=torch.float32, device=dev)
     lib = _build.load("shear_sum")
+    # The kernel's scratch: with f32 tables zbar in f32; with bf16 tables
+    # one bf16 buffer for the phased cotangent and zbar in the tensor-core
+    # kernels' layouts, sized by the library.
+    if WtT.dtype == torch.bfloat16:
+        n = lib.dip_skew_t_scratch(PB, TB, NB, tt, D2, WS, F)
+        zbar = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    else:
+        zbar = torch.empty((PB, TB, NB, tt, WZ), dtype=torch.float32,
+                           device=dev)
+    # The kernels write every element, zeros where no angle block reads a
+    # plane (the JAX kernel leaves such a plane uninitialized).
+    x2 = torch.empty((PB, 2, NB * nb, WS), dtype=torch.float32, device=dev)
     rc = lib.dip_skew_t(
         *(t.data_ptr() for t in (
             gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane, zbar, x2)),

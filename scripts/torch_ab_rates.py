@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Recommended and mesh_bench outer rates of the PyTorch port on one GPU,
-for comparing two checkouts in one call on one card.
+"""Parity, recommended and mesh_bench outer rates of the PyTorch port on
+one GPU, and the per-call times of the skew transpose row stage, for
+comparing two checkouts in one call on one card.
 
     python3 scripts/torch_ab_rates.py ROOT
 
 runs, from the checkout at ROOT (its own ``chip_smoke.py`` and kernels):
-the build, 20 recommended outers of the 256^2/8 bench problem on one
-device, and 20 on a 2 x 2 node x pixel mesh of four processes sharing the
-card (``chip_smoke.py``'s phases 6 and 6b without their reference checks),
-and prints both lines. Alternate the checkouts, e.g. with the parent
+the build; K2 (``skew_sum_planes_t``) at the 256^2/8 bench and fan shapes
+and K6 (``skew_sum_planes_t_rows``) at row shard 0 of 2 of a 2 x 2 mesh
+rank's node block and of the fan tables, each the median of 20 calls
+(CUDA events, bf16 tables, seeded spectra); 20 parity and 20 recommended
+outers of the 256^2/8 bench problem on one device; and 20 recommended
+outers on a 2 x 2 node x pixel mesh of four processes sharing the card
+(``chip_smoke.py``'s phases 5, 6 and 6b without their reference checks).
+It prints a line for each. Alternate the checkouts, e.g. with the parent
 unpacked by ``git archive`` into ``build/parent``:
 
     for r in build/parent . . build/parent; do
@@ -27,6 +32,30 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
+def _skew_t_ms(t, P, tag) -> dict:
+    """K2 on the skew tables ``t`` (all P node images; the fan's shared
+    table set) and K6 on row shard 0 of 2 of a 2 x 2 mesh rank's node block
+    (the fan: every node), per call in ms."""
+    from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
+    from dip_admm_tpu_torch.parallel.mesh import slice_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _, NB, _, Tp, nb = t["WtT"].shape
+    F = t["SEre"].shape[-1]
+    g = [torch.randn((P, Tp, F), generator=gen, device="cuda")
+         for _ in range(2)]
+    sh = t["shared"]
+    k2 = (*g, t["WtT"], t["SEre"], t["SEim"], sh["DreT"], sh["DimT"],
+          t["plane"])
+    nodes = slice(None) if tag == "fan" else slice(P // 2, P)
+    loc = slice_tables(t, P, nodes, (0, 2))
+    k6 = (*(v[nodes].contiguous() for v in g), loc["WtT"], loc["SEre"],
+          loc["SEim"], sh["DreT"], sh["DimT"], loc["plane"], NB * nb)
+    return {f"k2_{tag}": cs._time_ms(torch, lambda: ss.skew_sum_planes_t(*k2)),
+            f"k6_{tag}_shard": cs._time_ms(
+                torch, lambda: ss.skew_sum_planes_t_rows(*k6))}
+
+
 def main() -> int:
     from dip_admm_tpu_torch.data import loader
 
@@ -37,8 +66,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     failures: list[str] = []
     cs.phase_build()
+    dev = torch.device("cuda", 0)
     cfg = cs._bench_cfg("bfloat16")
-    problem = loader.build_problem(cfg, torch.device("cuda", 0))
+    problem = loader.build_problem(cfg, dev)
+    fan = loader.build_problem(cs._bench_cfg("bfloat16", fan_beam=True), dev)
+    times = {}
+    for tag, t in (("bench", problem.fft_tables),
+                   ("fan", fan.fft_tables["shared"]["par"])):
+        times.update(_skew_t_ms(t, cfg.geometry.num_nodes, tag))
+    del fan
+    print(f"{ROOT} skew_t_ms: " + " ".join(
+        f"{k}={v}" for k, v in times.items()), flush=True)
+    _, _, line = cs._drive(torch, problem, cfg.admm, cs.REF_PSNR, "main",
+                           failures)
+    print(f"{ROOT} parity: {line}", flush=True)
     _, _, line = cs._drive(torch, problem, cs._recommended(cfg.admm),
                            cs.REF_REC_PSNR, "recommended", failures)
     print(f"{ROOT} recommended: {line}", flush=True)

@@ -202,13 +202,25 @@ def test_grouped_wrappers_reject_bad_inputs():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_skew_t_leaves_unread_plane_zero(dtype):
-    # Every angle block on plane 0: no angle block reads plane 1.
+def test_skew_t_leaves_unread_plane_zero(dtype, monkeypatch):
+    """Every angle block on plane 0, so no angle block reads plane 1, and
+    the kernels' output and scratch allocated filled with NaN (the wrapper
+    allocates with torch.empty): plane 1 comes out zero and plane 0 holds
+    to the plain version, so the kernels write every element they read or
+    return."""
     dev = _device()
     _, t = _tables(dtype, dev)
     kern, ref, args = _cases(t, dev)["skew_sum_planes_t"]
     args = (*args[:-1], torch.zeros_like(args[-1]))
-    got, want = kern(*args), ref(*args)
+    want = ref(*args)
+    empty = torch.empty
+
+    def nan_empty(*a, **k):
+        out = empty(*a, **k)
+        return out.fill_(float("nan")) if out.is_floating_point() else out
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    got = kern(*args)
     torch.cuda.synchronize()
     assert torch.equal(got[:, 1], torch.zeros_like(got[:, 1]))
     scale = float(want[:, 0].abs().max())
@@ -599,30 +611,31 @@ def test_adjoint_identity_through_new_modes(mode):
     assert rel <= 1e-5, rel
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_skew_t_rows_matches_plain_repeats_and_tiles_k2(dtype):
-    """K6 on each of three one-block row shards at the full row width:
-    against its plain version, bit for bit on a second call, and the
-    shards' outputs concatenated along the rows equal K2's, bit for bit
+@pytest.mark.parametrize("name", ["small-f32", "small-bf16",
+                                  "fan-tt8-PT1-PB3", "bench-256"])
+def test_skew_t_rows_matches_plain_repeats_and_tiles_k2(name):
+    """K6 on each one-block row shard at the full row width (three shards
+    of the small tables, two of an 8-slot fan table set and of the bench
+    tables): against its plain version, bit for bit on a second call, and
+    the shards' outputs concatenated along the rows equal K2's, bit for bit
     (each row block keeps K2's order of angle blocks)."""
     dev = _device()
-    geo, t = _tables(dtype, dev)
-    kern, ref, args = _cases(t, dev)["skew_sum_planes_t"]
+    args = _k2_case(name, dev)
     g, g2, WtT, SEre, SEim, DreT, DimT, plane = args
-    NB = WtT.shape[1]
-    assert NB == 3
-    whole = kern(*args)
+    NB, nb = WtT.shape[1], WtT.shape[-1]
+    assert NB == (3 if name.startswith("small") else 2)
+    whole = ss.skew_sum_planes_t(*args)
     parts = []
     before = ss.skew_sum_planes_t_rows.launches
     for s in range(NB):
         loc = [v[:, s:s + 1].contiguous() for v in (WtT, SEre, SEim)]
-        sargs = (g, g2, *loc, DreT, DimT, plane, geo.N)
+        sargs = (g, g2, *loc, DreT, DimT, plane, NB * nb)
         got, again = (ss.skew_sum_planes_t_rows(*sargs),
                       ss.skew_sum_planes_t_rows(*sargs))
         want = ss.skew_sum_planes_t_rows_ref(*sargs)
         torch.cuda.synchronize()
         assert torch.equal(got, again)
-        _assert_close(got, want, RTOL[dtype])
+        _assert_close(got, want, RTOL[WtT.dtype])
         parts.append(got)
     assert ss.skew_sum_planes_t_rows.launches == before + 2 * NB
     assert torch.equal(torch.cat(parts, dim=2), whole)
@@ -819,3 +832,63 @@ def test_skew_projector_nan_pixel_pattern_matches_plain(N, nb):
     torch.cuda.synchronize()
     assert bool(torch.isnan(want).any())
     assert torch.equal(torch.isnan(got).cpu(), torch.isnan(want))
+
+
+def _k2_case(name, dev):
+    """K2's arguments for the card cases of the bf16 tensor-core kernels
+    (and the f32 CUDA-core ones): K1's tables, the DFT-forward matrices
+    D*T = D*.T and the slot spectra of the same images."""
+    if name in ("small-f32", "small-bf16"):
+        dtype = torch.float32 if name == "small-f32" else torch.bfloat16
+        return _cases(_tables(dtype, dev)[1], dev)["skew_sum_planes_t"][2]
+    if name == "bench-256":
+        _, t = _tables(torch.bfloat16, dev, N=256, P=8, angles_total=768,
+                       nb=128)
+        return _cases(t, dev)["skew_sum_planes_t"][2]
+    rows2, WtT, SEre, SEim, Dre, Dim, plane = _k1_case(name, dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    g = [torch.randn((rows2.shape[0], WtT.shape[3], SEre.shape[-1]),
+                     generator=gen, device=dev) for _ in range(2)]
+    return (*g, WtT, SEre, SEim, Dre.T.contiguous(), Dim.T.contiguous(),
+            plane)
+
+
+@pytest.mark.parametrize("name", K1_CASES)
+def test_skew_t_matches_plain_and_repeats(name):
+    """K2 against its plain version (RTOL of its table type) and bit for
+    bit on a second call: the f32 CUDA-core kernels, and the bf16
+    tensor-core kernels at the small shapes, a fan table (8-slot blocks, one
+    table set for three images), a one-block row shard and the bench
+    shapes."""
+    dev = _device()
+    args = _k2_case(name, dev)
+    before = ss.skew_sum_planes_t.launches
+    got, again = ss.skew_sum_planes_t(*args), ss.skew_sum_planes_t(*args)
+    want = ss.skew_sum_planes_t_ref(*args)
+    torch.cuda.synchronize()
+    assert ss.skew_sum_planes_t.launches == before + 2
+    assert torch.equal(got, again)
+    _assert_close(got, want, RTOL[args[2].dtype])
+
+
+@pytest.mark.parametrize("N,nb", [(48, 16), (128, 64)])
+def test_skew_t_nan_slot_pattern_matches_plain(N, nb):
+    """K2 runs MMAs only on the tap tiles that hold a nonzero. A NaN in one
+    real slot of the spectra (a slot with a nonzero tap on every row) must
+    still reach every row and column of its plane, as the plain version's
+    dense product carries it: the kernels' output has the plain version's
+    NaN pattern."""
+    dev = _device()
+    _, t = _tables(torch.bfloat16, dev, N=N, P=3,
+                   angles_total=45 if N == 48 else 180, nb=nb)
+    g, g2, WtT, *rest = _cases(t, dev)["skew_sum_planes_t"][2]
+    pt = 1 % WtT.shape[0]
+    real = (WtT[pt] != 0).any(dim=1).all(dim=2).all(dim=0)  # [Tp]
+    slot = int(torch.nonzero(real)[0])
+    g = g.clone()
+    g[1, slot, 3] = float("nan")
+    got = ss.skew_sum_planes_t(g, g2, WtT, *rest)
+    want = ss.skew_sum_planes_t_ref(g, g2, WtT, *rest)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want).any())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))

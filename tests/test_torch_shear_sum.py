@@ -363,3 +363,121 @@ def test_k1_row_block_terms_sum_as_the_row_shards_do():
         parts.append(_k1_tensor_core_mirror(*(loc[n] for n in order)))
     for i in range(2):
         np.testing.assert_array_equal(parts[0][i] + parts[1][i], whole[i])
+
+
+# ---------------------------------------------------------------------------
+# The algebra of K2's tensor-core kernels (bf16 tables), mirrored in numpy
+# and held to the JAX package's kernel in interpret mode.
+
+
+def _k2_inputs(PB, PT, NB, nb, TB, tt, seed):
+    """K1's synthetic tables with the DFT-forward matrices D*T = D*.T, a
+    plane sequence that is monotone per table set (the JAX kernel's
+    accumulation needs consecutive revisits), its ``pfirst``/``pvisited``,
+    and the slot spectra of PB images [PB, Tp, F]."""
+    k = _k1_inputs(PB, PT, NB, nb, TB, tt, seed)
+    rng = np.random.default_rng(seed + 100)
+    F = k["SEre"].shape[-1]
+    plane = np.sort(k["plane"], axis=1)
+    pfirst = np.ones_like(plane)
+    pfirst[:, 1:] = plane[:, 1:] != plane[:, :-1]
+    pvisited = np.stack([(plane == s).any(axis=1) for s in (0, 1)], axis=1)
+    return dict(
+        gre=rng.standard_normal((PB, TB * tt, F)).astype(np.float32),
+        gim=rng.standard_normal((PB, TB * tt, F)).astype(np.float32),
+        WtT=k["WtT"], SEre=k["SEre"], SEim=k["SEim"],
+        DreT=np.ascontiguousarray(k["Dre"].T),
+        DimT=np.ascontiguousarray(k["Dim"].T), plane=plane, pfirst=pfirst,
+        pvisited=pvisited)
+
+
+def _k2_tensor_core_mirror(gre, gim, WtT, SEre, SEim, DreT, DimT, plane,
+                           row_width):
+    """K2 as its bf16 tensor-core kernels compute it. Per (image p, angle
+    block tb, row block b): the phased cotangent Zr/Zi formed in f32 and
+    rounded to bf16 once; zbar = Zr @ DreT + Zi @ DimT summed in f32 over
+    the columns w < WS + D2 - 1 that a tap reads, rounded to bf16; then its
+    Hankel view H[u, (d, t)] = zbar[t, u + D2-1-d] times the taps as a
+    [(d, t), n] matrix (K in the order d, then t), summed in f32 and added
+    to the plane's running sum in ascending tb. A plane no angle block
+    reads stays zero."""
+    PB, Tp, F = gre.shape
+    PT, NB, D2, _, nb = WtT.shape
+    TB = plane.shape[1]
+    tt, WS = Tp // TB, row_width
+    ZW = WS + D2 - 1
+    W = WtT.astype(np.float32)
+    DT = DreT.astype(np.float32)[:, :ZW], DimT.astype(np.float32)[:, :ZW]
+    x2 = np.zeros((PB, 2, NB * nb, WS), np.float32)
+    for p in range(PB):
+        pt = p % PT
+        for tb in range(TB):
+            ts = slice(tb * tt, (tb + 1) * tt)
+            g_r, g_i = gre[p, ts], gim[p, ts]
+            for b in range(NB):
+                er, ei = SEre[pt, b, ts], SEim[pt, b, ts]
+                zr = _bf16(g_r * er + g_i * ei).astype(np.float32)
+                zi = _bf16(g_i * er - g_r * ei).astype(np.float32)
+                zbar = _bf16(zr @ DT[0] + zi @ DT[1]).astype(np.float32)
+                win = np.lib.stride_tricks.sliding_window_view(
+                    zbar.T, D2, axis=0)  # [u, t, e] = zbar[t, u + e]
+                H = win[:, :, ::-1].transpose(0, 2, 1).reshape(WS, D2 * tt)
+                A = W[pt, b, :, ts, :].reshape(D2 * tt, nb)
+                x2[p, plane[pt, tb], b * nb:(b + 1) * nb] += (H @ A).T
+    return x2
+
+
+# K1's shapes, and K6's: row block 1 of 2 at the full row width.
+K2_CASES = [(s, None) for s in K1_SHAPES] + [((2, 2, 2, 16, 2, 48), 1)]
+
+
+@pytest.mark.parametrize("case", K2_CASES,
+                         ids=["tt8-NB2-PT1", "tt8-NB1-PT1", "tt48-NB2-PT2",
+                              "tt48-NB1-PT1", "k6-row-block-1-of-2"])
+def test_k2_tensor_core_algebra_matches_jax(case):
+    """The mirror of K2's tensor-core kernels, and the port's plain version,
+    against JAX's interpret-mode ``skew_sum_planes_t`` (and, on one row
+    block at the full row width, ``skew_sum_planes_t_rows``), relative 2e-3
+    with bf16 tables; planes no angle block reads are zero."""
+    shape, block = case
+    k = _k2_inputs(*shape, seed=9)
+    N = shape[2] * shape[3]
+    if block is not None:
+        for n in ("WtT", "SEre", "SEim"):
+            k[n] = np.ascontiguousarray(k[n][:, block:block + 1])
+    order = ("gre", "gim", "WtT", "SEre", "SEim", "DreT", "DimT", "plane")
+    jargs = [jnp.asarray(k[n]) for n in order + ("pfirst",)]
+    targs = [_to_torch(k[n]) for n in order]
+    if block is None:
+        want = jss.skew_sum_planes_t(*jargs)
+        plain = tss.skew_sum_planes_t(*targs)
+    else:
+        mark = jnp.zeros((N,), jnp.float32)
+        want = jss.skew_sum_planes_t_rows(*jargs, mark)
+        plain = tss.skew_sum_planes_t_rows(*targs, N)
+    vis = np.tile(k["pvisited"], (shape[0] // shape[1], 1))
+    vis = np.broadcast_to(vis[:, :, None, None], want.shape)
+    want = np.where(vis, np.asarray(want), 0.0)
+    mirror = _k2_tensor_core_mirror(*(k[n] for n in order), row_width=N)
+    assert mirror.shape == want.shape
+    for got in (mirror, plain.numpy()):
+        _close(got, want, RTOL["bfloat16"])
+        assert (got[~vis] == 0).all()
+
+
+def test_k2_row_blocks_concatenate_as_the_row_shards_do():
+    """Each row block's output depends on its own tables alone: K2's mirror
+    on each row block's tables at the full row width (K6, as a pixel shard
+    runs it), concatenated along the rows, is the mirror on both row blocks
+    bit for bit."""
+    k = _k2_inputs(2, 2, 2, 16, 2, 8, seed=10)
+    order = ("gre", "gim", "WtT", "SEre", "SEim", "DreT", "DimT", "plane")
+    whole = _k2_tensor_core_mirror(*(k[n] for n in order), row_width=32)
+    parts = []
+    for s in range(2):
+        loc = dict(k)
+        for n in ("WtT", "SEre", "SEim"):
+            loc[n] = np.ascontiguousarray(k[n][:, s:s + 1])
+        parts.append(_k2_tensor_core_mirror(*(loc[n] for n in order),
+                                            row_width=32))
+    np.testing.assert_array_equal(np.concatenate(parts, axis=2), whole)
