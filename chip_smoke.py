@@ -30,8 +30,13 @@ kernel):
                  runs after warm-up, CUDA events). K1 and K2, here and at
                  the fan shapes (phase 8), and K1 and K6 on each row shard,
                  also run twice bitwise equal, and each prints its device
-                 time by launch (``torch.profiler``) and the share of its
-                 taps and tensor-core tap tiles that hold a nonzero.
+                 time by launch (``torch.profiler``), its device launches a
+                 call and the share of its taps and tensor-core tap tiles
+                 that hold a nonzero. K3 and K4, here, at the fan shapes
+                 and on node block 1 of 2 with its tables (a 2 x 2 mesh
+                 rank's P_loc = 4, where each must also equal the whole
+                 batch's rows bit for bit), run twice bitwise equal and
+                 print their device time by launch and launches a call.
 4. adjoint     - <Ax, y> = <x, A^T y> through the kernels with f32 tables at
                  256^2/8, relative error <= 1e-5.
 5. main        - 20 outers of the <=200-inner Condat-Vu parity contract
@@ -119,7 +124,9 @@ kernel):
                  their plain versions (error <= 2e-3 of the output's max,
                  two calls bitwise equal), timed as in phase 3; both apply
                  pairs at 256^2/8, and both at 512^2/8 from their tables
-                 alone.
+                 alone, with K3 and K4 on the 512^2 shear tables (four
+                 detector blocks) against their plain versions, bitwise
+                 on a second call, with their device time by launch.
 17. sm_adjoint - <Ax, y> = <x, A^T y> with f32 tables through ``fft_shear``
                  and ``fft_mxu`` at 256^2/8, relative error <= 1e-5 each.
 18. sm_shear, sm_mxu - 20 outers of the recommended preset on each problem
@@ -151,7 +158,8 @@ launches in those runs together (a kernel that launched in none fails the
 run), error, times and bound (K1-K5, K7-K10, K15 and K16 at the parallel
 256^2 shapes, K6 and K5's sharded form at a 2 x 2 mesh rank's,
 K13/K14 at the fan shapes, K11/K12/K17/K18 at the 512^2 shapes; the largest
-error of any call, row shards and fan shapes included); the ``nvidia-smi``
+error of any call, row shards, node blocks, fan and 512^2 shapes
+included); the ``nvidia-smi``
 name/power-limit line; and last ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or when any phase fails, it exits non-zero and prints no
 result.
@@ -470,10 +478,10 @@ def _check_repeat(torch, name, kern, args, got, failures) -> bool:
     return bitwise
 
 
-def _device_ms(torch, fn, calls=10) -> tuple[float, dict]:
+def _device_ms(torch, fn, calls=10) -> tuple[float, dict, float]:
     """The device time of one call of ``fn`` from ``torch.profiler`` (the
     host's dispatch excluded): the per-call sum over its kernels, in ms,
-    and each kernel's per-call ms by name."""
+    each kernel's per-call ms by name, and the device launches a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -484,12 +492,23 @@ def _device_ms(torch, fn, calls=10) -> tuple[float, dict]:
             fn()
         torch.cuda.synchronize()
     by: dict = {}
+    n = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             k = e.name[:60]
             by[k] = by.get(k, 0.0) + 1e-3 * (
                 e.time_range.end - e.time_range.start) / calls
-    return sum(by.values()), by
+            n += 1
+    return sum(by.values()), by, n / calls
+
+
+def _repeat_and_device(torch, kern, args, got, failures, note=""):
+    """A second call of ``kern`` on ``args`` against ``got`` (bit for bit)
+    and its device time: (bitwise, device ms, ms by kernel, device launches
+    a call)."""
+    bitwise = _check_repeat(torch, f"{kern.__name__}{note}", kern, args, got,
+                            failures)
+    return (bitwise, *_device_ms(torch, lambda: kern(*args)))
 
 
 def _skew_checks(torch, kern, args, got, failures, note="") -> None:
@@ -501,8 +520,8 @@ def _skew_checks(torch, kern, args, got, failures, note="") -> None:
     from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
 
     name = kern.__name__
-    bitwise = _check_repeat(torch, f"{name}{note}", kern, args, got, failures)
-    dev_ms, by = _device_ms(torch, lambda: kern(*args))
+    bitwise, dev_ms, by, per_call = _repeat_and_device(torch, kern, args, got,
+                                                       failures, note)
     fwd = kern is ss.skew_sum_planes
     W = args[1] if fwd else args[2]  # WtT [PT, NB, D2, Tp, nb]
     PT, NB, D2, Tp, nb = W.shape
@@ -517,9 +536,76 @@ def _skew_checks(torch, kern, args, got, failures, note="") -> None:
     if tiles is not None:
         tiles = float(tiles.any(dim=-1).any(dim=-2).float().mean())
     print(f"kernels: {name}{note} bitwise_repeat={bitwise} "
-          f"device_ms={dev_ms} device_ms_by_kernel={json.dumps(by)} "
+          f"device_ms={dev_ms} device_launches_per_call={per_call} "
+          f"device_ms_by_kernel={json.dumps(by)} "
           f"nonzero_tap_share={float(nz.float().mean())} "
           f"nonzero_tap_tile_share={tiles}", flush=True)
+
+
+def _eval_checks(torch, kern, args, got, failures, note="") -> None:
+    """K3 or K4 (``kern``) beyond ``_compare``: bitwise on a second call,
+    its device time by launch and its device launches a call."""
+    bitwise, dev_ms, by, per_call = _repeat_and_device(torch, kern, args, got,
+                                                       failures, note)
+    print(f"kernels: {kern.__name__}{note} bitwise_repeat={bitwise} "
+          f"device_ms={dev_ms} device_launches_per_call={per_call} "
+          f"device_ms_by_kernel={json.dumps(by)}", flush=True)
+
+
+def _eval_block_checks(torch, t, num_nodes, nodes, cases, got, failures,
+                       note) -> dict:
+    """K3 and K4 as a mesh rank runs them: on the images of the graph nodes
+    ``nodes`` with their node block's tables (``t`` sliced), against their
+    plain versions, with ``_eval_checks``, and equal bit for bit to the
+    rows of ``got`` (each kernel's outputs on every node). Returns each
+    kernel's numbers under ``block_`` + its name."""
+    from dip_admm_tpu_torch.parallel.mesh import slice_tables
+
+    loc = slice_tables(t, num_nodes, nodes)
+    out = {}
+    for name in ("eval_shear", "eval_shear_t"):
+        kern, ref, args = cases[name]
+        nimg = 2 if name == "eval_shear" else 1
+        largs = (*(a[nodes].contiguous() for a in args[:nimg]), loc["Wd"],
+                 loc["TEre"], loc["TEim"], *args[-2:])
+        part, out[f"block_{name}"] = _compare(
+            torch, name, kern, ref, largs, KERNEL_RTOL, failures, note=note)
+        _eval_checks(torch, kern, largs, part, failures, note)
+        rows = all(torch.equal(a, b[nodes]) for a, b in zip(part, got[name]))
+        if not rows:
+            failures.append(f"kernel {name}{note}: differs from the whole "
+                            "batch's rows")
+        print(f"kernels: {name}{note} equals_whole_batch_rows={rows}",
+              flush=True)
+    return out
+
+
+def _eval_p512_checks(torch, dev, t, P, gen, failures) -> dict:
+    """K3 and K4 on the 512^2/8 shear tables ``t`` (four detector blocks of
+    128: the R stage's two pairs) for P images drawn from ``gen``, against
+    their plain versions, with ``_eval_checks``. Returns each kernel's
+    numbers under ``p512_`` + its name."""
+    from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
+
+    sh = t["shared"]
+    _, DB, Tp, _, db = t["Wd"].shape
+    F = t["TEre"].shape[-1]
+    g = [torch.randn((P, Tp, F), generator=gen, device=dev) for _ in range(2)]
+    ob = torch.randn((P, Tp, DB * db), generator=gen, device=dev)
+    out = {}
+    for name, kern, ref, args in (
+            ("eval_shear", ss.eval_shear, ss.eval_shear_ref,
+             (*g, t["Wd"], t["TEre"], t["TEim"], sh["PhiDre"],
+              sh["PhiDim"])),
+            ("eval_shear_t", ss.eval_shear_t, ss.eval_shear_t_ref,
+             (ob, t["Wd"], t["TEre"], t["TEim"], sh["PhiDre"],
+              sh["PhiDim"]))):
+        got, out[f"p512_{name}"] = _compare(torch, name, kern, ref, args,
+                                            KERNEL_RTOL, failures,
+                                            note=f"[512^2/8 DB={DB}]")
+        _eval_checks(torch, kern, args, got, failures, f"[512^2/8 DB={DB}]")
+        del got
+    return out
 
 
 def _skew_cases(torch, dev, t, P, gen):
@@ -621,17 +707,22 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
     N, F = NB * nb, t["SEre"].shape[-1]
     gen = torch.Generator(device=dev).manual_seed(0)
     img, cases = _skew_cases(torch, dev, t, P, gen)
-    out = {}
+    out, got_all = {}, {}
     for name, (kern, ref, args) in cases.items():
         got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
                                   failures)
+        got_all[name] = got
         if name in ("skew_sum_planes", "skew_sum_planes_t"):
             _skew_checks(torch, kern, args, got, failures)
+        else:
+            _eval_checks(torch, kern, args, got, failures)
 
     # K1 and K6 as the ranks of the 2 x 2 mesh run them: node block 1 of 2,
-    # each row shard of the pixel axis.
+    # each row shard of the pixel axis; K3 and K4 on that node block.
     g = cases["skew_sum_planes_t"][2][:2]
     blk = slice(P // 2, P)
+    out.update(_eval_block_checks(torch, t, P, blk, cases, got_all, failures,
+                                  f"[P_loc={P // 2} of {P}]"))
     out.update(_row_shard_checks(torch, t, P, blk, img[blk],
                                  [v[blk] for v in g], failures,
                                  f"[P_loc={P // 2} of {P}]"))
@@ -1039,6 +1130,8 @@ def phase_fan_kernels(torch, dev, problems, failures) -> dict:
                                   failures, note="[fan PT=1]")
         if name in ("skew_sum_planes", "skew_sum_planes_t"):
             _skew_checks(torch, kern, args, got, failures, "[fan PT=1]")
+        else:
+            _eval_checks(torch, kern, args, got, failures, "[fan PT=1]")
     # K1 and K6 as the 1 x 2 fan mesh runs them: every node's image against
     # the row shards of the node-shared tables.
     rows = _row_shard_checks(torch, ts["shared"]["par"], P, slice(None), img,
@@ -1472,6 +1565,8 @@ def phase_sm_kernels(torch, dev, problems, failures) -> dict:
         build_s = time.perf_counter() - t0
         geo = cfg.geometry
         im = torch.randn((P, geo.N, geo.N), generator=gen, device=dev)
+        if mode == "fft_shear":
+            out.update(_eval_p512_checks(torch, dev, t, P, gen, failures))
         fwd, adj = _sm_pair(mode)
         out[f"p512_{mode}_apply_pair_ms"] = ms = _pair_ms(torch, fwd, adj,
                                                           geo, t, im)
@@ -1768,8 +1863,8 @@ def main() -> int:
          "replaces": REPLACES[name],
          "launches": launches[name],
          "max_abs_err": max(kern[k]["max_abs_err"] for k in (
-             name, f"fan_{name}", f"rows_{name}", f"fan_rows_{name}")
-             if k in kern),
+             name, f"fan_{name}", f"rows_{name}", f"fan_rows_{name}",
+             f"block_{name}", f"p512_{name}") if k in kern),
          **{k: kern[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}}
         for name in REPLACES

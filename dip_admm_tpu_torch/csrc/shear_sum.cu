@@ -4,9 +4,10 @@
 //
 //   K1 dip_skew_fwd  <- skew_sum_planes    (_skew_fwd_pallas_planes)
 //   K2 dip_skew_t    <- skew_sum_planes_t  (_skew_t_pallas_planes)
-//   K3 dip_eval_fwd  <- eval_shear         (_eval_fwd_pallas, the R stage)
-//   K4 dip_eval_t    <- eval_shear_t       (_eval_t_pallas, after the Wd
-//                                           pre-contraction)
+//   K3 dip_eval_fwd  <- eval_shear         (_eval_fwd_pallas, with the Wd
+//                                           epilogue of its caller)
+//   K4 dip_eval_t    <- eval_shear_t       (_eval_t_pallas, with the Wd
+//                                           pre-contraction of its caller)
 //   K6 dip_skew_t    <- skew_sum_planes_t_rows (_skew_t_pallas_planes with
 //                       row_width: K2 at a row width WS above the row count
 //                       NB * nb of one pixel shard's row blocks)
@@ -17,9 +18,10 @@
 //
 // Each computes what the TPU kernel computes and rounds to the table type
 // at the same points (bf16 tables: the image rows before the tap product,
-// the skew sum z before the DFT-back, the phase products in K2/K3 and the
-// pre-contracted cotangent in K4; the row spectra before K7's tap product
-// and the phased cotangent S before K8's). f32 tables round nowhere.
+// the skew sum z before the DFT-back, the phase products in K2/K3 and PhiD
+// in K3/K4, the pre-contracted cotangent in K4; the row spectra before
+// K7's tap product and the phased cotangent S before K8's). f32 tables
+// round nowhere.
 // Accumulation is always f32.
 //
 // Node-shared tables: every entry takes an image batch PB and a table batch
@@ -27,15 +29,48 @@
 // kernels' vmap, which folds an image batch into the node axis and keeps one
 // table set). The parallel paths run PT = PB, the fan-beam path PT = 1.
 //
-// Design of K3/K4, and of K1/K2 with f32 tables: a plain shared-memory tiled
-// product on the CUDA cores. A block owns a 16 x 64 output tile; each of
-// its 256 threads keeps one row and four columns (tx + 16 j) in registers.
-// The TPU grid's sequential axes become loops inside the block: K1 loops
-// over the row blocks whose spectra it sums, K2 over the angle blocks that
-// feed its image plane, K4 over the detector blocks, so every output
-// element is written once by one block and no atomics are needed. The tap
-// stage (about 14.5 GFLOP per apply at 256^2/8, the bulk of the projector)
-// is bound by shared-memory reads in this form (5 loads per 4 FMAs).
+// Design of K1/K2 with f32 tables, and of K3's R stage and K4's phase
+// products with f32 tables: a plain shared-memory tiled product on the CUDA
+// cores. A block owns a 16 x 64 output tile; each of its 256 threads keeps
+// one row and four columns (tx + 16 j) in registers. The TPU grid's
+// sequential axes become loops inside the block: K1 loops over the row
+// blocks whose spectra it sums, K2 over the angle blocks that feed its
+// image plane, K4 over the detector blocks, so every output element is
+// written once by one block and no atomics are needed. The tap stage
+// (about 14.5 GFLOP per apply at 256^2/8, the bulk of the projector) is
+// bound by shared-memory reads in this form (5 loads per 4 FMAs).
+//
+// K3/K4 (the eval tail; redesigned) are two launches each, with either
+// table type. The JAX package keeps the Wd epilogue of K3 and the Wd
+// pre-contraction of K4 as XLA einsums outside Pallas (VMEM, and Mosaic's
+// dot without batch dims); here they are hand-written kernels too, so that
+// no f32 copy of Wd (151 MB at 256^2/8) and no cast of PhiD is made and a
+// call moves about the ~86 MB that the function needs:
+// - K3: the R stage (bf16 tables: bf16 mma.sync, M = 16 angle rows, N = z,
+//   K = f, A/B and PhiD rounded to bf16 in the block; f32 tables: the
+//   CUDA-core product above), R in f32 [PB, DB, Tp, D2p], then the
+//   epilogue, one stream over the dense Wd in its own type (16 z groups,
+//   each summing its z in ascending order, the partials added in ascending
+//   group), writing out [PB, Tp, DB * db] directly;
+// - K4: the pre-contraction as the same stream (a z row's d summed by a
+//   fixed shuffle tree), Rbar rounded to the table type, then the phase
+//   products (bf16 tables: bf16 mma.sync, M = 32 angle rows, K = z, N = f
+//   through ldmatrix.trans; f32 tables: the CUDA-core product) and the
+//   phase combine in ascending b.
+// The Wd streams are dense on purpose: Wd is 98.96% zeros at 256^2/8, but
+// a NaN in R or in the cotangent must reach every element of its row, as
+// the plain version's dense einsum carries it. Two launches rather than
+// one: a block owning a whole (p, b, 16-row) tile would give 96 blocks at
+// 256^2/8 and 48 at a mesh rank's P_loc = 4, and a fused K4 would read Wd
+// again for every f chunk. Every element's sum order is fixed and does not
+// depend on the batch or the grid, so a node block's outputs equal the
+// whole batch's rows bit for bit. What bounds them now: the Wd streams run
+// at ~77% of HBM's rate (their loads are branch-free when db is a multiple
+// of 8: a branch between a thread's loads held them near 60%), and the R
+// stage and K4's phase products are bound by their L2 reads (every block
+// reads its z rows of PhiD again, in f32; the R stage reads PhiD and g
+// once for a pair of detector blocks, a third of the time of a block per
+// detector block at 256^2/8). PERF.md has the times.
 //
 // K1 with bf16 tables (redesigned; every card path runs bf16 tables) runs
 // both stages on the tensor cores. The TPU kernel (_skew_fwd_body) runs
@@ -1230,16 +1265,16 @@ skew_tap_t_tc(const B16* __restrict__ zT, const B16* __restrict__ wtt,
 }
 
 // ---------------------------------------------------------------------------
-// K3: phase product and PhiD contraction of the eval tail.
+// K3 with f32 tables, launch 1: phase product and PhiD contraction of the
+// eval tail on the CUDA cores (f32 tables round nowhere).
 //   R[p,b,t,z] = sum_f A[t,f] PhiDre[z,f] - sum_f B[t,f] PhiDim[z,f]
-//   A = g_re*TE_re - g_im*TE_im,  B = g_re*TE_im + g_im*TE_re  (TE[p,b])
+//   A = g_re*TE_re - g_im*TE_im,  B = g_re*TE_im + g_im*TE_re  (TE[p%PT,b])
 // Block: (z tile, t tile, (p, b)).
 // ---------------------------------------------------------------------------
-template <typename T>
 __global__ void __launch_bounds__(NT)
 eval_fwd(const float* __restrict__ gre, const float* __restrict__ gim,
          const float* __restrict__ tere, const float* __restrict__ teim,
-         const T* __restrict__ phre, const T* __restrict__ phim,
+         const float* __restrict__ phre, const float* __restrict__ phim,
          float* __restrict__ R, int PT, int DB, int Tp, int D2p, int F) {
   __shared__ float As[BM][BK + 1];
   __shared__ float Bs[BM][BK + 1];
@@ -1259,8 +1294,8 @@ eval_fwd(const float* __restrict__ gre, const float* __restrict__ gim,
         const long eo = ((long)(pt * DB + b) * Tp + t0 + t) * F + k0 + k;
         const float g_r = gre[go], g_i = gim[go];
         const float er = tere[eo], ei = teim[eo];
-        va = rnd<T>(g_r * er - g_i * ei);
-        vb = rnd<T>(g_r * ei + g_i * er);
+        va = g_r * er - g_i * ei;
+        vb = g_r * ei + g_i * er;
       }
       As[t][k] = va;
       Bs[t][k] = vb;
@@ -1270,8 +1305,8 @@ eval_fwd(const float* __restrict__ gre, const float* __restrict__ gim,
       float vr = 0.f, vi = 0.f;
       if (k0 + k < F && z0 + zz < D2p) {
         const long o = (long)(z0 + zz) * F + k0 + k;
-        vr = ld<T>(phre, o);
-        vi = ld<T>(phim, o);
+        vr = phre[o];
+        vi = phim[o];
       }
       Pr[k][zz] = vr;
       Pi[k][zz] = vi;
@@ -1299,16 +1334,284 @@ eval_fwd(const float* __restrict__ gre, const float* __restrict__ gim,
 }
 
 // ---------------------------------------------------------------------------
-// K4: transpose of the eval tail after the Wd pre-contraction Rbar.
+// K3 with bf16 tables, launch 1: the R stage on the tensor cores, the TPU
+// kernel's MXU products. A/B are formed in f32 from g and TE[p%PT, b] and
+// rounded to bf16; PhiD is read in f32 and rounded to bf16 here (the
+// caller's cast in the JAX package); both products are bf16 mma.sync
+// m16n8k16 with f32 accumulators, M = 16 angle rows t, N = z, K = f in
+// chunks of EV_BF (zero past F; the k16 steps wholly past F are skipped).
+// R leaves in f32. Block: (64 z, 16 t, (p, a pair of detector blocks b)),
+// 8 warps of one n8 tile; each f chunk of PhiD and g is read once for both
+// of the pair's b (the last pair holds one b when DB is odd). What bounds it is the L2 traffic of those reads (every
+// block reads its z rows of PhiD again, in f32); each thread starts all
+// loads of a chunk before it converts and stores any. The K order of every
+// element is fixed (f ascending), whatever the grid.
+// ---------------------------------------------------------------------------
+constexpr int EV_BT = 16;          // angle rows t of a block (one m16 tile)
+constexpr int EV_BZ = 64;          // z of a block (8 warps x one n8 tile)
+constexpr int EV_BF = 64;          // f chunk
+constexpr int EV_LD = EV_BF + 8;   // row stride of the staged tiles (bf16)
+constexpr int EV_NT = 256;
+constexpr int EV_RS = EV_NT / EV_BF;          // rows a pass of the threads
+constexpr int EV_JG = EV_BT / EV_RS;          // g / TE rows a thread
+constexpr int EV_JP = EV_BZ / EV_RS;          // PhiD rows a thread
+constexpr int EV_NB = 2;                      // detector blocks b of a block
+
+__global__ void __launch_bounds__(EV_NT)
+eval_r_tc(const float* __restrict__ gre, const float* __restrict__ gim,
+          const float* __restrict__ tere, const float* __restrict__ teim,
+          const float* __restrict__ phre, const float* __restrict__ phim,
+          float* __restrict__ R, int PT, int DB, int Tp, int D2p, int F) {
+  __shared__ __align__(16) B16 As[EV_NB][EV_BT][EV_LD];
+  __shared__ __align__(16) B16 Bs[EV_NB][EV_BT][EV_LD];
+  __shared__ __align__(16) B16 Pr[EV_BZ][EV_LD];
+  __shared__ __align__(16) B16 Pi[EV_BZ][EV_LD];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int z0 = blockIdx.x * EV_BZ, t0 = blockIdx.y * EV_BT;
+  const int nbg = cdiv(DB, EV_NB), p = blockIdx.z / nbg;
+  const int b0 = blockIdx.z % nbg * EV_NB, nb = min(EV_NB, DB - b0);
+  const int pt = p % PT;
+  // Thread tid's elements of a chunk: rows r0 + EV_RS j, column k.
+  const int k = tid % EV_BF, r0 = tid / EV_BF;
+  const long go = ((long)p * Tp + t0) * F;
+  float ca[EV_NB][4] = {}, cb[EV_NB][4] = {};
+  for (int f0 = 0; f0 < F; f0 += EV_BF) {
+    const bool fin = f0 + k < F;
+    float vg[EV_JG][2], ve[EV_NB][EV_JG][2], vp[EV_JP][2];
+#pragma unroll
+    for (int j = 0; j < EV_JG; ++j) {
+      const int t = r0 + j * EV_RS;
+      const bool in = fin && t0 + t < Tp;
+      const long o = go + (long)t * F + f0 + k;
+      vg[j][0] = in ? gre[o] : 0.f;
+      vg[j][1] = in ? gim[o] : 0.f;
+    }
+#pragma unroll
+    for (int bb = 0; bb < EV_NB; ++bb)
+#pragma unroll
+      for (int j = 0; j < EV_JG; ++j) {
+        const int t = r0 + j * EV_RS;
+        const bool in = bb < nb && fin && t0 + t < Tp;
+        const long o =
+            ((long)(pt * DB + b0 + bb) * Tp + t0 + t) * F + f0 + k;
+        ve[bb][j][0] = in ? tere[o] : 0.f;
+        ve[bb][j][1] = in ? teim[o] : 0.f;
+      }
+#pragma unroll
+    for (int j = 0; j < EV_JP; ++j) {
+      const int zz = r0 + j * EV_RS;
+      const bool in = fin && z0 + zz < D2p;
+      const long o = (long)(z0 + zz) * F + f0 + k;
+      vp[j][0] = in ? phre[o] : 0.f;
+      vp[j][1] = in ? phim[o] : 0.f;
+    }
+#pragma unroll
+    for (int bb = 0; bb < EV_NB; ++bb)
+#pragma unroll
+      for (int j = 0; j < EV_JG; ++j) {
+        const float g_r = vg[j][0], g_i = vg[j][1];
+        const float er = ve[bb][j][0], ei = ve[bb][j][1];
+        As[bb][r0 + j * EV_RS][k] = __float2bfloat16_rn(g_r * er - g_i * ei);
+        Bs[bb][r0 + j * EV_RS][k] = __float2bfloat16_rn(g_r * ei + g_i * er);
+      }
+#pragma unroll
+    for (int j = 0; j < EV_JP; ++j) {
+      Pr[r0 + j * EV_RS][k] = __float2bfloat16_rn(vp[j][0]);
+      Pi[r0 + j * EV_RS][k] = __float2bfloat16_rn(vp[j][1]);
+    }
+    __syncthreads();
+    const int nks = cdiv(min(EV_BF, F - f0), 16);
+    for (int ks = 0; ks < nks; ++ks) {
+      unsigned q[4];
+      // matrices: Pr k 0-7, Pr k 8-15, Pi k 0-7, Pi k 8-15 of the warp's z
+      ldsm_x4(q, &((lane >> 4) ? Pi : Pr)[warp * 8 + (lane & 7)]
+                                         [ks * 16 + ((lane >> 3) & 1) * 8]);
+#pragma unroll
+      for (int bb = 0; bb < EV_NB; ++bb) {
+        if (bb >= nb) break;
+        unsigned a[4], bv[4];
+        ldsm_x4(a, &As[bb][lane & 15][ks * 16 + (lane >> 4) * 8]);
+        ldsm_x4(bv, &Bs[bb][lane & 15][ks * 16 + (lane >> 4) * 8]);
+        mma_bf16(ca[bb], a, q[0], q[1]);
+        mma_bf16(cb[bb], bv, q[2], q[3]);
+      }
+    }
+    __syncthreads();
+  }
+  // Accumulator (b, e): row t0 + lane/4 (+8 for e >= 2), column z of the
+  // warp's n8 tile at 2 (lane % 4) + e % 2. D2p is a multiple of 16.
+  const int tr = t0 + (lane >> 2), z = z0 + warp * 8 + 2 * (lane & 3);
+  if (z >= D2p) return;
+#pragma unroll
+  for (int bb = 0; bb < EV_NB; ++bb) {
+    if (bb >= nb) break;
+    float* rp = R + (long)(p * DB + b0 + bb) * Tp * D2p;
+    if (tr < Tp)
+      *reinterpret_cast<float2*>(rp + (long)tr * D2p + z) =
+          make_float2(ca[bb][0] - cb[bb][0], ca[bb][1] - cb[bb][1]);
+    if (tr + 8 < Tp)
+      *reinterpret_cast<float2*>(rp + (long)(tr + 8) * D2p + z) =
+          make_float2(ca[bb][2] - cb[bb][2], ca[bb][3] - cb[bb][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The Wd passes of K3 and K4, either table type: a stream over the dense
+// Wd [PT, DB, Tp, D2p, db] (98.96% zeros at 256^2/8, but a NaN in R or in
+// the cotangent must reach every element of its row, as in the plain
+// version's dense einsum, so no tap is skipped). A lane owns 8 consecutive
+// d of a chunk of at most 8 * 16 d, read as one 16-byte (bf16) or 32-byte
+// (f32) load when db is a multiple of 8.
+// ---------------------------------------------------------------------------
+constexpr int WD_NT = 256;
+constexpr int WD_ZG = 16;   // z groups of the K3 epilogue
+
+__device__ __forceinline__ void ld8(const float* p, float (&w)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 c = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = c.x; w[5] = c.y; w[6] = c.z; w[7] = c.w;
+}
+__device__ __forceinline__ void ld8(const B16* p, float (&w)[8]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is a 16-bit shift
+    w[2 * i] = __uint_as_float(u[i] << 16);
+    w[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+// n (<= 8) elements at p as f32, zeros past n, element by element (db not
+// a multiple of 8: the rows are not 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void ldw(const T* p, int n, float (&w)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = i < n ? ld<T>(p, i) : 0.f;
+}
+
+template <typename T> __device__ __forceinline__ T to_t(float v);
+template <> __device__ __forceinline__ float to_t<float>(float v) { return v; }
+template <> __device__ __forceinline__ B16 to_t<B16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// K3, launch 2: out[p, t, b*db + d] = sum_z R[p,b,t,z] * Wd[p%PT,b,t,z,d]
+// in f32. A row (p, b, t) is read by 16 z groups of L lanes (L = the d
+// chunk's width / 8): group g sums its D2p / 16 consecutive z in ascending
+// order; the 16 partials are added in ascending g through shared memory.
+// Block: RB = 16 / L rows of one d chunk of 8 L d. VEC: db % 8 == 0, each
+// lane's 8 d one vector load, no branch between a thread's loads.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(WD_NT)
+eval_wd_fwd(const float* __restrict__ R, const T* __restrict__ wd,
+            float* __restrict__ out, int PT, int DB, int Tp, int D2p, int db,
+            long rows, int L, int RB) {
+  __shared__ float part[WD_ZG][8 * WD_ZG];
+  const int per = WD_ZG * L, W = 8 * L;
+  const int lr = threadIdx.x / per, g = threadIdx.x % per / L;
+  const int l = threadIdx.x % L;
+  const int d0 = blockIdx.y * W, zpg = D2p / WD_ZG;
+  const long row = (long)blockIdx.x * RB + lr;  // (p * DB + b) * Tp + t
+  if (row < rows) {
+    const int t = (int)(row % Tp), b = (int)(row / Tp % DB);
+    const int p = (int)(row / Tp / DB), pt = p % PT;
+    const int n = min(8, db - d0 - l * 8);
+    const T* w = wd + (((long)(pt * DB + b) * Tp + t) * D2p +
+                       (long)g * zpg) * db + d0 + l * 8;
+    const float* r = R + row * D2p + g * zpg;
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (n > 0) {
+#pragma unroll 4
+      for (int z = 0; z < zpg; ++z) {
+        float wv[8];
+        if (VEC)
+          ld8(w + (long)z * db, wv);
+        else
+          ldw(w + (long)z * db, n, wv);
+        const float rz = __ldg(r + z);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] = fmaf(rz, wv[i], acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) part[g][lr * W + l * 8 + i] = acc[i];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < RB * W; e += blockDim.x) {
+    const long row2 = (long)blockIdx.x * RB + e / W;
+    const int d = d0 + e % W;
+    if (row2 >= rows || d >= db) continue;
+    float s = part[0][e];
+#pragma unroll
+    for (int gg = 1; gg < WD_ZG; ++gg) s += part[gg][e];
+    const int t = (int)(row2 % Tp), b = (int)(row2 / Tp % DB);
+    const int p = (int)(row2 / Tp / DB);
+    out[((long)p * Tp + t) * DB * db + (long)b * db + d] = s;
+  }
+}
+
+// K4, launch 1: Rbar[p,b,t,z] = sum_d ob[p,t,b*db+d] * Wd[p%PT,b,t,z,d] in
+// f32, rounded to the table type. Block: one row (p, b, t); a z is read by
+// L2 lanes (L2 = L rounded up to a power of two; lanes past L add zeros),
+// each lane sums its d chunks in ascending order, and the lanes' partials
+// are added by a fixed shuffle tree (offsets 1, 2, 4, ...). 4 z a thread
+// are in flight at once (past D2p a thread reads row D2p - 1 again and
+// drops the sum). VEC: db % 8 == 0, as in eval_wd_fwd.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(WD_NT, 4)
+eval_wd_t(const float* __restrict__ ob, const T* __restrict__ wd,
+          T* __restrict__ rbar, int PT, int DB, int Tp, int D2p, int db,
+          int L, int L2) {
+  const long row = blockIdx.x;  // (p * DB + b) * Tp + t
+  const int t = (int)(row % Tp), b = (int)(row / Tp % DB);
+  const int p = (int)(row / Tp / DB), pt = p % PT;
+  const int l = threadIdx.x % L2, zi = threadIdx.x / L2, zs = WD_NT / L2;
+  const int W = 8 * L;
+  const float* o = ob + ((long)p * Tp + t) * DB * db + (long)b * db;
+  const T* w = wd + ((long)(pt * DB + b) * Tp + t) * D2p * db;
+  for (int z0 = 0; z0 < D2p; z0 += 4 * zs) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c = 0; l < L && c < db; c += W) {
+      const int dl = c + l * 8, n = min(8, db - dl);
+      if (n <= 0) continue;
+      float ov[8], wv[4][8];
+      if (VEC) {
+        ld8(o + dl, ov);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          ld8(w + (long)min(z0 + u * zs + zi, D2p - 1) * db + dl, wv[u]);
+      } else {
+        ldw(o + dl, n, ov);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          ldw(w + (long)min(z0 + u * zs + zi, D2p - 1) * db + dl, n, wv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s[u] = fmaf(ov[i], wv[u][i], s[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      for (int off = 1; off < L2; off <<= 1)
+        s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+      const int z = z0 + u * zs + zi;
+      if (l == 0 && z < D2p) rbar[row * D2p + z] = to_t<T>(s[u]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4 with f32 tables, launch 2: the transpose after the Wd pre-contraction
+// Rbar, on the CUDA cores.
 //   Abar = Rbar_b @ PhiDre,  Bbar = -(Rbar_b @ PhiDim)
 //   g_re = sum_b Abar*TE_re + Bbar*TE_im,  g_im = sum_b -Abar*TE_im + Bbar*TE_re
 // Block: (f tile, t tile, p); it loops over the DB detector blocks.
 // ---------------------------------------------------------------------------
-template <typename T>
 __global__ void __launch_bounds__(NT)
 eval_t(const float* __restrict__ rbar, const float* __restrict__ tere,
-       const float* __restrict__ teim, const T* __restrict__ phre,
-       const T* __restrict__ phim, float* __restrict__ gre,
+       const float* __restrict__ teim, const float* __restrict__ phre,
+       const float* __restrict__ phim, float* __restrict__ gre,
        float* __restrict__ gim, int PT, int DB, int Tp, int D2p, int F) {
   __shared__ float Rs[BM][BK + 1];
   __shared__ float Pr[BK][BN];
@@ -1326,8 +1629,7 @@ eval_t(const float* __restrict__ rbar, const float* __restrict__ tere,
       for (int i = tid; i < BM * BK; i += NT) {
         const int k = i % BK, t = i / BK;
         float val = 0.f;
-        if (t0 + t < Tp && k0 + k < D2p)
-          val = rnd<T>(rb[(long)(t0 + t) * D2p + k0 + k]);
+        if (t0 + t < Tp && k0 + k < D2p) val = rb[(long)(t0 + t) * D2p + k0 + k];
         Rs[t][k] = val;
       }
       for (int i = tid; i < BK * BN; i += NT) {
@@ -1335,8 +1637,8 @@ eval_t(const float* __restrict__ rbar, const float* __restrict__ tere,
         float vr = 0.f, vi = 0.f;
         if (k0 + k < D2p && f0 + f < F) {
           const long o = (long)(k0 + k) * F + f0 + f;
-          vr = ld<T>(phre, o);
-          vi = ld<T>(phim, o);
+          vr = phre[o];
+          vi = phim[o];
         }
         Pr[k][f] = vr;
         Pi[k][f] = vi;
@@ -1377,6 +1679,108 @@ eval_t(const float* __restrict__ rbar, const float* __restrict__ tere,
       gim[go + f] = gi[j];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K4 with bf16 tables, launch 2: Abar/Bbar on the tensor cores, then the
+// phase combine. M = 32 angle rows t (two m16 tiles), K = z (D2p / 16 k16
+// steps), N = f: the bf16 Rbar tile [t][z] arrives by cp.async; PhiD
+// [z][f] is read in f32 for the block's f chunk over every z, rounded to
+// bf16 once and read through ldmatrix.trans. Block: (64 f, 32 t, p), 8
+// warps of one n8 tile each (32 rows: 216 blocks at 256^2/8, which three
+// to an SM take in one wave); it loops over the DB detector blocks in
+// ascending b and writes every g element once.
+// ---------------------------------------------------------------------------
+constexpr int ET_BT = 32;          // angle rows t of a block
+constexpr int ET_BF = 64;          // f of a block (8 warps x 8)
+constexpr int ET_LD = ET_BF + 8;   // row stride of the staged PhiD (bf16)
+constexpr int ET_NT = 256;
+
+size_t eval_t_tc_smem(int D2p) {
+  return (size_t)(2 * D2p * ET_LD + ET_BT * (D2p + 8)) * sizeof(B16);
+}
+
+__global__ void __launch_bounds__(ET_NT)
+eval_t_tc(const B16* __restrict__ rbar, const float* __restrict__ tere,
+          const float* __restrict__ teim, const float* __restrict__ phre,
+          const float* __restrict__ phim, float* __restrict__ gre,
+          float* __restrict__ gim, int PT, int DB, int Tp, int D2p, int F) {
+  extern __shared__ __align__(16) unsigned char et_smem[];
+  B16* Pr = reinterpret_cast<B16*>(et_smem);  // [D2p][ET_LD]
+  B16* Pi = Pr + D2p * ET_LD;
+  B16* Rs = Pi + D2p * ET_LD;                 // [ET_BT][D2p + 8]
+  const int LR = D2p + 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int f0 = blockIdx.x * ET_BF, t0 = blockIdx.y * ET_BT, p = blockIdx.z;
+  const int pt = p % PT;
+  {
+    const int k = tid % ET_BF, zr = ET_NT / ET_BF;
+    const bool in = f0 + k < F;
+#pragma unroll 16
+    for (int z = tid / ET_BF; z < D2p; z += zr) {
+      const long o = (long)z * F + f0 + k;
+      Pr[z * ET_LD + k] = __float2bfloat16_rn(in ? phre[o] : 0.f);
+      Pi[z * ET_LD + k] = __float2bfloat16_rn(in ? phim[o] : 0.f);
+    }
+  }
+  // Accumulator (m, e): row t0 + 16 m + lane/4 (+8 for e >= 2), column
+  // f0 + 8 warp + 2 (lane % 4) + e % 2.
+  const int fc = f0 + warp * 8 + 2 * (lane & 3), tr = t0 + (lane >> 2);
+  float gr[2][4] = {}, gi[2][4] = {};
+  const int pieces = D2p / 8;  // 16-byte pieces of an Rbar row
+  for (int b = 0; b < DB; ++b) {
+    const B16* rb = rbar + ((long)(p * DB + b) * Tp + t0) * D2p;
+    for (int i = tid; i < ET_BT * pieces; i += ET_NT) {
+      const int t = i / pieces, c = i % pieces;
+      const bool full = t0 + t < Tp;
+      cp_async16(Rs + t * LR + c * 8, full ? rb + (long)t * D2p + c * 8 : rb,
+                 full);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float ca[2][4] = {}, cb[2][4] = {};
+    for (int ks = 0; ks < D2p / 16; ++ks) {
+      unsigned a[2][4], q[4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        ldsm_x4(a[m], Rs + (16 * m + (lane & 15)) * LR + ks * 16 +
+                          (lane >> 4) * 8);
+      // matrices: Pr rows k 0-7, Pr rows k 8-15, Pi rows k 0-7, Pi 8-15
+      ldsm_x4_t(q, ((lane >> 4) ? Pi : Pr) +
+                       (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ET_LD +
+                       warp * 8);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        mma_bf16(ca[m], a[m], q[0], q[1]);
+        mma_bf16(cb[m], a[m], q[2], q[3]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = tr + 16 * m + (e >> 1) * 8, f = fc + (e & 1);
+        if (t < Tp && f < F) {
+          const long o = ((long)(pt * DB + b) * Tp + t) * F + f;
+          const float er = tere[o], ei = teim[o];
+          const float A = ca[m][e], B = -cb[m][e];
+          gr[m][e] += A * er + B * ei;
+          gi[m][e] += -A * ei + B * er;
+        }
+      }
+    __syncthreads();  // Rs is staged again for the next b
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = tr + 16 * m + (e >> 1) * 8, f = fc + (e & 1);
+      if (t < Tp && f < F) {
+        gre[((long)p * Tp + t) * F + f] = gr[m][e];
+        gim[((long)p * Tp + t) * F + f] = gi[m][e];
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -1898,6 +2302,41 @@ cudaError_t launch_skew_t_tc(const float* gre, const float* gim,
   return e;
 }
 
+// Launches K3's Wd epilogue (eval_wd_fwd) with the table type T.
+template <typename T>
+void launch_wd_fwd(const float* R, const void* wd, float* out, int PB, int PT,
+                   int DB, int Tp, int D2p, int db, cudaStream_t s) {
+  const int L = cdiv(db, 8) < WD_ZG ? cdiv(db, 8) : WD_ZG, RB = WD_ZG / L;
+  const long rows = (long)PB * DB * Tp;
+  const dim3 g(static_cast<unsigned>((rows + RB - 1) / RB), cdiv(db, 8 * L));
+  const int nt = RB * WD_ZG * L;
+  const T* w = static_cast<const T*>(wd);
+  if (db % 8 == 0)
+    eval_wd_fwd<T, true><<<g, nt, 0, s>>>(R, w, out, PT, DB, Tp, D2p, db,
+                                          rows, L, RB);
+  else
+    eval_wd_fwd<T, false><<<g, nt, 0, s>>>(R, w, out, PT, DB, Tp, D2p, db,
+                                           rows, L, RB);
+}
+
+// Launches K4's Wd pre-contraction (eval_wd_t) with the table type T.
+template <typename T>
+void launch_wd_t(const float* ob, const void* wd, void* rbar, int PB, int PT,
+                 int DB, int Tp, int D2p, int db, cudaStream_t s) {
+  const int L = cdiv(db, 8) < WD_ZG ? cdiv(db, 8) : WD_ZG;
+  int L2 = 1;
+  while (L2 < L) L2 *= 2;
+  const unsigned rows = static_cast<unsigned>((long)PB * DB * Tp);
+  const T* w = static_cast<const T*>(wd);
+  T* rb = static_cast<T*>(rbar);
+  if (db % 8 == 0)
+    eval_wd_t<T, true><<<rows, WD_NT, 0, s>>>(ob, w, rb, PT, DB, Tp, D2p, db,
+                                              L, L2);
+  else
+    eval_wd_t<T, false><<<rows, WD_NT, 0, s>>>(ob, w, rb, PT, DB, Tp, D2p,
+                                               db, L, L2);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1948,46 +2387,59 @@ int dip_skew_t(const float* gre, const float* gim, const void* wtt,
                                   D2, Tp, nb, TB, WS, WZ, F, s));
 }
 
-int dip_eval_fwd(const float* gre, const float* gim, const float* tere,
-                 const float* teim, const void* phre, const void* phim,
-                 float* R, int PB, int PT, int DB, int Tp, int D2p, int F,
-                 int bf16, void* stream) {
+// K3: R (the wrapper's scratch, [PB, DB, Tp, D2p] f32) and out
+// [PB, Tp, DB * db]. Two launches: the R stage (bf16 tensor cores with bf16
+// tables, CUDA cores with f32 ones), then the Wd epilogue.
+int dip_eval_fwd(const float* gre, const float* gim, const void* wd,
+                 const float* tere, const float* teim, const float* phre,
+                 const float* phim, float* R, float* out, int PB, int PT,
+                 int DB, int Tp, int D2p, int db, int F, int bf16,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 blk(TX, TY);
-  const dim3 g(cdiv(D2p, BN), cdiv(Tp, BM), PB * DB);
   if (bf16) {
-    using T = __nv_bfloat16;
-    eval_fwd<T><<<g, blk, 0, s>>>(gre, gim, tere, teim,
-                                  static_cast<const T*>(phre),
-                                  static_cast<const T*>(phim), R, PT, DB, Tp,
-                                  D2p, F);
+    const dim3 g(cdiv(D2p, EV_BZ), cdiv(Tp, EV_BT), PB * cdiv(DB, EV_NB));
+    eval_r_tc<<<g, EV_NT, 0, s>>>(gre, gim, tere, teim, phre, phim, R, PT,
+                                  DB, Tp, D2p, F);
   } else {
-    eval_fwd<float><<<g, blk, 0, s>>>(gre, gim, tere, teim,
-                                      static_cast<const float*>(phre),
-                                      static_cast<const float*>(phim), R, PT,
-                                      DB, Tp, D2p, F);
+    const dim3 g(cdiv(D2p, BN), cdiv(Tp, BM), PB * DB);
+    eval_fwd<<<g, dim3(TX, TY), 0, s>>>(gre, gim, tere, teim, phre, phim, R,
+                                        PT, DB, Tp, D2p, F);
   }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (bf16)
+    launch_wd_fwd<B16>(R, wd, out, PB, PT, DB, Tp, D2p, db, s);
+  else
+    launch_wd_fwd<float>(R, wd, out, PB, PT, DB, Tp, D2p, db, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dip_eval_t(const float* rbar, const float* tere, const float* teim,
-               const void* phre, const void* phim, float* gre, float* gim,
-               int PB, int PT, int DB, int Tp, int D2p, int F, int bf16,
-               void* stream) {
+// K4: rbar (the wrapper's scratch, [PB, DB, Tp, D2p] of the table type)
+// and g [PB, Tp, F]. Two launches: the Wd pre-contraction, then the phase
+// products (bf16 tensor cores with bf16 tables, CUDA cores with f32 ones).
+// The bf16 launch 2 holds PhiD's f chunk for every z in shared memory: a
+// D2p above 656 exceeds the card's 227 KB and the launch is refused.
+int dip_eval_t(const float* ob, const void* wd, const float* tere,
+               const float* teim, const float* phre, const float* phim,
+               void* rbar, float* gre, float* gim, int PB, int PT, int DB,
+               int Tp, int D2p, int db, int F, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 blk(TX, TY);
-  const dim3 g(cdiv(F, BN), cdiv(Tp, BM), PB);
+  if (bf16)
+    launch_wd_t<B16>(ob, wd, rbar, PB, PT, DB, Tp, D2p, db, s);
+  else
+    launch_wd_t<float>(ob, wd, rbar, PB, PT, DB, Tp, D2p, db, s);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (bf16) {
-    using T = __nv_bfloat16;
-    eval_t<T><<<g, blk, 0, s>>>(rbar, tere, teim, static_cast<const T*>(phre),
-                                static_cast<const T*>(phim), gre, gim, PT, DB,
-                                Tp, D2p, F);
-  } else {
-    eval_t<float><<<g, blk, 0, s>>>(rbar, tere, teim,
-                                    static_cast<const float*>(phre),
-                                    static_cast<const float*>(phim), gre, gim,
-                                    PT, DB, Tp, D2p, F);
+    static size_t raised = 0;
+    return static_cast<int>(launch_big(
+        eval_t_tc, dim3(cdiv(F, ET_BF), cdiv(Tp, ET_BT), PB), ET_NT,
+        eval_t_tc_smem(D2p), s, raised, static_cast<const B16*>(rbar), tere,
+        teim, phre, phim, gre, gim, PT, DB, Tp, D2p, F));
   }
+  eval_t<<<dim3(cdiv(F, BN), cdiv(Tp, BM), PB), dim3(TX, TY), 0, s>>>(
+      static_cast<const float*>(rbar), tere, teim, phre, phim, gre, gim, PT,
+      DB, Tp, D2p, F);
   return static_cast<int>(cudaGetLastError());
 }
 

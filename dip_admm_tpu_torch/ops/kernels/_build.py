@@ -37,8 +37,8 @@ SIGNATURES = {
         "dip_skew_fwd_scratch": [_I] * 8,
         "dip_skew_t": [_P] * 10 + [_I] * 11 + [_P],
         "dip_skew_t_scratch": [_I] * 7,
-        "dip_eval_fwd": [_P] * 7 + [_I] * 7 + [_P],
-        "dip_eval_t": [_P] * 7 + [_I] * 7 + [_P],
+        "dip_eval_fwd": [_P] * 9 + [_I] * 8 + [_P],
+        "dip_eval_t": [_P] * 9 + [_I] * 8 + [_P],
         "dip_shear_fwd": [_P] * 10 + [_I] * 9 + [_P],
         "dip_shear_t": [_P] * 10 + [_I] * 9 + [_P],
     },

@@ -30,7 +30,7 @@ CUDA tensor it launches the hand-written kernel of ``csrc/shear_sum.cu`` or
 raises. Both round to the table type at the JAX kernel's points (bf16
 tables: image rows or row spectra before the tap product, the skew sum
 before the DFT-back, the phase products of the transposes and of the eval
-tail, the pre-contracted eval cotangent); f32 tables round nowhere.
+tail, PhiD, the pre-contracted eval cotangent); f32 tables round nowhere.
 
 What bounds them on an H100, and what the simple design does about it:
 
@@ -52,9 +52,15 @@ What bounds them on an H100, and what the simple design does about it:
   ``csrc/shear_sum.cu`` has the details. The TPU kernel's sequential
   accumulation axis becomes a loop inside the block that owns the output
   tile, so nothing relies on block order and nothing needs atomics.
-- K3/K4 (eval tail) are small products (~0.6 GFLOP); their Wd epilogue
-  and pre-contraction stay ``torch.einsum`` outside the kernel, as they
-  are XLA einsums outside Pallas in the JAX package.
+- K3/K4 (eval tail) are small products (~0.6 GFLOP) beside a large, 99%
+  zero table Wd (75.5 MB in bf16 at 256^2/8), so their bytes bound them.
+  The JAX package runs the Wd epilogue and pre-contraction as XLA einsums
+  outside Pallas; here each wrapper is two hand-written launches with no
+  torch op between: K3 the R stage (bf16 mma.sync with bf16 tables, PhiD
+  read in f32 and rounded in the block), then one stream over the dense Wd
+  in its own type; K4 that stream first (Rbar rounded to the table type),
+  then the phase products (bf16 mma.sync) and the phase combine. The
+  source note in ``csrc/shear_sum.cu`` has the details.
 - K7/K8 (shear stages) compute the TPU kernel's dense tap product on the
   row spectra, 4*P*Tp*D2*nb*NB*F FLOPs (~58 GFLOP per direction at
   256^2/8), register-tiled on the CUDA cores, one launch each, no scratch.
@@ -337,9 +343,8 @@ def _check(name: str, tensors: dict, device, table_dtype):
         if k == "plane":
             if t.dtype != torch.int32:
                 raise TypeError(f"{name}: {k} must be int32, got {t.dtype}")
-        elif k in ("WtT", "Wt", "Dre", "Dim", "DreT", "DimT", "PhiDre",
-                   "PhiDim", "Wd", "Hre", "Him", "Hre_g", "Him_g", "Hre_t",
-                   "Him_t"):
+        elif k in ("WtT", "Wt", "Dre", "Dim", "DreT", "DimT", "Wd", "Hre",
+                   "Him", "Hre_g", "Him_g", "Hre_t", "Him_t"):
             if t.dtype != table_dtype:
                 raise TypeError(
                     f"{name}: {k} is {t.dtype}, the tables are {table_dtype}"
@@ -628,63 +633,74 @@ def shear_sum_t(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, TB: int):
     return rre_s, rim_s
 
 
+def _eval_checks(name, tensors, Wd, PB, F, aligned=("Wd",)):
+    """Checks of K3/K4's arguments (``tensors`` by name, Wd among them):
+    PhiD in f32, the kernel rounds it; the tensors named in ``aligned``,
+    which the Wd streams read with 16-byte loads, start 16-byte aligned.
+    Returns (PT, DB, Tp, D2p, db)."""
+    _check(name, tensors, Wd.device, Wd.dtype)
+    PT, DB, Tp, D2p, db = Wd.shape
+    _batches(name, PB, PT)
+    for k in ("TEre", "TEim"):
+        _shape(name, tensors[k], (PT, DB, Tp, F), k)
+    for k in ("PhiDre", "PhiDim"):
+        _shape(name, tensors[k], (D2p, F), k)
+    if D2p % 16:
+        raise ValueError(f"{name}: the kernels take D2p % 16 == 0 "
+                         f"(D2p={D2p})")
+    for k in aligned:
+        if tensors[k].data_ptr() % 16:
+            raise ValueError(f"{name}: {k} must start 16-byte aligned")
+    return PT, DB, Tp, D2p, db
+
+
 def eval_shear(gre, gim, Wd, TEre, TEim, PhiDre, PhiDim):
-    """K3: see :func:`eval_shear_ref`. The kernel forms R; the Wd epilogue
-    is a torch einsum, as it is an XLA einsum in the JAX package."""
+    """K3: see :func:`eval_shear_ref`. Two launches: the R stage (bf16
+    tensor cores with bf16 tables), then the Wd epilogue, a stream over the
+    dense Wd in its own type."""
     if _on_cpu(gre):
         return eval_shear_ref(gre, gim, Wd, TEre, TEim, PhiDre, PhiDim)
     name = "eval_shear"
-    PT, DB, Tp, D2p, db = Wd.shape
     PB, F = gre.shape[0], gre.shape[-1]
-    phr = PhiDre.to(Wd.dtype).contiguous()
-    phi = PhiDim.to(Wd.dtype).contiguous()
-    _check(name, dict(gre=gre, gim=gim, Wd=Wd, TEre=TEre, TEim=TEim,
-                      PhiDre=phr, PhiDim=phi), gre.device, Wd.dtype)
-    _batches(name, PB, PT)
+    PT, DB, Tp, D2p, db = _eval_checks(
+        name, dict(gre=gre, gim=gim, Wd=Wd, TEre=TEre, TEim=TEim,
+                   PhiDre=PhiDre, PhiDim=PhiDim), Wd, PB, F)
     _shape(name, gre, (PB, Tp, F), "gre")
     _shape(name, gim, (PB, Tp, F), "gim")
-    _shape(name, TEre, (PT, DB, Tp, F), "TEre")
-    _shape(name, TEim, (PT, DB, Tp, F), "TEim")
-    _shape(name, phr, (D2p, F), "PhiDre")
-    _shape(name, phi, (D2p, F), "PhiDim")
     R = torch.empty((PB, DB, Tp, D2p), dtype=torch.float32, device=gre.device)
-    lib = _build.load("shear_sum")
-    rc = lib.dip_eval_fwd(
-        *(t.data_ptr() for t in (
-            gre, gim, TEre, TEim, phr, phi, R)),
-        PB, PT, DB, Tp, D2p, F, int(Wd.dtype == torch.bfloat16), _stream(),
+    out = torch.empty((PB, Tp, DB * db), dtype=torch.float32,
+                      device=gre.device)
+    rc = _build.load("shear_sum").dip_eval_fwd(
+        *(t.data_ptr() for t in (gre, gim, Wd, TEre, TEim, PhiDre, PhiDim, R,
+                                 out)),
+        PB, PT, DB, Tp, D2p, db, F, int(Wd.dtype == torch.bfloat16),
+        _stream(),
     )
     _raise_if(rc, name)
     eval_shear.launches += 1
-    return _eval_epilogue(R, Wd)
+    return out
 
 
 def eval_shear_t(ob, Wd, TEre, TEim, PhiDre, PhiDim):
-    """K4: see :func:`eval_shear_t_ref`. The Wd pre-contraction is a torch
-    einsum; the kernel does the rest."""
+    """K4: see :func:`eval_shear_t_ref`. Two launches: the Wd
+    pre-contraction (Rbar leaves rounded to the table type), then the phase
+    products (bf16 tensor cores with bf16 tables)."""
     if _on_cpu(ob):
         return eval_shear_t_ref(ob, Wd, TEre, TEim, PhiDre, PhiDim)
     name = "eval_shear_t"
-    PT, DB, Tp, D2p, db = Wd.shape
     PB, F = ob.shape[0], TEre.shape[-1]
-    phr = PhiDre.to(Wd.dtype).contiguous()
-    phi = PhiDim.to(Wd.dtype).contiguous()
-    _check(name, dict(ob=ob, Wd=Wd, TEre=TEre, TEim=TEim, PhiDre=phr,
-                      PhiDim=phi), ob.device, Wd.dtype)
-    _batches(name, PB, PT)
+    PT, DB, Tp, D2p, db = _eval_checks(
+        name, dict(ob=ob, Wd=Wd, TEre=TEre, TEim=TEim, PhiDre=PhiDre,
+                   PhiDim=PhiDim), Wd, PB, F, aligned=("Wd", "ob"))
     _shape(name, ob, (PB, Tp, DB * db), "ob")
-    _shape(name, TEre, (PT, DB, Tp, F), "TEre")
-    _shape(name, TEim, (PT, DB, Tp, F), "TEim")
-    _shape(name, phr, (D2p, F), "PhiDre")
-    _shape(name, phi, (D2p, F), "PhiDim")
-    Rbar = _eval_t_prologue(ob, Wd)
+    Rbar = torch.empty((PB, DB, Tp, D2p), dtype=Wd.dtype, device=ob.device)
     gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=ob.device)
     gim = torch.empty_like(gre)
-    lib = _build.load("shear_sum")
-    rc = lib.dip_eval_t(
-        *(t.data_ptr() for t in (
-            Rbar, TEre, TEim, phr, phi, gre, gim)),
-        PB, PT, DB, Tp, D2p, F, int(Wd.dtype == torch.bfloat16), _stream(),
+    rc = _build.load("shear_sum").dip_eval_t(
+        *(t.data_ptr() for t in (ob, Wd, TEre, TEim, PhiDre, PhiDim, Rbar, gre,
+                                 gim)),
+        PB, PT, DB, Tp, D2p, db, F, int(Wd.dtype == torch.bfloat16),
+        _stream(),
     )
     _raise_if(rc, name)
     eval_shear_t.launches += 1

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Parity, recommended and mesh_bench outer rates of the PyTorch port on
-one GPU, and the per-call times of the skew transpose row stage, for
-comparing two checkouts in one call on one card.
+one GPU, and the per-call times of the skew transpose row stage and the
+eval tail, for comparing two checkouts in one call on one card.
 
     python3 scripts/torch_ab_rates.py ROOT
 
 runs, from the checkout at ROOT (its own ``chip_smoke.py`` and kernels):
-the build; K2 (``skew_sum_planes_t``) at the 256^2/8 bench and fan shapes
-and K6 (``skew_sum_planes_t_rows``) at row shard 0 of 2 of a 2 x 2 mesh
-rank's node block and of the fan tables, each the median of 20 calls
-(CUDA events, bf16 tables, seeded spectra); 20 parity and 20 recommended
-outers of the 256^2/8 bench problem on one device; and 20 recommended
-outers on a 2 x 2 node x pixel mesh of four processes sharing the card
-(``chip_smoke.py``'s phases 5, 6 and 6b without their reference checks).
+the build; K2 (``skew_sum_planes_t``), K3 (``eval_shear``) and K4
+(``eval_shear_t``) at the 256^2/8 bench and fan shapes, K3/K4 at a 2 x 2
+mesh rank's node block (P_loc = 4) and K6 (``skew_sum_planes_t_rows``) at
+row shard 0 of 2 of that node block and of the fan tables, each the median
+of 20 calls (CUDA events, bf16 tables, seeded spectra and cotangents); 20
+parity and 20 recommended outers of the 256^2/8 bench problem on one
+device; and 20 recommended outers on a 2 x 2 node x pixel mesh of four
+processes sharing the card (``chip_smoke.py``'s phases 5, 6 and 6b without
+their reference checks).
 It prints a line for each. Alternate the checkouts, e.g. with the parent
 unpacked by ``git archive`` into ``build/parent``:
 
@@ -32,28 +34,44 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def _skew_t_ms(t, P, tag) -> dict:
-    """K2 on the skew tables ``t`` (all P node images; the fan's shared
-    table set) and K6 on row shard 0 of 2 of a 2 x 2 mesh rank's node block
-    (the fan: every node), per call in ms."""
+def _kernel_ms(t, P, tag) -> dict:
+    """K2, K3 and K4 on the skew tables ``t`` (all P node images; the fan's
+    shared table set), K6 on row shard 0 of 2 of a 2 x 2 mesh rank's node
+    block (the fan: every node) and, on the bench tables, K3/K4 on that
+    node block, per call in ms."""
     from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
     from dip_admm_tpu_torch.parallel.mesh import slice_tables
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     _, NB, _, Tp, nb = t["WtT"].shape
     F = t["SEre"].shape[-1]
+    _, DB, _, _, db = t["Wd"].shape
     g = [torch.randn((P, Tp, F), generator=gen, device="cuda")
          for _ in range(2)]
+    ob = torch.randn((P, Tp, DB * db), generator=gen, device="cuda")
     sh = t["shared"]
     k2 = (*g, t["WtT"], t["SEre"], t["SEim"], sh["DreT"], sh["DimT"],
           t["plane"])
+    tail = (t["Wd"], t["TEre"], t["TEim"], sh["PhiDre"], sh["PhiDim"])
     nodes = slice(None) if tag == "fan" else slice(P // 2, P)
     loc = slice_tables(t, P, nodes, (0, 2))
     k6 = (*(v[nodes].contiguous() for v in g), loc["WtT"], loc["SEre"],
           loc["SEim"], sh["DreT"], sh["DimT"], loc["plane"], NB * nb)
-    return {f"k2_{tag}": cs._time_ms(torch, lambda: ss.skew_sum_planes_t(*k2)),
-            f"k6_{tag}_shard": cs._time_ms(
-                torch, lambda: ss.skew_sum_planes_t_rows(*k6))}
+    out = {f"k2_{tag}": cs._time_ms(torch, lambda: ss.skew_sum_planes_t(*k2)),
+           f"k3_{tag}": cs._time_ms(torch, lambda: ss.eval_shear(*g, *tail)),
+           f"k4_{tag}": cs._time_ms(torch, lambda: ss.eval_shear_t(ob, *tail)),
+           f"k6_{tag}_shard": cs._time_ms(
+               torch, lambda: ss.skew_sum_planes_t_rows(*k6))}
+    if tag != "fan":
+        blk = (loc["Wd"], loc["TEre"], loc["TEim"], sh["PhiDre"],
+               sh["PhiDim"])
+        gb = [v[nodes].contiguous() for v in g]
+        obb = ob[nodes].contiguous()
+        out[f"k3_{tag}_block"] = cs._time_ms(
+            torch, lambda: ss.eval_shear(*gb, *blk))
+        out[f"k4_{tag}_block"] = cs._time_ms(
+            torch, lambda: ss.eval_shear_t(obb, *blk))
+    return out
 
 
 def main() -> int:
@@ -73,9 +91,9 @@ def main() -> int:
     times = {}
     for tag, t in (("bench", problem.fft_tables),
                    ("fan", fan.fft_tables["shared"]["par"])):
-        times.update(_skew_t_ms(t, cfg.geometry.num_nodes, tag))
+        times.update(_kernel_ms(t, cfg.geometry.num_nodes, tag))
     del fan
-    print(f"{ROOT} skew_t_ms: " + " ".join(
+    print(f"{ROOT} kernel_ms: " + " ".join(
         f"{k}={v}" for k, v in times.items()), flush=True)
     _, _, line = cs._drive(torch, problem, cfg.admm, cs.REF_PSNR, "main",
                            failures)

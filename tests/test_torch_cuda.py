@@ -49,8 +49,9 @@ def _device():
     return torch.device("cuda")
 
 
-def _tables(dtype, dev, N=48, P=3, angles_total=45, nb=16):
-    geo = GeometryConfig(N=N, num_nodes=P, angles_total=angles_total)
+def _tables(dtype, dev, N=48, P=3, angles_total=45, nb=16, det_pixels=None):
+    geo = GeometryConfig(N=N, num_nodes=P, angles_total=angles_total,
+                         det_pixels=det_pixels)
     a, v, _ = radon.node_angles(geo)
     t = radon_fft.precompute_shear(
         geo, torch.as_tensor(a, dtype=torch.float32, device=dev),
@@ -892,3 +893,131 @@ def test_skew_t_nan_slot_pattern_matches_plain(N, nb):
     torch.cuda.synchronize()
     assert bool(torch.isnan(want).any())
     assert torch.equal(torch.isnan(got), torch.isnan(want))
+
+
+def _eval_case(name, dev):
+    """(tables, image count) of K3/K4's card cases: the small tables with
+    either table type, detector blocks whose width db is no multiple of 8
+    (N = 45: db = 45, element loads and six lanes padded to eight) or above
+    128 (N = 300: db = 300, three d chunks), three and four detector blocks
+    of 128 (a detector of 384 or 512 cells: the R stage's pairs of detector
+    blocks, the last one half full with three), a fan table (three images
+    on one shared set) and the 256^2/8 bench tables."""
+    if name in ("small-f32", "small-bf16"):
+        dtype = torch.float32 if name == "small-f32" else torch.bfloat16
+        return _tables(dtype, dev)[1], 3
+    if name in ("db45", "db300"):
+        N = int(name[2:])
+        _, t = _tables(torch.bfloat16, dev, N=N, P=3, angles_total=45)
+        assert t["Wd"].shape[-1] == N
+        return t, 3
+    if name in ("DB3", "DB4"):
+        DB = int(name[2:])
+        _, t = _tables(torch.bfloat16, dev, N=64, det_pixels=128 * DB)
+        assert t["Wd"].shape[1] == DB and t["Wd"].shape[-1] == 128
+        return t, 3
+    if name == "fan-PT1":
+        geo = GeometryConfig(N=64, num_nodes=3, angles_total=192,
+                             fan_beam=True)
+        a, v, _ = radon.node_angles(geo)
+        t = radon_fan.precompute_fan_skew(
+            geo, torch.as_tensor(a, dtype=torch.float32, device=dev),
+            torch.as_tensor(v, device=dev), torch.bfloat16,
+            nb=16)["shared"]["par"]
+        assert t["Wd"].shape[0] == 1
+        return t, 3
+    _, t = _tables(torch.bfloat16, dev, N=256, P=8, angles_total=768,
+                   nb=128)
+    assert t["Wd"].shape[-1] == 128 and t["Wd"].shape[3] % 16 == 0
+    return t, 8
+
+
+EVAL_CASES = ["small-f32", "small-bf16", "db45", "db300", "DB3", "DB4",
+              "fan-PT1", "bench-256"]
+
+
+@pytest.mark.parametrize("name", EVAL_CASES)
+@pytest.mark.parametrize("kernel", ["eval_shear", "eval_shear_t"])
+def test_eval_matches_plain_repeats_and_slices(kernel, name):
+    """K3/K4 against their plain versions (RTOL of the table type), bit for
+    bit on a second call, and on a node block (the last half of the images
+    and, where each image has its own, their table sets: a 2 x 2 mesh
+    rank's P_loc = 4 at the bench shapes) against the plain version and
+    equal to the whole batch's rows bit for bit."""
+    dev = _device()
+    t, P = _eval_case(name, dev)
+    kern, ref, args = _cases(t, dev, P=P)[kernel]
+    before = kern.launches
+    got, again = kern(*args), kern(*args)
+    want = ref(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dtype = t["Wd"].dtype
+    _assert_close(got, want, RTOL[dtype])
+    blk = slice(P // 2, P)
+    nimg = 2 if kernel == "eval_shear" else 1
+    loc = [a[blk].contiguous() for a in args[:nimg]]
+    for a in args[nimg:]:
+        shared = a.dim() == 2 or a.shape[0] != P
+        loc.append(a if shared else a[blk].contiguous())
+    part = kern(*loc)
+    part = part if isinstance(part, tuple) else (part,)
+    _assert_close(part, ref(*loc), RTOL[dtype])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b[blk]) for a, b in zip(part, got))
+
+
+@pytest.mark.parametrize("kernel", ["eval_shear", "eval_shear_t"])
+def test_eval_nan_slot_pattern_matches_plain(kernel):
+    """The Wd passes read the dense Wd: a NaN in one slot row of the
+    spectra (K3) or of the cotangent (K4), in a real slot and in a padded
+    slot whose Wd rows are all zero, reaches what the plain version's dense
+    einsum carries it to, so the kernels' output has its NaN pattern."""
+    dev = _device()
+    t, P = _eval_case("small-bf16", dev)
+    kern, ref, args = _cases(t, dev, P=P)[kernel]
+    Wd = t["Wd"]
+    empty = (Wd[1] == 0).flatten(2).all(dim=2).all(dim=0)  # [Tp]
+    slots = [int(torch.nonzero(~empty)[0])]
+    if bool(empty.any()):
+        slots.append(int(torch.nonzero(empty)[0]))
+    x = args[0].clone()
+    for s in slots:
+        x[1, s, 3] = float("nan")
+    args = (x, *args[1:])
+    got, want = kern(*args), ref(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert bool(torch.isnan(b).any())
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+
+
+def test_eval_wrappers_reject_bad_inputs():
+    dev = _device()
+    _, t = _tables(torch.bfloat16, dev)
+    kern, _, args = _cases(t, dev)["eval_shear"]
+    g, g2, Wd, TEre, TEim, phr, phi = args
+    with pytest.raises(TypeError):
+        kern(g, g2, Wd, TEre, TEim, phr.to(torch.bfloat16), phi)  # PhiD f32
+    with pytest.raises(TypeError):
+        kern(g, g2, Wd, TEre.to(torch.bfloat16), TEim, phr, phi)  # TE f32
+    with pytest.raises(ValueError):
+        kern(g, g2, Wd, TEre[:, :, :1].contiguous(), TEim, phr, phi)  # shape
+    with pytest.raises(ValueError):
+        kern(g, g2, Wd, TEre, TEim, phr.cpu(), phi)  # device
+    kern_t, _, args_t = _cases(t, dev)["eval_shear_t"]
+    ob = args_t[0]
+    with pytest.raises(ValueError):
+        kern_t(ob.transpose(1, 2).contiguous().transpose(1, 2), *args_t[1:])
+    with pytest.raises(ValueError):
+        kern_t(ob[:2].contiguous(), *args_t[1:])  # 2 images, 3 table sets
+    odd = torch.empty(ob.numel() + 1, device=dev)[1:].view_as(ob)
+    odd.copy_(ob)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError):
+        kern_t(odd, *args_t[1:])  # the Wd stream reads ob in 16-byte loads

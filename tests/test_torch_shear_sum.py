@@ -481,3 +481,177 @@ def test_k2_row_blocks_concatenate_as_the_row_shards_do():
         parts.append(_k2_tensor_core_mirror(*(loc[n] for n in order),
                                             row_width=32))
     np.testing.assert_array_equal(np.concatenate(parts, axis=2), whole)
+
+
+# ---------------------------------------------------------------------------
+# The algebra of K3/K4's kernels with bf16 tables (the R stage and Abar/Bbar
+# on the tensor cores, the Wd epilogue and pre-contraction as streams over
+# the dense Wd), mirrored in numpy and held to the JAX package's kernels in
+# interpret mode.
+
+
+def _bf16f(a):
+    return _bf16(a).astype(np.float32)
+
+
+def _k34_inputs(PB, PT, DB, Tp, D2p, db, F, seed):
+    """Eval-tail tables of PT sets built as the loader builds them (per
+    (b, t, d) two adjacent taps at a detector offset that rises with d,
+    times a row scale that is zero on some rows, as on padded slots; TE the
+    irfft phases; PhiD the detector-offset phases), Wd in bf16, and the
+    slot spectra and cotangent of PB images."""
+    rng = np.random.default_rng(seed)
+    Np = 2 * (F - 1)
+    slope = rng.uniform(0.5, (D2p - 2) / db, (PT, DB, Tp, 1))
+    pos = slope * np.arange(db) + rng.uniform(0.0, 1.0, (PT, DB, Tp, 1))
+    k = np.floor(pos).astype(np.int64)
+    fr = (pos - k).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, (PT, DB, Tp, 1)).astype(np.float32)
+    scale[rng.random((PT, DB, Tp, 1)) < 0.15] = 0.0
+    Wd = np.zeros((PT, DB, Tp, D2p, db), np.float32)
+    i = np.indices(k.shape)
+    Wd[i[0], i[1], i[2], k, i[3]] = (1.0 - fr) * scale
+    Wd[i[0], i[1], i[2], k + 1, i[3]] += fr * scale
+    ang = (2.0 * np.pi / Np) * np.arange(F)
+    cfac = np.full((F,), 2.0 / Np)
+    cfac[0] = cfac[-1] = 1.0 / Np
+    ph = ang * rng.integers(0, Np, (PT, DB, Tp, 1))
+    ph_d = ang[None, :] * np.arange(D2p)[:, None]
+    f32 = np.float32
+    return dict(
+        gre=rng.standard_normal((PB, Tp, F)).astype(f32),
+        gim=rng.standard_normal((PB, Tp, F)).astype(f32),
+        ob=rng.standard_normal((PB, Tp, DB * db)).astype(f32),
+        Wd=_bf16(Wd), TEre=(cfac * np.cos(ph)).astype(f32),
+        TEim=(cfac * np.sin(ph)).astype(f32), PhiDre=np.cos(ph_d).astype(f32),
+        PhiDim=np.sin(ph_d).astype(f32))
+
+
+def _k3_mirror(gre, gim, Wd, TEre, TEim, PhiDre, PhiDim):
+    """K3 as its bf16 kernels compute it. R stage, per (image p, detector
+    block b): A/B formed in f32 and rounded to bf16, PhiD rounded to bf16,
+    R = A @ PhiDre^T - B @ PhiDim^T summed in f32 and kept in f32. Wd
+    epilogue, per row (p, b, t): 16 groups of D2p / 16 consecutive z each
+    sum R[z] * Wd[z, :] in ascending z; the partials are added in ascending
+    group."""
+    PB, Tp, F = gre.shape
+    PT, DB, _, D2p, db = Wd.shape
+    W = Wd.astype(np.float32)
+    phr, phi = _bf16f(PhiDre), _bf16f(PhiDim)
+    zpg = D2p // 16
+    out = np.zeros((PB, Tp, DB * db), np.float32)
+    for p in range(PB):
+        pt = p % PT
+        for b in range(DB):
+            er, ei = TEre[pt, b], TEim[pt, b]
+            A = _bf16f(gre[p] * er - gim[p] * ei)
+            B = _bf16f(gre[p] * ei + gim[p] * er)
+            R = A @ phr.T - B @ phi.T  # [Tp, D2p]
+            parts = np.zeros((16, Tp, db), np.float32)
+            for g in range(16):
+                for z in range(g * zpg, (g + 1) * zpg):
+                    parts[g] += R[:, z, None] * W[pt, b, :, z]
+            s = parts[0]
+            for g in range(1, 16):
+                s = s + parts[g]
+            out[p, :, b * db:(b + 1) * db] = s
+    return out
+
+
+def _k4_mirror(ob, Wd, TEre, TEim, PhiDre, PhiDim):
+    """K4 as its bf16 kernels compute it. Wd pre-contraction, per row
+    (p, b, t) and z: each of L = db / 8 lanes sums its 8 d in ascending
+    order, the lanes (padded with zeros to a power of two) are added
+    pairwise, neighbours first, and the sum is rounded to bf16. Then Abar =
+    Rbar @ PhiDre and Bbar = -(Rbar @ PhiDim) with PhiD rounded to bf16,
+    summed in f32, and the phase products added to g in ascending b."""
+    PB, Tp, _ = ob.shape
+    PT, DB, _, D2p, db = Wd.shape
+    F = TEre.shape[-1]
+    L = db // 8
+    L2 = 1 << (L - 1).bit_length()
+    W = Wd.astype(np.float32)
+    phr, phi = _bf16f(PhiDre), _bf16f(PhiDim)
+    gre = np.zeros((PB, Tp, F), np.float32)
+    gim = np.zeros((PB, Tp, F), np.float32)
+    for p in range(PB):
+        pt = p % PT
+        for b in range(DB):
+            o = ob[p, :, b * db:(b + 1) * db]
+            prod = (o[:, None, :] * W[pt, b]).reshape(Tp, D2p, L, 8)
+            lanes = np.zeros((Tp, D2p, L2), np.float32)
+            lanes[..., :L] = prod[..., 0]
+            for i in range(1, 8):
+                lanes[..., :L] = lanes[..., :L] + prod[..., i]
+            while lanes.shape[-1] > 1:
+                lanes = lanes[..., 0::2] + lanes[..., 1::2]
+            Rbar = _bf16f(lanes[..., 0])  # [Tp, D2p]
+            A = Rbar @ phr
+            B = -(Rbar @ phi)
+            er, ei = TEre[pt, b], TEim[pt, b]
+            gre[p] = gre[p] + (A * er + B * ei)
+            gim[p] = gim[p] + (-A * ei + B * er)
+    return gre, gim
+
+
+# (PB, PT, DB, Tp, D2p, db, F): PT = PB, the fan's one shared table set
+# (PT = 1), PB = 2 PT; one to four detector blocks (three: the R stage's
+# last pair half full); db of 8, 16 and 24 (three lanes padded to four);
+# D2p of 16 and 32; odd F.
+K34_SHAPES = [(3, 3, 2, 16, 32, 16, 21), (3, 1, 1, 8, 16, 8, 13),
+              (4, 2, 2, 24, 16, 8, 21), (2, 1, 2, 16, 32, 16, 13),
+              (2, 2, 1, 8, 16, 24, 13), (2, 2, 3, 8, 16, 8, 13),
+              (2, 1, 4, 8, 32, 8, 21)]
+K34_IDS = ["PT3-DB2-db16", "PT1-DB1-db8", "PB4-PT2-db8", "PT1-DB2-db16",
+           "db24", "DB3", "PT1-DB4"]
+K3_ARGS = ("gre", "gim", "Wd", "TEre", "TEim", "PhiDre", "PhiDim")
+K4_ARGS = ("ob", "Wd", "TEre", "TEim", "PhiDre", "PhiDim")
+
+
+@pytest.mark.parametrize("shape", K34_SHAPES, ids=K34_IDS)
+def test_k3_kernel_algebra_matches_jax(shape):
+    """The mirror of K3's kernels, and the port's plain version, against
+    JAX's interpret-mode ``eval_shear`` (relative 2e-3 with bf16 tables: the
+    sums run in another order, and a bf16 rounding of A or B can land on the
+    other side)."""
+    k = _k34_inputs(*shape, seed=21)
+    want = jss.eval_shear(*(jnp.asarray(k[n]) for n in K3_ARGS))
+    mirror = _k3_mirror(*(k[n] for n in K3_ARGS))
+    plain = tss.eval_shear(*(_to_torch(k[n]) for n in K3_ARGS))
+    assert mirror.shape == want.shape == tuple(plain.shape)
+    _close(mirror, want, RTOL["bfloat16"])
+    _close(plain, want, RTOL["bfloat16"])
+
+
+@pytest.mark.parametrize("shape", K34_SHAPES, ids=K34_IDS)
+def test_k4_kernel_algebra_matches_jax(shape):
+    """The mirror of K4's kernels, and the port's plain version, against
+    JAX's interpret-mode ``eval_shear_t`` (relative 2e-3 with bf16 tables:
+    Rbar rounds to bf16 after sums taken in another order)."""
+    k = _k34_inputs(*shape, seed=22)
+    want = jss.eval_shear_t(*(jnp.asarray(k[n]) for n in K4_ARGS))
+    mirror = _k4_mirror(*(k[n] for n in K4_ARGS))
+    plain = tss.eval_shear_t(*(_to_torch(k[n]) for n in K4_ARGS))
+    for m, pl_, w in zip(mirror, plain, want):
+        _close(m, w, RTOL["bfloat16"])
+        _close(pl_, w, RTOL["bfloat16"])
+
+
+@pytest.mark.parametrize("shape", [K34_SHAPES[0], K34_SHAPES[1]],
+                         ids=["PT=PB", "PT1"])
+def test_k3_k4_mirrors_are_batch_invariant(shape):
+    """Every output element of K3/K4 is summed in a fixed order from its
+    own image and its table set alone: the mirrors on images 1..PB-1 (and,
+    with PT = PB, their table sets), as a mesh rank's node block runs them,
+    equal the mirrors on the whole batch bit for bit."""
+    k = _k34_inputs(*shape, seed=23)
+    PT = shape[1]
+    loc = dict(k)
+    for n in ("gre", "gim", "ob") + (("Wd", "TEre", "TEim") if PT > 1
+                                      else ()):
+        loc[n] = np.ascontiguousarray(k[n][1:])
+    np.testing.assert_array_equal(_k3_mirror(*(loc[n] for n in K3_ARGS)),
+                                  _k3_mirror(*(k[n] for n in K3_ARGS))[1:])
+    for a, b in zip(_k4_mirror(*(loc[n] for n in K4_ARGS)),
+                    _k4_mirror(*(k[n] for n in K4_ARGS))):
+        np.testing.assert_array_equal(a, b[1:])
