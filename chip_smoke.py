@@ -122,11 +122,14 @@ kernel):
 16. sm_kernels - at those shapes, with the problems' bf16 tables, the shear
                  kernels K7/K8 and the tiled filter-sums K15/K16 against
                  their plain versions (error <= 2e-3 of the output's max,
-                 two calls bitwise equal), timed as in phase 3; both apply
-                 pairs at 256^2/8, and both at 512^2/8 from their tables
-                 alone, with K3 and K4 on the 512^2 shear tables (four
-                 detector blocks) against their plain versions, bitwise
-                 on a second call, with their device time by launch.
+                 two calls bitwise equal), timed as in phase 3, K7/K8 also
+                 by their device time by launch, with their device
+                 launches a call and the share of their taps and tap tiles
+                 that hold a nonzero; both apply pairs at 256^2/8, and
+                 both at 512^2/8 from their tables alone, with K3, K4, K7
+                 and K8 on the 512^2 shear tables (four row and detector
+                 blocks) against their plain versions, bitwise on a second
+                 call, with their device time by launch.
 17. sm_adjoint - <Ax, y> = <x, A^T y> with f32 tables through ``fft_shear``
                  and ``fft_mxu`` at 256^2/8, relative error <= 1e-5 each.
 18. sm_shear, sm_mxu - 20 outers of the recommended preset on each problem
@@ -540,6 +543,53 @@ def _skew_checks(torch, kern, args, got, failures, note="") -> None:
           f"device_ms_by_kernel={json.dumps(by)} "
           f"nonzero_tap_share={float(nz.float().mean())} "
           f"nonzero_tap_tile_share={tiles}", flush=True)
+
+
+def _shear_checks(torch, kern, args, got, failures, note="") -> None:
+    """K7 or K8 (``kern``) beyond ``_compare``: bitwise on a second call,
+    its device time by launch and its device launches a call, and the share
+    of its taps and of its tap tiles that hold a nonzero (the mask pass's
+    8 x 8 tiles; the tensor-core tiles, K7's of 8 taps x 16 rows and K8's
+    of 16 taps x 8 rows)."""
+    bitwise, dev_ms, by, per_call = _repeat_and_device(torch, kern, args, got,
+                                                       failures, note)
+    W = args[2]  # Wt [PT, NB, Tp, D2, nb]
+    PT, NB, Tp, D2, nb = W.shape
+    nz = W != 0
+    tiles = {}
+    if D2 % 16 == 0 and nb % 16 == 0:
+        t8 = nz.reshape(PT, NB, Tp, D2 // 8, 8, nb // 8, 8).any(dim=-1) \
+            .any(dim=-2)  # [PT, NB, Tp, D2 / 8, nb / 8]
+        tiles = {
+            "8x8": float(t8.float().mean()),
+            "k7_8x16": float(t8.reshape(PT, NB, Tp, D2 // 8, nb // 16, 2)
+                             .any(dim=-1).float().mean()),
+            "k8_16x8": float(t8.reshape(PT, NB, Tp, D2 // 16, 2, nb // 8)
+                             .any(dim=-2).float().mean())}
+    print(f"kernels: {kern.__name__}{note} bitwise_repeat={bitwise} "
+          f"device_ms={dev_ms} device_launches_per_call={per_call} "
+          f"device_ms_by_kernel={json.dumps(by)} "
+          f"nonzero_tap_share={float(nz.float().mean())} "
+          f"nonzero_tap_tile_share={json.dumps(tiles)}", flush=True)
+
+
+def _shear_cases(torch, dev, t, P, gen):
+    """(name, wrapper, plain version, arguments) of K7 and K8 on the shear
+    tables ``t``, with the spectra and cotangents of P images drawn from
+    ``gen``."""
+    from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
+
+    _, NB, Tp, _, nb = t["Wt"].shape
+    F = t["SEre"].shape[-1]
+    tabs = (t["Wt"], t["SEre"], t["SEim"], t["shared"]["Phire"],
+            t["shared"]["Phiim"], t["plane"])
+    r = [torch.randn((P, 2, NB * nb, F), generator=gen, device=dev)
+         for _ in range(2)]
+    g = [torch.randn((P, Tp, F), generator=gen, device=dev) for _ in range(2)]
+    return (("shear_sum_planes", ss.shear_sum_planes,
+             ss.shear_sum_planes_ref, (*r, *tabs)),
+            ("shear_sum_planes_t", ss.shear_sum_planes_t,
+             ss.shear_sum_planes_t_ref, (*g, *tabs)))
 
 
 def _eval_checks(torch, kern, args, got, failures, note="") -> None:
@@ -1491,26 +1541,15 @@ def phase_sm_kernels(torch, dev, problems, failures) -> dict:
     t = problems["fft_shear"].fft_tables
     P, NB, Tp, D2, nb = t["Wt"].shape
     F = t["SEre"].shape[-1]
-    tabs = (t["Wt"], t["SEre"], t["SEim"], t["shared"]["Phire"],
-            t["shared"]["Phiim"], t["plane"])
-    r = [torch.randn((P, 2, NB * nb, F), generator=gen, device=dev)
-         for _ in range(2)]
-    g = [torch.randn((P, Tp, F), generator=gen, device=dev) for _ in range(2)]
-    for name, kern, ref, args in (
-            ("shear_sum_planes", ss.shear_sum_planes,
-             ss.shear_sum_planes_ref, (*r, *tabs)),
-            ("shear_sum_planes_t", ss.shear_sum_planes_t,
-             ss.shear_sum_planes_t_ref, (*g, *tabs))):
+    for name, kern, ref, args in _shear_cases(torch, dev, t, P, gen):
         got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
                                   failures, note="[256^2/8]")
-        bitwise = _check_repeat(torch, name, kern, args, got, failures)
-        print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} NB={NB} "
-              f"Tp={Tp} D2={D2} nb={nb} F={F} Wt={t['Wt'].dtype} "
-              f"TFLOP_per_s="
+        _shear_checks(torch, kern, args, got, failures, "[256^2/8]")
+        print(f"kernels: {name} PB={P} NB={NB} Tp={Tp} D2={D2} nb={nb} F={F} "
+              f"Wt={t['Wt'].dtype} TFLOP_per_s="
               f"{sum(_work(name, args, got)[1:]) / out[name]['ms'] / 1e9}",
               flush=True)
-        del got
-    del r, g
+        del got, args
 
     # K15/K16 on the fft_mxu problem's tables; the library yardstick is one
     # complex einsum on the untiled table (the transpose as
@@ -1567,6 +1606,13 @@ def phase_sm_kernels(torch, dev, problems, failures) -> dict:
         im = torch.randn((P, geo.N, geo.N), generator=gen, device=dev)
         if mode == "fft_shear":
             out.update(_eval_p512_checks(torch, dev, t, P, gen, failures))
+            note = f"[512^2/8 NB={t['Wt'].shape[1]}]"
+            for name, kern, ref, args in _shear_cases(torch, dev, t, P, gen):
+                got, out[f"p512_{name}"] = _compare(
+                    torch, name, kern, ref, args, KERNEL_RTOL, failures,
+                    note=note)
+                _shear_checks(torch, kern, args, got, failures, note)
+                del got, args
         fwd, adj = _sm_pair(mode)
         out[f"p512_{mode}_apply_pair_ms"] = ms = _pair_ms(torch, fwd, adj,
                                                           geo, t, im)

@@ -133,21 +133,59 @@
 // tap table (98.6% zeros); then the DFT-forward, latency-bound for its
 // ~1.5 GFLOP. PERF.md has the times.
 //
-// K7/K8 carry fft_shear's tap contraction on the row spectra as the TPU
-// kernel does it: the dense [tt*D2, nb] x [nb, F] product, re and im, ~58
-// GFLOP per direction at 256^2/8 (4x K1's, as it runs on F = 513 spectrum
-// columns instead of N = 256 pixel columns), ~0.9 ms on the f32 CUDA cores
-// used here. Only two of a row's D2 taps are nonzero, so the function needs
-// ~0.8 GFLOP of taps, and its bound is set by the ~0.1 GB it must move
-// (~0.03 ms at 3.35 TB/s); skipping the zero taps is later work. Each
-// thread keeps a register tile (K7: 1 angle x 8 taps x 4
-// frequencies of S; K8: 4 rows x 4 frequencies), 4 FMAs per shared-memory
-// load. K7's block owns g[p, angle tile, f tile] and loops over the row
-// blocks and the taps, applying Phi and E as each tap chunk's S completes
-// (the TPU kernel's f-chunked VMEM temp has no counterpart). K8's block owns
-// one (image, plane, row block, n tile, f tile) and adds the angle blocks
-// whose plane is its own, in order, forming S = conj(Phi) conj(E) gbar on
-// the fly; a plane that no angle block selects is written as zeros.
+// K7/K8 (fft_shear's tap contraction on the row spectra) with f32 tables
+// keep the plain register-tiled product on the CUDA cores: the TPU
+// kernel's dense [tt*D2, nb] x [nb, F] product, re and im, 4 FMAs per
+// shared-memory load (K7: 1 angle x 8 taps x 4 frequencies of S a thread;
+// K8: 4 rows x 4 frequencies); K7's block owns g[p, angle tile, f tile]
+// and loops over the row blocks and taps, K8's owns one (image, plane, row
+// block, n tile, f tile) and adds the angle blocks on its plane in order.
+//
+// K7/K8 with bf16 tables (redesigned; every card path runs bf16 tables)
+// run the tap product on the tensor cores. The TPU kernel (_fwd_kernel,
+// _t_pallas_planes) rounds the spectra (K7) or S = conj(Phi) conj(E_b) gbar
+// (K8) to bf16 and sums in f32 on the MXU, so bf16 mma.sync (m16n8k16, f32
+// accumulators) gives its products exactly. The dense product is ~58 GFLOP
+// a direction at 256^2/8, but only two of a row's D2 taps are nonzero
+// (1.39% of Wt): the function needs ~0.8 GFLOP, and its bound is the ~83 MB
+// it must move, 56.6 MB of them Wt. Two launches each:
+// - a mask pass reads Wt once, densely (each byte of it from HBM once), and
+//   writes a word per (table set, row block, angle, 8 taps) whose bit q
+//   marks a nonzero 8 x 8 tile (rows 8q..); 8.2% of the tiles at 256^2/8;
+// - the tap product walks only the marked steps. K7: M = 16 frequencies,
+//   N = 8 taps of one angle, K = 16 rows; a warp holds its frequencies'
+//   rounded spectra (all nb rows of a row block) as A fragments in
+//   registers, and a step is one (row block, angle, 8 taps). K8: M = 16
+//   frequencies, N = 8 rows, K = 16 taps of one angle; the A fragment (S,
+//   formed in f32 in the TPU kernel's order and rounded once) is made in
+//   registers from T = conj(E_b) gbar and Phi for each marked step, with
+//   no S tensor in memory, and a step is one (angle, 16 taps) of a 64-row
+//   half. A group of four warps (four 16-frequency m-tiles) shares each
+//   step's B: the step's marked 8 x 8 tiles are copied by cp.async into the
+//   group's ring (zeros for an unmarked tile, no global read), three steps
+//   deep, and read back by ldmatrix (K8: .trans, as a k pair is two tap
+//   rows); the marked steps are compacted into a list once per block, so
+//   the walk is an index. Phi's f32 rows for the block's 64 frequencies are
+//   staged in shared memory once per block. K7 applies Phi to each step's
+//   C in f32, the lane quad's partial sums meet by a fixed shuffle tree,
+//   then E_b, and adds the row blocks in ascending b; K8 accumulates its
+//   64 rows x 16 frequencies in registers over the steps in the order tb,
+//   t, J. No sum depends on the grid (K7's adapts to the batch), so a second
+//   call repeats the first bit for bit and K9 gives K7's bits.
+// Skipping unmarked tiles is exact for finite inputs. A NaN still travels
+// as the dense product carries it on real slots: every real slot has a
+// nonzero tap on every row, so a NaN spectrum element reaches each real
+// slot's g at its frequency through a marked tile of its row (K7), and a
+// NaN in a real slot's cotangent reaches every row of its plane at its
+// frequency (K8). An all-zero slack slot gets zeros where the dense product
+// gives NaN; the projectors drop those slots.
+// What bounds them now: not bytes (their Wt reads are a tenth of the
+// dense table after the mask pass, which itself runs near HBM's rate) nor
+// MMAs (~2 marked 16-row chunks a K7 step, ~4 n8 tiles a K8 step, the
+// tensor cores mostly idle), but each step's fixed cost: the ring's copy
+// and wait, the list and the Phi and shuffle work around a few MMAs
+// (scripts/torch_shear_profile.py gives the cycles by phase). PERF.md has
+// the times.
 //
 // K9/K10 are K7/K8 on slot spectra [PB, TB, N, F] gathered one-hot per angle
 // block instead of the two planes: the same kernels with the source index
@@ -2038,7 +2076,458 @@ shear_t(const float* __restrict__ gre, const float* __restrict__ gim,
   }
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// K7-K10 with bf16 tables, on the tensor cores (bf16 mma.sync m16n8k16, f32
+// accumulators). Two launches each: the tap-tile mask of Wt, then the tap
+// product over the tiles it marks. The scratch is the mask (see
+// dip_shear_scratch).
+// ---------------------------------------------------------------------------
+constexpr int SH_MAXCH = 8;    // 16-row chunks of a row block: nb <= 128
+constexpr int SH_MT7 = 4;      // K7: frequency m-tiles (16 f) of a block
+constexpr int SH_AL7 = 2;      // K7: angle lanes of a block
+constexpr int SH_NT7 = 32 * SH_MT7 * SH_AL7;
+constexpr int SH_MAXTG = 16;   // K7: angles of a block, at most
+constexpr int SH_MT8 = 4;      // K8: frequency m-tiles of a block
+constexpr int SH_NH8 = 2;      // K8: 64-row halves of a block
+constexpr int SH_NT8 = 32 * SH_MT8 * SH_NH8;
+
+// Two f32 values rounded to bf16 and packed (lo in the low half).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+// The tap-tile mask of Wt [rows = PT*NB*Tp][D2][nb] (bf16, 16-byte rows of
+// nb % 8 == 0 elements): word mask[row * DT + j] (DT = D2 / 8) has bit q set
+// when the 8 x 8 tile of taps 8j..8j+7 and rows 8q..8q+7 holds a nonzero
+// bit pattern (-0 and NaN count: a marked tile is computed exactly). One
+// block per row; dynamic shared memory of DT * nb / 8 flags.
+__global__ void __launch_bounds__(256)
+shear_mask(const B16* __restrict__ wt, unsigned* __restrict__ mask, int D2,
+           int nb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Q = nb / 8, DT = D2 / 8;
+  const uint4* w =
+      reinterpret_cast<const uint4*>(wt + (long)blockIdx.x * D2 * nb);
+  for (int i = threadIdx.x; i < DT * Q; i += 256) smem[i] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < D2 * Q; i += 256) {  // row d = i / Q
+    const uint4 v = __ldg(w + i);
+    if (v.x | v.y | v.z | v.w) smem[(i / (8 * Q)) * Q + i % Q] = 1;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < DT; j += 256) {
+    unsigned m = 0;
+    for (int q = 0; q < Q; ++q) m |= (unsigned)smem[j * Q + q] << q;
+    mask[(long)blockIdx.x * DT + j] = m;
+  }
+}
+
+// Phi [D2, F] f32 (re, im) for the block's BF frequencies from f0, into
+// Ps [D2][LDP] as (re, im) pairs (zero past F).
+template <int BF, int LDP, int NTH>
+__device__ __forceinline__ void stage_phi(float2* Ps, const float* phre,
+                                          const float* phim, int D2, int F,
+                                          int f0) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < D2 * BF; i += NTH) {
+    const int d = i / BF, fl = i % BF, f = f0 + fl;
+    const long o = (long)d * F + f;
+    Ps[d * LDP + fl] = f < F ? make_float2(phre[o], phim[o])
+                             : make_float2(0.f, 0.f);
+  }
+}
+
+// A group of SH_GW warps shares each step's B tiles: one cp.async ring of
+// SH_R steps in shared memory, SH_STEP bf16 a step, that the group fills
+// SH_R - 1 steps ahead of the step it multiplies and syncs by a named
+// barrier (id 1 + group).
+constexpr int SH_GW = 4;         // warps of a group
+constexpr int SH_GT = 32 * SH_GW;
+constexpr int SH_R = 3;          // steps of the ring
+constexpr int SH_STEP = 16 * 64; // bf16 of a step's B: 16 8 x 8 tiles
+static_assert(SH_MT7 == SH_GW && SH_MT8 == SH_GW,
+              "a group is the warps of a block's m-tiles");
+
+__device__ __forceinline__ void bar_group(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(SH_GT) : "memory");
+}
+// 4 bytes global -> shared, zero-filled when !full.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+// ldmatrix .x2 (plain and .trans) at a shared-memory address.
+__device__ __forceinline__ void ldsm_x2_at(unsigned& r0, unsigned& r1,
+                                           unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2_t_at(unsigned& r0, unsigned& r1,
+                                             unsigned a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(a));
+}
+
+// K7 (K9: plane null, angle block tb reads slot tb) on the tensor cores:
+//   S_b[t,d,f] = sum_n Wt[t,d,n] bf16(r_b[n,f]) as C[f][d] += A[f][n] B[n][d]
+// with M = 16 frequencies, N = 8 taps d of one angle, K = 16 rows n; then
+//   g[t,f] = sum_b E_b[t,f] * sum_d Phi[d,f] S_b[t,d,f].
+// Block: (BF = 64 frequencies, TG angles, (p, tb)), two groups of four
+// warps; warp w owns m-tile w % SH_MT7, its group the angles tl = w /
+// SH_MT7 (mod SH_AL7). A group walks the steps (b, tl, 8-tap tile j) that
+// the mask marks, in that order, from a list compacted once per block; a
+// step's B is its 8 x 8 tiles (row d, 16 bytes of rows n), one cp.async
+// each into the group's ring (zero-filled where the mask marks none), read
+// back by ldmatrix. Per row block a warp holds its A fragments (the rounded
+// spectra of its 16 frequencies, all nb rows) in registers. The Phi
+// combine runs on each step's C in f32 (Phi staged once per block), the
+// quad's partial sums meet by a fixed shuffle tree, and each (t, f) is
+// multiplied by E_b and added to its slot in Gs in ascending b.
+__global__ void __launch_bounds__(SH_NT7, 2)
+shear_fwd_tc(const float* __restrict__ rre2, const float* __restrict__ rim2,
+             const B16* __restrict__ wt, const unsigned* __restrict__ mask,
+             const float* __restrict__ sere, const float* __restrict__ seim,
+             const float* __restrict__ phre, const float* __restrict__ phim,
+             const int* __restrict__ plane, float* __restrict__ gre,
+             float* __restrict__ gim, int PT, int NB, int Tp, int D2, int nb,
+             int TB, int F, int nsrc, int TG) {
+  constexpr int BF = 16 * SH_MT7, LDP = BF + 4;  // LDP: two wavefronts
+  extern __shared__ __align__(16) unsigned char smem[];
+  B16* ring = reinterpret_cast<B16*>(smem);  // [SH_AL7][SH_R][SH_STEP]
+  float2* Ps = reinterpret_cast<float2*>(ring + SH_AL7 * SH_R * SH_STEP);
+  float* Gs = reinterpret_cast<float*>(Ps + D2 * LDP);  // [TG][2][BF]
+  const int tt = Tp / TB, N = NB * nb, DT = D2 / 8;
+  const int LS = NB * ((TG + SH_AL7 - 1) / SH_AL7) * DT;  // steps a group
+  unsigned* Ls = reinterpret_cast<unsigned*>(Gs + TG * 2 * BF);  // [SH_AL7][LS]
+  int* Ns = reinterpret_cast<int*>(Ls + SH_AL7 * LS);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, q = lane & 3;
+  const int mt = warp % SH_MT7, al = warp / SH_MT7;
+  const int gi = threadIdx.x % SH_GT;  // thread of the group
+  const int f0 = blockIdx.x * BF, t0 = blockIdx.y * TG;
+  const int tb = blockIdx.z % TB, p = blockIdx.z / TB, pt = p % PT;
+  const int src = plane ? plane[pt * TB + tb] : tb;
+  const int nt = min(TG, tt - t0);
+  const int fl = 16 * mt + g8, fa = f0 + fl;  // C rows fa, fa + 8
+  const int h = q & 1, fe = fa + 8 * h;       // this lane's g: see below
+  const long rb0 = (long)pt * NB * Tp + tb * tt + t0;  // row of (b 0, tl 0)
+
+  stage_phi<BF, LDP, SH_NT7>(Ps, phre, phim, D2, F, f0);
+  for (int i = threadIdx.x; i < TG * 2 * BF; i += SH_NT7) Gs[i] = 0.f;
+  __syncthreads();
+
+  // The group's marked steps (b, tl, j) in that order, as words m | j << 16
+  // | tl << 21 | b << 25 (m the mask word; D2 <= 256, TG <= 16 and NB <=
+  // 128, which the launcher checks), compacted by its first warp.
+  const int ntl = (nt - al + SH_AL7 - 1) / SH_AL7;  // angles of the group
+  unsigned* steps = Ls + al * LS;
+  if (mt == 0) {
+    int n = 0;
+#pragma unroll 4
+    for (int base = 0; base < NB * ntl * DT; base += 32) {
+      const int k = base + lane, j = k % DT, tl = al + SH_AL7 * (k / DT % ntl);
+      const int b = k / (DT * ntl);
+      const unsigned m = k < NB * ntl * DT
+                             ? mask[(rb0 + (long)b * Tp + tl) * DT + j]
+                             : 0u;
+      const unsigned bal = __ballot_sync(0xffffffffu, m != 0u);
+      if (m)
+        steps[n + __popc(bal & ((1u << lane) - 1u))] =
+            m | (unsigned)(j << 16 | tl << 21 | b << 25);
+      n += __popc(bal);
+    }
+    if (lane == 0) Ns[al] = n;
+  }
+  bar_group(1 + al);
+  const int ns = Ns[al];
+  // Thread gi fills row gi % 8 of step k's 8 x 8 tile gi / 8 (rows n
+  // 8 (gi / 8)..) in its ring slot: a copy of Wt if the mask marks the
+  // tile, zeros if not. Offsets within Wt fit an int (the wrapper checks).
+  const int tile = gi >> 3;
+  const B16* wq = wt + (rb0 * D2 + (gi & 7)) * nb + 8 * tile;
+  const unsigned rs = smem_u32(ring + al * SH_R * SH_STEP);  // the ring
+  auto issue = [&](int k) {
+    if (k < ns) {
+      const unsigned e = steps[k];
+      const int o = (((int)(e >> 25) * Tp + (int)(e >> 21 & 15)) * D2 +
+                     8 * (int)(e >> 16 & 31)) * nb;
+      const bool on = (e >> tile) & 1u;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       rs + (k % SH_R) * SH_STEP * 2 + gi * 16),
+                   "l"(on ? wq + o : wq), "r"(on ? 16 : 0)
+                   : "memory");
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < SH_R - 1; ++k) issue(k);
+
+  // ldmatrix rows of this lane: tiles 2c + (lane >> 3 & 1), row lane & 7.
+  const unsigned lb = rs + ((((lane >> 3) & 1) * 8 + (lane & 7)) * 8) * 2;
+  unsigned ar[SH_MAXCH][4], ai[SH_MAXCH][4];
+  float tr0 = 0.f, tr1 = 0.f, ti0 = 0.f, ti1 = 0.f;  // T at fa, fa + 8
+  float er = 0.f, ei = 0.f;                          // E_b at fe
+  int cb = -1;
+  for (int k = 0; k < ns; ++k) {
+    cp_async_wait<SH_R - 2>();
+    bar_group(1 + al);
+    issue(k + SH_R - 1);
+    const unsigned e = steps[k], m = e & 0xffffu;
+    const int j = e >> 16 & 31, tl = e >> 21 & 15, b = e >> 25;
+    const bool first = k == 0 || steps[k - 1] >> 21 != e >> 21;
+    const bool last = k == ns - 1 || steps[k + 1] >> 21 != e >> 21;
+    const long row = rb0 + (long)b * Tp + tl;
+    if (b != cb) {  // a new row block: its A fragments
+      cb = b;
+      const long xo = ((long)(p * nsrc + src) * N + (long)b * nb) * F;
+#pragma unroll
+      for (int c = 0; c < SH_MAXCH; ++c)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {  // rows f + 8 (r & 1), k n + 8 (r >> 1)
+          const int n = 16 * c + 2 * q + 8 * (r >> 1), f = fa + 8 * (r & 1);
+          const bool in = n < nb && f < F;  // nb % 8 == 0: so is n + 1
+          const long o = xo + (long)n * F + f;
+          ar[c][r] = in ? pack_bf16(rre2[o], rre2[o + F]) : 0u;
+          ai[c][r] = in ? pack_bf16(rim2[o], rim2[o + F]) : 0u;
+        }
+    }
+    if (first) {
+      tr0 = tr1 = ti0 = ti1 = 0.f;
+      if (fe < F) {
+        er = sere[row * F + fe];
+        ei = seim[row * F + fe];
+      }
+    }
+    const unsigned ls = lb + (k % SH_R) * SH_STEP * 2;
+    float cr[4] = {0.f, 0.f, 0.f, 0.f}, ci[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < SH_MAXCH; ++c)
+      if ((m >> (2 * c)) & 3u) {  // tiles 2c, 2c + 1: rows n 16c..
+        unsigned b0, b1;
+        ldsm_x2_at(b0, b1, ls + c * 256);
+        mma_bf16(cr, ar[c], b0, b1);
+        mma_bf16(ci, ai[c], b0, b1);
+      }
+    // C element x: f = fa + 8 (x >> 1), d = 8j + 2q + (x & 1).
+    const float2* ph = Ps + (8 * j + 2 * q) * LDP + fl;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float2 v = ph[(x & 1) * LDP + 8 * (x >> 1)];
+      const float ur = cr[x] * v.x - ci[x] * v.y;
+      const float ui = cr[x] * v.y + ci[x] * v.x;
+      if (x < 2) {
+        tr0 += ur;
+        ti0 += ui;
+      } else {
+        tr1 += ur;
+        ti1 += ui;
+      }
+    }
+    if (!last) continue;  // the angle has more steps in this row block
+#pragma unroll
+    for (int x = 1; x <= 2; x *= 2) {
+      tr0 += __shfl_xor_sync(0xffffffffu, tr0, x);
+      tr1 += __shfl_xor_sync(0xffffffffu, tr1, x);
+      ti0 += __shfl_xor_sync(0xffffffffu, ti0, x);
+      ti1 += __shfl_xor_sync(0xffffffffu, ti1, x);
+    }
+    // Lane q of the quad: frequency fe = fa + 8 (q & 1), g's re (q < 2) or
+    // im. Angles with no marked step keep the zeros of Gs.
+    if (fe < F) {
+      const float u = h ? tr1 : tr0, w = h ? ti1 : ti0;
+      Gs[(tl * 2 + (q >> 1)) * BF + fl + 8 * h] +=
+          q < 2 ? u * er - w * ei : u * ei + w * er;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < nt * BF; i += SH_NT7) {
+    const int tl = i / BF, f = f0 + i % BF;
+    if (f < F) {
+      const long go = ((long)p * Tp + tb * tt + t0 + tl) * F + f;
+      gre[go] = Gs[tl * 2 * BF + i % BF];
+      gim[go] = Gs[(tl * 2 + 1) * BF + i % BF];
+    }
+  }
+}
+
+// K8 (K10: plane null, slot tb from angle block tb alone) on the tensor
+// cores, K7 transposed:
+//   rbar[n,f] = sum_{tb on the plane} sum_t sum_d Wt[t,d,n] S[t,d,f]
+// as C[f][n] += A[f][d] B[d][n], M = 16 frequencies, N = 8 rows n, K = 16
+// taps d of one angle, with S = bf16(conj(Phi) conj(E_b) gbar) formed in
+// f32 in the TPU kernel's order, in registers, for the (t, k16) steps the
+// mask marks only. Block: (BF = 64 frequencies, (p, plane, b)), two groups
+// of four warps; warp w owns m-tile w % SH_MT8, its group the rows
+// [64 h, 64 h + 64), h = w / SH_MT8, as eight n8 tiles of accumulators. A
+// group walks the steps (tb on the plane, t, J) that the mask marks for
+// its rows, from a list compacted once per block; a step's B is its 8 x 8
+// tiles (row d, 16 bytes of rows n), one cp.async each into the group's
+// ring (zero-filled where the mask marks none), read back by
+// ldmatrix.trans, and the first step of an angle also carries that
+// angle's cotangent and E_b. K runs tb ascending,
+// then t, then d; every output element is written once by its block,
+// zeros for a plane no angle block reads.
+__global__ void __launch_bounds__(SH_NT8)
+shear_t_tc(const float* __restrict__ gre, const float* __restrict__ gim,
+           const B16* __restrict__ wt, const unsigned* __restrict__ mask,
+           const float* __restrict__ sere, const float* __restrict__ seim,
+           const float* __restrict__ phre, const float* __restrict__ phim,
+           const int* __restrict__ plane, float* __restrict__ rre2,
+           float* __restrict__ rim2, int PT, int NB, int Tp, int D2, int nb,
+           int TB, int F, int nsrc) {
+  constexpr int BF = 16 * SH_MT8, LDP = BF + 4;
+  constexpr int STG = SH_STEP + 8 * BF;  // bf16: B, then 4 x BF f32
+  extern __shared__ __align__(16) unsigned char smem[];
+  B16* ring = reinterpret_cast<B16*>(smem);  // [SH_NH8][SH_R][STG]
+  float2* Ps = reinterpret_cast<float2*>(ring + SH_NH8 * SH_R * STG);
+  const int tt = Tp / TB, N = NB * nb, DT = D2 / 8, KJ = D2 / 16;
+  // The groups' steps [SH_NH8][Tp * KJ] (see below) and their counts.
+  unsigned* Ls = reinterpret_cast<unsigned*>(Ps + D2 * LDP);
+  int* Ns = reinterpret_cast<int*>(Ls + SH_NH8 * Tp * KJ);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, q = lane & 3;
+  const int mt = warp % SH_MT8, nh = warp / SH_MT8;
+  const int gi = threadIdx.x % SH_GT;  // thread of the group
+  const int f0 = blockIdx.x * BF;
+  const int b = blockIdx.y % NB, pl = (blockIdx.y / NB) % nsrc;
+  const int p = blockIdx.y / (NB * nsrc), pt = p % PT;
+  const int fl = 16 * mt + g8, fa = f0 + fl;  // A rows fa, fa + 8
+  const long rb = (long)(pt * NB + b) * Tp;   // row of angle 0
+
+  stage_phi<BF, LDP, SH_NT8>(Ps, phre, phim, D2, F, f0);
+  __syncthreads();
+
+  // The group's marked steps (angle a = tb * tt + t on this plane (K8) or
+  // slot (K10), k16 step J) in that order, as words m | J << 16 | a << 20
+  // (m: this half's 8 x 8 tiles of taps 16J.., and those of 16J + 8.. << 8;
+  // D2 <= 256 and Tp <= 4096, which the launcher checks), compacted by its
+  // first warp.
+  unsigned* steps = Ls + nh * Tp * KJ;
+  if (mt == 0) {
+    int n = 0;
+#pragma unroll 4
+    for (int base = 0; base < Tp * KJ; base += 32) {
+      const int k = base + lane, J = k % KJ, a = k / KJ;
+      unsigned m = 0u;
+      if (k < Tp * KJ && (plane ? plane[pt * TB + a / tt] : a / tt) == pl) {
+        const unsigned* mw = mask + (rb + a) * DT + 2 * J;
+        m = (mw[0] >> (8 * nh) & 0xffu) | (mw[1] >> (8 * nh) & 0xffu) << 8;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, m != 0u);
+      if (m)
+        steps[n + __popc(bal & ((1u << lane) - 1u))] =
+            m | (unsigned)(J << 16 | a << 20);
+      n += __popc(bal);
+    }
+    if (lane == 0) Ns[nh] = n;
+  }
+  bar_group(1 + nh);
+  const int ns = Ns[nh];
+  // Thread gi fills tap row gi % 16 of step k's row tile gi / 16 in its
+  // ring slot: a copy of Wt if the mask marks its 8 x 8 half, zeros if not;
+  // a step that starts an angle also brings its cotangent and E_b at the
+  // block's frequencies (4 bytes each, zero past F). Offsets within Wt fit
+  // an int (the wrapper checks).
+  const int tile = gi >> 4, bit = tile + (gi & 8);
+  const B16* wq = wt + (rb * D2 + (gi & 15)) * nb + 64 * nh + 8 * tile;
+  B16* rg = ring + nh * SH_R * STG;
+  const unsigned rs = smem_u32(rg);
+  auto issue = [&](int k) {
+    if (k < ns) {
+      const unsigned e = steps[k];
+      const int a = e >> 20;
+      const int o = (a * D2 + 16 * (int)(e >> 16 & 15)) * nb;
+      const bool on = (e >> bit) & 1u;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       rs + (k % SH_R) * STG * 2 + gi * 16),
+                   "l"(on ? wq + o : wq), "r"(on ? 16 : 0)
+                   : "memory");
+      if (k == 0 || steps[k - 1] >> 20 != e >> 20) {
+        float* x = reinterpret_cast<float*>(rg + (k % SH_R) * STG + SH_STEP);
+        for (int i = gi; i < 4 * BF; i += SH_GT) {  // [4][BF]
+          const int c = i / BF, f = f0 + i % BF;
+          const float* base = c == 0 ? gre : c == 1 ? gim : c == 2 ? sere
+                                                                    : seim;
+          const long o2 = (c < 2 ? (long)p * Tp + a : rb + a) * F + f;
+          cp_async4(x + i, f < F ? base + o2 : base, f < F);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < SH_R - 1; ++k) issue(k);
+
+  // ldmatrix.trans rows of this lane: tap row lane & 15 of row tile i.
+  const unsigned lb = rs + (lane & 15) * 16;
+  float acr[8][4] = {}, aci[8][4] = {};
+  float tr0 = 0.f, tr1 = 0.f, ti0 = 0.f, ti1 = 0.f;  // T = conj(E_b) gbar
+  for (int k = 0; k < ns; ++k) {
+    cp_async_wait<SH_R - 2>();
+    bar_group(1 + nh);
+    issue(k + SH_R - 1);
+    const unsigned e = steps[k];
+    if (k == 0 || steps[k - 1] >> 20 != e >> 20) {  // T at fa + 8h, the
+      const float* x =                                  // TPU kernel's order
+          reinterpret_cast<const float*>(rg + (k % SH_R) * STG + SH_STEP);
+      const float g0r = x[fl], g0i = x[BF + fl];
+      const float e0r = x[2 * BF + fl], e0i = x[3 * BF + fl];
+      const float g1r = x[fl + 8], g1i = x[BF + fl + 8];
+      const float e1r = x[2 * BF + fl + 8], e1i = x[3 * BF + fl + 8];
+      tr0 = g0r * e0r + g0i * e0i;
+      ti0 = g0i * e0r - g0r * e0i;
+      tr1 = g1r * e1r + g1i * e1i;
+      ti1 = g1i * e1r - g1r * e1i;
+    }
+    // A element (f = fa + 8 (r & 1), d = 16J + 2q + 8 (r >> 1) + x).
+    const float2* ph = Ps + (16 * (int)(e >> 16 & 15) + 2 * q) * LDP + fl;
+    unsigned sr[4], si[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float vr[2], vi[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float2 v = ph[(8 * (r >> 1) + x) * LDP + 8 * (r & 1)];
+        const float u = r & 1 ? tr1 : tr0, w = r & 1 ? ti1 : ti0;
+        vr[x] = u * v.x + w * v.y;
+        vi[x] = w * v.x - u * v.y;
+      }
+      sr[r] = pack_bf16(vr[0], vr[1]);
+      si[r] = pack_bf16(vi[0], vi[1]);
+    }
+    const unsigned ls = lb + (k % SH_R) * STG * 2;
+    const unsigned mm = (e | e >> 8) & 0xffu;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if ((mm >> i) & 1u) {
+        unsigned b0, b1;  // taps 16J.. and 16J + 8.. of rows 8i..
+        ldsm_x2_t_at(b0, b1, ls + i * 256);
+        mma_bf16(acr[i], sr, b0, b1);
+        mma_bf16(aci[i], si, b0, b1);
+      }
+  }
+  cp_async_wait<0>();
+  const long ro = ((long)(p * nsrc + pl) * N + (long)b * nb) * F;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int n = 64 * nh + 8 * i + 2 * q + (x & 1), f = fa + 8 * (x >> 1);
+      if (n < nb && f < F) {
+        rre2[ro + (long)n * F + f] = acr[i][x];
+        rim2[ro + (long)n * F + f] = aci[i][x];
+      }
+    }
+}
+
+// K7-K10 with f32 tables, on the CUDA cores.
 cudaError_t launch_shear(bool fwd, const float* a_re, const float* a_im,
                          const void* wt, const float* sere, const float* seim,
                          const float* phre, const float* phim,
@@ -2049,16 +2538,17 @@ cudaError_t launch_shear(bool fwd, const float* a_re, const float* a_im,
   // null) the TB slots.
   const int nsrc = plane ? 2 : TB;
   const dim3 blk(SX, SY);
-  const T* w = static_cast<const T*>(wt);
+  const float* w = static_cast<const float*>(wt);
   if (fwd) {
     const dim3 g(cdiv(F, S_BF), cdiv(Tp / TB, K7_BT), PB * TB);
-    shear_fwd<T><<<g, blk, 0, s>>>(a_re, a_im, w, sere, seim, phre, phim,
-                                   plane, o_re, o_im, PT, NB, Tp, D2, nb, TB,
-                                   F, nsrc);
+    shear_fwd<float><<<g, blk, 0, s>>>(a_re, a_im, w, sere, seim, phre, phim,
+                                       plane, o_re, o_im, PT, NB, Tp, D2, nb,
+                                       TB, F, nsrc);
   } else {
     const dim3 g(cdiv(F, S_BF), cdiv(nb, K8_BN), PB * nsrc * NB);
-    shear_t<T><<<g, blk, 0, s>>>(a_re, a_im, w, sere, seim, phre, phim, plane,
-                                 o_re, o_im, PT, NB, Tp, D2, nb, TB, F, nsrc);
+    shear_t<float><<<g, blk, 0, s>>>(a_re, a_im, w, sere, seim, phre, phim,
+                                     plane, o_re, o_im, PT, NB, Tp, D2, nb,
+                                     TB, F, nsrc);
   }
   return cudaGetLastError();
 }
@@ -2113,6 +2603,69 @@ cudaError_t launch_big(K kernel, dim3 g, int threads, size_t smem,
   }
   kernel<<<g, threads, smem, s>>>(args...);
   return cudaGetLastError();
+}
+
+// The layout of K7-K10's bf16 scratch: the tap-tile mask, in words.
+long shear_scratch(int PT, int NB, int Tp, int D2) {
+  return (long)PT * NB * Tp * (D2 / 8);
+}
+
+// K7-K10 with bf16 tables: the mask, then the tap product. K7's block takes
+// TG = 16 angles (each group 8, its warps' A fragments loaded once per row
+// block for them), halved while the grid has fewer blocks than two per SM:
+// at 256^2/8, 9 x 3 x 16 = 432 blocks of 64 frequencies; K8's block takes
+// 64 frequencies of one (image, plane, row block): 9 x 32 = 288 blocks.
+// Both fit two blocks an SM at 256^2/8 and 512^2/8 (shared memory: Phi
+// ~78 KB, the rings ~19 KB, the step lists). Every Wt byte is read from HBM
+// once, by the mask pass; the tap products re-read only the marked tiles,
+// which the blocks of one angle block, adjacent in the grid, find in L2.
+// The grid does not change a sum's order.
+cudaError_t launch_shear_tc(bool fwd, const float* a_re, const float* a_im,
+                            const void* wt, const float* sere,
+                            const float* seim, const float* phre,
+                            const float* phim, const int* plane,
+                            void* scratch, float* o_re, float* o_im, int PB,
+                            int PT, int NB, int Tp, int D2, int nb, int TB,
+                            int F, cudaStream_t s) {
+  const int nsrc = plane ? 2 : TB, tt = Tp / TB;
+  const B16* w = static_cast<const B16*>(wt);
+  unsigned* mask = static_cast<unsigned*>(scratch);
+  if (nb % 8 || nb > 8 * 2 * SH_MAXCH || D2 % 16 || D2 > 256 || Tp > 4096 ||
+      NB > 128 || reinterpret_cast<unsigned long long>(wt) % 16)
+    return cudaErrorInvalidValue;
+  shear_mask<<<(unsigned)((long)PT * NB * Tp), 256, (D2 / 8) * (nb / 8), s>>>(
+      w, mask, D2, nb);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (fwd) {
+    const long sms = sm_count();
+    int tg = SH_MAXTG;
+    auto blocks = [&] {
+      return (long)cdiv(F, 16 * SH_MT7) * cdiv(tt, tg) * PB * TB;
+    };
+    while (blocks() < 2 * sms && tg > SH_AL7) tg /= 2;
+    const size_t smem =
+        sizeof(B16) * SH_AL7 * SH_R * SH_STEP +
+        sizeof(float) * (2 * (size_t)D2 * (16 * SH_MT7 + 4) +
+                         2 * (size_t)tg * 16 * SH_MT7) +
+        sizeof(unsigned) * SH_AL7 * NB * cdiv(tg, SH_AL7) * (D2 / 8) +
+        sizeof(int) * SH_AL7;
+    static size_t raised = 0;
+    return launch_big(shear_fwd_tc,
+                      dim3(cdiv(F, 16 * SH_MT7), cdiv(tt, tg), PB * TB),
+                      SH_NT7, smem, s, raised, a_re, a_im, w,
+                      (const unsigned*)mask, sere, seim, phre, phim, plane,
+                      o_re, o_im, PT, NB, Tp, D2, nb, TB, F, nsrc, tg);
+  }
+  const size_t smem =
+      sizeof(B16) * SH_NH8 * SH_R * (SH_STEP + 8 * 16 * SH_MT8) +
+      sizeof(float) * 2 * (size_t)D2 * (16 * SH_MT8 + 4) +
+      sizeof(unsigned) * SH_NH8 * Tp * (D2 / 16) + sizeof(int) * SH_NH8;
+  static size_t raised = 0;
+  return launch_big(shear_t_tc, dim3(cdiv(F, 16 * SH_MT8), PB * nsrc * NB),
+                    SH_NT8, smem, s, raised, a_re, a_im, w,
+                    (const unsigned*)mask, sere, seim, phre, phim, plane,
+                    o_re, o_im, PT, NB, Tp, D2, nb, TB, F, nsrc);
 }
 
 // K1 with bf16 tables. The tap product takes all v of an angle block in one
@@ -2443,34 +2996,41 @@ int dip_eval_t(const float* ob, const void* wd, const float* tere,
   return static_cast<int>(cudaGetLastError());
 }
 
-int dip_shear_fwd(const float* rre2, const float* rim2, const void* wt,
-                  const float* sere, const float* seim, const float* phre,
-                  const float* phim, const int* plane, float* gre, float* gim,
-                  int PB, int PT, int NB, int Tp, int D2, int nb, int TB,
-                  int F, int bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      bf16 ? launch_shear<__nv_bfloat16>(true, rre2, rim2, wt, sere, seim,
-                                         phre, phim, plane, gre, gim, PB, PT,
-                                         NB, Tp, D2, nb, TB, F, s)
-           : launch_shear<float>(true, rre2, rim2, wt, sere, seim, phre, phim,
-                                 plane, gre, gim, PB, PT, NB, Tp, D2, nb, TB,
-                                 F, s));
+// Elements (int32) of K7-K10's scratch with bf16 tables: the tap-tile mask.
+int dip_shear_scratch(int PT, int NB, int Tp, int D2) {
+  return static_cast<int>(shear_scratch(PT, NB, Tp, D2));
 }
 
-int dip_shear_t(const float* gre, const float* gim, const void* wt,
-                const float* sere, const float* seim, const float* phre,
-                const float* phim, const int* plane, float* rre2, float* rim2,
-                int PB, int PT, int NB, int Tp, int D2, int nb, int TB, int F,
-                int bf16, void* stream) {
+// K7/K9 (plane null): scratch is dip_shear_scratch's count of int32 with
+// bf16 tables (two launches: the mask, the tensor-core tap product) and
+// unused with f32 tables (one launch on the CUDA cores).
+int dip_shear_fwd(const float* rre2, const float* rim2, const void* wt,
+                  const float* sere, const float* seim, const float* phre,
+                  const float* phim, const int* plane, void* scratch,
+                  float* gre, float* gim, int PB, int PT, int NB, int Tp,
+                  int D2, int nb, int TB, int F, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      bf16 ? launch_shear<__nv_bfloat16>(false, gre, gim, wt, sere, seim,
-                                         phre, phim, plane, rre2, rim2, PB,
-                                         PT, NB, Tp, D2, nb, TB, F, s)
-           : launch_shear<float>(false, gre, gim, wt, sere, seim, phre, phim,
-                                 plane, rre2, rim2, PB, PT, NB, Tp, D2, nb,
-                                 TB, F, s));
+      bf16 ? launch_shear_tc(true, rre2, rim2, wt, sere, seim, phre, phim,
+                             plane, scratch, gre, gim, PB, PT, NB, Tp, D2, nb,
+                             TB, F, s)
+           : launch_shear(true, rre2, rim2, wt, sere, seim, phre, phim,
+                          plane, gre, gim, PB, PT, NB, Tp, D2, nb, TB, F, s));
+}
+
+// K8/K10 (plane null): the scratch as for dip_shear_fwd.
+int dip_shear_t(const float* gre, const float* gim, const void* wt,
+                const float* sere, const float* seim, const float* phre,
+                const float* phim, const int* plane, void* scratch,
+                float* rre2, float* rim2, int PB, int PT, int NB, int Tp,
+                int D2, int nb, int TB, int F, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bf16 ? launch_shear_tc(false, gre, gim, wt, sere, seim, phre, phim,
+                             plane, scratch, rre2, rim2, PB, PT, NB, Tp, D2,
+                             nb, TB, F, s)
+           : launch_shear(false, gre, gim, wt, sere, seim, phre, phim, plane,
+                          rre2, rim2, PB, PT, NB, Tp, D2, nb, TB, F, s));
 }
 
 }  // extern "C"

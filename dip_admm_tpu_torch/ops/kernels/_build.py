@@ -39,8 +39,9 @@ SIGNATURES = {
         "dip_skew_t_scratch": [_I] * 7,
         "dip_eval_fwd": [_P] * 9 + [_I] * 8 + [_P],
         "dip_eval_t": [_P] * 9 + [_I] * 8 + [_P],
-        "dip_shear_fwd": [_P] * 10 + [_I] * 9 + [_P],
-        "dip_shear_t": [_P] * 10 + [_I] * 9 + [_P],
+        "dip_shear_scratch": [_I] * 4,
+        "dip_shear_fwd": [_P] * 11 + [_I] * 9 + [_P],
+        "dip_shear_t": [_P] * 11 + [_I] * 9 + [_P],
     },
     "filter_mxu": {
         "dip_mxu_fwd": [_P] * 6 + [_I] * 8 + [_P],

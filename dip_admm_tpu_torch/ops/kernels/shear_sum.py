@@ -61,14 +61,21 @@ What bounds them on an H100, and what the simple design does about it:
   in its own type; K4 that stream first (Rbar rounded to the table type),
   then the phase products (bf16 mma.sync) and the phase combine. The
   source note in ``csrc/shear_sum.cu`` has the details.
-- K7/K8 (shear stages) compute the TPU kernel's dense tap product on the
-  row spectra, 4*P*Tp*D2*nb*NB*F FLOPs (~58 GFLOP per direction at
-  256^2/8), register-tiled on the CUDA cores, one launch each, no scratch.
-  Only two of a row's D2 taps are nonzero (~0.8 GFLOP needed), so the
-  least time of the function is that of its bytes, not of those FLOPs.
-  K7's block owns its output tile and loops over the row blocks; K8's
-  owns one (image, plane, row block) tile and loops over the angle blocks
-  on that plane. The source note in ``csrc/shear_sum.cu`` has the details.
+- K7/K8 (shear stages): the TPU kernel's dense tap product on the row
+  spectra is 4*P*Tp*D2*nb*NB*F FLOPs (~58 GFLOP per direction at
+  256^2/8), but only two of a row's D2 taps are nonzero (~0.8 GFLOP
+  needed), so the least time of the function is that of its bytes. With
+  f32 tables both run that dense product register-tiled on the CUDA
+  cores, one launch each. With bf16 tables each is two launches through a
+  scratch that the library sizes: a mask pass that reads the tap table
+  once and marks its nonzero 8 x 8 tiles, then bf16 mma.sync over the
+  marked tiles only (K7: spectra as the A fragments in registers; K8: S
+  formed in registers as the A fragments), each step's tiles shared by
+  four warps through a cp.async ring. K7's block owns its output tile and
+  adds the row blocks in order; K8's owns one (image, plane, row block)
+  tile, adds the angle blocks on that plane in order, and writes every
+  element, zeros for a plane no angle block reads. The source note in
+  ``csrc/shear_sum.cu`` has the details.
 
 Node-shared tables: every wrapper takes an image batch PB and a table batch
 PT that divides it (the leading dims of the image-side and table-side
@@ -527,7 +534,39 @@ def _check_shear(name, spectra, Wt, SEre, SEim, Phire, Phiim, plane=None,
         _shape(name, plane, (PT, TB), "plane")
     if TB < 1 or Tp % TB:
         raise ValueError(f"{name}: Tp={Tp} is not a multiple of TB={TB}")
+    if Wt.dtype == torch.bfloat16 and (
+            nb % 8 or nb > 128 or D2 % 16 or D2 > 256 or Tp > 4096 or
+            NB > 128 or Wt.data_ptr() % 16 or Wt.numel() >= 2**31):
+        raise ValueError(f"{name}: the bf16 kernels take nb % 8 == 0, "
+                         f"nb <= 128, D2 % 16 == 0, D2 <= 256, Tp <= 4096, "
+                         f"NB <= 128 and Wt 16-byte aligned with fewer than "
+                         f"2^31 elements (nb={nb}, D2={D2}, Tp={Tp}, NB={NB})")
     return PB, PT, NB, Tp, D2, nb, TB, F
+
+
+def _shear_launch(entry, name, a, b, Wt, SEre, SEim, Phire, Phiim, plane,
+                  out_shape, dims):
+    """Launch ``dip_shear_fwd`` or ``dip_shear_t`` (``entry``) on the pair
+    (a, b) into a new [out_shape] pair; ``plane`` None for K9/K10; ``dims``
+    as ``_check_shear`` returns them. With bf16 tables the library's
+    scratch holds the tap-tile mask."""
+    PB, PT, NB, Tp, D2, nb, TB, F = dims
+    dev = a.device
+    lib = _build.load("shear_sum")
+    bf16 = Wt.dtype == torch.bfloat16
+    scratch = (torch.empty(lib.dip_shear_scratch(PT, NB, Tp, D2),
+                           dtype=torch.int32, device=dev) if bf16 else None)
+    o_re = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    o_im = torch.empty_like(o_re)
+    rc = getattr(lib, entry)(
+        *(t.data_ptr() for t in (a, b, Wt, SEre, SEim, Phire, Phiim)),
+        None if plane is None else plane.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        o_re.data_ptr(), o_im.data_ptr(),
+        PB, PT, NB, Tp, D2, nb, TB, F, int(bf16), _stream(),
+    )
+    _raise_if(rc, name)
+    return o_re, o_im
 
 
 def shear_sum_planes(rre2, rim2, Wt, SEre, SEim, Phire, Phiim, plane):
@@ -536,22 +575,15 @@ def shear_sum_planes(rre2, rim2, Wt, SEre, SEim, Phire, Phiim, plane):
         return shear_sum_planes_ref(rre2, rim2, Wt, SEre, SEim, Phire, Phiim,
                                     plane)
     name = "shear_sum_planes"
-    PB, PT, NB, Tp, D2, nb, TB, F = _check_shear(
-        name, dict(rre2=rre2, rim2=rim2), Wt, SEre, SEim, Phire, Phiim, plane)
+    dims = _check_shear(name, dict(rre2=rre2, rim2=rim2), Wt, SEre, SEim,
+                        Phire, Phiim, plane)
+    PB, _, NB, Tp, _, nb, _, F = dims
     _shape(name, rre2, (PB, 2, NB * nb, F), "rre2")
     _shape(name, rim2, (PB, 2, NB * nb, F), "rim2")
-    gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=rre2.device)
-    gim = torch.empty_like(gre)
-    lib = _build.load("shear_sum")
-    rc = lib.dip_shear_fwd(
-        *(t.data_ptr() for t in (
-            rre2, rim2, Wt, SEre, SEim, Phire, Phiim, plane, gre, gim)),
-        PB, PT, NB, Tp, D2, nb, TB, F, int(Wt.dtype == torch.bfloat16),
-        _stream(),
-    )
-    _raise_if(rc, name)
+    out = _shear_launch("dip_shear_fwd", name, rre2, rim2, Wt, SEre, SEim,
+                        Phire, Phiim, plane, (PB, Tp, F), dims)
     shear_sum_planes.launches += 1
-    return gre, gim
+    return out
 
 
 def shear_sum_planes_t(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, plane):
@@ -561,24 +593,15 @@ def shear_sum_planes_t(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, plane):
         return shear_sum_planes_t_ref(gre_b, gim_b, Wt, SEre, SEim, Phire,
                                       Phiim, plane)
     name = "shear_sum_planes_t"
-    PB, PT, NB, Tp, D2, nb, TB, F = _check_shear(
-        name, dict(gre_b=gre_b, gim_b=gim_b), Wt, SEre, SEim, Phire, Phiim,
-        plane)
+    dims = _check_shear(name, dict(gre_b=gre_b, gim_b=gim_b), Wt, SEre,
+                        SEim, Phire, Phiim, plane)
+    PB, _, NB, Tp, _, nb, _, F = dims
     _shape(name, gre_b, (PB, Tp, F), "gre_b")
     _shape(name, gim_b, (PB, Tp, F), "gim_b")
-    rre2 = torch.empty((PB, 2, NB * nb, F), dtype=torch.float32,
-                       device=gre_b.device)
-    rim2 = torch.empty_like(rre2)
-    lib = _build.load("shear_sum")
-    rc = lib.dip_shear_t(
-        *(t.data_ptr() for t in (
-            gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, plane, rre2, rim2)),
-        PB, PT, NB, Tp, D2, nb, TB, F, int(Wt.dtype == torch.bfloat16),
-        _stream(),
-    )
-    _raise_if(rc, name)
+    out = _shear_launch("dip_shear_t", name, gre_b, gim_b, Wt, SEre, SEim,
+                        Phire, Phiim, plane, (PB, 2, NB * nb, F), dims)
     shear_sum_planes_t.launches += 1
-    return rre2, rim2
+    return out
 
 
 def shear_sum(rre_s, rim_s, Wt, SEre, SEim, Phire, Phiim):
@@ -587,23 +610,16 @@ def shear_sum(rre_s, rim_s, Wt, SEre, SEim, Phire, Phiim):
     if _on_cpu(rre_s):
         return shear_sum_ref(rre_s, rim_s, Wt, SEre, SEim, Phire, Phiim)
     name = "shear_sum"
-    PB, PT, NB, Tp, D2, nb, TB, F = _check_shear(
-        name, dict(rre_s=rre_s, rim_s=rim_s), Wt, SEre, SEim, Phire, Phiim,
-        TB=rre_s.shape[1])
+    dims = _check_shear(name, dict(rre_s=rre_s, rim_s=rim_s), Wt, SEre,
+                        SEim, Phire, Phiim, TB=rre_s.shape[1])
+    PB, _, NB, Tp, _, nb, TB, F = dims
     _shape(name, rre_s, (PB, TB, NB * nb, F), "rre_s")
     _shape(name, rim_s, (PB, TB, NB * nb, F), "rim_s")
-    gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=rre_s.device)
-    gim = torch.empty_like(gre)
-    lib = _build.load("shear_sum")
-    rc = lib.dip_shear_fwd(  # no plane table: angle block tb reads slot tb
-        *(t.data_ptr() for t in (rre_s, rim_s, Wt, SEre, SEim, Phire, Phiim)),
-        None, gre.data_ptr(), gim.data_ptr(),
-        PB, PT, NB, Tp, D2, nb, TB, F, int(Wt.dtype == torch.bfloat16),
-        _stream(),
-    )
-    _raise_if(rc, name)
+    # no plane table: angle block tb reads slot tb
+    out = _shear_launch("dip_shear_fwd", name, rre_s, rim_s, Wt, SEre, SEim,
+                        Phire, Phiim, None, (PB, Tp, F), dims)
     shear_sum.launches += 1
-    return gre, gim
+    return out
 
 
 def shear_sum_t(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, TB: int):
@@ -613,24 +629,16 @@ def shear_sum_t(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, TB: int):
         return shear_sum_t_ref(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim,
                                TB)
     name = "shear_sum_t"
-    PB, PT, NB, Tp, D2, nb, TB, F = _check_shear(
-        name, dict(gre_b=gre_b, gim_b=gim_b), Wt, SEre, SEim, Phire, Phiim,
-        TB=TB)
+    dims = _check_shear(name, dict(gre_b=gre_b, gim_b=gim_b), Wt, SEre,
+                        SEim, Phire, Phiim, TB=TB)
+    PB, _, NB, Tp, _, nb, _, F = dims
     _shape(name, gre_b, (PB, Tp, F), "gre_b")
     _shape(name, gim_b, (PB, Tp, F), "gim_b")
-    rre_s = torch.empty((PB, TB, NB * nb, F), dtype=torch.float32,
-                        device=gre_b.device)
-    rim_s = torch.empty_like(rre_s)
-    lib = _build.load("shear_sum")
-    rc = lib.dip_shear_t(  # no plane table: slot tb from angle block tb
-        *(t.data_ptr() for t in (gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim)),
-        None, rre_s.data_ptr(), rim_s.data_ptr(),
-        PB, PT, NB, Tp, D2, nb, TB, F, int(Wt.dtype == torch.bfloat16),
-        _stream(),
-    )
-    _raise_if(rc, name)
+    # no plane table: slot tb from angle block tb
+    out = _shear_launch("dip_shear_t", name, gre_b, gim_b, Wt, SEre, SEim,
+                        Phire, Phiim, None, (PB, TB, NB * nb, F), dims)
     shear_sum_t.launches += 1
-    return rre_s, rim_s
+    return out
 
 
 def _eval_checks(name, tensors, Wd, PB, F, aligned=("Wd",)):

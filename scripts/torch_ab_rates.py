@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Parity, recommended and mesh_bench outer rates of the PyTorch port on
-one GPU, and the per-call times of the skew transpose row stage and the
-eval tail, for comparing two checkouts in one call on one card.
+"""Parity, recommended, shear recommended and mesh_bench outer rates of the
+PyTorch port on one GPU, and the per-call times of the skew transpose row
+stage, the eval tail and the shear row stages, for comparing two checkouts
+in one call on one card.
 
     python3 scripts/torch_ab_rates.py ROOT
 
@@ -9,12 +10,15 @@ runs, from the checkout at ROOT (its own ``chip_smoke.py`` and kernels):
 the build; K2 (``skew_sum_planes_t``), K3 (``eval_shear``) and K4
 (``eval_shear_t``) at the 256^2/8 bench and fan shapes, K3/K4 at a 2 x 2
 mesh rank's node block (P_loc = 4) and K6 (``skew_sum_planes_t_rows``) at
-row shard 0 of 2 of that node block and of the fan tables, each the median
-of 20 calls (CUDA events, bf16 tables, seeded spectra and cotangents); 20
-parity and 20 recommended outers of the 256^2/8 bench problem on one
-device; and 20 recommended outers on a 2 x 2 node x pixel mesh of four
-processes sharing the card (``chip_smoke.py``'s phases 5, 6 and 6b without
-their reference checks).
+row shard 0 of 2 of that node block and of the fan tables, K7
+(``shear_sum_planes``) and K8 (``shear_sum_planes_t``) on the 256^2/8
+``fft_shear`` problem's tables, each the median of 20 calls (CUDA events,
+bf16 tables, seeded spectra and cotangents), and that problem's apply pair
+(project + backproject); 20 parity and 20 recommended outers of the
+256^2/8 bench problem on one device, and 20 recommended outers of the
+``fft_shear`` problem; and 20 recommended outers on a 2 x 2 node x pixel
+mesh of four processes sharing the card (``chip_smoke.py``'s phases 5, 6,
+6b and 18 without their reference checks).
 It prints a line for each. Alternate the checkouts, e.g. with the parent
 unpacked by ``git archive`` into ``build/parent``:
 
@@ -74,6 +78,33 @@ def _kernel_ms(t, P, tag) -> dict:
     return out
 
 
+def _shear_ms(problem) -> dict:
+    """K7 and K8 on the tables of the fft_shear ``problem`` (one image per
+    node), per call in ms, and its apply pair."""
+    from dip_admm_tpu_torch.ops import radon_fft
+    from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
+
+    t = problem.fft_tables
+    geo = problem.cfg.geometry
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    P, NB, Tp, _, nb = t["Wt"].shape
+    F = t["SEre"].shape[-1]
+    tabs = (t["Wt"], t["SEre"], t["SEim"], t["shared"]["Phire"],
+            t["shared"]["Phiim"], t["plane"])
+    r = [torch.randn((P, 2, NB * nb, F), generator=gen, device="cuda")
+         for _ in range(2)]
+    g = [torch.randn((P, Tp, F), generator=gen, device="cuda")
+         for _ in range(2)]
+    img = torch.randn((P, geo.N, geo.N), generator=gen, device="cuda")
+    return {"k7_shear": cs._time_ms(
+                torch, lambda: ss.shear_sum_planes(*r, *tabs)),
+            "k8_shear": cs._time_ms(
+                torch, lambda: ss.shear_sum_planes_t(*g, *tabs)),
+            "shear_pair": cs._pair_ms(
+                torch, radon_fft.project_nodes_shear,
+                radon_fft.backproject_nodes_shear, geo, t, img)}
+
+
 def main() -> int:
     from dip_admm_tpu_torch.data import loader
 
@@ -93,6 +124,8 @@ def main() -> int:
                    ("fan", fan.fft_tables["shared"]["par"])):
         times.update(_kernel_ms(t, cfg.geometry.num_nodes, tag))
     del fan
+    shear = loader.build_problem(cfg, dev, mode="fft_shear")
+    times.update(_shear_ms(shear))
     print(f"{ROOT} kernel_ms: " + " ".join(
         f"{k}={v}" for k, v in times.items()), flush=True)
     _, _, line = cs._drive(torch, problem, cfg.admm, cs.REF_PSNR, "main",
@@ -101,7 +134,10 @@ def main() -> int:
     _, _, line = cs._drive(torch, problem, cs._recommended(cfg.admm),
                            cs.REF_REC_PSNR, "recommended", failures)
     print(f"{ROOT} recommended: {line}", flush=True)
-    del problem
+    _, _, line = cs._drive(torch, shear, cs._recommended(cfg.admm),
+                           cs.REF_REC_PSNR, "sm_shear", failures, cs.SHEAR)
+    print(f"{ROOT} shear_recommended: {line}", flush=True)
+    del problem, shear
     torch.cuda.empty_cache()
     cs._mesh_run(torch, "mesh_bench", False, 2, 2, cs.REF_REC_PSNR, failures)
     print(f"{ROOT} failures={failures}", flush=True)

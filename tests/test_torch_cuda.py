@@ -675,6 +675,199 @@ def test_shear_slot_kernels_match_plain_repeat_and_k7_k8(dtype):
                   ss.shear_sum_planes_t(*k8_args), RTOL[dtype])
 
 
+def _shear_tables(dev, N, P, angles_total, nb, dtype=torch.bfloat16):
+    geo = GeometryConfig(N=N, num_nodes=P, angles_total=angles_total)
+    a, v, _ = radon.node_angles(geo)
+    return geo, radon_fft.precompute_shear(
+        geo, torch.as_tensor(a, dtype=torch.float32, device=dev),
+        torch.as_tensor(v, device=dev), dtype, nb=nb, layout="shear")
+
+
+def _shear_case(name, dev):
+    """K7's and K8's arguments for the card cases of the bf16 tensor-core
+    kernels: three images on one shared table set (PT = 1) of the small
+    tables, the 256^2/8 bench tables (nb = 128, tt = 48, F = 513) and the
+    512^2/8 ones (NB = 4, F = 1025)."""
+    if name == "PT1":
+        cases = _shear_cases(torch.bfloat16, dev)
+        k7, k8 = cases["shear_sum_planes"][2], cases["shear_sum_planes_t"][2]
+        tabs = [v[:1].contiguous() for v in k7[2:5]]
+        one = (*tabs, *k7[5:7], k7[7][:1].contiguous())
+        return (*k7[:2], *one), (*k8[:2], *one)
+    N, P, T = (256, 8, 768) if name == "bench-256" else (512, 8, 1536)
+    _, t = _shear_tables(dev, N, P, T, 128)
+    assert t["Wt"].shape[-1] == 128
+    assert t["Wt"].shape[2] // t["plane"].shape[1] == 48
+    NB, Tp, F = t["Wt"].shape[1], t["Wt"].shape[2], t["SEre"].shape[-1]
+    assert F == 2 * N + 1 and NB == N // 128
+    gen = torch.Generator(device=dev).manual_seed(15)
+    r = [torch.randn((P, 2, N, F), generator=gen, device=dev)
+         for _ in range(2)]
+    g = [torch.randn((P, Tp, F), generator=gen, device=dev)
+         for _ in range(2)]
+    tabs = (t["Wt"], t["SEre"], t["SEim"], t["shared"]["Phire"],
+            t["shared"]["Phiim"], t["plane"])
+    return (*r, *tabs), (*g, *tabs)
+
+
+@pytest.mark.parametrize("name", ["PT1", "bench-256", "p512"])
+def test_shear_kernels_match_plain_repeat_and_gather(name):
+    """K7-K10 with bf16 tables (the tensor-core kernels over the marked tap
+    tiles) against their plain versions and bit for bit on a second call,
+    on one shared table set, at 256^2/8 and on the 512^2/8 tables (the
+    small shapes with either table type: the tests above); K9 on the planes
+    gathered one-hot equals K7 bit for bit, and K10 summed back over the
+    one-hot holds to K8."""
+    dev = _device()
+    k7_args, k8_args = _shear_case(name, dev)
+    rtol = RTOL[k7_args[2].dtype]
+    plane = k7_args[7]
+    TB = plane.shape[1]
+    P = k7_args[0].shape[0]
+    pidx = torch.arange(P, device=dev)[:, None]
+    pl = plane.repeat(P // plane.shape[0], 1).long()
+    r_s = [v[pidx, pl].contiguous() for v in k7_args[:2]]
+    cases = ((ss.shear_sum_planes, ss.shear_sum_planes_ref, k7_args),
+             (ss.shear_sum_planes_t, ss.shear_sum_planes_t_ref, k8_args),
+             (ss.shear_sum, ss.shear_sum_ref, (*r_s, *k7_args[2:7])),
+             (ss.shear_sum_t, ss.shear_sum_t_ref,
+              (*k8_args[:7], TB)))
+    outs = []
+    for kern, ref, args in cases:
+        before = kern.launches
+        got, again = kern(*args), kern(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want = ref(*args)
+        _assert_close(got, want, rtol)
+        del want, again
+        outs.append(got)
+    assert all(torch.equal(a, b) for a, b in zip(outs[2], outs[0]))
+    onehot = torch.nn.functional.one_hot(pl, 2).float()
+    _assert_close(tuple(torch.einsum("ptnf,pto->ponf", a, onehot)
+                        for a in outs[3]), outs[1], rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shear_t_leaves_unread_plane_zero(dtype, monkeypatch):
+    """Every angle block on plane 0, and the kernels' outputs allocated
+    filled with NaN (the wrappers allocate with torch.empty): K8's plane 1
+    comes out zero and plane 0 holds to the plain version, so the kernel
+    writes every element it returns."""
+    dev = _device()
+    kern, ref, args = _shear_cases(dtype, dev)["shear_sum_planes_t"]
+    args = (*args[:-1], torch.zeros_like(args[-1]))
+    want = ref(*args)
+    empty = torch.empty
+
+    def nan_empty(*a, **k):
+        out = empty(*a, **k)
+        return out.fill_(float("nan")) if out.is_floating_point() else out
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    got = kern(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a[:, 1], torch.zeros_like(a[:, 1]))
+    _assert_close(got, want, RTOL[dtype])
+
+
+def _real_slots(Wt):
+    """[PT, Tp] slots with a nonzero tap in every row block."""
+    return (Wt != 0).flatten(3).any(dim=3).all(dim=1)
+
+
+def test_shear_nan_patterns_match_plain():
+    """K7 and K8 run MMAs only on the marked tap tiles. A NaN spectrum
+    element still reaches every real slot's g at its frequency (K7), and a
+    NaN in a real slot's cotangent every row of its plane at its frequency
+    (K8), as the plain versions' dense products carry them (on real slots:
+    the dense product also writes NaN to all-zero slack slots)."""
+    dev = _device()
+    cases = _shear_cases(torch.bfloat16, dev)
+    k7_args, k8_args = (cases[k][2] for k in ("shear_sum_planes",
+                                               "shear_sum_planes_t"))
+    Wt, plane = k7_args[2], k7_args[7]
+    real = _real_slots(Wt)  # [P, Tp]
+    r = k7_args[0].clone()
+    r[1, int(plane[1, 0]), 5, 3] = float("nan")
+    got = ss.shear_sum_planes(r, *k7_args[1:])
+    want = ss.shear_sum_planes_ref(r, *k7_args[1:])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert bool(torch.isnan(b[real]).any())
+        assert torch.equal(torch.isnan(a[real]), torch.isnan(b[real]))
+    slot = int(torch.nonzero(real[1])[0])
+    g = k8_args[0].clone()
+    g[1, slot, 3] = float("nan")
+    got = ss.shear_sum_planes_t(g, *k8_args[1:])
+    want = ss.shear_sum_planes_t_ref(g, *k8_args[1:])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert bool(torch.isnan(b).any())
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+
+
+def test_shear_projector_nan_patterns_match_plain():
+    """A NaN pixel through ``project_nodes_shear`` and a NaN sinogram entry
+    through ``backproject_nodes_shear`` (bf16 tables, K7/K8 over the marked
+    tiles) give the NaN pattern of the plain path on the CPU."""
+    dev = _device()
+    geo, t = _shear_tables(dev, 48, 3, 45, 16)
+
+    def to_cpu(v):
+        return {k: to_cpu(x) for k, x in v.items()} if isinstance(
+            v, dict) else v.cpu()
+
+    tc = to_cpu(t)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    img = torch.randn((3, 48, 48), generator=gen, device=dev)
+    img[1, 16, 24] = float("nan")
+    sino = torch.randn((3, max(geo.angles_per_node()), geo.n_det),
+                       generator=gen, device=dev)
+    sino[2, 4, 7] = float("nan")
+    for fn, x in ((radon_fft.project_nodes_shear, img),
+                  (radon_fft.backproject_nodes_shear, sino)):
+        got = fn(geo, x, t)
+        want = fn(geo, x.cpu(), tc)
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(want).any())
+        assert torch.equal(torch.isnan(got).cpu(), torch.isnan(want))
+
+
+def test_shear_wrappers_reject_bad_inputs():
+    dev = _device()
+    cases = _shear_cases(torch.bfloat16, dev)
+    r, ri, Wt, SEre, SEim, phr, phi, plane = cases["shear_sum_planes"][2]
+    with pytest.raises(TypeError):
+        ss.shear_sum_planes(r.double(), ri, Wt, SEre, SEim, phr, phi, plane)
+    with pytest.raises(TypeError):
+        ss.shear_sum_planes(r, ri, Wt, SEre, SEim, phr.to(torch.bfloat16), phi,
+                            plane)  # Phi must be f32
+    with pytest.raises(TypeError):
+        ss.shear_sum_planes(r, ri, Wt, SEre, SEim, phr, phi, plane.long())
+    with pytest.raises(ValueError):
+        ss.shear_sum_planes(r, ri, Wt, SEre[:, :1].contiguous(), SEim, phr,
+                            phi, plane)
+    with pytest.raises(ValueError):
+        ss.shear_sum_planes(r[:2].contiguous(), ri, Wt, SEre, SEim, phr, phi,
+                            plane)
+    # the bf16 kernels take D2 % 16 == 0 and a 16-byte aligned Wt
+    D2 = Wt.shape[3]
+    with pytest.raises(ValueError):
+        ss.shear_sum_planes(r, ri, Wt[..., :D2 - 8, :].contiguous(), SEre,
+                            SEim, phr[:D2 - 8].contiguous(),
+                            phi[:D2 - 8].contiguous(), plane)
+    odd = torch.empty(Wt.numel() + 4, dtype=Wt.dtype,
+                      device=dev)[4:].view_as(Wt)
+    odd.copy_(Wt)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    g, gi = cases["shear_sum_planes_t"][2][:2]
+    with pytest.raises(ValueError):
+        ss.shear_sum_planes_t(g, gi, odd, SEre, SEim, phr, phi, plane)
+
+
 @pytest.mark.parametrize("fusion", ["midpoint", "weighted"])
 def test_consensus_sharded_matches_plain_and_repeats(fusion):
     """K5's sharded form on node block 1 of 2 and pixel block 1 of 2 (3000

@@ -655,3 +655,248 @@ def test_k3_k4_mirrors_are_batch_invariant(shape):
     for a, b in zip(_k4_mirror(*(loc[n] for n in K4_ARGS)),
                     _k4_mirror(*(k[n] for n in K4_ARGS))):
         np.testing.assert_array_equal(a, b[1:])
+
+
+# ---------------------------------------------------------------------------
+# The algebra of K7/K8's tensor-core kernels (bf16 tables), mirrored in
+# numpy and held to the JAX package's kernels in interpret mode.
+
+
+def _k78_inputs(PB, PT, NB, nb, TB, tt, planes, seed):
+    """Shear tables of PT sets built as the loader builds them (two adjacent
+    taps per (row block, slot, row) at a tap offset that rises along the
+    rows, some all-zero slack slots, phases E of unit modulus, the twiddles
+    Phi = W^{f d}), bf16 taps, a plane per angle block (``planes``: "mixed",
+    sorted per table set, as the JAX transpose needs, or "one", each set on
+    one plane), the two-plane row spectra of PB images and their slot
+    cotangents. N = NB * nb, Np = 2N, so F = N + 1 is odd."""
+    rng = np.random.default_rng(seed)
+    N, Tp = NB * nb, TB * tt
+    D2 = -(-(nb + 2) // 16) * 16
+    F = N + 1
+    slope = rng.uniform(0.0, 1.0, (PT, NB, Tp, 1))
+    sig = slope * np.arange(nb) + rng.uniform(0.0, D2 - nb - 1.0,
+                                              (PT, NB, Tp, 1))
+    d0 = np.floor(sig).astype(np.int64)
+    fr = (sig - d0).astype(np.float32)
+    Wt = np.zeros((PT, NB, Tp, D2, nb), np.float32)
+    i = np.indices(d0.shape)
+    Wt[i[0], i[1], i[2], d0, i[3]] = 1.0 - fr
+    Wt[i[0], i[1], i[2], d0 + 1, i[3]] += fr
+    Wt[:, :, rng.random(Tp) < 0.2] = 0.0  # slack slots
+    ph = rng.uniform(0.0, 2.0 * np.pi, (PT, NB, Tp, F))
+    ang = 2.0 * np.pi / (2 * N) * np.outer(np.arange(D2), np.arange(F))
+    if planes == "mixed":
+        plane = np.sort(rng.integers(0, 2, (PT, TB)), axis=1)
+    else:
+        plane = np.tile((np.arange(PT) % 2)[:, None], (1, TB))
+    plane = plane.astype(np.int32)
+    pfirst = np.ones_like(plane)
+    pfirst[:, 1:] = plane[:, 1:] != plane[:, :-1]
+    pvisited = np.stack([(plane == s).any(axis=1) for s in (0, 1)], axis=1)
+    return dict(
+        rre2=rng.standard_normal((PB, 2, N, F)).astype(np.float32),
+        rim2=rng.standard_normal((PB, 2, N, F)).astype(np.float32),
+        gre=rng.standard_normal((PB, Tp, F)).astype(np.float32),
+        gim=rng.standard_normal((PB, Tp, F)).astype(np.float32),
+        Wt=_bf16(Wt), SEre=np.cos(ph).astype(np.float32),
+        SEim=np.sin(ph).astype(np.float32),
+        Phire=np.cos(ang).astype(np.float32),
+        Phiim=np.sin(ang).astype(np.float32), plane=plane, pfirst=pfirst,
+        pvisited=pvisited)
+
+
+def _tap_tiles(W):
+    """[..., D2/8, nb/8]: which 8 x 8 (taps, rows) tiles of the tap table W
+    [..., D2, nb] hold a nonzero (the kernels' mask pass)."""
+    D2, nb = W.shape[-2:]
+    t = (W != 0).reshape(W.shape[:-2] + (D2 // 8, 8, nb // 8, 8))
+    return t.any(axis=(-3, -1))
+
+
+def _k7_tensor_core_mirror(rre2, rim2, Wt, SEre, SEim, Phire, Phiim, plane,
+                           every_tile=False):
+    """K7 as its bf16 tensor-core kernel computes it. Per (image p, angle
+    block tb, row block b, slot t): the spectra rounded to bf16; S[d, f]
+    summed in f32 over the (8 taps, 16 rows) tiles that the mask marks
+    (``every_tile``: over all of them), 16-row chunks in ascending order
+    for each 8-tap tile; the Phi combine in f32, each lane quad's four
+    partial sums (taps 8j + 2q, 8j + 2q + 1 over ascending j) added by the
+    shuffle tree; then E_b * T added to the running f32 sum in ascending
+    b."""
+    PB, _, N, F = rre2.shape
+    PT, NB, Tp, D2, nb = Wt.shape
+    TB = plane.shape[1]
+    tt, DT, CH = Tp // TB, D2 // 8, -(-nb // 16)
+    W = Wt.astype(np.float32)
+    tiles = _tap_tiles(W)  # [PT, NB, Tp, DT, nb/8]
+    mark = np.zeros(tiles.shape[:-1] + (CH,), bool)
+    for c in range(CH):
+        mark[..., c] = tiles[..., 2 * c:2 * c + 2].any(axis=-1)
+    if every_tile:
+        mark[:] = True
+    phr, phi = Phire, Phiim
+    gre = np.zeros((PB, Tp, F), np.float32)
+    gim = np.zeros((PB, Tp, F), np.float32)
+    for p in range(PB):
+        pt = p % PT
+        for tb in range(TB):
+            ts = slice(tb * tt, (tb + 1) * tt)
+            src = plane[pt, tb]
+            for b in range(NB):
+                rows = slice(b * nb, (b + 1) * nb)
+                x = [np.zeros((16 * CH, F), np.float32) for _ in range(2)]
+                x[0][:nb] = _bf16f(rre2[p, src, rows])
+                x[1][:nb] = _bf16f(rim2[p, src, rows])
+                Wp = np.zeros((tt, D2, 16 * CH), np.float32)
+                Wp[..., :nb] = W[pt, b, ts]
+                Tq = np.zeros((2, 4, tt, F), np.float32)  # (re/im, lane q)
+                for j in range(DT):
+                    S = np.zeros((2, tt, 8, F), np.float32)
+                    for c in range(CH):
+                        m = mark[pt, b, ts, j, c][:, None, None]
+                        w = Wp[:, 8 * j:8 * j + 8, 16 * c:16 * c + 16]
+                        for k in range(2):
+                            prod = np.matmul(w, x[k][16 * c:16 * c + 16])
+                            S[k] = np.where(m, S[k] + prod, S[k])
+                    vis = mark[pt, b, ts, j].any(axis=-1)[:, None]
+                    for q in range(4):
+                        for e in range(2):
+                            d = 8 * j + 2 * q + e
+                            sr, si = S[0][:, 2 * q + e], S[1][:, 2 * q + e]
+                            Tq[0, q] = np.where(
+                                vis, Tq[0, q] + (sr * phr[d] - si * phi[d]),
+                                Tq[0, q])
+                            Tq[1, q] = np.where(
+                                vis, Tq[1, q] + (sr * phi[d] + si * phr[d]),
+                                Tq[1, q])
+                Tr = (Tq[0, 0] + Tq[0, 1]) + (Tq[0, 2] + Tq[0, 3])
+                Ti = (Tq[1, 0] + Tq[1, 1]) + (Tq[1, 2] + Tq[1, 3])
+                er, ei = SEre[pt, b, ts], SEim[pt, b, ts]
+                gre[p, ts] += Tr * er - Ti * ei
+                gim[p, ts] += Tr * ei + Ti * er
+    return gre, gim
+
+
+def _k8_tensor_core_mirror(gre, gim, Wt, SEre, SEim, Phire, Phiim, plane,
+                           every_tile=False):
+    """K8 as its bf16 tensor-core kernel computes it. Per (image p, plane,
+    row block b): for the angle blocks on the plane in ascending tb, each
+    slot t and each (16 taps, 8 rows) tile that the mask marks (``every_
+    tile``: all of them), in the order t, then taps: S = bf16(conj(Phi)
+    conj(E_b) gbar) formed in f32, its product with the taps summed in f32
+    into the plane's rows. A plane no angle block reads stays zero."""
+    PB, Tp, F = gre.shape
+    PT, NB, _, D2, nb = Wt.shape
+    TB = plane.shape[1]
+    tt, KJ = Tp // TB, D2 // 16
+    W = Wt.astype(np.float32)
+    tiles = _tap_tiles(W)  # [PT, NB, Tp, D2/8, nb/8]
+    mark = tiles[..., 0::2, :] | tiles[..., 1::2, :]  # [.., KJ, nb/8]
+    if every_tile:
+        mark[:] = True
+    mrow = np.repeat(mark, 8, axis=-1)[..., :nb]  # [.., KJ, nb]
+    out = [np.zeros((PB, 2, NB * nb, F), np.float32) for _ in range(2)]
+    for p in range(PB):
+        pt = p % PT
+        for b in range(NB):
+            rows = slice(b * nb, (b + 1) * nb)
+            for tb in range(TB):
+                pl = plane[pt, tb]
+                for t in range(tb * tt, (tb + 1) * tt):
+                    er, ei = SEre[pt, b, t], SEim[pt, b, t]
+                    g_r, g_i = gre[p, t], gim[p, t]
+                    Tr = g_r * er + g_i * ei
+                    Ti = g_i * er - g_r * ei
+                    Sr = _bf16f(Tr * Phire + Ti * Phiim)  # [D2, F]
+                    Si = _bf16f(Ti * Phire - Tr * Phiim)
+                    for J in range(KJ):
+                        ks = slice(16 * J, 16 * J + 16)
+                        m = mrow[pt, b, t, J][:, None]
+                        w = W[pt, b, t, ks].T  # [nb, 16]
+                        for k, S in enumerate((Sr, Si)):
+                            acc = out[k][p, pl, rows]
+                            out[k][p, pl, rows] = np.where(
+                                m, acc + w @ S[ks], acc)
+    return out[0], out[1]
+
+
+K78_ORDER = ("Wt", "SEre", "SEim", "Phire", "Phiim", "plane")
+# (PB, PT, NB, nb, TB, tt, planes): 48-slot angle blocks on two and on four
+# row blocks (nb = 8: a 16-row chunk half past the rows), 8-slot blocks on
+# one shared table set (PT = 1) and on one row block, nodes on one plane.
+K78_CASES = [(2, 2, 2, 16, 2, 48, "mixed"), (2, 2, 4, 8, 2, 8, "mixed"),
+             (3, 1, 2, 16, 3, 8, "mixed"), (2, 2, 1, 16, 2, 8, "one")]
+K78_IDS = ["tt48-NB2", "tt8-NB4-nb8", "tt8-PT1", "tt8-NB1-one-plane"]
+
+
+@pytest.mark.parametrize("case", K78_CASES, ids=K78_IDS)
+def test_k7_tensor_core_algebra_matches_jax(case):
+    """The mirror of K7's tensor-core kernel, and the port's plain version,
+    against JAX's interpret-mode ``shear_sum_planes`` (relative 2e-3 with
+    bf16 tables: the sums run in another order)."""
+    k = _k78_inputs(*case, seed=31)
+    args = [k["rre2"], k["rim2"]] + [k[n] for n in K78_ORDER]
+    want = jss.shear_sum_planes(*(jnp.asarray(a) for a in args))
+    mirror = _k7_tensor_core_mirror(*args)
+    plain = tss.shear_sum_planes(*(_to_torch(a) for a in args))
+    for m, pl_, w in zip(mirror, plain, want):
+        _close(m, w, RTOL["bfloat16"])
+        _close(pl_, w, RTOL["bfloat16"])
+
+
+@pytest.mark.parametrize("case", K78_CASES, ids=K78_IDS)
+def test_k8_tensor_core_algebra_matches_jax(case):
+    """The mirror of K8's tensor-core kernel, and the port's plain version,
+    against JAX's interpret-mode ``shear_sum_planes_t`` (relative 2e-3 with
+    bf16 tables: S rounds to bf16 from an f32 value whose last bit may
+    differ); planes no angle block reads are zero."""
+    k = _k78_inputs(*case, seed=32)
+    args = [k["gre"], k["gim"]] + [k[n] for n in K78_ORDER]
+    want = jss.shear_sum_planes_t(*(jnp.asarray(a) for a in args),
+                                  jnp.asarray(k["pfirst"]))
+    PB, PT = case[:2]
+    vis = np.tile(k["pvisited"], (PB // PT, 1))[:, :, None, None]
+    mirror = _k8_tensor_core_mirror(*args)
+    plain = tss.shear_sum_planes_t(*(_to_torch(a) for a in args))
+    for m, pl_, w in zip(mirror, plain, want):
+        w = np.where(np.broadcast_to(vis, w.shape), np.asarray(w), 0.0)
+        for got in (m, pl_.numpy()):
+            _close(got, w, RTOL["bfloat16"])
+            assert (got[~np.broadcast_to(vis, w.shape)] == 0).all()
+
+
+@pytest.mark.parametrize("case", [K78_CASES[0], K78_CASES[1]],
+                         ids=K78_IDS[:2])
+def test_k7_k8_marked_tiles_equal_every_tile(case):
+    """Skipping the unmarked tap tiles is exact on finite inputs: the
+    mirrors over the marked tiles equal the mirrors over every tile bit for
+    bit (a zero tile adds exact zeros)."""
+    k = _k78_inputs(*case, seed=33)
+    tabs = [k[n] for n in K78_ORDER]
+    for mirror, pair in ((_k7_tensor_core_mirror, ("rre2", "rim2")),
+                         (_k8_tensor_core_mirror, ("gre", "gim"))):
+        args = [k[n] for n in pair] + tabs
+        for a, b in zip(mirror(*args), mirror(*args, every_tile=True)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", [K78_CASES[0], K78_CASES[2]],
+                         ids=["PT=PB", "PT1"])
+def test_k7_k8_mirrors_are_batch_invariant(case):
+    """Every output element of K7/K8 is summed in a fixed order from its
+    own image and its table set alone: the mirrors on images 1..PB-1 (and,
+    with PT = PB, their table sets), as a node block runs them, equal the
+    mirrors on the whole batch bit for bit."""
+    k = _k78_inputs(*case, seed=34)
+    PT = case[1]
+    loc = dict(k)
+    for n in ("rre2", "rim2", "gre", "gim") + (
+            ("Wt", "SEre", "SEim", "plane") if PT > 1 else ()):
+        loc[n] = np.ascontiguousarray(k[n][1:])
+    for mirror, pair in ((_k7_tensor_core_mirror, ("rre2", "rim2")),
+                         (_k8_tensor_core_mirror, ("gre", "gim"))):
+        part = mirror(*(loc[n] for n in pair + K78_ORDER))
+        whole = mirror(*(k[n] for n in pair + K78_ORDER))
+        for a, b in zip(part, whole):
+            np.testing.assert_array_equal(a, b[1:])
