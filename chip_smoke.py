@@ -1290,6 +1290,32 @@ def _table_gib(t) -> float:
     return _nbytes(t) / 2**30
 
 
+def _stream_checks(torch, name, kern, args, got, ms, failures, note):
+    """K11 or K12 (``kern``) beyond ``_compare``: bitwise on a second call,
+    the device time of a call and of each launch the profile recorded, the
+    launches made and recorded a call (``torch.profiler`` has dropped
+    launches before), and the GB/s over the bytes the function must move
+    (each input read once, each output written once) against its bound."""
+    bitwise = _check_repeat(torch, name, kern, args, got, failures)
+    made0 = kern.launches
+    dev_ms, by, recorded = _device_ms(torch, lambda: kern(*args))
+    made = (kern.launches - made0 - 1) / 10  # one warm-up call, then ten
+    nbytes, f32, bf16 = _work(name, args, got)
+    bound_ms = _bound(nbytes, f32, bf16)[0]
+    per_launch = dev_ms / recorded if recorded else math.inf
+    H = args[2]
+    print(f"kernels: {name}{note} bitwise_repeat={bitwise} "
+          f"shape={tuple(H.shape)} H={H.dtype} pitch={H.stride(-2)} "
+          f"device_ms={dev_ms} device_ms_per_recorded_launch={per_launch} "
+          f"launches_made_per_call={made} "
+          f"launches_recorded_per_call={recorded} bytes={nbytes} "
+          f"GB_per_s={nbytes / ms / 1e6} "
+          f"device_GB_per_s={nbytes / per_launch / 1e6} bound_ms={bound_ms} "
+          f"share_of_bound={bound_ms / ms} "
+          f"device_share_of_bound={bound_ms / per_launch} by_kernel={by}",
+          flush=True)
+
+
 def phase_p512_problem(torch, dev):
     from dip_admm_tpu_torch.data import loader
 
@@ -1321,8 +1347,10 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
     P = problems["fft_pallas"].num_nodes
     gen = torch.Generator(device=dev).manual_seed(5)
     H, sel = (tp["Hre"], tp["Him"]), tp["sel"]
-    r = [torch.randn((P, 2, N, F), generator=gen, device=dev)
-         for _ in range(2)]
+    # The spectra in the tables' pitch, as the projector makes them.
+    r = [fs.pitched_zeros((P, 2, N, F), torch.float32, dev).copy_(
+        torch.randn((P, 2, N, F), generator=gen, device=dev))
+        for _ in range(2)]
     g = [torch.randn((P, T, F), generator=gen, device=dev) for _ in range(2)]
     # Library yardstick: one complex einsum on complex copies of the same
     # inputs, the plane select as a one-hot factor (the transpose as
@@ -1341,11 +1369,8 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
              lambda: torch.einsum("kptf,pto,ptnf->kponf", gcc, onehot, Hc))):
         got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
                                   failures, note="[512^2/8]", library=lib)
-        bitwise = _check_repeat(torch, name, kern, args, got, failures)
-        print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} T={T} "
-              f"N={N} F={F} H={H[0].dtype} GB_per_s="
-              f"{_work(name, args, got)[0] / out[name]['ms'] / 1e6}",
-              flush=True)
+        _stream_checks(torch, name, kern, args, got, out[name]["ms"],
+                       failures, "[512^2/8]")
         del got
     del Hc, onehot, rc, gcc, r, g
     torch.cuda.empty_cache()
@@ -1412,6 +1437,22 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
         cfg, torch.as_tensor(a, dtype=torch.float32, device=dev),
         torch.as_tensor(v, device=dev), "fft_pallas")
     im = torch.randn((P, geo.N, geo.N), generator=gen, device=dev)
+    # K11/K12 on these tables: the spectra of im, cotangents of the tail's
+    # shape.
+    g256 = [torch.randn((P, t["Hre"].shape[1], t["Hre"].shape[-1]),
+                        generator=gen, device=dev) for _ in range(2)]
+    for name, kern, ref, args in (
+            ("filter_sum_sel", fs.filter_sum_sel, fs.filter_sum_sel_ref,
+             (*radon_fft._plane_spectra(im, t), t["Hre"], t["Him"],
+              t["sel"])),
+            ("filter_sum_sel_t", fs.filter_sum_sel_t,
+             fs.filter_sum_sel_t_ref, (*g256, t["Hre"], t["Him"], t["sel"]))):
+        got, out[f"p256_{name}"] = _compare(torch, name, kern, ref, args,
+                                            KERNEL_RTOL, failures,
+                                            note="[256^2/8]")
+        _stream_checks(torch, name, kern, args, got,
+                       out[f"p256_{name}"]["ms"], failures, "[256^2/8]")
+        del got
     limit = radon_fft._HAT_MAX_BYTES
     for tail, lim in (("einsum", limit), ("K17/K18", 0)):
         radon_fft._HAT_MAX_BYTES = lim
@@ -1423,7 +1464,7 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
         out[f"p256_pallas_{tail}_apply_pair_ms"] = ms
         print(f"p512_kernels: mode=fft_pallas N={geo.N} apply_pair_ms={ms} "
               f"(bf16 tables, P={P}, hat tail {tail})", flush=True)
-    del t, im
+    del t, im, g256
     torch.cuda.empty_cache()
     return out
 
@@ -1910,7 +1951,7 @@ def main() -> int:
          "launches": launches[name],
          "max_abs_err": max(kern[k]["max_abs_err"] for k in (
              name, f"fan_{name}", f"rows_{name}", f"fan_rows_{name}",
-             f"block_{name}", f"p512_{name}") if k in kern),
+             f"block_{name}", f"p512_{name}", f"p256_{name}") if k in kern),
          **{k: kern[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}}
         for name in REPLACES

@@ -185,128 +185,258 @@ grp_t(const float* __restrict__ gre, const float* __restrict__ gim,
 }
 
 // ---------------------------------------------------------------------------
-// K11. Block: (f tile, angle chunk c, image p).
+// K11 and K12: streams over the pitched table, eight frequencies a thread.
+// ---------------------------------------------------------------------------
+
+constexpr int VEC = 8;    // frequencies per thread (one 16-byte bf16 load)
+constexpr int S_NG = 8;   // warps per K11/K12 block
+constexpr int S_TC = 4;   // angles per K11 block (per thread)
+constexpr int S_NR = 4;   // rows per K12 thread: row tile S_NG * S_NR
+constexpr int S_TW = 16;  // angles of g staged at a time by a K12 block
+static_assert(S_NG == 2 * S_TC, "K11's combine: warp w sums angle w / 2, "
+                                "half w % 2 of its eight frequencies");
+
+// Eight consecutive table values of a 16-byte aligned row segment, read
+// with the streaming hint (ld.global.cs: evict first from L1 and L2, so the
+// spectra that are read again stay in L2), kept raw until used.
+template <typename T> struct Row8;
+template <> struct Row8<__nv_bfloat16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = __ldcs(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ float operator[](int k) const {
+    const unsigned w = (k >> 1) == 0 ? v.x : (k >> 1) == 1 ? v.y
+                     : (k >> 1) == 2 ? v.z : v.w;
+    return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+template <> struct Row8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldcs(reinterpret_cast<const float4*>(p));
+    b = __ldcs(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ float operator[](int k) const {
+    const float4& q = k < 4 ? a : b;
+    const int c = k & 3;
+    return c == 0 ? q.x : c == 1 ? q.y : c == 2 ? q.z : q.w;
+  }
+};
+
+// Eight consecutive f32 spectrum values (16-byte aligned), cached.
+__device__ __forceinline__ void ld8f(const float* p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// ---------------------------------------------------------------------------
+// K11. Block: (f tile of JT eight-frequency groups, chunk of S_TC angles,
+// image p). Warp w sums rows n = w mod S_NG; lane l owns group j0 + l.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(FT * NG)
+__global__ void __launch_bounds__(32 * S_NG, 2)
 sel_fwd(const float* __restrict__ rre, const float* __restrict__ rim,
         const T* __restrict__ hre, const T* __restrict__ him,
         const float* __restrict__ sel, float* __restrict__ gre,
-        float* __restrict__ gim, int PT, int T_, int N, int F) {
-  __shared__ float sr[NG][TC][FT];
-  __shared__ float si[NG][TC][FT];
+        float* __restrict__ gim, int PT, int T_, int N, int F, int JT,
+        int hp, int rp) {
+  __shared__ float part[S_NG][S_TC * VEC][32];  // [warp][angle, f][lane]
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int f = blockIdx.x * FT + tx;
-  const int t0 = blockIdx.y * TC, nt = min(TC, T_ - t0);
+  const int j0 = blockIdx.x * JT;
+  const bool live = tx < min(JT, cdiv(F, VEC) - j0);
+  const int f0 = (j0 + tx) * VEC;
+  const int t0 = blockIdx.y * S_TC, nt = min(S_TC, T_ - t0);
   const int p = blockIdx.z, pt = p % PT;
-  const long NF = (long)N * F;
   // Bit i set: angle t0 + i reads plane 1.
   unsigned one = 0;
   for (int i = 0; i < nt; ++i)
     if (sel[(long)pt * T_ + t0 + i] > 0.5f) one |= 1u << i;
-  const bool need0 = one != (1u << nt) - 1u, need1 = one != 0u;
-  float ar[TC], ai[TC];
+  float ar[S_TC][VEC], ai[S_TC][VEC];
 #pragma unroll
-  for (int i = 0; i < TC; ++i) ar[i] = ai[i] = 0.f;
+  for (int i = 0; i < S_TC; ++i)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) ar[i][k] = ai[i][k] = 0.f;
 
-  if (f < F) {
-    const float* x0r = rre + (long)p * 2 * NF + f;
-    const float* x0i = rim + (long)p * 2 * NF + f;
-    const T* h_r = hre + ((long)pt * T_ + t0) * NF + f;
-    const T* h_i = him + ((long)pt * T_ + t0) * NF + f;
-    for (int n = ty; n < N; n += NG) {
-      const long o = (long)n * F;
-      float v0r = 0.f, v0i = 0.f, v1r = 0.f, v1i = 0.f;
-      if (need0) {
-        v0r = x0r[o];
-        v0i = x0i[o];
-      }
-      if (need1) {
-        v1r = x0r[NF + o];
-        v1i = x0i[NF + o];
-      }
+  if (live) {
+    const long hs = (long)N * hp;  // angle stride of H
+    const T* h_r = hre + ((long)pt * T_ + t0) * hs + f0;
+    const T* h_i = him + ((long)pt * T_ + t0) * hs + f0;
+    const float* x_r = rre + (long)p * 2 * N * rp + f0;
+    const float* x_i = rim + (long)p * 2 * N * rp + f0;
+    for (int n = ty; n < N; n += S_NG) {
+      const long o = (long)n * hp;
+      Row8<T> hr[S_TC], hi[S_TC];
 #pragma unroll
-      for (int i = 0; i < TC; ++i) {
+      for (int i = 0; i < S_TC; ++i) {
         if (i < nt) {
-          const bool s1 = (one >> i) & 1u;
-          const float vr = s1 ? v1r : v0r, vi = s1 ? v1i : v0i;
-          const float hr = ld<T>(h_r, i * NF + o), hi = ld<T>(h_i, i * NF + o);
-          ar[i] += vr * hr - vi * hi;
-          ai[i] += vr * hi + vi * hr;
+          hr[i].load(h_r + i * hs + o);
+          hi[i].load(h_i + i * hs + o);
+        }
+      }
+      // One plane's spectrum row at a time: the angles of plane 0, then
+      // those of plane 1 (a chunk that straddles the switch reads both).
+#pragma unroll
+      for (int pl = 0; pl < 2; ++pl) {
+        const unsigned mine = pl ? one : ~one & ((1u << nt) - 1u);
+        if (!mine) continue;
+        float vr[VEC], vi[VEC];
+        const long xo = ((long)pl * N + n) * rp;
+        ld8f(x_r + xo, vr);
+        ld8f(x_i + xo, vi);
+#pragma unroll
+        for (int i = 0; i < S_TC; ++i) {
+          if ((mine >> i) & 1u) {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) {
+              const float a = hr[i][k], b = hi[i][k];
+              ar[i][k] += vr[k] * a - vi[k] * b;
+              ai[i][k] += vr[k] * b + vi[k] * a;
+            }
+          }
         }
       }
     }
   }
+  // The S_NG row partials, added in warp order: re, then im.
+  const int i = ty >> 1, kh = (ty & 1) * (VEC / 2);
 #pragma unroll
-  for (int i = 0; i < TC; ++i) {
-    sr[ty][i][tx] = ar[i];
-    si[ty][i][tx] = ai[i];
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int a = 0; a < S_TC; ++a)
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        part[ty][a * VEC + k][tx] = c ? ai[a][k] : ar[a][k];
+    __syncthreads();
+    if (live && i < nt) {
+      float* out = (c ? gim : gre) + ((long)p * T_ + t0 + i) * F;
+#pragma unroll
+      for (int kk = 0; kk < VEC / 2; ++kk) {
+        const int k = kh + kk;
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < S_NG; ++w) v += part[w][i * VEC + k][tx];
+        if (f0 + k < F) out[f0 + k] = v;
+      }
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  const int i = ty;  // this thread's output angle of the chunk
-  if (f >= F || i >= nt) return;
-  float vr = 0.f, vi = 0.f;
-  for (int g = 0; g < NG; ++g) {
-    vr += sr[g][i][tx];
-    vi += si[g][i][tx];
-  }
-  const long go = ((long)p * T_ + t0 + i) * F + f;
-  gre[go] = vr;
-  gim[go] = vi;
 }
 
 // ---------------------------------------------------------------------------
-// K12. Block: (f tile, row tile, image p).
+// K12. Block: (f tile of JT groups, row tile of S_NG * S_NR rows, image p).
+// Thread (lane l, warp w) owns rows n0 + w + S_NG * q of group j0 + l; it
+// walks plane 0's angles in ascending t, writes plane 0, then plane 1's.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(FT * NG)
+__global__ void __launch_bounds__(32 * S_NG, 2)
 sel_t(const float* __restrict__ gre, const float* __restrict__ gim,
       const T* __restrict__ hre, const T* __restrict__ him,
       const float* __restrict__ sel, float* __restrict__ rre,
-      float* __restrict__ rim, int PT, int T_, int N, int F) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int f = blockIdx.x * FT + tx, n0 = blockIdx.y * (NG * NR) + ty;
+      float* __restrict__ rim, int PT, int T_, int N, int F, int JT, int hp,
+      int rp) {
+  // g of S_TW angles of the f tile, [re/im][f half][angle][lane * 4 + f % 4]
+  // (a lane's two 16-byte reads hit consecutive addresses across lanes).
+  __shared__ __align__(16) float gs[2][2][S_TW][32 * 4];
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * 32 + tx;
+  const int j0 = blockIdx.x * JT, jt = min(JT, cdiv(F, VEC) - j0);
+  const bool live = tx < jt;
+  const int f0 = (j0 + tx) * VEC;
+  const int n0 = blockIdx.y * (S_NG * S_NR) + ty;
   const int p = blockIdx.z, pt = p % PT;
-  if (f >= F) return;
-  const long NF = (long)N * F;
-  const float* g_r = gre + (long)p * T_ * F + f;
-  const float* g_i = gim + (long)p * T_ * F + f;
+  const long hs = (long)N * hp;
+  const T* h_r = hre + (long)pt * T_ * hs + f0;
+  const T* h_i = him + (long)pt * T_ * hs + f0;
+  const float* g_r = gre + (long)p * T_ * F;
+  const float* g_i = gim + (long)p * T_ * F;
   const float* s = sel + (long)pt * T_;
-  const T* h_r = hre + (long)pt * T_ * NF + f;
-  const T* h_i = him + (long)pt * T_ * NF + f;
-  float a0r[NR], a0i[NR], a1r[NR], a1i[NR];
-#pragma unroll
-  for (int j = 0; j < NR; ++j) a0r[j] = a0i[j] = a1r[j] = a1i[j] = 0.f;
+  const int cols = jt * VEC;
 
-  for (int t = 0; t < T_; ++t) {
-    const float gr = g_r[(long)t * F], gi = g_i[(long)t * F];
-    const bool s1 = s[t] > 0.5f;
+  for (int pl = 0; pl < 2; ++pl) {
+    float ar[S_NR][VEC], ai[S_NR][VEC];
 #pragma unroll
-    for (int j = 0; j < NR; ++j) {
-      const int n = n0 + NG * j;
-      if (n < N) {
-        const long o = t * NF + (long)n * F;
-        const float hr = ld<T>(h_r, o), hi = ld<T>(h_i, o);
-        const float cr = gr * hr + gi * hi, ci = gi * hr - gr * hi;
-        if (s1) {
-          a1r[j] += cr;
-          a1i[j] += ci;
-        } else {
-          a0r[j] += cr;
-          a0i[j] += ci;
+    for (int q = 0; q < S_NR; ++q)
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) ar[q][k] = ai[q][k] = 0.f;
+    for (int w0 = 0; w0 < T_; w0 += S_TW) {
+      // The window's angles of this plane (the same mask in every warp).
+      const int tw = w0 + (tx & (S_TW - 1));
+      const bool in = tx < S_TW && tw < T_;
+      const unsigned m1 = __ballot_sync(0xffffffffu, in && s[tw] > 0.5f);
+      const unsigned m = pl ? m1 : __ballot_sync(0xffffffffu, in) & ~m1;
+      if (!m) continue;
+      __syncthreads();  // the previous window's g is no longer read
+      for (int e = tid; e < 2 * S_TW * cols; e += 32 * S_NG) {
+        const int c = e / (S_TW * cols), r = e % (S_TW * cols);
+        const int a = r / cols, col = r % cols;
+        if (!((m >> a) & 1u)) continue;
+        const int f = j0 * VEC + col;
+        const float v = f < F ? (c ? g_i : g_r)[(long)(w0 + a) * F + f] : 0.f;
+        gs[c][(col & 7) >> 2][a][(col >> 3) * 4 + (col & 3)] = v;
+      }
+      __syncthreads();
+      for (unsigned mm = m; mm; mm &= mm - 1u) {
+        const int a = __ffs(mm) - 1;
+        const long to = (long)(w0 + a) * hs;
+        Row8<T> hr[S_NR], hi[S_NR];
+        if (live) {
+#pragma unroll
+          for (int q = 0; q < S_NR; ++q) {
+            const int n = n0 + S_NG * q;
+            if (n < N) {
+              hr[q].load(h_r + to + (long)n * hp);
+              hi[q].load(h_i + to + (long)n * hp);
+            }
+          }
+        }
+        float gr[VEC], gi[VEC];
+        {
+          const float4 r0 = *reinterpret_cast<const float4*>(&gs[0][0][a][tx * 4]);
+          const float4 r1 = *reinterpret_cast<const float4*>(&gs[0][1][a][tx * 4]);
+          const float4 i0 = *reinterpret_cast<const float4*>(&gs[1][0][a][tx * 4]);
+          const float4 i1 = *reinterpret_cast<const float4*>(&gs[1][1][a][tx * 4]);
+          gr[0] = r0.x; gr[1] = r0.y; gr[2] = r0.z; gr[3] = r0.w;
+          gr[4] = r1.x; gr[5] = r1.y; gr[6] = r1.z; gr[7] = r1.w;
+          gi[0] = i0.x; gi[1] = i0.y; gi[2] = i0.z; gi[3] = i0.w;
+          gi[4] = i1.x; gi[5] = i1.y; gi[6] = i1.z; gi[7] = i1.w;
+        }
+        if (live) {
+#pragma unroll
+          for (int q = 0; q < S_NR; ++q) {
+            if (n0 + S_NG * q < N) {
+#pragma unroll
+              for (int k = 0; k < VEC; ++k) {
+                const float a_ = hr[q][k], b_ = hi[q][k];
+                ar[q][k] += gr[k] * a_ + gi[k] * b_;
+                ai[q][k] += gi[k] * a_ - gr[k] * b_;
+              }
+            }
+          }
         }
       }
     }
-  }
+    // Plane pl of the rows: 16-byte stores over the pitch, zeros past F.
+    if (live) {
 #pragma unroll
-  for (int j = 0; j < NR; ++j) {
-    const int n = n0 + NG * j;
-    if (n < N) {
-      const long ro = (long)p * 2 * NF + (long)n * F + f;
-      rre[ro] = a0r[j];
-      rim[ro] = a0i[j];
-      rre[ro + NF] = a1r[j];
-      rim[ro + NF] = a1i[j];
+      for (int q = 0; q < S_NR; ++q) {
+        const int n = n0 + S_NG * q;
+        if (n >= N) continue;
+        const long ro = ((long)(p * 2 + pl) * N + n) * rp + f0;
+        float vr[VEC], vi[VEC];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          vr[k] = f0 + k < F ? ar[q][k] : 0.f;
+          vi[k] = f0 + k < F ? ai[q][k] : 0.f;
+        }
+        float4* orr = reinterpret_cast<float4*>(rre + ro);
+        float4* ori = reinterpret_cast<float4*>(rim + ro);
+        orr[0] = make_float4(vr[0], vr[1], vr[2], vr[3]);
+        orr[1] = make_float4(vr[4], vr[5], vr[6], vr[7]);
+        ori[0] = make_float4(vi[0], vi[1], vi[2], vi[3]);
+        ori[1] = make_float4(vi[4], vi[5], vi[6], vi[7]);
+      }
     }
   }
 }
@@ -315,40 +445,51 @@ sel_t(const float* __restrict__ gre, const float* __restrict__ gim,
 
 extern "C" {
 
+// K11/K12 grid: cdiv(J, 32) f tiles of equal width (J = cdiv(F, 8) groups),
+// so the ragged edge is spread over the tiles' lanes, not a tile of its own.
+static int sel_tile(int F) {
+  const int J = cdiv(F, VEC);
+  return cdiv(J, cdiv(J, 32));
+}
+
 int dip_sel_fwd(const float* rre, const float* rim, const void* hre,
                 const void* him, const float* sel, float* gre, float* gim,
-                int PB, int PT, int T_, int N, int F, int bf16, void* stream) {
+                int PB, int PT, int T_, int N, int F, int hp, int rp,
+                int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 blk(FT, NG);
-  const dim3 g(cdiv(F, FT), cdiv(T_, TC), PB);
+  const int JT = sel_tile(F);
+  const dim3 blk(32, S_NG);
+  const dim3 g(cdiv(cdiv(F, VEC), JT), cdiv(T_, S_TC), PB);
   if (bf16) {
     using T = __nv_bfloat16;
     sel_fwd<T><<<g, blk, 0, s>>>(rre, rim, static_cast<const T*>(hre),
                                  static_cast<const T*>(him), sel, gre, gim, PT,
-                                 T_, N, F);
+                                 T_, N, F, JT, hp, rp);
   } else {
     sel_fwd<float><<<g, blk, 0, s>>>(rre, rim, static_cast<const float*>(hre),
                                      static_cast<const float*>(him), sel, gre,
-                                     gim, PT, T_, N, F);
+                                     gim, PT, T_, N, F, JT, hp, rp);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int dip_sel_t(const float* gre, const float* gim, const void* hre,
               const void* him, const float* sel, float* rre, float* rim,
-              int PB, int PT, int T_, int N, int F, int bf16, void* stream) {
+              int PB, int PT, int T_, int N, int F, int hp, int rp, int bf16,
+              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 blk(FT, NG);
-  const dim3 g(cdiv(F, FT), cdiv(N, NG * NR), PB);
+  const int JT = sel_tile(F);
+  const dim3 blk(32, S_NG);
+  const dim3 g(cdiv(cdiv(F, VEC), JT), cdiv(N, S_NG * S_NR), PB);
   if (bf16) {
     using T = __nv_bfloat16;
     sel_t<T><<<g, blk, 0, s>>>(gre, gim, static_cast<const T*>(hre),
                                static_cast<const T*>(him), sel, rre, rim, PT,
-                               T_, N, F);
+                               T_, N, F, JT, hp, rp);
   } else {
     sel_t<float><<<g, blk, 0, s>>>(gre, gim, static_cast<const float*>(hre),
                                    static_cast<const float*>(him), sel, rre,
-                                   rim, PT, T_, N, F);
+                                   rim, PT, T_, N, F, JT, hp, rp);
   }
   return static_cast<int>(cudaGetLastError());
 }

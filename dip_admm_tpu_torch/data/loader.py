@@ -137,8 +137,10 @@ def build_fft_tables(cfg: ProblemConfig, angles, valid,
     if mode in ("fft_skew", "fft_shear"):
         return radon_fft.precompute_shear(
             geo, angles, valid, tdt, layout=mode.removeprefix("fft_"), **nb)
+    if mode == "fft_pallas":  # H pitched for K11/K12's 16-byte streams
+        return radon_fft.precompute_merged_nodes(geo, angles, valid, tdt,
+                                                 pitched=True)
     pre = {"fft_grouped": radon_fft.precompute_grouped,
-           "fft_pallas": radon_fft.precompute_merged_nodes,
            "fft_mxu": radon_fft.precompute_merged_mxu}[mode]
     return pre(geo, angles, valid, tdt)
 

@@ -39,6 +39,15 @@ run PT = PB, the fan-beam path its node images against one shared table set
 (PT = 1), as the JAX kernels' vmap rule folds an image batch into the node
 axis.
 
+K11/K12 read the table rows and the spectrum rows r / rbar with 16-byte
+loads, so on the card those tensors must be *pitched*: the last stride 1, a
+row pitch that is a multiple of ``PITCH`` elements and at least F, the
+outer strides dense over that pitch, and the first row 16-byte aligned.
+:func:`pitched_zeros` makes such storage (zero pad columns) and hands it out
+as the [..., F] view, so shapes and plain versions do not change; a
+contiguous tensor whose F is a multiple of ``PITCH`` also qualifies. The
+wrappers never copy to get there: anything else raises ``ValueError``.
+
 On a CPU tensor a wrapper runs its plain PyTorch version (``*_ref``); on a
 CUDA tensor it launches the hand-written kernel of ``csrc/filter_sum.cu``
 or raises. What bounds the kernels and how they are laid out is in the
@@ -55,6 +64,39 @@ from dip_admm_tpu_torch.ops.kernels import _build
 from dip_admm_tpu_torch.ops.kernels.shear_sum import (
     _batches, _check, _on_cpu, _raise_if, _shape, _stream,
 )
+
+
+PITCH = 8  # elements: 16 bytes of bf16, two 16-byte loads of f32
+
+
+def pitched_zeros(shape, dtype, device) -> torch.Tensor:
+    """Zeros of ``shape`` [..., F] in storage whose rows are padded with
+    zeros to a pitch of ``PITCH``-element multiples, as the [..., F] view
+    (fill it in place: ``pitched_zeros(x.shape, x.dtype, x.device).copy_(x)``
+    is the pitched copy of ``x``)."""
+    *lead, F = shape
+    full = torch.zeros((*lead, -(-F // PITCH) * PITCH), dtype=dtype,
+                       device=device)
+    return full[..., :F]
+
+
+def _check_pitched(name: str, what: str, x: torch.Tensor) -> int:
+    """The row pitch of ``x`` [..., F] in elements, if K11/K12 can stream
+    its rows (see the module docstring); else ValueError."""
+    F, pitch = x.shape[-1], x.stride(-2)
+    ok = (x.stride(-1) == 1 and pitch % PITCH == 0 and pitch >= F
+          and x.data_ptr() % 16 == 0)
+    dense = pitch
+    for d in range(x.dim() - 2, -1, -1):
+        ok = ok and (x.stride(d) == dense or x.shape[d] == 1)
+        dense *= x.shape[d]
+    if not ok:
+        raise ValueError(
+            f"{name}: {what} needs rows of a pitch that is a multiple of "
+            f"{PITCH} elements (>= F), dense over it and 16-byte aligned "
+            f"(filter_sum.pitched_zeros); got shape {tuple(x.shape)}, "
+            f"strides {x.stride()}")
+    return pitch
 
 
 # ---------------------------------------------------------------------------
@@ -144,32 +186,52 @@ def _check_tables(name, Hre_g, Him_g, TB):
     return PT, Tp, N, F
 
 
-def _check_sel_tables(name, Hre, Him, sel):
-    PT, T, N, F = Hre.shape
-    _shape(name, Him, (PT, T, N, F), "Him")
-    _shape(name, sel, (PT, T, 1), "sel")
-    return PT, T, N, F
+def _check_sel(name, dense, streamed, device, table_dtype):
+    """``_check`` on the tensors read plainly; device, type and
+    :func:`_check_pitched` on those whose rows K11/K12 stream. Returns the
+    row pitches of ``streamed``."""
+    _check(name, dense, device, table_dtype)
+    for k, t in streamed.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {k} is on {t.device}, expected {device}")
+        want = table_dtype if k in ("Hre", "Him") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: {k} is {t.dtype}, expected {want}")
+    return {k: _check_pitched(name, k, t) for k, t in streamed.items()}
+
+
+def _shared_pitch(name, pitch, a, b) -> int:
+    if pitch[a] != pitch[b]:
+        raise ValueError(f"{name}: {a} and {b} must share a row pitch, got "
+                         f"{pitch[a]} and {pitch[b]}")
+    return pitch[a]
 
 
 def filter_sum_sel(rre2, rim2, Hre, Him, sel):
     """K11: see :func:`filter_sum_sel_ref`. The kernel reads only the plane
-    each angle selects (sel > 0.5); for sel in {0, 1} that is the same sum."""
+    each angle selects (sel > 0.5); for sel in {0, 1} that is the same sum.
+    On the card ``rre2``/``rim2`` and the tables must be pitched."""
     if _on_cpu(rre2):
         return filter_sum_sel_ref(rre2, rim2, Hre, Him, sel)
     name = "filter_sum_sel"
     PB = rre2.shape[0]
-    PT, T, N, F = _check_sel_tables(name, Hre, Him, sel)
-    _check(name, dict(rre2=rre2, rim2=rim2, Hre=Hre, Him=Him, sel=sel),
-           rre2.device, Hre.dtype)
+    PT, T, N, F = Hre.shape
+    _shape(name, Him, (PT, T, N, F), "Him")
+    _shape(name, sel, (PT, T, 1), "sel")
     _batches(name, PB, PT)
     _shape(name, rre2, (PB, 2, N, F), "rre2")
     _shape(name, rim2, (PB, 2, N, F), "rim2")
+    pitch = _check_sel(name, dict(sel=sel),
+                       dict(rre2=rre2, rim2=rim2, Hre=Hre, Him=Him),
+                       rre2.device, Hre.dtype)
+    hp = _shared_pitch(name, pitch, "Hre", "Him")
+    rp = _shared_pitch(name, pitch, "rre2", "rim2")
     gre = torch.empty((PB, T, F), dtype=torch.float32, device=rre2.device)
     gim = torch.empty_like(gre)
     lib = _build.load("filter_sum")
     rc = lib.dip_sel_fwd(
         *(t.data_ptr() for t in (rre2, rim2, Hre, Him, sel, gre, gim)),
-        PB, PT, T, N, F, int(Hre.dtype == torch.bfloat16), _stream(),
+        PB, PT, T, N, F, hp, rp, int(Hre.dtype == torch.bfloat16), _stream(),
     )
     _raise_if(rc, name)
     filter_sum_sel.launches += 1
@@ -177,23 +239,30 @@ def filter_sum_sel(rre2, rim2, Hre, Him, sel):
 
 
 def filter_sum_sel_t(gre_b, gim_b, Hre, Him, sel):
-    """K12: see :func:`filter_sum_sel_t_ref`."""
+    """K12: see :func:`filter_sum_sel_t_ref`. On the card the tables must
+    be pitched; the output is a pitched view (:func:`pitched_zeros`'s
+    layout, pad columns written as zeros)."""
     if _on_cpu(gre_b):
         return filter_sum_sel_t_ref(gre_b, gim_b, Hre, Him, sel)
     name = "filter_sum_sel_t"
     PB = gre_b.shape[0]
-    PT, T, N, F = _check_sel_tables(name, Hre, Him, sel)
-    _check(name, dict(gre_b=gre_b, gim_b=gim_b, Hre=Hre, Him=Him, sel=sel),
-           gre_b.device, Hre.dtype)
+    PT, T, N, F = Hre.shape
+    _shape(name, Him, (PT, T, N, F), "Him")
+    _shape(name, sel, (PT, T, 1), "sel")
     _batches(name, PB, PT)
     _shape(name, gre_b, (PB, T, F), "gre_b")
     _shape(name, gim_b, (PB, T, F), "gim_b")
-    rre = torch.empty((PB, 2, N, F), dtype=torch.float32, device=gre_b.device)
-    rim = torch.empty_like(rre)
+    pitch = _check_sel(name, dict(gre_b=gre_b, gim_b=gim_b, sel=sel),
+                       dict(Hre=Hre, Him=Him), gre_b.device, Hre.dtype)
+    hp = _shared_pitch(name, pitch, "Hre", "Him")
+    rre, rim = (torch.empty((PB, 2, N, -(-F // PITCH) * PITCH),
+                            dtype=torch.float32, device=gre_b.device)[..., :F]
+                for _ in range(2))
     lib = _build.load("filter_sum")
     rc = lib.dip_sel_t(
         *(t.data_ptr() for t in (gre_b, gim_b, Hre, Him, sel, rre, rim)),
-        PB, PT, T, N, F, int(Hre.dtype == torch.bfloat16), _stream(),
+        PB, PT, T, N, F, hp, rre.stride(-2),
+        int(Hre.dtype == torch.bfloat16), _stream(),
     )
     _raise_if(rc, name)
     filter_sum_sel_t.launches += 1

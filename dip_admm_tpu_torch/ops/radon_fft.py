@@ -20,7 +20,9 @@ applies the taps ``WtT`` to the pixel rows and one DFT matrix ``D``;
 ``PhiD``. See ``ops/kernels/shear_sum.py`` for the kernels.
 
 ``fft_pallas`` keeps the dense merged phase table H [P, T, N, F] instead,
-with a per-angle selector of the image orientation; ``fft_grouped`` keeps
+with a per-angle selector of the image orientation, in pitched storage
+(rows padded with zeros to a multiple of 8 elements, ``filter_sum.
+pitched_zeros``) so that its kernels stream H in 16-byte loads; ``fft_grouped`` keeps
 it with its rows permuted into branch-grouped slot order, and ``fft_mxu``
 so permuted and pre-tiled with F padded to a multiple of 128. Around their
 filter-sum kernels (``ops/kernels/filter_sum.py``, ``filter_mxu.py``) the
@@ -52,7 +54,7 @@ from dip_admm_tpu_torch.config import GeometryConfig
 from dip_admm_tpu_torch.ops.kernels import filter_mxu
 from dip_admm_tpu_torch.ops.kernels.filter_sum import (
     filter_sum_grouped, filter_sum_grouped_t, filter_sum_sel,
-    filter_sum_sel_t,
+    filter_sum_sel_t, pitched_zeros,
 )
 from dip_admm_tpu_torch.ops.kernels.hat_eval import hat_eval, hat_eval_t
 from dip_admm_tpu_torch.ops.kernels.shear_sum import (
@@ -536,13 +538,31 @@ def precompute_merged(cfg: GeometryConfig, angles: torch.Tensor,
 
 def precompute_merged_nodes(cfg: GeometryConfig, angles: torch.Tensor,
                             valid: torch.Tensor, table_dtype=torch.float32,
-                            dets=None) -> dict:
+                            dets=None, pitched: bool = False) -> dict:
     """Node-batched :func:`precompute_merged` tables for
     :func:`project_nodes_merged` (``angles``, ``valid`` [P, T]): each
-    node's tables stacked, as the JAX loader vmaps them."""
-    nodes = [precompute_merged(cfg, angles[i], valid[i], table_dtype, dets)
-             for i in range(angles.shape[0])]
-    return {k: torch.stack([m[k] for m in nodes]) for k in nodes[0]}
+    node's tables written into the batch, as the JAX loader vmaps them.
+    ``pitched`` (the ``fft_pallas`` build) puts H and the row-DFT columns
+    ``Ere``/``Eim`` in pitched storage (:func:`filter_sum.pitched_zeros`),
+    still [..., F] views: K11/K12 stream H's rows and the spectra's rows in
+    16-byte loads, and the spectra take the pitch of ``Ere``/``Eim``. Each
+    node is written into the batch storage as it is built, so no table is
+    held twice."""
+    P = angles.shape[0]
+    out = {}
+    for i in range(P):
+        node = precompute_merged(cfg, angles[i], valid[i], table_dtype, dets)
+        for k, v in node.items():
+            if k not in out:
+                make = (pitched_zeros if pitched and k in _PITCHED
+                        else torch.empty)
+                out[k] = make((P, *v.shape), dtype=v.dtype, device=v.device)
+            out[k][i] = v
+        del node
+    return out
+
+
+_PITCHED = ("Hre", "Him", "Ere", "Eim")
 
 
 def precompute_grouped(cfg: GeometryConfig, angles: torch.Tensor,
@@ -624,15 +644,28 @@ def _kview(x: torch.Tensor, PT: int) -> torch.Tensor:
     return x.reshape(x.shape[0] // PT, PT, *x.shape[1:])
 
 
+def _padded_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., F] with its rows' pad columns: the [..., pitch] view of
+    pitched storage (``x`` itself when its rows are not padded)."""
+    if x.stride(-2) == x.shape[-1]:
+        return x
+    return x.as_strided((*x.shape[:-1], x.stride(-2)), x.stride(),
+                        x.storage_offset())
+
+
 def _plane_spectra(imgs, t):
     """Forward DFT of both image orientations' rows: [PB, N, N] ->
-    ([PB, 2, N, F], [PB, 2, N, F]) real/imaginary planes."""
+    ([PB, 2, N, F], [PB, 2, N, F]) real/imaginary planes, in the row pitch
+    of ``Ere``/``Eim`` (pitched ``fft_pallas`` tables: pitched spectra, pad
+    columns zero)."""
     PT = t["Ere"].shape[0]
+    F = t["Ere"].shape[-1]
+    Ere, Eim = _padded_rows(t["Ere"]), _padded_rows(t["Eim"])
     rows2 = _kview(torch.stack([imgs, imgs.transpose(1, 2)], dim=1), PT)
-    shape = (imgs.shape[0], 2, imgs.shape[1], t["Ere"].shape[-1])
-    rre2 = torch.einsum("kponv,pvf->kponf", rows2, t["Ere"]).reshape(shape)
-    rim2 = torch.einsum("kponv,pvf->kponf", rows2, t["Eim"]).reshape(shape)
-    return rre2, rim2
+    shape = (imgs.shape[0], 2, imgs.shape[1], Ere.shape[-1])
+    rre2 = torch.einsum("kponv,pvf->kponf", rows2, Ere).reshape(shape)
+    rim2 = torch.einsum("kponv,pvf->kponf", rows2, Eim).reshape(shape)
+    return rre2[..., :F], rim2[..., :F]
 
 
 def _plane_spectra_t(rre2_bar, rim2_bar, t, dtype):
@@ -702,8 +735,7 @@ def project_nodes_merged(cfg: GeometryConfig, imgs: torch.Tensor,
         raise NotImplementedError("fft_pallas supports parallel beam only")
     t = tables
     rre2, rim2 = _plane_spectra(imgs, t)
-    g_re, g_im = filter_sum_sel(rre2.contiguous(), rim2.contiguous(),
-                                t["Hre"], t["Him"], t["sel"])
+    g_re, g_im = filter_sum_sel(rre2, rim2, t["Hre"], t["Him"], t["sel"])
     return _eval_tail(g_re, g_im, t, imgs.dtype)
 
 

@@ -307,15 +307,20 @@ def test_consensus_rejects_bad_inputs():
 
 def _sel_inputs(dev, dtype, PB, PT, T, N, F, seed=5):
     """Tables of PT sets (set 0 all plane 0, set 1 all plane 1, the rest
-    mixed), spectra and cotangents of PB images."""
+    mixed), spectra and cotangents of PB images; the tables and the spectra
+    in pitched storage (``fs.pitched_zeros``), as K11/K12 read them."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    H = [torch.randn((PT, T, N, F), generator=gen, device=dev).to(dtype)
-         for _ in range(2)]
+
+    def pitched(x):
+        return fs.pitched_zeros(x.shape, x.dtype, x.device).copy_(x)
+
+    H = [pitched(torch.randn((PT, T, N, F), generator=gen, device=dev)
+                 .to(dtype)) for _ in range(2)]
     sel = (torch.rand((PT, T, 1), generator=gen, device=dev) > 0.5).float()
     sel[0] = 0.0
     if PT > 1:
         sel[1] = 1.0
-    r = [torch.randn((PB, 2, N, F), generator=gen, device=dev)
+    r = [pitched(torch.randn((PB, 2, N, F), generator=gen, device=dev))
          for _ in range(2)]
     g = [torch.randn((PB, T, F), generator=gen, device=dev)
          for _ in range(2)]
@@ -323,7 +328,8 @@ def _sel_inputs(dev, dtype, PB, PT, T, N, F, seed=5):
 
 
 # (PB, PT, T, N, F): the 512^2/8 shapes at a smaller N and F, tiles that
-# divide neither T, N nor F, and three images per table set.
+# divide neither T, N nor F, and three images per table set; F = 129, 70, 65
+# and 33 are padded to pitches of 136, 72, 72 and 40.
 SEL_SHAPES = [(8, 8, 192, 64, 129), (3, 3, 13, 45, 70), (6, 2, 16, 40, 65)]
 
 
@@ -358,6 +364,11 @@ def test_sel_t_writes_zero_to_a_plane_no_angle_selects():
         for out in (rre, rim):
             assert torch.equal(out[p, unread], torch.zeros_like(out[p, 0]))
             assert float(out[p, 1 - unread].abs().max()) > 0
+    # The output is pitched, its pad columns written as zeros.
+    for out in (rre, rim):
+        assert out.stride(-2) == 72
+        pad = out.as_strided((*out.shape[:-1], 72), out.stride())[..., 65:]
+        assert torch.equal(pad, torch.zeros_like(pad))
 
 
 def test_sel_wrappers_reject_bad_inputs():
@@ -369,14 +380,44 @@ def test_sel_wrappers_reject_bad_inputs():
     with pytest.raises(TypeError):
         fs.filter_sum_sel(rr, ri, hr, hi.float(), sel)  # one table dtype
     with pytest.raises(ValueError):
-        fs.filter_sum_sel(rr[:3].contiguous(), ri[:3].contiguous(), hr, hi,
-                          sel)  # 3 images, 2 table sets
+        fs.filter_sum_sel(rr[:3], ri[:3], hr, hi, sel)  # 3 images, 2 sets
     with pytest.raises(ValueError):
         fs.filter_sum_sel(rr, ri, hr, hi, sel[:, :4].contiguous())
     with pytest.raises(ValueError):
         fs.filter_sum_sel_t(gr.transpose(1, 2), gi, hr, hi, sel)
     with pytest.raises(ValueError):
         fs.filter_sum_sel_t(gr, gi.cpu(), hr, hi, sel)  # device
+
+
+def test_sel_wrappers_reject_rows_they_cannot_stream():
+    """A misaligned pitch, a non-unit last stride and a contiguous table
+    whose F is not a multiple of 8 each raise ValueError, with no launch;
+    nothing is copied to make them fit."""
+    dev = _device()
+    (hr, hi), sel, (rr, ri), (gr, gi) = _sel_inputs(dev, torch.bfloat16, 4,
+                                                    2, 8, 32, 33)
+    PT, T, N, F = hr.shape
+    odd = torch.zeros((PT, T, N, 36), dtype=hr.dtype, device=dev)[..., :F]
+    flipped = torch.zeros((PT, T, F, N), dtype=hr.dtype,
+                          device=dev).transpose(-1, -2)
+    n40 = PT * T * N * 40
+    shifted = torch.zeros(n40 + 8, dtype=hr.dtype, device=dev)[1:1 + n40]
+    shifted = shifted.view(PT, T, N, 40)[..., :F]  # pitch 40, start 2 B off
+    cases = {
+        "misaligned pitch": (odd, odd),
+        "non-unit last stride": (flipped, flipped),
+        "contiguous odd F": (hr.contiguous(), hi.contiguous()),
+        "shifted start": (shifted, hi),
+    }
+    before = fs.launch_counts()
+    for what, (a, b) in cases.items():
+        with pytest.raises(ValueError):
+            fs.filter_sum_sel(rr, ri, a, b, sel)
+        with pytest.raises(ValueError):
+            fs.filter_sum_sel_t(gr, gi, a, b, sel)
+    with pytest.raises(ValueError):  # the spectra too
+        fs.filter_sum_sel(rr.contiguous(), ri.contiguous(), hr, hi, sel)
+    assert fs.launch_counts() == before
 
 
 def _hat_inputs(dev, PB, PT, T, D, Np, seed=6):
@@ -436,7 +477,7 @@ def test_pallas_adjoint_identity_through_kernels(monkeypatch):
     a, v, _ = radon.node_angles(geo)
     t = radon_fft.precompute_merged_nodes(
         geo, torch.as_tensor(a, dtype=torch.float32, device=dev),
-        torch.as_tensor(v, device=dev))
+        torch.as_tensor(v, device=dev), pitched=True)
     monkeypatch.setattr(radon_fft, "_HAT_MAX_BYTES", 0)
     gen = torch.Generator(device=dev).manual_seed(7)
     x = torch.randn((3, geo.N, geo.N), generator=gen, device=dev)

@@ -180,7 +180,7 @@ def _merged_tables(dtype_name, geo="N32P3"):
     a, v, _ = tradon.node_angles(gt)
     tt = tfft.precompute_merged_nodes(
         gt, torch.as_tensor(a, dtype=torch.float32), torch.as_tensor(v),
-        getattr(torch, dtype_name))
+        getattr(torch, dtype_name), pitched=True)  # the fft_pallas build
     tj = jax.jit(jax.vmap(lambda aa, vv: jfft.precompute_merged(
         gj, aa, vv, table_dtype=jnp.dtype(dtype_name))))(
         jnp.asarray(a, jnp.float32), jnp.asarray(v))
