@@ -1347,11 +1347,13 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
     P = problems["fft_pallas"].num_nodes
     gen = torch.Generator(device=dev).manual_seed(5)
     H, sel = (tp["Hre"], tp["Him"]), tp["sel"]
-    # The spectra in the tables' pitch, as the projector makes them.
+    # Spectra and cotangents in the tables' pitch, as the projector makes
+    # them.
     r = [fs.pitched_zeros((P, 2, N, F), torch.float32, dev).copy_(
         torch.randn((P, 2, N, F), generator=gen, device=dev))
         for _ in range(2)]
-    g = [torch.randn((P, T, F), generator=gen, device=dev) for _ in range(2)]
+    g = [fs.pitched_zeros((P, T, F), torch.float32, dev).copy_(
+        torch.randn((P, T, F), generator=gen, device=dev)) for _ in range(2)]
     # Library yardstick: one complex einsum on complex copies of the same
     # inputs, the plane select as a one-hot factor (the transpose as
     # conj(sum_t H conj(g))).
@@ -1437,10 +1439,11 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
         cfg, torch.as_tensor(a, dtype=torch.float32, device=dev),
         torch.as_tensor(v, device=dev), "fft_pallas")
     im = torch.randn((P, geo.N, geo.N), generator=gen, device=dev)
-    # K11/K12 on these tables: the spectra of im, cotangents of the tail's
-    # shape.
-    g256 = [torch.randn((P, t["Hre"].shape[1], t["Hre"].shape[-1]),
-                        generator=gen, device=dev) for _ in range(2)]
+    # K11/K12 on these tables: the spectra of im, and the cotangents the
+    # tail's transpose makes of seeded sinogram cotangents.
+    g256 = radon_fft._eval_tail_t(
+        torch.randn((P, t["p"].shape[1], t["p"].shape[2]), generator=gen,
+                    device=dev), t)
     for name, kern, ref, args in (
             ("filter_sum_sel", fs.filter_sum_sel, fs.filter_sum_sel_ref,
              (*radon_fft._plane_spectra(im, t), t["Hre"], t["Him"],

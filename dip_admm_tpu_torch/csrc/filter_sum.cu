@@ -23,33 +23,58 @@
 // pair it loads (4 B in bf16), far below the card's ratio of compute to
 // bandwidth. At the parallel 512^2/8 shapes of K11/K12 H is 1.6 GB per plane
 // in bf16, each table set read by one image: 3.2 GB from HBM per call, a
-// bound of ~1 ms. At the fan 256^2/8 shapes of K13/K14 H is one table set of
-// ~12.6 MB per plane in bf16, read by 8 images, so it sits in the 50 MB L2
-// after the first image; r_s (f32, [PB, TB, N, F]) is read from HBM once per
-// angle chunk in K13, and written once in K14.
+// bound of ~1 ms (a kernel that only streams those bytes in 16-byte loads
+// and sums them takes 1.00-1.04 ms of device time on an H100 80GB HBM3 at
+// 700 W, scripts/torch_filter_stream.py). At the fan 256^2/8 shapes of
+// K13/K14 H is one table set of ~12.6 MB per plane in bf16, read by 8
+// images, so it sits in the 50 MB L2 after the first image; r_s (f32, [PB,
+// TB, N, F]) is read from HBM once per angle chunk in K13, and written once
+// in K14.
 //
 // Design, simple and deterministic (no atomics, two calls agree bit for
 // bit): the TPU grid's sequential accumulation axis becomes a loop inside
 // the block that owns the output.
-// - K11/K13: one block per (image p, chunk of TC angles, FT frequency
-//   columns). Its NG warps split the row loop (warp w takes rows
-//   n = w mod NG), each thread keeps TC complex sums in registers, and the
-//   NG partial sums are added in a fixed order through shared memory. K11
-//   reads only the planes its chunk's angles select (one, except where a
-//   chunk straddles the branch switch), where the TPU kernel reads both and
+// - K11/K12 stream H as 16-byte loads: each thread owns 8 consecutive
+//   frequencies and reads them from a table row with one load (two in
+//   f32). That needs rows on 16 bytes: the fft_pallas tables are stored
+//   with a row pitch padded with zeros to a multiple of 8 elements (1032 at
+//   F = 1025), and so are the spectra r (K11's input, from row-DFT columns
+//   of that pitch) and the cotangents gbar (K12's input, from irfft rows of
+//   that padded F). With two-byte loads and an odd pitch the same sums ran
+//   at 34% of the bound; K12 reading a dense gbar with scalar loads is
+//   ~12% slower (scripts/torch_sel_variants.py), and its first form,
+//   staging gbar through shared memory behind block barriers, was slower
+//   than that. The f tiles split the F / 8 groups evenly (at F = 1025:
+//   five tiles of 26 groups), so the ragged edge is a few idle lanes in
+//   every tile, not a tile of its own. Tensor cores do not help: each H
+//   element is used once.
+// - K11: one block per (image p, chunk of S_TC = 4 angles, f tile). Its 8
+//   warps split the row loop (warp w takes rows n = w mod 8), each thread
+//   keeps 4 angles x 8 frequencies of complex sums in registers (one
+//   block of 128 registers, two blocks an SM: 64 KB of loads in flight an
+//   SM), and the 8 partial sums are added in warp order through shared
+//   memory. It reads only the plane each angle selects (both where a chunk
+//   straddles the branch switch), where the TPU kernel reads both and
 //   blends them by sel.
-// - K12: one block per (image p, NG*NR row tile, FT frequency columns).
-//   Each thread owns NR rows of one column in both planes and loops over
-//   all T angles in order, adding each angle's term to the plane it
-//   selects (sel is uniform over the block, so no divergence); a plane
-//   that no angle selects is written as zeros.
+// - K12: one block per (image p, row tile of 8 x ST_NR rows, f tile). Each
+//   thread owns ST_NR rows x 8 frequencies of one plane at a time: it walks
+//   plane 0's angles in ascending t (a warp ballot over sel picks them 32
+//   angles at a time), writes plane 0, then does the same for plane 1, so
+//   only one plane's sums are live; a plane that no angle selects is
+//   written as zeros. The 8 warps of a block read the same gbar rows (L1).
+//   It writes the pad columns of its pitched output as zeros.
+// - K13/K14 keep the layout of their tables (dense F):
+// - K13: one block per (image p, chunk of TC angles, FT frequency
+//   columns), its NG warps splitting the row loop as K11's do, one
+//   frequency per lane, the NG partial sums added in a fixed order through
+//   shared memory.
 // - K14: one block per (image p, slot block, NG*NR row tile, FT frequency
 //   columns). Each thread owns NR rows of one column and sums the block's
 //   tt slots in order: a pure map, each output element written once.
-// Warps read FT consecutive frequencies (coalesced). No tile needs to divide
+// Warps read consecutive frequencies (coalesced). No tile needs to divide
 // N, F or T: the ragged edge is masked, so the JAX package's _tiles and
-// _grp_tn have no counterpart. Tensor cores, vector loads and walking the
-// images inside one block (one H read for all of them) are later work.
+// _grp_tn have no counterpart. Walking the images inside one K13/K14 block
+// (one H read for all of them) and the pitch for K13/K14 are later work.
 //
 // C interface for ctypes: pointers and the stream as void*, sizes as int.
 // Every entry launches on the given stream, does not synchronise and
@@ -189,21 +214,20 @@ grp_t(const float* __restrict__ gre, const float* __restrict__ gim,
 // ---------------------------------------------------------------------------
 
 constexpr int VEC = 8;    // frequencies per thread (one 16-byte bf16 load)
-constexpr int S_NG = 8;   // warps per K11/K12 block
+constexpr int S_NG = 8;   // warps per K11 block
 constexpr int S_TC = 4;   // angles per K11 block (per thread)
-constexpr int S_NR = 4;   // rows per K12 thread: row tile S_NG * S_NR
-constexpr int S_TW = 16;  // angles of g staged at a time by a K12 block
+constexpr int ST_NG = 8;  // warps per K12 block
+constexpr int ST_NR = 2;  // rows per K12 thread: row tile ST_NG * ST_NR
 static_assert(S_NG == 2 * S_TC, "K11's combine: warp w sums angle w / 2, "
                                 "half w % 2 of its eight frequencies");
 
 // Eight consecutive table values of a 16-byte aligned row segment, read
-// with the streaming hint (ld.global.cs: evict first from L1 and L2, so the
-// spectra that are read again stay in L2), kept raw until used.
+// through the read-only path (ld.global.nc) and kept raw until used.
 template <typename T> struct Row8;
 template <> struct Row8<__nv_bfloat16> {
   uint4 v;
   __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    v = __ldcs(reinterpret_cast<const uint4*>(p));
+    v = __ldg(reinterpret_cast<const uint4*>(p));
   }
   __device__ __forceinline__ float operator[](int k) const {
     const unsigned w = (k >> 1) == 0 ? v.x : (k >> 1) == 1 ? v.y
@@ -214,8 +238,8 @@ template <> struct Row8<__nv_bfloat16> {
 template <> struct Row8<float> {
   float4 a, b;
   __device__ __forceinline__ void load(const float* p) {
-    a = __ldcs(reinterpret_cast<const float4*>(p));
-    b = __ldcs(reinterpret_cast<const float4*>(p) + 1);
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
   }
   __device__ __forceinline__ float operator[](int k) const {
     const float4& q = k < 4 ? a : b;
@@ -326,92 +350,65 @@ sel_fwd(const float* __restrict__ rre, const float* __restrict__ rim,
 }
 
 // ---------------------------------------------------------------------------
-// K12. Block: (f tile of JT groups, row tile of S_NG * S_NR rows, image p).
-// Thread (lane l, warp w) owns rows n0 + w + S_NG * q of group j0 + l; it
+// K12. Block: (f tile of JT groups, row tile of ST_NG * ST_NR rows, image p).
+// Thread (lane l, warp w) owns rows n0 + w + ST_NG * q of group j0 + l; it
 // walks plane 0's angles in ascending t, writes plane 0, then plane 1's.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(32 * S_NG, 2)
+__global__ void __launch_bounds__(32 * ST_NG, 3)
 sel_t(const float* __restrict__ gre, const float* __restrict__ gim,
       const T* __restrict__ hre, const T* __restrict__ him,
       const float* __restrict__ sel, float* __restrict__ rre,
       float* __restrict__ rim, int PT, int T_, int N, int F, int JT, int hp,
-      int rp) {
-  // g of S_TW angles of the f tile, [re/im][f half][angle][lane * 4 + f % 4]
-  // (a lane's two 16-byte reads hit consecutive addresses across lanes).
-  __shared__ __align__(16) float gs[2][2][S_TW][32 * 4];
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * 32 + tx;
-  const int j0 = blockIdx.x * JT, jt = min(JT, cdiv(F, VEC) - j0);
-  const bool live = tx < jt;
+      int gp, int rp) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j0 = blockIdx.x * JT;
+  const bool live = tx < min(JT, cdiv(F, VEC) - j0);
   const int f0 = (j0 + tx) * VEC;
-  const int n0 = blockIdx.y * (S_NG * S_NR) + ty;
+  const int n0 = blockIdx.y * (ST_NG * ST_NR) + ty;
   const int p = blockIdx.z, pt = p % PT;
   const long hs = (long)N * hp;
   const T* h_r = hre + (long)pt * T_ * hs + f0;
   const T* h_i = him + (long)pt * T_ * hs + f0;
-  const float* g_r = gre + (long)p * T_ * F;
-  const float* g_i = gim + (long)p * T_ * F;
+  // g rows in their pitch, read by every warp of the block (cached in L1).
+  const float* g_r = gre + (long)p * T_ * gp + f0;
+  const float* g_i = gim + (long)p * T_ * gp + f0;
   const float* s = sel + (long)pt * T_;
-  const int cols = jt * VEC;
 
   for (int pl = 0; pl < 2; ++pl) {
-    float ar[S_NR][VEC], ai[S_NR][VEC];
+    float ar[ST_NR][VEC], ai[ST_NR][VEC];
 #pragma unroll
-    for (int q = 0; q < S_NR; ++q)
+    for (int q = 0; q < ST_NR; ++q)
 #pragma unroll
       for (int k = 0; k < VEC; ++k) ar[q][k] = ai[q][k] = 0.f;
-    for (int w0 = 0; w0 < T_; w0 += S_TW) {
-      // The window's angles of this plane (the same mask in every warp).
-      const int tw = w0 + (tx & (S_TW - 1));
-      const bool in = tx < S_TW && tw < T_;
-      const unsigned m1 = __ballot_sync(0xffffffffu, in && s[tw] > 0.5f);
+    for (int w0 = 0; w0 < T_; w0 += 32) {
+      // The angles of this plane among w0 .. w0 + 31, in ascending t.
+      const bool in = w0 + tx < T_;
+      const unsigned m1 = __ballot_sync(0xffffffffu, in && s[w0 + tx] > 0.5f);
       const unsigned m = pl ? m1 : __ballot_sync(0xffffffffu, in) & ~m1;
-      if (!m) continue;
-      __syncthreads();  // the previous window's g is no longer read
-      for (int e = tid; e < 2 * S_TW * cols; e += 32 * S_NG) {
-        const int c = e / (S_TW * cols), r = e % (S_TW * cols);
-        const int a = r / cols, col = r % cols;
-        if (!((m >> a) & 1u)) continue;
-        const int f = j0 * VEC + col;
-        const float v = f < F ? (c ? g_i : g_r)[(long)(w0 + a) * F + f] : 0.f;
-        gs[c][(col & 7) >> 2][a][(col >> 3) * 4 + (col & 3)] = v;
-      }
-      __syncthreads();
+      if (!live) continue;
       for (unsigned mm = m; mm; mm &= mm - 1u) {
-        const int a = __ffs(mm) - 1;
-        const long to = (long)(w0 + a) * hs;
-        Row8<T> hr[S_NR], hi[S_NR];
-        if (live) {
+        const int t = w0 + __ffs(mm) - 1;
+        Row8<T> hr[ST_NR], hi[ST_NR];
 #pragma unroll
-          for (int q = 0; q < S_NR; ++q) {
-            const int n = n0 + S_NG * q;
-            if (n < N) {
-              hr[q].load(h_r + to + (long)n * hp);
-              hi[q].load(h_i + to + (long)n * hp);
-            }
+        for (int q = 0; q < ST_NR; ++q) {
+          const int n = n0 + ST_NG * q;
+          if (n < N) {
+            hr[q].load(h_r + t * hs + (long)n * hp);
+            hi[q].load(h_i + t * hs + (long)n * hp);
           }
         }
         float gr[VEC], gi[VEC];
-        {
-          const float4 r0 = *reinterpret_cast<const float4*>(&gs[0][0][a][tx * 4]);
-          const float4 r1 = *reinterpret_cast<const float4*>(&gs[0][1][a][tx * 4]);
-          const float4 i0 = *reinterpret_cast<const float4*>(&gs[1][0][a][tx * 4]);
-          const float4 i1 = *reinterpret_cast<const float4*>(&gs[1][1][a][tx * 4]);
-          gr[0] = r0.x; gr[1] = r0.y; gr[2] = r0.z; gr[3] = r0.w;
-          gr[4] = r1.x; gr[5] = r1.y; gr[6] = r1.z; gr[7] = r1.w;
-          gi[0] = i0.x; gi[1] = i0.y; gi[2] = i0.z; gi[3] = i0.w;
-          gi[4] = i1.x; gi[5] = i1.y; gi[6] = i1.z; gi[7] = i1.w;
-        }
-        if (live) {
+        ld8f(g_r + (long)t * gp, gr);
+        ld8f(g_i + (long)t * gp, gi);
 #pragma unroll
-          for (int q = 0; q < S_NR; ++q) {
-            if (n0 + S_NG * q < N) {
+        for (int q = 0; q < ST_NR; ++q) {
+          if (n0 + ST_NG * q < N) {
 #pragma unroll
-              for (int k = 0; k < VEC; ++k) {
-                const float a_ = hr[q][k], b_ = hi[q][k];
-                ar[q][k] += gr[k] * a_ + gi[k] * b_;
-                ai[q][k] += gi[k] * a_ - gr[k] * b_;
-              }
+            for (int k = 0; k < VEC; ++k) {
+              const float a = hr[q][k], b = hi[q][k];
+              ar[q][k] += gr[k] * a + gi[k] * b;
+              ai[q][k] += gi[k] * a - gr[k] * b;
             }
           }
         }
@@ -420,8 +417,8 @@ sel_t(const float* __restrict__ gre, const float* __restrict__ gim,
     // Plane pl of the rows: 16-byte stores over the pitch, zeros past F.
     if (live) {
 #pragma unroll
-      for (int q = 0; q < S_NR; ++q) {
-        const int n = n0 + S_NG * q;
+      for (int q = 0; q < ST_NR; ++q) {
+        const int n = n0 + ST_NG * q;
         if (n >= N) continue;
         const long ro = ((long)(p * 2 + pl) * N + n) * rp + f0;
         float vr[VEC], vi[VEC];
@@ -475,21 +472,22 @@ int dip_sel_fwd(const float* rre, const float* rim, const void* hre,
 
 int dip_sel_t(const float* gre, const float* gim, const void* hre,
               const void* him, const float* sel, float* rre, float* rim,
-              int PB, int PT, int T_, int N, int F, int hp, int rp, int bf16,
-              void* stream) {
+              int PB, int PT, int T_, int N, int F, int hp, int gp, int rp,
+              int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int JT = sel_tile(F);
-  const dim3 blk(32, S_NG);
-  const dim3 g(cdiv(cdiv(F, VEC), JT), cdiv(N, S_NG * S_NR), PB);
+  const dim3 blk_t(32, ST_NG);
+  const dim3 g(cdiv(cdiv(F, VEC), JT), cdiv(N, ST_NG * ST_NR), PB);
   if (bf16) {
     using T = __nv_bfloat16;
-    sel_t<T><<<g, blk, 0, s>>>(gre, gim, static_cast<const T*>(hre),
-                               static_cast<const T*>(him), sel, rre, rim, PT,
-                               T_, N, F, JT, hp, rp);
+    sel_t<T><<<g, blk_t, 0, s>>>(gre, gim, static_cast<const T*>(hre),
+                                 static_cast<const T*>(him), sel, rre, rim,
+                                 PT, T_, N, F, JT, hp, gp, rp);
   } else {
-    sel_t<float><<<g, blk, 0, s>>>(gre, gim, static_cast<const float*>(hre),
-                                   static_cast<const float*>(him), sel, rre,
-                                   rim, PT, T_, N, F, JT, hp, rp);
+    sel_t<float><<<g, blk_t, 0, s>>>(
+        gre, gim, static_cast<const float*>(hre),
+        static_cast<const float*>(him), sel, rre, rim, PT, T_, N, F, JT, hp,
+        gp, rp);
   }
   return static_cast<int>(cudaGetLastError());
 }

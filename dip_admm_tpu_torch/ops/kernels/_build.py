@@ -49,7 +49,7 @@ SIGNATURES = {
     },
     "filter_sum": {
         "dip_sel_fwd": [_P] * 7 + [_I] * 8 + [_P],
-        "dip_sel_t": [_P] * 7 + [_I] * 8 + [_P],
+        "dip_sel_t": [_P] * 7 + [_I] * 9 + [_P],
         "dip_grp_fwd": [_P] * 6 + [_I] * 7 + [_P],
         "dip_grp_t": [_P] * 6 + [_I] * 7 + [_P],
     },

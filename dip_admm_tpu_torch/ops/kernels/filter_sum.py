@@ -39,14 +39,15 @@ run PT = PB, the fan-beam path its node images against one shared table set
 (PT = 1), as the JAX kernels' vmap rule folds an image batch into the node
 axis.
 
-K11/K12 read the table rows and the spectrum rows r / rbar with 16-byte
-loads, so on the card those tensors must be *pitched*: the last stride 1, a
-row pitch that is a multiple of ``PITCH`` elements and at least F, the
-outer strides dense over that pitch, and the first row 16-byte aligned.
-:func:`pitched_zeros` makes such storage (zero pad columns) and hands it out
-as the [..., F] view, so shapes and plain versions do not change; a
-contiguous tensor whose F is a multiple of ``PITCH`` also qualifies. The
-wrappers never copy to get there: anything else raises ``ValueError``.
+K11/K12 read the table rows, K11 the spectrum rows r and K12 the
+cotangent rows gbar with 16-byte loads, so on the card those tensors must
+be *pitched*: the last stride 1, a row pitch that is a multiple of
+``PITCH`` elements and at least F, the outer strides dense over that
+pitch, and the first row 16-byte aligned. :func:`pitched_zeros` makes such
+storage (zero pad columns) and hands it out as the [..., F] view, so
+shapes and plain versions do not change; a contiguous tensor whose F is a
+multiple of ``PITCH`` also qualifies. The wrappers never copy to get
+there: anything else raises ``ValueError``.
 
 On a CPU tensor a wrapper runs its plain PyTorch version (``*_ref``); on a
 CUDA tensor it launches the hand-written kernel of ``csrc/filter_sum.cu``
@@ -239,9 +240,10 @@ def filter_sum_sel(rre2, rim2, Hre, Him, sel):
 
 
 def filter_sum_sel_t(gre_b, gim_b, Hre, Him, sel):
-    """K12: see :func:`filter_sum_sel_t_ref`. On the card the tables must
-    be pitched; the output is a pitched view (:func:`pitched_zeros`'s
-    layout, pad columns written as zeros)."""
+    """K12: see :func:`filter_sum_sel_t_ref`. On the card the cotangents
+    ``gre_b``/``gim_b`` and the tables must be pitched; the output is a
+    pitched view (:func:`pitched_zeros`'s layout, pad columns written as
+    zeros)."""
     if _on_cpu(gre_b):
         return filter_sum_sel_t_ref(gre_b, gim_b, Hre, Him, sel)
     name = "filter_sum_sel_t"
@@ -252,16 +254,18 @@ def filter_sum_sel_t(gre_b, gim_b, Hre, Him, sel):
     _batches(name, PB, PT)
     _shape(name, gre_b, (PB, T, F), "gre_b")
     _shape(name, gim_b, (PB, T, F), "gim_b")
-    pitch = _check_sel(name, dict(gre_b=gre_b, gim_b=gim_b, sel=sel),
-                       dict(Hre=Hre, Him=Him), gre_b.device, Hre.dtype)
+    pitch = _check_sel(name, dict(sel=sel),
+                       dict(gre_b=gre_b, gim_b=gim_b, Hre=Hre, Him=Him),
+                       gre_b.device, Hre.dtype)
     hp = _shared_pitch(name, pitch, "Hre", "Him")
+    gp = _shared_pitch(name, pitch, "gre_b", "gim_b")
     rre, rim = (torch.empty((PB, 2, N, -(-F // PITCH) * PITCH),
                             dtype=torch.float32, device=gre_b.device)[..., :F]
                 for _ in range(2))
     lib = _build.load("filter_sum")
     rc = lib.dip_sel_t(
         *(t.data_ptr() for t in (gre_b, gim_b, Hre, Him, sel, rre, rim)),
-        PB, PT, T, N, F, hp, rre.stride(-2),
+        PB, PT, T, N, F, hp, gp, rre.stride(-2),
         int(Hre.dtype == torch.bfloat16), _stream(),
     )
     _raise_if(rc, name)

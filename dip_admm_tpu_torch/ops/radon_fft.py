@@ -54,7 +54,7 @@ from dip_admm_tpu_torch.config import GeometryConfig
 from dip_admm_tpu_torch.ops.kernels import filter_mxu
 from dip_admm_tpu_torch.ops.kernels.filter_sum import (
     filter_sum_grouped, filter_sum_grouped_t, filter_sum_sel,
-    filter_sum_sel_t, pitched_zeros,
+    filter_sum_sel_t, PITCH, pitched_zeros,
 )
 from dip_admm_tpu_torch.ops.kernels.hat_eval import hat_eval, hat_eval_t
 from dip_admm_tpu_torch.ops.kernels.shear_sum import (
@@ -544,25 +544,34 @@ def precompute_merged_nodes(cfg: GeometryConfig, angles: torch.Tensor,
     node's tables written into the batch, as the JAX loader vmaps them.
     ``pitched`` (the ``fft_pallas`` build) puts H and the row-DFT columns
     ``Ere``/``Eim`` in pitched storage (:func:`filter_sum.pitched_zeros`),
-    still [..., F] views: K11/K12 stream H's rows and the spectra's rows in
-    16-byte loads, and the spectra take the pitch of ``Ere``/``Eim``. Each
-    node is written into the batch storage as it is built, so no table is
-    held twice."""
+    and the irfft rows ``Cre``/``Cim`` [P, F, Np] in storage of the same
+    padded F with zero rows, all still handed out at their shapes: K11/K12
+    stream the rows of H, of the spectra (which take the pitch of
+    ``Ere``/``Eim``) and of the spectrum cotangents (that of ``Cre``/
+    ``Cim``) in 16-byte loads. Each node is written into the batch storage
+    as it is built, so no table is held twice."""
     P = angles.shape[0]
     out = {}
     for i in range(P):
         node = precompute_merged(cfg, angles[i], valid[i], table_dtype, dets)
         for k, v in node.items():
             if k not in out:
-                make = (pitched_zeros if pitched and k in _PITCHED
-                        else torch.empty)
-                out[k] = make((P, *v.shape), dtype=v.dtype, device=v.device)
+                out[k] = _batch_storage(k, (P, *v.shape), v, pitched)
             out[k][i] = v
         del node
     return out
 
 
-_PITCHED = ("Hre", "Him", "Ere", "Eim")
+def _batch_storage(key, shape, like, pitched):
+    """Storage for the batch of table ``key``: pitched rows for H and the
+    row-DFT columns, padded F rows for the irfft rows (``pitched``)."""
+    kw = dict(dtype=like.dtype, device=like.device)
+    if pitched and key in ("Hre", "Him", "Ere", "Eim"):
+        return pitched_zeros(shape, **kw)
+    if pitched and key in ("Cre", "Cim"):  # [P, F, Np]: F rows padded
+        P, F, Np = shape
+        return torch.zeros((P, -(-F // PITCH) * PITCH, Np), **kw)[:, :F]
+    return torch.empty(shape, **kw)
 
 
 def precompute_grouped(cfg: GeometryConfig, angles: torch.Tensor,
@@ -653,6 +662,16 @@ def _padded_rows(x: torch.Tensor) -> torch.Tensor:
                         x.storage_offset())
 
 
+def _padded_f(C: torch.Tensor) -> torch.Tensor:
+    """The irfft rows ``C`` [PT, F, Np] with the zero rows of their padded
+    storage: [PT, Fp, Np] (``C`` itself when F is not padded)."""
+    Fp = C.stride(0) // C.shape[-1]
+    if Fp == C.shape[1]:
+        return C
+    return C.as_strided((C.shape[0], Fp, C.shape[-1]), C.stride(),
+                        C.storage_offset())
+
+
 def _plane_spectra(imgs, t):
     """Forward DFT of both image orientations' rows: [PB, N, N] ->
     ([PB, 2, N, F], [PB, 2, N, F]) real/imaginary planes, in the row pitch
@@ -721,9 +740,12 @@ def _eval_tail_t(sinos, t):
     else:
         g_bar = torch.einsum("ptdv,kptd->kptv", _hat_weights(t, sinos.dtype),
                              t["s"][..., None] * _kview(sinos, PT))
-    g_re_bar = torch.einsum("kptv,pfv->kptf", g_bar, t["Cre"])
-    g_im_bar = torch.einsum("kptv,pfv->kptf", g_bar, t["Cim"])
-    return g_re_bar.reshape(PB, T, -1), g_im_bar.reshape(PB, T, -1)
+    # In the padded F of Cre/Cim (fft_pallas: pitched rows for K12).
+    F = t["Cre"].shape[1]
+    g_re_bar = torch.einsum("kptv,pfv->kptf", g_bar, _padded_f(t["Cre"]))
+    g_im_bar = torch.einsum("kptv,pfv->kptf", g_bar, _padded_f(t["Cim"]))
+    return (g_re_bar.reshape(PB, T, -1)[..., :F],
+            g_im_bar.reshape(PB, T, -1)[..., :F])
 
 
 def project_nodes_merged(cfg: GeometryConfig, imgs: torch.Tensor,
@@ -748,9 +770,8 @@ def backproject_nodes_merged(cfg: GeometryConfig, sinos: torch.Tensor,
         raise NotImplementedError("fft_pallas supports parallel beam only")
     t = tables
     g_re_bar, g_im_bar = _eval_tail_t(sinos, t)
-    rre2_bar, rim2_bar = filter_sum_sel_t(
-        g_re_bar.contiguous(), g_im_bar.contiguous(), t["Hre"], t["Him"],
-        t["sel"])
+    rre2_bar, rim2_bar = filter_sum_sel_t(g_re_bar, g_im_bar, t["Hre"],
+                                          t["Him"], t["sel"])
     return _plane_spectra_t(rre2_bar, rim2_bar, t, sinos.dtype)
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Parity, recommended, shear recommended and mesh_bench outer rates of the
-PyTorch port on one GPU, and the per-call times of the skew transpose row
-stage, the eval tail and the shear row stages, for comparing two checkouts
-in one call on one card.
+"""Parity, recommended, shear recommended, mesh_bench and 512^2 pallas
+recommended outer rates of the PyTorch port on one GPU, and the per-call
+times of the skew transpose row stage, the eval tail, the shear row stages
+and the select filter-sums, for comparing two checkouts in one call on one
+card.
 
     python3 scripts/torch_ab_rates.py ROOT
 
@@ -16,9 +17,13 @@ row shard 0 of 2 of that node block and of the fan tables, K7
 bf16 tables, seeded spectra and cotangents), and that problem's apply pair
 (project + backproject); 20 parity and 20 recommended outers of the
 256^2/8 bench problem on one device, and 20 recommended outers of the
-``fft_shear`` problem; and 20 recommended outers on a 2 x 2 node x pixel
+``fft_shear`` problem; 20 recommended outers on a 2 x 2 node x pixel
 mesh of four processes sharing the card (``chip_smoke.py``'s phases 5, 6,
-6b and 18 without their reference checks).
+6b and 18 without their reference checks); then K11 (``filter_sum_sel``)
+and K12 (``filter_sum_sel_t``) on the 512^2/8 ``fft_pallas`` problem's
+tables, on the spectra and cotangents that checkout's projector makes, its
+apply pair, and 20 recommended outers of it (phase 14's pallas run, the
+preconditioner's build inside the rate).
 It prints a line for each. Alternate the checkouts, e.g. with the parent
 unpacked by ``git archive`` into ``build/parent``:
 
@@ -105,6 +110,31 @@ def _shear_ms(problem) -> dict:
                 radon_fft.backproject_nodes_shear, geo, t, img)}
 
 
+def _pallas_ms(problem) -> dict:
+    """K11 and K12 on the tables of the 512^2/8 fft_pallas ``problem``, per
+    call in ms, on the spectra and the cotangents the checkout's own
+    projector makes (its layout: pitched or dense), and its apply pair."""
+    from dip_admm_tpu_torch.ops import radon_fft
+    from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
+
+    t = problem.fft_tables
+    geo = problem.cfg.geometry
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    img = torch.randn((problem.num_nodes, geo.N, geo.N), generator=gen,
+                      device="cuda")
+    r = radon_fft._plane_spectra(img, t)
+    g = radon_fft._eval_tail_t(torch.randn(t["p"].shape, generator=gen,
+                                           device="cuda"), t)
+    tabs = (t["Hre"], t["Him"], t["sel"])
+    return {"k11_p512": cs._time_ms(torch, lambda: fs.filter_sum_sel(*r,
+                                                                     *tabs)),
+            "k12_p512": cs._time_ms(torch, lambda: fs.filter_sum_sel_t(
+                *g, *tabs)),
+            "pallas_pair_p512": cs._pair_ms(
+                torch, radon_fft.project_nodes_merged,
+                radon_fft.backproject_nodes_merged, geo, t, img)}
+
+
 def main() -> int:
     from dip_admm_tpu_torch.data import loader
 
@@ -140,6 +170,16 @@ def main() -> int:
     del problem, shear
     torch.cuda.empty_cache()
     cs._mesh_run(torch, "mesh_bench", False, 2, 2, cs.REF_REC_PSNR, failures)
+    p512 = loader.build_problem(cs._bench_cfg("bfloat16", N=512), dev,
+                                mode="fft_pallas")
+    print(f"{ROOT} kernel_ms: " + " ".join(
+        f"{k}={v}" for k, v in _pallas_ms(p512).items()), flush=True)
+    _, _, line = cs._drive(torch, p512, cs._recommended(p512.cfg.admm),
+                           cs.REF_512_PSNR, "p512_pallas", failures,
+                           cs.PALLAS + cs.HAT)
+    print(f"{ROOT} p512_pallas_recommended: {line}", flush=True)
+    del p512
+    torch.cuda.empty_cache()
     print(f"{ROOT} failures={failures}", flush=True)
     return 1 if failures else 0
 

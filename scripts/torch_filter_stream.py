@@ -161,11 +161,12 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(5)
     imgs = torch.randn((PT, geo.N, geo.N), generator=gen, device=dev)
     r = radon_fft._plane_spectra(imgs, t)
-    g = [torch.randn((PT, T, F), generator=gen, device=dev)
-         for _ in range(2)]
+    g = radon_fft._eval_tail_t(
+        torch.randn((PT, T, t["p"].shape[-1]), generator=gen, device=dev), t)
     H, sel = (t["Hre"], t["Him"]), t["sel"]
     print(f"{ROOT} shapes: PB={PT} T={T} N={Nn} F={F} H={H[0].dtype} "
-          f"H_stride={H[0].stride()} r_stride={r[0].stride()}", flush=True)
+          f"H_stride={H[0].stride()} r_stride={r[0].stride()} "
+          f"g_stride={g[0].stride()}", flush=True)
     for name, kern, args in (
             ("filter_sum_sel", fs.filter_sum_sel, (*r, *H, sel)),
             ("filter_sum_sel_t", fs.filter_sum_sel_t, (*g, *H, sel))):

@@ -307,8 +307,8 @@ def test_consensus_rejects_bad_inputs():
 
 def _sel_inputs(dev, dtype, PB, PT, T, N, F, seed=5):
     """Tables of PT sets (set 0 all plane 0, set 1 all plane 1, the rest
-    mixed), spectra and cotangents of PB images; the tables and the spectra
-    in pitched storage (``fs.pitched_zeros``), as K11/K12 read them."""
+    mixed), spectra and cotangents of PB images, all in pitched storage
+    (``fs.pitched_zeros``), as K11/K12 read them."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def pitched(x):
@@ -322,7 +322,7 @@ def _sel_inputs(dev, dtype, PB, PT, T, N, F, seed=5):
         sel[1] = 1.0
     r = [pitched(torch.randn((PB, 2, N, F), generator=gen, device=dev))
          for _ in range(2)]
-    g = [torch.randn((PB, T, F), generator=gen, device=dev)
+    g = [pitched(torch.randn((PB, T, F), generator=gen, device=dev))
          for _ in range(2)]
     return H, sel, r, g
 
@@ -415,8 +415,10 @@ def test_sel_wrappers_reject_rows_they_cannot_stream():
             fs.filter_sum_sel(rr, ri, a, b, sel)
         with pytest.raises(ValueError):
             fs.filter_sum_sel_t(gr, gi, a, b, sel)
-    with pytest.raises(ValueError):  # the spectra too
+    with pytest.raises(ValueError):  # the spectra and cotangents too
         fs.filter_sum_sel(rr.contiguous(), ri.contiguous(), hr, hi, sel)
+    with pytest.raises(ValueError):
+        fs.filter_sum_sel_t(gr.contiguous(), gi.contiguous(), hr, hi, sel)
     assert fs.launch_counts() == before
 
 

@@ -52,7 +52,7 @@ def _inputs(dtype_name, PB, PT, seed=0):
     rng = np.random.default_rng(seed)
     H = rng.standard_normal((2, PT, T, N, F)).astype(np.float32)
     H = np.array(jnp.asarray(H).astype(jnp.dtype(dtype_name))
-                   .astype(jnp.float32))
+                 .astype(jnp.float32))
     sel = (rng.random((PT, T, 1)) > 0.5).astype(np.float32)
     sel[0] = 0.0
     if PT > 1:
@@ -177,20 +177,20 @@ def _pitched(x):
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_plain_sel_on_pitched_views_equals_contiguous(dtype_name):
-    """The plain K11/K12 (the CPU path) on pitched tables and spectra equal
-    the same on contiguous copies bit for bit."""
+    """The plain K11/K12 (the CPU path) on pitched tables, spectra and
+    cotangents equal the same on contiguous copies bit for bit."""
     H, sel, r, g = _inputs(dtype_name, 6, 2)
     dt = getattr(torch, dtype_name)
     Ht = [torch.as_tensor(h).to(dt) for h in H]
     rt = [torch.as_tensor(x) for x in r]
     gt = [torch.as_tensor(x) for x in g]
     st = torch.as_tensor(sel)
-    Hp, rp = [_pitched(h) for h in Ht], [_pitched(x) for x in rt]
-    assert Hp[0].stride(-2) == rp[0].stride(-2) == 72
+    Hp, rp, gp = ([_pitched(x) for x in xs] for xs in (Ht, rt, gt))
+    assert Hp[0].stride(-2) == rp[0].stride(-2) == gp[0].stride(-2) == 72
     for a, b in zip(tfs.filter_sum_sel(*rp, *Hp, st),
                     tfs.filter_sum_sel(*rt, *Ht, st)):
         assert torch.equal(a, b)
-    for a, b in zip(tfs.filter_sum_sel_t(*gt, *Hp, st),
+    for a, b in zip(tfs.filter_sum_sel_t(*gp, *Hp, st),
                     tfs.filter_sum_sel_t(*gt, *Ht, st)):
         assert torch.equal(a, b)
 
@@ -212,9 +212,10 @@ GEOS = {"N32P3": dict(N=32, num_nodes=3, angles_total=30),
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_pallas_build_tables_are_pitched(dtype_name, geo):
     """The loader's fft_pallas tables: H and the row-DFT columns in pitched
-    storage whose F columns equal JAX's merged tables (to the tolerance of
-    ``test_torch_fft_pallas.test_merged_tables_match_jax``) and whose pad
-    columns are zero; the other tables dense."""
+    storage, the irfft rows in storage of the same padded F, all equal to
+    JAX's merged tables where JAX has them (to the tolerance of
+    ``test_torch_fft_pallas.test_merged_tables_match_jax``) and zero in the
+    padding; the other tables dense."""
     gt = tcfg.GeometryConfig(**GEOS[geo])
     gj = jcfg.GeometryConfig(**dataclasses.asdict(gt))
     cfg = tcfg.ProblemConfig(geometry=gt, fft_table_dtype=dtype_name)
@@ -234,6 +235,12 @@ def test_pallas_build_tables_are_pitched(dtype_name, geo):
             assert tfs._check_pitched("build", k, x) == pitch, k
             full = x.as_strided((*x.shape[:-1], pitch), x.stride())
             pad = full[..., Fk:]
+            assert torch.equal(pad, torch.zeros_like(pad)), k
+        elif k in ("Cre", "Cim"):  # [P, F, Np], F rows padded
+            pitch = -(-x.shape[1] // tfs.PITCH) * tfs.PITCH
+            assert x.stride() == (pitch * x.shape[2], x.shape[2], 1), k
+            full = x.as_strided((x.shape[0], pitch, x.shape[2]), x.stride())
+            pad = full[:, x.shape[1]:]
             assert torch.equal(pad, torch.zeros_like(pad)), k
         else:
             assert x.is_contiguous(), k
