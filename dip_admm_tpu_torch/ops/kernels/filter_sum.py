@@ -187,18 +187,12 @@ def _check_tables(name, Hre_g, Him_g, TB):
     return PT, Tp, N, F
 
 
-def _check_sel(name, dense, streamed, device, table_dtype):
-    """``_check`` on the tensors read plainly; device, type and
-    :func:`_check_pitched` on those whose rows K11/K12 stream. Returns the
-    row pitches of ``streamed``."""
-    _check(name, dense, device, table_dtype)
-    for k, t in streamed.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {k} is on {t.device}, expected {device}")
-        want = table_dtype if k in ("Hre", "Him") else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"{name}: {k} is {t.dtype}, expected {want}")
-    return {k: _check_pitched(name, k, t) for k, t in streamed.items()}
+def _check_sel(name, tensors, streamed, device, table_dtype):
+    """``_check`` on ``tensors``, the names in ``streamed`` held to
+    :func:`_check_pitched` in place of contiguity. Returns their row
+    pitches."""
+    _check(name, tensors, device, table_dtype, strided=streamed)
+    return {k: _check_pitched(name, k, tensors[k]) for k in streamed}
 
 
 def _shared_pitch(name, pitch, a, b) -> int:
@@ -222,8 +216,8 @@ def filter_sum_sel(rre2, rim2, Hre, Him, sel):
     _batches(name, PB, PT)
     _shape(name, rre2, (PB, 2, N, F), "rre2")
     _shape(name, rim2, (PB, 2, N, F), "rim2")
-    pitch = _check_sel(name, dict(sel=sel),
-                       dict(rre2=rre2, rim2=rim2, Hre=Hre, Him=Him),
+    pitch = _check_sel(name, dict(rre2=rre2, rim2=rim2, Hre=Hre, Him=Him,
+                                  sel=sel), ("rre2", "rim2", "Hre", "Him"),
                        rre2.device, Hre.dtype)
     hp = _shared_pitch(name, pitch, "Hre", "Him")
     rp = _shared_pitch(name, pitch, "rre2", "rim2")
@@ -254,9 +248,10 @@ def filter_sum_sel_t(gre_b, gim_b, Hre, Him, sel):
     _batches(name, PB, PT)
     _shape(name, gre_b, (PB, T, F), "gre_b")
     _shape(name, gim_b, (PB, T, F), "gim_b")
-    pitch = _check_sel(name, dict(sel=sel),
-                       dict(gre_b=gre_b, gim_b=gim_b, Hre=Hre, Him=Him),
-                       gre_b.device, Hre.dtype)
+    pitch = _check_sel(name, dict(gre_b=gre_b, gim_b=gim_b, Hre=Hre,
+                                  Him=Him, sel=sel),
+                       ("gre_b", "gim_b", "Hre", "Him"), gre_b.device,
+                       Hre.dtype)
     hp = _shared_pitch(name, pitch, "Hre", "Him")
     gp = _shared_pitch(name, pitch, "gre_b", "gim_b")
     rre, rim = (torch.empty((PB, 2, N, -(-F // PITCH) * PITCH),

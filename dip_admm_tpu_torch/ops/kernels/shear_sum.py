@@ -338,13 +338,16 @@ def _stream() -> int:
     return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
-def _check(name: str, tensors: dict, device, table_dtype):
+def _check(name: str, tensors: dict, device, table_dtype, strided=()):
+    """Device, type and contiguity of a kernel's tensors; those named in
+    ``strided`` are exempt from contiguity (their caller checks their
+    strides)."""
     if table_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: unsupported table dtype {table_dtype}")
     for k, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {k} is on {t.device}, expected {device}")
-        if not t.is_contiguous():
+        if k not in strided and not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
     for k, t in tensors.items():
         if k == "plane":

@@ -21,9 +21,9 @@ applies the taps ``WtT`` to the pixel rows and one DFT matrix ``D``;
 
 ``fft_pallas`` keeps the dense merged phase table H [P, T, N, F] instead,
 with a per-angle selector of the image orientation, in pitched storage
-(rows padded with zeros to a multiple of 8 elements, ``filter_sum.
-pitched_zeros``) so that its kernels stream H in 16-byte loads; ``fft_grouped`` keeps
-it with its rows permuted into branch-grouped slot order, and ``fft_mxu``
+(rows padded with zeros to a multiple of 8 elements,
+``filter_sum.pitched_zeros``) so that its kernels stream H in 16-byte
+loads; ``fft_grouped`` keeps it with its rows permuted into branch-grouped slot order, and ``fft_mxu``
 so permuted and pre-tiled with F padded to a multiple of 128. Around their
 filter-sum kernels (``ops/kernels/filter_sum.py``, ``filter_mxu.py``) the
 row DFT and the inverse DFT are torch matmuls (XLA ops in the JAX
@@ -653,23 +653,16 @@ def _kview(x: torch.Tensor, PT: int) -> torch.Tensor:
     return x.reshape(x.shape[0] // PT, PT, *x.shape[1:])
 
 
-def _padded_rows(x: torch.Tensor) -> torch.Tensor:
-    """``x`` [..., F] with its rows' pad columns: the [..., pitch] view of
-    pitched storage (``x`` itself when its rows are not padded)."""
-    if x.stride(-2) == x.shape[-1]:
+def _with_padding(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with the zero padding of its storage along ``dim`` (-1: the
+    pitched rows of H, Ere/Eim; -2: the F rows of Cre/Cim [PT, F, Np]),
+    ``x`` itself when it has none."""
+    full = x.stride(dim - 1) // x.stride(dim)
+    if full == x.shape[dim]:
         return x
-    return x.as_strided((*x.shape[:-1], x.stride(-2)), x.stride(),
-                        x.storage_offset())
-
-
-def _padded_f(C: torch.Tensor) -> torch.Tensor:
-    """The irfft rows ``C`` [PT, F, Np] with the zero rows of their padded
-    storage: [PT, Fp, Np] (``C`` itself when F is not padded)."""
-    Fp = C.stride(0) // C.shape[-1]
-    if Fp == C.shape[1]:
-        return C
-    return C.as_strided((C.shape[0], Fp, C.shape[-1]), C.stride(),
-                        C.storage_offset())
+    shape = list(x.shape)
+    shape[dim] = full
+    return x.as_strided(shape, x.stride(), x.storage_offset())
 
 
 def _plane_spectra(imgs, t):
@@ -679,7 +672,7 @@ def _plane_spectra(imgs, t):
     columns zero)."""
     PT = t["Ere"].shape[0]
     F = t["Ere"].shape[-1]
-    Ere, Eim = _padded_rows(t["Ere"]), _padded_rows(t["Eim"])
+    Ere, Eim = (_with_padding(t[k], -1) for k in ("Ere", "Eim"))
     rows2 = _kview(torch.stack([imgs, imgs.transpose(1, 2)], dim=1), PT)
     shape = (imgs.shape[0], 2, imgs.shape[1], Ere.shape[-1])
     rre2 = torch.einsum("kponv,pvf->kponf", rows2, Ere).reshape(shape)
@@ -742,8 +735,10 @@ def _eval_tail_t(sinos, t):
                              t["s"][..., None] * _kview(sinos, PT))
     # In the padded F of Cre/Cim (fft_pallas: pitched rows for K12).
     F = t["Cre"].shape[1]
-    g_re_bar = torch.einsum("kptv,pfv->kptf", g_bar, _padded_f(t["Cre"]))
-    g_im_bar = torch.einsum("kptv,pfv->kptf", g_bar, _padded_f(t["Cim"]))
+    g_re_bar = torch.einsum("kptv,pfv->kptf", g_bar,
+                            _with_padding(t["Cre"], -2))
+    g_im_bar = torch.einsum("kptv,pfv->kptf", g_bar,
+                            _with_padding(t["Cim"], -2))
     return (g_re_bar.reshape(PB, T, -1)[..., :F],
             g_im_bar.reshape(PB, T, -1)[..., :F])
 

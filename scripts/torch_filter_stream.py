@@ -16,9 +16,7 @@ once, each output written once). Then it builds a throwaway stream kernel
 table storage of H (re and im) with 16-byte loads, converts and sums it,
 and times it the same way, with a plain ``ld.global.nc`` and with the
 streaming ``ld.global.cs``: the practical bound on this card for any
-kernel that reads H once. It also prints what ``nvcc -Xptxas -v`` reports
-for the select kernels (registers, spills). The card's name and power
-limit come last.
+kernel that reads H once. The card's name and power limit come last.
 """
 
 import ctypes
@@ -115,23 +113,6 @@ def _stream_lib():
     return so
 
 
-def _ptxas_report():
-    """Registers, spills and shared memory of the select filter-sums, from
-    ``nvcc -Xptxas -v`` on the checkout's ``csrc/filter_sum.cu``."""
-    from dip_admm_tpu_torch.ops.kernels import _build
-
-    out = os.path.join(ROOT, "build", "stream")
-    os.makedirs(out, exist_ok=True)
-    proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         os.path.join(out, "libfilter_sum_ptxas.so"),
-         str(_build.CSRC / "filter_sum.cu")],
-        capture_output=True, text=True)
-    keep = [ln.strip() for ln in proc.stderr.splitlines()
-            if any(w in ln for w in ("entry function", "registers", "spill"))]
-    print(f"{ROOT} ptxas:\n  " + "\n  ".join(keep), flush=True)
-
-
 def _storage(x):
     """The whole storage under ``x`` (its pad columns included) as a flat
     uint8 tensor."""
@@ -186,7 +167,6 @@ def main() -> int:
               f"{nbytes / per_launch / 1e6} bound_ms={bound_ms} "
               f"share_of_bound={bound_ms / ms} by_kernel={by}", flush=True)
         del got
-    _ptxas_report()
     lib = _stream_lib()
     flat = [_storage(h) for h in H]
     nbytes = sum(f.numel() for f in flat)
