@@ -97,12 +97,17 @@ kernel):
                  ``fft_pallas`` and ``fft_grouped``, and prints each build's
                  seconds and table GiB.
 12. p512_kernels - at the 512^2/8 shapes, the select filter-sum K11/K12
-                 with bf16 H (error <= 2e-3 of the output's max) and the
-                 hat kernels K17/K18 (error <= 1e-5), each against its
-                 plain version, two calls bitwise equal, timed as in phase
-                 3 and by their device time alone beside their library
-                 calls'; both 512^2 apply pairs; and the 256^2/8 ``fft_pallas``
-                 pair with its tail materialized and through K17/K18.
+                 with bf16 H on the problem's pitched tables and pitched
+                 spectra and cotangents (error <= 2e-3 of the output's
+                 max) and the hat kernels K17/K18 (error <= 1e-5), each
+                 against its plain version, two calls bitwise equal, timed
+                 as in phase 3 and by their device time alone (K11/K12:
+                 per launch the profile recorded, with the launches made
+                 and recorded a call and their GB/s against the bound)
+                 beside their library calls'; both 512^2 apply pairs; K11/
+                 K12 the same way on the 256^2/8 ``fft_pallas`` tables; and
+                 the 256^2/8 ``fft_pallas`` pair with its tail materialized
+                 and through K17/K18.
 13. p512_adjoint - <Ax, y> = <x, A^T y> with f32 tables through
                  ``fft_pallas`` at 256^2/8 (materialized tail) and 512^2/8
                  (K17/K18), and ``fft_grouped`` at 512^2/8, relative error
