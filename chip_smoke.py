@@ -197,6 +197,7 @@ PSNR_TOL = 0.5
 KERNEL_RTOL = 2e-3
 K5_RTOL = 1e-5
 ADJOINT_TOL = 1e-5
+NODE_SLICE_RTOL = 1e-5  # an operator on a node slice vs on the whole batch
 TIMED_RUNS = 20
 HAT_RTOL = 1e-5
 LIBRARIES = ("shear_sum", "consensus", "filter_sum", "hat_eval", "filter_mxu")
@@ -1461,6 +1462,28 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
         _stream_checks(torch, name, kern, args, got,
                        out[f"p256_{name}"]["ms"], failures, "[256^2/8]")
         del got
+    # A mesh rank's node slice of the tables (mesh.slice_tables, as --mesh
+    # runs it) keeps their pitch: the operators on the slice, through
+    # K11/K12, against the whole batch's on those nodes.
+    from dip_admm_tpu_torch.parallel import mesh
+
+    half = slice(P // 2, P)
+    ts = mesh.slice_tables(t, P, half)
+    sino = torch.randn((P, t["p"].shape[1], t["p"].shape[2]), generator=gen,
+                       device=dev)
+    for what, op, x in (("project", radon_fft.project_nodes_merged, im),
+                        ("backproject", radon_fft.backproject_nodes_merged,
+                         sino)):
+        got, want = op(geo, x[half], ts), op(geo, x, t)[half]
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        ok = bool(torch.isfinite(got).all()) and rel <= NODE_SLICE_RTOL
+        if not ok:
+            failures.append(f"fft_pallas {what} on a node slice: rel err "
+                            f"{rel}")
+        print(f"p512_kernels: mode=fft_pallas N={geo.N} node_slice={what} "
+              f"nodes={half.start}:{half.stop} pitch={ts['Hre'].stride(-2)} "
+              f"max_rel_err={rel} ok={ok}", flush=True)
+    del ts, sino
     limit = radon_fft._HAT_MAX_BYTES
     for tail, lim in (("einsum", limit), ("K17/K18", 0)):
         radon_fft._HAT_MAX_BYTES = lim

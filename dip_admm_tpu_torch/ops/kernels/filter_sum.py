@@ -43,11 +43,15 @@ K11/K12 read the table rows, K11 the spectrum rows r and K12 the
 cotangent rows gbar with 16-byte loads, so on the card those tensors must
 be *pitched*: the last stride 1, a row pitch that is a multiple of
 ``PITCH`` elements and at least F, the outer strides dense over that
-pitch, and the first row 16-byte aligned. :func:`pitched_zeros` makes such
-storage (zero pad columns) and hands it out as the [..., F] view, so
-shapes and plain versions do not change; a contiguous tensor whose F is a
-multiple of ``PITCH`` also qualifies. The wrappers never copy to get
-there: anything else raises ``ValueError``.
+pitch, the first row 16-byte aligned and the last row's padding inside
+the storage. :func:`pitched_zeros` makes such storage (zero pad columns)
+and hands it out as the [..., F] view, so shapes and plain versions do not
+change; a contiguous tensor whose F is a multiple of ``PITCH`` also
+qualifies. A slice along a leading dim keeps the pitch; ``.contiguous()``,
+``.to(device)`` and the like do not. The wrappers never copy to get
+there: anything else raises ``ValueError``. :func:`padded` is the one
+reader of that padding: it widens a view over it, so that a product with
+the widened operand comes out pitched.
 
 On a CPU tensor a wrapper runs its plain PyTorch version (``*_ref``); on a
 CUDA tensor it launches the hand-written kernel of ``csrc/filter_sum.cu``
@@ -70,23 +74,55 @@ from dip_admm_tpu_torch.ops.kernels.shear_sum import (
 PITCH = 8  # elements: 16 bytes of bf16, two 16-byte loads of f32
 
 
-def pitched_zeros(shape, dtype, device) -> torch.Tensor:
-    """Zeros of ``shape`` [..., F] in storage whose rows are padded with
-    zeros to a pitch of ``PITCH``-element multiples, as the [..., F] view
-    (fill it in place: ``pitched_zeros(x.shape, x.dtype, x.device).copy_(x)``
-    is the pitched copy of ``x``)."""
-    *lead, F = shape
-    full = torch.zeros((*lead, -(-F // PITCH) * PITCH), dtype=dtype,
-                       device=device)
-    return full[..., :F]
+def pitched_zeros(shape, dtype, device, dim: int = -1) -> torch.Tensor:
+    """Zeros of ``shape`` in storage whose ``dim`` is padded with zeros to
+    a multiple of ``PITCH``, as the ``shape`` view (fill it in place:
+    ``pitched_zeros(x.shape, x.dtype, x.device).copy_(x)`` is the pitched
+    copy of ``x``). ``dim`` = -1 pitches the rows, as K11/K12 stream them;
+    -2 pads the rows of a matrix whose products then come out pitched (the
+    irfft rows ``Cre``/``Cim`` [P, F, Np] of the ``fft_pallas`` tables)."""
+    return _pitched(shape, dtype, device, dim, torch.zeros)
+
+
+def _pitched(shape, dtype, device, dim, alloc) -> torch.Tensor:
+    full = list(shape)
+    full[dim] = -(-full[dim] // PITCH) * PITCH
+    return alloc(full, dtype=dtype, device=device).narrow(dim, 0, shape[dim])
+
+
+def padded(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``x`` widened along ``dim`` over the zero padding of
+    :func:`pitched_zeros`'s layout, or ``x`` itself where its storage has
+    no such padding (a dense, expanded or transposed tensor): the operand
+    whose products come out pitched (the row-DFT columns ``Ere``/``Eim``
+    at ``dim`` = -1 give pitched spectra, the irfft rows ``Cre``/``Cim``
+    at -2 pitched cotangents)."""
+    n, step, outer = x.shape[dim], x.stride(dim), x.stride(dim - 1)
+    full = outer // step if step > 0 and outer % step == 0 else 0
+    if full % PITCH or not n < full < n + PITCH:
+        return x
+    shape = list(x.shape)
+    shape[dim] = full
+    if _end(x, shape) > x.untyped_storage().nbytes():
+        return x
+    return x.as_strided(shape, x.stride(), x.storage_offset())
+
+
+def _end(x: torch.Tensor, shape) -> int:
+    """The byte just past the last element of the view of ``x``'s storage
+    at ``shape`` and ``x``'s strides."""
+    last = sum((d - 1) * s for d, s in zip(shape, x.stride()))
+    return (x.storage_offset() + last + 1) * x.element_size()
 
 
 def _check_pitched(name: str, what: str, x: torch.Tensor) -> int:
     """The row pitch of ``x`` [..., F] in elements, if K11/K12 can stream
-    its rows (see the module docstring); else ValueError."""
+    its rows, the last row's padding included (see the module docstring);
+    else ValueError."""
     F, pitch = x.shape[-1], x.stride(-2)
     ok = (x.stride(-1) == 1 and pitch % PITCH == 0 and pitch >= F
-          and x.data_ptr() % 16 == 0)
+          and x.data_ptr() % 16 == 0
+          and _end(x, (*x.shape[:-1], pitch)) <= x.untyped_storage().nbytes())
     dense = pitch
     for d in range(x.dim() - 2, -1, -1):
         ok = ok and (x.stride(d) == dense or x.shape[d] == 1)
@@ -94,9 +130,9 @@ def _check_pitched(name: str, what: str, x: torch.Tensor) -> int:
     if not ok:
         raise ValueError(
             f"{name}: {what} needs rows of a pitch that is a multiple of "
-            f"{PITCH} elements (>= F), dense over it and 16-byte aligned "
-            f"(filter_sum.pitched_zeros); got shape {tuple(x.shape)}, "
-            f"strides {x.stride()}")
+            f"{PITCH} elements (>= F), dense over it, 16-byte aligned and "
+            f"held whole by its storage (filter_sum.pitched_zeros); got "
+            f"shape {tuple(x.shape)}, strides {x.stride()}")
     return pitch
 
 
@@ -254,9 +290,8 @@ def filter_sum_sel_t(gre_b, gim_b, Hre, Him, sel):
                        Hre.dtype)
     hp = _shared_pitch(name, pitch, "Hre", "Him")
     gp = _shared_pitch(name, pitch, "gre_b", "gim_b")
-    rre, rim = (torch.empty((PB, 2, N, -(-F // PITCH) * PITCH),
-                            dtype=torch.float32, device=gre_b.device)[..., :F]
-                for _ in range(2))
+    rre, rim = (_pitched((PB, 2, N, F), torch.float32, gre_b.device, -1,
+                         torch.empty) for _ in range(2))
     lib = _build.load("filter_sum")
     rc = lib.dip_sel_t(
         *(t.data_ptr() for t in (gre_b, gim_b, Hre, Him, sel, rre, rim)),

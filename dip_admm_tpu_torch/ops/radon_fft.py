@@ -54,7 +54,7 @@ from dip_admm_tpu_torch.config import GeometryConfig
 from dip_admm_tpu_torch.ops.kernels import filter_mxu
 from dip_admm_tpu_torch.ops.kernels.filter_sum import (
     filter_sum_grouped, filter_sum_grouped_t, filter_sum_sel,
-    filter_sum_sel_t, PITCH, pitched_zeros,
+    filter_sum_sel_t, padded, pitched_zeros,
 )
 from dip_admm_tpu_torch.ops.kernels.hat_eval import hat_eval, hat_eval_t
 from dip_admm_tpu_torch.ops.kernels.shear_sum import (
@@ -569,8 +569,7 @@ def _batch_storage(key, shape, like, pitched):
     if pitched and key in ("Hre", "Him", "Ere", "Eim"):
         return pitched_zeros(shape, **kw)
     if pitched and key in ("Cre", "Cim"):  # [P, F, Np]: F rows padded
-        P, F, Np = shape
-        return torch.zeros((P, -(-F // PITCH) * PITCH, Np), **kw)[:, :F]
+        return pitched_zeros(shape, dim=-2, **kw)
     return torch.empty(shape, **kw)
 
 
@@ -653,18 +652,6 @@ def _kview(x: torch.Tensor, PT: int) -> torch.Tensor:
     return x.reshape(x.shape[0] // PT, PT, *x.shape[1:])
 
 
-def _with_padding(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """``x`` with the zero padding of its storage along ``dim`` (-1: the
-    pitched rows of H, Ere/Eim; -2: the F rows of Cre/Cim [PT, F, Np]),
-    ``x`` itself when it has none."""
-    full = x.stride(dim - 1) // x.stride(dim)
-    if full == x.shape[dim]:
-        return x
-    shape = list(x.shape)
-    shape[dim] = full
-    return x.as_strided(shape, x.stride(), x.storage_offset())
-
-
 def _plane_spectra(imgs, t):
     """Forward DFT of both image orientations' rows: [PB, N, N] ->
     ([PB, 2, N, F], [PB, 2, N, F]) real/imaginary planes, in the row pitch
@@ -672,7 +659,7 @@ def _plane_spectra(imgs, t):
     columns zero)."""
     PT = t["Ere"].shape[0]
     F = t["Ere"].shape[-1]
-    Ere, Eim = (_with_padding(t[k], -1) for k in ("Ere", "Eim"))
+    Ere, Eim = (padded(t[k]) for k in ("Ere", "Eim"))
     rows2 = _kview(torch.stack([imgs, imgs.transpose(1, 2)], dim=1), PT)
     shape = (imgs.shape[0], 2, imgs.shape[1], Ere.shape[-1])
     rre2 = torch.einsum("kponv,pvf->kponf", rows2, Ere).reshape(shape)
@@ -736,9 +723,9 @@ def _eval_tail_t(sinos, t):
     # In the padded F of Cre/Cim (fft_pallas: pitched rows for K12).
     F = t["Cre"].shape[1]
     g_re_bar = torch.einsum("kptv,pfv->kptf", g_bar,
-                            _with_padding(t["Cre"], -2))
+                            padded(t["Cre"], -2))
     g_im_bar = torch.einsum("kptv,pfv->kptf", g_bar,
-                            _with_padding(t["Cim"], -2))
+                            padded(t["Cim"], -2))
     return (g_re_bar.reshape(PB, T, -1)[..., :F],
             g_im_bar.reshape(PB, T, -1)[..., :F])
 

@@ -174,7 +174,11 @@ def slice_tables(tables: dict, num_nodes: int, nodes: slice,
     node count is sliced along it. With ``rows`` = (shard, shards), the skew
     row-stage tables ``ROW_TABLES`` (top level on the parallel path, under
     ``shared.par`` on the fan path) keep only row-block shard ``shard`` of
-    ``shards`` along their row-block axis NB."""
+    ``shards`` along their row-block axis NB. A node slice is a view that
+    keeps its leaf's strides: the pitched ``fft_pallas`` tables stay
+    pitched (``filter_sum.pitched_zeros``; a copy by ``.contiguous()``
+    would drop the padding their kernels stream), and the slice of a
+    contiguous leaf is contiguous."""
     def row_blocks(v):
         shard, shards = rows
         NB_loc = v.shape[1] // shards
@@ -187,7 +191,7 @@ def slice_tables(tables: dict, num_nodes: int, nodes: slice,
                 out[k] = part(v, shared or k == "shared")
                 continue
             if not shared and v.dim() > 0 and v.shape[0] == num_nodes:
-                v = v[nodes].contiguous()
+                v = v[nodes]
             if rows is not None and k in ROW_TABLES:
                 v = row_blocks(v)
             out[k] = v

@@ -36,6 +36,7 @@ from dip_admm_tpu_torch.ops.kernels import filter_mxu as fm
 from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
 from dip_admm_tpu_torch.ops.kernels import hat_eval as he
 from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
+from dip_admm_tpu_torch.parallel import mesh
 
 pytestmark = pytest.mark.cuda
 RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
@@ -390,9 +391,10 @@ def test_sel_wrappers_reject_bad_inputs():
 
 
 def test_sel_wrappers_reject_rows_they_cannot_stream():
-    """A misaligned pitch, a non-unit last stride and a contiguous table
-    whose F is not a multiple of 8 each raise ValueError, with no launch;
-    nothing is copied to make them fit."""
+    """A misaligned pitch, a non-unit last stride, a contiguous table
+    whose F is not a multiple of 8 and storage that ends before the last
+    row's padding each raise ValueError, with no launch; nothing is copied
+    to make them fit."""
     dev = _device()
     (hr, hi), sel, (rr, ri), (gr, gi) = _sel_inputs(dev, torch.bfloat16, 4,
                                                     2, 8, 32, 33)
@@ -403,7 +405,10 @@ def test_sel_wrappers_reject_rows_they_cannot_stream():
     n40 = PT * T * N * 40
     shifted = torch.zeros(n40 + 8, dtype=hr.dtype, device=dev)[1:1 + n40]
     shifted = shifted.view(PT, T, N, 40)[..., :F]  # pitch 40, start 2 B off
+    short = torch.zeros(n40 - 40 + F, dtype=hr.dtype, device=dev)
+    short = short.as_strided((PT, T, N, F), (T * N * 40, N * 40, 40, 1))
     cases = {
+        "storage ends before the last row's padding": (short, short),
         "misaligned pitch": (odd, odd),
         "non-unit last stride": (flipped, flipped),
         "contiguous odd F": (hr.contiguous(), hi.contiguous()),
@@ -495,6 +500,32 @@ def test_pallas_adjoint_identity_through_kernels(monkeypatch):
     rhs = float(torch.sum(x.double() * Aty.double()))
     rel = abs(lhs - rhs) / float(torch.linalg.norm(Ax) * torch.linalg.norm(y))
     assert rel <= 1e-5, rel
+
+
+def test_pallas_on_a_node_slice_matches_plain():
+    """fft_pallas through K11/K12 on a mesh rank's node slice of pitched
+    tables (``mesh.slice_tables``, as ``--mesh`` runs it), against the
+    plain path on the CPU on the same tables."""
+    dev = _device()
+    geo = GeometryConfig(N=48, num_nodes=4, angles_total=48)
+    a, v, _ = radon.node_angles(geo)
+    t = mesh.slice_tables(radon_fft.precompute_merged_nodes(
+        geo, torch.as_tensor(a, dtype=torch.float32, device=dev),
+        torch.as_tensor(v, device=dev), pitched=True), 4, slice(2, 4))
+    t_cpu = {k: x.cpu() for k, x in t.items()}
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn((2, geo.N, geo.N), generator=gen)
+    y = torch.randn((2, max(geo.angles_per_node()), geo.N), generator=gen)
+    before = fs.launch_counts()
+    got = (radon_fft.project_nodes_merged(geo, x.to(dev), t),
+           radon_fft.backproject_nodes_merged(geo, y.to(dev), t))
+    assert fs.launch_counts() == {
+        **before, "filter_sum_sel": before["filter_sum_sel"] + 1,
+        "filter_sum_sel_t": before["filter_sum_sel_t"] + 1}
+    want = (radon_fft.project_nodes_merged(geo, x, t_cpu),
+            radon_fft.backproject_nodes_merged(geo, y, t_cpu))
+    for a_, b_ in zip(got, want):
+        _assert_close(a_, b_.to(dev), 1e-5)
 
 
 def _shear_cases(dtype, dev, plane=None):

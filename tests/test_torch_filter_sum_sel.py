@@ -12,7 +12,8 @@ exactly; only the order of the f32 sums differs), and is batch-invariant:
 an image's result does not depend on the other images of the batch, bit for
 bit. The plain versions on pitched views (``filter_sum.pitched_zeros``)
 equal those on contiguous copies bit for bit, and the ``fft_pallas`` build
-hands out pitched tables whose pad columns are zero."""
+hands out pitched tables whose pad columns are zero, and a mesh rank's node
+slice of them (``mesh.slice_tables``) keeps that layout."""
 
 import dataclasses
 
@@ -28,6 +29,8 @@ from dip_admm_tpu.ops.pallas import filter_sum as jfs
 from dip_admm_tpu_torch import config as tcfg
 from dip_admm_tpu_torch.data import loader as tloader
 from dip_admm_tpu_torch.ops import radon as tradon
+from dip_admm_tpu_torch.ops import radon_fft as tfft
+from dip_admm_tpu_torch.parallel import mesh as tmesh
 from dip_admm_tpu_torch.ops.kernels import filter_sum as tfs
 
 torch.set_num_threads(2)
@@ -233,13 +236,15 @@ def test_pallas_build_tables_are_pitched(dtype_name, geo):
         if k in ("Hre", "Him", "Ere", "Eim"):
             pitch = -(-Fk // tfs.PITCH) * tfs.PITCH
             assert tfs._check_pitched("build", k, x) == pitch, k
-            full = x.as_strided((*x.shape[:-1], pitch), x.stride())
+            full = tfs.padded(x)
+            assert full.shape[-1] == pitch, k
             pad = full[..., Fk:]
             assert torch.equal(pad, torch.zeros_like(pad)), k
         elif k in ("Cre", "Cim"):  # [P, F, Np], F rows padded
             pitch = -(-x.shape[1] // tfs.PITCH) * tfs.PITCH
             assert x.stride() == (pitch * x.shape[2], x.shape[2], 1), k
-            full = x.as_strided((x.shape[0], pitch, x.shape[2]), x.stride())
+            full = tfs.padded(x, -2)
+            assert full.shape[1] == pitch, k
             pad = full[:, x.shape[1]:]
             assert torch.equal(pad, torch.zeros_like(pad)), k
         else:
@@ -249,3 +254,65 @@ def test_pallas_build_tables_are_pitched(dtype_name, geo):
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=tol * max(np.abs(want).max(), 1e-30),
                                    err_msg=k)
+
+
+def test_padded_widens_only_over_pitched_padding():
+    """``filter_sum.padded`` widens a view over the zero padding of
+    ``pitched_zeros``'s layout along either dim, and returns any other
+    tensor as it is: dense, expanded (stride 0), transposed, or a pitched
+    view whose storage ends before the padding."""
+    x = tfs.pitched_zeros((3, 5, 33), torch.float32, "cpu")
+    w = tfs.padded(x)
+    assert w.shape == (3, 5, 40) and w.stride() == x.stride()
+    assert w.data_ptr() == x.data_ptr()
+    c = tfs.pitched_zeros((3, 33, 16), torch.float32, "cpu", dim=-2)
+    assert c.stride() == (40 * 16, 16, 1)
+    assert tfs.padded(c, -2).shape == (3, 40, 16)
+    assert tfs.padded(x[1:]).shape == (2, 5, 40)  # a leading slice
+    dense = torch.zeros((3, 5, 33))
+    expanded = torch.zeros((1, 1, 33)).expand(3, 5, 33)
+    flipped = torch.zeros((3, 40, 5)).transpose(1, 2)
+    short = torch.zeros(2 * 40 + 33).as_strided((3, 33), (40, 1))
+    for y in (dense, expanded, flipped, short, c):
+        assert tfs.padded(y) is y
+    assert tfs.padded(x, -2) is x
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_slice_tables_keeps_the_pitch(dtype_name):
+    """A mesh rank's node slice of the fft_pallas tables
+    (``mesh.slice_tables``) keeps their pitched layout: H and the row-DFT
+    columns pass the kernels' stride check, the spectra and cotangents made
+    from the slice come out pitched, and the operators on the slice equal
+    the whole batch's on those nodes."""
+    gt = tcfg.GeometryConfig(N=32, num_nodes=4, angles_total=40)
+    cfg = tcfg.ProblemConfig(geometry=gt, fft_table_dtype=dtype_name)
+    a, v, _ = tradon.node_angles(gt)
+    tt = tloader.build_fft_tables(
+        cfg, torch.as_tensor(a, dtype=torch.float32), torch.as_tensor(v),
+        "fft_pallas")
+    ts = tmesh.slice_tables(tt, 4, slice(2, 4))
+    Fk = tt["Hre"].shape[-1]
+    pitch = -(-Fk // tfs.PITCH) * tfs.PITCH
+    assert pitch > Fk
+    for k in ("Hre", "Him", "Ere", "Eim"):
+        assert tfs._check_pitched("slice", k, ts[k]) == pitch, k
+    for k in ("Cre", "Cim"):
+        assert tfs.padded(ts[k], -2).shape[1] == pitch, k
+    rng = np.random.default_rng(3)
+    T = tt["sel"].shape[1]
+    imgs = torch.as_tensor(rng.standard_normal((4, gt.N, gt.N)),
+                           dtype=torch.float32)
+    sinos = torch.as_tensor(rng.standard_normal((4, T, gt.N)),
+                            dtype=torch.float32)
+    spectra = tfft._plane_spectra(imgs[2:], ts)
+    cotangents = tfft._eval_tail_t(sinos[2:], ts)
+    for x in (*spectra, *cotangents):
+        assert x.shape[-1] == Fk
+        assert tfs._check_pitched("slice", "operand", x) == pitch
+    for got, want in (
+            (tfft.project_nodes_merged(gt, imgs[2:], ts),
+             tfft.project_nodes_merged(gt, imgs, tt)[2:]),
+            (tfft.backproject_nodes_merged(gt, sinos[2:], ts),
+             tfft.backproject_nodes_merged(gt, sinos, tt)[2:])):
+        _close(got.numpy(), want.numpy())
