@@ -7,14 +7,14 @@ beside the stream ceiling of their table on one GPU.
 
 builds the ``fft_pallas`` tables of the 512^2/8 cell (Shepp-Logan's
 geometry: 8 nodes, 1536 angles) from the checkout at ROOT (default: this
-one), then prints for K11 and K12 their per-call time (median of 20 CUDA
-event timings after 3 warm-ups), their device time from ``torch.profiler``
-by launch, the launches the profile recorded against the launches made,
-and their GB/s over the bytes the function must move (each input read
-once, each output written once). Then it builds a throwaway stream kernel
-(``nvcc`` into ``build/stream/``, not part of the package) that reads the
-table storage of H (re and im) with 16-byte loads, converts and sums it,
-and times it the same way, with a plain ``ld.global.nc`` and with the
+one), then prints for K11 and K12 the line ``chip_smoke.py`` prints for
+them (``_stream_checks``: per-call time, median of 20 CUDA event timings
+after 3 warm-ups; device time from ``torch.profiler`` by launch; the
+launches the profile recorded against the launches made; GB/s over the
+bytes the function must move; a bitwise repeat). Then it builds a
+throwaway stream kernel (``nvcc`` into ``build/stream/``, not part of the
+package) that reads the table storage of H (re and im) with 16-byte
+loads, converts and sums it, and times it the same way, with a plain ``ld.global.nc`` and with the
 streaming ``ld.global.cs``: the practical bound on this card for any
 kernel that reads H once. The card's name and power limit come last.
 """
@@ -148,24 +148,14 @@ def main() -> int:
     print(f"{ROOT} shapes: PB={PT} T={T} N={Nn} F={F} H={H[0].dtype} "
           f"H_stride={H[0].stride()} r_stride={r[0].stride()} "
           f"g_stride={g[0].stride()}", flush=True)
+    failures = []
     for name, kern, args in (
             ("filter_sum_sel", fs.filter_sum_sel, (*r, *H, sel)),
             ("filter_sum_sel_t", fs.filter_sum_sel_t, (*g, *H, sel))):
         got = kern(*args)
-        ms = cs._time_ms(torch, lambda: kern(*args))
-        before = kern.launches
-        dev_ms, by, recorded = cs._device_ms(torch, lambda: kern(*args))
-        made = (kern.launches - before - 1) / 10  # _device_ms warms up once
-        per_launch = dev_ms / recorded
-        nbytes = cs._work(name, args, got)[0]
-        bound_ms = cs._bound(*cs._work(name, args, got))[0]
-        print(f"{ROOT} {name}: ms={ms} device_ms={dev_ms} "
-              f"device_ms_per_recorded_launch={per_launch} "
-              f"launches_made_per_call={made} "
-              f"launches_recorded_per_call={recorded} bytes={nbytes} "
-              f"GB_per_s={nbytes / ms / 1e6} device_GB_per_s="
-              f"{nbytes / per_launch / 1e6} bound_ms={bound_ms} "
-              f"share_of_bound={bound_ms / ms} by_kernel={by}", flush=True)
+        cs._stream_checks(torch, name, kern, args, got,
+                          cs._time_ms(torch, lambda: kern(*args)), failures,
+                          f"[{N}^2/8]")
         del got
     lib = _stream_lib()
     flat = [_storage(h) for h in H]
@@ -190,7 +180,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    return 0
+    for f in failures:
+        print(f"FAIL: {f}", file=sys.stderr)
+    return 1 if failures else 0
 
 
 if __name__ == "__main__":
