@@ -213,11 +213,13 @@ grp_t(const float* __restrict__ gre, const float* __restrict__ gim,
 // K11 and K12: streams over the pitched table, eight frequencies a thread.
 // ---------------------------------------------------------------------------
 
-constexpr int VEC = 8;          // frequencies per thread (one 16-byte bf16 load)
-constexpr int S_THREADS = 256;  // threads per K11 block
-constexpr int S_TC = 4;         // angles per K11 block (per thread)
-constexpr int ST_NG = 8;        // warps per K12 block
-constexpr int ST_NR = 2;        // rows per K12 thread: row tile ST_NG * ST_NR
+constexpr int VEC = 8;    // frequencies per thread (one 16-byte bf16 load)
+constexpr int S_NG = 8;   // warps per K11 block
+constexpr int S_TC = 4;   // angles per K11 block (per thread)
+constexpr int ST_NG = 8;  // warps per K12 block
+constexpr int ST_NR = 2;  // rows per K12 thread: row tile ST_NG * ST_NR
+static_assert(S_NG == 2 * S_TC, "K11's combine: warp w sums angle w / 2, "
+                                "half w % 2 of its eight frequencies");
 
 // Eight consecutive table values of a 16-byte aligned row segment, read
 // through the read-only path (ld.global.nc) and kept raw until used.
@@ -256,23 +258,20 @@ __device__ __forceinline__ void ld8f(const float* p, float* v) {
 
 // ---------------------------------------------------------------------------
 // K11. Block: (f tile of JT eight-frequency groups, chunk of S_TC angles,
-// image p), S_THREADS threads over (group, row phase): thread u owns group
-// j0 + u % JT and sums rows n = u / JT mod R, R = S_THREADS / JT phases.
+// image p). Warp w sums rows n = w mod S_NG; lane l owns group j0 + l.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(S_THREADS, 2)
+__global__ void __launch_bounds__(32 * S_NG, 2)
 sel_fwd(const float* __restrict__ rre, const float* __restrict__ rim,
         const T* __restrict__ hre, const T* __restrict__ him,
         const float* __restrict__ sel, float* __restrict__ gre,
         float* __restrict__ gim, int PT, int T_, int N, int F, int JT,
         int hp, int rp) {
-  // [thread][angle, f], padded a column against bank conflicts.
-  __shared__ float part[S_THREADS][S_TC * VEC + 1];
-  const int u = threadIdx.x, R = S_THREADS / JT;
-  const int jl = u % JT, w = u / JT;
-  const int j0 = blockIdx.x * JT, nj = min(JT, cdiv(F, VEC) - j0);
-  const bool live = w < R && jl < nj;
-  const int f0 = (j0 + jl) * VEC;
+  __shared__ float part[S_NG][S_TC * VEC][32];  // [warp][angle, f][lane]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j0 = blockIdx.x * JT;
+  const bool live = tx < min(JT, cdiv(F, VEC) - j0);
+  const int f0 = (j0 + tx) * VEC;
   const int t0 = blockIdx.y * S_TC, nt = min(S_TC, T_ - t0);
   const int p = blockIdx.z, pt = p % PT;
   // Bit i set: angle t0 + i reads plane 1.
@@ -291,7 +290,7 @@ sel_fwd(const float* __restrict__ rre, const float* __restrict__ rim,
     const T* h_i = him + ((long)pt * T_ + t0) * hs + f0;
     const float* x_r = rre + (long)p * 2 * N * rp + f0;
     const float* x_i = rim + (long)p * 2 * N * rp + f0;
-    for (int n = w; n < N; n += R) {
+    for (int n = ty; n < N; n += S_NG) {
       const long o = (long)n * hp;
       Row8<T> hr[S_TC], hi[S_TC];
 #pragma unroll
@@ -325,22 +324,26 @@ sel_fwd(const float* __restrict__ rre, const float* __restrict__ rim,
       }
     }
   }
-  // The R row partials of each output, added in phase order: re, then im.
+  // The S_NG row partials, added in warp order: re, then im.
+  const int i = ty >> 1, kh = (ty & 1) * (VEC / 2);
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
 #pragma unroll
     for (int a = 0; a < S_TC; ++a)
 #pragma unroll
       for (int k = 0; k < VEC; ++k)
-        part[u][a * VEC + k] = c ? ai[a][k] : ar[a][k];
+        part[ty][a * VEC + k][tx] = c ? ai[a][k] : ar[a][k];
     __syncthreads();
-    float* out = (c ? gim : gre) + ((long)p * T_ + t0) * F + j0 * VEC;
-    for (int o = u; o < nt * JT * VEC; o += S_THREADS) {
-      const int i = o / (JT * VEC), jj = o / VEC % JT, k = o % VEC;
-      if (jj >= nj || (j0 + jj) * VEC + k >= F) continue;
-      float v = 0.f;
-      for (int ww = 0; ww < R; ++ww) v += part[ww * JT + jj][i * VEC + k];
-      out[(long)i * F + jj * VEC + k] = v;
+    if (live && i < nt) {
+      float* out = (c ? gim : gre) + ((long)p * T_ + t0 + i) * F;
+#pragma unroll
+      for (int kk = 0; kk < VEC / 2; ++kk) {
+        const int k = kh + kk;
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < S_NG; ++w) v += part[w][i * VEC + k][tx];
+        if (f0 + k < F) out[f0 + k] = v;
+      }
     }
     __syncthreads();
   }
@@ -452,7 +455,7 @@ int dip_sel_fwd(const float* rre, const float* rim, const void* hre,
                 int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int JT = sel_tile(F);
-  const dim3 blk(S_THREADS);
+  const dim3 blk(32, S_NG);
   const dim3 g(cdiv(cdiv(F, VEC), JT), cdiv(T_, S_TC), PB);
   if (bf16) {
     using T = __nv_bfloat16;

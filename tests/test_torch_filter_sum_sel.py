@@ -3,8 +3,8 @@
 they stream, on the CPU.
 
 The CUDA kernels cannot run here, so numpy mirrors of their arithmetic in
-f32 stand in for them: K11 as R row partials (phase w sums rows n = w mod
-R in ascending n; R depends on F, ``k11_phases``), added in phase order; K12 as one running sum per
+f32 stand in for them: K11 as eight row partials (warp w sums rows n = w
+mod 8 in ascending n), added in warp order; K12 as one running sum per
 output element, over plane 0's angles in ascending t, then plane 1's. Each
 mirror is held to the JAX package's Pallas kernel in interpret mode at 1e-5
 of the output's max, with f32 and bf16 tables (a bf16 table is upcast
@@ -36,15 +36,7 @@ from dip_admm_tpu_torch.ops.kernels import filter_sum as tfs
 torch.set_num_threads(2)
 
 RTOL = 1e-5
-S_THREADS = 256  # K11's threads a block, over (group, row phase)
-
-
-def k11_phases(F):
-    """K11's row phases at F: ``sel_tile``'s tiles of JT eight-frequency
-    groups (at most 32, the F / 8 groups split evenly), S_THREADS // JT
-    phases."""
-    J = -(-F // 8)
-    return S_THREADS // -(-J // -(-J // 32))
+NG = 8  # K11's warps: the row partials
 T, N, F = 11, 27, 70  # angles (not a multiple of K11's 4), rows, frequencies
 
 
@@ -74,9 +66,9 @@ def _inputs(dtype_name, PB, PT, seed=0):
 
 
 def k11_mirror(rre2, rim2, Hre, Him, sel):
-    """K11's sums: per image, phase w's partial over rows n = w mod R in
-    ascending n (each angle's selected plane, R = ``k11_phases(F)``), the
-    partials added in phase order."""
+    """K11's sums: per image, warp w's partial over rows n = w mod NG in
+    ascending n (each angle's selected plane), the partials added in warp
+    order."""
     PB, PT = rre2.shape[0], Hre.shape[0]
     pt = np.arange(PB) % PT
     plane = (sel[pt, :, 0] > 0.5).astype(np.intp)  # [PB, T]
@@ -85,11 +77,10 @@ def k11_mirror(rre2, rim2, Hre, Him, sel):
     hr, hi = Hre[pt], Him[pt]
     g_re = np.zeros((PB, T, F), np.float32)
     g_im = np.zeros((PB, T, F), np.float32)
-    R = k11_phases(F)
-    for w in range(R):
+    for w in range(NG):
         ar = np.zeros((PB, T, F), np.float32)
         ai = np.zeros((PB, T, F), np.float32)
-        for n in range(w, N, R):
+        for n in range(w, N, NG):
             vr, vi, a, b = xr[:, :, n], xi[:, :, n], hr[:, :, n], hi[:, :, n]
             ar = ar + (vr * a - vi * b)
             ai = ai + (vr * b + vi * a)
