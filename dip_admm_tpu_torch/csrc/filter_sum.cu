@@ -41,13 +41,15 @@
 //   F = 1025), and so are the spectra r (K11's input, from row-DFT columns
 //   of that pitch) and the cotangents gbar (K12's input, from irfft rows of
 //   that padded F). With two-byte loads and an odd pitch the same sums ran
-//   at 34% of the bound; K12 reading a dense gbar with scalar loads is
-//   ~12% slower (scripts/torch_sel_variants.py), and its first form,
-//   staging gbar through shared memory behind block barriers, was slower
-//   than that. The f tiles split the F / 8 groups evenly (at F = 1025:
-//   five tiles of 26 groups), so the ragged edge is a few idle lanes in
-//   every tile, not a tile of its own. Tensor cores do not help: each H
-//   element is used once.
+//   at 34% of the bound; K12 reading a dense gbar with scalar loads was
+//   ~12% slower, and its first form, staging gbar through shared memory
+//   behind block barriers, slower than that. The f tiles split the F / 8
+//   groups evenly (at F = 1025: five tiles of 26 groups), so the ragged
+//   edge is a few idle lanes in every tile, not a tile of its own; K11
+//   with its threads over (group, row phase) instead, 91% of them live in
+//   place of 81%, took 1.3% more device time (scripts/torch_filter_stream.py),
+//   so the idle lanes are not what holds K11 below the stream ceiling.
+//   Tensor cores do not help: each H element is used once.
 // - K11: one block per (image p, chunk of S_TC = 4 angles, f tile). Its 8
 //   warps split the row loop (warp w takes rows n = w mod 8), each thread
 //   keeps 4 angles x 8 frequencies of complex sums in registers (one
