@@ -79,10 +79,14 @@ kernel):
                  set, PT = 1), K1-K4 against their plain versions (error <=
                  2e-3 of the output's max), K1 and K6 on each row shard as
                  the 1 x 2 fan mesh runs them (the checks of phase 3), and
-                 the grouped filter-sum K13/K14
-                 with bf16 H (error <= 2e-3 of the output's max, two calls
-                 bitwise equal), timed as in phase 3; and both fan apply
-                 pairs.
+                 the grouped filter-sum K13/K14 with bf16 H on the
+                 problem's pitched tables and pitched slot spectra and
+                 cotangents (error <= 2e-3 of the output's max, two calls
+                 bitwise equal, a node slice of the images equal to the
+                 whole batch's rows bit for bit), timed as in phase 3 and
+                 by their device time per recorded launch (as K11/K12 in
+                 phase 12), with the images a thread takes; and both fan
+                 apply pairs.
 9. fan_adjoint - <Ax, y> = <x, A^T y> with f32 tables through fan
                  ``fft_skew``, fan ``fft_grouped`` and parallel
                  ``fft_grouped`` at 256^2/8 (PT = PB = 8), relative error
@@ -104,10 +108,16 @@ kernel):
                  as in phase 3 and by their device time alone (K11/K12:
                  per launch the profile recorded, with the launches made
                  and recorded a call and their GB/s against the bound)
-                 beside their library calls'; both 512^2 apply pairs; K11/
-                 K12 the same way on the 256^2/8 ``fft_pallas`` tables; and
-                 the 256^2/8 ``fft_pallas`` pair with its tail materialized
-                 and through K17/K18.
+                 beside their library calls'; K13/K14 as in phase 8 on the
+                 ``fft_grouped`` problem's tables; both 512^2 apply pairs;
+                 K11/K12 the same way on the 256^2/8 ``fft_pallas`` tables;
+                 the ``fft_pallas`` and ``fft_grouped`` operators on a node
+                 slice of the 256^2/8 tables (``mesh.slice_tables``)
+                 against the whole batch's (1e-5); ``--mesh 2 --mode
+                 fft_grouped`` through the CLI at 128^2, 4 nodes, 3 outers,
+                 beside the same run on one device (mean PSNR within 0.05
+                 dB); and the 256^2/8 ``fft_pallas`` pair with its tail
+                 materialized and through K17/K18.
 13. p512_adjoint - <Ax, y> = <x, A^T y> with f32 tables through
                  ``fft_pallas`` at 256^2/8 (materialized tail) and 512^2/8
                  (K17/K18), and ``fft_grouped`` at 512^2/8, relative error
@@ -1173,7 +1183,6 @@ def phase_fan_problem(torch, dev):
 
 def phase_fan_kernels(torch, dev, problems, failures) -> dict:
     from dip_admm_tpu_torch.ops import radon_fan
-    from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
 
     ts = problems["fft_skew"].fft_tables
     tg = problems["fft_grouped"].fft_tables
@@ -1195,40 +1204,8 @@ def phase_fan_kernels(torch, dev, problems, failures) -> dict:
                              "[fan PT=1]")
     out.update({f"fan_{k}": v for k, v in rows.items()})
 
-    par = tg["shared"]["par"]
-    PT, Tp, N, F = par["Hre_g"].shape
-    TB = par["onehot"].shape[1]
-    r = [torch.randn((P, TB, N, F), generator=gen, device=dev)
-         for _ in range(2)]
-    g = [torch.randn((P, Tp, F), generator=gen, device=dev)
-         for _ in range(2)]
-    H = (par["Hre_g"], par["Him_g"])
-    # Each reads H once (per call, not per image) and reads or writes the
-    # r_s pair once.
-    nbytes = 2 * H[0].numel() * H[0].element_size() + 2 * r[0].numel() * 4
-    # The library yardstick: one complex einsum on complex copies of the
-    # same inputs (the transpose as conj(sum_t H conj(g))).
-    tt = Tp // TB
-    Hc = torch.complex(H[0].float(), H[1].float()).reshape(PT, TB, tt, N, F)
-    rc = torch.complex(*r).reshape(P // PT, PT, TB, N, F)
-    gcc = torch.complex(*g).conj().resolve_conj().reshape(P // PT, PT, TB,
-                                                         tt, F)
-    for name, kern, ref, args, lib in (
-            ("filter_sum_grouped", fs.filter_sum_grouped,
-             fs.filter_sum_grouped_ref, (*r, *H),
-             lambda: torch.einsum("kpbnf,pbtnf->kpbtf", rc, Hc)),
-            ("filter_sum_grouped_t", fs.filter_sum_grouped_t,
-             fs.filter_sum_grouped_t_ref, (*g, *H, TB),
-             lambda: torch.einsum("kpbtf,pbtnf->kpbnf", gcc, Hc))):
-        got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
-                                  failures, note="[fan PT=1]", library=lib)
-        bitwise = _check_repeat(torch, name, kern, args, got, failures)
-        print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} "
-              f"TB={TB} Tp={Tp} N={N} F={F} H={H[0].dtype} "
-              f"bytes_once={nbytes} GB_per_s_once={nbytes / out[name]['ms'] / 1e6}",
-              flush=True)
-    del Hc, rc, gcc
-    torch.cuda.empty_cache()
+    out.update(_grouped_checks(torch, dev, tg["shared"]["par"], P, gen,
+                               failures, "[fan PT=1]"))
 
     geo = problems["fft_skew"].cfg.geometry
     for mode, t, fwd, adj in (
@@ -1239,7 +1216,7 @@ def phase_fan_kernels(torch, dev, problems, failures) -> dict:
         pair_ms = _pair_ms(torch, fwd, adj, geo, t, img)
         out[f"fan_{mode}_apply_pair_ms"] = pair_ms
         print(f"fan_kernels: mode={mode} apply_pair_ms={pair_ms} (project + "
-              f"backproject, bf16 tables, P={P} N={N} fan angles "
+              f"backproject, bf16 tables, P={P} N={geo.N} fan angles "
               f"{ts['fan_valid'].shape[1]})", flush=True)
     return out
 
@@ -1297,7 +1274,7 @@ def _table_gib(t) -> float:
 
 
 def _stream_checks(torch, name, kern, args, got, ms, failures, note):
-    """K11 or K12 (``kern``) beyond ``_compare``: bitwise on a second call,
+    """K11-K14 (``kern``) beyond ``_compare``: bitwise on a second call,
     the device time of a call and of each launch the profile recorded, the
     launches made and recorded a call (``torch.profiler`` has dropped
     launches before), and the GB/s over the bytes the function must move
@@ -1320,6 +1297,63 @@ def _stream_checks(torch, name, kern, args, got, ms, failures, note):
           f"share_of_bound={bound_ms / ms} "
           f"device_share_of_bound={bound_ms / per_launch} by_kernel={by}",
           flush=True)
+
+
+def _grouped_checks(torch, dev, t, P, gen, failures, note) -> dict:
+    """K13/K14 on the pitched grouped tables ``t`` with P images (seeded
+    slot spectra and cotangents in the tables' pitch): ``_compare`` beside
+    one complex einsum on complex copies of the same inputs (the transpose
+    as conj(sum_t H conj(g))), ``_stream_checks``, the images a thread
+    takes, and a node slice of the images (the last half, as a mesh rank
+    holds them, with its own table sets where each image has one) against
+    the whole batch's rows, bit for bit."""
+    from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
+
+    PT, Tp, N, F = t["Hre_g"].shape
+    TB = t["onehot"].shape[1]
+    H = (t["Hre_g"], t["Him_g"])
+    r = [fs.pitched_zeros((P, TB, N, F), torch.float32, dev).copy_(
+        torch.randn((P, TB, N, F), generator=gen, device=dev))
+        for _ in range(2)]
+    g = [fs.pitched_zeros((P, Tp, F), torch.float32, dev).copy_(
+        torch.randn((P, Tp, F), generator=gen, device=dev)) for _ in range(2)]
+    tt = Tp // TB
+    Hc = torch.complex(H[0].float(), H[1].float()).reshape(PT, TB, tt, N, F)
+    rc = torch.complex(*r).reshape(P // PT, PT, TB, N, F)
+    gcc = torch.complex(*g).conj().resolve_conj().reshape(P // PT, PT, TB,
+                                                         tt, F)
+    half = slice(P // 2, P)
+    hs = half if PT == P else slice(None)
+    out = {}
+    for name, kern, ref, args, part, lib, xp in (
+            ("filter_sum_grouped", fs.filter_sum_grouped,
+             fs.filter_sum_grouped_ref, (*r, *H),
+             (r[0][half], r[1][half], H[0][hs], H[1][hs]),
+             lambda: torch.einsum("kpbnf,pbtnf->kpbtf", rc, Hc), r),
+            ("filter_sum_grouped_t", fs.filter_sum_grouped_t,
+             fs.filter_sum_grouped_t_ref, (*g, *H, TB),
+             (g[0][half], g[1][half], H[0][hs], H[1][hs], TB),
+             lambda: torch.einsum("kpbtf,pbtnf->kpbnf", gcc, Hc), g)):
+        got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
+                                  failures, note=note, library=lib)
+        _stream_checks(torch, name, kern, args, got, out[name]["ms"],
+                       failures, note)
+        sliced = kern(*part)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b[half]) for a, b in zip(sliced, got))
+        if not same:
+            failures.append(f"kernel {name}{note}: a node slice differs "
+                            "from the whole batch's rows")
+        K = fs.grouped_images(name == "filter_sum_grouped", P, PT, TB, Tp, N,
+                              H[0].stride(-2), xp[0].stride(-2),
+                              H[0].element_size())
+        print(f"kernels: {name}{note} PB={P} PT={PT} TB={TB} Tp={Tp} N={N} "
+              f"F={F} images_a_thread={K} node_slice={half.start}:"
+              f"{half.stop} node_slice_bitwise={same}", flush=True)
+        del got, sliced
+    del Hc, rc, gcc, r, g
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_p512_problem(torch, dev):
@@ -1382,6 +1416,9 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
         del got
     del Hc, onehot, rc, gcc, r, g
     torch.cuda.empty_cache()
+    out.update({f"p512_{k}": v for k, v in _grouped_checks(
+        torch, dev, problems["fft_grouped"].fft_tables, P, gen, failures,
+        "[512^2/8]").items()})
 
     # K17/K18 on the problem's evaluation coordinates and scales.
     pc, s = tp["p"], tp["s"][..., None]
@@ -1464,26 +1501,35 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
         del got
     # A mesh rank's node slice of the tables (mesh.slice_tables, as --mesh
     # runs it) keeps their pitch: the operators on the slice, through
-    # K11/K12, against the whole batch's on those nodes.
+    # K11/K12 and (fft_grouped's tables) K13/K14, against the whole
+    # batch's on those nodes.
     from dip_admm_tpu_torch.parallel import mesh
 
     half = slice(P // 2, P)
-    ts = mesh.slice_tables(t, P, half)
     sino = torch.randn((P, t["p"].shape[1], t["p"].shape[2]), generator=gen,
                        device=dev)
-    for what, op, x in (("project", radon_fft.project_nodes_merged, im),
-                        ("backproject", radon_fft.backproject_nodes_merged,
-                         sino)):
-        got, want = op(geo, x[half], ts), op(geo, x, t)[half]
-        rel = float((got - want).abs().max()) / float(want.abs().max())
-        ok = bool(torch.isfinite(got).all()) and rel <= NODE_SLICE_RTOL
-        if not ok:
-            failures.append(f"fft_pallas {what} on a node slice: rel err "
-                            f"{rel}")
-        print(f"p512_kernels: mode=fft_pallas N={geo.N} node_slice={what} "
-              f"nodes={half.start}:{half.stop} pitch={ts['Hre'].stride(-2)} "
-              f"max_rel_err={rel} ok={ok}", flush=True)
-    del ts, sino
+    tg = loader.build_fft_tables(
+        cfg, torch.as_tensor(a, dtype=torch.float32, device=dev),
+        torch.as_tensor(v, device=dev), "fft_grouped")
+    for mode, tm, H, fwd, adj in (
+            ("fft_pallas", t, "Hre", radon_fft.project_nodes_merged,
+             radon_fft.backproject_nodes_merged),
+            ("fft_grouped", tg, "Hre_g", radon_fft.project_nodes_grouped,
+             radon_fft.backproject_nodes_grouped)):
+        ts = mesh.slice_tables(tm, P, half)
+        for what, op, x in (("project", fwd, im), ("backproject", adj, sino)):
+            got, want = op(geo, x[half], ts), op(geo, x, tm)[half]
+            rel = float((got - want).abs().max()) / float(want.abs().max())
+            ok = bool(torch.isfinite(got).all()) and rel <= NODE_SLICE_RTOL
+            if not ok:
+                failures.append(f"{mode} {what} on a node slice: rel err "
+                                f"{rel}")
+            print(f"p512_kernels: mode={mode} N={geo.N} node_slice={what} "
+                  f"nodes={half.start}:{half.stop} pitch={ts[H].stride(-2)} "
+                  f"max_rel_err={rel} ok={ok}", flush=True)
+        del ts
+    del tg, sino
+    _cli_mesh_check(failures)
     limit = radon_fft._HAT_MAX_BYTES
     for tail, lim in (("einsum", limit), ("K17/K18", 0)):
         radon_fft._HAT_MAX_BYTES = lim
@@ -1498,6 +1544,37 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
     del t, im, g256
     torch.cuda.empty_cache()
     return out
+
+
+def _cli_mesh_check(failures) -> None:
+    """``--mesh 2 --mode fft_grouped`` through the CLI at a small size (two
+    ranks sharing the card, each on its node slice of the grouped tables)
+    beside the same run on one device: both finite, mean PSNR within
+    ``MESH_PSNR_TOL``."""
+    argv = [sys.executable, "-m", "dip_admm_tpu_torch.runners.cli",
+            "--device", "cuda", "--mode", "fft_grouped", "--N", "128",
+            "--nodes", "4", "--max-iters", "3", "--fft-table-dtype",
+            "bfloat16"]
+    psnr = {}
+    for tag, extra in (("single", []), ("mesh_2", ["--mesh", "2"])):
+        t0 = time.perf_counter()
+        run = subprocess.run(argv + extra, capture_output=True, text=True,
+                             timeout=600)
+        text = run.stdout
+        start = text.rfind("\n{\n") + 1 if "\n{\n" in text else 0
+        try:
+            psnr[tag] = next(iter(json.loads(text[start:]).values()))[
+                "mean_psnr"]
+        except (ValueError, KeyError, StopIteration):
+            psnr[tag] = math.nan
+            print(run.stderr[-2000:], file=sys.stderr)
+        print(f"p512_kernels: cli mode=fft_grouped N=128 nodes=4 {tag} "
+              f"rc={run.returncode} mean_psnr={psnr[tag]} "
+              f"s={time.perf_counter() - t0}", flush=True)
+    ok = (all(math.isfinite(x) for x in psnr.values())
+          and abs(psnr["single"] - psnr["mesh_2"]) <= MESH_PSNR_TOL)
+    if not ok:
+        failures.append(f"cli --mesh 2 --mode fft_grouped: {psnr}")
 
 
 def phase_p512_adjoint(torch, dev, failures) -> None:

@@ -19,37 +19,39 @@
 // p % PT (the JAX kernels' vmap rule): the fan-beam path runs its PB = P
 // node images against one shared table set.
 //
-// What bounds them on an H100: reading H. A block does 8 FLOPs per H element
+// What bounds them on an H100: memory. A block does 8 FLOPs per H element
 // pair it loads (4 B in bf16), far below the card's ratio of compute to
-// bandwidth. At the parallel 512^2/8 shapes of K11/K12 H is 1.6 GB per plane
-// in bf16, each table set read by one image: 3.2 GB from HBM per call, a
-// bound of ~1 ms (a kernel that only streams those bytes in 16-byte loads
-// and sums them takes 1.00-1.04 ms of device time on an H100 80GB HBM3 at
-// 700 W, scripts/torch_filter_stream.py). At the fan 256^2/8 shapes of
-// K13/K14 H is one table set of ~12.6 MB per plane in bf16, read by 8
-// images, so it sits in the 50 MB L2 after the first image; r_s (f32, [PB,
-// TB, N, F]) is read from HBM once per angle chunk in K13, and written once
-// in K14.
+// bandwidth, and tensor cores buy nothing: where PT = PB each H element is
+// used once, and at the fan shapes the FLOPs (~0.4 GFLOP) are a few us at
+// f32 rates. At the parallel 512^2/8 shapes H is 1.6 GB per plane in bf16,
+// each table set read by one image: ~3.2 GB from HBM per call, a bound of
+// ~1 ms (a kernel that only streams those bytes in 16-byte loads and sums
+// them takes 1.00-1.04 ms of device time on an H100 80GB HBM3 at 700 W,
+// scripts/torch_filter_stream.py). At the fan 256^2/8 shapes of K13/K14 H
+// is one table set of ~12.6 MB per plane in bf16, read by 8 images, so it
+// sits in the 50 MB L2; the HBM traffic is r_s (f32, [PB, TB, N, F]), K13's
+// input and K14's output, and what the kernels move between L2 and the SMs
+// is what they spend.
 //
 // Design, simple and deterministic (no atomics, two calls agree bit for
 // bit): the TPU grid's sequential accumulation axis becomes a loop inside
 // the block that owns the output.
-// - K11/K12 stream H as 16-byte loads: each thread owns 8 consecutive
+// - All four stream H as 16-byte loads: each thread owns 8 consecutive
 //   frequencies and reads them from a table row with one load (two in
-//   f32). That needs rows on 16 bytes: the fft_pallas tables are stored
-//   with a row pitch padded with zeros to a multiple of 8 elements (1032 at
-//   F = 1025), and so are the spectra r (K11's input, from row-DFT columns
-//   of that pitch) and the cotangents gbar (K12's input, from irfft rows of
-//   that padded F). With two-byte loads and an odd pitch the same sums ran
-//   at 34% of the bound; K12 reading a dense gbar with scalar loads was
-//   ~12% slower, and its first form, staging gbar through shared memory
-//   behind block barriers, slower than that. The f tiles split the F / 8
-//   groups evenly (at F = 1025: five tiles of 26 groups), so the ragged
-//   edge is a few idle lanes in every tile, not a tile of its own; K11
-//   with its threads over (group, row phase) instead, 91% of them live in
-//   place of 81%, took 1.3% more device time (scripts/torch_filter_stream.py),
-//   so the idle lanes are not what holds K11 below the stream ceiling.
-//   Tensor cores do not help: each H element is used once.
+//   f32). That needs rows on 16 bytes: the fft_pallas and fft_grouped
+//   tables are stored with a row pitch padded with zeros to a multiple of 8
+//   elements (1032 at F = 1025, 520 at F = 513), and so are the spectra
+//   (K11's r and K13's r_s, from row-DFT columns of that pitch) and the
+//   cotangents gbar (K12's and K14's input, from irfft rows of that padded
+//   F). With two-byte loads and an odd pitch the same sums ran at 34% of
+//   the bound; K12 reading a dense gbar with scalar loads was ~12% slower,
+//   and its first form, staging gbar through shared memory behind block
+//   barriers, slower than that. The f tiles split the F / 8 groups evenly
+//   (at F = 1025: five tiles of 26 groups), so the ragged edge is a few
+//   idle lanes in every tile, not a tile of its own; K11 with its threads
+//   over (group, row phase) instead, 91% of them live in place of 81%,
+//   took 1.3% more device time (scripts/torch_filter_stream.py), so the
+//   idle lanes are not what holds K11 below the stream ceiling.
 // - K11: one block per (image p, chunk of S_TC = 4 angles, f tile). Its 8
 //   warps split the row loop (warp w takes rows n = w mod 8), each thread
 //   keeps 4 angles x 8 frequencies of complex sums in registers (one
@@ -65,18 +67,32 @@
 //   only one plane's sums are live; a plane that no angle selects is
 //   written as zeros. The 8 warps of a block read the same gbar rows (L1).
 //   It writes the pad columns of its pitched output as zeros.
-// - K13/K14 keep the layout of their tables (dense F):
-// - K13: one block per (image p, chunk of TC angles, FT frequency
-//   columns), its NG warps splitting the row loop as K11's do, one
-//   frequency per lane, the NG partial sums added in a fixed order through
-//   shared memory.
-// - K14: one block per (image p, slot block, NG*NR row tile, FT frequency
-//   columns). Each thread owns NR rows of one column and sums the block's
-//   tt slots in order: a pure map, each output element written once.
-// Warps read consecutive frequencies (coalesced). No tile needs to divide
-// N, F or T: the ragged edge is masked, so the JAX package's _tiles and
-// _grp_tn have no counterpart. Walking the images inside one K13/K14 block
-// (one H read for all of them) and the pitch for K13/K14 are later work.
+// - K13 and K14 take K images that share a table set (p = k PT + pt, k in
+//   a run of K) in one thread: each H segment a thread loads is applied to
+//   the K images from registers, so H is read (PB / PT) / K times, not
+//   PB / PT times. The register budget of K11/K12 (64 f32 sums a thread at
+//   most) fixes the product of the images and the angles (K13) or rows
+//   (K14) a thread owns, and the wrapper (filter_sum.grouped_images)
+//   passes the K in {1, 2, 4} dividing PB / PT that moves the fewest bytes
+//   from L2, counting a re-read of r_s (K13) or gbar (K14) against a
+//   re-read of H. At PT = PB (512^2) that is K = 1, the plain stream; at
+//   the fan shapes (PT = 1, PB = 8) K13 takes K = 2 and K14 K = 4.
+// - K13: one block per (chunk of 4 / K slots of slot block tb, f tile,
+//   (K-image group, tb)), 8 warps splitting the rows as K11's do, the 8
+//   partial sums added in warp order through shared memory. The chunks of
+//   one slot block are the fastest grid index, so the blocks that read the
+//   same r_s rows (tt / (4 / K) of them) run side by side and r_s comes
+//   from HBM once per slot block, from L2 to the others.
+// - K14: one block per (f tile, row tile of 8 x (2 / K, at least 1) rows,
+//   (K-image group, slot block)). Each thread owns its rows x 8
+//   frequencies of K images and sums the block's tt slots in ascending t:
+//   a pure map, each output element written once, pad columns as zeros.
+// - Every complex product is four fmaf in a fixed order (re: + r a, - i b;
+//   im: + r b, + i a for K13, the conjugate for K14), so a sum's rounding
+//   does not depend on K, PB or PT: K13's order over n is fixed (8 row
+//   phases in ascending n, added in phase order), K14's over t ascending,
+//   and a node slice of the batch gives the whole batch's rows bit for
+//   bit.
 //
 // C interface for ctypes: pointers and the stream as void*, sizes as int.
 // Every entry launches on the given stream, does not synchronise and
@@ -87,129 +103,7 @@
 
 namespace {
 
-constexpr int FT = 32;  // frequency columns per block (one per lane)
-constexpr int NG = 8;   // warps per block (row groups)
-constexpr int TC = 8;   // angles (slots) per K11/K13 block
-constexpr int NR = 4;   // rows per K12/K14 thread: row tile NG * NR
-static_assert(NG == TC, "K11/K13: warp i sums angle i of the chunk");
-
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-template <typename T> __device__ __forceinline__ float ld(const T* p, long i);
-template <> __device__ __forceinline__ float ld<float>(const float* p, long i) {
-  return p[i];
-}
-template <>
-__device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                   long i) {
-  return __bfloat162float(p[i]);
-}
-
-// ---------------------------------------------------------------------------
-// K13. Block: (f tile, (slot block tb, slot chunk c), image p).
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(FT * NG)
-grp_fwd(const float* __restrict__ rre, const float* __restrict__ rim,
-        const T* __restrict__ hre, const T* __restrict__ him,
-        float* __restrict__ gre, float* __restrict__ gim, int PT, int TB,
-        int Tp, int N, int F) {
-  __shared__ float sr[NG][TC][FT];
-  __shared__ float si[NG][TC][FT];
-  const int tt = Tp / TB, nchunk = cdiv(tt, TC);
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int f = blockIdx.x * FT + tx;
-  const int tb = blockIdx.y / nchunk, c = blockIdx.y % nchunk;
-  const int p = blockIdx.z, pt = p % PT;
-  const int t0 = tb * tt + c * TC;          // first slot of the chunk
-  const int nt = min(TC, tt - c * TC);      // slots in the chunk
-  const long NF = (long)N * F;
-  float ar[TC], ai[TC];
-#pragma unroll
-  for (int i = 0; i < TC; ++i) ar[i] = ai[i] = 0.f;
-
-  if (f < F) {
-    const float* xr = rre + (long)(p * TB + tb) * NF + f;
-    const float* xi = rim + (long)(p * TB + tb) * NF + f;
-    const T* h_r = hre + ((long)pt * Tp + t0) * NF + f;
-    const T* h_i = him + ((long)pt * Tp + t0) * NF + f;
-    for (int n = ty; n < N; n += NG) {
-      const long o = (long)n * F;
-      const float vr = xr[o], vi = xi[o];
-#pragma unroll
-      for (int i = 0; i < TC; ++i) {
-        if (i < nt) {
-          const float hr = ld<T>(h_r, i * NF + o), hi = ld<T>(h_i, i * NF + o);
-          ar[i] += vr * hr - vi * hi;
-          ai[i] += vr * hi + vi * hr;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < TC; ++i) {
-    sr[ty][i][tx] = ar[i];
-    si[ty][i][tx] = ai[i];
-  }
-  __syncthreads();
-  const int i = ty;  // this thread's output slot of the chunk
-  if (f >= F || i >= nt) return;
-  float vr = 0.f, vi = 0.f;
-  for (int g = 0; g < NG; ++g) {
-    vr += sr[g][i][tx];
-    vi += si[g][i][tx];
-  }
-  const long go = ((long)p * Tp + t0 + i) * F + f;
-  gre[go] = vr;
-  gim[go] = vi;
-}
-
-// ---------------------------------------------------------------------------
-// K14. Block: (f tile, row tile, (image p, slot block tb)).
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(FT * NG)
-grp_t(const float* __restrict__ gre, const float* __restrict__ gim,
-      const T* __restrict__ hre, const T* __restrict__ him,
-      float* __restrict__ rre, float* __restrict__ rim, int PT, int TB,
-      int Tp, int N, int F) {
-  const int tt = Tp / TB;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int f = blockIdx.x * FT + tx, n0 = blockIdx.y * (NG * NR) + ty;
-  const int tb = blockIdx.z % TB, p = blockIdx.z / TB, pt = p % PT;
-  if (f >= F) return;
-  const long NF = (long)N * F;
-  const float* g_r = gre + ((long)p * Tp + tb * tt) * F + f;
-  const float* g_i = gim + ((long)p * Tp + tb * tt) * F + f;
-  const T* h_r = hre + ((long)pt * Tp + tb * tt) * NF + f;
-  const T* h_i = him + ((long)pt * Tp + tb * tt) * NF + f;
-  float ar[NR], ai[NR];
-#pragma unroll
-  for (int j = 0; j < NR; ++j) ar[j] = ai[j] = 0.f;
-
-  for (int t = 0; t < tt; ++t) {
-    const float gr = g_r[(long)t * F], gi = g_i[(long)t * F];
-#pragma unroll
-    for (int j = 0; j < NR; ++j) {
-      const int n = n0 + NG * j;
-      if (n < N) {
-        const long o = t * NF + (long)n * F;
-        const float hr = ld<T>(h_r, o), hi = ld<T>(h_i, o);
-        ar[j] += gr * hr + gi * hi;
-        ai[j] += gi * hr - gr * hi;
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NR; ++j) {
-    const int n = n0 + NG * j;
-    if (n < N) {
-      const long ro = ((long)(p * TB + tb) * N + n) * F + f;
-      rre[ro] = ar[j];
-      rim[ro] = ai[j];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K11 and K12: streams over the pitched table, eight frequencies a thread.
@@ -440,16 +334,268 @@ sel_t(const float* __restrict__ gre, const float* __restrict__ gim,
   }
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// K13 and K14: streams over the pitched table, eight frequencies and K
+// images a thread.
+// ---------------------------------------------------------------------------
 
-extern "C" {
+constexpr int G_NG = 8;     // warps per K13 block: row phases n = w mod 8
+constexpr int G_PAIRS = 4;  // (slot, image) pairs a K13 thread sums
+static_assert(G_NG == 2 * G_PAIRS, "K13's combine: warp w sums pair w / 2, "
+                                   "half w % 2 of its eight frequencies");
 
-// K11/K12 grid: cdiv(J, 32) f tiles of equal width (J = cdiv(F, 8) groups),
-// so the ragged edge is spread over the tiles' lanes, not a tile of its own.
-static int sel_tile(int F) {
+// K14's rows a thread owns beside its K images (64 sums a thread at most).
+__host__ __device__ constexpr int grp_t_rows(int K) { return K == 4 ? 1 : 2; }
+
+// (acc + x y) + z w as two fmaf, in this order, whatever the kernel's
+// shape: one complex product term of a sum (the caller signs z).
+__device__ __forceinline__ float fma2(float acc, float x, float y, float z,
+                                      float w) {
+  return fmaf(z, w, fmaf(x, y, acc));
+}
+
+// ---------------------------------------------------------------------------
+// K13. Block: (chunk of A = G_PAIRS / K slots, f tile of JT groups,
+// (K-image group, slot block tb)). Warp w sums rows n = w mod G_NG; lane l
+// owns group j0 + l of images p = (k0 + k) PT + pt, k < K.
+// ---------------------------------------------------------------------------
+template <typename T, int K>
+__global__ void __launch_bounds__(32 * G_NG, 2)
+grp_fwd(const float* __restrict__ rre, const float* __restrict__ rim,
+        const T* __restrict__ hre, const T* __restrict__ him,
+        float* __restrict__ gre, float* __restrict__ gim, int PT, int TB,
+        int Tp, int N, int F, int JT, int hp, int rp) {
+  constexpr int A = G_PAIRS / K;
+  __shared__ float part[G_NG][G_PAIRS * VEC][32];  // [warp][pair, f][lane]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j0 = blockIdx.y * JT;
+  const bool live = tx < min(JT, cdiv(F, VEC) - j0);
+  const int f0 = (j0 + tx) * VEC;
+  const int tt = Tp / TB, tb = blockIdx.z % TB, q = blockIdx.z / TB;
+  const int pt = q % PT, k0 = (q / PT) * K;
+  const int c0 = blockIdx.x * A, na = min(A, tt - c0);
+  const int t0 = tb * tt + c0;  // first slot of the chunk
+  float ar[A][K][VEC], ai[A][K][VEC];
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) ar[a][k][v] = ai[a][k][v] = 0.f;
+
+  if (live) {
+    const long hs = (long)N * hp;  // slot stride of H
+    const long xs = (long)PT * TB * N * rp;  // stride of k in r_s
+    const T* h_r = hre + ((long)pt * Tp + t0) * hs + f0;
+    const T* h_i = him + ((long)pt * Tp + t0) * hs + f0;
+    const long x0 = ((long)(k0 * PT + pt) * TB + tb) * N * rp + f0;
+    for (int n = ty; n < N; n += G_NG) {
+      const long o = (long)n * hp;
+      Row8<T> hr[A], hi[A];
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        if (a < na) {
+          hr[a].load(h_r + a * hs + o);
+          hi[a].load(h_i + a * hs + o);
+        }
+      }
+      // Every image's row segment is loaded before the first product, so a
+      // row step waits on one round of loads, not K.
+      float vr[K][VEC], vi[K][VEC];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const long xo = x0 + k * xs + (long)n * rp;
+        ld8f(rre + xo, vr[k]);
+        ld8f(rim + xo, vi[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          if (a < na) {
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+              const float b = hr[a][v], c = hi[a][v];
+              ar[a][k][v] = fma2(ar[a][k][v], vr[k][v], b, -vi[k][v], c);
+              ai[a][k][v] = fma2(ai[a][k][v], vr[k][v], c, vi[k][v], b);
+            }
+          }
+        }
+      }
+    }
+  }
+  // The G_NG row partials, added in warp order: re, then im. Warp w writes
+  // pair w / 2 (slot a = pair / K, image k = pair % K), half w % 2.
+  const int s = ty >> 1, kh = (ty & 1) * (VEC / 2);
+  const int a = s / K, k = s % K;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int aa = 0; aa < A; ++aa)
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          part[ty][(aa * K + kk) * VEC + v][tx] =
+              c ? ai[aa][kk][v] : ar[aa][kk][v];
+    __syncthreads();
+    if (live && a < na) {
+      const long p = (long)(k0 + k) * PT + pt;
+      float* out = (c ? gim : gre) + (p * Tp + t0 + a) * F;
+#pragma unroll
+      for (int u = 0; u < VEC / 2; ++u) {
+        const int v = kh + u;
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < G_NG; ++w) sum += part[w][s * VEC + v][tx];
+        if (f0 + v < F) out[f0 + v] = sum;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K14. Block: (f tile of JT groups, row tile of ST_NG * R rows, (K-image
+// group, slot block tb)). Thread (lane l, warp w) owns rows n0 + w +
+// ST_NG * j (j < R) of group j0 + l for images p = (k0 + k) PT + pt, and
+// sums the slot block's tt slots in ascending t.
+// ---------------------------------------------------------------------------
+template <typename T, int K>
+__global__ void __launch_bounds__(32 * ST_NG, K == 1 ? 3 : 2)
+grp_t(const float* __restrict__ gre, const float* __restrict__ gim,
+      const T* __restrict__ hre, const T* __restrict__ him,
+      float* __restrict__ rre, float* __restrict__ rim, int PT, int TB,
+      int Tp, int N, int F, int JT, int hp, int gp, int rp) {
+  constexpr int R = grp_t_rows(K);
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j0 = blockIdx.x * JT;
+  if (tx >= min(JT, cdiv(F, VEC) - j0)) return;  // no barrier below
+  const int f0 = (j0 + tx) * VEC;
+  const int n0 = blockIdx.y * (ST_NG * R) + ty;
+  const int tt = Tp / TB, tb = blockIdx.z % TB, q = blockIdx.z / TB;
+  const int pt = q % PT, k0 = (q / PT) * K;
+  const long hs = (long)N * hp;
+  const T* h_r = hre + ((long)pt * Tp + tb * tt) * hs + f0;
+  const T* h_i = him + ((long)pt * Tp + tb * tt) * hs + f0;
+  // gbar rows in their pitch, read by every warp of the block (L1).
+  const long gs = (long)PT * Tp * gp;  // stride of k in gbar
+  const long g0 = ((long)(k0 * PT + pt) * Tp + tb * tt) * gp + f0;
+  float ar[K][R][VEC], ai[K][R][VEC];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) ar[k][j][v] = ai[k][j][v] = 0.f;
+
+  for (int t = 0; t < tt; ++t) {
+    Row8<T> hr[R], hi[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int n = n0 + ST_NG * j;
+      if (n < N) {
+        hr[j].load(h_r + t * hs + (long)n * hp);
+        hi[j].load(h_i + t * hs + (long)n * hp);
+      }
+    }
+    float gr[K][VEC], gi[K][VEC];  // every image's, before any product
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ld8f(gre + g0 + k * gs + (long)t * gp, gr[k]);
+      ld8f(gim + g0 + k * gs + (long)t * gp, gi[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (n0 + ST_NG * j < N) {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            const float b = hr[j][v], c = hi[j][v];
+            ar[k][j][v] = fma2(ar[k][j][v], gr[k][v], b, gi[k][v], c);
+            ai[k][j][v] = fma2(ai[k][j][v], gi[k][v], b, -gr[k][v], c);
+          }
+        }
+      }
+    }
+  }
+  // 16-byte stores over the pitch, zeros past F.
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int n = n0 + ST_NG * j;
+      if (n >= N) continue;
+      const long p = (long)(k0 + k) * PT + pt;
+      const long ro = ((p * TB + tb) * N + n) * rp + f0;
+      float vr[VEC], vi[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        vr[v] = f0 + v < F ? ar[k][j][v] : 0.f;
+        vi[v] = f0 + v < F ? ai[k][j][v] : 0.f;
+      }
+      float4* orr = reinterpret_cast<float4*>(rre + ro);
+      float4* ori = reinterpret_cast<float4*>(rim + ro);
+      orr[0] = make_float4(vr[0], vr[1], vr[2], vr[3]);
+      orr[1] = make_float4(vr[4], vr[5], vr[6], vr[7]);
+      ori[0] = make_float4(vi[0], vi[1], vi[2], vi[3]);
+      ori[1] = make_float4(vi[4], vi[5], vi[6], vi[7]);
+    }
+  }
+}
+
+// K11/K12/K13/K14 f tile: cdiv(J, 32) tiles of equal width (J = cdiv(F, 8)
+// groups), so the ragged edge is spread over the tiles' lanes, not a tile
+// of its own.
+int sel_tile(int F) {
   const int J = cdiv(F, VEC);
   return cdiv(J, cdiv(J, 32));
 }
+
+template <typename T, int K>
+void launch_grp_fwd(const float* rre, const float* rim, const void* hre,
+                    const void* him, float* gre, float* gim, int PB, int PT,
+                    int TB, int Tp, int N, int F, int hp, int rp,
+                    cudaStream_t s) {
+  const int JT = sel_tile(F);
+  const dim3 g(cdiv(Tp / TB, G_PAIRS / K), cdiv(cdiv(F, VEC), JT),
+               TB * (PB / K));
+  grp_fwd<T, K><<<g, dim3(32, G_NG), 0, s>>>(
+      rre, rim, static_cast<const T*>(hre), static_cast<const T*>(him), gre,
+      gim, PT, TB, Tp, N, F, JT, hp, rp);
+}
+
+template <typename T, int K>
+void launch_grp_t(const float* gre, const float* gim, const void* hre,
+                  const void* him, float* rre, float* rim, int PB, int PT,
+                  int TB, int Tp, int N, int F, int hp, int gp, int rp,
+                  cudaStream_t s) {
+  const int JT = sel_tile(F);
+  const dim3 g(cdiv(cdiv(F, VEC), JT), cdiv(N, ST_NG * grp_t_rows(K)),
+               TB * (PB / K));
+  grp_t<T, K><<<g, dim3(32, ST_NG), 0, s>>>(
+      gre, gim, static_cast<const T*>(hre), static_cast<const T*>(him), rre,
+      rim, PT, TB, Tp, N, F, JT, hp, gp, rp);
+}
+
+template <typename T, typename... Args>
+void grp_fwd_k(int K, Args... args) {
+  if (K == 4) launch_grp_fwd<T, 4>(args...);
+  else if (K == 2) launch_grp_fwd<T, 2>(args...);
+  else launch_grp_fwd<T, 1>(args...);
+}
+
+template <typename T, typename... Args>
+void grp_t_k(int K, Args... args) {
+  if (K == 4) launch_grp_t<T, 4>(args...);
+  else if (K == 2) launch_grp_t<T, 2>(args...);
+  else launch_grp_t<T, 1>(args...);
+}
+
+}  // namespace
+
+extern "C" {
 
 int dip_sel_fwd(const float* rre, const float* rim, const void* hre,
                 const void* him, const float* sel, float* gre, float* gim,
@@ -496,39 +642,33 @@ int dip_sel_t(const float* gre, const float* gim, const void* hre,
 
 int dip_grp_fwd(const float* rre, const float* rim, const void* hre,
                 const void* him, float* gre, float* gim, int PB, int PT,
-                int TB, int Tp, int N, int F, int bf16, void* stream) {
+                int TB, int Tp, int N, int F, int hp, int rp, int K, int bf16,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 blk(FT, NG);
-  const dim3 g(cdiv(F, FT), TB * cdiv(Tp / TB, TC), PB);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    grp_fwd<T><<<g, blk, 0, s>>>(rre, rim, static_cast<const T*>(hre),
-                                 static_cast<const T*>(him), gre, gim, PT, TB,
-                                 Tp, N, F);
-  } else {
-    grp_fwd<float><<<g, blk, 0, s>>>(rre, rim, static_cast<const float*>(hre),
-                                     static_cast<const float*>(him), gre, gim,
-                                     PT, TB, Tp, N, F);
-  }
+  if ((K != 1 && K != 2 && K != 4) || (PB / PT) % K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    grp_fwd_k<__nv_bfloat16>(K, rre, rim, hre, him, gre, gim, PB, PT, TB, Tp,
+                             N, F, hp, rp, s);
+  else
+    grp_fwd_k<float>(K, rre, rim, hre, him, gre, gim, PB, PT, TB, Tp, N, F,
+                     hp, rp, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dip_grp_t(const float* gre, const float* gim, const void* hre,
               const void* him, float* rre, float* rim, int PB, int PT, int TB,
-              int Tp, int N, int F, int bf16, void* stream) {
+              int Tp, int N, int F, int hp, int gp, int rp, int K, int bf16,
+              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 blk(FT, NG);
-  const dim3 g(cdiv(F, FT), cdiv(N, NG * NR), PB * TB);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    grp_t<T><<<g, blk, 0, s>>>(gre, gim, static_cast<const T*>(hre),
-                               static_cast<const T*>(him), rre, rim, PT, TB,
-                               Tp, N, F);
-  } else {
-    grp_t<float><<<g, blk, 0, s>>>(gre, gim, static_cast<const float*>(hre),
-                                   static_cast<const float*>(him), rre, rim,
-                                   PT, TB, Tp, N, F);
-  }
+  if ((K != 1 && K != 2 && K != 4) || (PB / PT) % K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    grp_t_k<__nv_bfloat16>(K, gre, gim, hre, him, rre, rim, PB, PT, TB, Tp, N,
+                           F, hp, gp, rp, s);
+  else
+    grp_t_k<float>(K, gre, gim, hre, him, rre, rim, PB, PT, TB, Tp, N, F, hp,
+                   gp, rp, s);
   return static_cast<int>(cudaGetLastError());
 }
 

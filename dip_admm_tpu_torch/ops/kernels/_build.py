@@ -50,8 +50,8 @@ SIGNATURES = {
     "filter_sum": {
         "dip_sel_fwd": [_P] * 7 + [_I] * 8 + [_P],
         "dip_sel_t": [_P] * 7 + [_I] * 9 + [_P],
-        "dip_grp_fwd": [_P] * 6 + [_I] * 7 + [_P],
-        "dip_grp_t": [_P] * 6 + [_I] * 7 + [_P],
+        "dip_grp_fwd": [_P] * 6 + [_I] * 10 + [_P],
+        "dip_grp_t": [_P] * 6 + [_I] * 11 + [_P],
     },
     "hat_eval": {
         "dip_hat_fwd": [_P] * 4 + [_I] * 5 + [_P],

@@ -39,9 +39,9 @@ run PT = PB, the fan-beam path its node images against one shared table set
 (PT = 1), as the JAX kernels' vmap rule folds an image batch into the node
 axis.
 
-K11/K12 read the table rows, K11 the spectrum rows r and K12 the
-cotangent rows gbar with 16-byte loads, so on the card those tensors must
-be *pitched*: the last stride 1, a row pitch that is a multiple of
+All four kernels read the table rows, the spectrum rows (K11's r, K13's
+r_s) and the cotangent rows (K12's and K14's gbar) with 16-byte loads, so
+on the card those tensors must be *pitched*: the last stride 1, a row pitch that is a multiple of
 ``PITCH`` elements and at least F, the outer strides dense over that
 pitch, the first row 16-byte aligned and the last row's padding inside
 the storage. :func:`pitched_zeros` makes such storage (zero pad columns)
@@ -78,9 +78,10 @@ def pitched_zeros(shape, dtype, device, dim: int = -1) -> torch.Tensor:
     """Zeros of ``shape`` in storage whose ``dim`` is padded with zeros to
     a multiple of ``PITCH``, as the ``shape`` view (fill it in place:
     ``pitched_zeros(x.shape, x.dtype, x.device).copy_(x)`` is the pitched
-    copy of ``x``). ``dim`` = -1 pitches the rows, as K11/K12 stream them;
-    -2 pads the rows of a matrix whose products then come out pitched (the
-    irfft rows ``Cre``/``Cim`` [P, F, Np] of the ``fft_pallas`` tables)."""
+    copy of ``x``). ``dim`` = -1 pitches the rows, as the kernels stream
+    them; -2 pads the rows of a matrix whose products then come out pitched
+    (the irfft rows ``Cre``/``Cim`` [P, F, Np] of the ``fft_pallas`` and
+    ``fft_grouped`` tables)."""
     return _pitched(shape, dtype, device, dim, torch.zeros)
 
 
@@ -116,8 +117,8 @@ def _end(x: torch.Tensor, shape) -> int:
 
 
 def _check_pitched(name: str, what: str, x: torch.Tensor) -> int:
-    """The row pitch of ``x`` [..., F] in elements, if K11/K12 can stream
-    its rows, the last row's padding included (see the module docstring);
+    """The row pitch of ``x`` [..., F] in elements, if the kernels can
+    stream its rows, the last row's padding included (see the module docstring);
     else ValueError."""
     F, pitch = x.shape[-1], x.stride(-2)
     ok = (x.stride(-1) == 1 and pitch % PITCH == 0 and pitch >= F
@@ -303,24 +304,61 @@ def filter_sum_sel_t(gre_b, gim_b, Hre, Him, sel):
     return rre, rim
 
 
+def grouped_images(fwd: bool, PB: int, PT: int, TB: int, Tp: int, N: int,
+                   hp: int, xp: int, table_bytes: int) -> int:
+    """The images K that a K13 (``fwd``) or K14 thread takes, all of one
+    table set: K in {1, 2, 4} dividing PB / PT that moves the fewest bytes
+    from L2, ties to the larger K. A K13 thread sums 4 / K slots, so r_s
+    (pitch ``xp``) is read once per chunk of 4 / K slots; a K14 thread owns
+    2 rows at K = 1 and 1 row else, so gbar (pitch ``xp``) is read once per
+    row tile of 8 such rows; H (pitch ``hp``, ``table_bytes`` an element)
+    is read once per group of K images. The register budget (64 f32 sums
+    a thread) fixes those products; see ``csrc/filter_sum.cu``."""
+    tt, m = Tp // TB, PB // PT
+    h = 2 * PT * Tp * N * hp * table_bytes
+    x = 8 * PB * TB * N * xp if fwd else 8 * PB * Tp * xp
+    best, least = 1, None
+    for K in (1, 2, 4):
+        if m % K:
+            continue
+        reads = -(-tt // (4 // K)) if fwd else -(-N // (8 * (2 if K == 1
+                                                               else 1)))
+        cost = x * reads + h * (m // K)
+        if least is None or cost <= least:
+            best, least = K, cost
+    return best
+
+
+def _check_grouped(name, tensors, Hre_g, device):
+    """``_check_sel`` on a grouped kernel's tensors, all of them streamed:
+    (table pitch, operand pitch)."""
+    pitch = _check_sel(name, tensors, tuple(tensors), device, Hre_g.dtype)
+    ops = [k for k in tensors if k not in ("Hre_g", "Him_g")]
+    return (_shared_pitch(name, pitch, "Hre_g", "Him_g"),
+            _shared_pitch(name, pitch, *ops))
+
+
 def filter_sum_grouped(rre_s, rim_s, Hre_g, Him_g):
-    """K13: see :func:`filter_sum_grouped_ref`."""
+    """K13: see :func:`filter_sum_grouped_ref`. On the card ``rre_s``/
+    ``rim_s`` and the tables must be pitched."""
     if _on_cpu(rre_s):
         return filter_sum_grouped_ref(rre_s, rim_s, Hre_g, Him_g)
     name = "filter_sum_grouped"
     PB, TB = rre_s.shape[:2]
     PT, Tp, N, F = _check_tables(name, Hre_g, Him_g, TB)
-    _check(name, dict(rre_s=rre_s, rim_s=rim_s, Hre_g=Hre_g, Him_g=Him_g),
-           rre_s.device, Hre_g.dtype)
     _batches(name, PB, PT)
     _shape(name, rre_s, (PB, TB, N, F), "rre_s")
     _shape(name, rim_s, (PB, TB, N, F), "rim_s")
+    hp, rp = _check_grouped(name, dict(rre_s=rre_s, rim_s=rim_s, Hre_g=Hre_g,
+                                       Him_g=Him_g), Hre_g, rre_s.device)
+    K = grouped_images(True, PB, PT, TB, Tp, N, hp, rp, Hre_g.element_size())
     gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=rre_s.device)
     gim = torch.empty_like(gre)
     lib = _build.load("filter_sum")
     rc = lib.dip_grp_fwd(
         *(t.data_ptr() for t in (rre_s, rim_s, Hre_g, Him_g, gre, gim)),
-        PB, PT, TB, Tp, N, F, int(Hre_g.dtype == torch.bfloat16), _stream(),
+        PB, PT, TB, Tp, N, F, hp, rp, K, int(Hre_g.dtype == torch.bfloat16),
+        _stream(),
     )
     _raise_if(rc, name)
     filter_sum_grouped.launches += 1
@@ -329,23 +367,29 @@ def filter_sum_grouped(rre_s, rim_s, Hre_g, Him_g):
 
 def filter_sum_grouped_t(gre_b, gim_b, Hre_g, Him_g, TB: int):
     """K14: see :func:`filter_sum_grouped_t_ref`. ``TB`` is the number of
-    slot blocks (the JAX entry reads it off the plan's ``onehot`` table)."""
+    slot blocks (the JAX entry reads it off the plan's ``onehot`` table).
+    On the card the cotangents ``gre_b``/``gim_b`` and the tables must be
+    pitched; the output is a pitched view (:func:`pitched_zeros`'s layout,
+    pad columns written as zeros)."""
     if _on_cpu(gre_b):
         return filter_sum_grouped_t_ref(gre_b, gim_b, Hre_g, Him_g, TB)
     name = "filter_sum_grouped_t"
     PB = gre_b.shape[0]
     PT, Tp, N, F = _check_tables(name, Hre_g, Him_g, TB)
-    _check(name, dict(gre_b=gre_b, gim_b=gim_b, Hre_g=Hre_g, Him_g=Him_g),
-           gre_b.device, Hre_g.dtype)
     _batches(name, PB, PT)
     _shape(name, gre_b, (PB, Tp, F), "gre_b")
     _shape(name, gim_b, (PB, Tp, F), "gim_b")
-    rre = torch.empty((PB, TB, N, F), dtype=torch.float32, device=gre_b.device)
-    rim = torch.empty_like(rre)
+    hp, gp = _check_grouped(name, dict(gre_b=gre_b, gim_b=gim_b, Hre_g=Hre_g,
+                                       Him_g=Him_g), Hre_g, gre_b.device)
+    K = grouped_images(False, PB, PT, TB, Tp, N, hp, gp,
+                       Hre_g.element_size())
+    rre, rim = (_pitched((PB, TB, N, F), torch.float32, gre_b.device, -1,
+                         torch.empty) for _ in range(2))
     lib = _build.load("filter_sum")
     rc = lib.dip_grp_t(
         *(t.data_ptr() for t in (gre_b, gim_b, Hre_g, Him_g, rre, rim)),
-        PB, PT, TB, Tp, N, F, int(Hre_g.dtype == torch.bfloat16), _stream(),
+        PB, PT, TB, Tp, N, F, hp, gp, rre.stride(-2), K,
+        int(Hre_g.dtype == torch.bfloat16), _stream(),
     )
     _raise_if(rc, name)
     filter_sum_grouped_t.launches += 1

@@ -23,8 +23,9 @@ applies the taps ``WtT`` to the pixel rows and one DFT matrix ``D``;
 with a per-angle selector of the image orientation, in pitched storage
 (rows padded with zeros to a multiple of 8 elements,
 ``filter_sum.pitched_zeros``) so that its kernels stream H in 16-byte
-loads; ``fft_grouped`` keeps it with its rows permuted into branch-grouped slot order, and ``fft_mxu``
-so permuted and pre-tiled with F padded to a multiple of 128. Around their
+loads; ``fft_grouped`` keeps it with its rows permuted into
+branch-grouped slot order, pitched the same way, and ``fft_mxu`` so
+permuted and pre-tiled with F padded to a multiple of 128. Around their
 filter-sum kernels (``ops/kernels/filter_sum.py``, ``filter_mxu.py``) the
 row DFT and the inverse DFT are torch matmuls (XLA ops in the JAX
 package), and so is the hat evaluation while its materialized weights stay
@@ -579,28 +580,39 @@ def precompute_grouped(cfg: GeometryConfig, angles: torch.Tensor,
     """Branch-grouped merged tables for :func:`project_nodes_grouped`:
     each node's :func:`precompute_merged` tables, the H rows permuted into
     ``plan_branch_groups`` slot order (every tt-angle block single-branch,
-    slack rows zero). ``angles``, ``valid`` [P, T]. ``fold_eval`` (the JAX
-    package's precomputed irfft + hat tail, off by default and measured
-    slower there) is not ported."""
+    slack rows zero). ``angles``, ``valid`` [P, T]. The tables are pitched
+    as the ``fft_pallas`` build's are (:func:`precompute_merged_nodes`
+    with ``pitched``): ``Hre_g``/``Him_g`` and the row-DFT columns in
+    pitched storage, the irfft rows with their F rows padded, so that K13
+    and K14 stream H, the slot spectra and the cotangents in 16-byte loads.
+    ``fold_eval`` (the JAX package's precomputed irfft + hat tail, off by
+    default and measured slower there) is not ported."""
     if fold_eval:
         raise NotImplementedError("precompute_grouped: fold_eval is not "
                                   "ported (off by default in the JAX package)")
-    merged = precompute_merged_nodes(cfg, angles, valid, table_dtype, dets)
+    merged = precompute_merged_nodes(cfg, angles, valid, table_dtype, dets,
+                                     pitched=True)
     use_c = merged["sel"][:, :, 0] > 0.5
     plan = filter_mxu.plan_branch_groups(use_c.cpu().numpy(),
                                          valid.cpu().numpy())
     dev = angles.device
     src = torch.as_tensor(plan["src_slot"], device=dev).long()
-    idx = src.clamp(min=0)[:, :, None, None].expand(
-        -1, -1, *merged["Hre"].shape[2:])
     keep = (src >= 0)[:, :, None, None].to(table_dtype)
+
+    def slots(H):
+        """H's rows in slot order, gathered over its padded width (the pad
+        columns stay zero), as the pitched [P, Tp, N, F] view."""
+        full = padded(H)
+        idx = src.clamp(min=0)[:, :, None, None].expand(-1, -1,
+                                                         *full.shape[2:])
+        return torch.gather(full, 1, idx).mul_(keep)[..., :H.shape[-1]]
 
     def i32(a):
         return torch.as_tensor(a, dtype=torch.int32, device=dev)
 
     return {
-        "Hre_g": torch.gather(merged["Hre"], 1, idx) * keep,
-        "Him_g": torch.gather(merged["Him"], 1, idx) * keep,
+        "Hre_g": slots(merged.pop("Hre")),
+        "Him_g": slots(merged.pop("Him")),
         "onehot": torch.as_tensor(plan["onehot"], device=dev),
         "posfull": i32(plan["posfull"]),
         "invposfull": i32(plan["invposfull"]),
@@ -760,14 +772,16 @@ def backproject_nodes_merged(cfg: GeometryConfig, sinos: torch.Tensor,
 def _slot_spectra(imgs, t):
     """Row spectra of the plane that each slot block reads: [PB, N, N] ->
     ([PB, TB, N, F], [PB, TB, N, F]), the one-hot gather of the plan's
-    ``onehot`` [PT, TB, 2] (a torch einsum, an XLA einsum in JAX)."""
+    ``onehot`` [PT, TB, 2] (a torch einsum, an XLA einsum in JAX), over
+    the padded width of the plane spectra: pitched (pad columns zero) for
+    pitched ``fft_grouped`` tables, dense for ``fft_mxu``'s."""
     PT, TB = t["onehot"].shape[:2]
     PB, N = imgs.shape[:2]
     F = t["Ere"].shape[-1]
-    rre2, rim2 = _plane_spectra(imgs, t)
+    rre2, rim2 = (padded(r) for r in _plane_spectra(imgs, t))
     return tuple(
         torch.einsum("kponf,pto->kptnf", _kview(r, PT), t["onehot"])
-        .reshape(PB, TB, N, F).contiguous()
+        .reshape(PB, TB, N, r.shape[-1]).contiguous()[..., :F]
         for r in (rre2, rim2)
     )
 
@@ -793,10 +807,12 @@ def _slot_tail(g_re, g_im, t, dtype):
 
 
 def _slot_tail_t(sinos, t):
-    """Exact transpose of :func:`_slot_tail`: [PB, Tp, F] cotangents."""
-    g_re_bar, g_im_bar = _eval_tail_t(sinos, t)
-    return (_pad_unpermute(g_re_bar, t).contiguous(),
-            _pad_unpermute(g_im_bar, t).contiguous())
+    """Exact transpose of :func:`_slot_tail`: [PB, Tp, F] cotangents, in
+    the padded F of ``Cre``/``Cim`` (pitched ``fft_grouped`` tables:
+    pitched rows for K14; ``fft_mxu``'s: dense)."""
+    F = t["Cre"].shape[1]
+    return tuple(_pad_unpermute(padded(g), t).contiguous()[..., :F]
+                 for g in _eval_tail_t(sinos, t))
 
 
 def project_nodes_grouped(cfg: GeometryConfig, imgs: torch.Tensor,

@@ -126,9 +126,10 @@ class Mesh:
 def make_mesh(n_node: int, pixel: int = 1,
               device: torch.device | str | None = None) -> Mesh:
     """The mesh over the default process group, whose world must be
-    ``n_node * pixel`` ranks. ``device`` is this rank's device (default:
-    ``cuda:<rank>`` under NCCL, else the CPU). Every rank must call it, in
-    the same order as any other group creation."""
+    ``n_node * pixel`` ranks. ``device`` is this rank's device; under NCCL
+    it defaults to ``cuda:<rank>``, under gloo it must be named (no CPU
+    default: the port runs on the card unless asked for the CPU). Every
+    rank must call it, in the same order as any other group creation."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: initialise the default process group "
                            "first (or start the ranks with launch)")
@@ -141,7 +142,10 @@ def make_mesh(n_node: int, pixel: int = 1,
         raise ValueError(f"make_mesh: unsupported backend {transport!r}")
     rank = dist.get_rank()
     if device is None:
-        device = f"cuda:{rank}" if transport == "nccl" else "cpu"
+        if transport != "nccl":
+            raise ValueError("make_mesh: name this rank's device under gloo "
+                             "(cuda or cpu); there is no default")
+        device = f"cuda:{rank}"
     device = torch.device(device)
     if transport == "nccl" and device.type != "cuda":
         raise ValueError("make_mesh: NCCL needs each rank on its own card")
@@ -237,7 +241,7 @@ def _entry(rank, world, init_method, backend, device, threads, fn, args,
         results.put((rank, False, traceback.format_exc()))
 
 
-def launch(fn: Callable, world: int, device: torch.device | str = "cpu",
+def launch(fn: Callable, world: int, device: torch.device | str,
            args: tuple = (), init_file: str | None = None,
            threads: int = 1) -> list:
     """Run ``fn(rank, device, *args)`` on ``world`` spawned ranks with the

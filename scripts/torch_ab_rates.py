@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Parity, recommended, shear recommended, mesh_bench and 512^2 pallas
-recommended outer rates of the PyTorch port on one GPU, and the per-call
-times of the skew transpose row stage, the eval tail, the shear row stages
-and the select filter-sums, for comparing two checkouts in one call on one
-card.
+"""Parity, recommended, shear recommended, mesh_bench, 512^2 pallas, fan
+grouped and 512^2 grouped recommended outer rates of the PyTorch port on
+one GPU, and the per-call times of the skew transpose row stage, the eval
+tail, the shear row stages and the select and grouped filter-sums, for
+comparing two checkouts in one call on one card.
 
-    python3 scripts/torch_ab_rates.py ROOT
+    python3 scripts/torch_ab_rates.py ROOT [--only grouped]
 
 runs, from the checkout at ROOT (its own ``chip_smoke.py`` and kernels):
 the build; K2 (``skew_sum_planes_t``), K3 (``eval_shear``) and K4
@@ -24,6 +24,13 @@ and K12 (``filter_sum_sel_t``) on the 512^2/8 ``fft_pallas`` problem's
 tables, on the spectra and cotangents that checkout's projector makes, its
 apply pair, and 20 recommended outers of it (phase 14's pallas run, the
 preconditioner's build inside the rate).
+Last come K13 (``filter_sum_grouped``) and K14 (``filter_sum_grouped_t``)
+on the fan 256^2/8 problem's shared ``fft_grouped`` tables and on the
+512^2/8 ``fft_grouped`` problem's, each per call (CUDA events) and by
+device time (``torch.profiler``), on the slot spectra and cotangents that
+checkout's projector makes, with each problem's apply pair and 20
+recommended outers of it (phase 10's and phase 14's grouped runs). With
+``--only grouped`` it runs the build and that last part alone.
 It prints a line for each. Alternate the checkouts, e.g. with the parent
 unpacked by ``git archive`` into ``build/parent``:
 
@@ -34,7 +41,10 @@ unpacked by ``git archive`` into ``build/parent``:
 import os
 import sys
 
-ROOT = os.path.abspath(sys.argv[1]) if len(sys.argv) > 1 else os.getcwd()
+ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
+ROOT = os.path.abspath(ARGS[0]) if ARGS else os.getcwd()
+ONLY = (sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv
+        else None)
 os.chdir(ROOT)
 sys.path.insert(0, ROOT)
 
@@ -135,6 +145,67 @@ def _pallas_ms(problem) -> dict:
                 radon_fft.backproject_nodes_merged, geo, t, img)}
 
 
+def _grouped_ms(problem, t, pair) -> dict:
+    """K13 and K14 on the grouped tables ``t`` of ``problem`` (the fan's
+    shared set, or the parallel problem's own), per call and by device time
+    in ms, on the slot spectra and cotangents the checkout's projector
+    makes (its layout: pitched or dense), and the problem's apply pair."""
+    from dip_admm_tpu_torch.ops import radon_fft
+    from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
+
+    geo = problem.cfg.geometry
+    P = problem.num_nodes
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    img = torch.randn((P, geo.N, geo.N), generator=gen, device="cuda")
+    r = radon_fft._slot_spectra(img, t)
+    g = radon_fft._slot_tail_t(torch.randn((P, *t["p"].shape[1:]),
+                                           generator=gen, device="cuda"), t)
+    H = (t["Hre_g"], t["Him_g"])
+    TB = t["onehot"].shape[1]
+    out = {}
+    for name, fn in (
+            ("k13", lambda: fs.filter_sum_grouped(*r, *H)),
+            ("k14", lambda: fs.filter_sum_grouped_t(*g, *H, TB))):
+        out[name] = cs._time_ms(torch, fn)
+        out[f"{name}_device"] = cs._device_ms(torch, fn)[0]
+    out["pair"] = cs._pair_ms(torch, *pair, geo, problem.fft_tables, img)
+    return out
+
+
+def _grouped(failures) -> None:
+    """K13/K14 and the grouped runs of the fan and 512^2/8 cells."""
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.ops import radon_fan, radon_fft
+
+    dev = torch.device("cuda", 0)
+    fan = loader.build_problem(cs._bench_cfg("bfloat16", fan_beam=True), dev,
+                               mode="fft_grouped")
+    times = _grouped_ms(fan, fan.fft_tables["shared"]["par"],
+                        (radon_fan.project_nodes_fan_grouped,
+                         radon_fan.backproject_nodes_fan_grouped))
+    print(f"{ROOT} grouped_ms[fan]: " + " ".join(
+        f"{k}={v}" for k, v in times.items()), flush=True)
+    _, _, line = cs._drive(torch, fan, cs._recommended(fan.cfg.admm),
+                           cs.REF_FAN_PSNR, "fan_grouped", failures,
+                           cs.GROUPED)
+    print(f"{ROOT} fan_grouped_recommended: {line}", flush=True)
+    del fan
+    torch.cuda.empty_cache()
+    p512 = loader.build_problem(cs._bench_cfg("bfloat16", N=512), dev,
+                                mode="fft_grouped")
+    times = _grouped_ms(p512, p512.fft_tables,
+                        (radon_fft.project_nodes_grouped,
+                         radon_fft.backproject_nodes_grouped))
+    print(f"{ROOT} grouped_ms[512^2/8]: " + " ".join(
+        f"{k}={v}" for k, v in times.items()), flush=True)
+    _, _, line = cs._drive(torch, p512, cs._recommended(p512.cfg.admm),
+                           cs.REF_512_PSNR, "p512_grouped", failures,
+                           cs.GROUPED + cs.HAT)
+    print(f"{ROOT} p512_grouped_recommended: {line}", flush=True)
+    del p512
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     from dip_admm_tpu_torch.data import loader
 
@@ -145,6 +216,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     failures: list[str] = []
     cs.phase_build()
+    if ONLY == "grouped":
+        _grouped(failures)
+        print(f"{ROOT} failures={failures}", flush=True)
+        return 1 if failures else 0
     dev = torch.device("cuda", 0)
     cfg = cs._bench_cfg("bfloat16")
     problem = loader.build_problem(cfg, dev)
@@ -180,6 +255,7 @@ def main() -> int:
     print(f"{ROOT} p512_pallas_recommended: {line}", flush=True)
     del p512
     torch.cuda.empty_cache()
+    _grouped(failures)
     print(f"{ROOT} failures={failures}", flush=True)
     return 1 if failures else 0
 

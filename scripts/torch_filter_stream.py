@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
 """The select filter-sums K11 (``filter_sum_sel``) and K12
-(``filter_sum_sel_t``) of the PyTorch port at 512^2/8 with bf16 tables,
-beside the stream ceiling of their table on one GPU.
+(``filter_sum_sel_t``), or the grouped ones K13 (``filter_sum_grouped``)
+and K14 (``filter_sum_grouped_t``), of the PyTorch port with bf16 tables,
+beside the stream ceiling of the bytes they must move, on one GPU.
 
     python3 scripts/torch_filter_stream.py [ROOT] [--N 512]
+    python3 scripts/torch_filter_stream.py [ROOT] --grouped [--fan]
 
-builds the ``fft_pallas`` tables of the 512^2/8 cell (Shepp-Logan's
-geometry: 8 nodes, 1536 angles) from the checkout at ROOT (default: this
-one), then prints for K11 and K12 the line ``chip_smoke.py`` prints for
-them (``_stream_checks``: per-call time, median of 20 CUDA event timings
-after 3 warm-ups; device time from ``torch.profiler`` by launch; the
-launches the profile recorded against the launches made; GB/s over the
-bytes the function must move; a bitwise repeat). Then it builds a
-throwaway stream kernel (``nvcc`` into ``build/stream/``, not part of the
-package) that reads the table storage of H (re and im) with 16-byte
-loads, converts and sums it, and times it the same way, with a plain ``ld.global.nc`` and with the
-streaming ``ld.global.cs``: the practical bound on this card for any
-kernel that reads H once. The card's name and power limit come last.
+builds, from the checkout at ROOT (default: this one), the ``fft_pallas``
+tables of the 512^2/8 cell (Shepp-Logan's geometry: 8 nodes, 1536 angles;
+``--N`` another size), or with ``--grouped`` its ``fft_grouped`` tables
+(with ``--fan``: the shared tables of the fan 256^2/8 cell, 768 fan angles
+rebinned to 48 parallel ones), then prints for the two kernels the line
+``chip_smoke.py`` prints for them (``_stream_checks``: per-call time,
+median of 20 CUDA event timings after 3 warm-ups; device time from
+``torch.profiler`` by launch; the launches the profile recorded against
+the launches made; GB/s over the bytes the function must move; a bitwise
+repeat), on the spectra and cotangents the checkout's projector makes.
+Then it builds a throwaway stream kernel (``nvcc`` into ``build/stream/``,
+not part of the package) that reads the storage of H (re and im) with
+16-byte loads, converts and sums it, and times it the same way, with a
+plain ``ld.global.nc`` and with the streaming ``ld.global.cs``: the
+practical bound on this card for any kernel that reads H once. With
+``--grouped`` it also streams H and K13's slot spectra r_s together (as
+bf16 words; the bytes are what counts), the least K13 and K14 must move,
+and runs K13 and K14 with each count of images a thread may take
+(``filter_sum.grouped_images``'s candidates that divide PB / PT): device
+time, and whether the result equals the chosen count's bit for bit. The
+card's name and power limit come last.
 """
 
 import ctypes
@@ -26,7 +37,10 @@ import sys
 
 ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
 ROOT = os.path.abspath(ARGS[0]) if ARGS else os.getcwd()
-N = int(sys.argv[sys.argv.index("--N") + 1]) if "--N" in sys.argv else 512
+GROUPED = "--grouped" in sys.argv
+FAN = "--fan" in sys.argv
+N = (int(sys.argv[sys.argv.index("--N") + 1]) if "--N" in sys.argv
+     else 256 if FAN else 512)
 os.chdir(ROOT)
 sys.path.insert(0, ROOT)
 
@@ -121,61 +135,108 @@ def _storage(x):
         st, 0, (st.nbytes(),))
 
 
-def main() -> int:
+def _operands(dev):
+    """(tag, kernels as (name, wrapper, arguments), tensors to stream)."""
     from dip_admm_tpu_torch.data import loader
     from dip_admm_tpu_torch.ops import radon, radon_fft
     from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
 
+    cfg = cs._bench_cfg("bfloat16", fan_beam=FAN, N=N)
+    geo = cfg.geometry
+    a, v, _ = radon.node_angles(geo)
+    t = loader.build_fft_tables(
+        cfg, torch.as_tensor(a, dtype=torch.float32, device=dev),
+        torch.as_tensor(v, device=dev),
+        "fft_grouped" if GROUPED else "fft_pallas")
+    t = t["shared"]["par"] if FAN else t
+    P = geo.num_nodes
+    gen = torch.Generator(device=dev).manual_seed(5)
+    imgs = torch.randn((P, geo.N, geo.N), generator=gen, device=dev)
+    sinos = torch.randn((P, *t["p"].shape[1:]), generator=gen, device=dev)
+    tag = f"[{'fan ' if FAN else ''}{N}^2/8]"
+    if not GROUPED:
+        r = radon_fft._plane_spectra(imgs, t)
+        g = radon_fft._eval_tail_t(sinos, t)
+        H, sel = (t["Hre"], t["Him"]), t["sel"]
+        return tag, (("filter_sum_sel", fs.filter_sum_sel, (*r, *H, sel)),
+                     ("filter_sum_sel_t", fs.filter_sum_sel_t,
+                      (*g, *H, sel))), {"H": H}
+    r = radon_fft._slot_spectra(imgs, t)
+    g = radon_fft._slot_tail_t(sinos, t)
+    H, TB = (t["Hre_g"], t["Him_g"]), t["onehot"].shape[1]
+    return tag, (("filter_sum_grouped", fs.filter_sum_grouped, (*r, *H)),
+                 ("filter_sum_grouped_t", fs.filter_sum_grouped_t,
+                  (*g, *H, TB))), {"H": H, "H+r_s": (*H, *r)}
+
+
+def _each_grouping(name, kern, args, got, tag) -> None:
+    """``kern`` (K13 or K14) with each count K of images a thread may take
+    forced in place of ``grouped_images``'s pick: its device time a call
+    and whether its result equals ``got`` bit for bit."""
+    from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
+
+    if not hasattr(fs, "grouped_images"):
+        return  # a checkout whose kernels take one image a thread
+    PB, PT = args[0].shape[0], args[2].shape[0]
+    pick = fs.grouped_images
+    try:
+        for K in (1, 2, 4):
+            if (PB // PT) % K:
+                continue
+            fs.grouped_images = lambda *a, _K=K: _K
+            again = kern(*args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(again, got))
+            dev_ms = cs._device_ms(torch, lambda: kern(*args))[0]
+            print(f"{ROOT} {tag} {name} images_a_thread={K} "
+                  f"device_ms={dev_ms} equals_chosen={same}", flush=True)
+    finally:
+        fs.grouped_images = pick
+
+
+def main() -> int:
     if not torch.cuda.is_available():
         print("torch_filter_stream: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.phase_build()
     dev = torch.device("cuda", 0)
-    cfg = cs._bench_cfg("bfloat16", N=N)
-    geo = cfg.geometry
-    a, v, _ = radon.node_angles(geo)
-    t = loader.build_fft_tables(
-        cfg, torch.as_tensor(a, dtype=torch.float32, device=dev),
-        torch.as_tensor(v, device=dev), "fft_pallas")
-    PT, T, Nn, F = t["Hre"].shape
-    gen = torch.Generator(device=dev).manual_seed(5)
-    imgs = torch.randn((PT, geo.N, geo.N), generator=gen, device=dev)
-    r = radon_fft._plane_spectra(imgs, t)
-    g = radon_fft._eval_tail_t(
-        torch.randn((PT, T, t["p"].shape[-1]), generator=gen, device=dev), t)
-    H, sel = (t["Hre"], t["Him"]), t["sel"]
-    print(f"{ROOT} shapes: PB={PT} T={T} N={Nn} F={F} H={H[0].dtype} "
-          f"H_stride={H[0].stride()} r_stride={r[0].stride()} "
-          f"g_stride={g[0].stride()}", flush=True)
+    tag, kernels, streams = _operands(dev)
+    args0 = kernels[0][2]
+    print(f"{ROOT} {tag} shapes: H={tuple(args0[2].shape)} "
+          f"H_dtype={args0[2].dtype} H_stride={args0[2].stride()} "
+          f"x_stride={args0[0].stride()} "
+          f"g_stride={kernels[1][2][0].stride()}", flush=True)
     failures = []
-    for name, kern, args in (
-            ("filter_sum_sel", fs.filter_sum_sel, (*r, *H, sel)),
-            ("filter_sum_sel_t", fs.filter_sum_sel_t, (*g, *H, sel))):
+    for name, kern, args in kernels:
         got = kern(*args)
         cs._stream_checks(torch, name, kern, args, got,
                           cs._time_ms(torch, lambda: kern(*args)), failures,
-                          f"[{N}^2/8]")
+                          tag)
+        if GROUPED:
+            _each_grouping(name, kern, args, got, tag)
         del got
     lib = _stream_lib()
-    flat = [_storage(h) for h in H]
-    nbytes = sum(f.numel() for f in flat)
     blocks = 132 * 8
     out = torch.empty(blocks, device=dev)
-    for cs_hint in (0, 1):
-        def run(_c=cs_hint):
-            s = torch.cuda.current_stream().cuda_stream
-            for f in flat:
-                rc = lib.stream_sum16(f.data_ptr(), f.numel() // 16,
-                                      out.data_ptr(), blocks, _c, s)
-                if rc:
-                    raise RuntimeError(f"stream_sum16: CUDA error {rc}")
-        ms = cs._time_ms(torch, run)
-        dev_ms = cs._device_ms(torch, run)[0]
-        print(f"{ROOT} stream_ceiling[{'ld.global.cs' if cs_hint else 'ld.global.nc'}]: "
-              f"bytes={nbytes} ms={ms} device_ms={dev_ms} "
-              f"GB_per_s={nbytes / ms / 1e6} "
-              f"device_GB_per_s={nbytes / dev_ms / 1e6}", flush=True)
+    for what, xs in streams.items():
+        flat = [_storage(x) for x in xs]
+        nbytes = sum(f.numel() for f in flat)
+        for cs_hint in (0, 1):
+            def run(_c=cs_hint, _f=flat):
+                s = torch.cuda.current_stream().cuda_stream
+                for f in _f:
+                    rc = lib.stream_sum16(f.data_ptr(), f.numel() // 16,
+                                          out.data_ptr(), blocks, _c, s)
+                    if rc:
+                        raise RuntimeError(f"stream_sum16: CUDA error {rc}")
+            ms = cs._time_ms(torch, run)
+            dev_ms = cs._device_ms(torch, run)[0]
+            hint = "ld.global.cs" if cs_hint else "ld.global.nc"
+            print(f"{ROOT} {tag} stream_ceiling[{what}, {hint}]: "
+                  f"bytes={nbytes} ms={ms} device_ms={dev_ms} "
+                  f"GB_per_s={nbytes / ms / 1e6} "
+                  f"device_GB_per_s={nbytes / dev_ms / 1e6}", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)

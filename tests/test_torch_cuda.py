@@ -13,7 +13,8 @@ elementwise f32 ops, and its per-pair sums taken in another order), and
 1e-5 for the grouped filter-sum kernels K13/K14 with either table type (a
 bf16 table is upcast exactly; only the order of the f32 sums differs); two
 K5 calls, and two K13/K14 calls, on the same inputs must agree bit for
-bit. The select filter-sum kernels K11/K12 are held to 1e-5 with either
+bit, and K13/K14 on a node slice of the images give the whole batch's rows
+bit for bit. The select filter-sum kernels K11/K12 are held to 1e-5 with either
 table type (a bf16 table is upcast exactly; the sums run in another order,
 and the plain forward blends both planes by sel where the kernel reads the
 selected one, an f32 rounding per term), and the hat kernels K17/K18 to
@@ -140,44 +141,68 @@ def test_kernel_shared_table_matches_plain(name, dtype):
     _assert_close(got, want, RTOL[dtype])
 
 
+def _pitched(x):
+    return fs.pitched_zeros(x.shape, x.dtype, x.device).copy_(x)
+
+
 def _grouped_inputs(dev, dtype, PB, PT, TB, tt, N, F, seed=3):
+    """Tables of PT sets, slot spectra and cotangents of PB images, all in
+    pitched storage (``fs.pitched_zeros``), as K13/K14 read them."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     Tp = TB * tt
-    H = [torch.randn((PT, Tp, N, F), generator=gen, device=dev).to(dtype)
+    H = [_pitched(torch.randn((PT, Tp, N, F), generator=gen, device=dev)
+                  .to(dtype)) for _ in range(2)]
+    r = [_pitched(torch.randn((PB, TB, N, F), generator=gen, device=dev))
          for _ in range(2)]
-    r = [torch.randn((PB, TB, N, F), generator=gen, device=dev)
-         for _ in range(2)]
-    g = [torch.randn((PB, Tp, F), generator=gen, device=dev)
+    g = [_pitched(torch.randn((PB, Tp, F), generator=gen, device=dev))
          for _ in range(2)]
     return H, r, g
 
 
-# (PB, PT, TB, tt, N, F): the fan 256^2/8 grouped shapes at a smaller N,
-# tiles that divide neither N nor F, a slot block that is not a multiple of
-# the kernel's 8-slot chunk, and one table set per image.
-GROUPED_SHAPES = [(8, 1, 6, 8, 64, 129), (3, 1, 2, 12, 45, 70),
-                  (4, 4, 3, 16, 40, 65)]
+# (PB, PT, TB, tt, N, F): the fan 256^2/8 grouped shapes (8 images against
+# one table set) whole and at a smaller N, the 512^2/8 ones (tt = 32, one
+# set an image) at a smaller N and F, tiles that divide neither N nor F, a
+# slot block that is not a multiple of a thread's slots, two images a set,
+# and odd and even F (pitches 520, 136, 72, 72).
+GROUPED_SHAPES = [(8, 1, 6, 8, 256, 513), (8, 1, 6, 8, 64, 129),
+                  (8, 8, 6, 32, 64, 129), (3, 1, 2, 12, 45, 70),
+                  (4, 2, 3, 6, 40, 65)]
 
 
 @pytest.mark.parametrize("shape", GROUPED_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grouped_kernels_match_plain_and_repeat(shape, dtype):
+    """K13/K14 on pitched inputs against their plain versions (1e-5), a
+    second call bit for bit, K14's output pitched with zero pad columns,
+    and a node slice (the last half of the images, as a mesh rank holds
+    them) equal to the whole batch's rows bit for bit."""
     dev = _device()
     PB, PT, TB, tt, N, F = shape
     (hr, hi), (rr, ri), (gr, gi) = _grouped_inputs(dev, dtype, *shape)
     before = fs.launch_counts()
-    for kern, ref, args in (
+    # A mesh rank's images, and the table sets they read: its own where
+    # each image has one, else all (the images start on a multiple of PT).
+    half = slice(PB // 2, PB) if PT in (1, PB) else slice(PT, PB)
+    hs = half if PT == PB else slice(None)
+    for kern, ref, args, part in (
             (fs.filter_sum_grouped, fs.filter_sum_grouped_ref,
-             (rr, ri, hr, hi)),
+             (rr, ri, hr, hi), (rr[half], ri[half], hr[hs], hi[hs])),
             (fs.filter_sum_grouped_t, fs.filter_sum_grouped_t_ref,
-             (gr, gi, hr, hi, TB))):
+             (gr, gi, hr, hi, TB), (gr[half], gi[half], hr[hs], hi[hs], TB))):
         got, again, want = kern(*args), kern(*args), ref(*args)
+        sliced = kern(*part)
         torch.cuda.synchronize()
         _assert_close(got, want, 1e-5)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert all(torch.equal(a, b[half]) for a, b in zip(sliced, got))
+    pitch = -(-F // fs.PITCH) * fs.PITCH
+    for out in got:  # K14's
+        assert out.stride(-2) == pitch
+        pad = out.as_strided((*out.shape[:-1], pitch), out.stride())[..., F:]
+        assert torch.equal(pad, torch.zeros_like(pad))
     assert fs.launch_counts() == {
-        **before, "filter_sum_grouped": before["filter_sum_grouped"] + 2,
-        "filter_sum_grouped_t": before["filter_sum_grouped_t"] + 2}
+        **before, "filter_sum_grouped": before["filter_sum_grouped"] + 3,
+        "filter_sum_grouped_t": before["filter_sum_grouped_t"] + 3}
 
 
 def test_grouped_wrappers_reject_bad_inputs():
@@ -191,16 +216,91 @@ def test_grouped_wrappers_reject_bad_inputs():
     with pytest.raises(TypeError):
         fs.filter_sum_grouped(rr, ri, hr.half(), hi.half())  # f32 or bf16
     with pytest.raises(ValueError):
-        fs.filter_sum_grouped(rr[:3].contiguous(), ri[:3].contiguous(), hr,
-                              hi)  # 3 images, 2 table sets
+        fs.filter_sum_grouped(rr[:3], ri[:3], hr, hi)  # 3 images, 2 sets
     with pytest.raises(ValueError):
-        fs.filter_sum_grouped(rr[:, :, :16].contiguous(), ri, hr, hi)
+        fs.filter_sum_grouped(rr[:, :, :16], ri, hr, hi)
     with pytest.raises(ValueError):
         fs.filter_sum_grouped_t(gr, gi, hr, hi, 3)  # Tp = 16 not a multiple
     with pytest.raises(ValueError):
         fs.filter_sum_grouped_t(gr.transpose(1, 2), gi, hr, hi, 2)
     with pytest.raises(ValueError):
         fs.filter_sum_grouped_t(gr, gi.cpu(), hr, hi, 2)  # device
+
+
+def test_grouped_wrappers_reject_rows_they_cannot_stream():
+    """A dense table whose F is not a multiple of 8, a misaligned pitch, a
+    view that starts 2 bytes off 16, and dense odd-F spectra and
+    cotangents each raise ValueError, with no launch; nothing is copied to
+    make them fit."""
+    dev = _device()
+    (hr, hi), (rr, ri), (gr, gi) = _grouped_inputs(dev, torch.bfloat16, 4, 2,
+                                                   2, 8, 32, 33)
+    PT, Tp, N, F = hr.shape
+    odd = torch.zeros((PT, Tp, N, 36), dtype=hr.dtype, device=dev)[..., :F]
+    n40 = PT * Tp * N * 40
+    shifted = torch.zeros(n40 + 8, dtype=hr.dtype, device=dev)[1:1 + n40]
+    shifted = shifted.view(PT, Tp, N, 40)[..., :F]  # pitch 40, start 2 B off
+    cases = {
+        "dense odd F": (hr.contiguous(), hi.contiguous()),
+        "misaligned pitch": (odd, odd),
+        "shifted start": (shifted, hi),
+    }
+    before = fs.launch_counts()
+    for what, (a, b) in cases.items():
+        with pytest.raises(ValueError):
+            fs.filter_sum_grouped(rr, ri, a, b)
+        with pytest.raises(ValueError):
+            fs.filter_sum_grouped_t(gr, gi, a, b, 2)
+    with pytest.raises(ValueError):  # the spectra and cotangents too
+        fs.filter_sum_grouped(rr.contiguous(), ri.contiguous(), hr, hi)
+    with pytest.raises(ValueError):
+        fs.filter_sum_grouped_t(gr.contiguous(), gi.contiguous(), hr, hi, 2)
+    assert fs.launch_counts() == before
+
+
+@pytest.mark.parametrize("fan", [False, True], ids=["parallel", "fan"])
+def test_grouped_operators_on_a_node_slice_match_plain(fan):
+    """fft_grouped through K13/K14 on the card, with f32 tables: the
+    adjoint identity, and the operators on a mesh rank's node slice of the
+    tables (``mesh.slice_tables``; the fan path keeps its shared set whole)
+    against the plain path on the CPU on the same tables."""
+    dev = _device()
+    geo = GeometryConfig(N=48, num_nodes=4, angles_total=48, fan_beam=fan)
+    a, v, _ = radon.node_angles(geo)
+    at = torch.as_tensor(a, dtype=torch.float32, device=dev)
+    vt = torch.as_tensor(v, device=dev)
+    if fan:
+        t = radon_fan.precompute_fan_grouped(geo, at, vt)
+        fwd = radon_fan.project_nodes_fan_grouped
+        adj = radon_fan.backproject_nodes_fan_grouped
+    else:
+        t = radon_fft.precompute_grouped(geo, at, vt)
+        fwd, adj = (radon_fft.project_nodes_grouped,
+                    radon_fft.backproject_nodes_grouped)
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn((4, geo.N, geo.N), generator=gen)
+    y = torch.randn((4, a.shape[1], geo.n_det), generator=gen)
+    before = fs.launch_counts()
+    Ax, Aty = fwd(geo, x.to(dev), t), adj(geo, y.to(dev), t)
+    assert fs.launch_counts() == {
+        **before, "filter_sum_grouped": before["filter_sum_grouped"] + 1,
+        "filter_sum_grouped_t": before["filter_sum_grouped_t"] + 1}
+    lhs = float(torch.sum(Ax.double() * y.to(dev).double()))
+    rhs = float(torch.sum(x.to(dev).double() * Aty.double()))
+    rel = abs(lhs - rhs) / float(torch.linalg.norm(Ax) * torch.linalg.norm(y))
+    assert rel <= 1e-5, rel
+    ts = mesh.slice_tables(t, 4, slice(2, 4))
+
+    def cpu(tree):
+        return {k: cpu(u) if isinstance(u, dict) else u.cpu()
+                for k, u in tree.items()}
+
+    got = (fwd(geo, x[2:].to(dev), ts), adj(geo, y[2:].to(dev), ts))
+    want = (fwd(geo, x[2:], cpu(ts)), adj(geo, y[2:], cpu(ts)))
+    for a_, b_ in zip(got, want):
+        _assert_close(a_, b_.to(dev), 1e-5)
+    for a_, b_ in zip(got, (Ax[2:], Aty[2:])):
+        _assert_close(a_, b_, 1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
