@@ -1325,15 +1325,15 @@ def _grouped_checks(torch, dev, t, P, gen, failures, note) -> dict:
     half = slice(P // 2, P)
     hs = half if PT == P else slice(None)
     out = {}
-    for name, kern, ref, args, part, lib, xp in (
+    for name, kern, ref, args, part, lib in (
             ("filter_sum_grouped", fs.filter_sum_grouped,
              fs.filter_sum_grouped_ref, (*r, *H),
              (r[0][half], r[1][half], H[0][hs], H[1][hs]),
-             lambda: torch.einsum("kpbnf,pbtnf->kpbtf", rc, Hc), r),
+             lambda: torch.einsum("kpbnf,pbtnf->kpbtf", rc, Hc)),
             ("filter_sum_grouped_t", fs.filter_sum_grouped_t,
              fs.filter_sum_grouped_t_ref, (*g, *H, TB),
              (g[0][half], g[1][half], H[0][hs], H[1][hs], TB),
-             lambda: torch.einsum("kpbtf,pbtnf->kpbnf", gcc, Hc), g)):
+             lambda: torch.einsum("kpbtf,pbtnf->kpbnf", gcc, Hc))):
         got, out[name] = _compare(torch, name, kern, ref, args, KERNEL_RTOL,
                                   failures, note=note, library=lib)
         _stream_checks(torch, name, kern, args, got, out[name]["ms"],
@@ -1344,9 +1344,7 @@ def _grouped_checks(torch, dev, t, P, gen, failures, note) -> dict:
         if not same:
             failures.append(f"kernel {name}{note}: a node slice differs "
                             "from the whole batch's rows")
-        K = fs.grouped_images(name == "filter_sum_grouped", P, PT, TB, Tp, N,
-                              H[0].stride(-2), xp[0].stride(-2),
-                              H[0].element_size())
+        K = fs.grouped_images(P, PT)
         print(f"kernels: {name}{note} PB={P} PT={PT} TB={TB} Tp={Tp} N={N} "
               f"F={F} images_a_thread={K} node_slice={half.start}:"
               f"{half.stop} node_slice_bitwise={same}", flush=True)

@@ -67,26 +67,29 @@
 //   only one plane's sums are live; a plane that no angle selects is
 //   written as zeros. The 8 warps of a block read the same gbar rows (L1).
 //   It writes the pad columns of its pitched output as zeros.
-// - K13 and K14 take K images that share a table set (p = k PT + pt, k in
-//   a run of K) in one thread: each H segment a thread loads is applied to
-//   the K images from registers, so H is read (PB / PT) / K times, not
-//   PB / PT times. The register budget of K11/K12 (64 f32 sums a thread at
-//   most) fixes the product of the images and the angles (K13) or rows
-//   (K14) a thread owns, and the wrapper (filter_sum.grouped_images)
-//   passes the K in {1, 2, 4} dividing PB / PT that moves the fewest bytes
-//   from L2, counting a re-read of r_s (K13) or gbar (K14) against a
-//   re-read of H. At PT = PB (512^2) that is K = 1, the plain stream; at
-//   the fan shapes (PT = 1, PB = 8) K13 takes K = 2 and K14 K = 4.
+// - K13 and K14 take K = 2 images that share a table set (p = k PT + pt
+//   for two consecutive k) in one thread where PB / PT is even, else one:
+//   each H segment a thread loads is applied to both images from
+//   registers, so H is read (PB / PT) / 2 times, not PB / PT times, and a
+//   row step loads every image's operand before its first product. The
+//   register budget of K11/K12 (64 f32 sums a thread at most) fixes the
+//   product of the images and the slots (K13: 4 / K slots) or rows (K14:
+//   2) a thread owns. At the fan shapes (PT = 1, PB = 8) H sits in L2
+//   either way and a call is bound by the latency of its row steps, not by
+//   bytes: K = 2 measured no slower than K = 1 and K = 4 (one slot or row
+//   a thread) 20-35% slower (scripts/torch_filter_stream.py --grouped
+//   --fan; H100 80GB HBM3, 700 W). At PT = PB (512^2) K = 1: the plain
+//   stream.
 // - K13: one block per (chunk of 4 / K slots of slot block tb, f tile,
 //   (K-image group, tb)), 8 warps splitting the rows as K11's do, the 8
 //   partial sums added in warp order through shared memory. The chunks of
 //   one slot block are the fastest grid index, so the blocks that read the
 //   same r_s rows (tt / (4 / K) of them) run side by side and r_s comes
 //   from HBM once per slot block, from L2 to the others.
-// - K14: one block per (f tile, row tile of 8 x (2 / K, at least 1) rows,
-//   (K-image group, slot block)). Each thread owns its rows x 8
-//   frequencies of K images and sums the block's tt slots in ascending t:
-//   a pure map, each output element written once, pad columns as zeros.
+// - K14: one block per (f tile, row tile of 8 x ST_NR rows, (K-image
+//   group, slot block)). Each thread owns ST_NR rows x 8 frequencies of K
+//   images and sums the block's tt slots in ascending t: a pure map, each
+//   output element written once, pad columns as zeros.
 // - Every complex product is four fmaf in a fixed order (re: + r a, - i b;
 //   im: + r b, + i a for K13, the conjugate for K14), so a sum's rounding
 //   does not depend on K, PB or PT: K13's order over n is fixed (8 row
@@ -344,9 +347,6 @@ constexpr int G_PAIRS = 4;  // (slot, image) pairs a K13 thread sums
 static_assert(G_NG == 2 * G_PAIRS, "K13's combine: warp w sums pair w / 2, "
                                    "half w % 2 of its eight frequencies");
 
-// K14's rows a thread owns beside its K images (64 sums a thread at most).
-__host__ __device__ constexpr int grp_t_rows(int K) { return K == 4 ? 1 : 2; }
-
 // (acc + x y) + z w as two fmaf, in this order, whatever the kernel's
 // shape: one complex product term of a sum (the caller signs z).
 __device__ __forceinline__ float fma2(float acc, float x, float y, float z,
@@ -457,9 +457,9 @@ grp_fwd(const float* __restrict__ rre, const float* __restrict__ rim,
 
 // ---------------------------------------------------------------------------
 // K14. Block: (f tile of JT groups, row tile of ST_NG * R rows, (K-image
-// group, slot block tb)). Thread (lane l, warp w) owns rows n0 + w +
-// ST_NG * j (j < R) of group j0 + l for images p = (k0 + k) PT + pt, and
-// sums the slot block's tt slots in ascending t.
+// group, slot block tb)), R = ST_NR. Thread (lane l, warp w) owns rows
+// n0 + w + ST_NG * j (j < R) of group j0 + l for images p = (k0 + k) PT +
+// pt, and sums the slot block's tt slots in ascending t.
 // ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(32 * ST_NG, K == 1 ? 3 : 2)
@@ -467,7 +467,7 @@ grp_t(const float* __restrict__ gre, const float* __restrict__ gim,
       const T* __restrict__ hre, const T* __restrict__ him,
       float* __restrict__ rre, float* __restrict__ rim, int PT, int TB,
       int Tp, int N, int F, int JT, int hp, int gp, int rp) {
-  constexpr int R = grp_t_rows(K);
+  constexpr int R = ST_NR;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int j0 = blockIdx.x * JT;
   if (tx >= min(JT, cdiv(F, VEC) - j0)) return;  // no barrier below
@@ -572,7 +572,7 @@ void launch_grp_t(const float* gre, const float* gim, const void* hre,
                   int TB, int Tp, int N, int F, int hp, int gp, int rp,
                   cudaStream_t s) {
   const int JT = sel_tile(F);
-  const dim3 g(cdiv(cdiv(F, VEC), JT), cdiv(N, ST_NG * grp_t_rows(K)),
+  const dim3 g(cdiv(cdiv(F, VEC), JT), cdiv(N, ST_NG * ST_NR),
                TB * (PB / K));
   grp_t<T, K><<<g, dim3(32, ST_NG), 0, s>>>(
       gre, gim, static_cast<const T*>(hre), static_cast<const T*>(him), rre,
@@ -581,15 +581,13 @@ void launch_grp_t(const float* gre, const float* gim, const void* hre,
 
 template <typename T, typename... Args>
 void grp_fwd_k(int K, Args... args) {
-  if (K == 4) launch_grp_fwd<T, 4>(args...);
-  else if (K == 2) launch_grp_fwd<T, 2>(args...);
+  if (K == 2) launch_grp_fwd<T, 2>(args...);
   else launch_grp_fwd<T, 1>(args...);
 }
 
 template <typename T, typename... Args>
 void grp_t_k(int K, Args... args) {
-  if (K == 4) launch_grp_t<T, 4>(args...);
-  else if (K == 2) launch_grp_t<T, 2>(args...);
+  if (K == 2) launch_grp_t<T, 2>(args...);
   else launch_grp_t<T, 1>(args...);
 }
 
@@ -645,7 +643,7 @@ int dip_grp_fwd(const float* rre, const float* rim, const void* hre,
                 int TB, int Tp, int N, int F, int hp, int rp, int K, int bf16,
                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((K != 1 && K != 2 && K != 4) || (PB / PT) % K)
+  if ((K != 1 && K != 2) || (PB / PT) % K)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     grp_fwd_k<__nv_bfloat16>(K, rre, rim, hre, him, gre, gim, PB, PT, TB, Tp,
@@ -661,7 +659,7 @@ int dip_grp_t(const float* gre, const float* gim, const void* hre,
               int Tp, int N, int F, int hp, int gp, int rp, int K, int bf16,
               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((K != 1 && K != 2 && K != 4) || (PB / PT) % K)
+  if ((K != 1 && K != 2) || (PB / PT) % K)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     grp_t_k<__nv_bfloat16>(K, gre, gim, hre, him, rre, rim, PB, PT, TB, Tp, N,

@@ -41,13 +41,13 @@ axis.
 
 All four kernels read the table rows, the spectrum rows (K11's r, K13's
 r_s) and the cotangent rows (K12's and K14's gbar) with 16-byte loads, so
-on the card those tensors must be *pitched*: the last stride 1, a row pitch that is a multiple of
-``PITCH`` elements and at least F, the outer strides dense over that
-pitch, the first row 16-byte aligned and the last row's padding inside
-the storage. :func:`pitched_zeros` makes such storage (zero pad columns)
-and hands it out as the [..., F] view, so shapes and plain versions do not
-change; a contiguous tensor whose F is a multiple of ``PITCH`` also
-qualifies. A slice along a leading dim keeps the pitch; ``.contiguous()``,
+on the card those tensors must be *pitched*: the last stride 1, a row
+pitch that is a multiple of ``PITCH`` elements and at least F, the outer
+strides dense over that pitch, the first row 16-byte aligned and the last
+row's padding inside the storage. :func:`pitched_zeros` makes such
+storage (zero pad columns) and hands it out as the [..., F] view, so
+shapes and plain versions do not change; a contiguous tensor whose F is a
+multiple of ``PITCH`` also qualifies. A slice along a leading dim keeps the pitch; ``.contiguous()``,
 ``.to(device)`` and the like do not. The wrappers never copy to get
 there: anything else raises ``ValueError``. :func:`padded` is the one
 reader of that padding: it widens a view over it, so that a product with
@@ -118,8 +118,8 @@ def _end(x: torch.Tensor, shape) -> int:
 
 def _check_pitched(name: str, what: str, x: torch.Tensor) -> int:
     """The row pitch of ``x`` [..., F] in elements, if the kernels can
-    stream its rows, the last row's padding included (see the module docstring);
-    else ValueError."""
+    stream its rows, the last row's padding included (see the module
+    docstring); else ValueError."""
     F, pitch = x.shape[-1], x.stride(-2)
     ok = (x.stride(-1) == 1 and pitch % PITCH == 0 and pitch >= F
           and x.data_ptr() % 16 == 0
@@ -304,29 +304,11 @@ def filter_sum_sel_t(gre_b, gim_b, Hre, Him, sel):
     return rre, rim
 
 
-def grouped_images(fwd: bool, PB: int, PT: int, TB: int, Tp: int, N: int,
-                   hp: int, xp: int, table_bytes: int) -> int:
-    """The images K that a K13 (``fwd``) or K14 thread takes, all of one
-    table set: K in {1, 2, 4} dividing PB / PT that moves the fewest bytes
-    from L2, ties to the larger K. A K13 thread sums 4 / K slots, so r_s
-    (pitch ``xp``) is read once per chunk of 4 / K slots; a K14 thread owns
-    2 rows at K = 1 and 1 row else, so gbar (pitch ``xp``) is read once per
-    row tile of 8 such rows; H (pitch ``hp``, ``table_bytes`` an element)
-    is read once per group of K images. The register budget (64 f32 sums
-    a thread) fixes those products; see ``csrc/filter_sum.cu``."""
-    tt, m = Tp // TB, PB // PT
-    h = 2 * PT * Tp * N * hp * table_bytes
-    x = 8 * PB * TB * N * xp if fwd else 8 * PB * Tp * xp
-    best, least = 1, None
-    for K in (1, 2, 4):
-        if m % K:
-            continue
-        reads = -(-tt // (4 // K)) if fwd else -(-N // (8 * (2 if K == 1
-                                                               else 1)))
-        cost = x * reads + h * (m // K)
-        if least is None or cost <= least:
-            best, least = K, cost
-    return best
+def grouped_images(PB: int, PT: int) -> int:
+    """The images K that a K13 or K14 thread takes, all of one table set:
+    2 where PB / PT is even, else 1. Each H segment a thread loads serves
+    its K images from registers; see ``csrc/filter_sum.cu``."""
+    return 2 if (PB // PT) % 2 == 0 else 1
 
 
 def _check_grouped(name, tensors, Hre_g, device):
@@ -351,7 +333,7 @@ def filter_sum_grouped(rre_s, rim_s, Hre_g, Him_g):
     _shape(name, rim_s, (PB, TB, N, F), "rim_s")
     hp, rp = _check_grouped(name, dict(rre_s=rre_s, rim_s=rim_s, Hre_g=Hre_g,
                                        Him_g=Him_g), Hre_g, rre_s.device)
-    K = grouped_images(True, PB, PT, TB, Tp, N, hp, rp, Hre_g.element_size())
+    K = grouped_images(PB, PT)
     gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=rre_s.device)
     gim = torch.empty_like(gre)
     lib = _build.load("filter_sum")
@@ -381,8 +363,7 @@ def filter_sum_grouped_t(gre_b, gim_b, Hre_g, Him_g, TB: int):
     _shape(name, gim_b, (PB, Tp, F), "gim_b")
     hp, gp = _check_grouped(name, dict(gre_b=gre_b, gim_b=gim_b, Hre_g=Hre_g,
                                        Him_g=Him_g), Hre_g, gre_b.device)
-    K = grouped_images(False, PB, PT, TB, Tp, N, hp, gp,
-                       Hre_g.element_size())
+    K = grouped_images(PB, PT)
     rre, rim = (_pitched((PB, TB, N, F), torch.float32, gre_b.device, -1,
                          torch.empty) for _ in range(2))
     lib = _build.load("filter_sum")

@@ -179,10 +179,10 @@ def slice_tables(tables: dict, num_nodes: int, nodes: slice,
     row-stage tables ``ROW_TABLES`` (top level on the parallel path, under
     ``shared.par`` on the fan path) keep only row-block shard ``shard`` of
     ``shards`` along their row-block axis NB. A node slice is a view that
-    keeps its leaf's strides: the pitched ``fft_pallas`` tables stay
-    pitched (``filter_sum.pitched_zeros``; a copy by ``.contiguous()``
-    would drop the padding their kernels stream), and the slice of a
-    contiguous leaf is contiguous."""
+    keeps its leaf's strides: the pitched ``fft_pallas`` and
+    ``fft_grouped`` tables stay pitched (``filter_sum.pitched_zeros``; a
+    copy by ``.contiguous()`` would drop the padding their kernels
+    stream), and the slice of a contiguous leaf is contiguous."""
     def row_blocks(v):
         shard, shards = rows
         NB_loc = v.shape[1] // shards

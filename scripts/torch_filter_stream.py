@@ -24,9 +24,9 @@ plain ``ld.global.nc`` and with the streaming ``ld.global.cs``: the
 practical bound on this card for any kernel that reads H once. With
 ``--grouped`` it also streams H and K13's slot spectra r_s together (as
 bf16 words; the bytes are what counts), the least K13 and K14 must move,
-and runs K13 and K14 with each count of images a thread may take
-(``filter_sum.grouped_images``'s candidates that divide PB / PT): device
-time, and whether the result equals the chosen count's bit for bit. The
+and runs K13 and K14 with each count of images a thread may take (1, and
+2 where it divides PB / PT) in place of ``filter_sum.grouped_images``'s
+pick: device time, and whether the result equals the pick's bit for bit. The
 card's name and power limit come last.
 """
 
@@ -169,10 +169,11 @@ def _operands(dev):
                   (*g, *H, TB))), {"H": H, "H+r_s": (*H, *r)}
 
 
-def _each_grouping(name, kern, args, got, tag) -> None:
+def _each_grouping(name, kern, args, got, tag, failures) -> None:
     """``kern`` (K13 or K14) with each count K of images a thread may take
     forced in place of ``grouped_images``'s pick: its device time a call
-    and whether its result equals ``got`` bit for bit."""
+    and whether its result equals ``got`` bit for bit (a failure if
+    not)."""
     from dip_admm_tpu_torch.ops.kernels import filter_sum as fs
 
     if not hasattr(fs, "grouped_images"):
@@ -180,13 +181,16 @@ def _each_grouping(name, kern, args, got, tag) -> None:
     PB, PT = args[0].shape[0], args[2].shape[0]
     pick = fs.grouped_images
     try:
-        for K in (1, 2, 4):
+        for K in (1, 2):
             if (PB // PT) % K:
                 continue
-            fs.grouped_images = lambda *a, _K=K: _K
+            fs.grouped_images = lambda PB, PT, _K=K: _K
             again = kern(*args)
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(again, got))
+            if not same:
+                failures.append(f"{name}{tag}: {K} images a thread differ "
+                                "from the pick's bits")
             dev_ms = cs._device_ms(torch, lambda: kern(*args))[0]
             print(f"{ROOT} {tag} {name} images_a_thread={K} "
                   f"device_ms={dev_ms} equals_chosen={same}", flush=True)
@@ -214,7 +218,7 @@ def main() -> int:
                           cs._time_ms(torch, lambda: kern(*args)), failures,
                           tag)
         if GROUPED:
-            _each_grouping(name, kern, args, got, tag)
+            _each_grouping(name, kern, args, got, tag, failures)
         del got
     lib = _stream_lib()
     blocks = 132 * 8

@@ -13,9 +13,9 @@ elementwise f32 ops, and its per-pair sums taken in another order), and
 1e-5 for the grouped filter-sum kernels K13/K14 with either table type (a
 bf16 table is upcast exactly; only the order of the f32 sums differs); two
 K5 calls, and two K13/K14 calls, on the same inputs must agree bit for
-bit, and K13/K14 on a node slice of the images give the whole batch's rows
-bit for bit. The select filter-sum kernels K11/K12 are held to 1e-5 with either
-table type (a bf16 table is upcast exactly; the sums run in another order,
+bit, and K13/K14 on a node slice of the images give the whole batch's
+rows bit for bit. The select filter-sum kernels K11/K12 are held to 1e-5
+with either table type (a bf16 table is upcast exactly; the sums run in another order,
 and the plain forward blends both planes by sel where the kernel reads the
 selected one, an f32 rounding per term), and the hat kernels K17/K18 to
 1e-5 (f32 throughout, other sum order). The shear kernels K7/K8 are held
@@ -161,12 +161,13 @@ def _grouped_inputs(dev, dtype, PB, PT, TB, tt, N, F, seed=3):
 
 # (PB, PT, TB, tt, N, F): the fan 256^2/8 grouped shapes (8 images against
 # one table set) whole and at a smaller N, the 512^2/8 ones (tt = 32, one
-# set an image) at a smaller N and F, tiles that divide neither N nor F, a
-# slot block that is not a multiple of a thread's slots, two images a set,
-# and odd and even F (pitches 520, 136, 72, 72).
+# set an image) at a smaller N and F, tiles that divide neither N nor F,
+# one table set per image, a slot block that is not a multiple of a
+# thread's slots, two images a set, and odd and even F (pitches 520, 136,
+# 72, 72).
 GROUPED_SHAPES = [(8, 1, 6, 8, 256, 513), (8, 1, 6, 8, 64, 129),
                   (8, 8, 6, 32, 64, 129), (3, 1, 2, 12, 45, 70),
-                  (4, 2, 3, 6, 40, 65)]
+                  (4, 4, 3, 16, 40, 65), (4, 2, 3, 6, 40, 65)]
 
 
 @pytest.mark.parametrize("shape", GROUPED_SHAPES)
@@ -411,19 +412,15 @@ def _sel_inputs(dev, dtype, PB, PT, T, N, F, seed=5):
     mixed), spectra and cotangents of PB images, all in pitched storage
     (``fs.pitched_zeros``), as K11/K12 read them."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def pitched(x):
-        return fs.pitched_zeros(x.shape, x.dtype, x.device).copy_(x)
-
-    H = [pitched(torch.randn((PT, T, N, F), generator=gen, device=dev)
-                 .to(dtype)) for _ in range(2)]
+    H = [_pitched(torch.randn((PT, T, N, F), generator=gen, device=dev)
+                  .to(dtype)) for _ in range(2)]
     sel = (torch.rand((PT, T, 1), generator=gen, device=dev) > 0.5).float()
     sel[0] = 0.0
     if PT > 1:
         sel[1] = 1.0
-    r = [pitched(torch.randn((PB, 2, N, F), generator=gen, device=dev))
+    r = [_pitched(torch.randn((PB, 2, N, F), generator=gen, device=dev))
          for _ in range(2)]
-    g = [pitched(torch.randn((PB, T, F), generator=gen, device=dev))
+    g = [_pitched(torch.randn((PB, T, F), generator=gen, device=dev))
          for _ in range(2)]
     return H, sel, r, g
 

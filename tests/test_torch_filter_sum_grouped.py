@@ -142,9 +142,9 @@ def _jax_batched(fn, x, PB, PT):
 
 
 # (PB, PT, K): one table set per image, and two and four images a set,
-# grouped as the kernels group them at the fan shapes.
-BATCHES = [(3, 3, 1), (4, 2, 2), (4, 1, 4)]
-IDS = ["PB3PT3", "PB4PT2K2", "PB4PT1K4"]
+# two to a thread, as the kernels group them at the fan shapes.
+BATCHES = [(3, 3, 1), (4, 2, 2), (4, 1, 2)]
+IDS = ["PB3PT3", "PB4PT2K2", "PB4PT1K2"]
 
 
 @pytest.mark.parametrize("batch", BATCHES, ids=IDS)
@@ -178,12 +178,12 @@ def test_k14_mirror_matches_jax(dtype_name, batch):
 def test_mirrors_are_batch_and_grouping_invariant(mirror):
     """An image's rows do not depend on the rest of the batch or on how
     the images are grouped, bit for bit: image p of a four-image batch on
-    one shared table set, grouped 1, 2 or 4 to a thread, equals the same
-    image alone, and a node slice (images 2, 3) equals those rows."""
+    one shared table set, grouped 1 or 2 to a thread, equals the same image
+    alone, and a node slice (images 2, 3) equals those rows."""
     PB, PT = 4, 1
     H, r, g = _inputs("bfloat16", PB, PT)
     fn, x = (k13_mirror, r) if mirror == "k13" else (k14_mirror, g)
-    whole = [fn(x[0], x[1], H[0], H[1], K) for K in (1, 2, 4)]
+    whole = [fn(x[0], x[1], H[0], H[1], K) for K in (1, 2)]
     for out in whole[1:]:
         for a, b in zip(out, whole[0]):
             np.testing.assert_array_equal(a, b)
@@ -196,23 +196,13 @@ def test_mirrors_are_batch_and_grouping_invariant(mirror):
             np.testing.assert_array_equal(a[p], b[0])
 
 
-def test_grouped_images_follows_the_bytes():
-    """The images a thread takes: 1 where each image has its own table set
-    (512^2/8), at the fan 256^2/8 shapes 2 for K13 (r_s re-read per
-    chunk against H per group: a tie between 1 and 2 goes to 2) and 4 for
-    K14 (gbar is small); only divisors of PB / PT."""
-    fan = dict(PB=8, PT=1, TB=6, Tp=48, N=256, hp=520)
-    assert tfs.grouped_images(True, xp=520, table_bytes=2, **fan) == 2
-    assert tfs.grouped_images(False, xp=520, table_bytes=2, **fan) == 4
-    assert tfs.grouped_images(True, xp=520, table_bytes=4, **fan) == 2
-    p512 = dict(PB=8, PT=8, TB=6, Tp=192, N=512, hp=1032, xp=1032,
-                table_bytes=2)
-    assert tfs.grouped_images(True, **p512) == 1
-    assert tfs.grouped_images(False, **p512) == 1
-    odd = dict(PB=6, PT=2, TB=6, Tp=48, N=256, hp=520, xp=520,
-               table_bytes=2)
-    assert tfs.grouped_images(True, **odd) == 1
-    assert tfs.grouped_images(False, **odd) == 1
+@pytest.mark.parametrize("PB,PT,K", [(8, 1, 2), (4, 1, 2), (8, 8, 1),
+                                     (4, 4, 1), (6, 2, 1), (3, 1, 1)])
+def test_grouped_images_pairs_the_images_of_a_table_set(PB, PT, K):
+    """Two images a thread where the table set's images pair up (the fan
+    paths, PT = 1, and a mesh rank's node slice of them), one where each
+    image has its own set (the parallel paths) or PB / PT is odd."""
+    assert tfs.grouped_images(PB, PT) == K
 
 
 def _pitched(x):
