@@ -25,9 +25,12 @@ kernel):
                  fusions, and its sharded form at one rank's block of the
                  2 x 2 mesh ([4, 8, 32768], explicit a_t; its z and y equal
                  the single-device kernel's on the block) (error <= 1e-5 of
-                 the output's max, two calls bitwise equal), each against
-                 its plain PyTorch version, and times both (median of 20
-                 runs after warm-up, CUDA events). K1 and K2, here and at
+                 the output's max, two calls bitwise equal, one device
+                 launch a call, the clusters the card holds at once), each
+                 against its plain PyTorch version, and times both (median
+                 of 20 runs after warm-up, CUDA events); K5 also by its
+                 host's cost a call (200 calls with no sync between them)
+                 and its device time. K1 and K2, here and at
                  the fan shapes (phase 8), and K1 and K6 on each row shard,
                  also run twice bitwise equal, and each prints its device
                  time by launch (``torch.profiler``), its device launches a
@@ -105,7 +108,8 @@ kernel):
                  spectra and cotangents (error <= 2e-3 of the output's
                  max) and the hat kernels K17/K18 (error <= 1e-5), each
                  against its plain version, two calls bitwise equal, timed
-                 as in phase 3 and by their device time alone (K11/K12:
+                 as in phase 3 and by their device time alone (K17/K18
+                 also by their host's cost a call, as K5; K11/K12:
                  per launch the profile recorded, with the launches made
                  and recorded a call and their GB/s against the bound)
                  beside their library calls'; K13/K14 as in phase 8 on the
@@ -521,6 +525,32 @@ def _device_ms(torch, fn, calls=10) -> tuple[float, dict, float]:
     return sum(by.values()), by, n / calls
 
 
+def _host_us(torch, fn, calls=200) -> float:
+    """The host's cost of one call of ``fn`` where the host is slower than
+    the device: the wall clock of ``calls`` back-to-back calls with no sync
+    between them, over ``calls``, in microseconds (one sync after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def _call_cost(torch, fn, failures=None, name="", launches_max=None) -> str:
+    """``host_us_per_call``, ``device_ms`` and ``device_launches_per_call``
+    of ``fn`` (``_host_us``, ``_device_ms``), for a kernel's line; a call of
+    more than ``launches_max`` device launches is a failure."""
+    dev_ms, _, launches = _device_ms(torch, fn)
+    if launches_max is not None and launches > launches_max:
+        failures.append(f"kernel {name}: {launches} device launches a call, "
+                        f"expected {launches_max}")
+    return (f"host_us_per_call={_host_us(torch, fn)} device_ms={dev_ms} "
+            f"device_launches_per_call={launches}")
+
+
 def _repeat_and_device(torch, kern, args, got, failures, note=""):
     """A second call of ``kern`` on ``args`` against ``got`` (bit for bit)
     and its device time: (bitwise, device ms, ms by kernel, device launches
@@ -809,7 +839,7 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
     a, y, z = (torch.randn((P, P, n), generator=gen, device=dev)
                for _ in range(3))
     adjm = problem.adj.to(torch.float32)
-    nbytes = 6 * P * P * n * 4  # a, a^T, y, z read; z', y' written
+    nbytes = 5 * P * P * n * 4  # a, y, z read; z', y' written
     res = []
     for fusion in ("midpoint", "weighted"):
         args = (a, y, z, adjm, problem.W, fusion)
@@ -818,9 +848,11 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
                           note=f"[{fusion}]")
         bitwise = _check_repeat(torch, f"consensus_update[{fusion}]",
                                 cons.consensus_update, args, got, failures)
+        cost = _call_cost(torch, lambda: cons.consensus_update(*args))
         print(f"kernels: consensus_update[{fusion}] bitwise_repeat={bitwise} "
               f"bytes={nbytes} GB_per_s={nbytes / r['ms'] / 1e6} "
-              f"plain_GB_per_s={nbytes / r['plain_ms'] / 1e6}", flush=True)
+              f"plain_GB_per_s={nbytes / r['plain_ms'] / 1e6} {cost}",
+              flush=True)
         res.append(r)
     # The main path runs the midpoint fusion: its times represent K5.
     out["consensus_update"] = dict(
@@ -859,8 +891,13 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
         if not block:
             failures.append(f"kernel consensus_update_sharded[{fusion}]: z, y"
                             " differ from the single-device kernel's block")
+        # a, a_t, y, z read; z', y' written
+        sh_bytes = 6 * (P // 2) * P * (n // 2) * 4
+        cost = _call_cost(torch, lambda: kern(*args))
         print(f"kernels: consensus_update_sharded[{fusion}] bitwise_repeat="
-              f"{bitwise} equals_single_device_block={block}", flush=True)
+              f"{bitwise} equals_single_device_block={block} "
+              f"bytes={sh_bytes} GB_per_s={sh_bytes / r['ms'] / 1e6} {cost}",
+              flush=True)
         res.append(r)
     out["consensus_update_sharded"] = dict(
         res[0], max_abs_err=max(r["max_abs_err"] for r in res))
@@ -1449,11 +1486,11 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
         # Device time alone (the host's dispatch of one call is most of a
         # single call's ms at these sizes), of the kernel and of the
         # library call with its input preparation.
-        dev_ms = _device_ms(torch, lambda: kern(*args))[0]
+        cost = _call_cost(torch, lambda: kern(*args))
         lib_dev_ms = _device_ms(torch, lib)[0]
         print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} T={T} "
-              f"D={D} Np={Np} library_max_abs_err={lib_err} "
-              f"device_ms={dev_ms} library_device_ms={lib_dev_ms}", flush=True)
+              f"D={D} Np={Np} library_max_abs_err={lib_err} {cost} "
+              f"library_device_ms={lib_dev_ms}", flush=True)
     del prof, ob, grid, img, x
     torch.cuda.empty_cache()
 

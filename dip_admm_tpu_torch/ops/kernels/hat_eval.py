@@ -26,7 +26,9 @@ does; everything is f32.
 
 On a CPU tensor a wrapper runs its plain PyTorch version (``*_ref``, which
 materializes w as the JAX package's reference does); on a CUDA tensor it
-launches the hand-written kernel of ``csrc/hat_eval.cu`` or raises. What
+launches the hand-written kernel of ``csrc/hat_eval.cu`` or raises, through
+the lean launch path of ``_launch.py`` (checks memoized by the inputs'
+metadata, the C entry bound once). What
 bounds the kernels and how they are laid out is in the source note there.
 Each wrapper counts its launches in ``<wrapper>.launches``;
 ``launch_counts`` and ``reset_launch_counts`` read and clear them.
@@ -36,10 +38,8 @@ from __future__ import annotations
 
 import torch
 
-from dip_admm_tpu_torch.ops.kernels import _build
-from dip_admm_tpu_torch.ops.kernels.shear_sum import (
-    _batches, _check, _on_cpu, _raise_if, _shape, _stream,
-)
+from dip_admm_tpu_torch.ops.kernels import _launch
+from dip_admm_tpu_torch.ops.kernels.shear_sum import _batches, _check, _shape
 
 # K18 stages, per row, pc and s*ob (f32, [D]) and two boundary tables (u16,
 # [Np]) in the shared memory of one block, at most 227 KB.
@@ -95,31 +95,17 @@ def _check_geometry(name, pc, s):
     return PT, T, D
 
 
-def hat_eval(g, pc, s):
-    """K17: see :func:`hat_eval_ref`. The kernel reads the two taps that
-    carry weight."""
-    if _on_cpu(g):
-        return hat_eval_ref(g, pc, s)
+def _check_fwd(g, pc, s):
     name = "hat_eval"
     PT, T, D = _check_geometry(name, pc, s)
     PB, _, Np = g.shape
     _check(name, dict(g=g, pc=pc, s=s), g.device, torch.float32)
     _batches(name, PB, PT)
     _shape(name, g, (PB, T, Np), "g")
-    out = torch.empty((PB, T, D), dtype=torch.float32, device=g.device)
-    lib = _build.load("hat_eval")
-    rc = lib.dip_hat_fwd(*(t.data_ptr() for t in (g, pc, s, out)),
-                         PB, PT, T, D, Np, _stream())
-    _raise_if(rc, name)
-    hat_eval.launches += 1
-    return out
+    return PB, PT, T, D, Np
 
 
-def hat_eval_t(ob, pc, s, Np: int):
-    """K18: see :func:`hat_eval_t_ref`. ``Np`` is the profile length (the
-    JAX entry reads it off a marker array)."""
-    if _on_cpu(ob):
-        return hat_eval_t_ref(ob, pc, s, Np)
+def _check_t(ob, pc, s, Np):
     name = "hat_eval_t"
     PT, T, D = _check_geometry(name, pc, s)
     PB = ob.shape[0]
@@ -130,11 +116,37 @@ def hat_eval_t(ob, pc, s, Np: int):
         raise ValueError(f"{name}: a row of D={D} detectors and Np={Np} "
                          f"profile points needs {_row_smem(D, Np)} bytes of "
                          f"shared memory, above the kernel's {_MAX_SMEM}")
-    gbar = torch.empty((PB, T, Np), dtype=torch.float32, device=ob.device)
-    lib = _build.load("hat_eval")
-    rc = lib.dip_hat_t(*(t.data_ptr() for t in (ob, pc, s, gbar)),
-                       PB, PT, T, D, Np, _stream())
-    _raise_if(rc, name)
+    return PB, PT, T, D
+
+
+_FWD = _launch.Entry("hat_eval", "dip_hat_fwd", "hat_eval")
+_T = _launch.Entry("hat_eval", "dip_hat_t", "hat_eval_t")
+_fwd_checks = _launch.Checked(_check_fwd)
+_t_checks = _launch.Checked(_check_t)
+
+
+def hat_eval(g, pc, s):
+    """K17: see :func:`hat_eval_ref`. The kernel reads the two taps that
+    carry weight."""
+    if _launch.plain(g):
+        return hat_eval_ref(g, pc, s)
+    PB, PT, T, D, Np = _fwd_checks(g, pc, s)
+    out = g.new_empty((PB, T, D))
+    _FWD(g.data_ptr(), pc.data_ptr(), s.data_ptr(), out.data_ptr(), PB, PT,
+         T, D, Np, _launch.stream())
+    hat_eval.launches += 1
+    return out
+
+
+def hat_eval_t(ob, pc, s, Np: int):
+    """K18: see :func:`hat_eval_t_ref`. ``Np`` is the profile length (the
+    JAX entry reads it off a marker array)."""
+    if _launch.plain(ob):
+        return hat_eval_t_ref(ob, pc, s, Np)
+    PB, PT, T, D = _t_checks(ob, pc, s, Np)
+    gbar = ob.new_empty((PB, T, Np))
+    _T(ob.data_ptr(), pc.data_ptr(), s.data_ptr(), gbar.data_ptr(), PB, PT,
+       T, D, Np, _launch.stream())
     hat_eval_t.launches += 1
     return gbar
 

@@ -714,8 +714,8 @@ def _eval_tail(g_re, g_im, t, dtype):
          + torch.einsum("kptf,pfv->kptv", _kview(g_im, PT), t["Cim"]))
     if _hat_on_the_fly(t):
         out = hat_eval(g.reshape(PB, T, -1).contiguous(), t["p"],
-                       t["s"][..., None])
-        return out.to(dtype)
+                       t["s"].unsqueeze(-1))
+        return out if dtype == torch.float32 else out.to(dtype)
     out = torch.einsum("ptdv,kptv->kptd", _hat_weights(t, dtype), g.to(dtype))
     return (t["s"][..., None] * out).reshape(PB, T, -1)
 
@@ -727,7 +727,7 @@ def _eval_tail_t(sinos, t):
     PB, T, _ = sinos.shape
     if _hat_on_the_fly(t):
         g_bar = _kview(hat_eval_t(sinos.to(torch.float32).contiguous(),
-                                  t["p"], t["s"][..., None],
+                                  t["p"], t["s"].unsqueeze(-1),
                                   t["Cre"].shape[-1]), PT)
     else:
         g_bar = torch.einsum("ptdv,kptd->kptv", _hat_weights(t, sinos.dtype),

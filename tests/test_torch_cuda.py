@@ -392,19 +392,43 @@ def test_consensus_matches_plain_and_is_deterministic(fusion, n):
 
 
 def test_consensus_rejects_bad_inputs():
+    """Each bad input raises on a first call, and again on a call after a
+    good signature was accepted (the checks are memoized by signature)."""
     dev = _device()
     a, y, z, adjm, w = _consensus_inputs(dev, 512)
-    with pytest.raises(TypeError):
-        cons.consensus_update(a.double(), y, z, adjm)
-    with pytest.raises(ValueError):
-        cons.consensus_update(a.transpose(0, 1), y, z, adjm)  # not contiguous
-    with pytest.raises(ValueError):
-        cons.consensus_update(a, y[:, :, :256].contiguous(), z, adjm)
-    with pytest.raises(ValueError):
-        cons.consensus_update(a, y, z, adjm, w[:, :256].contiguous(),
-                              "weighted")
-    with pytest.raises(ValueError):
-        cons.consensus_update(a, y, z, adjm.cpu())  # device
+    bad = (
+        (TypeError, (a.double(), y, z, adjm)),
+        (ValueError, (a.transpose(0, 1), y, z, adjm)),  # not contiguous
+        (ValueError, (a, y[:, :, :256].contiguous(), z, adjm)),
+        (ValueError, (a, y, z, adjm, w[:, :256].contiguous(), "weighted")),
+        (ValueError, (a, y, z, adjm.cpu())),  # device
+    )
+    for _ in range(2):
+        for err, args in bad:
+            with pytest.raises(err):
+                cons.consensus_update(*args)
+        cons.consensus_update(a, y, z, adjm, w, "weighted")
+        cons.consensus_update(a, y, z, adjm)
+
+
+def _offset(x):
+    """``x``'s values in a contiguous view that starts 4 bytes past a 16-byte
+    boundary (the kernels' scalar path)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
+def _device_launches(fn) -> int:
+    """The device launches of one call of ``fn`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
 
 
 def _sel_inputs(dev, dtype, PB, PT, T, N, F, seed=5):
@@ -560,18 +584,61 @@ def test_hat_kernels_match_plain_and_repeat(shape):
 
 
 def test_hat_wrappers_reject_bad_inputs():
+    """Each bad input raises on a first call, and again on a call after a
+    good signature was accepted (the checks are memoized by signature)."""
     dev = _device()
     pc, s, g, ob = _hat_inputs(dev, 4, 2, 8, 32, 64)
-    with pytest.raises(TypeError):
-        he.hat_eval(g.double(), pc, s)
-    with pytest.raises(ValueError):
-        he.hat_eval(g[:3].contiguous(), pc, s)  # 3 images, 2 geometry sets
-    with pytest.raises(ValueError):
-        he.hat_eval(g, pc, s[:, :4].contiguous())
-    with pytest.raises(ValueError):
-        he.hat_eval_t(ob.transpose(1, 2), pc, s, 64)
-    with pytest.raises(ValueError):
-        he.hat_eval_t(ob, pc.cpu(), s, 64)  # device
+    bad = (
+        (TypeError, he.hat_eval, (g.double(), pc, s)),
+        (ValueError, he.hat_eval, (g[:3].contiguous(), pc, s)),  # 3 of 2 sets
+        (ValueError, he.hat_eval, (g, pc, s[:, :4].contiguous())),
+        (ValueError, he.hat_eval_t, (ob.transpose(1, 2), pc, s, 64)),
+        (ValueError, he.hat_eval_t, (ob, pc.cpu(), s, 64)),  # device
+    )
+    for _ in range(2):
+        for err, kern, args in bad:
+            with pytest.raises(err):
+                kern(*args)
+        he.hat_eval(g, pc, s)
+        he.hat_eval_t(ob, pc, s, 64)
+
+
+def _hat_formula(g, pc, s):
+    """K17's arithmetic in torch, as its first design computed it: v0 =
+    floor(pc), the taps v0 and v0 + 1 inside [0, Np) in that order with
+    hat(x, v) = max(0, 1 - |x - v|) in f32 (a NaN coordinate adds
+    nothing), the second tap's product added in one fused multiply-add
+    (the product exact in f64, one rounding of the sum), s after the sum."""
+    PB, T, Np = g.shape
+    x = pc.repeat(PB // pc.shape[0], 1, 1)
+    fl = torch.floor(x)
+    ok = (fl >= -1) & (fl < Np)
+    v0 = torch.where(ok, fl, torch.zeros_like(fl))
+    acc = torch.zeros_like(x)
+    for k in (0, 1):
+        v = v0 + k
+        live = ok & (v >= 0) & (v < Np)
+        h = torch.clamp(1.0 - torch.abs(x - v), min=0.0)
+        gv = torch.gather(g, 2, v.long().clamp(0, Np - 1))
+        new = (h.double() * gv.double() + acc.double()).float()
+        acc = torch.where(live, new, acc)
+    return s.repeat(PB // pc.shape[0], 1, 1) * acc
+
+
+@pytest.mark.parametrize("shape", [(6, 2, 16, 45, 128), (8, 8, 192, 509, 2048),
+                                   (8, 8, 192, 512, 2048)])
+def test_hat_eval_equals_its_formula_bit_for_bit(shape):
+    """K17 (four detectors a thread, a scalar tail at D % 4 != 0) with
+    coordinates below 0, above Np - 1 and NaN equals its first design's
+    formula evaluated in torch, bit for bit."""
+    dev = _device()
+    PB, PT, T, D, Np = shape
+    pc, s, g, _ = _hat_inputs(dev, *shape)
+    pc[:, 2, 5::11] = float("nan")
+    pc[:, 3] = pc[:, 3] + Np
+    got = he.hat_eval(g, pc, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _hat_formula(g, pc, s))
 
 
 def test_pallas_adjoint_identity_through_kernels(monkeypatch):

@@ -313,3 +313,61 @@ def test_k18_boundary_tables_match_jax(batch, integer):
             a, b = (int(np.argmax(q)) if q.any() else D for q in first)
             assert (lo[v], hi[v]) == (a, b), (v, lo[v], hi[v], a, b)
     assert kinds == {"rising", "falling", "other"}
+
+
+def _k17_mirror(g, pc, s):
+    """numpy mirror of the card kernel K17 (``csrc/hat_eval.cu``): one
+    thread for four consecutive detectors of one (p, t) row, the last four
+    of a row ragged where D % 4 != 0; each detector takes v0 = floor(pc),
+    the taps v0 and v0 + 1 inside [0, Np) in that order with the hat in
+    f32, and s after the sum. A NaN coordinate contributes nothing."""
+    PB, T, Np = g.shape
+    PT, _, D = pc.shape
+    out = np.full((PB, T, D), np.nan, np.float32)
+    rows = np.arange(T)
+    for p in range(PB):
+        q = p % PT
+        for quad in range(-(-D // 4)):
+            for d in range(4 * quad, min(4 * quad + 4, D)):
+                x = pc[q, :, d]
+                fl = np.floor(x)
+                ok = (fl >= -1) & (fl < Np)
+                v0 = np.where(ok, fl, 0).astype(np.int64)
+                acc = np.zeros(T, np.float32)
+                for k in (0, 1):
+                    v = v0 + k
+                    live = ok & (v >= 0) & (v < Np)
+                    h = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(
+                        x - v.astype(np.float32)))
+                    acc = np.where(live, acc + h * g[p, rows,
+                                                     np.clip(v, 0, Np - 1)],
+                                   acc)
+                out[p, :, d] = s[q, :, 0] * acc
+    return out
+
+
+@pytest.mark.parametrize("batch", BATCHES, ids=["PB2PT2", "PB6PT2"])
+def test_k17_four_detector_mirror_matches_jax(batch):
+    """The mirror at D = 30 (a ragged last four), with coordinates below 0,
+    above Np - 1 and NaN, against JAX's ``hat_eval`` in interpret mode at
+    1e-5 of the output max. At a NaN coordinate JAX's kernel gives NaN (its
+    hat is max(0, NaN)); the card kernel, and so the mirror, gives 0."""
+    PB, PT = batch
+    Dr = 30
+    rng = np.random.default_rng(9)
+    pc = np.sort(rng.uniform(-3.0, NP + 2.0, (PT, T, Dr)), axis=-1)
+    pc[:, ::2] = pc[:, ::2, ::-1]
+    pc[:, 1, 3::7] = np.nan
+    pc = pc.astype(np.float32)
+    assert (pc < 0).any() and (pc > NP - 1).any()
+    s = rng.uniform(0.5, 1.5, (PT, T, 1)).astype(np.float32)
+    g = rng.standard_normal((PB, T, NP)).astype(np.float32)
+    got = _k17_mirror(g, pc, s)
+    want = _jax_batched(
+        lambda a: jhe.hat_eval(a, jnp.asarray(pc), jnp.asarray(s)),
+        jnp.asarray(g), PB, PT)
+    nan = np.isnan(np.tile(pc, (PB // PT, 1, 1)))
+    assert np.isnan(want[nan]).all() and (got[nan] == 0).all()
+    scale = np.abs(want[~nan]).max()
+    np.testing.assert_allclose(got[~nan], want[~nan], rtol=0,
+                               atol=RTOL * scale)
