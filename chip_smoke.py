@@ -835,6 +835,11 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
     out["apply_pair_ms"] = pair_ms
 
     # K5 at the edge-state shape of the main path, on its graph and weights.
+    print("kernels: consensus_update clusters_resident=" + json.dumps({
+        f"{'sharded' if sh else 'single'}_{f}": cons.max_active_clusters(
+            sh, f == "weighted")
+        for sh in (False, True) for f in ("midpoint", "weighted")}),
+        flush=True)
     n = geo.n
     a, y, z = (torch.randn((P, P, n), generator=gen, device=dev)
                for _ in range(3))
@@ -848,7 +853,8 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
                           note=f"[{fusion}]")
         bitwise = _check_repeat(torch, f"consensus_update[{fusion}]",
                                 cons.consensus_update, args, got, failures)
-        cost = _call_cost(torch, lambda: cons.consensus_update(*args))
+        cost = _call_cost(torch, lambda: cons.consensus_update(*args),
+                          failures, f"consensus_update[{fusion}]", 1)
         print(f"kernels: consensus_update[{fusion}] bitwise_repeat={bitwise} "
               f"bytes={nbytes} GB_per_s={nbytes / r['ms'] / 1e6} "
               f"plain_GB_per_s={nbytes / r['plain_ms'] / 1e6} {cost}",
@@ -893,7 +899,8 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
                             " differ from the single-device kernel's block")
         # a, a_t, y, z read; z', y' written
         sh_bytes = 6 * (P // 2) * P * (n // 2) * 4
-        cost = _call_cost(torch, lambda: kern(*args))
+        cost = _call_cost(torch, lambda: kern(*args), failures,
+                          f"consensus_update_sharded[{fusion}]", 1)
         print(f"kernels: consensus_update_sharded[{fusion}] bitwise_repeat="
               f"{bitwise} equals_single_device_block={block} "
               f"bytes={sh_bytes} GB_per_s={sh_bytes / r['ms'] / 1e6} {cost}",

@@ -16,45 +16,64 @@
 // does in the TPU kernel and in the plain version.
 //
 // What bounds it on an H100: HBM bandwidth. At 256^2/8 each of a, y, z is
-// [8, 8, 65536] f32 (16.8 MB); one call reads a twice (as a and as its
-// transpose, read by index from a[j, i, :] instead of a materialized copy),
-// y and z once, and writes z' and y': about 100 MB, ~30 us at 3.35 TB/s.
-// Each thread does a handful of flops per 24 bytes, so nothing but the
-// streams matters: consecutive threads touch consecutive pixels of all six
-// streams (coalesced), and 2048-pixel tiles give thousands of blocks.
+// [8, 8, 65536] f32 (16.8 MB); the least a call can move is a, y and z read
+// once and z', y' written once, 83.9 MB, 25 us at 3.35 TB/s. Each pixel
+// costs a handful of flops, so nothing but the streams matters.
 //
-// Design: two launches and a deterministic reduction, no atomics.
-//   1. dip_consensus_tile: one block per (pixel tile, pair). It writes z'
-//      and y' and the tile's two partial sums (per-thread sums, then a fixed
-//      shuffle tree) to a [2, P*P, n_tiles] scratch.
-//   2. dip_consensus_sum: one warp per pair sums its n_tiles partials in a
-//      fixed order (lane-strided, then a shuffle tree).
-// The TPU kernel carries the per-pair sum across its sequential pixel-tile
-// grid axis; blocks here run in no order, so the second pass replaces that
-// carry. One block per pair looping over all pixels would also be
-// deterministic, but gives only P*P = 64 blocks for 132 SMs at 8 nodes.
-// The same inputs therefore give bitwise-equal outputs on every call. The
-// tile need not divide n: the last tile of a row is masked.
-//
-// Sharded form (the node x pixel mesh): a rank holds the rows i of its node
-// block, [P_loc, P, n_loc] over its pixel block, and a_ji lies on another
-// rank. The caller gathers it with an all_to_all into a_t [P_loc, P, n_loc],
-// which the kernel reads in place of a[j, i], and passes its own weights
-// w_own [P_loc, n_loc] beside every node's w_all [P, n_loc] (the TPU
-// kernel's contract). The same two passes run over P_loc * P pairs; the
-// single-device entry is this form with a_t read from a by index and
-// w_own = w_all = w.
+// Design: one launch, no scratch, no atomics, deterministic.
+// - Single device: one thread-block cluster of C = 8 blocks for each
+//   unordered pair {i, j}, i <= j. A thread loads a_ij and a_ji once, with
+//   y and z of both ordered pairs, and writes z', y' and the partial sums of
+//   both (i, j) and (j, i): each proposal is read once (the first design
+//   read a twice, as a_ij and by index as a_ji: 100.7 MB a call). Each
+//   ordered pair is masked by its own adjm entry (adjm need not be
+//   symmetric), and each fuses as the first design fused it, so z' and y'
+//   are the same expressions, bit for bit. A diagonal pair (i, i) reads its
+//   row once, as itself.
+// - Sharded form (the node x pixel mesh): a rank holds the rows i of its
+//   node block, [P_loc, P, n_loc] over its pixel block, and a_ji lies on
+//   another rank. The caller gathers it with an all_to_all into a_t
+//   [P_loc, P, n_loc], which the kernel reads in place of a[j, i], and
+//   passes its own weights w_own [P_loc, n_loc] beside every node's w_all
+//   [P, n_loc] (the TPU kernel's contract). One cluster for each ordered
+//   pair (i, j); the six streams a, a_t, y, z, z', y' once each.
+// - Within a cluster, block r streams its 1/C of the pair's pixels in
+//   16-byte loads and stores (n % 4 == 0 and every row 16-byte aligned;
+//   else a scalar path in the same kernel, as for odd N), keeps per-thread
+//   sums, and reduces them with the fixed shuffle tree of the first design
+//   (warps, then the warp partials in warp 0), and writes its partials into
+//   rank 0's shared memory over distributed shared memory. After one
+//   cluster barrier rank 0 adds the C partials in rank order and writes pri
+//   and dz2; no block's shared memory is read after the barrier but rank
+//   0's own (a first form in which rank 0 read each block's shared memory
+//   needed a second barrier before any block could exit). The TPU kernel
+//   carries the per-pair sum across its sequential pixel-tile axis; the
+//   cluster replaces that carry and the first design's second launch and
+//   scratch. The same inputs give bitwise-equal outputs on every call. The
+//   one-launch alternative, a last-block ticket (2048-pixel blocks write
+//   their partials to a scratch; an atomic count per pair lets the pair's
+//   last block add them in tile order), was slower on the card at the
+//   main-path shapes (scripts/torch_consensus_variants.py).
+// - C = 8, the portable cluster size (16 and 4 were slower, and other
+//   block sizes no faster: scripts/torch_consensus_variants.py). 256-thread
+//   blocks with 256 bytes of shared memory; at 256^2/8 36 clusters (288 blocks) and in a 2 x 2 mesh
+//   rank's block 32 clusters, all resident at once (dip_consensus_clusters
+//   returns cudaOccupancyMaxActiveClusters for this configuration).
 //
 // C interface for ctypes: pointers and the stream as void*, sizes as int.
-// The entry launches on the given stream, does not synchronise and returns
+// The entries launch on the given stream, do not synchronise and return
 // cudaGetLastError() (0 = launched).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 256;  // threads per block of the tile pass
+constexpr int NT = 256;  // threads per block
 constexpr int NW = NT / 32;
+constexpr int C = 8;  // blocks per cluster
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -62,138 +81,321 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;  // lane 0 holds the sum
 }
 
-template <bool WEIGHTED, bool SHARDED>
-__global__ void __launch_bounds__(NT)
-consensus_tile(const float* __restrict__ a, const float* __restrict__ y,
-               const float* __restrict__ z, const float* __restrict__ at,
-               const float* __restrict__ adjm,
-               const float* __restrict__ w_own,
-               const float* __restrict__ w_all, float* __restrict__ zn,
-               float* __restrict__ yn, float* __restrict__ part, int P, int n,
-               int tile, int n_tiles) {
-  const int pair = blockIdx.y;  // i * P + j, i local to the rank
-  const int i = pair / P, j = pair % P;
-  const int t = blockIdx.x;
-  const long row = (long)pair * n;
-  // a_ji: the caller's a_t at this pair (sharded), else a[j, i, :].
-  const float* src_t = SHARDED ? at + row : a + ((long)j * P + i) * n;
-  const float adj = adjm[pair];
-  const int p1 = min((t + 1) * tile, n);
-  float pri = 0.f, dz2 = 0.f;
-  for (int p = t * tile + threadIdx.x; p < p1; p += NT) {
-    const float av = a[row + p], atv = src_t[p];
-    float zv;
-    if (WEIGHTED) {
-      const float wi = w_own[(long)i * n + p], wj = w_all[(long)j * n + p];
-      zv = ((wi * av + wj * atv) / (wi + wj)) * adj;
-    } else {
-      zv = 0.5f * (av + atv) * adj;
-    }
-    const float dp = (av - y[row + p] - zv) * adj;
-    const float dz = (zv - z[row + p]) * adj;
-    zn[row + p] = zv;
-    yn[row + p] = (av - zv) * adj;
-    pri += dp * dp;
-    dz2 += dz * dz;
-  }
-  __shared__ float sp[NW], sd[NW];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  pri = warp_sum(pri);
-  dz2 = warp_sum(dz2);
-  if (lane == 0) {
-    sp[warp] = pri;
-    sd[warp] = dz2;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    pri = warp_sum(lane < NW ? sp[lane] : 0.f);
-    dz2 = warp_sum(lane < NW ? sd[lane] : 0.f);
-    if (lane == 0) {
-      const long k = (long)pair * n_tiles + t;
-      part[k] = pri;
-      part[(long)gridDim.y * n_tiles + k] = dz2;  // after the P_loc*P pri rows
+// One pixel of one ordered pair (i, j): av = a_ij, atv = a_ji, wi, wj the
+// fusion weights of nodes i and j (weighted only); writes z', y' and adds
+// to the pair's sums. The plain version's expressions, term for term; the
+// weighted products are rounded apart (__fmul_rn), as the plain version
+// rounds them, so that no fused multiply-add moves z'.
+template <bool WEIGHTED>
+__device__ __forceinline__ void update(float av, float atv, float yv,
+                                       float zv, float wi, float wj,
+                                       float adj, float& zo, float& yo,
+                                       float& pri, float& dz2) {
+  float zn;
+  if (WEIGHTED)
+    zn = ((__fmul_rn(wi, av) + __fmul_rn(wj, atv)) / (wi + wj)) * adj;
+  else
+    zn = 0.5f * (av + atv) * adj;
+  const float dp = (av - yv - zn) * adj;
+  const float dz = (zn - zv) * adj;
+  zo = zn;
+  yo = (av - zn) * adj;
+  pri += dp * dp;
+  dz2 += dz * dz;
+}
+
+struct Args {
+  const float *a, *y, *z, *at, *adjm, *w_own, *w_all;
+  float *zn, *yn, *pri, *dz2;
+  int P, n;
+};
+
+// Pair (i, j) (and (j, i) where TWO) over pixels [p0, p1), one at a time.
+template <bool WEIGHTED, bool TWO>
+__device__ __forceinline__ void stream_scalar(const Args& g, long rij,
+                                              long rji, const float* src_t,
+                                              const float* wi_r,
+                                              const float* wj_r, float m_ij,
+                                              float m_ji, int p0, int p1,
+                                              float (&s)[4]) {
+  for (int p = p0 + threadIdx.x; p < p1; p += NT) {
+    const float av = __ldg(g.a + rij + p), atv = __ldg(src_t + p);
+    const float wi = WEIGHTED ? __ldg(wi_r + p) : 0.f;
+    const float wj = WEIGHTED ? __ldg(wj_r + p) : 0.f;
+    float zo, yo;
+    update<WEIGHTED>(av, atv, __ldg(g.y + rij + p), __ldg(g.z + rij + p), wi,
+                     wj, m_ij, zo, yo, s[0], s[1]);
+    g.zn[rij + p] = zo;
+    g.yn[rij + p] = yo;
+    if (TWO) {
+      update<WEIGHTED>(atv, av, __ldg(g.y + rji + p), __ldg(g.z + rji + p),
+                       wj, wi, m_ji, zo, yo, s[2], s[3]);
+      g.zn[rji + p] = zo;
+      g.yn[rji + p] = yo;
     }
   }
 }
 
-__global__ void __launch_bounds__(32)
-consensus_sum(const float* __restrict__ part, float* __restrict__ pri,
-              float* __restrict__ dz2, int PP, int n_tiles) {
-  const int pair = blockIdx.x;
-  const float* pp = part + (long)pair * n_tiles;
-  const float* pd = part + ((long)PP + pair) * n_tiles;
-  float sp = 0.f, sd = 0.f;
-  for (int t = threadIdx.x; t < n_tiles; t += 32) {
-    sp += pp[t];
-    sd += pd[t];
+// Loads through the read-only path: no store of the kernel aliases them.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// The same over pixels [4 q0, 4 q1) in 16-byte steps, the four pixels of a
+// step in order (not unrolled: unrolling by 2 or 4 was no faster, and 5%
+// slower in the weighted single-device form).
+template <bool WEIGHTED, bool TWO>
+__device__ __forceinline__ void stream_vec(const Args& g, long rij, long rji,
+                                           const float* src_t,
+                                           const float* wi_r,
+                                           const float* wj_r, float m_ij,
+                                           float m_ji, int q0, int q1,
+                                           float (&s)[4]) {
+#pragma unroll 1
+  for (int q = q0 + threadIdx.x; q < q1; q += NT) {
+    const long p = 4L * q;
+    const float4 A = ld4(g.a + rij + p), AT = ld4(src_t + p);
+    const float4 Y = ld4(g.y + rij + p), Z = ld4(g.z + rij + p);
+    float4 WI = make_float4(0.f, 0.f, 0.f, 0.f), WJ = WI;
+    if (WEIGHTED) {
+      WI = ld4(wi_r + p);
+      WJ = ld4(wj_r + p);
+    }
+    float4 Y2 = WI, Z2 = WI;
+    if (TWO) {
+      Y2 = ld4(g.y + rji + p);
+      Z2 = ld4(g.z + rji + p);
+    }
+    float4 zo, yo, zo2, yo2;
+    update<WEIGHTED>(A.x, AT.x, Y.x, Z.x, WI.x, WJ.x, m_ij, zo.x, yo.x, s[0],
+                     s[1]);
+    update<WEIGHTED>(A.y, AT.y, Y.y, Z.y, WI.y, WJ.y, m_ij, zo.y, yo.y, s[0],
+                     s[1]);
+    update<WEIGHTED>(A.z, AT.z, Y.z, Z.z, WI.z, WJ.z, m_ij, zo.z, yo.z, s[0],
+                     s[1]);
+    update<WEIGHTED>(A.w, AT.w, Y.w, Z.w, WI.w, WJ.w, m_ij, zo.w, yo.w, s[0],
+                     s[1]);
+    st4(g.zn + rij + p, zo);
+    st4(g.yn + rij + p, yo);
+    if (TWO) {
+      update<WEIGHTED>(AT.x, A.x, Y2.x, Z2.x, WJ.x, WI.x, m_ji, zo2.x, yo2.x,
+                       s[2], s[3]);
+      update<WEIGHTED>(AT.y, A.y, Y2.y, Z2.y, WJ.y, WI.y, m_ji, zo2.y, yo2.y,
+                       s[2], s[3]);
+      update<WEIGHTED>(AT.z, A.z, Y2.z, Z2.z, WJ.z, WI.z, m_ji, zo2.z, yo2.z,
+                       s[2], s[3]);
+      update<WEIGHTED>(AT.w, A.w, Y2.w, Z2.w, WJ.w, WI.w, m_ji, zo2.w, yo2.w,
+                       s[2], s[3]);
+      st4(g.zn + rji + p, zo2);
+      st4(g.yn + rji + p, yo2);
+    }
   }
-  sp = warp_sum(sp);
-  sd = warp_sum(sd);
-  if (threadIdx.x == 0) {
-    pri[pair] = sp;
-    dz2[pair] = sd;
+}
+
+// grid (C, pairs), clusters of C blocks along x: cluster y is unordered
+// pair y (single device; i <= j in row-major order) or ordered pair y
+// (sharded); block rank r streams pixels [r * chunk, (r + 1) * chunk).
+template <bool WEIGHTED, bool SHARDED, bool VEC>
+__global__ void __launch_bounds__(NT) consensus(Args g) {
+  const int P = g.P, n = g.n;
+  int i, j;
+  if (SHARDED) {
+    i = blockIdx.y / P;
+    j = blockIdx.y % P;
+  } else {
+    int u = blockIdx.y;
+    i = 0;
+    while (u >= P - i) {
+      u -= P - i;
+      ++i;
+    }
+    j = i + u;
   }
+  const bool two = !SHARDED && i != j;
+  const long rij = ((long)i * P + j) * n, rji = ((long)j * P + i) * n;
+  // a_ji: the caller's a_t at this pair (sharded), else a[j, i, :].
+  const float* src_t = SHARDED ? g.at + rij : g.a + rji;
+  const float* wi_r = g.w_own + (long)i * n;
+  const float* wj_r = g.w_all + (long)j * n;
+  const float m_ij = g.adjm[(long)i * P + j];
+  const float m_ji = two ? g.adjm[(long)j * P + i] : 0.f;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank();
+  // Arrive now, wait before the first write to rank 0's shared memory: by
+  // then every block of the cluster has started (distributed shared memory
+  // is valid only then), so the wait costs nothing.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  float s[4] = {0.f, 0.f, 0.f, 0.f};  // pri_ij, dz2_ij, pri_ji, dz2_ji
+  if (VEC) {
+    const int nq = n / 4, chunk = (nq + C - 1) / C;
+    const int q0 = min(r * chunk, nq), q1 = min(q0 + chunk, nq);
+    if (two)
+      stream_vec<WEIGHTED, true>(g, rij, rji, src_t, wi_r, wj_r, m_ij, m_ji,
+                                 q0, q1, s);
+    else
+      stream_vec<WEIGHTED, false>(g, rij, rji, src_t, wi_r, wj_r, m_ij, m_ji,
+                                  q0, q1, s);
+  } else {
+    const int chunk = (n + C - 1) / C;
+    const int p0 = min(r * chunk, n), p1 = min(p0 + chunk, n);
+    if (two)
+      stream_scalar<WEIGHTED, true>(g, rij, rji, src_t, wi_r, wj_r, m_ij,
+                                    m_ji, p0, p1, s);
+    else
+      stream_scalar<WEIGHTED, false>(g, rij, rji, src_t, wi_r, wj_r, m_ij,
+                                     m_ji, p0, p1, s);
+  }
+  __shared__ float sw[4][NW];
+  __shared__ float sb[C][4];  // rank 0's: every block's partials, by rank
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float v = warp_sum(s[k]);
+    if (lane == 0) sw[k][warp] = v;
+  }
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (warp == 0) {
+    float* dst = cluster.map_shared_rank(&sb[r][0], 0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float v = warp_sum(lane < NW ? sw[k][lane] : 0.f);
+      if (lane == 0) dst[k] = v;
+    }
+  }
+  cluster.sync();  // every block's partials are in rank 0's sb
+  if (r == 0 && threadIdx.x < (two ? 4 : 2)) {
+    const int k = threadIdx.x;
+    float acc = 0.f;
+    for (int q = 0; q < C; ++q) acc += sb[q][k];
+    const long pair = k < 2 ? (long)i * P + j : (long)j * P + i;
+    (k % 2 == 0 ? g.pri : g.dz2)[pair] = acc;
+  }
+}
+
+// The launch configuration of a grid of clusters of C blocks along x.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int pairs, cudaStream_t s) {
+    cfg.gridDim = dim3(C, pairs);
+    cfg.blockDim = dim3(NT);
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Non-portable cluster sizes (above 8) need the kernel's attribute first.
+cudaError_t allow_cluster(void (*kern)(Args)) {
+  return C > 8 ? cudaFuncSetAttribute(
+                     kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)
+               : cudaSuccess;
+}
+
+template <bool WEIGHTED, bool SHARDED, bool VEC>
+cudaError_t launch3(const Args& g, int pairs, cudaStream_t s) {
+  auto kern = consensus<WEIGHTED, SHARDED, VEC>;
+  static const cudaError_t allowed = allow_cluster(kern);
+  if (allowed != cudaSuccess) return allowed;
+  ClusterLaunch l(pairs, s);
+  return cudaLaunchKernelEx(&l.cfg, kern, g);
+}
+
+template <bool SHARDED, bool VEC>
+cudaError_t launch2(const Args& g, int weighted, int pairs, cudaStream_t s) {
+  return weighted ? launch3<true, SHARDED, VEC>(g, pairs, s)
+                  : launch3<false, SHARDED, VEC>(g, pairs, s);
+}
+
+bool aligned(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
 }
 
 template <bool SHARDED>
-cudaError_t launch(const void* a, const void* y, const void* z, const void* at,
-                   const void* adjm, const void* w_own, const void* w_all,
-                   void* zn, void* yn, void* part, void* pri, void* dz2,
-                   int P_loc, int P, int n, int tile, int weighted,
-                   cudaStream_t s) {
-  const int n_tiles = (n + tile - 1) / tile;
-  const dim3 grid(n_tiles, P_loc * P);
-  const float* fa = static_cast<const float*>(a);
-  const float* fy = static_cast<const float*>(y);
-  const float* fz = static_cast<const float*>(z);
-  const float* fat = static_cast<const float*>(at);
-  const float* fm = static_cast<const float*>(adjm);
-  const float* fwo = static_cast<const float*>(w_own);
-  const float* fwa = static_cast<const float*>(w_all);
-  float* fzn = static_cast<float*>(zn);
-  float* fyn = static_cast<float*>(yn);
-  float* fp = static_cast<float*>(part);
-  if (weighted)
-    consensus_tile<true, SHARDED><<<grid, NT, 0, s>>>(
-        fa, fy, fz, fat, fm, fwo, fwa, fzn, fyn, fp, P, n, tile, n_tiles);
-  else
-    consensus_tile<false, SHARDED><<<grid, NT, 0, s>>>(
-        fa, fy, fz, fat, fm, fwo, fwa, fzn, fyn, fp, P, n, tile, n_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  consensus_sum<<<P_loc * P, 32, 0, s>>>(fp, static_cast<float*>(pri),
-                                         static_cast<float*>(dz2), P_loc * P,
-                                         n_tiles);
-  return cudaGetLastError();
+cudaError_t launch(Args g, int P_loc, int weighted, cudaStream_t s) {
+  const int P = g.P;
+  const int pairs = SHARDED ? P_loc * P : P * (P + 1) / 2;
+  if (pairs < 1 || pairs > 65535 || g.n < 1) return cudaErrorInvalidValue;
+  bool vec = g.n % 4 == 0 && aligned(g.a) && aligned(g.y) && aligned(g.z) &&
+             aligned(g.zn) && aligned(g.yn) && (!SHARDED || aligned(g.at));
+  if (weighted) vec = vec && aligned(g.w_own) && aligned(g.w_all);
+  return vec ? launch2<SHARDED, true>(g, weighted, pairs, s)
+             : launch2<SHARDED, false>(g, weighted, pairs, s);
 }
 
 }  // namespace
 
 // a, y, z: [P, P, n] f32; adjm: [P, P] f32; w: [P, n] f32 (weighted only,
-// else ignored); zn, yn: [P, P, n] f32 out; part: [2, P*P, n_tiles] f32
-// scratch with n_tiles = ceil(n / tile); pri, dz2: [P, P] f32 out.
+// else ignored); zn, yn: [P, P, n] f32 out; pri, dz2: [P, P] f32 out.
 // weighted: 0 = midpoint, 1 = weighted.
 extern "C" int dip_consensus(const void* a, const void* y, const void* z,
                              const void* adjm, const void* w, void* zn,
-                             void* yn, void* part, void* pri, void* dz2, int P,
-                             int n, int tile, int weighted, void* stream) {
-  return static_cast<int>(launch<false>(
-      a, y, z, nullptr, adjm, w, w, zn, yn, part, pri, dz2, P, P, n, tile,
-      weighted, static_cast<cudaStream_t>(stream)));
+                             void* yn, void* pri, void* dz2, int P, int n,
+                             int weighted, void* stream) {
+  Args g{};
+  g.a = static_cast<const float*>(a);
+  g.y = static_cast<const float*>(y);
+  g.z = static_cast<const float*>(z);
+  g.adjm = static_cast<const float*>(adjm);
+  g.w_own = g.w_all = static_cast<const float*>(w);
+  g.zn = static_cast<float*>(zn);
+  g.yn = static_cast<float*>(yn);
+  g.pri = static_cast<float*>(pri);
+  g.dz2 = static_cast<float*>(dz2);
+  g.P = P;
+  g.n = n;
+  return static_cast<int>(
+      launch<false>(g, P, weighted, static_cast<cudaStream_t>(stream)));
 }
 
 // The sharded form: a, y, z, a_t: [P_loc, P, n] f32 over this rank's pixel
 // block (n = n_loc); adjm: [P_loc, P] f32; w_own: [P_loc, n], w_all: [P, n]
-// f32 (weighted only, else ignored); zn, yn: [P_loc, P, n] f32 out; part:
-// [2, P_loc*P, n_tiles] f32 scratch; pri, dz2: [P_loc, P] f32 out.
+// f32 (weighted only, else ignored); zn, yn: [P_loc, P, n] f32 out; pri,
+// dz2: [P_loc, P] f32 out.
 extern "C" int dip_consensus_sharded(const void* a, const void* y,
                                      const void* z, const void* a_t,
                                      const void* adjm, const void* w_own,
                                      const void* w_all, void* zn, void* yn,
-                                     void* part, void* pri, void* dz2,
-                                     int P_loc, int P, int n, int tile,
-                                     int weighted, void* stream) {
-  return static_cast<int>(launch<true>(
-      a, y, z, a_t, adjm, w_own, w_all, zn, yn, part, pri, dz2, P_loc, P, n,
-      tile, weighted, static_cast<cudaStream_t>(stream)));
+                                     void* pri, void* dz2, int P_loc, int P,
+                                     int n, int weighted, void* stream) {
+  Args g{};
+  g.a = static_cast<const float*>(a);
+  g.y = static_cast<const float*>(y);
+  g.z = static_cast<const float*>(z);
+  g.at = static_cast<const float*>(a_t);
+  g.adjm = static_cast<const float*>(adjm);
+  g.w_own = static_cast<const float*>(w_own);
+  g.w_all = static_cast<const float*>(w_all);
+  g.zn = static_cast<float*>(zn);
+  g.yn = static_cast<float*>(yn);
+  g.pri = static_cast<float*>(pri);
+  g.dz2 = static_cast<float*>(dz2);
+  g.P = P;
+  g.n = n;
+  return static_cast<int>(
+      launch<true>(g, P_loc, weighted, static_cast<cudaStream_t>(stream)));
+}
+
+// cudaOccupancyMaxActiveClusters of the kernel (sharded: 0 or 1, weighted:
+// 0 or 1, the 16-byte path) with its clusters of C blocks of NT threads: how
+// many clusters the card holds at once (negative: the CUDA error).
+extern "C" int dip_consensus_clusters(int sharded, int weighted) {
+  void (*kern)(Args) =
+      sharded ? (weighted ? consensus<true, true, true>
+                          : consensus<false, true, true>)
+              : (weighted ? consensus<true, false, true>
+                          : consensus<false, false, true>);
+  cudaError_t e = allow_cluster(kern);
+  ClusterLaunch l(1, nullptr);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kern, &l.cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }

@@ -27,21 +27,7 @@ from __future__ import annotations
 import torch
 
 from dip_admm_tpu_torch.ops.kernels import _build
-
-
-def plain(t: torch.Tensor) -> bool:
-    """Whether a wrapper takes its plain version: ``t`` lies on the CPU.
-    A CUDA tensor launches; any other device raises."""
-    if t.is_cuda:
-        return False
-    if t.device.type == "cpu":
-        return True
-    raise ValueError(f"unsupported device {t.device}")
-
-
-def stream() -> int:
-    """The current CUDA stream of the current device, as an int."""
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+from dip_admm_tpu_torch.ops.kernels.shear_sum import _raise_if
 
 
 class Entry:
@@ -56,10 +42,7 @@ class Entry:
         c = self._c
         if c is None:
             c = self._c = getattr(_build.load(self.library), self.fn)
-        rc = c(*args)
-        if rc != 0:
-            raise RuntimeError(f"{self.what}: CUDA launch failed with error "
-                               f"{rc}")
+        _raise_if(c(*args), self.what)
 
 
 def _meta(x):

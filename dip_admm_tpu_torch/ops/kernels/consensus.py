@@ -5,31 +5,30 @@
 on a CUDA tensor it launches ``dip_consensus`` of ``csrc/consensus.cu``,
 on a CPU tensor it runs :func:`consensus_update_ref`.
 
-Single device: the transposed proposals a_ji are read by index from ``a``
-itself, so the caller passes no ``a_t``. The sharded form takes the JAX
+Single device: the transposed proposals a_ji are read from ``a`` itself,
+so the caller passes no ``a_t``; the kernel reads each proposal once and
+updates both (i, j) and (j, i) from it. The sharded form takes the JAX
 kernel's contract: the node x pixel mesh (``parallel/admm_sharded.py``)
 gathers ``a_t`` [P_loc, P, n_loc] with an ``all_to_all`` and passes the
 fusion weights as ``w_own`` [P_loc, n_loc] and ``w_all`` [P, n_loc]; it
-launches ``dip_consensus_sharded``. The kernel's tile need not divide n
-(the ragged last tile is masked), so the JAX package's ``pick_tile`` has no
-counterpart. What bounds it and why its reduction is deterministic is in
-the source note of ``csrc/consensus.cu``.
+launches ``dip_consensus_sharded``. Any n is taken (16-byte streams where
+n % 4 == 0, else a scalar path), so the JAX package's ``pick_tile`` has no
+counterpart. Each call is one launch, through the lean launch path of
+``_launch.py``; what bounds it and why its cluster reduction is
+deterministic is in the source note of ``csrc/consensus.cu``.
 
 ``consensus_update.launches`` counts the single-device calls that launch
-the kernel and ``consensus_update.sharded_launches`` the sharded ones (one
-per call, though a call is two launches: the fused pass and the sum of its
-per-tile partials); ``launch_counts`` and ``reset_launch_counts`` read and
-clear them.
+the kernel and ``consensus_update.sharded_launches`` the sharded ones;
+``launch_counts`` and ``reset_launch_counts`` read and clear them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dip_admm_tpu_torch.ops.kernels import _build
-from dip_admm_tpu_torch.ops.kernels.shear_sum import _on_cpu, _raise_if, _stream
+from dip_admm_tpu_torch.ops.kernels import _build, _launch
+from dip_admm_tpu_torch.ops.kernels.shear_sum import _on_cpu, _stream
 
-TILE = 2048  # pixels per block of the fused pass
 FUSIONS = ("midpoint", "weighted")
 
 
@@ -62,27 +61,15 @@ def consensus_update_ref(a, y, z, adjm, w=None, fusion="midpoint", *,
     return zn, yn, torch.sum(dpri * dpri, -1), torch.sum(dz * dz, -1)
 
 
-def consensus_update(a, y, z, adjm, w=None, fusion="midpoint", *,
-                     a_t=None, w_own=None, w_all=None):
-    """K5: see :func:`consensus_update_ref` (its sharded form with
-    ``a_t``)."""
-    if fusion not in FUSIONS:
-        raise ValueError(f"fusion must be one of {FUSIONS}, got {fusion!r}")
-    sharded = a_t is not None
-    if fusion == "weighted" and (
-            (w_own is None or w_all is None) if sharded else w is None):
-        raise ValueError("weighted fusion needs the weights "
-                         + ("w_own and w_all" if sharded else "w"))
-    if _on_cpu(a):
-        return consensus_update_ref(a, y, z, adjm, w, fusion, a_t=a_t,
-                                    w_own=w_own, w_all=w_all)
+def _check_update(a, y, z, adjm, w, fusion, a_t, w_own, w_all):
+    """The tensor checks of :func:`consensus_update`: (P_loc, P, n)."""
     name = "consensus_update"
     P_loc, P, n = a.shape
     tensors = dict(a=a, y=y, z=z, adjm=adjm)
     shapes = dict(a=(P_loc, P, n), y=(P_loc, P, n), z=(P_loc, P, n),
                   a_t=(P_loc, P, n), adjm=(P_loc, P), w=(P, n),
                   w_own=(P_loc, n), w_all=(P, n))
-    if sharded:
+    if a_t is not None:
         tensors["a_t"] = a_t
         if fusion == "weighted":
             tensors.update(w_own=w_own, w_all=w_all)
@@ -105,36 +92,55 @@ def consensus_update(a, y, z, adjm, w=None, fusion="midpoint", *,
     if P_loc * P > 65535:
         raise ValueError(f"{name}: {P_loc} x {P} pairs exceed the grid's "
                          "pair axis")
-    n_tiles = -(-n // TILE)
-    zn = torch.empty_like(a)
-    yn = torch.empty_like(a)
-    part = torch.empty((2, P_loc * P, n_tiles), dtype=torch.float32,
-                       device=a.device)
-    pri = torch.empty((P_loc, P), dtype=torch.float32, device=a.device)
-    dz2 = torch.empty_like(pri)
+    return P_loc, P, n
+
+
+_checks = _launch.Checked(_check_update)
+_SINGLE = _launch.Entry("consensus", "dip_consensus", "consensus_update")
+_SHARDED = _launch.Entry("consensus", "dip_consensus_sharded",
+                         "consensus_update")
+
+
+def consensus_update(a, y, z, adjm, w=None, fusion="midpoint", *,
+                     a_t=None, w_own=None, w_all=None):
+    """K5: see :func:`consensus_update_ref` (its sharded form with
+    ``a_t``)."""
+    if fusion not in FUSIONS:
+        raise ValueError(f"fusion must be one of {FUSIONS}, got {fusion!r}")
+    sharded = a_t is not None
     weighted = fusion == "weighted"
-    outs = (zn.data_ptr(), yn.data_ptr(), part.data_ptr(), pri.data_ptr(),
-            dz2.data_ptr())
-    lib = _build.load("consensus")
+    if weighted and (
+            (w_own is None or w_all is None) if sharded else w is None):
+        raise ValueError("weighted fusion needs the weights "
+                         + ("w_own and w_all" if sharded else "w"))
+    if _on_cpu(a):
+        return consensus_update_ref(a, y, z, adjm, w, fusion, a_t=a_t,
+                                    w_own=w_own, w_all=w_all)
+    P_loc, P, n = _checks(a, y, z, adjm, w, fusion, a_t, w_own, w_all)
+    # Four allocations shaped like checked inputs: cheaper on the host than
+    # two and the views that split them.
+    zn, yn = torch.empty_like(a), torch.empty_like(a)
+    pri, dz2 = torch.empty_like(adjm), torch.empty_like(adjm)
+    outs = (zn.data_ptr(), yn.data_ptr(), pri.data_ptr(), dz2.data_ptr())
     if sharded:
-        rc = lib.dip_consensus_sharded(
-            a.data_ptr(), y.data_ptr(), z.data_ptr(), a_t.data_ptr(),
-            adjm.data_ptr(), w_own.data_ptr() if weighted else None,
-            w_all.data_ptr() if weighted else None, *outs, P_loc, P, n, TILE,
-            int(weighted), _stream(),
-        )
-    else:
-        rc = lib.dip_consensus(
-            a.data_ptr(), y.data_ptr(), z.data_ptr(), adjm.data_ptr(),
-            w.data_ptr() if weighted else None, *outs, P, n, TILE,
-            int(weighted), _stream(),
-        )
-    _raise_if(rc, name)
-    if sharded:
+        _SHARDED(a.data_ptr(), y.data_ptr(), z.data_ptr(), a_t.data_ptr(),
+                 adjm.data_ptr(), w_own.data_ptr() if weighted else None,
+                 w_all.data_ptr() if weighted else None, *outs, P_loc, P, n,
+                 weighted, _stream())
         consensus_update.sharded_launches += 1
     else:
+        _SINGLE(a.data_ptr(), y.data_ptr(), z.data_ptr(), adjm.data_ptr(),
+                w.data_ptr() if weighted else None, *outs, P, n, weighted,
+                _stream())
         consensus_update.launches += 1
     return zn, yn, pri, dz2
+
+
+def max_active_clusters(sharded: bool, weighted: bool) -> int:
+    """How many of the kernel's clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); the kernel's launch needs one."""
+    return _build.load("consensus").dip_consensus_clusters(int(sharded),
+                                                            int(weighted))
 
 
 consensus_update.launches = 0

@@ -39,7 +39,9 @@ from __future__ import annotations
 import torch
 
 from dip_admm_tpu_torch.ops.kernels import _launch
-from dip_admm_tpu_torch.ops.kernels.shear_sum import _batches, _check, _shape
+from dip_admm_tpu_torch.ops.kernels.shear_sum import (
+    _batches, _check, _on_cpu, _shape, _stream,
+)
 
 # K18 stages, per row, pc and s*ob (f32, [D]) and two boundary tables (u16,
 # [Np]) in the shared memory of one block, at most 227 KB.
@@ -128,12 +130,12 @@ _t_checks = _launch.Checked(_check_t)
 def hat_eval(g, pc, s):
     """K17: see :func:`hat_eval_ref`. The kernel reads the two taps that
     carry weight."""
-    if _launch.plain(g):
+    if _on_cpu(g):
         return hat_eval_ref(g, pc, s)
     PB, PT, T, D, Np = _fwd_checks(g, pc, s)
     out = g.new_empty((PB, T, D))
     _FWD(g.data_ptr(), pc.data_ptr(), s.data_ptr(), out.data_ptr(), PB, PT,
-         T, D, Np, _launch.stream())
+         T, D, Np, _stream())
     hat_eval.launches += 1
     return out
 
@@ -141,12 +143,12 @@ def hat_eval(g, pc, s):
 def hat_eval_t(ob, pc, s, Np: int):
     """K18: see :func:`hat_eval_t_ref`. ``Np`` is the profile length (the
     JAX entry reads it off a marker array)."""
-    if _launch.plain(ob):
+    if _on_cpu(ob):
         return hat_eval_t_ref(ob, pc, s, Np)
     PB, PT, T, D = _t_checks(ob, pc, s, Np)
     gbar = ob.new_empty((PB, T, Np))
     _T(ob.data_ptr(), pc.data_ptr(), s.data_ptr(), gbar.data_ptr(), PB, PT,
-       T, D, Np, _launch.stream())
+       T, D, Np, _stream())
     hat_eval_t.launches += 1
     return gbar
 

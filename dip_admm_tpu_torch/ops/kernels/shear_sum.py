@@ -375,6 +375,8 @@ def _raise_if(rc: int, name: str):
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
+    if t.is_cuda:  # the card's path first: it costs one attribute read
+        return False
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":

@@ -18,8 +18,8 @@ coordinates below 0, above Np - 1 and NaN), one line a kernel:
   slower than the device, the host's cost of a call;
 - ``device_ms`` and ``device_launches_per_call`` (``torch.profiler`` over
   10 calls, ``chip_smoke._device_ms``);
-- ``sha1``: a hash of the outputs' bytes (two checkouts' kernels agree bit
-  for bit where their hashes are equal), and ``equal_plain``: whether each
+- ``sha1``: a hash of each output's bytes (two checkouts' kernels agree bit
+  for bit on an output where its hashes are equal), and ``equal_plain``: whether each
   output equals the plain version's bit for bit. K17 is also held bit for
   bit to its formula evaluated in torch with the second tap's product and
   sum rounded apart (``formula_equal_mul_add``) and fused
@@ -72,11 +72,10 @@ def host_us(fn, calls=HOST_CALLS) -> float:
     return 1e6 * dt / calls
 
 
-def _sha1(outs) -> str:
-    h = hashlib.sha1()
-    for o in outs:
-        h.update(o.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
+def _sha1(outs) -> list:
+    """A hash of each output's bytes."""
+    return [hashlib.sha1(o.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes()).hexdigest()[:12] for o in outs]
 
 
 def _hat_inputs(gen, PB, PT, T, D, Np, edge=False):
@@ -183,7 +182,7 @@ def measure() -> None:
         dev_ms, by, launches = cs._device_ms(torch, call)
         print(f"call_cost: {label} call_ms={ms} host_us_per_call={hu} "
               f"device_ms={dev_ms} device_launches_per_call={launches} "
-              f"sha1={digest} equal_plain={equal} {extra} by_kernel={by}",
+              f"sha1={','.join(digest)} equal_plain={equal} {extra} by_kernel={by}",
               flush=True)
 
 
@@ -194,10 +193,10 @@ def measure() -> None:
 # (name, pointers before the ints, ints): the C entries' argument lists of
 # the first designs of K17 (dip_hat_fwd, 10 arguments) and K5
 # (dip_consensus, 15; dip_consensus_sharded, 18) and of the lean ones
-# (dip_consensus, 11; dip_consensus_sharded, 14), each ending in the stream.
+# (dip_consensus, 13; dip_consensus_sharded, 16), each ending in the stream.
 NOOPS = (("noop_hat", 4, 5), ("noop_cons_old", 10, 4),
-         ("noop_cons_sharded_old", 12, 5), ("noop_cons", 7, 3),
-         ("noop_cons_sharded", 9, 4))
+         ("noop_cons_sharded_old", 12, 5), ("noop_cons", 9, 3),
+         ("noop_cons_sharded", 11, 4))
 
 
 def _noop_lib():
@@ -325,25 +324,31 @@ def split() -> None:
     out = g.new_empty((8, 192, 512))
     lean = {}
     lean["hat_eval"] = dict(
-            checks=per_call_us(lambda: (_launch.plain(g),
+            checks=per_call_us(lambda: (_on_cpu(g),
                                         he._fwd_checks(g, pc, s))),
             allocs=per_call_us(lambda: g.new_empty((8, 192, 512))),
             pointers=per_call_us(lambda: (
-                *(t.data_ptr() for t in (g, pc, s, out)), _launch.stream())),
+                *(t.data_ptr() for t in (g, pc, s, out)), _stream())),
             ctypes=ctypes_hat, launch=launch)
     if hasattr(cons, "_checks"):
         lean["consensus_update[midpoint]"] = dict(
-            checks=per_call_us(lambda: (_launch.plain(a), cons._checks(
+            checks=per_call_us(lambda: (_on_cpu(a), cons._checks(
                 a, y, z, adjm, None, "midpoint", None, None, None))),
             allocs=per_call_us(lambda: (
-                a.new_empty((2, P, P, n)).unbind(),
-                a.new_empty((2, P, P)).unbind())),
+                torch.empty_like(a), torch.empty_like(a),
+                torch.empty_like(adjm), torch.empty_like(adjm))),
             pointers=per_call_us(lambda: (
-                *(t.data_ptr() for t in (a, y, z, adjm, a, a)),
-                _launch.stream())),
+                *(t.data_ptr() for t in (a, y, z, adjm, a, a, adjm, adjm)),
+                _stream())),
             ctypes=per_call_us(lambda: lib.noop_cons(
-                *range(1, 8), 8, 65536, 0, st)),
+                *range(1, 10), 8, 65536, 0, st)),
             launch=launch)
+        # The other way to allocate them: two tensors and the views that
+        # split them.
+        print("call_cost_split: consensus_update[midpoint] two_allocations"
+              "_and_unbind_us=" + str(per_call_us(lambda: (
+                  a.new_empty((2, P, P, n)).unbind(),
+                  a.new_empty((2, P, P)).unbind()))), flush=True)
     for k, v in lean.items():
         print(f"call_cost_split: {k} lean " + " ".join(
             f"{p}_us={u}" for p, u in v.items())

@@ -431,6 +431,61 @@ def _device_launches(fn) -> int:
     return sum(e.device_type == DeviceType.CUDA for e in prof.events())
 
 
+# (n, offset view): odd n = 63^2, a 4-byte offset view at n % 4 == 0 (both
+# on the scalar path), and the 16-byte path.
+K5_LAYOUTS = [(3969, False), (4096, True), (4096, False)]
+
+
+@pytest.mark.parametrize("layout", K5_LAYOUTS,
+                         ids=["odd-n", "offset-view", "aligned"])
+@pytest.mark.parametrize("fusion", ["midpoint", "weighted"])
+def test_consensus_both_forms_one_launch_bitwise(fusion, layout):
+    """K5 in both forms on an adjacency that is not symmetric: one device
+    launch a call, bit for bit on a repeat, z' and y' equal to the plain
+    version's bit for bit (the partials at 1e-5), the sharded form's z', y'
+    equal to the single-device call's block; the counters as before."""
+    dev = _device()
+    n, off = layout
+    a, y, z, adjm, w = _consensus_inputs(dev, n)
+    assert not torch.equal(adjm, adjm.T)
+    if off:
+        a, y, z, w = map(_offset, (a, y, z, w))
+    rows = slice(4, 8)
+    a_t = a.transpose(0, 1)[rows].contiguous()
+    forms = {
+        "single": ((a, y, z, adjm, w, fusion), {}),
+        "sharded": ((a[rows], y[rows], z[rows], adjm[rows].contiguous()),
+                    dict(fusion=fusion, a_t=_offset(a_t) if off else a_t,
+                         w_own=w[rows], w_all=w)),
+    }
+    before = cons.launch_counts()
+    outs = {}
+    for form, (args, kw) in forms.items():
+        got = cons.consensus_update(*args, **kw)
+        again = cons.consensus_update(*args, **kw)
+        want = cons.consensus_update_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, g2) for g, g2 in zip(got, again)), form
+        assert all(torch.equal(g, r) for g, r in zip(got[:2], want[:2])), form
+        _assert_close(got[2:], want[2:], 1e-5)
+        assert _device_launches(
+            lambda: cons.consensus_update(*args, **kw)) == 1, form
+        outs[form] = got
+    for g, full in zip(outs["sharded"][:2], outs["single"][:2]):
+        assert torch.equal(g, full[rows])
+    after = cons.launch_counts()
+    assert after["consensus_update"] == before["consensus_update"] + 4
+    assert (after["consensus_update_sharded"]
+            == before["consensus_update_sharded"] + 4)
+
+
+def test_consensus_clusters_fit_the_card():
+    _device()
+    for sharded in (False, True):
+        for weighted in (False, True):
+            assert cons.max_active_clusters(sharded, weighted) >= 1
+
+
 def _sel_inputs(dev, dtype, PB, PT, T, N, F, seed=5):
     """Tables of PT sets (set 0 all plane 0, set 1 all plane 1, the rest
     mixed), spectra and cotangents of PB images, all in pitched storage

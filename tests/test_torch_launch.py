@@ -40,6 +40,17 @@ def _restrided(x):
 
 # (check, good arguments, index of the argument to replace, bad value)
 CASES = {
+    "k5-dtype": (cons._check_update, _cons_args, 0,
+                 lambda x: x.double()),
+    "k5-noncontiguous": (cons._check_update, _cons_args, 0,
+                         lambda x: x.transpose(0, 1)),
+    "k5-shape": (cons._check_update, _cons_args, 1,
+                 lambda x: x[:, :, :N // 2].contiguous()),
+    "k5-weights-shape": (cons._check_update, _cons_args, 4,
+                         lambda x: x[:, :N // 2].contiguous()),
+    "k5-device": (cons._check_update, _cons_args, 3,
+                  lambda x: x.to("meta")),
+    "k5-stride-changed": (cons._check_update, _cons_args, 2, _restrided),
     "k17-dtype": (he._check_fwd, _hat_args, 0, lambda x: x.double()),
     "k17-batch": (he._check_fwd, _hat_args, 0, lambda x: x[:3].contiguous()),
     "k17-s-shape": (he._check_fwd, _hat_args, 2,
@@ -75,15 +86,16 @@ def test_a_cached_signature_returns_the_checks_result_without_them():
 
     def check(*args):
         calls.append(1)
-        return he._check_fwd(*args)
+        return cons._check_update(*args)
 
     memo = _launch.Checked(check)
-    args = _hat_args()
-    want = (2 * PT, PT, T, D, NP)
-    assert memo(*args) == want
-    fresh = [x.clone() for x in args]
-    assert memo(*fresh) == want  # other tensors, same metadata
+    args = _cons_args()
+    assert memo(*args) == (P, P, N)
+    fresh = [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
+    assert memo(*fresh) == (P, P, N)  # other tensors, same metadata
     assert len(calls) == 1
+    fresh[5] = "midpoint"  # another argument: checked afresh
+    assert memo(*fresh) == (P, P, N) and len(calls) == 2
 
 
 def test_the_memo_is_bounded():
@@ -93,7 +105,3 @@ def test_the_memo_is_bounded():
         assert len(memo) <= 3
 
 
-def test_plain_takes_the_cpu_and_refuses_other_devices():
-    assert _launch.plain(torch.zeros(2))
-    with pytest.raises(ValueError):
-        _launch.plain(torch.zeros(2, device="meta"))
