@@ -25,14 +25,16 @@ coordinates below 0, above Np - 1 and NaN), one line a kernel:
   sum rounded apart (``formula_equal_mul_add``) and fused
   (``formula_equal_fma``, the product exact in f64).
 
-With ``--split``, the host's cost of the wrappers' steps as the first
-design of the K5 and K17 wrappers took them (their checks, allocations,
-``_build.load`` and attribute lookup, the ctypes call alone on a C
-function that returns at once, the launch alone of an empty kernel, in
-microseconds a call), and the same steps of the lean launch path
-(``ops/kernels/_launch.py``) where ROOT has it. The empty functions are
-built with nvcc into ``build/call_cost/``. Alternate the checkouts, e.g.
-with the parent unpacked by ``git archive`` into ``build/parent``:
+With ``--split`` (a checkout with ``ops/kernels/_launch.py``), the host's
+cost of each step of the K17 and K5 wrappers, as their first designs took
+them and as the lean launch path takes them (checks, allocations,
+``_build.load`` and attribute lookup, the pointers and stream, the ctypes
+call alone on a C function that returns at once, the launch alone of an
+empty kernel), in microseconds a call, and K17's whole wrapper both ways,
+each the median of 7 rounds that time the two ways in turns. The empty
+functions are built with nvcc into ``build/call_cost/``. Alternate the
+checkouts, e.g. with the parent unpacked by ``git archive`` into
+``build/parent``:
 
     for r in build/parent . . build/parent; do
         python3 scripts/torch_call_cost.py $PWD/$r; done
@@ -41,6 +43,7 @@ with the parent unpacked by ``git archive`` into ``build/parent``:
 import ctypes
 import hashlib
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -57,6 +60,7 @@ import chip_smoke as cs  # noqa: E402
 
 HOST_CALLS = 200
 SPLIT_CALLS = 2000
+ROUNDS = 7
 
 
 def host_us(fn, calls=HOST_CALLS) -> float:
@@ -235,39 +239,65 @@ def per_call_us(fn, calls=SPLIT_CALLS) -> float:
     return 1e6 * (time.perf_counter() - t0) / calls
 
 
+def interleaved(fns: dict, time_one=per_call_us) -> dict:
+    """The median over ROUNDS of ``time_one(fn)`` for each fn of ``fns``,
+    the fns timed in turns, so that a drift of the host's speed falls on
+    all of them alike."""
+    res = {k: [] for k in fns}
+    for _ in range(ROUNDS):
+        for k, fn in fns.items():
+            res[k].append(time_one(fn))
+    return {k: statistics.median(v) for k, v in res.items()}
+
+
 def split() -> None:
+    """The host's cost of each step of the K17 and K5 wrappers, as the first
+    design took them and as the lean path takes them, timed in turns; and
+    K17's whole wrapper both ways (the C entry is the same)."""
     from dip_admm_tpu_torch.ops.kernels import _build
     from dip_admm_tpu_torch.ops.kernels import consensus as cons
     from dip_admm_tpu_torch.ops.kernels import hat_eval as he
     from dip_admm_tpu_torch.ops.kernels.shear_sum import (
-        _batches, _check, _on_cpu, _shape, _stream,
+        _batches, _check, _raise_if, _shape, _stream,
     )
 
     lib = _noop_lib()
     st = _stream()
-    launch = host_us(lambda: lib.launch_empty(768, st))
-    ctypes_hat = per_call_us(lambda: lib.noop_hat(1, 2, 3, 4, 8, 8, 192, 512,
-                                                  2048, st))
-    ctypes_cons = per_call_us(lambda: lib.noop_cons_old(
-        *range(1, 11), 8, 65536, 2048, 0, st))
     gen = torch.Generator(device="cuda").manual_seed(0)
     pc, s, g, _ = _hat_inputs(gen, 8, 8, 192, 512, 2048)
     P, n = 8, 65536
     a, y, z = (torch.randn((P, P, n), generator=gen, device="cuda")
                for _ in range(3))
     adjm = torch.ones((P, P), device="cuda")
+    out = g.new_empty((8, 192, 512))
+
+    def on_cpu(t):  # the first designs' device test
+        if t.device.type == "cpu":
+            return True
+        if t.device.type != "cuda":
+            raise ValueError(t.device)
+        return False
 
     def hat_checks():  # the first K17 wrapper's, as it ran them
-        _on_cpu(g)
+        on_cpu(g)
         PT, T, D = pc.shape
         _shape("hat_eval", s, (PT, T, 1), "s")
         PB, _, Np = g.shape
         _check("hat_eval", dict(g=g, pc=pc, s=s), g.device, torch.float32)
         _batches("hat_eval", PB, PT)
         _shape("hat_eval", g, (PB, T, Np), "g")
+        return PB, PT, T, D, Np
+
+    def hat_first(g_, pc_, s_):  # the first K17 wrapper, step for step
+        PB, PT, T, D, Np = hat_checks()
+        o = torch.empty((PB, T, D), dtype=torch.float32, device=g_.device)
+        lib_ = _build.load("hat_eval")
+        _raise_if(lib_.dip_hat_fwd(*(t.data_ptr() for t in (g_, pc_, s_, o)),
+                                   PB, PT, T, D, Np, _stream()), "hat_eval")
+        return o
 
     def cons_checks():  # the first K5 wrapper's, midpoint, single device
-        _on_cpu(a)
+        on_cpu(a)
         P_loc, P_, n_ = a.shape
         tensors = dict(a=a, y=y, z=z, adjm=adjm)
         shapes = dict(a=(P_loc, P_, n_), y=(P_loc, P_, n_),
@@ -291,68 +321,69 @@ def split() -> None:
                 torch.empty((P, P), dtype=torch.float32, device=a.device),
                 torch.empty((P, P), dtype=torch.float32, device=a.device))
 
-    def pointers_hat():
-        return (*(t.data_ptr() for t in (g, pc, s, g)), _stream())
-
-    rows = {
-        "hat_eval": dict(
-            checks=per_call_us(hat_checks),
-            allocs=per_call_us(lambda: torch.empty(
-                (8, 192, 512), dtype=torch.float32, device=g.device)),
-            load=per_call_us(lambda: getattr(_build.load("hat_eval"),
-                                             "dip_hat_fwd")),
-            pointers=per_call_us(pointers_hat),
-            ctypes=ctypes_hat, launch=launch),
-        "consensus_update[midpoint]": dict(
-            checks=per_call_us(cons_checks),
-            allocs=per_call_us(cons_allocs),
-            load=per_call_us(lambda: getattr(_build.load("consensus"),
-                                             "dip_consensus")),
-            pointers=per_call_us(lambda: (
-                *(t.data_ptr() for t in (a, y, z, adjm)), _stream())),
-            ctypes=ctypes_cons, launch=2 * launch),
+    # (step, first design, lean path) for each wrapper; None: no such step.
+    steps = {
+        "hat_eval": (
+            ("checks", hat_checks,
+             lambda: (he._on_cpu(g), he._fwd_checks(g, pc, s))),
+            ("allocs", lambda: torch.empty((8, 192, 512), dtype=torch.float32,
+                                           device=g.device),
+             lambda: g.new_empty((8, 192, 512))),
+            ("load", lambda: getattr(_build.load("hat_eval"), "dip_hat_fwd"),
+             None),
+            ("pointers",
+             lambda: (*(t.data_ptr() for t in (g, pc, s, out)), _stream()),
+             lambda: (*(t.data_ptr() for t in (g, pc, s, out)), _stream())),
+            ("ctypes", lambda: lib.noop_hat(1, 2, 3, 4, 8, 8, 192, 512, 2048,
+                                            st),
+             lambda: lib.noop_hat(1, 2, 3, 4, 8, 8, 192, 512, 2048, st)),
+        ),
+        "consensus_update[midpoint]": (
+            ("checks", cons_checks,
+             lambda: (cons._on_cpu(a), cons._checks(
+                 a, y, z, adjm, None, "midpoint", None, None, None))),
+            ("allocs", cons_allocs,
+             lambda: (torch.empty_like(a), torch.empty_like(a),
+                      torch.empty_like(adjm), torch.empty_like(adjm))),
+            ("allocs_two_and_unbind", None,
+             lambda: (a.new_empty((2, P, P, n)).unbind(),
+                      a.new_empty((2, P, P)).unbind())),
+            ("load", lambda: getattr(_build.load("consensus"),
+                                     "dip_consensus"), None),
+            ("pointers",
+             lambda: (*(t.data_ptr() for t in (a, y, z, adjm, a, a, a, adjm,
+                                                adjm)), _stream()),
+             lambda: (*(t.data_ptr() for t in (a, y, z, adjm, a, a, adjm,
+                                                adjm)), _stream())),
+            ("ctypes", lambda: lib.noop_cons_old(*range(1, 11), 8, 65536,
+                                                 2048, 0, st),
+             lambda: lib.noop_cons(*range(1, 10), 8, 65536, 0, st)),
+        ),
     }
-    for k, v in rows.items():
-        print(f"call_cost_split: {k} first_design " + " ".join(
-            f"{p}_us={u}" for p, u in v.items())
-            + f" sum_us={sum(v.values())}", flush=True)
-    if not os.path.exists(os.path.join(
-            ROOT, "dip_admm_tpu_torch", "ops", "kernels", "_launch.py")):
-        return
-    from dip_admm_tpu_torch.ops.kernels import _launch
-
-    out = g.new_empty((8, 192, 512))
-    lean = {}
-    lean["hat_eval"] = dict(
-            checks=per_call_us(lambda: (_on_cpu(g),
-                                        he._fwd_checks(g, pc, s))),
-            allocs=per_call_us(lambda: g.new_empty((8, 192, 512))),
-            pointers=per_call_us(lambda: (
-                *(t.data_ptr() for t in (g, pc, s, out)), _stream())),
-            ctypes=ctypes_hat, launch=launch)
-    if hasattr(cons, "_checks"):
-        lean["consensus_update[midpoint]"] = dict(
-            checks=per_call_us(lambda: (_on_cpu(a), cons._checks(
-                a, y, z, adjm, None, "midpoint", None, None, None))),
-            allocs=per_call_us(lambda: (
-                torch.empty_like(a), torch.empty_like(a),
-                torch.empty_like(adjm), torch.empty_like(adjm))),
-            pointers=per_call_us(lambda: (
-                *(t.data_ptr() for t in (a, y, z, adjm, a, a, adjm, adjm)),
-                _stream())),
-            ctypes=per_call_us(lambda: lib.noop_cons(
-                *range(1, 10), 8, 65536, 0, st)),
-            launch=launch)
-        # The other way to allocate them: two tensors and the views that
-        # split them.
-        print("call_cost_split: consensus_update[midpoint] two_allocations"
-              "_and_unbind_us=" + str(per_call_us(lambda: (
-                  a.new_empty((2, P, P, n)).unbind(),
-                  a.new_empty((2, P, P)).unbind()))), flush=True)
-    for k, v in lean.items():
-        print(f"call_cost_split: {k} lean " + " ".join(
-            f"{p}_us={u}" for p, u in v.items())
-            + f" sum_us={sum(v.values())}", flush=True)
+    launch = interleaved({"one": lambda: lib.launch_empty(768, st)},
+                         host_us)["one"]
+    for name, rows in steps.items():
+        first, lean = {}, {}
+        for step, f_old, f_new in rows:
+            fns = {k: f for k, f in (("first", f_old), ("lean", f_new)) if f}
+            got = interleaved(fns)
+            if f_old:
+                first[step] = got["first"]
+            if f_new:
+                lean[step] = got["lean"]
+        k5 = name.startswith("consensus")
+        first["launch"] = 2 * launch if k5 else launch
+        lean["launch"] = launch
+        for design, v in (("first_design", first), ("lean", lean)):
+            total = sum(u for k, u in v.items()
+                        if k != "allocs_two_and_unbind")
+            print(f"call_cost_split: {name} {design} " + " ".join(
+                f"{p}_us={u}" for p, u in v.items()) + f" sum_us={total}",
+                flush=True)
+    whole = interleaved({"first_design": lambda: hat_first(g, pc, s),
+                         "lean": lambda: he.hat_eval(g, pc, s)}, host_us)
+    print("call_cost_split: hat_eval whole_wrapper_host_us " + " ".join(
+        f"{k}={u}" for k, u in whole.items()), flush=True)
 
 
 def main() -> int:
@@ -366,7 +397,8 @@ def main() -> int:
                            text=True).stdout.strip(), flush=True)
     cs.phase_build()
     measure()
-    if SPLIT:
+    if SPLIT and os.path.exists(os.path.join(
+            ROOT, "dip_admm_tpu_torch", "ops", "kernels", "_launch.py")):
         split()
     return 0
 
