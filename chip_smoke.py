@@ -844,10 +844,12 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
     a, y, z = (torch.randn((P, P, n), generator=gen, device=dev)
                for _ in range(3))
     adjm = problem.adj.to(torch.float32)
-    nbytes = 5 * P * P * n * 4  # a, y, z read; z', y' written
     res = []
     for fusion in ("midpoint", "weighted"):
-        args = (a, y, z, adjm, problem.W, fusion)
+        # a, y, z (and w) read; z', y' written. The midpoint reads no w.
+        w = problem.W if fusion == "weighted" else None
+        nbytes = 5 * P * P * n * 4 + (0 if w is None else _nbytes([w]))
+        args = (a, y, z, adjm, w, fusion)
         got, r = _compare(torch, "consensus_update", cons.consensus_update,
                           cons.consensus_update_ref, args, K5_RTOL, failures,
                           note=f"[{fusion}]")
@@ -897,8 +899,8 @@ def phase_kernels(torch, dev, problem, failures) -> dict:
         if not block:
             failures.append(f"kernel consensus_update_sharded[{fusion}]: z, y"
                             " differ from the single-device kernel's block")
-        # a, a_t, y, z read; z', y' written
-        sh_bytes = 6 * (P // 2) * P * (n // 2) * 4
+        # a, a_t, y, z (and w_own, w_all) read; z', y' written
+        sh_bytes = 6 * (P // 2) * P * (n // 2) * 4 + _nbytes(args[5:])
         cost = _call_cost(torch, lambda: kern(*args), failures,
                           f"consensus_update_sharded[{fusion}]", 1)
         print(f"kernels: consensus_update_sharded[{fusion}] bitwise_repeat="

@@ -53,9 +53,9 @@
 //   one-launch alternative, a last-block ticket (2048-pixel blocks write
 //   their partials to a scratch; an atomic count per pair lets the pair's
 //   last block add them in tile order), was slower on the card at the
-//   main-path shapes (scripts/torch_consensus_variants.py).
+//   main-path shapes (PERF.md, section 6, PR 14).
 // - C = 8, the portable cluster size (16 and 4 were slower, and other
-//   block sizes no faster: scripts/torch_consensus_variants.py). 256-thread
+//   block sizes no faster: PERF.md, section 6, PR 14). 256-thread
 //   blocks with 256 bytes of shared memory; at 256^2/8 36 clusters (288 blocks) and in a 2 x 2 mesh
 //   rank's block 32 clusters, all resident at once (dip_consensus_clusters
 //   returns cudaOccupancyMaxActiveClusters for this configuration).
@@ -293,20 +293,10 @@ struct ClusterLaunch {
   }
 };
 
-// Non-portable cluster sizes (above 8) need the kernel's attribute first.
-cudaError_t allow_cluster(void (*kern)(Args)) {
-  return C > 8 ? cudaFuncSetAttribute(
-                     kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)
-               : cudaSuccess;
-}
-
 template <bool WEIGHTED, bool SHARDED, bool VEC>
 cudaError_t launch3(const Args& g, int pairs, cudaStream_t s) {
-  auto kern = consensus<WEIGHTED, SHARDED, VEC>;
-  static const cudaError_t allowed = allow_cluster(kern);
-  if (allowed != cudaSuccess) return allowed;
   ClusterLaunch l(pairs, s);
-  return cudaLaunchKernelEx(&l.cfg, kern, g);
+  return cudaLaunchKernelEx(&l.cfg, consensus<WEIGHTED, SHARDED, VEC>, g);
 }
 
 template <bool SHARDED, bool VEC>
@@ -393,9 +383,8 @@ extern "C" int dip_consensus_clusters(int sharded, int weighted) {
                           : consensus<false, true, true>)
               : (weighted ? consensus<true, false, true>
                           : consensus<false, false, true>);
-  cudaError_t e = allow_cluster(kern);
   ClusterLaunch l(1, nullptr);
   int n = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kern, &l.cfg);
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kern, &l.cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }

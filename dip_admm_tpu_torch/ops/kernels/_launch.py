@@ -14,10 +14,12 @@ each call:
   other argument as it is. A signature seen before skips the checks and
   returns what they returned. A new one runs them in full, so a bad input
   raises on its first call as on any later one, and only a signature whose
-  checks passed is remembered. Nothing that depends on a tensor's address
-  (alignment, storage) may go into a memoized check: it would hold for the
-  signature and not for the next tensor. The kernels of this path branch
-  on alignment themselves.
+  checks passed is remembered, at most ``MEMO_LIMIT`` signatures a
+  wrapper. Nothing that depends on a tensor's address (alignment,
+  storage) may go into a memoized check: it would hold for the signature
+  and not for the next tensor. The kernels of this path branch on
+  alignment themselves; a wrapper whose checks test alignment keeps those
+  tests out of the memo, run on every call.
 
 Used by K5 (``consensus.py``) and K17/K18 (``hat_eval.py``).
 """
@@ -28,6 +30,9 @@ import torch
 
 from dip_admm_tpu_torch.ops.kernels import _build
 from dip_admm_tpu_torch.ops.kernels.shear_sum import _raise_if
+
+# The signatures a memo keeps; past it, the memo starts again empty.
+MEMO_LIMIT = 64
 
 
 class Entry:
@@ -53,12 +58,10 @@ def _meta(x):
 
 class Checked:
     """``check(*args)`` memoized by the arguments' metadata (see the module
-    docstring). ``limit`` bounds the signatures kept: past it, the memo
-    starts again empty."""
+    docstring)."""
 
-    def __init__(self, check, limit: int = 64):
+    def __init__(self, check):
         self._check = check
-        self._limit = limit
         self._seen: dict = {}
 
     def __call__(self, *args):
@@ -68,7 +71,7 @@ class Checked:
         except KeyError:
             pass
         out = self._check(*args)
-        if len(self._seen) >= self._limit:
+        if len(self._seen) >= MEMO_LIMIT:
             self._seen.clear()
         self._seen[key] = out
         return out

@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
 """What a call of K5 (both forms, both fusions), K17 and K18 costs on one
-GPU and its host, for comparing two checkouts in one call on one card.
+GPU and its host, for comparing two checkouts in one call on one card: the
+repo's one tool for a wrapper's per-call cost across checkouts and its host
+split (``chip_smoke.py`` prints the same per-call figures for its own
+checkout).
 
     python3 scripts/torch_call_cost.py ROOT [--split]
 
@@ -14,8 +17,9 @@ coordinates below 0, above Np - 1 and NaN), one line a kernel:
 - ``call_ms``: the median of 20 CUDA-event timings of one call after 3
   warm-ups (``chip_smoke._time_ms``);
 - ``host_us_per_call``: the host's wall clock over 200 back-to-back calls
-  with no sync between them, over 200 (one sync after); where the host is
-  slower than the device, the host's cost of a call;
+  with no sync between them, over 200 (one sync after, as
+  ``chip_smoke._host_us``); where the host is slower than the device, the
+  host's cost of a call;
 - ``device_ms`` and ``device_launches_per_call`` (``torch.profiler`` over
   10 calls, ``chip_smoke._device_ms``);
 - ``sha1``: a hash of each output's bytes (two checkouts' kernels agree bit
@@ -26,12 +30,12 @@ coordinates below 0, above Np - 1 and NaN), one line a kernel:
   (``formula_equal_fma``, the product exact in f64).
 
 With ``--split`` (a checkout with ``ops/kernels/_launch.py``), the host's
-cost of each step of the K17 and K5 wrappers, as their first designs took
-them and as the lean launch path takes them (checks, allocations,
+cost of each step of the K17, K18 and K5 wrappers, as their first designs
+took them and as the lean launch path takes them (checks, allocations,
 ``_build.load`` and attribute lookup, the pointers and stream, the ctypes
 call alone on a C function that returns at once, the launch alone of an
-empty kernel), in microseconds a call, and K17's whole wrapper both ways,
-each the median of 7 rounds that time the two ways in turns. The empty
+empty kernel), in microseconds a call, and K17's and K18's whole wrappers
+both ways, each the median of 7 rounds that time the two ways in turns. The empty
 functions are built with nvcc into ``build/call_cost/``. Alternate the
 checkouts, e.g. with the parent unpacked by ``git archive`` into
 ``build/parent``:
@@ -58,14 +62,14 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-HOST_CALLS = 200
 SPLIT_CALLS = 2000
 ROUNDS = 7
 
 
-def host_us(fn, calls=HOST_CALLS) -> float:
-    """Host wall clock of ``calls`` back-to-back calls over ``calls``, in
-    microseconds; one sync after."""
+def host_us(fn, calls=200) -> float:
+    """``chip_smoke._host_us``, kept here because a parent checkout's
+    ``chip_smoke.py`` may predate it: the host's wall clock of ``calls``
+    back-to-back calls over ``calls``, in microseconds; one sync after."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -251,9 +255,10 @@ def interleaved(fns: dict, time_one=per_call_us) -> dict:
 
 
 def split() -> None:
-    """The host's cost of each step of the K17 and K5 wrappers, as the first
-    design took them and as the lean path takes them, timed in turns; and
-    K17's whole wrapper both ways (the C entry is the same)."""
+    """The host's cost of each step of the K17, K18 and K5 wrappers, as the
+    first design took them and as the lean path takes them, timed in turns;
+    and K17's and K18's whole wrappers both ways (the C entries are the
+    same)."""
     from dip_admm_tpu_torch.ops.kernels import _build
     from dip_admm_tpu_torch.ops.kernels import consensus as cons
     from dip_admm_tpu_torch.ops.kernels import hat_eval as he
@@ -264,12 +269,12 @@ def split() -> None:
     lib = _noop_lib()
     st = _stream()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    pc, s, g, _ = _hat_inputs(gen, 8, 8, 192, 512, 2048)
+    PB, PT, T, D, Np = 8, 8, 192, 512, 2048
+    pc, s, g, ob = _hat_inputs(gen, PB, PT, T, D, Np)
     P, n = 8, 65536
     a, y, z = (torch.randn((P, P, n), generator=gen, device="cuda")
                for _ in range(3))
     adjm = torch.ones((P, P), device="cuda")
-    out = g.new_empty((8, 192, 512))
 
     def on_cpu(t):  # the first designs' device test
         if t.device.type == "cpu":
@@ -278,22 +283,27 @@ def split() -> None:
             raise ValueError(t.device)
         return False
 
-    def hat_checks():  # the first K17 wrapper's, as it ran them
-        on_cpu(g)
-        PT, T, D = pc.shape
-        _shape("hat_eval", s, (PT, T, 1), "s")
-        PB, _, Np = g.shape
-        _check("hat_eval", dict(g=g, pc=pc, s=s), g.device, torch.float32)
-        _batches("hat_eval", PB, PT)
-        _shape("hat_eval", g, (PB, T, Np), "g")
-        return PB, PT, T, D, Np
+    def hat_checks(name, x, last):  # the first K17/K18 wrappers' checks
+        on_cpu(x)
+        PT_, T_, D_ = pc.shape
+        _shape(name, s, (PT_, T_, 1), "s")
+        PB_ = x.shape[0]
+        k = "g" if name == "hat_eval" else "ob"
+        _check(name, {k: x, "pc": pc, "s": s}, x.device, torch.float32)
+        _batches(name, PB_, PT_)
+        _shape(name, x, (PB_, T_, last), k)
+        if name == "hat_eval_t" and he._row_smem(D_, Np) > he._MAX_SMEM:
+            raise ValueError(name)
+        return PB_, PT_, T_, D_
 
-    def hat_first(g_, pc_, s_):  # the first K17 wrapper, step for step
-        PB, PT, T, D, Np = hat_checks()
-        o = torch.empty((PB, T, D), dtype=torch.float32, device=g_.device)
-        lib_ = _build.load("hat_eval")
-        _raise_if(lib_.dip_hat_fwd(*(t.data_ptr() for t in (g_, pc_, s_, o)),
-                                   PB, PT, T, D, Np, _stream()), "hat_eval")
+    def hat_first(name, x, width):  # the first K17/K18 wrapper, step for step
+        PB_, PT_, T_, D_ = hat_checks(name, x, x.shape[-1])
+        o = torch.empty((PB_, T_, width), dtype=torch.float32,
+                        device=x.device)
+        fn = getattr(_build.load("hat_eval"),
+                     "dip_hat_fwd" if name == "hat_eval" else "dip_hat_t")
+        _raise_if(fn(*(t.data_ptr() for t in (x, pc, s, o)), PB_, PT_, T_,
+                     D_, Np, _stream()), name)
         return o
 
     def cons_checks():  # the first K5 wrapper's, midpoint, single device
@@ -321,23 +331,29 @@ def split() -> None:
                 torch.empty((P, P), dtype=torch.float32, device=a.device),
                 torch.empty((P, P), dtype=torch.float32, device=a.device))
 
+    def hat_steps(name, x, width, lean_checks):
+        out = x.new_empty((PB, T, width))
+        entry = "dip_hat_fwd" if name == "hat_eval" else "dip_hat_t"
+        ptrs = lambda: (*(t.data_ptr() for t in (x, pc, s, out)), _stream())
+        ctypes_call = lambda: lib.noop_hat(1, 2, 3, 4, PB, PT, T, D, Np, st)
+        return (
+            ("checks", lambda: hat_checks(name, x, x.shape[-1]),
+             lambda: (he._on_cpu(x), lean_checks())),
+            ("allocs", lambda: torch.empty((PB, T, width),
+                                           dtype=torch.float32,
+                                           device=x.device),
+             lambda: x.new_empty((PB, T, width))),
+            ("load", lambda: getattr(_build.load("hat_eval"), entry), None),
+            ("pointers", ptrs, ptrs),
+            ("ctypes", ctypes_call, ctypes_call),
+        )
+
     # (step, first design, lean path) for each wrapper; None: no such step.
     steps = {
-        "hat_eval": (
-            ("checks", hat_checks,
-             lambda: (he._on_cpu(g), he._fwd_checks(g, pc, s))),
-            ("allocs", lambda: torch.empty((8, 192, 512), dtype=torch.float32,
-                                           device=g.device),
-             lambda: g.new_empty((8, 192, 512))),
-            ("load", lambda: getattr(_build.load("hat_eval"), "dip_hat_fwd"),
-             None),
-            ("pointers",
-             lambda: (*(t.data_ptr() for t in (g, pc, s, out)), _stream()),
-             lambda: (*(t.data_ptr() for t in (g, pc, s, out)), _stream())),
-            ("ctypes", lambda: lib.noop_hat(1, 2, 3, 4, 8, 8, 192, 512, 2048,
-                                            st),
-             lambda: lib.noop_hat(1, 2, 3, 4, 8, 8, 192, 512, 2048, st)),
-        ),
+        "hat_eval": hat_steps("hat_eval", g, D,
+                              lambda: he._fwd_checks(g, pc, s)),
+        "hat_eval_t": hat_steps("hat_eval_t", ob, Np,
+                                lambda: he._t_checks(ob, pc, s, Np)),
         "consensus_update[midpoint]": (
             ("checks", cons_checks,
              lambda: (cons._on_cpu(a), cons._checks(
@@ -380,10 +396,14 @@ def split() -> None:
             print(f"call_cost_split: {name} {design} " + " ".join(
                 f"{p}_us={u}" for p, u in v.items()) + f" sum_us={total}",
                 flush=True)
-    whole = interleaved({"first_design": lambda: hat_first(g, pc, s),
-                         "lean": lambda: he.hat_eval(g, pc, s)}, host_us)
-    print("call_cost_split: hat_eval whole_wrapper_host_us " + " ".join(
-        f"{k}={u}" for k, u in whole.items()), flush=True)
+    for name, x, width, lean_call in (
+            ("hat_eval", g, D, lambda: he.hat_eval(g, pc, s)),
+            ("hat_eval_t", ob, Np, lambda: he.hat_eval_t(ob, pc, s, Np))):
+        whole = interleaved({"first_design": lambda: hat_first(name, x,
+                                                               width),
+                             "lean": lean_call}, host_us)
+        print(f"call_cost_split: {name} whole_wrapper_host_us " + " ".join(
+            f"{k}={u}" for k, u in whole.items()), flush=True)
 
 
 def main() -> int:

@@ -98,8 +98,9 @@ def test_a_cached_signature_returns_the_checks_result_without_them():
     assert memo(*fresh) == (P, P, N) and len(calls) == 2
 
 
-def test_the_memo_is_bounded():
-    memo = _launch.Checked(lambda x: x.shape[0], limit=3)
+def test_the_memo_is_bounded(monkeypatch):
+    monkeypatch.setattr(_launch, "MEMO_LIMIT", 3)
+    memo = _launch.Checked(lambda x: x.shape[0])
     for n in range(1, 8):
         assert memo(torch.zeros(n)) == n
         assert len(memo) <= 3
