@@ -1,12 +1,15 @@
-"""Problem construction for projector modes ``fft_skew`` and
-``fft_grouped``, in parallel and fan beam, and ``fft_shear``,
-``fft_pallas`` and ``fft_mxu``, in parallel beam.
+"""Problem construction for projector modes ``dense``, ``joseph``,
+``fft_skew`` and ``fft_grouped``, in parallel and fan beam, and
+``fft_shear``, ``fft_pallas`` and ``fft_mxu``, in parallel beam.
 
 A :class:`Problem` carries the per-node angle sets, the noisy sinograms
 ``b_i = A_i x_true + sigma * eps`` (zero on padded angle rows), the exact
 column norms W, the per-pixel knn graph (Q, keep, adj), the power-method
 operator norms and the projector tables, all on one device. Measurements
-are angle-major: row r = angle * n_det + det.
+are angle-major: row r = angle * n_det + det. The tables of ``dense`` are
+the padded operator stack ``{"A": [P, m_max * D, n]}``, those of
+``joseph`` its tap tables (``ops/radon.py``); every per-node table has the
+node count leading, so a mesh rank's node slice needs no code of its own.
 
 Random draws (the measurement noise and the power-method start) come from
 ``torch.Generator``s seeded from the config; callers that must match
@@ -25,9 +28,17 @@ from dip_admm_tpu_torch.graph import precisions, topology
 from dip_admm_tpu_torch.ops import phantoms, radon, radon_fan, radon_fft
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-MODES = ("fft_skew", "fft_grouped", "fft_pallas", "fft_shear", "fft_mxu")
+MODES = ("dense", "joseph", "fft_skew", "fft_grouped", "fft_pallas",
+         "fft_shear", "fft_mxu")
+# The largest N at which mode=None picks "dense" (the JAX loader's rule).
+DENSE_MAX_N = 128
 # (forward, adjoint) of each ported mode, by fan_beam.
 _OPS = {
+    **{("dense", fan): (radon.project_nodes_dense,
+                        radon.backproject_nodes_dense)
+       for fan in (False, True)},
+    **{("joseph", fan): (radon.project_nodes, radon.backproject_nodes)
+       for fan in (False, True)},
     ("fft_skew", False): (radon_fft.project_nodes_skew,
                           radon_fft.backproject_nodes_skew),
     ("fft_skew", True): (radon_fan.project_nodes_fan_skew,
@@ -82,6 +93,11 @@ class Problem:
     def device(self) -> torch.device:
         return self.b.device
 
+    @property
+    def A(self) -> Optional[torch.Tensor]:
+        """The dense operator stack [P, m_max * D, n] (mode "dense")."""
+        return self.fft_tables.get("A") if self.mode == "dense" else None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[P, n] images -> [P, m_max * D] measurements."""
         return make_node_ops(self.mode, self.cfg.geometry, self.fft_tables)[0](x)
@@ -117,6 +133,37 @@ def make_node_ops(mode: str, geo: GeometryConfig, tables: dict):
     return fwd, adj
 
 
+def resolve_mode(geo: GeometryConfig, mode: Optional[str] = None,
+                 dense: Optional[bool] = None) -> str:
+    """The projector mode ``build_problem`` uses (the JAX loader's rule):
+    an explicit ``mode`` wins; else ``dense=True/False`` means "dense" /
+    "joseph"; else "dense" at N <= 128 and "fft_skew" above, parallel and
+    fan beam alike."""
+    if mode is not None:
+        return mode
+    if dense is not None:
+        return "dense" if dense else "joseph"
+    return "dense" if geo.N <= DENSE_MAX_N else "fft_skew"
+
+
+def build_tables(cfg: ProblemConfig, angles, valid, mode: str,
+                 row_block: Optional[int] = None) -> dict:
+    """The projector tables of any ported mode: the dense stack ``A``,
+    the Joseph tap tables, or :func:`build_fft_tables`'s."""
+    geo = cfg.geometry
+    _check_mode(mode, geo)
+    if mode == "dense":
+        P, m = angles.shape
+        A = torch.empty((P, m * geo.n_det, geo.n), dtype=torch.float32,
+                        device=angles.device)
+        for i in range(P):
+            radon.dense_matrix(geo, angles[i], valid[i], out=A[i])
+        return {"A": A}
+    if mode == "joseph":
+        return radon.joseph_tables(geo, angles, valid)
+    return build_fft_tables(cfg, angles, valid, mode, row_block)
+
+
 def build_fft_tables(cfg: ProblemConfig, angles, valid,
                      mode: str = "fft_skew",
                      row_block: Optional[int] = None) -> dict:
@@ -145,10 +192,23 @@ def build_fft_tables(cfg: ProblemConfig, angles, valid,
     return pre(geo, angles, valid, tdt)
 
 
-def node_colnorms(geo: GeometryConfig, angles, valid) -> torch.Tensor:
-    """W[i, p] = ||A_i[:, p]||^2 of the operator in use (every ported mode
-    applies the same operator), floored at EPS."""
-    if geo.fan_beam:
+def node_colnorms(geo: GeometryConfig, angles, valid, mode: str = "fft_skew",
+                  tables: Optional[dict] = None) -> torch.Tensor:
+    """W[i, p] = ||A_i[:, p]||^2 of the operator in use, floored at EPS:
+    the squared rows of A summed (``dense``), the Joseph taps' squared
+    transpose applied to ones (``joseph``), or the fft modes' exact norms
+    (every fft mode applies the same operator). ``tables`` are the mode's
+    (built here when not given)."""
+    if mode in ("dense", "joseph") and tables is None:
+        tables = build_tables(ProblemConfig(geometry=geo), angles, valid,
+                              mode)
+    if mode == "dense":
+        A = tables["A"]
+        W = torch.stack([torch.sum(A[i] * A[i], dim=0)
+                         for i in range(A.shape[0])])
+    elif mode == "joseph":
+        W = radon.colnorms_sq_nodes(tables)
+    elif geo.fan_beam:
         W = radon_fan.colnorms_sq_nodes(geo, angles, valid)
     else:
         W = torch.stack([
@@ -191,19 +251,21 @@ def build_problem(
     noise: Optional[torch.Tensor] = None,
     opnorm_v0: Optional[torch.Tensor] = None,
     row_block: Optional[int] = None,
+    dense: Optional[bool] = None,
 ) -> Problem:
     """Assemble a :class:`Problem` on ``device``.
 
-    ``mode`` is "fft_skew", "fft_grouped" or (parallel beam only)
-    "fft_shear", "fft_pallas" or "fft_mxu". ``mode=None`` resolves to "fft_skew", parallel or fan
-    beam, which the JAX loader picks above N = 128; at N <= 128 it picks
-    "dense", which is not ported. ``noise`` [P, m] replaces
-    the standard-normal draw (a generator seeded with ``cfg.noise_seed``);
+    ``mode`` is "dense", "joseph", "fft_skew", "fft_grouped" or (parallel
+    beam only) "fft_shear", "fft_pallas" or "fft_mxu"; ``mode=None`` follows
+    the JAX loader's rule (:func:`resolve_mode`): "dense" at N <= 128 and
+    "fft_skew" above, parallel and fan beam alike, and ``dense=True/False``
+    is an alias for "dense"/"joseph". ``noise`` [P, m] replaces the
+    standard-normal draw (a generator seeded with ``cfg.noise_seed``);
     ``opnorm_v0`` [P, n] replaces the power-method start. ``row_block``
     is :func:`build_fft_tables`'s."""
     device = torch.device(device)
-    mode = "fft_skew" if mode is None else mode
     geo = cfg.geometry
+    mode = resolve_mode(geo, mode, dense)
     _check_mode(mode, geo)
     if cfg.dtype != "float32":
         raise NotImplementedError("only dtype='float32' is ported")
@@ -217,7 +279,7 @@ def build_problem(
     x_true = torch.as_tensor(phantom, dtype=torch.float32,
                              device=device).reshape(-1)
 
-    tables = build_fft_tables(cfg, angles, valid, mode, row_block)
+    tables = build_tables(cfg, angles, valid, mode, row_block)
     fwd, adj = make_node_ops(mode, geo, tables)
     clean = fwd(x_true[None].expand(P, n).contiguous())
 
@@ -227,7 +289,7 @@ def build_problem(
     row_valid = valid.repeat_interleave(D, dim=1).to(torch.float32)
     b = clean + cfg.noise_level * noise.to(device) * row_valid
 
-    W = node_colnorms(geo, angles, valid)
+    W = node_colnorms(geo, angles, valid, mode, tables)
     g = cfg.graph
     Q, keep, adjm = build_graph_layer(W, g.q_mode, g.strategy, g.k)
     opnorm = estimate_opnorms(fwd, adj, P, n, device, v0=opnorm_v0)

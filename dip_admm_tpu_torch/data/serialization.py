@@ -23,7 +23,7 @@ from dip_admm_tpu_torch.config import (
     NodeSolverConfig,
     ProblemConfig,
 )
-from dip_admm_tpu_torch.data.loader import Problem, build_fft_tables
+from dip_admm_tpu_torch.data.loader import Problem, build_tables
 
 _TBL = "__tbl__/"
 _TBL16 = "__tbl16__/"
@@ -61,23 +61,28 @@ def _unflatten(flat: dict) -> dict:
     return out
 
 
-_MODES = ("fft_skew", "fft_shear", "fft_mxu")
+_MODES = ("fft_skew", "fft_shear", "fft_mxu")  # parallel beam only
+_ANY_BEAM = ("dense", "joseph")
 
 
 def load_problem(path: str, device: torch.device | str) -> Problem:
-    """Read a JAX ``save_problem`` bundle onto ``device``. Parallel-beam
-    bundles of modes ``fft_skew``, ``fft_shear`` and ``fft_mxu`` are
-    supported; each keeps only the tap layout its mode reads (d-major
-    ``WtT`` for ``fft_skew``, derived from a t-major ``Wt`` if the bundle
-    has only that; t-major ``Wt`` for ``fft_shear``)."""
+    """Read a JAX ``save_problem`` bundle onto ``device``. Bundles of modes
+    ``dense`` (its operator stack, the bundle's top-level ``A``) and
+    ``joseph`` (its tap tables rebuilt from the angles), parallel or fan
+    beam, and parallel-beam bundles of ``fft_skew``, ``fft_shear`` and
+    ``fft_mxu`` are supported; the fft ones keep only the tap layout their
+    mode reads (d-major ``WtT`` for ``fft_skew``, derived from a t-major
+    ``Wt`` if the bundle has only that; t-major ``Wt`` for
+    ``fft_shear``)."""
     device = torch.device(device)
     with np.load(path) as z:
         cfg = cfg_from_json(bytes(z["__cfg__"]).decode())
         mode = bytes(z["__mode__"]).decode()
-        if mode not in _MODES or cfg.geometry.fan_beam:
+        if not (mode in _ANY_BEAM
+                or (mode in _MODES and not cfg.geometry.fan_beam)):
             raise NotImplementedError(
                 f"bundle mode {mode!r} (fan_beam={cfg.geometry.fan_beam}) is "
-                f"not ported yet (only parallel {_MODES})"
+                f"not ported yet (only {_ANY_BEAM} and parallel {_MODES})"
             )
 
         def t(a):
@@ -91,7 +96,9 @@ def load_problem(path: str, device: torch.device | str) -> Problem:
                 bits = torch.as_tensor(np.array(z[k]).view(np.int16))
                 flat[k[len(_TBL16):]] = bits.view(torch.bfloat16).to(device)
         angles, valid = t(z["angles"]), t(z["angle_valid"])
-        if flat:
+        if mode == "dense":
+            tables = {"A": t(z["A"])}
+        elif flat:
             tables = _unflatten(flat)
             if mode == "fft_skew" and "WtT" not in tables:
                 # bundles that carry only the t-major Wt
@@ -101,7 +108,7 @@ def load_problem(path: str, device: torch.device | str) -> Problem:
                 if key in tables:
                     tables[key] = tables[key].to(torch.int32)
         else:
-            tables = build_fft_tables(cfg, angles, valid, mode)
+            tables = build_tables(cfg, angles, valid, mode)
         return Problem(
             cfg=cfg, mode=mode, angles=angles, angle_valid=valid,
             b=t(z["b"]), W=t(z["W"]), Q=t(z["Q"]), keep=t(z["keep"]),

@@ -21,7 +21,9 @@ tables (parallel or fan) whose row-block count NB the pixel axis divides
 also split along NB, and each pixel shard applies only its row blocks
 through the row-sharded skew pair (``radon_fft.RowShard``): K1 on its rows,
 one pixel-axis sum of the slot spectra, K6 on its rows, one pixel-axis
-all-gather. Otherwise node solves run replicated along the pixel axis.
+all-gather. Otherwise (``dense`` and ``joseph`` among them: node slices
+of A or of the tap tables) node solves run replicated along the pixel
+axis.
 
 Every rank passes the whole problem (built or loaded identically on each)
 and slices it. States and histories in and out are this rank's blocks, and

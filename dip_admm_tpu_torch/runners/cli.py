@@ -6,9 +6,10 @@
     python -m dip_admm_tpu_torch.runners.cli --device cpu --mesh 2 \
         --mesh-pixel 2 --N 32 --nodes 4 --max-iters 2
 
-Builds the problem (projector mode ``fft_skew`` or ``fft_grouped``, parallel
-or fan beam, or ``fft_shear``, ``fft_pallas`` or ``fft_mxu``, parallel
-beam), runs decentralized
+Builds the problem (projector mode ``dense``, ``joseph``, ``fft_skew`` or
+``fft_grouped``, parallel or fan beam, or ``fft_shear``, ``fft_pallas`` or
+``fft_mxu``, parallel beam; by default the JAX package's rule, ``dense`` at
+N <= 128 and ``fft_skew`` above), runs decentralized
 consensus ADMM and prints the JSON summary the JAX CLI prints
 (``{strategy: {tag, n_iters, final_primal, final_dual, mean_psnr,
 graph}}``). It takes the subset of the JAX CLI's flags that the port
@@ -89,13 +90,15 @@ def build_parser() -> argparse.ArgumentParser:
                    default="float32",
                    help="storage dtype of the projector tables")
     p.add_argument("--mode",
-                   choices=["auto", "fft_skew", "fft_grouped", "fft_pallas",
-                            "fft_shear", "fft_mxu"],
+                   choices=["auto", "dense", "joseph", "fft_skew",
+                            "fft_grouped", "fft_pallas", "fft_shear",
+                            "fft_mxu"],
                    default="auto",
-                   help="projector (auto = fft_skew, which the JAX package "
-                        "picks above N = 128; its dense mode at N <= 128 is "
-                        "not ported; fft_pallas, fft_shear and fft_mxu are "
-                        "parallel beam only)")
+                   help="projector (auto = the JAX package's rule: dense at "
+                        "N <= 128, fft_skew above, parallel and fan beam; "
+                        "joseph is the matrix-free form of dense; "
+                        "fft_pallas, fft_shear and fft_mxu are parallel "
+                        "beam only)")
     p.add_argument("--mesh", type=int, default=None,
                    help="shard the nodes over this many ranks")
     p.add_argument("--mesh-pixel", type=int, default=1,

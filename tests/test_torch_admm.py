@@ -274,7 +274,7 @@ def test_port_build_matches_jax(noise_level):
                                       dtype=jnp.float32))
     noise = np.asarray(jax.random.normal(
         jax.random.PRNGKey(cfg_j.noise_seed), pj.b.shape, jnp.float32))
-    pt = tloader.build_problem(_port_cfg(cfg_j), "cpu",
+    pt = tloader.build_problem(_port_cfg(cfg_j), "cpu", mode="fft_skew",
                                noise=torch.as_tensor(np.array(noise)),
                                opnorm_v0=torch.as_tensor(np.array(v0)))
     scale = np.abs(np.asarray(pj.b)).max()

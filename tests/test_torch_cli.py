@@ -21,8 +21,8 @@ def _cli(*args, timeout=300):
 
 
 def test_cli_prints_summary():
-    out = _cli("--device", "cpu", "--N", "32", "--nodes", "3",
-               "--max-iters", "2")
+    out = _cli("--device", "cpu", "--mode", "fft_skew", "--N", "32",
+               "--nodes", "3", "--max-iters", "2")
     assert out.returncode == 0, out.stderr
     summary = json.loads(out.stdout)["knn"]
     assert summary["n_iters"] == 2
@@ -33,8 +33,8 @@ def test_cli_prints_summary():
 
 
 def test_cli_recommended_prints_summary():
-    out = _cli("--recommended", "--device", "cpu", "--N", "32", "--nodes",
-               "8", "--max-iters", "2")
+    out = _cli("--recommended", "--device", "cpu", "--mode", "fft_skew",
+               "--N", "32", "--nodes", "8", "--max-iters", "2")
     assert out.returncode == 0, out.stderr
     summary = json.loads(out.stdout)["knn"]
     assert summary["n_iters"] == 2
@@ -44,17 +44,24 @@ def test_cli_recommended_prints_summary():
 
 
 @pytest.mark.parametrize("argv, nodes", [
-    (["--fan-beam", "--N", "32", "--nodes", "2", "--angles", "64"], 2),
+    (["--fan-beam", "--mode", "fft_skew", "--N", "32", "--nodes", "2",
+      "--angles", "64"], 2),
     (["--fan-beam", "--mode", "fft_grouped", "--N", "24", "--nodes", "2",
       "--angles", "64"], 2),
     (["--mode", "fft_grouped", "--N", "32", "--nodes", "3"], 3),
     (["--mode", "fft_pallas", "--N", "32", "--nodes", "3"], 3),
     (["--mode", "fft_shear", "--N", "32", "--nodes", "3"], 3),
     (["--mode", "fft_mxu", "--N", "32", "--nodes", "3"], 3),
-], ids=["fan", "fan_grouped", "grouped", "pallas", "shear", "mxu"])
+    (["--mode", "joseph", "--N", "32", "--nodes", "3"], 3),
+    (["--fan-beam", "--mode", "joseph", "--N", "24", "--nodes", "2",
+      "--angles", "64"], 2),
+    (["--fan-beam", "--N", "24", "--nodes", "2", "--angles", "64"], 2),
+], ids=["fan", "fan_grouped", "grouped", "pallas", "shear", "mxu", "joseph",
+        "fan_joseph", "fan_auto_dense"])
 def test_cli_geometry_and_mode_print_summary(argv, nodes):
     """``--fan-beam`` and ``--mode fft_grouped``, ``fft_pallas``,
-    ``fft_shear`` and ``fft_mxu``, under the recommended preset."""
+    ``fft_shear``, ``fft_mxu`` and ``joseph``, and the fan default (dense
+    at N <= 128), under the recommended preset."""
     out = _cli("--device", "cpu", "--recommended", "--max-iters", "2", *argv)
     assert out.returncode == 0, out.stderr
     summary = json.loads(out.stdout)["knn"]
@@ -84,10 +91,27 @@ def test_cli_preset_resolution(argv, want):
         want["algorithm"], want["max_inner"], want["check_every"])
 
 
+def _summary(*args):
+    out = _cli("--device", "cpu", "--N", "32", "--nodes", "3",
+               "--max-iters", "2", *args)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout)["knn"]
+
+
+def test_cli_auto_mode_is_dense_at_n_le_128():
+    """``--mode auto`` (the default) at N = 32 runs the dense operator,
+    as the JAX CLI does: the same numbers as ``--mode dense``, not
+    ``--mode fft_skew``'s."""
+    auto, dense, skew = (_summary(), _summary("--mode", "dense"),
+                         _summary("--mode", "fft_skew"))
+    assert auto == dense
+    assert auto["mean_psnr"] != skew["mean_psnr"]
+
+
 @pytest.mark.parametrize("args", [
     ("--N", "32"),  # no --device
     ("--device", "cpu", "--strategy", "mst"),
-    ("--device", "cpu", "--mode", "dense"),
+    ("--device", "cpu", "--matrix-free"),
     ("--device", "cpu", "--mode", "fft"),
     ("--device", "cpu", "--adapt-rho"),
     ("--device", "cpu", "--algorithm", "pcv"),
@@ -103,8 +127,8 @@ def test_cli_mesh_matches_single_process():
     """``--mesh 2 --mesh-pixel 2`` (four gloo ranks on the CPU) prints the
     single-process run's keys and numbers: rtol 2e-3 on the residuals and
     the PSNR (the histories' tolerance of ``test_torch_sharded.py``)."""
-    argv = ("--device", "cpu", "--N", "32", "--nodes", "4", "--max-iters",
-            "2")
+    argv = ("--device", "cpu", "--mode", "fft_skew", "--N", "32", "--nodes",
+            "4", "--max-iters", "2")
     one = _cli(*argv)
     mesh = _cli(*argv, "--mesh", "2", "--mesh-pixel", "2")
     assert one.returncode == 0, one.stderr

@@ -400,14 +400,21 @@ def test_fan_recommended_three_outers_match_jax(fan_build):
 
 
 def test_fan_mode_none_resolves_to_fft_skew():
+    """The JAX loader's rule for fan beam: mode=None is fft_skew above
+    N = 128 (the rule alone; nothing is built there) and dense at
+    N <= 128, which the build takes."""
+    for N, want in ((129, "fft_skew"), (256, "fft_skew"), (128, "dense"),
+                    (24, "dense")):
+        geo = tcfg.GeometryConfig(N=N, num_nodes=2, fan_beam=True)
+        assert tloader.resolve_mode(geo) == want, N
     cfg = _port_cfg(_cfg_jax("N24P2wide"))
     p = tloader.build_problem(cfg, "cpu")
-    assert p.mode == "fft_skew"
+    assert p.mode == "dense"
     assert p.b.shape == (2, 32 * 24) and torch.isfinite(p.W).all()
 
 
-@pytest.mark.parametrize("mode", ["dense", "joseph", "fft", "fft_pallas",
-                                  "fft_mxu", "fft_shear"])
+@pytest.mark.parametrize("mode", ["fft", "fft_pallas", "fft_mxu",
+                                  "fft_shear"])
 def test_unported_modes_raise(mode):
     cfg = _port_cfg(_cfg_jax("N24P2wide"))
     with pytest.raises(NotImplementedError):
