@@ -77,8 +77,10 @@ class NodeSolverConfig:
 
     max_inner: int = 200
     check_every: int = 10
-    # "cv" (plain steps) or "fcv" (steps in a circulant Fourier metric with
-    # a Lanczos-certified scale) are ported; "pcv" | "ppdhg" | "fista" raise.
+    # "cv" (plain steps), "fcv" (steps in a circulant Fourier metric with
+    # a Lanczos-certified scale), "pcv" (per-pixel Jacobi steps), "ppdhg"
+    # (diagonally preconditioned PDHG) or "fista" (accelerated proximal
+    # gradient with a Chambolle TV prox of fista_prox_iters steps).
     algorithm: str = "cv"
     fista_prox_iters: int = 8
     eps0: float = 2.0
@@ -113,7 +115,11 @@ class AdmmConfig:
     # else the torch-op consensus; True = the kernel (its plain version for
     # CPU tensors); False = the torch-op consensus.
     use_pallas: Optional[bool] = None
-    adapt_rho: bool = False  # not ported yet
+    # Adapt rho after each outer by rho_tau (the scaled duals rescaled,
+    # the scale clamped to [1/rho_clamp, rho_clamp]): "balance" when one
+    # residual dominates the other by rho_mu, "stall" when the primal
+    # residual fell by less than rho_stall_tol over rho_stall_window outers.
+    adapt_rho: bool = False
     rho_mu: float = 10.0
     rho_tau: float = 2.0
     rho_clamp: float = 64.0

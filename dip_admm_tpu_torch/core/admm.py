@@ -146,16 +146,37 @@ def grow_history(hist: dict, max_iters: int) -> dict:
     return out
 
 
+RHO_MODES = ("balance", "stall")
+
+
 def check_config(cfg: AdmmConfig) -> None:
-    """Raise for the options this port does not implement yet."""
+    """Raise ValueError for option values the JAX package refuses."""
     if cfg.z_fusion not in consensus.FUSIONS:
         raise ValueError("z_fusion must be 'midpoint' or 'weighted'")
-    if cfg.adapt_rho:
-        raise NotImplementedError("adapt_rho is not ported yet")
     if cfg.node.algorithm not in node_solver.ALGORITHMS:
-        raise NotImplementedError(
-            f"inner algorithm {cfg.node.algorithm!r} is not ported yet"
-        )
+        raise ValueError(f"unknown inner algorithm {cfg.node.algorithm!r}")
+    if cfg.adapt_rho and cfg.adapt_rho_mode not in RHO_MODES:
+        raise ValueError("adapt_rho_mode must be 'balance' or 'stall'")
+
+
+def _rho_factor(cfg: AdmmConfig, k: int, pri_norm, dual_norm, hist: dict):
+    """The factor of this outer's rho change (after row k of ``hist`` is
+    written), or None for no change. "balance": rho_tau when the primal
+    residual dominates the dual by rho_mu, 1/rho_tau the other way round.
+    "stall": every rho_stall_window outers from the second window on,
+    rho_tau when the primal residual fell by less than rho_stall_tol since
+    row k - window (never lowered)."""
+    if cfg.adapt_rho_mode == "stall":
+        w = cfg.rho_stall_window
+        if (k + 1) % w or k + 1 < 2 * w:
+            return None
+        prev = hist["primal"][max(k - w, 0)].to(pri_norm.dtype)
+        return torch.where(pri_norm > (1.0 - cfg.rho_stall_tol) * prev,
+                           cfg.rho_tau, 1.0)
+    return torch.where(
+        pri_norm > cfg.rho_mu * dual_norm, cfg.rho_tau,
+        torch.where(dual_norm > cfg.rho_mu * pri_norm, 1.0 / cfg.rho_tau,
+                    1.0))
 
 
 def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
@@ -168,7 +189,9 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
     k = state.k
     X, Z, Y = state.node.x, state.Z, state.Y
     dtype = X.dtype
-    rho = cfg.rho
+    # The effective rho: the config's, or under adapt_rho its multiple by
+    # the carried scale (a 0-d tensor; the off path adds no op).
+    rho = cfg.rho * state.rho_scale if cfg.adapt_rho else cfg.rho
 
     # --- neighbour terms of the node subproblems ---
     V = Z - Y  # v_ij = z_ij - y_ij,i
@@ -189,10 +212,24 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
         nstate = node_solver.init_state(
             P_loc, data.N, data.b.shape[1], X.device, dtype
         )._replace(x=state.node.x)
+    L, fprecond = data.L, data.fprecond
+    if cfg.adapt_rho:
+        # Under a drifted rho the Lipschitz bound gains (rho_k - rho0)
+        # max_p D, and fcv's certified step scales by min(1, rho0/rho_k)
+        # (the rho term is at most the whole of S(rho0) scaled), so it
+        # stays certified without a new Lanczos run. The carried tk is
+        # reset to the fresh sentinel, so a smaller step after a high-rho
+        # outer does not ratchet.
+        L = L + (rho - cfg.rho) * torch.amax(D_vec, dim=1)
+        if fprecond is not None:
+            fprecond = fprecond._replace(step=fprecond.step * torch.clamp(
+                cfg.rho / rho, max=1.0).to(fprecond.step.dtype))
+            nstate = nstate._replace(tk=torch.full_like(nstate.tk,
+                                                        float("inf")))
     res = node_solver.solve_nodes(
         data.fwd, data.adj, data.b, D_vec, b_cons, c_quad,
-        cfg.lam_tv, rho, data.L, nstate, eps_k, cfg.node, data.N,
-        fprecond=data.fprecond, any_reduce=comm.any_reduce,
+        cfg.lam_tv, rho, L, nstate, eps_k, cfg.node, data.N,
+        fprecond=fprecond, any_reduce=comm.any_reduce,
     )
     Xn = res.state.x
 
@@ -250,14 +287,26 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
         "eps_per_node": eps_vec.expand(P_loc),
         "inner_iters": res.inner_iters.to(dtype),
         "accept_code": res.accept_code.to(dtype),
-        "rho": torch.tensor(rho, dtype=dtype, device=X.device),
+        "rho": torch.as_tensor(rho, dtype=dtype, device=X.device),
     }
     for name, arr in hist.items():
         arr[k] = updates[name].to(arr.dtype)
 
     stop = bool((pri_norm < cfg.eps_pri) & (dual_norm < cfg.eps_dual))
+
+    # --- rho adaptation, after this outer's residuals: the scaled duals
+    # absorb the inverse factor (y = lambda / rho). The residuals are
+    # all-reduced, so every shard takes the same factor.
+    rho_scale = state.rho_scale
+    if cfg.adapt_rho:
+        factor = _rho_factor(cfg, k, pri_norm, dual_norm, hist)
+        if factor is not None:
+            new_scale = torch.clamp(rho_scale * factor.to(rho_scale.dtype),
+                                    1.0 / cfg.rho_clamp, cfg.rho_clamp)
+            Yn = Yn * (rho_scale / new_scale)
+            rho_scale = new_scale
     return AdmmState(node=res.state, Z=Zn, Y=Yn, k=k + 1, stop=stop,
-                     rho_scale=state.rho_scale)
+                     rho_scale=rho_scale)
 
 
 def block_data(problem: Problem, cfg: AdmmConfig,

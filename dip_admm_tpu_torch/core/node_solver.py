@@ -12,9 +12,12 @@ h = lam_tv * ||.||_{2,1}, K = the forward-difference gradient. Condat-Vu:
     x+ = x - T (grad f(x) + K^T u)
     u+ = Proj_{|.| <= lam_tv} (u + sigma * K (2 x+ - x))
 
-with T = tau (``cv``) or T = s M^-1 in a circulant Fourier metric M
-(``fcv``, see :func:`build_fourier_precond`). All P node problems run as
-one batched iteration. Every ``check_every`` steps the stationarity residual
+with T = tau (``cv``), T = s M^-1 in a circulant Fourier metric M
+(``fcv``, see :func:`build_fourier_precond`) or a per-pixel T from the
+Gershgorin row sums of A^T A (``pcv``). ``ppdhg`` is diagonally
+preconditioned PDHG with A in the dual, ``fista`` accelerated proximal
+gradient with a Chambolle TV prox and gradient restart. All P node
+problems run as one batched iteration. Every ``check_every`` steps the stationarity residual
     g = A^T(Ax - b) + rho*(D x - b_cons) + lam_tv * K^T(Kx/|Kx|)
 is checked against the target eps_k; the loop stops when every node meets
 it, when no node improved by ``plateau_tol`` since the last check, or at
@@ -31,20 +34,21 @@ import torch
 from dip_admm_tpu_torch.config import NodeSolverConfig
 from dip_admm_tpu_torch.ops import tv
 
-ALGORITHMS = ("cv", "fcv")  # the inner algorithms ported so far
+ALGORITHMS = ("cv", "fcv", "pcv", "ppdhg", "fista")
 
 
 class NodeState(NamedTuple):
-    """Warm-started inner-solver state (per node, batched). ``ua`` belongs
-    to an algorithm not ported yet and rides along unchanged, so the state
-    matches the JAX package's field for field."""
+    """Warm-started inner-solver state (per node, batched), field for
+    field the JAX package's."""
 
     x: torch.Tensor  # [P, n]
     ux: torch.Tensor  # [P, N, N] TV dual, x-component
     uy: torch.Tensor  # [P, N, N] TV dual, y-component
-    ua: torch.Tensor  # [P, m]
-    xp: torch.Tensor  # [P, n] fcv: x at the last check (rollback point)
-    tk: torch.Tensor  # [P] fcv: the adapted step (inf when fresh)
+    ua: torch.Tensor  # [P, m] ppdhg: the data-fit dual
+    # fcv: x at the last check (rollback point); fista: the previous x
+    xp: torch.Tensor  # [P, n]
+    # fcv: the adapted step (inf when fresh); fista: the t-sequence
+    tk: torch.Tensor  # [P]
 
 
 class FourierPrecond(NamedTuple):
@@ -196,7 +200,7 @@ def solve_nodes(
     b_cons: torch.Tensor,  # [P, n] = sum_j Q_ij v_ij
     c_quad: torch.Tensor,  # [P] = sum_{j,p} Q_ij v_ij^2 (objective constant)
     lam_tv: float,
-    rho: float,
+    rho: float | torch.Tensor,  # a 0-d tensor under adapt_rho
     L: torch.Tensor,  # [P] Lipschitz bounds ||A^T A|| + rho*max(D)
     state: NodeState,
     eps_k: torch.Tensor,  # scalar or [P] adaptive stationarity target
@@ -210,14 +214,12 @@ def solve_nodes(
     so every shard runs the same inner trip count and the same collectives;
     it is applied where the host syncs on the flag anyway."""
     if cfg.algorithm not in ALGORITHMS:
-        raise NotImplementedError(
-            f"inner algorithm {cfg.algorithm!r} is not ported yet "
-            f"(only {ALGORITHMS})"
-        )
-    P = b.shape[0]
+        raise ValueError(f"unknown inner algorithm {cfg.algorithm!r}")
+    P, n = D_vec.shape
     dtype = state.x.dtype
     dev = state.x.device
     lam = float(lam_tv)
+    Ksq = tv.GRAD_OPNORM_SQ
     if any_reduce is None:
         any_reduce = lambda v: v  # noqa: E731
 
@@ -228,25 +230,102 @@ def solve_nodes(
         sub = tv.tv_subgradient(x.reshape(P, N, N)).reshape(P, -1)
         return grad_f(x) + lam * sub
 
-    x, ux, uy, xp, tk = state.x, state.ux, state.uy, state.xp, state.tk
-    fcv = cfg.algorithm == "fcv"
-    if fcv:
+    def cv_step(metric, sig_im):
+        """A Condat-Vu step whose primal step is ``metric(d, st)``."""
+        def step(st):
+            ktu = tv.grad_adjoint(st.ux, st.uy).reshape(P, -1)
+            x_new = st.x - metric(grad_f(st.x) + ktu, st)
+            gx, gy = tv.grad((2.0 * x_new - st.x).reshape(P, N, N))
+            ux, uy = tv.project_l2_ball(st.ux + sig_im * gx,
+                                        st.uy + sig_im * gy, lam)
+            return st._replace(x=x_new, ux=ux, uy=uy)
+        return step
+
+    st = state
+    post_check = None
+    if cfg.algorithm == "cv":
+        # Balanced steps: sigma*||K||^2 = L/2 => tau = 0.99/(L/2 + sigma*||K||^2).
+        sigma = (cfg.sigma_scale * L / (2.0 * Ksq)).to(dtype)
+        tau_c = (0.99 / (L / 2.0 + sigma * Ksq)).to(dtype)[:, None]
+        step = cv_step(lambda d, st: tau_c * d, sigma[:, None, None])
+    elif cfg.algorithm == "fcv":
         if fprecond is None:
             raise ValueError("algorithm='fcv' requires fprecond "
                              "(build_fourier_precond)")
-        # The step lives in ``tk`` so the divergence monitor can adapt it
-        # and warm starts carry it; min() maps a fresh state (inf) to the
-        # full certified step. ``xp`` is the rollback point.
-        tk = torch.minimum(tk, fprecond.step)
-        xp = x
+        # T = tk * M^-1. The step lives in ``tk`` so the divergence monitor
+        # can adapt it and warm starts carry it; min() maps a fresh state
+        # (inf) to the full certified step. ``xp`` is the rollback point.
+        st = st._replace(tk=torch.minimum(st.tk, fprecond.step), xp=st.x)
         m_hat = fprecond.m_hat
-        sigma = fprecond.sigma
-    else:
-        # Balanced steps: sigma*||K||^2 = L/2 => tau = 0.99/(L/2 + sigma*||K||^2).
-        Ksq = tv.GRAD_OPNORM_SQ
-        sigma = (cfg.sigma_scale * L / (2.0 * Ksq)).to(dtype)
-        tau_c = (0.99 / (L / 2.0 + sigma * Ksq)).to(dtype)[:, None]
-    sig_im = sigma[:, None, None]
+        step = cv_step(lambda d, st: st.tk[:, None] * _m_inv(m_hat, d, N),
+                       fprecond.sigma[:, None, None])
+
+        def post_check(st, g_norm, g_prev, g_min):
+            # Divergence monitor: a node whose residual is not finite or
+            # grew past 5x its running minimum halves its step and rolls x
+            # back to the last check; it reports its previous residual.
+            # The TV duals are ball projections, bounded, and stay.
+            bad = ~torch.isfinite(g_norm) | (g_norm > 5.0 * g_min)
+            x = torch.where(bad[:, None], st.xp, st.x)
+            st = st._replace(tk=torch.where(bad, st.tk * 0.5, st.tk), x=x,
+                             xp=x)
+            return st, torch.where(bad, g_prev, g_norm), torch.any(bad)
+    elif cfg.algorithm == "pcv":
+        # Per-pixel steps from the Gershgorin row sums of A^T A + rho D,
+        # A^T(A 1) for a nonnegative operator (a Jacobi preconditioner);
+        # T_p (L_p/2 + sigma_p ||K||^2) <= 1 holds pixel by pixel.
+        L_row = adj(fwd(torch.ones((P, n), dtype=dtype, device=dev)))
+        L_row = torch.clamp(L_row + rho * D_vec, min=1e-6)
+        sigma_p = (cfg.sigma_scale * L_row / (2.0 * Ksq)).to(dtype)
+        T = (0.99 / (L_row / 2.0 + sigma_p * Ksq)).to(dtype)
+        step = cv_step(lambda d, st: T * d, sigma_p.reshape(P, N, N))
+    elif cfg.algorithm == "ppdhg":
+        # Diagonally preconditioned PDHG (Pock-Chambolle, alpha = 1):
+        # K = [A; grad] in the dual, the consensus quadratic as an exact
+        # primal prox; tau_j = 1/sum_i |K_ij|, sigma_i = 1/sum_j |K_ij|
+        # from A applied to ones (the projector weights are nonnegative).
+        rowsum = fwd(torch.ones((P, n), dtype=dtype, device=dev))
+        colsum = adj(torch.ones_like(b))
+        sig_a = 1.0 / torch.clamp(rowsum, min=1e-6)
+        # TV rows have two unit entries (sigma = 1/2), TV columns <= 4.
+        T = (1.0 / (torch.clamp(colsum, min=0.0) + 4.0)).to(dtype)
+        rden = 1.0 + T * rho * D_vec
+        rnum = T * rho * b_cons
+
+        def step(st):
+            kty = adj(st.ua) + tv.grad_adjoint(st.ux, st.uy).reshape(P, -1)
+            x_new = (st.x - T * kty + rnum) / rden
+            xb = 2.0 * x_new - st.x
+            v = st.ua + sig_a * fwd(xb)
+            ua = (v - sig_a * b) / (1.0 + sig_a)  # prox of 0.5||.-b||^2's dual
+            gx, gy = tv.grad(xb.reshape(P, N, N))
+            ux, uy = tv.project_l2_ball(st.ux + 0.5 * gx, st.uy + 0.5 * gy,
+                                        lam)
+            return st._replace(x=x_new, ux=ux, uy=uy, ua=ua)
+    else:  # fista
+        # Accelerated proximal gradient: a gradient step at the momentum
+        # point, then prox_{tau lam TV} by Chambolle's dual ascent
+        # warm-started from the node's TV dual field; O'Donoghue-Candes
+        # gradient restart per node. Momentum lives within one subproblem
+        # (b_cons and D change across outers): the t-sequence restarts at
+        # every solve, x and the dual field stay as the warm start.
+        st = st._replace(xp=st.x, tk=torch.ones_like(st.tk))
+        tau = (0.99 / L).to(dtype)
+        tau_c = tau[:, None]
+        w_im = (tau * lam).to(dtype)[:, None, None]
+
+        def step(st):
+            t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * st.tk * st.tk))
+            beta = ((st.tk - 1.0) / t_new)[:, None]
+            y = st.x + beta * (st.x - st.xp)
+            w = y - tau_c * grad_f(y)
+            x_im, (ux, uy) = tv.tv_prox_chambolle(
+                w.reshape(P, N, N), w_im, n_iters=cfg.fista_prox_iters,
+                p_init=(st.ux, st.uy))
+            x_new = x_im.reshape(P, -1)
+            restart = torch.sum((y - x_new) * (x_new - st.x), dim=1) > 0.0
+            t_new = torch.where(restart, torch.ones_like(t_new), t_new)
+            return st._replace(x=x_new, ux=ux, uy=uy, xp=st.x, tk=t_new)
 
     k = 0
     g_prev = torch.full((P,), float("inf"), dtype=dtype, device=dev)
@@ -256,29 +335,11 @@ def solve_nodes(
     active = True
     while k < cfg.max_inner and active:
         for _ in range(cfg.check_every):
-            ktu = tv.grad_adjoint(ux, uy).reshape(P, -1)
-            d = grad_f(x) + ktu
-            if fcv:  # T = tk * M^-1
-                x_new = x - tk[:, None] * _m_inv(m_hat, d, N)
-            else:
-                x_new = x - tau_c * d
-            gx, gy = tv.grad((2.0 * x_new - x).reshape(P, N, N))
-            ux, uy = tv.project_l2_ball(ux + sig_im * gx, uy + sig_im * gy,
-                                        lam)
-            x = x_new
-        g_norm = torch.linalg.norm(g_residual(x), dim=1)
+            st = step(st)
+        g_norm = torch.linalg.norm(g_residual(st.x), dim=1)
         adjusted = False
-        if fcv:
-            # Divergence monitor: a node whose residual is not finite or
-            # grew past 5x its running minimum halves its step and rolls x
-            # back to the last check; it reports its previous residual.
-            # The TV duals are ball projections, bounded, and stay.
-            bad = ~torch.isfinite(g_norm) | (g_norm > 5.0 * g_min)
-            tk = torch.where(bad, tk * 0.5, tk)
-            x = torch.where(bad[:, None], xp, x)
-            xp = x
-            g_norm = torch.where(bad, g_prev, g_norm)
-            adjusted = torch.any(bad)
+        if post_check is not None:
+            st, g_norm, adjusted = post_check(st, g_norm, g_prev, g_min)
         g_min = torch.minimum(
             g_min, torch.where(torch.isfinite(g_norm), g_norm, float("inf")))
         acc = torch.where((acc < 0) & (g_norm <= eps_k),
@@ -295,6 +356,7 @@ def solve_nodes(
         active = bool(any_reduce(unmet))  # the one host sync per check
         g_prev = g_norm
         k += cfg.check_every
+    x = st.x
     # A residual still at inf (the loop never ran, or every check rolled a
     # node back from its first one) is recomputed, as the JAX solver does.
     if bool(any_reduce(torch.isinf(g_norm).any())):
@@ -312,6 +374,5 @@ def solve_nodes(
     accept_code = torch.where(
         acc >= 0, 0, 1 if k < cfg.max_inner else 2
     ).to(torch.int32)
-    st = state._replace(x=x, ux=ux, uy=uy, xp=xp, tk=tk)
     return NodeSolveResult(st, g_norm, data_term + tv_term + quad,
                            inner_per_node, k, accept_code)

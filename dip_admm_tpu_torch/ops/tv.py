@@ -5,7 +5,8 @@
   gy[i, j] = x[i, j+1] - x[i, j]  (last column zero)
 
 ``grad_adjoint`` is the exact adjoint of ``grad``; ``||K||^2 <= 8`` bounds
-the primal-dual step sizes.
+the primal-dual step sizes. ``tv_prox_chambolle`` is the prox of the
+weighted TV by dual ascent (fista's prox step).
 """
 
 from __future__ import annotations
@@ -59,3 +60,27 @@ def project_l2_ball(
     safe_r = torch.clamp(r, min=1e-30)
     factor = torch.where(r > 0, 1.0 / torch.clamp(mag / safe_r, min=1.0), 0.0)
     return gx * factor, gy * factor
+
+
+def tv_prox_chambolle(
+    w: torch.Tensor,
+    weight: float | torch.Tensor,
+    n_iters: int = 20,
+    step: float = 0.25,
+    p_init: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """prox_{weight * TV}(w) by Chambolle's projected dual ascent.
+
+    Solves argmin_x 0.5 ||x - w||^2 + weight * TV(x) through its dual,
+    iterating p <- Proj_{|.| <= weight}(p + step * K(w - K^T p)), then
+    x = w - K^T p. ``weight`` is a scalar or broadcasts against w (a
+    per-node [P, 1, 1]); ``p_init`` warm-starts the dual field. Returns
+    (x, (px, py)) so the caller can warm-start the next call."""
+    if p_init is None:
+        px, py = torch.zeros_like(w), torch.zeros_like(w)
+    else:
+        px, py = p_init
+    for _ in range(n_iters):
+        gx, gy = grad(w - grad_adjoint(px, py))
+        px, py = project_l2_ball(px + step * gx, py + step * gy, weight)
+    return w - grad_adjoint(px, py), (px, py)

@@ -58,10 +58,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-inner", type=int, default=None,
                    help="inner iteration budget per node solve (default 200; "
                         "15 under --recommended)")
-    p.add_argument("--algorithm", choices=["cv", "fcv"], default="cv",
+    p.add_argument("--algorithm",
+                   choices=["cv", "fcv", "pcv", "ppdhg", "fista"],
+                   default="cv",
                    help="inner node solver: cv = Condat-Vu, fcv = Condat-Vu "
                         "in a circulant Fourier metric with a "
-                        "Lanczos-certified step")
+                        "Lanczos-certified step, pcv = Condat-Vu with "
+                        "per-pixel (Jacobi) steps, ppdhg = diagonally "
+                        "preconditioned PDHG, fista = accelerated proximal "
+                        "gradient with a Chambolle TV prox")
     p.add_argument("--check-every", type=int, default=None,
                    help="inner iterations between stationarity checks "
                         "(default 10; 15 under --recommended)")
@@ -79,6 +84,23 @@ def build_parser() -> argparse.ArgumentParser:
                    default="midpoint")
     p.add_argument("--relax-alpha", type=float, default=1.0,
                    help="ADMM over-relaxation factor (1.0 = reference)")
+    p.add_argument("--adapt-rho", action="store_true",
+                   help="adapt rho after each outer (the scaled duals "
+                        "rescaled, the scale clamped to [1/64, 64]); "
+                        "e.g. '--rho 20 --adapt-rho --rho-mu 2'")
+    p.add_argument("--rho-mu", type=float, default=10.0,
+                   help="balance: the residual ratio that changes rho")
+    p.add_argument("--rho-tau", type=float, default=2.0,
+                   help="the factor of one rho change")
+    p.add_argument("--rho-mode", choices=["balance", "stall"],
+                   default="balance",
+                   help="balance = raise rho when the primal residual "
+                        "dominates the dual by --rho-mu, lower it the other "
+                        "way round; stall = raise rho by --rho-tau whenever "
+                        "the primal residual fell by less than "
+                        "--rho-stall-tol over --rho-stall-window outers")
+    p.add_argument("--rho-stall-window", type=int, default=10)
+    p.add_argument("--rho-stall-tol", type=float, default=0.02)
     p.add_argument("--recommended", action="store_true",
                    help="the recommended operating point: fcv, "
                         "over-relaxation 1.8 and a 15-iteration inner budget "
@@ -148,7 +170,11 @@ def config_from_args(args):
             lam_tv=args.lam_tv, rho=args.rho, max_iters=args.max_iters,
             eps_pri=args.eps_pri, eps_dual=args.eps_dual,
             z_fusion=args.z_fusion, relax_alpha=args.relax_alpha,
-            use_pallas=args.use_pallas,
+            use_pallas=args.use_pallas, adapt_rho=args.adapt_rho,
+            rho_mu=args.rho_mu, rho_tau=args.rho_tau,
+            adapt_rho_mode=args.rho_mode,
+            rho_stall_window=args.rho_stall_window,
+            rho_stall_tol=args.rho_stall_tol,
             node=NodeSolverConfig(
                 max_inner=args.max_inner, check_every=args.check_every,
                 algorithm=args.algorithm, eps0=args.eps0,

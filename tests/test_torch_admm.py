@@ -251,13 +251,17 @@ def test_history_helpers():
 
 
 @pytest.mark.parametrize("cfg_over", [
-    dict(adapt_rho=True), dict(node=dict(algorithm="pcv")),
-    dict(node=dict(algorithm="ppdhg")), dict(node=dict(algorithm="fista")),
-])
-def test_unported_options_raise(bundle, cfg_over):
-    _, _, path = bundle
+    dict(node=dict(algorithm="newton")),
+    dict(adapt_rho=True, adapt_rho_mode="spectral"),
+], ids=["algorithm", "adapt_rho_mode"])
+def test_unknown_options_raise(bundle, cfg_over):
+    """The JAX package's ValueErrors: an unknown inner algorithm, an
+    unknown adapt_rho_mode."""
+    cfg, problem, path = bundle
+    with pytest.raises(ValueError):
+        jadmm.run_admm(problem, _over(cfg.admm, cfg_over))
     tp = tser.load_problem(path, "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tadmm.run_admm(tp, _over(tp.cfg.admm, cfg_over))
 
 

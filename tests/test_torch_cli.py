@@ -91,6 +91,39 @@ def test_cli_preset_resolution(argv, want):
         want["algorithm"], want["max_inner"], want["check_every"])
 
 
+@pytest.mark.parametrize("argv", [
+    ["--algorithm", "pcv"],
+    ["--algorithm", "ppdhg"],
+    ["--algorithm", "fista"],
+    ["--rho", "20", "--adapt-rho", "--rho-mu", "2"],
+    ["--adapt-rho", "--rho-mode", "stall", "--rho-stall-window", "1",
+     "--rho-stall-tol", "0.99", "--max-iters", "3"],
+], ids=["pcv", "ppdhg", "fista", "adapt_rho", "adapt_rho_stall"])
+def test_cli_solver_flags_print_summary(argv):
+    """``--algorithm pcv|ppdhg|fista`` and the adapt-rho flags."""
+    out = _cli("--device", "cpu", "--N", "24", "--nodes", "3",
+               "--max-iters", "2", "--max-inner", "20", *argv)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout)["knn"]
+    assert summary["n_iters"] == (3 if "3" in argv else 2)
+    for key in ("mean_psnr", "final_primal", "final_dual"):
+        assert np.isfinite(summary[key])
+
+
+def test_cli_adapt_rho_flags_reach_the_config():
+    from dip_admm_tpu_torch.runners import cli
+
+    args = cli.build_parser().parse_args([
+        "--device", "cpu", "--adapt-rho", "--rho-mu", "2", "--rho-tau",
+        "3", "--rho-mode", "stall", "--rho-stall-window", "5",
+        "--rho-stall-tol", "0.1", "--algorithm", "fista"])
+    cli.resolve_preset(args)
+    a = cli.config_from_args(args).admm
+    assert (a.adapt_rho, a.rho_mu, a.rho_tau, a.adapt_rho_mode,
+            a.rho_stall_window, a.rho_stall_tol, a.node.algorithm) == (
+        True, 2.0, 3.0, "stall", 5, 0.1, "fista")
+
+
 def _summary(*args):
     out = _cli("--device", "cpu", "--N", "32", "--nodes", "3",
                "--max-iters", "2", *args)
@@ -113,8 +146,8 @@ def test_cli_auto_mode_is_dense_at_n_le_128():
     ("--device", "cpu", "--strategy", "mst"),
     ("--device", "cpu", "--matrix-free"),
     ("--device", "cpu", "--mode", "fft"),
-    ("--device", "cpu", "--adapt-rho"),
-    ("--device", "cpu", "--algorithm", "pcv"),
+    ("--device", "cpu", "--strategy", "chain"),
+    ("--device", "cpu", "--solver", "centralized"),
     ("--device", "cpu", "--z-fusion", "mean"),
 ])
 def test_cli_rejects_unported_flags(args):
