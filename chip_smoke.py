@@ -168,14 +168,43 @@ kernel):
                  and K10 summed back over the one-hot against K8 (2e-3), and
                  each stage's time, the skew row stages K1, K2 and K6 (two
                  shards) and both full pairs included.
+20. dense_flagship - the reference flagship with the package defaults
+                 (64^2, 5 nodes, const phantom, cv at <= 200 inner, 200
+                 outers with the 1e-3 stop): ``mode=None`` must resolve to
+                 ``dense``; build seconds, A's GiB, the dense apply pair
+                 against its bound (A's bytes twice over 3.35 TB/s), the
+                 outer rate, mean inner iterations, the outer it stopped
+                 at, a mean PSNR within 0.5 dB of the JAX package's on the
+                 CPU (``scripts/jax_dense_anchors.py``), and a profile of
+                 one more outer.
+21. inner_solvers - on that problem, 20 outers at max_inner 50 under each
+                 of cv, pcv, ppdhg and fista, each within 0.5 dB of JAX's.
+22. dense_joseph - 64^2/5, parallel and fan: the dense and Joseph builds'
+                 b, W and opnorm, and both applies on seeded inputs, within
+                 1e-5 of the max; the adjoint identity of each within 1e-5;
+                 Joseph's adjoint and column norms equal bit for bit on a
+                 second call; three outers on each mode within 1e-3.
+23. dense_128  - 128^2/5 Shepp-Logan (the top of the auto rule): the dense
+                 build (seconds, A's GiB, peak memory) and pair against its
+                 bound, Joseph's build and pair, and 20 recommended outers on
+                 each, their PSNRs within 0.05 dB of each other.
+24. adapt_rho  - 64^2/8 dense (K5 on): 20 recommended outers under
+                 ``--rho 20 --adapt-rho --rho-mu 2`` and ``--rho 2
+                 --adapt-rho --rho-mode stall --rho-stall-window 5``, each
+                 rho trajectory beside JAX's and a PSNR within 0.5 dB of it.
+25. cli_default - the CLI on its defaults with ``--max-iters 5`` (auto =
+                 dense at 64^2/5) beside ``--mesh 5`` (five gloo ranks on
+                 the card, a node each): PSNRs within 0.05 dB.
+                 Every dense run must launch no projector kernel, and K5
+                 exactly once an outer where its auto rule puts it on.
 
 Every kernel line gives the kernel's time, its plain version's, its bound
 (the larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s f32
 or 989 TFLOP/s bf16, counted from this call's inputs) and, where one
 PyTorch call computes the same function, that call's time
 (``library_ms``). The launch counters are set to 0 just before each of the
-ten runs (on each rank of the mesh runs) and before the stage path, and
-read just after. Then a JSON line with each kernel's route, source,
+ten runs (on each rank of the mesh runs), before the stage path and before
+each run of the dense phases, and read just after. Then a JSON line with each kernel's route, source,
 launches in those runs together (a kernel that launched in none fails the
 run), error, times and bound (K1-K5, K7-K10, K15 and K16 at the parallel
 256^2 shapes, K6 and K5's sharded form at a 2 x 2 mesh rank's,
@@ -267,6 +296,24 @@ PALLAS = ("filter_sum_sel", "filter_sum_sel_t")
 SHEAR = ("shear_sum_planes", "shear_sum_planes_t", "eval_shear",
          "eval_shear_t")
 MXU = ("filter_sum_mxu", "filter_sum_mxu_t")
+# JAX package on the CPU, scripts/jax_dense_anchors.py: the reference
+# flagship (64^2/5, dense, cv <= 200 inner, 200 outers, 1e-3 stop; it ran
+# all 200: RESULTS.md's 37.54 dB is earlier code's), 20 outers at
+# max_inner 50 under each inner algorithm (64^2/5 dense), and 20
+# recommended outers under each adapt-rho recipe (64^2/8 dense), with the
+# rho trajectory of each.
+REF_DENSE_PSNR = 36.986
+REF_INNER_PSNR = {"cv": 26.449, "pcv": 26.53, "ppdhg": 26.027,
+                  "fista": 26.615}
+REF_RHO = {
+    "rho20_balance_mu2": (23.761, [20.0, 10.0, 5.0] + [2.5] * 17),
+    "rho2_stall_w5": (24.714, [2.0] * 20),
+}
+# Dense against Joseph (one operator): b, W, opnorm and both applies within
+# 1e-5 of the max, x after three outers within 1e-3, 128^2 PSNRs 0.05 dB.
+DENSE_JOSEPH_RTOL = 1e-5
+DENSE_JOSEPH_X_RTOL = 1e-3
+DENSE_JOSEPH_PSNR_TOL = 0.05
 # The mesh runs' checks, and the single-device state they are held to.
 MESH_PSNR_TOL = 0.05  # dB from the single-device recommended run
 MESH_STATE_OUTERS = 3
@@ -1981,6 +2028,277 @@ def phase_stages(torch, dev, failures) -> tuple[dict, dict]:
     return out, counts
 
 
+def _dense_cfg(N=64, nodes=5, phantom="const", **admm_over):
+    """The reference flagship's configuration (the package defaults: 64^2,
+    5 nodes, const phantom, cv at <= 200 inner, 200 outers with the 1e-3
+    stop), resized and with loop fields replaced."""
+    from dip_admm_tpu_torch.config import GeometryConfig, ProblemConfig
+
+    base = ProblemConfig()
+    return dataclasses.replace(
+        base, geometry=GeometryConfig(N=N, num_nodes=nodes), phantom=phantom,
+        admm=dataclasses.replace(base.admm, **admm_over))
+
+
+def _build_timed(torch, cfg, dev, **kw):
+    """(problem, build seconds, peak GiB of the build)."""
+    from dip_admm_tpu_torch.data import loader
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = loader.build_problem(cfg, dev, **kw)
+    torch.cuda.synchronize()
+    return (problem, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _pair_line(torch, problem, gen) -> tuple[float, str]:
+    """The apply pair's ms (fwd + adj, median of 20 after 3 warm-ups) on a
+    seeded image batch, and its bound: A's bytes twice over the card's
+    memory rate (the dense pair reads A once each way)."""
+    x = torch.randn((problem.num_nodes, problem.n), generator=gen,
+                    device=problem.device)
+    ms = _time_ms(torch, lambda: problem.adjoint(problem.forward(x)))
+    a_bytes = problem.num_nodes * problem.m_flat * problem.n * 4
+    bound = 1e3 * 2 * a_bytes / HBM_BYTES_PER_S
+    return ms, (f"pair_ms={ms} pair_bound_ms={bound} "
+                f"pair_share_of_bound={bound / ms}")
+
+
+def _dense_drive(torch, problem, admm_cfg, tag, failures, ref_psnr=None,
+                 lanczos_v0=None):
+    """``run_admm`` with the counters zeroed just before and read just
+    after: finite residuals, the image shapes, a mean PSNR within
+    ``PSNR_TOL`` of ``ref_psnr`` (when given), K5 once per outer where
+    its auto rule puts it on (>= 8 nodes) and never elsewhere, and no
+    projector kernel (the dense and Joseph pairs are plain torch).
+    Returns (result, counts, mean PSNR, line)."""
+    from dip_admm_tpu_torch.core import admm
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = admm.run_admm(problem, admm_cfg, lanczos_v0=lanczos_v0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _counts()
+    n = res.n_iters
+    pri = float(res.history["primal"][n - 1])
+    dual = float(res.history["dual"][n - 1])
+    inner = res.history["inner_iters"][:n].float().mean().item()
+    x = res.x.cpu().numpy()
+    mean_psnr = _mean_psnr(x, problem.x_true.cpu().numpy())
+    use_k5 = admm_cfg.use_pallas
+    if use_k5 is None:  # run_admm's auto rule
+        use_k5 = problem.device.type == "cuda" and problem.num_nodes >= 8
+    k5 = n if use_k5 else 0
+    checks = {
+        "shape": x.shape == (problem.num_nodes, problem.n),
+        "finite": bool(np.isfinite(x).all()) and math.isfinite(pri)
+        and math.isfinite(dual),
+        "psnr": ref_psnr is None or abs(mean_psnr - ref_psnr) <= PSNR_TOL,
+        "k5": counts["consensus_update"] == k5,
+        "no_projector_kernel": all(v == 0 for k, v in counts.items()
+                                   if k != "consensus_update"),
+    }
+    for k, ok in checks.items():
+        if not ok:
+            failures.append(f"{tag} check {k} failed")
+    line = (f"mode={problem.mode} run_s={run_s} outer_iters={n} "
+            f"outer_it_per_s={n / run_s} mean_inner_iters={inner} "
+            f"final_primal={pri} final_dual={dual} mean_psnr={mean_psnr} "
+            f"ref_psnr={ref_psnr} k5_launches={counts['consensus_update']} "
+            f"ok={all(checks.values())}")
+    return res, counts, mean_psnr, line
+
+
+def phase_dense_flagship(torch, dev, failures) -> tuple[dict, object]:
+    """The reference flagship on the card: mode=None must resolve to
+    dense; 200 outers of cv with the 1e-3 stop."""
+    cfg = _dense_cfg()
+    problem, build_s, _ = _build_timed(torch, cfg, dev)
+    if problem.mode != "dense":
+        failures.append(f"dense_flagship: mode=None gave {problem.mode}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    _, pair = _pair_line(torch, problem, gen)
+    res, counts, _, line = _dense_drive(torch, problem, cfg.admm,
+                                        "dense_flagship", failures,
+                                        REF_DENSE_PSNR)
+    stopped = res.n_iters if res.state.stop else None
+    print(f"dense_flagship: N=64 nodes=5 build_s={build_s} "
+          f"A_gib={_nbytes(problem.A) / 2**30} {pair} {line} "
+          f"stopped_at_outer={stopped} "
+          f"profile_one_outer: {_profile_outer(torch, problem, cfg.admm)}",
+          flush=True)
+    return counts, problem
+
+
+def _max_rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_dense_joseph(torch, dev, failures) -> list:
+    """Dense against Joseph at 64^2/5, parallel and fan: one operator."""
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.ops import radon
+
+    counts = []
+    for fan in (False, True):
+        cfg = _dense_cfg(max_iters=3)
+        cfg = dataclasses.replace(cfg, geometry=dataclasses.replace(
+            cfg.geometry, fan_beam=fan))
+        tag = "fan" if fan else "parallel"
+        t0 = time.perf_counter()
+        pd = loader.build_problem(cfg, dev, mode="dense")
+        pj = loader.build_problem(cfg, dev, mode="joseph")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(2)
+        x = torch.randn((pd.num_nodes, pd.n), generator=gen, device=dev)
+        y = torch.randn((pd.num_nodes, pd.m_flat), generator=gen,
+                        device=dev)
+        y = y * pd.angle_valid.repeat_interleave(cfg.geometry.n_det, 1)
+        errs = {
+            "b": _max_rel(pj.b, pd.b), "W": _max_rel(pj.W, pd.W),
+            "opnorm": _max_rel(pj.opnorm, pd.opnorm),
+            "fwd": _max_rel(pj.forward(x), pd.forward(x)),
+            "adj": _max_rel(pj.adjoint(y), pd.adjoint(y)),
+        }
+        adj_rel = {m: _adjoint_rel(torch, p.forward, p.adjoint, x, y)
+                   for m, p in (("dense", pd), ("joseph", pj))}
+        t2 = radon.joseph_tables(cfg.geometry, pj.angles, pj.angle_valid)
+        bitwise = (torch.equal(pj.adjoint(y), pj.adjoint(y))
+                   and torch.equal(radon.colnorms_sq_nodes(pj.fft_tables),
+                                   radon.colnorms_sq_nodes(t2)))
+        ms = {m: _pair_line(torch, p, gen)[0]
+              for m, p in (("dense", pd), ("joseph", pj))}
+        runs = {}
+        for m, p in (("dense", pd), ("joseph", pj)):
+            res, c, psnr, _ = _dense_drive(torch, p, cfg.admm,
+                                           f"dense_joseph {tag} {m}",
+                                           failures)
+            runs[m] = (res, psnr)
+            counts.append(c)
+        x_rel = _max_rel(runs["joseph"][0].x, runs["dense"][0].x)
+        ok = (all(v <= DENSE_JOSEPH_RTOL for v in errs.values())
+              and all(v <= ADJOINT_TOL for v in adj_rel.values())
+              and bitwise and x_rel <= DENSE_JOSEPH_X_RTOL)
+        if not ok:
+            failures.append(f"dense_joseph {tag}: errs={errs} "
+                            f"adjoint={adj_rel} bitwise={bitwise} "
+                            f"x_rel={x_rel}")
+        print(f"dense_joseph: {tag} build_s={build_s} "
+              f"rel_err={json.dumps(errs)} adjoint_rel={json.dumps(adj_rel)} "
+              f"joseph_bitwise_repeat={bitwise} pair_ms={json.dumps(ms)} "
+              f"three_outers_x_rel={x_rel} psnr_dense={runs['dense'][1]} "
+              f"psnr_joseph={runs['joseph'][1]} ok={ok}", flush=True)
+        del pd, pj, t2
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_dense_128(torch, dev, failures) -> list:
+    """128^2/5 (Shepp-Logan, BASELINE configs 1-2's size), the top of the
+    auto rule: the dense build and pair against its bound, and 20
+    recommended outers on dense and on Joseph, one operator."""
+    cfg = _dense_cfg(N=128, phantom="shepp", max_iters=20, eps_pri=0.0,
+                     eps_dual=0.0)
+    rec = _recommended(cfg.admm)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    counts, psnr, lines = [], {}, []
+    for mode in ("dense", "joseph"):
+        problem, build_s, peak = _build_timed(
+            torch, cfg, dev, **({} if mode == "dense" else {"mode": mode}))
+        if mode == "dense" and problem.mode != "dense":
+            failures.append(f"dense_128: mode=None gave {problem.mode}")
+        _, pair = _pair_line(torch, problem, gen)
+        _, c, psnr[mode], line = _dense_drive(torch, problem, rec,
+                                              f"dense_128 {mode}", failures)
+        counts.append(c)
+        size = (f"A_gib={_nbytes(problem.A) / 2**30}" if mode == "dense"
+                else f"tables_gib={_table_gib(problem.fft_tables)}")
+        lines.append(f"{mode}: build_s={build_s} {size} build_peak_gib={peak} "
+                     f"{pair} {line}")
+        del problem
+        torch.cuda.empty_cache()
+    ok = abs(psnr["dense"] - psnr["joseph"]) <= DENSE_JOSEPH_PSNR_TOL
+    if not ok:
+        failures.append(f"dense_128: PSNRs {psnr}")
+    print("dense_128: N=128 nodes=5 " + " | ".join(lines)
+          + f" psnr_diff={psnr['dense'] - psnr['joseph']} ok={ok}",
+          flush=True)
+    return counts
+
+
+def phase_inner_solvers(torch, problem, failures) -> list:
+    """64^2/5 dense, 20 outers at max_inner 50 (no early stop) under each
+    inner algorithm, each held to the JAX package's PSNR."""
+    counts = []
+    base = _dense_cfg(max_iters=20, eps_pri=0.0, eps_dual=0.0).admm
+    for alg, ref in REF_INNER_PSNR.items():
+        cfg = dataclasses.replace(base, node=dataclasses.replace(
+            base.node, algorithm=alg, max_inner=50))
+        _, c, _, line = _dense_drive(torch, problem, cfg,
+                                     f"inner_solvers {alg}", failures, ref)
+        counts.append(c)
+        print(f"inner_solvers: {alg} {line}", flush=True)
+    return counts
+
+
+def phase_adapt_rho(torch, dev, failures) -> list:
+    """64^2/8 dense (K5 on, under a changing rho): 20 recommended outers
+    under each adapt-rho recipe, the rho trajectory beside the JAX run's
+    (printed, not compared: the noise draws differ)."""
+    counts = []
+    base = _dense_cfg(nodes=8, max_iters=20, eps_pri=0.0, eps_dual=0.0)
+    problem, build_s, _ = _build_timed(torch, base, dev)
+    rec = dataclasses.replace(_recommended(base.admm), adapt_rho=True)
+    for tag, over in (("rho20_balance_mu2", dict(rho=20.0, rho_mu=2.0)),
+                      ("rho2_stall_w5", dict(adapt_rho_mode="stall",
+                                             rho_stall_window=5))):
+        ref_psnr, ref_rho = REF_RHO[tag]
+        res, c, _, line = _dense_drive(
+            torch, problem, dataclasses.replace(rec, **over),
+            f"adapt_rho {tag}", failures, ref_psnr)
+        counts.append(c)
+        rho = res.history["rho"][:res.n_iters].cpu().tolist()
+        print(f"adapt_rho: {tag} N=64 nodes=8 build_s={build_s} {line} "
+              f"rho={json.dumps(rho)} jax_rho={json.dumps(ref_rho)}",
+              flush=True)
+    del problem
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _cli_default_check(failures) -> None:
+    """The CLI on its defaults (auto -> dense at 64^2/5) beside the same
+    flags on a one-card gloo mesh of five node ranks: both finite, mean
+    PSNR within ``MESH_PSNR_TOL``."""
+    argv = [sys.executable, "-m", "dip_admm_tpu_torch.runners.cli",
+            "--device", "cuda", "--max-iters", "5"]
+    psnr = {}
+    for tag, extra in (("single", []), ("mesh_5", ["--mesh", "5"])):
+        t0 = time.perf_counter()
+        run = subprocess.run(argv + extra, capture_output=True, text=True,
+                             timeout=600)
+        text = run.stdout
+        start = text.rfind("\n{\n") + 1 if "\n{\n" in text else 0
+        try:
+            psnr[tag] = next(iter(json.loads(text[start:]).values()))[
+                "mean_psnr"]
+        except (ValueError, KeyError, StopIteration):
+            psnr[tag] = math.nan
+            print(run.stderr[-2000:], file=sys.stderr)
+        print(f"cli_default: --max-iters 5 {' '.join(extra)} "
+              f"rc={run.returncode} mean_psnr={psnr[tag]} "
+              f"s={time.perf_counter() - t0}", flush=True)
+    ok = (all(math.isfinite(x) for x in psnr.values())
+          and abs(psnr["single"] - psnr["mesh_5"]) <= MESH_PSNR_TOL)
+    if not ok:
+        failures.append(f"cli on its defaults, --mesh 5: {psnr}")
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -2087,9 +2405,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     stage_kern, stage_counts = phase_stages(torch, dev, failures)
     kern.update(stage_kern)
+    t_dense = time.perf_counter()
+    flagship_counts, flagship = phase_dense_flagship(torch, dev, failures)
+    inner_counts = phase_inner_solvers(torch, flagship, failures)
+    del flagship
+    torch.cuda.empty_cache()
+    dense_counts = (phase_dense_joseph(torch, dev, failures)
+                    + phase_dense_128(torch, dev, failures)
+                    + phase_adapt_rho(torch, dev, failures))
+    _cli_default_check(failures)
+    print(f"dense_phases: s={time.perf_counter() - t_dense}", flush=True)
     runs = (main_counts, rec_counts, mesh_counts, mesh_fan_counts,
             *fan_counts.values(), *p512_counts.values(), *sm_counts.values(),
-            stage_counts)
+            stage_counts, flagship_counts, *inner_counts, *dense_counts)
     launches = {name: sum(c[name] for c in runs) for name in REPLACES}
     failures += [f"kernel {name} launched in none of the runs"
                  for name, n in launches.items() if n == 0]

@@ -198,10 +198,7 @@ def node_colnorms(geo: GeometryConfig, angles, valid, mode: str = "fft_skew",
     the squared rows of A summed (``dense``), the Joseph taps' squared
     transpose applied to ones (``joseph``), or the fft modes' exact norms
     (every fft mode applies the same operator). ``tables`` are the mode's
-    (built here when not given)."""
-    if mode in ("dense", "joseph") and tables is None:
-        tables = build_tables(ProblemConfig(geometry=geo), angles, valid,
-                              mode)
+    (:func:`build_tables`), which dense and joseph read."""
     if mode == "dense":
         A = tables["A"]
         W = torch.stack([torch.sum(A[i] * A[i], dim=0)

@@ -121,42 +121,12 @@ def _axis0_taps(p0, p1, u0, u1, N: int):
             h / torch.abs(safe_u0))
 
 
-def _integrate_axis0(img, p0, p1, u0, u1, N: int, squared: bool):
-    """Line integrals of img [N, N] along axis 0 over rays [R] -> [R]."""
-    b0, b1, w0, w1, scale = _axis0_taps(p0, p1, u0, u1, N)
-    a = torch.arange(N, device=img.device)
-    g0 = img[a, b0]
-    g1 = img[a, b1]
-    if squared:
-        vals = w0**2 * g0 + w1**2 * g1
-        scale = scale**2
-    else:
-        vals = w0 * g0 + w1 * g1
-    return scale * torch.sum(vals, dim=-1)
-
-
-def joseph_project(img, p0, p1, u0, u1, valid=None, squared: bool = False):
-    """Joseph line integrals of img [N, N] over rays of any common shape.
-
-    Each ray integrates along its dominant direction component, so every
-    crossed row or column contributes one 2-tap sample. ``squared=True``
-    applies the elementwise-squared weights (each pixel appears at most
-    once per ray, so their transpose applied to ones is the column norms).
-    """
-    N = img.shape[-1]
-    out_r = _integrate_axis0(img, p0, p1, u0, u1, N, squared)
-    out_c = _integrate_axis0(img.T, p1, p0, u1, u0, N, squared)
-    out = torch.where(torch.abs(u0) >= torch.abs(u1), out_r, out_c)
-    if valid is not None:
-        out = torch.where(valid, out, 0.0)
-    return out
-
-
 def joseph_taps(p0, p1, u0, u1, N: int, valid=None):
     """Every ray's taps on the flattened image: rays [R] -> (idx [R, 2N]
     pixel indices, w [R, 2N] weights, the length weight folded in; zero
-    for taps out of the image and for invalid rays). The taps of
-    :func:`joseph_project`'s chosen branch, crossing by crossing."""
+    for taps out of the image and for invalid rays). A ray integrates
+    along axis 0 where |u0| >= |u1| and along axis 1 otherwise, crossing by
+    crossing."""
     rb0, rb1, rw0, rw1, rs = _axis0_taps(p0, p1, u0, u1, N)
     cb0, cb1, cw0, cw1, cs = _axis0_taps(p1, p0, u1, u0, N)
     a = torch.arange(N, device=p0.device)
@@ -171,6 +141,25 @@ def joseph_taps(p0, p1, u0, u1, N: int, valid=None):
     if valid is not None:
         w = torch.where(valid[..., None], w, 0.0)
     return idx, w
+
+
+def joseph_project(img, p0, p1, u0, u1, valid=None, squared: bool = False):
+    """Joseph line integrals of img [N, N] over rays of any common shape.
+
+    Each ray integrates along its dominant direction component, so every
+    crossed row or column contributes one 2-tap sample (:func:`joseph_taps`).
+    ``squared=True`` applies the elementwise-squared weights (each pixel
+    appears at most once per ray, so their transpose applied to ones is the
+    column norms).
+    """
+    shape = p0.shape
+    if valid is not None:
+        valid = valid.expand(shape).reshape(-1)
+    idx, w = joseph_taps(*(r.reshape(-1) for r in (p0, p1, u0, u1)),
+                         img.shape[-1], valid)
+    if squared:
+        w = w * w
+    return torch.sum(w * img.reshape(-1)[idx], dim=-1).reshape(shape)
 
 
 def transpose_taps(idx, w, n: int):

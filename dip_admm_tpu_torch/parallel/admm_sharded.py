@@ -206,7 +206,7 @@ def run_admm_sharded(
     iteration; ``hist`` is updated in place. The result holds this rank's
     blocks (x [P_loc, n], per-node history columns [P_loc]);
     :func:`gather_result` assembles them. ``lanczos_v0`` is ``run_admm``'s.
-    Options the port has not ported raise as they do in ``run_admm``."""
+    Unknown option values raise as they do in ``run_admm``."""
     if mesh is None:
         raise ValueError("run_admm_sharded needs the mesh (make_mesh)")
     cfg = cfg if cfg is not None else problem.cfg.admm

@@ -89,6 +89,14 @@ def test_joseph_project_matches_jax(ops):
     one = tradon.project(ops["gt"], torch.as_tensor(ops["x"][2]),
                          ops["at"][2], ops["vt"][2])
     _close(one.numpy(), np.asarray(want)[2])
+    # the squared weights, ray by ray (padded angles masked)
+    img = ops["x"][2]
+    vj = ops["vj"][2][:, None]
+    sq_j = jradon.joseph_project(jnp.asarray(img), *jradon.make_rays(
+        ops["gj"], ops["aj"][2]), valid=vj, squared=True)
+    sq_t = tradon.joseph_project(torch.as_tensor(img), *tradon.make_rays(
+        ops["gt"], ops["at"][2]), valid=ops["vt"][2][:, None], squared=True)
+    _close(sq_t.numpy(), sq_j)
 
 
 def test_joseph_backproject_matches_jax(ops):

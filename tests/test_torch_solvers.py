@@ -61,10 +61,6 @@ def bundle(tmp_path_factory):
     return cfg, pj, path, tser.load_problem(path, "cpu")
 
 
-def over(admm_cfg, changes):
-    return worker.over(admm_cfg, changes)
-
-
 @pytest.mark.parametrize("case", ["scalar", "per_node_warm"])
 def test_tv_prox_chambolle_matches_jax(case):
     rng = np.random.default_rng(3)
@@ -141,8 +137,9 @@ def _port_node(node):
 def test_three_outers_match_jax(bundle, algorithm):
     cfg, pj, _, tp = bundle
     changes = {"node": {"algorithm": algorithm}}
-    assert_runs_close(tadmm.run_admm(tp, over(tp.cfg.admm, changes)),
-                      jadmm.run_admm(pj, over(cfg.admm, changes)))
+    assert_runs_close(
+        tadmm.run_admm(tp, worker.over(tp.cfg.admm, changes)),
+        jadmm.run_admm(pj, worker.over(cfg.admm, changes)))
 
 
 # adapt_rho: set so that rho changes at least twice in 10 outers.
@@ -156,7 +153,7 @@ RHO_CASES = {
 @pytest.fixture(scope="module")
 def jax_rho_runs(bundle):
     cfg, pj, _, _ = bundle
-    return {case: jadmm.run_admm(pj, over(cfg.admm, ch))
+    return {case: jadmm.run_admm(pj, worker.over(cfg.admm, ch))
             for case, ch in RHO_CASES.items()}
 
 
@@ -164,7 +161,7 @@ def jax_rho_runs(bundle):
 def test_adapt_rho_matches_jax(bundle, jax_rho_runs, case):
     _, _, _, tp = bundle
     res_j = jax_rho_runs[case]
-    res_t = tadmm.run_admm(tp, over(tp.cfg.admm, RHO_CASES[case]))
+    res_t = tadmm.run_admm(tp, worker.over(tp.cfg.admm, RHO_CASES[case]))
     rho_j = np.asarray(res_j.history["rho"])
     assert len(set(rho_j.tolist())) >= 3  # two changes at least
     np.testing.assert_array_equal(res_t.history["rho"].numpy(), rho_j)
@@ -179,10 +176,11 @@ def test_adapt_rho_fcv_matches_jax(bundle):
     changes = {**RHO_CASES["balance"], "max_iters": 6,
                "node": {"algorithm": "fcv", "max_inner": 15,
                         "check_every": 15}}
-    res_j = jadmm.run_admm(pj, over(cfg.admm, changes))
+    res_j = jadmm.run_admm(pj, worker.over(cfg.admm, changes))
     v0 = torch.as_tensor(np.array(jax.random.normal(
         jax.random.PRNGKey(0), (pj.n,), jnp.float32)))
-    res_t = tadmm.run_admm(tp, over(tp.cfg.admm, changes), lanczos_v0=v0)
+    res_t = tadmm.run_admm(tp, worker.over(tp.cfg.admm, changes),
+                           lanczos_v0=v0)
     np.testing.assert_array_equal(res_t.history["rho"].numpy(),
                                   np.asarray(res_j.history["rho"]))
     assert_runs_close(res_t, res_j)
@@ -194,7 +192,7 @@ def test_adapt_rho_resume_equals_straight_run(bundle, case):
     equal one straight run bit for bit (rho_scale and the history carry
     everything the policy reads)."""
     _, _, _, tp = bundle
-    cfg = over(tp.cfg.admm, RHO_CASES[case])
+    cfg = worker.over(tp.cfg.admm, RHO_CASES[case])
     full = tadmm.run_admm(tp, cfg)
     part = tadmm.run_admm(tp, cfg, until=4)
     rest = tadmm.run_admm(tp, cfg, state=part.state, hist=part.history)
@@ -216,7 +214,7 @@ def test_mesh_2x2_matches_single_device(bundle, tmp_path, changes):
     """adapt_rho and an inner solver on a 2 x 2 gloo mesh (dense, node
     slices of A): every rank takes the same rho factor."""
     _, _, path, tp = bundle
-    ref = tadmm.run_admm(tp, over(tp.cfg.admm, changes))
+    ref = tadmm.run_admm(tp, worker.over(tp.cfg.admm, changes))
     got = tmesh.launch(worker.admm_run, 4, "cpu",
                        args=({"bundle": path}, 2, 2, changes, None),
                        init_file=str(tmp_path / "rendezvous"))[0]["full"]
