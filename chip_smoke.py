@@ -107,7 +107,11 @@ kernel):
                  with bf16 H on the problem's pitched tables and pitched
                  spectra and cotangents (error <= 2e-3 of the output's
                  max) and the hat kernels K17/K18 (error <= 1e-5), each
-                 against its plain version, two calls bitwise equal, timed
+                 against its plain version, two calls bitwise equal, and
+                 with one NaN detector coordinate NaN exactly where the
+                 plain version is (K17: that detector, K18: every v of its
+                 rows, as the JAX kernels give) and bit-equal elsewhere to
+                 their output on the finite coordinates, timed
                  as in phase 3 and by their device time alone (K17/K18
                  also by their host's cost a call, as K5; K11/K12:
                  per launch the profile recorded, with the launches made
@@ -197,6 +201,38 @@ kernel):
                  the card, a node each): PSNRs within 0.05 dB.
                  Every dense run must launch no projector kernel, and K5
                  exactly once an outer where its auto rule puts it on.
+26. strategies - the flagship of phase 20 under the mst, chain (JAX's node
+                 orders, ``scripts/chain_orders_64x5_seed123.npy``) and
+                 complete per-pixel graphs (``loader.rebuild_graph``), each
+                 mean PSNR within 0.5 dB of the JAX package's on the CPU
+                 (``scripts/jax_dense_anchors.py strategies``), and chain
+                 with the port's own draws (printed, no anchor). Each
+                 graph built on the card must equal the expected one: the
+                 path along JAX's orders (numpy) for chain, the CPU build
+                 from the same W for the others.
+27. strategies_256 - the bench problem (256^2/8, fft_skew, bf16 tables)
+                 under mst, chain (the port's draws) and complete: K5
+                 against its plain version on each graph's adjacency, the
+                 edge state zero off each pixel's mask (error <= 1e-5), and
+                 20 recommended outers (K1-K4 launch, K5 once an outer); PSNR,
+                 residuals and union edges printed.
+28. experiment_cli - ``python -m dip_admm_tpu_torch.runners.cli --device
+                 cuda --all-strategies --max-iters 20 --out DIR`` on the
+                 flagship defaults: mst, chain and knn printed, each
+                 ``out_dir`` holding the JAX package's artifact files
+                 (``artifact_names``) less the plots it names as skipped
+                 (no matplotlib on the host).
+29. checkpoint_resume - on the bench problem, 20 recommended outers
+                 unsegmented, through ``run_one_strategy`` in segments of 5
+                 with a checkpoint after each, and 10 outers then a resume
+                 from their checkpoint: both final states within 1e-6 of
+                 the unsegmented run's norm (the largest difference and
+                 whether they are bit-equal printed, with the checkpoint
+                 writer); snapshots every 5 outers (iter_0005-iter_0020).
+30. bundle     - ``save_problem`` then ``load_problem`` of the bench
+                 problem: three recommended outers on the loaded problem
+                 equal three on the original bit for bit.
+                 Each of phases 26-30 prints its seconds (``phase_s``).
 
 Every kernel line gives the kernel's time, its plain version's, its bound
 (the larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s f32
@@ -204,13 +240,14 @@ or 989 TFLOP/s bf16, counted from this call's inputs) and, where one
 PyTorch call computes the same function, that call's time
 (``library_ms``). The launch counters are set to 0 just before each of the
 ten runs (on each rank of the mesh runs), before the stage path and before
-each run of the dense phases, and read just after. Then a JSON line with each kernel's route, source,
+each run of the dense phases and of phases 26, 27, 29 and 30, and read just
+after. Then a JSON line with each kernel's route, source,
 launches in those runs together (a kernel that launched in none fails the
 run), error, times and bound (K1-K5, K7-K10, K15 and K16 at the parallel
 256^2 shapes, K6 and K5's sharded form at a 2 x 2 mesh rank's,
 K13/K14 at the fan shapes, K11/K12/K17/K18 at the 512^2 shapes; the largest
 error of any call, row shards, node blocks, fan and 512^2 shapes
-included); the ``nvidia-smi``
+included, K5 on the graphs of phase 27 too); the ``nvidia-smi``
 name/power-limit line; and last ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or when any phase fails, it exits non-zero and prints no
 result.
@@ -221,8 +258,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -309,6 +349,14 @@ REF_RHO = {
     "rho20_balance_mu2": (23.761, [20.0, 10.0, 5.0] + [2.5] * 17),
     "rho2_stall_w5": (24.714, [2.0] * 20),
 }
+# JAX package on the CPU, scripts/jax_dense_anchors.py strategies: the
+# flagship (as REF_DENSE_PSNR's run; all 200 outers ran) under the mst,
+# chain (JAX's node orders, CHAIN_ORDERS) and complete per-pixel graphs.
+REF_STRATEGY_PSNR = {"mst": 42.568, "chain": 43.378, "complete": 34.519}
+CHAIN_ORDERS = "scripts/chain_orders_64x5_seed123.npy"
+# A checkpointed or resumed run against the unsegmented one, relative to
+# its state's norm.
+RESUME_RTOL = 1e-6
 # Dense against Joseph (one operator): b, W, opnorm and both applies within
 # 1e-5 of the max, x after three outers within 1e-3, 128^2 PSNRs 0.05 dB.
 DENSE_JOSEPH_RTOL = 1e-5
@@ -1002,7 +1050,8 @@ def _drive(torch, problem, admm_cfg, ref_psnr, tag, failures,
            kernels=SKEW):
     """Run ``admm_cfg`` through ``run_admm`` with the counters zeroed just
     before and read just after; check it (each of ``kernels`` and K5 must
-    launch); return (result, counts, line)."""
+    launch, the mean PSNR within ``PSNR_TOL`` of ``ref_psnr`` where one is
+    given); return (result, counts, line)."""
     from dip_admm_tpu_torch.core import admm
 
     torch.cuda.synchronize()
@@ -1025,7 +1074,7 @@ def _drive(torch, problem, admm_cfg, ref_psnr, tag, failures,
         "shape": x.shape == (problem.num_nodes, problem.n),
         "finite": bool(np.isfinite(x).all()) and math.isfinite(pri)
         and math.isfinite(dual),
-        "psnr": abs(mean_psnr - ref_psnr) <= PSNR_TOL,
+        "psnr": ref_psnr is None or abs(mean_psnr - ref_psnr) <= PSNR_TOL,
         "launches": all(counts[k] > 0 for k in kernels),
         "k5_once_per_outer": counts["consensus_update"] == n,
     }
@@ -1465,6 +1514,37 @@ def phase_p512_problem(torch, dev):
     return cfg, problems
 
 
+def _hat_nan_check(torch, he, prof, pc, s, ob, failures) -> bool:
+    """K17 and K18 with one NaN detector coordinate (pc[0, 1, 3]): each
+    output NaN exactly where its plain version's is (K17: that detector of
+    every image of the geometry set, K18: every v of those rows, as the
+    JAX kernels give), and bit-equal elsewhere to the kernel's output on
+    the finite coordinates."""
+    Np = prof.shape[-1]
+    bad = pc.clone()
+    bad[0, 1, 3] = float("nan")
+    ok = True
+    for name, kern, ref, args, bad_args in (
+            ("hat_eval", he.hat_eval, he.hat_eval_ref, (prof, pc, s),
+             (prof, bad, s)),
+            ("hat_eval_t", he.hat_eval_t, he.hat_eval_t_ref,
+             (ob, pc, s, Np), (ob, bad, s, Np))):
+        clean, got, want = kern(*args), kern(*bad_args), ref(*bad_args)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        same_nan = torch.equal(torch.isnan(got), nan) and bool(nan.any())
+        rest = torch.equal(got[~nan], clean[~nan])
+        ok = ok and same_nan and rest
+        print(f"kernels: {name} nan_coordinate nan_outputs="
+              f"{int(torch.isnan(got).sum())} plain_nan_outputs="
+              f"{int(nan.sum())} nan_where_plain={same_nan} "
+              f"rest_bitwise={rest}", flush=True)
+    if not ok:
+        failures.append("K17/K18: a NaN coordinate does not give NaN where "
+                        "the plain version does")
+    return ok
+
+
 def phase_p512_kernels(torch, dev, problems, failures) -> dict:
     import torch.nn.functional as fn
 
@@ -1547,6 +1627,7 @@ def phase_p512_kernels(torch, dev, problems, failures) -> dict:
         print(f"kernels: {name} bitwise_repeat={bitwise} PB={P} PT={PT} T={T} "
               f"D={D} Np={Np} library_max_abs_err={lib_err} {cost} "
               f"library_device_ms={lib_dev_ms}", flush=True)
+    _hat_nan_check(torch, he, prof, pc, s, ob, failures)
     del prof, ob, grid, img, x
     torch.cuda.empty_cache()
 
@@ -2299,6 +2380,308 @@ def _cli_default_check(failures) -> None:
         failures.append(f"cli on its defaults, --mesh 5: {psnr}")
 
 
+def _phase_s(name, t0) -> float:
+    """Print a phase's seconds since ``t0``; return now."""
+    now = time.perf_counter()
+    print(f"{name}: phase_s={now - t0}", flush=True)
+    return now
+
+
+def _path_keep(orders: np.ndarray) -> np.ndarray:
+    """keep [P, P, n] of the path along each pixel's node order
+    ``orders [n, P]``, built with numpy alone."""
+    n, P = orders.shape
+    keep = np.zeros((P, P, n), dtype=bool)
+    pix = np.arange(n)[:, None]
+    keep[orders[:, :-1], orders[:, 1:], pix] = True
+    return keep | keep.transpose(1, 0, 2)
+
+
+def phase_strategies(torch, problem, failures) -> list:
+    """The flagship (64^2/5, dense, cv <= 200 inner, 200 outers with the
+    1e-3 stop) under mst, chain with JAX's node orders and complete, each
+    within ``PSNR_TOL`` of the JAX package's CPU value, and chain with the
+    port's own draws (printed): the problem's graph rebuilt for each. The
+    masks built on the card must equal the expected ones: the path along
+    JAX's orders (numpy) for that chain, the CPU build from the same W for
+    the others; the union adjacency must be their union."""
+    from dip_admm_tpu_torch.data import loader
+
+    cfg = problem.cfg
+    orders_np = np.load(CHAIN_ORDERS).astype(np.int64)
+    orders = torch.as_tensor(orders_np)
+    W_cpu = problem.W.cpu()
+    counts = []
+    for tag, strategy, ords in (("mst", "mst", None),
+                                ("chain", "chain", orders),
+                                ("complete", "complete", None),
+                                ("chain_port_draws", "chain", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = dataclasses.replace(cfg.graph, strategy=strategy)
+        p = loader.rebuild_graph(problem, g, orders=ords)
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        if ords is not None:
+            want = torch.from_numpy(_path_keep(orders_np))
+        else:
+            _, want, _ = loader.build_graph_layer(W_cpu, g.q_mode, strategy,
+                                                  g.k, g.seed)
+        keep = p.keep.cpu()
+        masks_equal = (torch.equal(keep, want)
+                       and torch.equal(p.adj.cpu(), keep.any(dim=-1)))
+        print(f"strategies: {tag} masks_equal_expected={masks_equal} "
+              f"differing_pixels={int((keep != want).any(0).any(0).sum())}",
+              flush=True)
+        if not masks_equal:
+            failures.append(f"strategies {tag}: the card's masks or union "
+                            "adjacency differ from the expected graph")
+        res, c, _, line = _dense_drive(torch, p, cfg.admm,
+                                       f"strategies {tag}", failures,
+                                       REF_STRATEGY_PSNR.get(tag))
+        counts.append(c)
+        stopped = res.n_iters if res.state.stop else None
+        print(f"strategies: {tag} N=64 nodes=5 graph_s={graph_s} "
+              f"union_edges={int(p.adj.sum()) // 2} "
+              f"active_ratio={float(p.keep.float().mean())} {line} "
+              f"stopped_at_outer={stopped}", flush=True)
+    return counts
+
+
+STRATEGIES_256 = ("mst", "chain", "complete")
+
+
+def phase_strategies_256(torch, dev, failures):
+    """The bench problem (256^2/8, fft_skew, bf16 tables) under mst, chain
+    (the port's own draws) and complete: K5 against its plain version on
+    each graph's adjacency with the edge state zero off each pixel's mask,
+    and 20 recommended outers (K1-K4 must launch, K5 once an outer); the
+    PSNR, residuals and union edges printed (no JAX value at this size).
+    Returns the runs' counts, K5's numbers by strategy and the problem."""
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.ops.kernels import consensus as cons
+
+    cfg = _bench_cfg("bfloat16")
+    bench, build_s, _ = _build_timed(torch, cfg, dev)
+    print(f"strategies_256: build_s={build_s}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    P, n = bench.num_nodes, bench.n
+    counts, kern = [], {}
+    for strategy in STRATEGIES_256:
+        p = loader.rebuild_graph(
+            bench, dataclasses.replace(cfg.graph, strategy=strategy))
+        on = p.keep.to(torch.float32)  # [P, P, n]
+        a, y, z = (torch.randn((P, P, n), generator=gen, device=dev) * on
+                   for _ in range(3))
+        adjm = p.adj.to(torch.float32)
+        _, kern[f"{strategy}_consensus_update"] = _compare(
+            torch, "consensus_update", cons.consensus_update,
+            cons.consensus_update_ref, (a, y, z, adjm, None, "midpoint"),
+            K5_RTOL, failures, note=f"[{strategy}, 256^2/8]")
+        del a, y, z, on
+        _, c, line = _drive(torch, p, _recommended(cfg.admm), None,
+                            f"strategies_256 {strategy}", failures)
+        counts.append(c)
+        print(f"strategies_256: {strategy} union_edges="
+              f"{int(p.adj.sum()) // 2} active_ratio="
+              f"{float(p.keep.float().mean())} {line}", flush=True)
+        del p
+    torch.cuda.empty_cache()
+    return counts, kern, bench
+
+
+def artifact_names(tag: str, P: int) -> set:
+    """The files the JAX package's ``run_one_strategy`` writes under its
+    ``out_dir`` for a run with a fixed rho (the rho curve is drawn only
+    when rho moves)."""
+    curves = ("g_norm_per_node", "obj_per_node", "obj_total", "pri_per_node",
+              "dual_per_node", "sino_mse_per_node", "sino_mse_total",
+              "img_mse_per_node", "img_mse_total")
+    arrays = curves + ("primal_hist", "dual_hist", "inner_iters_per_node",
+                       "accept_code_per_node", "rho_hist")
+    plots = curves + ("g_norm_stats", "residuals")
+    return ({"run_parameters.txt",
+             f"union_figs/pixel_union_graph_{tag}.png",
+             f"union_figs/pixel_union_degree_{tag}.png"}
+            | {f"{tag}_node_{i}.{e}" for i in range(P) for e in ("npy", "png")}
+            | {f"{tag}_{a}.npy" for a in arrays}
+            | {f"{tag}_{p}.png" for p in plots})
+
+
+def _files(root) -> set:
+    return {os.path.relpath(os.path.join(d, f), root)
+            for d, _, fs in os.walk(root) for f in fs}
+
+
+def phase_experiment_cli(failures, device="cuda") -> None:
+    """``--all-strategies --max-iters 20 --out DIR`` through the CLI on the
+    card (the flagship defaults, 64^2/5 dense): it must print mst, chain and
+    knn, each ``out_dir`` holding :func:`artifact_names` less the plots it
+    names as skipped (no matplotlib)."""
+    out = tempfile.mkdtemp(prefix="smoke_cli_")
+    try:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "dip_admm_tpu_torch.runners.cli",
+             "--device", device, "--all-strategies", "--max-iters", "20",
+             "--out", out], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            res = json.loads(run.stdout[run.stdout.find("{"):])
+        except ValueError:
+            res = {}
+            print(run.stderr[-2000:], file=sys.stderr)
+        ok = run.returncode == 0 and list(res) == ["mst", "chain", "knn"]
+        for strategy, summary in res.items():
+            skipped = set(summary.get("artifacts_skipped", []))
+            got = _files(summary["out_dir"])
+            want = artifact_names(summary["tag"], 5) - skipped
+            same = got == want
+            ok = ok and same and math.isfinite(summary["mean_psnr"])
+            print(f"experiment_cli: {strategy} mean_psnr="
+                  f"{summary['mean_psnr']} final_primal="
+                  f"{summary['final_primal']} final_dual="
+                  f"{summary['final_dual']} n_iters={summary['n_iters']} "
+                  f"files={len(got)} files_as_expected={same} "
+                  f"artifacts_skipped={json.dumps(sorted(skipped))}",
+                  flush=True)
+        print(f"experiment_cli: rc={run.returncode} "
+              f"s={time.perf_counter() - t0} ok={ok}", flush=True)
+        if not ok:
+            failures.append(f"experiment_cli: rc={run.returncode}, "
+                            f"strategies {list(res)}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def _state_rel(torch, st, ref) -> float:
+    """Largest difference of (x, Z, Y) from ``ref``'s, over ``ref``'s
+    norm."""
+    return max(float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+               for a, b in ((st.node.x, ref.node.x), (st.Z, ref.Z),
+                            (st.Y, ref.Y)))
+
+
+def phase_checkpoint_resume(torch, bench, failures) -> list:
+    """On the bench problem, 20 recommended outers: unsegmented, in
+    segments of 5 through ``run_one_strategy`` (a checkpoint after each),
+    10 outers then a resume from their checkpoint to 20; both final states
+    within ``RESUME_RTOL`` of the unsegmented run's norm (bit for bit is
+    expected). Then snapshots every 5 outers (``run_admm_snapshots``):
+    iter_0005-iter_0020, each node's .npy and .png."""
+    from dip_admm_tpu_torch.core import admm
+    from dip_admm_tpu_torch.data import serialization
+    from dip_admm_tpu_torch.runners import experiment
+    from dip_admm_tpu_torch.utils import artifacts
+
+    cfg = dataclasses.replace(bench.cfg, admm=_recommended(bench.cfg.admm))
+    out = tempfile.mkdtemp(prefix="smoke_ckpt_")
+    counts = []
+
+    def run(tag, **kw):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        if kw:
+            c = dataclasses.replace(cfg, admm=dataclasses.replace(
+                cfg.admm, max_iters=kw.pop("max_iters", 20)))
+            experiment.run_one_strategy(c, os.path.join(out, tag),
+                                        problem=bench, write_artifacts=False,
+                                        device=bench.device, **kw)
+            state, _ = serialization.load_checkpoint(
+                os.path.join(out, tag, "knn_k2", "checkpoint.npz"),
+                bench.device)
+        else:
+            state = admm.run_admm(bench, cfg.admm).state
+        torch.cuda.synchronize()
+        counts.append(_counts())
+        return state, time.perf_counter() - t0
+
+    try:
+        whole, whole_s = run("whole")
+        seg, seg_s = run("segmented", checkpoint_every=5)
+        half, _ = run("half", checkpoint_every=5, max_iters=10)
+        resumed, res_s = run("resumed", checkpoint_every=5, resume=os.path.join(
+            out, "half", "knn_k2", "checkpoint.npz"))
+        rels = {"segmented": _state_rel(torch, seg, whole),
+                "resumed": _state_rel(torch, resumed, whole)}
+        bitwise = {k: all(torch.equal(a, b) for a, b in (
+            (st.node.x, whole.node.x), (st.Z, whole.Z), (st.Y, whole.Y)))
+            for k, st in (("segmented", seg), ("resumed", resumed))}
+        ok = (half.k == 10 and seg.k == resumed.k == whole.k == 20
+              and max(rels.values()) <= RESUME_RTOL)
+        if not ok:
+            failures.append(f"checkpoint_resume: k {half.k}/{seg.k}/"
+                            f"{resumed.k}, rel {rels}")
+        print(f"checkpoint_resume: writer={serialization.checkpoint_writer()}"
+              f" whole_s={whole_s} segmented_s={seg_s} resumed_10_s={res_s} "
+              f"max_rel_diff={json.dumps(rels)} bitwise={json.dumps(bitwise)}"
+              f" ok={ok}", flush=True)
+
+        snaps = os.path.join(out, "snapshots")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = admm.run_admm_snapshots(bench, cfg.admm, snapshot_dir=snaps,
+                                      snapshot_every=5)
+        snap_s = time.perf_counter() - t0
+        counts.append(_counts())
+        skipped = {os.path.basename(p) for p in artifacts.take_skipped()}
+        want = {f"iter_{k:04d}_node_{i}.{e}" for k in (5, 10, 15, 20)
+                for i in range(bench.num_nodes) for e in ("npy", "png")}
+        got = _files(snaps)
+        last = np.load(os.path.join(snaps, "iter_0020_node_0.npy"))
+        ok = (got == want - skipped and res.n_iters == 20 and np.array_equal(
+            last, res.x[0].reshape(bench.N, bench.N).cpu().numpy()))
+        if not ok:
+            failures.append("checkpoint_resume: snapshots "
+                            f"{sorted(want - got)} missing")
+        print(f"checkpoint_resume: snapshots files={len(got)} "
+              f"skipped={len(skipped)} s={snap_s} ok={ok}", flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return counts
+
+
+def phase_bundle(torch, bench, failures) -> list:
+    """``save_problem`` then ``load_problem`` of the bench problem: three
+    recommended outers on the loaded problem equal three on the original
+    bit for bit."""
+    from dip_admm_tpu_torch.core import admm
+    from dip_admm_tpu_torch.data import serialization
+
+    cfg = dataclasses.replace(_recommended(bench.cfg.admm), max_iters=3)
+    out = tempfile.mkdtemp(prefix="smoke_bundle_")
+    try:
+        path = os.path.join(out, "bench.npz")
+        t0 = time.perf_counter()
+        serialization.save_problem(bench, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = serialization.load_problem(path, bench.device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        counts, states = [], []
+        for p in (bench, loaded):
+            _reset_counts()
+            states.append(admm.run_admm(p, cfg).state)
+            torch.cuda.synchronize()
+            counts.append(_counts())
+        a, b = states
+        bitwise = all(torch.equal(u, v) for u, v in (
+            (a.node.x, b.node.x), (a.Z, b.Z), (a.Y, b.Y)))
+        if not bitwise:
+            failures.append("bundle: three outers on the loaded problem "
+                            f"differ (rel {_state_rel(torch, b, a)})")
+        print(f"bundle: mode={loaded.mode} bytes={size} save_s={save_s} "
+              f"load_s={load_s} three_outers_bitwise={bitwise}", flush=True)
+        del loaded
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return counts
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -2408,6 +2791,9 @@ def main() -> int:
     t_dense = time.perf_counter()
     flagship_counts, flagship = phase_dense_flagship(torch, dev, failures)
     inner_counts = phase_inner_solvers(torch, flagship, failures)
+    t_new = time.perf_counter()
+    strategy_counts = phase_strategies(torch, flagship, failures)
+    t_new = _phase_s("strategies", t_new)
     del flagship
     torch.cuda.empty_cache()
     dense_counts = (phase_dense_joseph(torch, dev, failures)
@@ -2415,9 +2801,22 @@ def main() -> int:
                     + phase_adapt_rho(torch, dev, failures))
     _cli_default_check(failures)
     print(f"dense_phases: s={time.perf_counter() - t_dense}", flush=True)
+    t_new = time.perf_counter()
+    s256_counts, s256_kern, bench = phase_strategies_256(torch, dev, failures)
+    kern.update(s256_kern)
+    t_new = _phase_s("strategies_256", t_new)
+    phase_experiment_cli(failures)
+    t_new = _phase_s("experiment_cli", t_new)
+    resume_counts = phase_checkpoint_resume(torch, bench, failures)
+    t_new = _phase_s("checkpoint_resume", t_new)
+    bundle_counts = phase_bundle(torch, bench, failures)
+    _phase_s("bundle", t_new)
+    del bench
+    torch.cuda.empty_cache()
     runs = (main_counts, rec_counts, mesh_counts, mesh_fan_counts,
             *fan_counts.values(), *p512_counts.values(), *sm_counts.values(),
-            stage_counts, flagship_counts, *inner_counts, *dense_counts)
+            stage_counts, flagship_counts, *inner_counts, *dense_counts,
+            *strategy_counts, *s256_counts, *resume_counts, *bundle_counts)
     launches = {name: sum(c[name] for c in runs) for name in REPLACES}
     failures += [f"kernel {name} launched in none of the runs"
                  for name, n in launches.items() if n == 0]
@@ -2431,7 +2830,8 @@ def main() -> int:
          "launches": launches[name],
          "max_abs_err": max(kern[k]["max_abs_err"] for k in (
              name, f"fan_{name}", f"rows_{name}", f"fan_rows_{name}",
-             f"block_{name}", f"p512_{name}", f"p256_{name}") if k in kern),
+             f"block_{name}", f"p512_{name}", f"p256_{name}",
+             *(f"{g}_{name}" for g in STRATEGIES_256)) if k in kern),
          **{k: kern[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}}
         for name in REPLACES

@@ -56,7 +56,7 @@ class GeometryConfig:
 
 @dataclasses.dataclass(frozen=True)
 class GraphConfig:
-    """Per-pixel communication-graph construction (only "knn" is ported)."""
+    """Per-pixel communication-graph construction."""
 
     strategy: str = "knn"  # "knn" | "mst" | "chain" | "complete"
     k: int = 2

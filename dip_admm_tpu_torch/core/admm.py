@@ -401,3 +401,42 @@ def state_from_numpy(state, hist: dict, device) -> tuple[AdmmState, dict]:
                    k=int(np.asarray(state.k)), stop=bool(np.asarray(state.stop)),
                    rho_scale=t(state.rho_scale))
     return st, {name: t(v) for name, v in hist.items()}
+
+
+def run_admm_snapshots(
+    problem: Problem,
+    cfg: AdmmConfig | None = None,
+    snapshot_dir: str | None = None,
+    snapshot_every: int | None = None,
+    snapshot_div: int = 10,
+    mesh=None,
+) -> AdmmResult:
+    """:func:`run_admm` in segments of ``snapshot_every`` outers (default
+    ``max_iters // snapshot_div``, at least 1), writing every node's image
+    after each segment to ``snapshot_dir`` as ``iter_<k:04d>_node_<i>``
+    ``.npy`` and ``.png``. The segments continue one another exactly
+    (the ``state``/``hist``/``until`` contract). A mesh is not supported
+    yet: a rank holds only its node block."""
+    from dip_admm_tpu_torch.utils import artifacts
+
+    if mesh is not None:
+        raise ValueError("snapshots (--snapshot-every) are not supported on "
+                         "a mesh yet")
+    cfg = cfg if cfg is not None else problem.cfg.admm
+    if snapshot_every is None:
+        snapshot_every = max(1, cfg.max_iters // snapshot_div)
+    if snapshot_every < 1:
+        raise ValueError(f"snapshot_every must be >= 1, got {snapshot_every}")
+    state, hist = init_state(problem, cfg)
+    while True:
+        upto = min(state.k + snapshot_every, cfg.max_iters)
+        res = run_admm(problem, cfg, state=state, hist=hist, until=upto)
+        state, hist = res.state, res.history
+        if snapshot_dir is not None:
+            artifacts.save_recons(res.x, problem.N, snapshot_dir,
+                                  f"iter_{state.k:04d}")
+        if state.stop or state.k >= cfg.max_iters:
+            break
+    if snapshot_dir is not None:
+        artifacts.flush_async()
+    return res

@@ -24,7 +24,10 @@
 //   (p, t) row. Only v = floor(pc) and floor(pc) + 1 can carry weight; each
 //   weight is computed as the TPU kernel computes it (1 - |pc - v| in f32)
 //   and every other term of its sum is an exact zero. Taps outside [0, Np)
-//   and NaN coordinates contribute nothing, and s multiplies after the sum.
+//   contribute nothing, and s multiplies after the sum. A NaN coordinate
+//   gives NaN, as the TPU kernel's max(0, 1 - |NaN - v|) does at every v;
+//   it fails the tap range test, so only detectors outside the range test
+//   for it.
 //   A thread reads its four pc in one 16-byte load, s[q, t] once, its taps
 //   of g through the read-only path, and writes its four outputs in one
 //   16-byte store; where D % 4 != 0 or a row's start is not 16-byte aligned
@@ -46,12 +49,15 @@
 //   detectors (a boundary table, each v written by exactly one boundary,
 //   no atomics), so a v costs two table reads and its one or two terms;
 //   the runs of v outside the row's span are written as zeros with
-//   16-byte stores. A row that is not monotone (or holds a NaN) sums every
-//   d, the general case. Each v adds the same nonzero terms in the same
-//   order as the searched ranges gave, so on rows without a NaN the two
-//   designs agree bit for bit. What bounds it now: its bytes (its device
-//   time is at that bound); a single call's time is mostly the host's
-//   dispatch.
+//   16-byte stores. A row that is not monotone sums every d, the general
+//   case. Each v adds the same nonzero terms in the same order as the
+//   searched ranges gave, so on rows without a NaN the two designs agree
+//   bit for bit. A row holding a NaN coordinate is NaN at every v, as in
+//   the TPU kernel's transpose, where every v takes a NaN term: the warp
+//   looks for one on the rows that are not monotone (a NaN makes a row of
+//   D >= 2 neither rising nor falling) and writes NaN over the row. What
+//   bounds it now: its bytes (its device time is at that bound); a single
+//   call's time is mostly the host's dispatch.
 //
 // C interface for ctypes: pointers and the stream as void*, sizes as int.
 // Every entry launches on the given stream, does not synchronise and
@@ -75,13 +81,15 @@ __device__ __forceinline__ float hat_taps(float x, const float* __restrict__ gr,
                                           int Np) {
   const float fl = floorf(x);
   float acc = 0.f;
-  if (fl >= -1.f && fl < (float)Np) {  // false for NaN too
+  if (fl >= -1.f && fl < (float)Np) {  // false for NaN
     const int v0 = (int)fl;
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       const int v = v0 + k;
       if (v >= 0 && v < Np) acc += hat(x, (float)v) * __ldg(gr + v);
     }
+  } else if (isnan(x)) {
+    acc = x;
   }
   return acc;
 }
@@ -149,13 +157,22 @@ hat_t(const float* __restrict__ ob, const float* __restrict__ pc,
     ys[d] = sc * ob[row * D + d];
   }
   __syncwarp();
-  bool up = true, down = true;  // NaN makes a row neither
+  bool up = true, down = true;  // NaN makes a row of D >= 2 neither
   for (int d = lane; d + 1 < D; d += 32) {
     up = up && xs[d + 1] >= xs[d];
     down = down && xs[d + 1] <= xs[d];
   }
   const bool rising = __all_sync(0xffffffffu, up);
   const bool mono = rising || __all_sync(0xffffffffu, down);
+  float* out = gbar + row * Np;
+  if (!mono || D == 1) {  // the only rows that can hold a NaN; warp-uniform
+    bool nan = false;
+    for (int d = lane; d < D; d += 32) nan = nan || isnan(xs[d]);
+    if (__any_sync(0xffffffffu, nan)) {
+      for (int v = lane; v < Np; v += 32) out[v] = __int_as_float(0x7fffffff);
+      return;
+    }
+  }
 
   // A monotone row: v can carry weight only inside [vs, ve), and there the
   // detectors with |pc - v| < 1 are d in [lo[v], hi[v]): for a rising row
@@ -203,7 +220,6 @@ hat_t(const float* __restrict__ ob, const float* __restrict__ pc,
     }
     return acc;
   };
-  float* out = gbar + row * Np;
   if ((Np & 3) == 0) {  // 16-byte stores; runs outside [vs, ve) are zeros
     for (int v = 4 * lane; v < Np; v += 128) {
       float4 o = make_float4(0.f, 0.f, 0.f, 0.f);

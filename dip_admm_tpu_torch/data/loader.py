@@ -3,17 +3,19 @@
 ``fft_shear``, ``fft_pallas`` and ``fft_mxu``, in parallel beam.
 
 A :class:`Problem` carries the per-node angle sets, the noisy sinograms
-``b_i = A_i x_true + sigma * eps`` (zero on padded angle rows), the exact
-column norms W, the per-pixel knn graph (Q, keep, adj), the power-method
+``b_i = A_i x_i + sigma * eps`` (zero on padded angle rows; x_i is the
+shared phantom, or node i's own with ``per_node_phantoms``), the exact
+column norms W, the per-pixel graph (Q, keep, adj), the power-method
 operator norms and the projector tables, all on one device. Measurements
 are angle-major: row r = angle * n_det + det. The tables of ``dense`` are
 the padded operator stack ``{"A": [P, m_max * D, n]}``, those of
 ``joseph`` its tap tables (``ops/radon.py``); every per-node table has the
 node count leading, so a mesh rank's node slice needs no code of its own.
 
-Random draws (the measurement noise and the power-method start) come from
-``torch.Generator``s seeded from the config; callers that must match
-another implementation pass them in explicitly (``noise``, ``opnorm_v0``).
+Random draws (the measurement noise, the power-method start and the chain
+graph's node orders) come from ``torch.Generator``s seeded from the config;
+callers that must match another implementation pass them in explicitly
+(``noise``, ``opnorm_v0``, ``orders``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from dip_admm_tpu_torch.config import GeometryConfig, ProblemConfig
@@ -215,13 +218,28 @@ def node_colnorms(geo: GeometryConfig, angles, valid, mode: str = "fft_skew",
     return torch.clamp(W.reshape(W.shape[0], -1), min=precisions.EPS)
 
 
-def build_graph_layer(W, q_mode: str, strategy: str, k: int):
-    """Pairwise precisions, per-pixel masks and the union adjacency."""
+def build_graph_layer(W, q_mode: str, strategy: str, k: int,
+                      seed: int = 123, orders=None):
+    """Pairwise precisions, per-pixel masks and the union adjacency.
+    ``seed`` and ``orders`` are the chain graph's
+    (``topology.build_pixel_masks``)."""
     q_full = precisions.pairwise_q(W, q_mode)
-    keep = topology.build_pixel_masks(q_full, strategy=strategy, k=k)
+    keep = topology.build_pixel_masks(q_full, strategy=strategy, k=k,
+                                      seed=seed, orders=orders)
     Q = q_full * keep
     adj = topology.union_adjacency(keep)
     return Q, keep, adj
+
+
+def rebuild_graph(problem: Problem, graph_cfg, orders=None) -> Problem:
+    """The same problem (operators, data, W) with the per-pixel graph of
+    ``graph_cfg``: a new ``cfg.graph``, Q, keep and adj. ``orders`` are the
+    chain's node orders, as in :func:`build_problem`."""
+    cfg = dataclasses.replace(problem.cfg, graph=graph_cfg)
+    Q, keep, adj = build_graph_layer(problem.W, graph_cfg.q_mode,
+                                     graph_cfg.strategy, graph_cfg.k,
+                                     graph_cfg.seed, orders)
+    return dataclasses.replace(problem, cfg=cfg, Q=Q, keep=keep, adj=adj)
 
 
 def estimate_opnorms(fwd, adj, P: int, n: int, device, iters: int = 30,
@@ -249,6 +267,9 @@ def build_problem(
     opnorm_v0: Optional[torch.Tensor] = None,
     row_block: Optional[int] = None,
     dense: Optional[bool] = None,
+    phantom_array=None,
+    per_node_phantoms: bool = False,
+    orders: Optional[torch.Tensor] = None,
 ) -> Problem:
     """Assemble a :class:`Problem` on ``device``.
 
@@ -259,7 +280,14 @@ def build_problem(
     is an alias for "dense"/"joseph". ``noise`` [P, m] replaces the
     standard-normal draw (a generator seeded with ``cfg.noise_seed``);
     ``opnorm_v0`` [P, n] replaces the power-method start. ``row_block``
-    is :func:`build_fft_tables`'s."""
+    is :func:`build_fft_tables`'s.
+
+    Each node measures its own image: by default every node the phantom
+    ``cfg.phantom``; with ``per_node_phantoms`` node i a random phantom
+    (``phantoms.rand_im(N, seed=cfg.noise_seed + i)``, numpy-seeded as in
+    the JAX package); ``phantom_array`` is one [N, N] array for every node
+    or a list of P. ``x_true`` is node 0's image. ``orders`` [n, P] are the
+    chain graph's node orders (``topology.build_pixel_masks``)."""
     device = torch.device(device)
     geo = cfg.geometry
     mode = resolve_mode(geo, mode, dense)
@@ -272,13 +300,27 @@ def build_problem(
     angles = torch.as_tensor(angles_np, dtype=torch.float32, device=device)
     valid = torch.as_tensor(valid_np, device=device)
 
-    phantom = phantoms.make_phantom(cfg.phantom, N, seed=cfg.noise_seed)
-    x_true = torch.as_tensor(phantom, dtype=torch.float32,
-                             device=device).reshape(-1)
+    if isinstance(phantom_array, (list, tuple)):
+        if len(phantom_array) != P:
+            raise ValueError(f"phantom_array: {len(phantom_array)} images "
+                             f"for {P} nodes")
+        node_phantoms = list(phantom_array)
+    elif phantom_array is not None:
+        node_phantoms = [phantom_array] * P
+    elif per_node_phantoms:
+        node_phantoms = [phantoms.rand_im(N, seed=cfg.noise_seed + i)
+                         for i in range(P)]
+    else:
+        node_phantoms = [phantoms.make_phantom(cfg.phantom, N,
+                                               seed=cfg.noise_seed)] * P
+    imgs = torch.stack([torch.as_tensor(np.asarray(ph), dtype=torch.float32)
+                        .reshape(-1) for ph in node_phantoms]).to(device)
+    x_true = imgs[0].clone()
 
     tables = build_tables(cfg, angles, valid, mode, row_block)
     fwd, adj = make_node_ops(mode, geo, tables)
-    clean = fwd(x_true[None].expand(P, n).contiguous())
+    clean = fwd(imgs)
+    del imgs
 
     if noise is None:
         gen = torch.Generator(device=device).manual_seed(cfg.noise_seed)
@@ -288,7 +330,8 @@ def build_problem(
 
     W = node_colnorms(geo, angles, valid, mode, tables)
     g = cfg.graph
-    Q, keep, adjm = build_graph_layer(W, g.q_mode, g.strategy, g.k)
+    Q, keep, adjm = build_graph_layer(W, g.q_mode, g.strategy, g.k, g.seed,
+                                      orders)
     opnorm = estimate_opnorms(fwd, adj, P, n, device, v0=opnorm_v0)
     return Problem(
         cfg=cfg, mode=mode, angles=angles, angle_valid=valid, b=b, W=W, Q=Q,

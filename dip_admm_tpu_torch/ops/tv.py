@@ -6,7 +6,7 @@
 
 ``grad_adjoint`` is the exact adjoint of ``grad``; ``||K||^2 <= 8`` bounds
 the primal-dual step sizes. ``tv_prox_chambolle`` is the prox of the
-weighted TV by dual ascent (fista's prox step).
+weighted TV by dual ascent (fista's prox step); ``edge_map`` is |Kx| per pixel.
 """
 
 from __future__ import annotations
@@ -84,3 +84,10 @@ def tv_prox_chambolle(
         gx, gy = grad(w - grad_adjoint(px, py))
         px, py = project_l2_ball(px + step * gx, py + step * gy, weight)
     return w - grad_adjoint(px, py), (px, py)
+
+
+def edge_map(x: torch.Tensor) -> torch.Tensor:
+    """Per-pixel gradient magnitude |Kx| of [..., N, N] (a diagnostic
+    image)."""
+    gx, gy = grad(x)
+    return torch.sqrt(gx**2 + gy**2)

@@ -3,34 +3,40 @@
     python -m dip_admm_tpu_torch.runners.cli --device cuda --N 256 --nodes 8 \\
         --phantom shepp --fft-table-dtype bfloat16 --max-iters 20 \\
         --recommended [--fan-beam] [--mode fft_grouped]
-    python -m dip_admm_tpu_torch.runners.cli --device cpu --mesh 2 \
+    python -m dip_admm_tpu_torch.runners.cli --device cuda --all-strategies \\
+        --out runs/strategies
+    python -m dip_admm_tpu_torch.runners.cli --device cpu --mesh 2 \\
         --mesh-pixel 2 --N 32 --nodes 4 --max-iters 2
 
 Builds the problem (projector mode ``dense``, ``joseph``, ``fft_skew`` or
 ``fft_grouped``, parallel or fan beam, or ``fft_shear``, ``fft_pallas`` or
 ``fft_mxu``, parallel beam; by default the JAX package's rule, ``dense`` at
-N <= 128 and ``fft_skew`` above), runs decentralized
-consensus ADMM and prints the JSON summary the JAX CLI prints
-(``{strategy: {tag, n_iters, final_primal, final_dual, mean_psnr,
-graph}}``). It takes the subset of the JAX CLI's flags that the port
-implements; any other flag or value is rejected. ``--device`` has no
-default, and ``--device cuda`` on a host without a GPU is an error.
+N <= 128 and ``fft_skew`` above) or loads one (``--load-problem``), runs
+decentralized consensus ADMM under the ``--strategy`` graph, or mst, chain
+and knn in turn (``--all-strategies``), writes the JAX package's artifacts
+under ``--out`` (default ``Recon_Out_ADMM_<date>_<time>``), one directory
+per strategy, and prints the JSON summary the JAX CLI prints
+(``{strategy: {tag, n_iters, final_primal, final_dual, mean_psnr, graph,
+out_dir}}``, and ``artifacts_skipped`` where matplotlib is missing). It
+takes the subset of the JAX CLI's flags that the port implements; any
+other flag or value is rejected. ``--device`` has no default, and
+``--device cuda`` on a host without a GPU is an error.
 
 ``--mesh N [--mesh-pixel K]`` runs the loop on an N x K node x pixel mesh
 (``parallel/admm_sharded.py``): the CLI starts the N*K ranks itself
 (``torch.multiprocessing``, spawn), each builds the problem on
-``--device``, and rank 0's gathered result gives the same summary. On a
-host with a card per rank they talk over NCCL, each on its own card;
-otherwise over gloo, every rank on ``--device`` (on a one-card host the
-ranks share the card and their collectives pass through host memory).
+``--device``, and rank 0's gathered result gives the same summary and
+writes the artifacts. On a host with a card per rank they talk over NCCL,
+each on its own card; otherwise over gloo, every rank on ``--device`` (on a
+one-card host the ranks share the card and their collectives pass through
+host memory). Snapshots and checkpoints are not supported on a mesh yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-
-import numpy as np
+from datetime import datetime
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,7 +51,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fan-beam", action="store_true",
                    help="flat-detector fan beam over [0, 2 pi), projected by "
                         "rebinning to a shared parallel stage")
-    p.add_argument("--strategy", choices=["knn"], default="knn")
+    p.add_argument("--strategy", choices=["knn", "mst", "chain", "complete"],
+                   default="knn",
+                   help="per-pixel graph: knn (k nearest by precision, "
+                        "reconnected by the maximum spanning tree), mst, "
+                        "chain (a random node order per pixel, drawn from "
+                        "--seed; not the JAX package's draw) or complete")
     p.add_argument("--k", type=int, default=2)
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--q-mode", choices=["arithmetic", "harmonic"],
@@ -128,6 +139,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "fft_skew, the projector's row blocks) over this "
                         "many ranks along the pixel axis (ranks = --mesh * "
                         "--mesh-pixel)")
+    p.add_argument("--out", default=None,
+                   help="artifact root (default Recon_Out_ADMM_<date>_<time>)")
+    p.add_argument("--all-strategies", action="store_true",
+                   help="run mst, chain and knn in turn on the same data")
+    p.add_argument("--snapshot-every", type=int, default=None,
+                   help="write every node's image every K outers to "
+                        "<out>/<tag>/snapshots")
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="run in K-outer segments, queueing the loop state to "
+                        "<out>/<tag>/checkpoint.npz after each")
+    p.add_argument("--resume", default=None, metavar="CKPT",
+                   help="continue from a checkpoint.npz of either package "
+                        "(with --checkpoint-every)")
+    p.add_argument("--save-problem", default=None, metavar="NPZ",
+                   help="write the built problem (operators, data, graph, "
+                        "tables) to this bundle, which either package loads")
+    p.add_argument("--load-problem", default=None, metavar="NPZ",
+                   help="load a bundle of either package instead of building; "
+                        "a different --strategy/--k rebuilds only the graph")
+    p.add_argument("--per-node-phantoms", action="store_true",
+                   help="each node measures its own random phantom")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the run here")
     p.add_argument("--use-pallas", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="fused edge-consensus kernel (default: auto, on a "
@@ -187,52 +221,63 @@ def config_from_args(args):
     )
 
 
-def _run(args, device, mesh=None) -> dict | None:
-    """Build the problem on ``device``, run the loop (on ``mesh`` when
-    given) and return the summary (None on ranks other than 0)."""
-    from dip_admm_tpu_torch.core import admm
-    from dip_admm_tpu_torch.data import loader
-    from dip_admm_tpu_torch.graph import topology
-    from dip_admm_tpu_torch.utils.imaging import psnr
+def _out_root(args) -> str:
+    return args.out or (
+        f"Recon_Out_ADMM_{datetime.now().strftime('%Y%m%d_%H%M%S')}")
+
+
+def _run(args, device, out_root, mesh=None) -> dict | None:
+    """Build or load the problem on ``device``, run the experiment (on
+    ``mesh`` when given) and return the summary (None on ranks other than
+    0)."""
+    from dip_admm_tpu_torch.data import loader, serialization
+    from dip_admm_tpu_torch.runners import experiment
+    from dip_admm_tpu_torch.utils import profiling
 
     cfg = config_from_args(args)
     mode = None if args.mode == "auto" else args.mode
-    problem = loader.build_problem(cfg, device, mode=mode)
-    if mesh is None:
-        res = admm.run_admm(problem, cfg.admm)
+    rank0 = mesh is None or mesh.rank == 0
+    problem = None
+    if args.load_problem:
+        problem = serialization.load_problem(args.load_problem, device)
+    if args.save_problem:
+        if problem is None:
+            problem = loader.build_problem(
+                cfg, device, mode=mode,
+                per_node_phantoms=args.per_node_phantoms)
+        if rank0:
+            serialization.save_problem(problem, args.save_problem)
+
+    def go():
+        if args.all_strategies:
+            return experiment.run_all_strategies(
+                cfg, out_root, mesh=mesh, mode=mode,
+                per_node_phantoms=args.per_node_phantoms, problem=problem,
+                device=device)
+        _, _, summary = experiment.run_one_strategy(
+            cfg, out_root, mesh=mesh, problem=problem, mode=mode,
+            per_node_phantoms=args.per_node_phantoms,
+            snapshot_every=args.snapshot_every,
+            checkpoint_every=args.checkpoint_every, resume=args.resume,
+            device=device)
+        return {args.strategy: summary}
+
+    if args.profile_dir and rank0:
+        with profiling.trace(args.profile_dir):
+            results = go()
     else:
-        from dip_admm_tpu_torch.parallel import admm_sharded
-
-        res = admm_sharded.gather_result(
-            admm_sharded.run_admm_sharded(problem, cfg.admm, mesh), mesh)
-        if mesh.rank != 0:
-            return None
-    n_iters = res.n_iters
-    x = res.x.cpu().numpy()
-    x_true = problem.x_true.cpu().numpy()
-    hist = {k: v.cpu().numpy() for k, v in res.history.items()}
-    tag = f"{cfg.graph.strategy}_k{cfg.graph.k}"
-    summary = {
-        "tag": tag,
-        "n_iters": n_iters,
-        "final_primal": float(hist["primal"][n_iters - 1]),
-        "final_dual": float(hist["dual"][n_iters - 1]),
-        "mean_psnr": float(np.mean(
-            [psnr(xi, x_true, data_range=x_true.max()) for xi in x]
-        )),
-        "graph": topology.union_summary(problem.keep),
-    }
-    return {args.strategy: summary}
+        results = go()
+    return results if rank0 else None
 
 
-def _rank(rank, device, argv):
+def _rank(rank, device, argv, out_root):
     """One rank of ``--mesh``: its summary on rank 0, else None."""
     from dip_admm_tpu_torch.parallel import mesh as meshlib
 
     args = build_parser().parse_args(argv)
     resolve_preset(args)
     mesh = meshlib.make_mesh(args.mesh, args.mesh_pixel, device)
-    return _run(args, device, mesh)
+    return _run(args, device, out_root, mesh)
 
 
 def main(argv=None) -> dict:
@@ -245,6 +290,17 @@ def main(argv=None) -> dict:
         parser.error("--mesh and --mesh-pixel must be >= 1")
     if args.mesh is None and args.mesh_pixel != 1:
         parser.error("--mesh-pixel needs --mesh")
+    if args.all_strategies and (args.snapshot_every, args.checkpoint_every,
+                                args.resume) != (None, None, None):
+        parser.error("--snapshot-every, --checkpoint-every and --resume run "
+                     "one strategy; they do not go with --all-strategies")
+    from dip_admm_tpu_torch.runners import experiment
+
+    try:
+        experiment.check_segments(args.mesh, args.snapshot_every,
+                                  args.checkpoint_every, args.resume)
+    except ValueError as e:
+        parser.error(str(e))
 
     import torch
 
@@ -252,8 +308,9 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
 
+    out_root = _out_root(args)
     if args.mesh is None:
-        results = _run(args, device)
+        results = _run(args, device, out_root)
     else:
         import sys
 
@@ -262,7 +319,7 @@ def main(argv=None) -> dict:
         world = args.mesh * args.mesh_pixel
         argv = sys.argv[1:] if argv is None else list(argv)
         results = meshlib.launch(
-            _rank, world, device, args=(argv,),
+            _rank, world, device, args=(argv, out_root),
             threads=max(1, torch.get_num_threads() // world))[0]
     print(json.dumps(results, indent=2, default=str))
     return results

@@ -1,0 +1,209 @@
+"""The strategy experiment: one graph strategy's run with its artifacts,
+and mst, chain and knn back to back on the same data.
+
+``run_one_strategy`` builds (or takes, rebuilding only its graph) the
+problem, runs consensus ADMM on one device or on a mesh, and writes the
+JAX package's artifact set under ``<out_root>/<tag>``; with
+``snapshot_every`` it writes every node's image every K outers, with
+``checkpoint_every`` it runs in K-outer segments and queues the loop state
+to ``<out_dir>/checkpoint.npz`` after each, and ``resume`` continues from
+such a checkpoint (of either package). ``run_all_strategies`` and
+``evaluate_strategies`` run mst, chain and knn on one problem.
+
+On a mesh every rank calls these functions with the same arguments and
+builds the problem on its device; the result is gathered on every rank,
+and rank 0 alone writes the artifacts. Snapshots and checkpoints need the
+whole state on one device, so they are not supported on a mesh yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+from datetime import datetime
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dip_admm_tpu_torch.config import ProblemConfig
+from dip_admm_tpu_torch.core import admm
+from dip_admm_tpu_torch.data import loader, serialization
+from dip_admm_tpu_torch.graph import topology
+from dip_admm_tpu_torch.utils import artifacts
+from dip_admm_tpu_torch.utils.imaging import psnr
+
+# The strategies of the experiment, in the reference's order.
+STRATEGIES = ("mst", "chain", "knn")
+
+
+def strategy_tag(graph_cfg) -> str:
+    """The run's directory name: ``knn_k<k>`` for knn, else the strategy."""
+    if graph_cfg.strategy == "knn":
+        return f"knn_k{graph_cfg.k}"
+    return graph_cfg.strategy
+
+
+def check_segments(mesh, snapshot_every, checkpoint_every, resume) -> None:
+    """Raise ValueError for a combination of the segmented drivers' options
+    that :func:`run_one_strategy` does not run."""
+    if mesh and (snapshot_every, checkpoint_every, resume) != (None,) * 3:
+        raise ValueError("--snapshot-every, --checkpoint-every and --resume "
+                         "are not supported with --mesh yet")
+    if checkpoint_every is not None and snapshot_every is not None:
+        raise ValueError("--checkpoint-every and --snapshot-every are "
+                         "separate segmented drivers; pass one or the other")
+    for name, every in (("checkpoint", checkpoint_every),
+                        ("snapshot", snapshot_every)):
+        if every is not None and every < 1:
+            raise ValueError(f"--{name}-every must be >= 1, got {every}")
+    if resume is not None and checkpoint_every is None:
+        raise ValueError("--resume needs --checkpoint-every (the segmented "
+                         "driver that continues a checkpoint)")
+
+
+def _solve(problem, cfg, mesh, out_dir, snapshot_every, checkpoint_every,
+           resume):
+    """The loop of :func:`run_one_strategy`: snapshots, checkpointed
+    segments or one run; a mesh run gathered onto every rank."""
+    if mesh is not None:
+        from dip_admm_tpu_torch.parallel import admm_sharded
+
+        res = admm_sharded.run_admm_sharded(problem, cfg.admm, mesh)
+        return admm_sharded.gather_result(res, mesh)
+    if snapshot_every is not None:
+        return admm.run_admm_snapshots(
+            problem, cfg.admm, snapshot_dir=os.path.join(out_dir, "snapshots"),
+            snapshot_every=snapshot_every)
+    if checkpoint_every is None:
+        return admm.run_admm(problem, cfg.admm)
+    state = hist = None
+    if resume is not None:
+        state, hist = serialization.load_checkpoint(resume, problem.device)
+        # a checkpoint of a shorter run: its history grows to max_iters
+        hist = admm.grow_history(hist, cfg.admm.max_iters)
+    ckpt = os.path.join(out_dir, "checkpoint.npz")
+    while True:
+        k0 = 0 if state is None else state.k
+        res = admm.run_admm(problem, cfg.admm, state=state, hist=hist,
+                            until=min(k0 + checkpoint_every,
+                                      cfg.admm.max_iters))
+        state, hist = res.state, res.history
+        serialization.save_checkpoint_async(ckpt, state, hist)
+        if state.stop or state.k >= cfg.admm.max_iters:
+            break
+    serialization.flush_checkpoints()
+    return res
+
+
+def run_one_strategy(
+    cfg: ProblemConfig,
+    out_root: str,
+    strategy: Optional[str] = None,
+    k: Optional[int] = None,
+    mesh=None,
+    problem: Optional[loader.Problem] = None,
+    write_artifacts: bool = True,
+    mode: Optional[str] = None,
+    per_node_phantoms: bool = False,
+    snapshot_every: Optional[int] = None,
+    checkpoint_every: Optional[int] = None,
+    resume: Optional[str] = None,
+    device: torch.device | str = "cuda",
+    orders: Optional[torch.Tensor] = None,
+):
+    """Run consensus ADMM under one graph strategy (``strategy``/``k``
+    replace ``cfg.graph``'s); returns (x [P, n], history, summary), the
+    first two as numpy. ``problem`` (built or loaded) is reused with only
+    its graph rebuilt where it differs; else one is built on ``device``.
+    ``orders`` are the chain graph's node orders
+    (``topology.build_pixel_masks``). See the module docstring for the
+    snapshots, checkpoints and ``resume``."""
+    if strategy is not None or k is not None:
+        g = dataclasses.replace(
+            cfg.graph,
+            strategy=strategy if strategy is not None else cfg.graph.strategy,
+            k=k if k is not None else cfg.graph.k)
+        cfg = dataclasses.replace(cfg, graph=g)
+    check_segments(mesh, snapshot_every, checkpoint_every, resume)
+    tag = strategy_tag(cfg.graph)
+    out_dir = os.path.join(out_root, tag)
+
+    if problem is None:
+        problem = loader.build_problem(cfg, device, mode=mode,
+                                       per_node_phantoms=per_node_phantoms,
+                                       orders=orders)
+    elif problem.cfg.graph != cfg.graph:
+        problem = loader.rebuild_graph(problem, cfg.graph, orders=orders)
+
+    res = _solve(problem, cfg, mesh, out_dir, snapshot_every,
+                 checkpoint_every, resume)
+    n_iters = res.n_iters
+    x = res.x.cpu().numpy()
+    hist = {name: v.cpu().numpy() for name, v in res.history.items()}
+    N = problem.N
+    x_true = problem.x_true.cpu().numpy()
+    m_per_node = (problem.angle_valid.sum(dim=1)
+                  * cfg.geometry.n_det).cpu().numpy()
+    summary = {
+        "tag": tag,
+        "n_iters": n_iters,
+        "final_primal": float(hist["primal"][n_iters - 1]),
+        "final_dual": float(hist["dual"][n_iters - 1]),
+        "mean_psnr": float(np.mean(
+            [psnr(xi, x_true, data_range=x_true.max()) for xi in x])),
+        "graph": topology.union_summary(problem.keep),
+        "out_dir": out_dir,
+    }
+    if write_artifacts and (mesh is None or mesh.rank == 0):
+        artifacts.save_run_parameters(out_dir, cfg, extra=summary["graph"])
+        artifacts.save_union_graph(problem.adj,
+                                   os.path.join(out_dir, "union_figs"), tag)
+        artifacts.save_recons(x, N, out_dir, tag)
+        artifacts.save_history_artifacts(hist, n_iters, out_dir, tag,
+                                         m_per_node=m_per_node, N=N)
+        artifacts.flush_async()
+    skipped = artifacts.take_skipped()
+    if skipped:
+        names = [os.path.relpath(p, out_dir) for p in skipped]
+        summary["artifacts_skipped"] = names
+        print(f"artifacts: matplotlib is not installed; {len(names)} plots "
+              f"of {tag} not drawn: {' '.join(names)}", file=sys.stderr)
+    return x, hist, summary
+
+
+def run_all_strategies(
+    cfg: ProblemConfig, out_root: Optional[str] = None, mesh=None,
+    mode: Optional[str] = None, per_node_phantoms: bool = False,
+    problem: Optional[loader.Problem] = None,
+    device: torch.device | str = "cuda",
+) -> dict:
+    """mst, chain and knn back to back on the same data: one problem
+    (``problem``, or one built on ``device``), only the graph layer rebuilt
+    for each strategy. Returns each strategy's summary."""
+    if out_root is None:
+        out_root = f"Recon_Out_ADMM_{datetime.now().strftime('%Y%m%d_%H%M%S')}"
+    if problem is None:
+        problem = loader.build_problem(cfg, device, mode=mode,
+                                       per_node_phantoms=per_node_phantoms)
+    results = {}
+    for strategy in STRATEGIES:
+        _, _, results[strategy] = run_one_strategy(
+            cfg, out_root, strategy=strategy, mesh=mesh, problem=problem)
+    return results
+
+
+def evaluate_strategies(cfg: ProblemConfig, mesh=None,
+                        device: torch.device | str = "cuda") -> dict:
+    """Final residuals and mean PSNR of mst, chain and knn on one problem,
+    no artifacts written."""
+    out = {}
+    problem = loader.build_problem(cfg, device)
+    for strategy in STRATEGIES:
+        _, _, summary = run_one_strategy(
+            cfg, out_root="", strategy=strategy, mesh=mesh, problem=problem,
+            write_artifacts=False)
+        out[strategy] = {k: summary[k] for k in
+                         ("final_primal", "final_dual", "mean_psnr")}
+    return out

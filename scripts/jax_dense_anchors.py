@@ -1,7 +1,7 @@
 """The JAX package's reference values for the port's dense runs, on the CPU.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/jax_dense_anchors.py \
-        [flagship] [inner] [rho]
+        [flagship] [inner] [rho] [strategies]
 
 Each run prints one JSON line with its mean PSNR over the nodes (against
 the phantom, data range its max), outers run and mean inner iterations:
@@ -14,7 +14,12 @@ the phantom, data range its max), outers run and mean inner iterations:
 - ``rho``: 64^2/8 dense, 20 outers of the recommended preset (fcv, 15/15,
   relax 1.8, no early stop) under ``--rho 20 --adapt-rho --rho-mu 2`` and
   ``--rho 2 --adapt-rho --rho-mode stall --rho-stall-window 5``, with each
-  run's rho trajectory.
+  run's rho trajectory;
+- ``strategies``: the flagship under the mst, chain and complete per-pixel
+  graphs (seed 123). It also writes JAX's chain node orders of that run
+  (one permutation of the 5 nodes per pixel, 4096 x 5, int8) to
+  ``scripts/chain_orders_64x5_seed123.npy``, which ``chip_smoke.py`` hands
+  to the port's chain graph so that both packages run the same graph.
 
 ``chip_smoke.py`` holds the port on the card to these values.
 """
@@ -26,6 +31,8 @@ import json
 import sys
 import time
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from dip_admm_tpu import config
@@ -50,6 +57,18 @@ def _run(tag, cfg, **extra):
         "seconds": time.perf_counter() - t0, **extra,
     }
     print(json.dumps(out), flush=True)
+
+
+CHAIN_ORDERS = "scripts/chain_orders_64x5_seed123.npy"
+
+
+def chain_orders(seed: int, n: int, P: int) -> np.ndarray:
+    """The node order of each pixel that JAX's chain graph draws
+    (``graph/topology.py``: a permutation under fold_in(PRNGKey(seed),
+    pixel)), as an [n, P] array."""
+    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(seed),
+                                                 i))(jnp.arange(n))
+    return np.asarray(jax.vmap(lambda kk: jax.random.permutation(kk, P))(keys))
 
 
 def _admm(base, node=None, **kw):
@@ -79,7 +98,15 @@ def main(which) -> None:
             cfg = dataclasses.replace(base, geometry=geo,
                                       admm=dataclasses.replace(rec, **over))
             _run(tag, cfg)
+    if "strategies" in which:
+        geo = base.geometry
+        np.save(CHAIN_ORDERS, chain_orders(base.graph.seed, geo.n,
+                                           geo.num_nodes).astype(np.int8))
+        for strategy in ("mst", "chain", "complete"):
+            cfg = dataclasses.replace(base, graph=dataclasses.replace(
+                base.graph, strategy=strategy))
+            _run(f"strategy_{strategy}", cfg)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ("flagship", "inner", "rho"))
+    main(sys.argv[1:] or ("flagship", "inner", "rho", "strategies"))

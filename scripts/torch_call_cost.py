@@ -11,7 +11,7 @@ From the checkout at ROOT (its own kernels, built from its ``csrc/``), on
 seeded inputs at the main-path shapes (K5: the 256^2/8 edge state [8, 8,
 65536], its sharded form at a 2 x 2 mesh rank's block [4, 8, 32768]; K17
 and K18: the 512^2/8 eval tail, PB = PT = 8, T = 192, D = 512, Np = 2048,
-rising and falling detector coordinates; K17 also at D = 509 with
+rising and falling detector coordinates; both also at D = 509 with
 coordinates below 0, above Np - 1 and NaN), one line a kernel:
 
 - ``call_ms``: the median of 20 CUDA-event timings of one call after 3
@@ -23,11 +23,13 @@ coordinates below 0, above Np - 1 and NaN), one line a kernel:
 - ``device_ms`` and ``device_launches_per_call`` (``torch.profiler`` over
   10 calls, ``chip_smoke._device_ms``);
 - ``sha1``: a hash of each output's bytes (two checkouts' kernels agree bit
-  for bit on an output where its hashes are equal), and ``equal_plain``: whether each
-  output equals the plain version's bit for bit. K17 is also held bit for
-  bit to its formula evaluated in torch with the second tap's product and
-  sum rounded apart (``formula_equal_mul_add``) and fused
-  (``formula_equal_fma``, the product exact in f64).
+  for bit on an output where its hashes are equal), and ``equal_plain``:
+  whether each output equals the plain version's bit for bit (NaN where it
+  is NaN). K17 is also held bit for bit to its formula evaluated in torch
+  with the second tap's product and sum rounded apart
+  (``formula_equal_mul_add``) and fused (``formula_equal_fma``, the product
+  exact in f64). K17 and K18 print their NaN outputs beside the plain
+  version's (``nan_outputs``, ``plain_nan_outputs``).
 
 With ``--split`` (a checkout with ``ops/kernels/_launch.py``), the host's
 cost of each step of the K17, K18 and K5 wrappers, as their first designs
@@ -112,7 +114,7 @@ def hat_formula(g, pc, s, fused: bool):
     inside [0, Np) in that order, hat(x, v) = max(0, 1 - |x - v|) in f32,
     s after the sum; the second tap's term added to the first rounded apart
     or, with ``fused``, as one fused multiply-add (the product exact in
-    f64, one rounding of the sum)."""
+    f64, one rounding of the sum). A NaN coordinate gives NaN."""
     PB, T, Np = g.shape
     x = pc.repeat(PB // pc.shape[0], 1, 1)
     fl = torch.floor(x)
@@ -129,7 +131,14 @@ def hat_formula(g, pc, s, fused: bool):
         else:
             new = acc + h * gv
         acc = torch.where(live, new, acc)
+    acc = torch.where(torch.isnan(x), x, acc)
     return s.repeat(PB // pc.shape[0], 1, 1) * acc
+
+
+def _same(u, v) -> bool:
+    """Bit-equal values, NaN where the other is NaN."""
+    return (torch.equal(torch.isnan(u), torch.isnan(v))
+            and torch.equal(u.nan_to_num(), v.nan_to_num()))
 
 
 def cases():
@@ -162,9 +171,11 @@ def cases():
     out.append(("hat_eval", he.hat_eval, he.hat_eval_ref, (g, pc, s), {}))
     out.append(("hat_eval_t", he.hat_eval_t, he.hat_eval_t_ref,
                 (ob, pc, s, 2048), {}))
-    pc, s, g, _ = _hat_inputs(gen, 8, 8, 192, 509, 2048, edge=True)
+    pc, s, g, ob = _hat_inputs(gen, 8, 8, 192, 509, 2048, edge=True)
     out.append(("hat_eval[D=509, edges]", he.hat_eval, he.hat_eval_ref,
                 (g, pc, s), {}))
+    out.append(("hat_eval_t[D=509, edges]", he.hat_eval_t,
+                he.hat_eval_t_ref, (ob, pc, s, 2048), {}))
     return out
 
 
@@ -178,11 +189,14 @@ def measure() -> None:
         want = ref(*args, **kw)
         want = want if isinstance(want, tuple) else (want,)
         extra = ""
-        if label.startswith("hat_eval") and label != "hat_eval_t":
-            extra = " ".join(
-                f"formula_equal_{k}={torch.equal(got[0], hat_formula(*args, f))}"
+        if label.startswith("hat_eval"):
+            extra = (f"nan_outputs={int(torch.isnan(got[0]).sum())} "
+                     f"plain_nan_outputs={int(torch.isnan(want[0]).sum())} ")
+        if label.startswith("hat_eval") and not label.startswith("hat_eval_t"):
+            extra += " ".join(
+                f"formula_equal_{k}={_same(got[0], hat_formula(*args, f))}"
                 for k, f in (("mul_add", False), ("fma", True)))
-        equal = [torch.equal(u, v) for u, v in zip(got, want)]
+        equal = [_same(u, v) for u, v in zip(got, want)]
         digest = _sha1(got)
         del got, want
         ms = cs._time_ms(torch, call)

@@ -1,9 +1,14 @@
-"""The PyTorch port's command line, on the CPU."""
+"""The PyTorch port's command line, on the CPU.
+
+Each run starts in a fresh temporary directory, where the CLI writes its
+artifacts (``Recon_Out_ADMM_<date>_<time>`` unless ``--out`` is given).
+"""
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -13,11 +18,13 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def _cli(*args, timeout=300):
-    return subprocess.run(
-        [sys.executable, "-m", "dip_admm_tpu_torch.runners.cli", *args],
-        cwd=ROOT, capture_output=True, text=True, timeout=timeout,
-        env={**os.environ, "OMP_NUM_THREADS": "2", "PYTHONPATH": str(ROOT)},
-    )
+    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
+        return subprocess.run(
+            [sys.executable, "-m", "dip_admm_tpu_torch.runners.cli", *args],
+            cwd=tmp, capture_output=True, text=True, timeout=timeout,
+            env={**os.environ, "OMP_NUM_THREADS": "2",
+                 "PYTHONPATH": str(ROOT)},
+        )
 
 
 def test_cli_prints_summary():
@@ -137,16 +144,18 @@ def test_cli_auto_mode_is_dense_at_n_le_128():
     ``--mode fft_skew``'s."""
     auto, dense, skew = (_summary(), _summary("--mode", "dense"),
                          _summary("--mode", "fft_skew"))
+    for s in (auto, dense):  # the artifact directory names the run's time
+        assert s.pop("out_dir").endswith("knn_k2")
     assert auto == dense
     assert auto["mean_psnr"] != skew["mean_psnr"]
 
 
 @pytest.mark.parametrize("args", [
     ("--N", "32"),  # no --device
-    ("--device", "cpu", "--strategy", "mst"),
+    ("--device", "cpu", "--dtype", "bfloat16"),
     ("--device", "cpu", "--matrix-free"),
     ("--device", "cpu", "--mode", "fft"),
-    ("--device", "cpu", "--strategy", "chain"),
+    ("--device", "cpu", "--solver", "pdhg-consensus"),
     ("--device", "cpu", "--solver", "centralized"),
     ("--device", "cpu", "--z-fusion", "mean"),
 ])
@@ -228,4 +237,26 @@ def test_smoke_without_a_card_fails():
         text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
+    assert out.stdout == ""
+
+
+# ---------------------------------------------------------------------------
+# The experiment flags (their runs are in test_torch_experiment.py).
+
+SMALL = ("--device", "cpu", "--N", "16", "--nodes", "3", "--max-iters", "2")
+
+
+@pytest.mark.parametrize("args", [
+    ("--mesh", "2", "--checkpoint-every", "1"),
+    ("--mesh", "2", "--snapshot-every", "1"),
+    ("--all-strategies", "--checkpoint-every", "1"),
+    ("--checkpoint-every", "0"),
+    ("--resume", "ckpt.npz"),
+    ("--checkpoint-every", "1", "--snapshot-every", "1"),
+], ids=["mesh_checkpoint", "mesh_snapshot", "all_checkpoint", "zero",
+        "resume_alone", "both"])
+def test_cli_rejects_segment_flags(args):
+    out = _cli(*SMALL, *args)
+    assert out.returncode != 0
+    assert "error" in out.stderr and "--" in out.stderr
     assert out.stdout == ""

@@ -250,7 +250,8 @@ def _boundary_ranges(x, Np):
 def _k18_mirror(ob, pc, s, Np):
     """K18 as its kernel computes it: each v of a row sums the terms
     w = 1 - |pc - v| > 0 of its boundary-table range (every d on a row that
-    is not monotone) in ascending d, in f32; zero outside the row's span."""
+    is not monotone) in ascending d, in f32; zero outside the row's span.
+    A row holding a NaN coordinate is NaN at every v."""
     PT, T, D = pc.shape
     PB = ob.shape[0]
     out = np.zeros((PB, T, Np), np.float32)
@@ -258,6 +259,9 @@ def _k18_mirror(ob, pc, s, Np):
         for t in range(T):
             x = pc[p % PT, t]
             y = (s[p % PT, t, 0] * ob[p, t]).astype(np.float32)
+            if np.isnan(x).any():
+                out[p, t] = np.nan
+                continue
             lo, hi, vs, ve = _boundary_ranges(x, Np)
             for v in range(vs, ve):
                 d0, d1 = (0, D) if lo is None else (lo[v], hi[v])
@@ -315,12 +319,34 @@ def test_k18_boundary_tables_match_jax(batch, integer):
     assert kinds == {"rising", "falling", "other"}
 
 
+@pytest.mark.parametrize("batch", BATCHES, ids=["PB2PT2", "PB6PT2"])
+def test_k18_mirror_nan_rows_match_jax(batch):
+    """A NaN coordinate in a row: JAX's ``hat_eval_t`` in interpret mode is
+    NaN at every v of that row (each v takes a NaN term), and so is the
+    mirror of K18; the other rows hold to JAX at 1e-5 of the max."""
+    PB, PT = batch
+    pc, s = _rows_of_every_kind(PT, False)
+    pc[:, 2, 5] = np.nan
+    pc[0, 4, 0] = np.nan
+    ob = np.random.default_rng(3).standard_normal((PB, T, D)).astype(
+        np.float32)
+    want = _jax_batched(
+        lambda a: jhe.hat_eval_t(a, jnp.asarray(pc), jnp.asarray(s),
+                                 jnp.zeros((NP,))),
+        jnp.asarray(ob), PB, PT)
+    got = _k18_mirror(ob, pc, s, NP)
+    rows = np.tile(np.isnan(pc).any(-1), (PB // PT, 1))  # [PB, T]
+    assert np.isnan(want[rows]).all() and np.isnan(got[rows]).all()
+    assert not np.isnan(want[~rows]).any() and not np.isnan(got[~rows]).any()
+    _close(got[~rows], want[~rows])
+
+
 def _k17_mirror(g, pc, s):
     """numpy mirror of the card kernel K17 (``csrc/hat_eval.cu``): one
     thread for four consecutive detectors of one (p, t) row, the last four
     of a row ragged where D % 4 != 0; each detector takes v0 = floor(pc),
     the taps v0 and v0 + 1 inside [0, Np) in that order with the hat in
-    f32, and s after the sum. A NaN coordinate contributes nothing."""
+    f32, and s after the sum. A NaN coordinate gives NaN."""
     PB, T, Np = g.shape
     PT, _, D = pc.shape
     out = np.full((PB, T, D), np.nan, np.float32)
@@ -342,7 +368,7 @@ def _k17_mirror(g, pc, s):
                     acc = np.where(live, acc + h * g[p, rows,
                                                      np.clip(v, 0, Np - 1)],
                                    acc)
-                out[p, :, d] = s[q, :, 0] * acc
+                out[p, :, d] = s[q, :, 0] * np.where(np.isnan(x), x, acc)
     return out
 
 
@@ -351,7 +377,7 @@ def test_k17_four_detector_mirror_matches_jax(batch):
     """The mirror at D = 30 (a ragged last four), with coordinates below 0,
     above Np - 1 and NaN, against JAX's ``hat_eval`` in interpret mode at
     1e-5 of the output max. At a NaN coordinate JAX's kernel gives NaN (its
-    hat is max(0, NaN)); the card kernel, and so the mirror, gives 0."""
+    hat is max(0, NaN)), and so do the card kernel and the mirror."""
     PB, PT = batch
     Dr = 30
     rng = np.random.default_rng(9)
@@ -367,7 +393,8 @@ def test_k17_four_detector_mirror_matches_jax(batch):
         lambda a: jhe.hat_eval(a, jnp.asarray(pc), jnp.asarray(s)),
         jnp.asarray(g), PB, PT)
     nan = np.isnan(np.tile(pc, (PB // PT, 1, 1)))
-    assert np.isnan(want[nan]).all() and (got[nan] == 0).all()
+    assert np.isnan(want[nan]).all() and np.isnan(got[nan]).all()
+    assert not np.isnan(got[~nan]).any()
     scale = np.abs(want[~nan]).max()
     np.testing.assert_allclose(got[~nan], want[~nan], rtol=0,
                                atol=RTOL * scale)
