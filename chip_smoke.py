@@ -232,7 +232,47 @@ kernel):
 30. bundle     - ``save_problem`` then ``load_problem`` of the bench
                  problem: three recommended outers on the loaded problem
                  equal three on the original bit for bit.
-                 Each of phases 26-30 prints its seconds (``phase_s``).
+                 Each of phases 26-34 prints its seconds (``phase_s``).
+31. batched_64 - BASELINE config 4: 64 phantoms ``rand_im(64, seed=s)``
+                 in one ``run_admm_batched`` at 64^2/5 (auto = dense), each
+                 sinogram the problem's forward of its phantom plus the
+                 numpy noise of ``batch_noise``; cv at <= 100 inner, 20
+                 outers, no early stop, K5 on (batched, P = 5, once an
+                 outer). Lanes 0-3 bit-equal to a batch of those four
+                 alone, within 6e-3 (relative state) and 0.01 dB of the
+                 port's single run of each (cuBLAS rounds a 64-column
+                 product apart from a one-column one), their mean PSNR
+                 within 0.5 dB of JAX's ``run_admm_batched`` on the CPU;
+                 the batch run again with the dense product taken lane by
+                 lane bit-equal to the single runs (state, inner counts,
+                 acceptance codes); the batch's phantom-iterations/s
+                 beside the single runs'.
+32. batched_256 - the bench problem (256^2/8, bf16 fft_skew, recommended,
+                 20 outers) as a batch of four (b, 1.05 b, 1.1 b, 1.15 b):
+                 batched K5 at [4, 8, 8, 65536] against its plain version,
+                 each lane and B = 1 bit-equal to the unbatched call, one
+                 device launch a call; each lane within 0.01 dB of its own
+                 single run, lane 0 within 0.5 dB of 34.19 dB; K1-K5
+                 launches and the phantom-iterations/s beside the single
+                 runs'.
+33. solvers    - the flagship problem (64^2/5, dense): centralized ridge
+                 by Cholesky and by CG on ``joseph`` (at lam 1e-2 they
+                 agree within the JAX package's own test tolerance, as
+                 there), centralized TV under cv
+                 and fcv, pdhg-consensus at the reference defaults under
+                 both anchor weightings, and a SnapVX-shaped dense
+                 GraphProblem (nodes A_i, b_i, diag W_i; the union edges
+                 with Q_ij; 50 outers): each PSNR within 0.5 dB of the JAX
+                 package's on the CPU (``scripts/jax_dense_anchors.py
+                 solvers``; the fcv runs with JAX's Lanczos start).
+34. solvers_large - BASELINE config 1, centralized TV under fcv on a 128^2
+                 Shepp-Logan (auto = dense), within 0.5 dB of JAX's CPU
+                 value on Joseph (RESULTS.md's 38.1 dB from earlier JAX code
+                 on a TPU printed beside it); then on the bench problem
+                 centralized TV, 20 pdhg-consensus outers and a matrix-free
+                 GraphProblem with TV (5 outers, fcv): finite, the
+                 GraphProblem's primal residual falling, K1-K4 launching;
+                 seconds and K1-K4 launches printed.
 
 Every kernel line gives the kernel's time, its plain version's, its bound
 (the larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s f32
@@ -240,11 +280,12 @@ or 989 TFLOP/s bf16, counted from this call's inputs) and, where one
 PyTorch call computes the same function, that call's time
 (``library_ms``). The launch counters are set to 0 just before each of the
 ten runs (on each rank of the mesh runs), before the stage path and before
-each run of the dense phases and of phases 26, 27, 29 and 30, and read just
+each run of the dense phases and of phases 26, 27 and 29-34, and read just
 after. Then a JSON line with each kernel's route, source,
 launches in those runs together (a kernel that launched in none fails the
 run), error, times and bound (K1-K5, K7-K10, K15 and K16 at the parallel
-256^2 shapes, K6 and K5's sharded form at a 2 x 2 mesh rank's,
+256^2 shapes (K5's batched form at [4, 8, 8, 65536] in its error), K6
+and K5's sharded form at a 2 x 2 mesh rank's,
 K13/K14 at the fan shapes, K11/K12/K17/K18 at the 512^2 shapes; the largest
 error of any call, row shards, node blocks, fan and 512^2 shapes
 included, K5 on the graphs of phase 27 too); the ``nvidia-smi``
@@ -354,6 +395,44 @@ REF_RHO = {
 # chain (JAX's node orders, CHAIN_ORDERS) and complete per-pixel graphs.
 REF_STRATEGY_PSNR = {"mst": 42.568, "chain": 43.378, "complete": 34.519}
 CHAIN_ORDERS = "scripts/chain_orders_64x5_seed123.npy"
+# JAX package on the CPU, scripts/jax_dense_anchors.py batched: its
+# run_admm_batched on 64^2/5 dense (cv <= 100 inner, 20 outers, no early
+# stop) over rand_im(64, seed=s), s = 0..3, each lane's noise from
+# default_rng(BATCH_NOISE_SEED + s): the lanes' mean PSNR, and each lane's.
+REF_BATCHED_PSNR = 29.662
+REF_BATCHED_LANES = (30.310, 28.369, 28.332, 31.635)
+BATCH_NOISE_SEED = 1000
+BATCH_64 = 64  # BASELINE config 4: 64 phantoms in one batch
+# A lane against its own single run: cuBLAS's product of 64 columns rounds
+# apart from its one-column product (4.4e-7 relative on the card), which
+# moves an inner stop decision at outers 9-12 of 20 and leaves the states
+# 7e-5 to 2.8e-3 apart (relative norm) and the PSNRs 0.0014 dB (PERF.md,
+# section 6; scripts/torch_batch_lanes.py). Exactness is held bit for bit
+# instead against a batch of the same lanes alone.
+# twice the largest lane-against-single-run state difference of the
+# batched_64 cell on an H100 (2.8e-3, the 64-column product's rounding)
+BATCH_STATE_RTOL = 6e-3
+BATCH_PSNR_TOL = 0.01  # dB, a lane against its own single run
+BATCH_256_SCALES = (1.0, 1.05, 1.1, 1.15)
+# JAX package on the CPU, scripts/jax_dense_anchors.py solvers: the
+# alternative solvers on the flagship problem (64^2/5, dense), and BASELINE
+# config 1 (centralized TV under fcv on a 128^2 Shepp-Logan, on JAX's
+# Joseph operator: the dense operator without A). The fcv runs take JAX's
+# Lanczos start from LANCZOS_V0.
+REF_SOLVER_PSNR = {
+    "ridge_dense": 29.285, "ridge_cg_joseph": 29.284,
+    "centralized_tv_cv": 28.979, "centralized_tv_fcv": 29.216,
+    "pdhg_oracle": 11.408, "pdhg_residual": 11.391,
+    "graph_problem_dense": 21.367,
+}
+REF_TV_128_PSNR = 29.989
+# Ridge by Cholesky and by CG held to each other at the JAX test's lam and
+# tolerance (tests/test_solvers.py:32-41: atol 2e-2, rtol 1e-2).
+RIDGE_AGREE_LAM = 1e-2
+# RESULTS.md's value for BASELINE config 1, from earlier JAX code on a TPU:
+# printed beside the port's as context, not a limit.
+RESULTS_TV_128_PSNR = 38.1
+LANCZOS_V0 = "scripts/jax_lanczos_v0.npz"
 # A checkpointed or resumed run against the unsegmented one, relative to
 # its state's norm.
 RESUME_RTOL = 1e-6
@@ -2682,6 +2761,384 @@ def phase_bundle(torch, bench, failures) -> list:
     return counts
 
 
+def batch_noise(s: int, shape) -> np.ndarray:
+    """Lane ``s``'s standard-normal noise (numpy, as
+    ``scripts/jax_dense_anchors.py`` draws it for the JAX runs)."""
+    return np.random.default_rng(BATCH_NOISE_SEED + s).standard_normal(
+        shape, dtype=np.float32)
+
+
+def _timed(torch, fn):
+    """(fn(), seconds, launch counts): the counters zeroed just before and
+    read just after."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _counts()
+
+
+def _lane_rel(torch, res, s, one) -> float:
+    """Largest difference of lane ``s`` of a batched result's (x, Z, Y)
+    from a single run's, over the single run's norm."""
+    st = res.state
+    return max(float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+               for a, b in ((st.node.x[s], one.state.node.x),
+                            (st.Z[s], one.state.Z), (st.Y[s], one.state.Y)))
+
+
+def phase_batched_64(torch, dev, failures) -> list:
+    """BASELINE config 4: 64 phantoms rand_im(64, seed=s) in one
+    ``run_admm_batched`` at 64^2/5 (auto = dense), each sinogram the
+    problem's forward of its phantom plus seeded noise; cv at <= 100 inner,
+    20 outers, no early stop, K5 on (batched, P = 5). Lanes 0-3 equal a
+    batch of those four alone bit for bit, lie within
+    ``BATCH_STATE_RTOL`` (relative state) and ``BATCH_PSNR_TOL`` of the
+    port's single run of each, and their mean PSNR within ``PSNR_TOL`` of
+    JAX's run_admm_batched. The batch run once more with its dense product
+    taken lane by lane (each lane a [P, n, 1] product, as a single run
+    takes it) must equal the single runs bit for bit (state, inner counts
+    and acceptance codes): the batch's grouped solve, its freezes and K5's
+    batch axis then add no difference of their own. Prints the
+    phantom-iterations/s of the batch beside the single runs'."""
+    from dip_admm_tpu_torch.core import admm
+    from dip_admm_tpu_torch.ops import phantoms, radon
+
+    base = _dense_cfg()
+    cfg = _dense_cfg(max_iters=20, eps_pri=0.0, eps_dual=0.0,
+                     use_pallas=True, node=dataclasses.replace(
+                         base.admm.node, max_inner=100))
+    problem, build_s, _ = _build_timed(torch, cfg, dev)
+    P, N, n = problem.num_nodes, problem.N, problem.n
+    B, T = BATCH_64, cfg.admm.max_iters
+    xs = np.stack([phantoms.rand_im(N, seed=s).astype(np.float32).reshape(-1)
+                   for s in range(B)])
+    X = torch.as_tensor(xs, device=dev)
+    clean = problem.forward(X[:, None, :].expand(B, P, n).reshape(B * P, n))
+    clean = clean.reshape(B, P, -1)
+    rows = problem.angle_valid.repeat_interleave(N, dim=1).to(torch.float32)
+    noise = torch.as_tensor(np.stack([batch_noise(s, tuple(clean.shape[1:]))
+                                      for s in range(B)]), device=dev)
+    b = clean + (cfg.noise_level * noise) * rows
+    res, batch_s, counts = _timed(
+        torch, lambda: admm.run_admm_batched(problem, b, X, cfg.admm))
+    runs = [counts]
+    four, _, c = _timed(
+        torch, lambda: admm.run_admm_batched(problem, b[:4], X[:4], cfg.admm))
+    runs.append(c)
+    pairs = [(res.x, four.x), (res.state.Z, four.state.Z),
+             (res.state.Y, four.state.Y),
+             *((res.history[k].nan_to_num(-1.0),
+                four.history[k].nan_to_num(-1.0)) for k in res.history)]
+    four_bitwise = all(torch.equal(u[:4], v) for u, v in pairs)
+    rels, single_s, lane_psnr, psnr_diff, first_inner = [], 0.0, [], [], []
+    singles = []
+    for s in range(4):
+        p = dataclasses.replace(problem, b=b[s], x_true=X[s])
+        one, sec, c = _timed(torch, lambda: admm.run_admm(p, cfg.admm))
+        runs.append(c)
+        singles.append(one)
+        single_s += sec
+        rels.append(_lane_rel(torch, res, s, one))
+        lane_psnr.append(_mean_psnr(res.x[s].cpu().numpy(), xs[s]))
+        psnr_diff.append(lane_psnr[-1] - _mean_psnr(one.x.cpu().numpy(),
+                                                    xs[s]))
+        differ = (res.history["inner_iters"][s]
+                  != one.history["inner_iters"]).any(dim=1).nonzero()
+        first_inner.append(int(differ[0]) if len(differ) else None)
+    batched = radon._batch_bmm
+
+    def lane_by_lane(Am, v):
+        Pn = Am.shape[0]
+        return torch.cat([batched(Am, v[j * Pn:(j + 1) * Pn])
+                          for j in range(v.shape[0] // Pn)])
+
+    radon._batch_bmm = lane_by_lane
+    try:
+        by_lane, _, c = _timed(
+            torch, lambda: admm.run_admm_batched(problem, b, X, cfg.admm))
+    finally:
+        radon._batch_bmm = batched
+    runs.append(c)
+    by_lane_bitwise = [all(torch.equal(u, v) for u, v in (
+        (by_lane.state.node.x[s], one.state.node.x),
+        (by_lane.state.Z[s], one.state.Z), (by_lane.state.Y[s], one.state.Y),
+        (by_lane.history["inner_iters"][s], one.history["inner_iters"]),
+        (by_lane.history["accept_code"][s], one.history["accept_code"])))
+        for s, one in enumerate(singles)]
+    mean4 = float(np.mean(lane_psnr))
+    x = res.x.cpu().numpy()
+    checks = {
+        "outers": res.n_iters.tolist() == [T] * B,
+        "finite": bool(np.isfinite(x).all()),
+        "lanes_equal_a_batch_of_them": four_bitwise,
+        "product_by_lane_equals_single_runs": all(by_lane_bitwise),
+        "lanes_match_single_runs": max(rels) <= BATCH_STATE_RTOL
+        and max(map(abs, psnr_diff)) <= BATCH_PSNR_TOL,
+        "psnr": abs(mean4 - REF_BATCHED_PSNR) <= PSNR_TOL,
+        "k5_once_per_outer": counts["consensus_update"] == T,
+        "no_projector_kernel": all(v == 0 for k, v in counts.items()
+                                   if k != "consensus_update"),
+    }
+    for k, ok in checks.items():
+        if not ok:
+            failures.append(f"batched_64 check {k} failed")
+    print(f"batched_64: B={B} N={N} nodes={P} build_s={build_s} "
+          f"batch_s={batch_s} phantom_it_per_s={B * T / batch_s} "
+          f"single_phantom_it_per_s={4 * T / single_s} "
+          f"lanes_0_3_bitwise_batch_of_4={four_bitwise} "
+          f"product_by_lane_bitwise_single={json.dumps(by_lane_bitwise)} "
+          f"lane_state_rel={json.dumps(rels)} lane_minus_single_db="
+          f"{json.dumps(psnr_diff)} first_outer_inner_counts_differ="
+          f"{json.dumps(first_inner)} lane_psnr="
+          f"{json.dumps(lane_psnr)} mean_psnr_0_3={mean4} "
+          f"ref_psnr={REF_BATCHED_PSNR} ref_lanes="
+          f"{json.dumps(REF_BATCHED_LANES)} mean_psnr_all="
+          f"{float(np.mean([_mean_psnr(x[s], xs[s]) for s in range(B)]))} "
+          f"run_launches={json.dumps(counts)} ok={all(checks.values())}",
+          flush=True)
+    return runs
+
+
+def phase_batched_256(torch, bench, failures) -> tuple[list, dict]:
+    """The bench problem (256^2/8, bf16 fft_skew) under the recommended
+    preset, 20 outers, as a batch of four (b, 1.05 b, 1.1 b, 1.15 b, the
+    phantom scaled alike): each lane within ``BATCH_256_PSNR_TOL`` of its
+    own single run, lane 0 within ``PSNR_TOL`` of 34.19 dB; K5's batched
+    form against its plain version at [4, 8, 8, 65536], each lane and
+    B = 1 bit-equal to the unbatched call on it; K1-K5 launches and the
+    phantom-iterations/s beside the single runs'."""
+    from dip_admm_tpu_torch.core import admm
+    from dip_admm_tpu_torch.ops.kernels import consensus as cons
+
+    cfg = _recommended(bench.cfg.admm)
+    B, T = len(BATCH_256_SCALES), cfg.max_iters
+    P, n = bench.num_nodes, bench.n
+    gen = torch.Generator(device=bench.device).manual_seed(12)
+    a, y, z = (torch.randn((B, P, P, n), generator=gen, device=bench.device)
+               for _ in range(3))
+    adjm = bench.adj.to(torch.float32)
+    args = (a, y, z, adjm, None, "midpoint")
+    got, kern = _compare(torch, "consensus_update", cons.consensus_update,
+                         cons.consensus_update_ref, args, K5_RTOL, failures,
+                         note=f"[batch {B}, 256^2/8]")
+    lanes_bitwise = all(
+        all(torch.equal(g[s], w) for g, w in zip(
+            got, cons.consensus_update(a[s], y[s], z[s], adjm)))
+        for s in range(B))
+    one = cons.consensus_update(a[:1], y[:1], z[:1], adjm)
+    b1_bitwise = all(torch.equal(g[0], w) for g, w in zip(
+        one, cons.consensus_update(a[0], y[0], z[0], adjm)))
+    k5_cost = _call_cost(torch, lambda: cons.consensus_update(*args),
+                         failures, "consensus_update[batch]", 1)
+    if not (lanes_bitwise and b1_bitwise):
+        failures.append(f"batched K5: lanes bitwise {lanes_bitwise}, "
+                        f"B = 1 bitwise {b1_bitwise}")
+    print(f"batched_256: consensus_update[batch {B}] lanes_bitwise="
+          f"{lanes_bitwise} b1_bitwise_unbatched={b1_bitwise} {k5_cost}",
+          flush=True)
+    del a, y, z, got, one
+
+    b = torch.stack([s * bench.b for s in BATCH_256_SCALES])
+    xt = torch.stack([s * bench.x_true for s in BATCH_256_SCALES])
+    res, batch_s, counts = _timed(
+        torch, lambda: admm.run_admm_batched(bench, b, xt, cfg))
+    runs = [counts]
+    single_s, diffs, lane_psnr = 0.0, [], []
+    for s in range(B):
+        p = dataclasses.replace(bench, b=b[s], x_true=xt[s])
+        r, sec, c = _timed(torch, lambda: admm.run_admm(p, cfg))
+        runs.append(c)
+        single_s += sec
+        xtn = xt[s].cpu().numpy()
+        lane_psnr.append(_mean_psnr(res.x[s].cpu().numpy(), xtn))
+        diffs.append(abs(lane_psnr[-1] - _mean_psnr(r.x.cpu().numpy(), xtn)))
+    checks = {
+        "outers": res.n_iters.tolist() == [T] * B,
+        "finite": bool(torch.isfinite(res.x).all()),
+        "lanes_match_single_runs": max(diffs) <= BATCH_PSNR_TOL,
+        "psnr_lane0": abs(lane_psnr[0] - REF_REC_PSNR) <= PSNR_TOL,
+        "launches": all(counts[k] > 0 for k in SKEW),
+        "k5_once_per_outer": counts["consensus_update"] == T,
+    }
+    for k, ok in checks.items():
+        if not ok:
+            failures.append(f"batched_256 check {k} failed")
+    print(f"batched_256: B={B} batch_s={batch_s} phantom_it_per_s="
+          f"{B * T / batch_s} single_phantom_it_per_s={B * T / single_s} "
+          f"lane_psnr={json.dumps(lane_psnr)} lane_minus_single_db="
+          f"{json.dumps(diffs)} ref_psnr_lane0={REF_REC_PSNR} "
+          f"run_launches={json.dumps(counts)} ok={all(checks.values())}",
+          flush=True)
+    return runs, {"batched_consensus_update": kern}
+
+
+def _graph_from_problem(torch, problem, dense: bool, lam_tv: float = 0.0):
+    """A SnapVX-shaped GraphProblem of ``problem``: node i's A_i (dense) or
+    the problem's operators (matrix-free), b_i, diag W_i (dense), lam_tv;
+    an edge with Q_ij on each pair of the union graph."""
+    from dip_admm_tpu_torch.solvers import graph_problem
+
+    ops = None if dense else (problem.forward, problem.adjoint,
+                              problem.opnorm)
+    gp = graph_problem.GraphProblem(problem.N, operators=ops,
+                                    device=problem.device)
+    for i in range(problem.num_nodes):
+        if dense:
+            gp.add_node(A=problem.A[i], b=problem.b[i],
+                        diag_quad=problem.W[i])
+        else:
+            gp.add_node(b=problem.b[i], lam_tv=lam_tv)
+    adj = problem.adj.cpu().numpy()
+    for i, j in zip(*np.nonzero(np.triu(adj, 1))):
+        gp.add_edge(int(i), int(j), problem.Q[i, j])
+    return gp
+
+
+def phase_solvers(torch, dev, failures) -> list:
+    """The alternative solvers on the flagship problem (64^2/5, dense,
+    the reference's settings): centralized ridge by Cholesky and by CG on
+    ``joseph`` (at ``RIDGE_AGREE_LAM`` agreeing within JAX's own test
+    tolerance, atol 2e-2 / rtol 1e-2), centralized TV under cv and fcv, pdhg-consensus at the
+    reference defaults under both anchor weightings, and the SnapVX-shaped
+    dense GraphProblem (50 outers); each PSNR within ``PSNR_TOL`` of the
+    JAX package's on the CPU."""
+    from dip_admm_tpu_torch.config import NodeSolverConfig
+    from dip_admm_tpu_torch.solvers import centralized, pdhg_consensus
+
+    cfg = _dense_cfg()
+    problem, build_s, _ = _build_timed(torch, cfg, dev)
+    joseph, jbuild_s, _ = _build_timed(torch, cfg, dev, mode="joseph")
+    x_true = problem.x_true.cpu().numpy()
+    v0 = torch.as_tensor(np.load(LANCZOS_V0)[f"n{problem.n}"], device=dev)
+    lam = cfg.admm.lam_tv
+    runs, xs, lines = [], {}, []
+
+    def tv(alg):
+        return centralized.tv_reconstruction(
+            problem, lam_tv=lam, lanczos_v0=v0, cfg=NodeSolverConfig(
+                max_inner=2000, check_every=50, algorithm=alg))[0]
+
+    def pdhg(w):
+        return pdhg_consensus.solve(problem, pdhg_consensus.PdhgConsensusConfig(
+            anchor_weights=w)).x_nodes
+
+    def graph():
+        gp = _graph_from_problem(torch, problem, dense=True)
+        x, hist = gp.solve(max_iters=50)
+        lines.append(f"graph_problem_dense final_primal={hist['primal'][-1]}"
+                     f" primal_first={hist['primal'][0]}")
+        return x
+
+    cases = (
+        ("ridge_dense", lambda: centralized.ridge_reconstruction(problem)),
+        ("ridge_cg_joseph", lambda: centralized.ridge_reconstruction(joseph)),
+        ("centralized_tv_cv", lambda: tv("cv")),
+        ("centralized_tv_fcv", lambda: tv("fcv")),
+        ("pdhg_oracle", lambda: pdhg("oracle")),
+        ("pdhg_residual", lambda: pdhg("residual")),
+        ("graph_problem_dense", graph),
+    )
+    for tag, fn in cases:
+        x, sec, c = _timed(torch, fn)
+        runs.append(c)
+        xs[tag] = x
+        got = _mean_psnr(x.reshape(-1, problem.n).cpu().numpy(), x_true)
+        ok = (bool(torch.isfinite(x).all())
+              and abs(got - REF_SOLVER_PSNR[tag]) <= PSNR_TOL
+              and all(v == 0 for v in c.values()))
+        if not ok:
+            failures.append(f"solvers {tag}: psnr {got} against "
+                            f"{REF_SOLVER_PSNR[tag]}, launches "
+                            f"{ {k: v for k, v in c.items() if v} }")
+        print(f"solvers: {tag} s={sec} psnr={got} "
+              f"ref_psnr={REF_SOLVER_PSNR[tag]} ok={ok}", flush=True)
+    # Cholesky against CG at the JAX test's lam (1e-2) and tolerance: at
+    # lam = 1e-3 500 CG steps leave JAX's own pair 0.54 apart at 64^2/5.
+    (d, f), sec, c = _timed(torch, lambda: tuple(
+        centralized.ridge_reconstruction(p, lam=RIDGE_AGREE_LAM)
+        for p in (problem, joseph)))
+    runs.append(c)
+    agree = bool(torch.all(torch.abs(d - f) <= 2e-2 + 1e-2 * torch.abs(f)))
+    if not agree:
+        failures.append("solvers: ridge by Cholesky and by CG disagree")
+    d3, f3 = xs["ridge_dense"], xs["ridge_cg_joseph"]
+    print(f"solvers: build_s={build_s} joseph_build_s={jbuild_s} "
+          f"ridge_lam={RIDGE_AGREE_LAM} dense_vs_cg_max_abs="
+          f"{float((d - f).abs().max())} agree={agree} s={sec} "
+          f"lam_1e-3_dense_vs_cg_max_abs={float((d3 - f3).abs().max())} "
+          f"{' '.join(lines)}", flush=True)
+    return runs
+
+
+def phase_solvers_large(torch, dev, bench, failures) -> list:
+    """BASELINE config 1, centralized TV under fcv on a 128^2 Shepp-Logan
+    (auto = dense) within ``PSNR_TOL`` of JAX's CPU value on Joseph, with
+    RESULTS.md's TPU value beside it; then at 256^2/8 bf16 fft_skew (the
+    bench problem) centralized TV, 20 pdhg-consensus outers and a
+    matrix-free GraphProblem with TV (5 outers, fcv): finite results, the
+    GraphProblem's primal residual falling, K1-K4 launching."""
+    from dip_admm_tpu_torch.config import NodeSolverConfig
+    from dip_admm_tpu_torch.solvers import centralized, pdhg_consensus
+
+    cfg = _dense_cfg(N=128, phantom="shepp")
+    p128, build_s, _ = _build_timed(torch, cfg, dev)
+    v0 = torch.as_tensor(np.load(LANCZOS_V0)[f"n{p128.n}"], device=dev)
+    fcv = NodeSolverConfig(max_inner=2000, check_every=50, algorithm="fcv")
+    (x, g), sec, c = _timed(torch, lambda: centralized.tv_reconstruction(
+        p128, lam_tv=cfg.admm.lam_tv, cfg=fcv, lanczos_v0=v0))
+    runs = [c]
+    got = _mean_psnr(x[None].cpu().numpy(), p128.x_true.cpu().numpy())
+    ok = (bool(torch.isfinite(x).all())
+          and abs(got - REF_TV_128_PSNR) <= PSNR_TOL)
+    if not ok:
+        failures.append(f"solvers_large: 128^2 centralized TV psnr {got}")
+    print(f"solvers_large: centralized_tv_fcv_128 mode={p128.mode} "
+          f"build_s={build_s} s={sec} psnr={got} ref_psnr={REF_TV_128_PSNR} "
+          f"results_md_tpu_psnr={RESULTS_TV_128_PSNR} final_stationarity="
+          f"{float(g)} ok={ok}", flush=True)
+    del p128, x
+    torch.cuda.empty_cache()
+
+    x_true = bench.x_true.cpu().numpy()
+
+    def graph():
+        gp = _graph_from_problem(torch, bench, dense=False,
+                                 lam_tv=bench.cfg.admm.lam_tv)
+        return gp.solve(max_iters=5, inner=NodeSolverConfig(
+            max_inner=200, check_every=25, algorithm="fcv"))
+
+    cases = (
+        ("centralized_tv", lambda: centralized.tv_reconstruction(
+            bench, lam_tv=bench.cfg.admm.lam_tv)[0]),
+        ("pdhg_consensus_20", lambda: pdhg_consensus.solve(
+            bench, pdhg_consensus.PdhgConsensusConfig(n_outer=20)).x_nodes),
+        ("graph_problem_tv_fcv", graph),
+    )
+    for tag, fn in cases:
+        out, sec, c = _timed(torch, fn)
+        runs.append(c)
+        extra = ""
+        if tag == "graph_problem_tv_fcv":
+            out, hist = out
+            pri = hist["primal"]
+            falls = bool(np.isfinite(pri).all() and pri[-1] < pri[0])
+            extra = f"primal={json.dumps(pri.tolist())} primal_falls={falls} "
+        else:
+            falls = True
+        ok = (bool(torch.isfinite(out).all()) and falls
+              and all(c[k] > 0 for k in SKEW))
+        if not ok:
+            failures.append(f"solvers_large {tag}: finite/falling/launches "
+                            f"failed ({ {k: c[k] for k in SKEW} })")
+        psnr = _mean_psnr(out.reshape(-1, bench.n).cpu().numpy(), x_true)
+        print(f"solvers_large: {tag} N=256 nodes=8 s={sec} psnr={psnr} "
+              f"{extra}k1_k4_launches="
+              f"{json.dumps({k: c[k] for k in SKEW})} ok={ok}", flush=True)
+    return runs
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -2810,13 +3267,24 @@ def main() -> int:
     resume_counts = phase_checkpoint_resume(torch, bench, failures)
     t_new = _phase_s("checkpoint_resume", t_new)
     bundle_counts = phase_bundle(torch, bench, failures)
-    _phase_s("bundle", t_new)
+    t_new = _phase_s("bundle", t_new)
+    batch64_counts = phase_batched_64(torch, dev, failures)
+    t_new = _phase_s("batched_64", t_new)
+    batch256_counts, batch_kern = phase_batched_256(torch, bench, failures)
+    kern.update(batch_kern)
+    t_new = _phase_s("batched_256", t_new)
+    solver_counts = phase_solvers(torch, dev, failures)
+    t_new = _phase_s("solvers", t_new)
+    large_counts = phase_solvers_large(torch, dev, bench, failures)
+    _phase_s("solvers_large", t_new)
     del bench
     torch.cuda.empty_cache()
     runs = (main_counts, rec_counts, mesh_counts, mesh_fan_counts,
             *fan_counts.values(), *p512_counts.values(), *sm_counts.values(),
             stage_counts, flagship_counts, *inner_counts, *dense_counts,
-            *strategy_counts, *s256_counts, *resume_counts, *bundle_counts)
+            *strategy_counts, *s256_counts, *resume_counts, *bundle_counts,
+            *batch64_counts, *batch256_counts, *solver_counts,
+            *large_counts)
     launches = {name: sum(c[name] for c in runs) for name in REPLACES}
     failures += [f"kernel {name} launched in none of the runs"
                  for name, n in launches.items() if n == 0]
@@ -2831,6 +3299,7 @@ def main() -> int:
          "max_abs_err": max(kern[k]["max_abs_err"] for k in (
              name, f"fan_{name}", f"rows_{name}", f"fan_rows_{name}",
              f"block_{name}", f"p512_{name}", f"p256_{name}",
+             f"batched_{name}",
              *(f"{g}_{name}" for g in STRATEGIES_256)) if k in kern),
          **{k: kern[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}}

@@ -17,6 +17,12 @@ device sync per outer iteration (the stop flag), besides the node solver's
 one per acceptance check. The edge consensus is the fused kernel K5
 (``ops/kernels/consensus.py``) or its plain torch version.
 
+:func:`run_admm_batched` solves one operator and graph against a batch of
+B sinogram sets at once (the JAX package's ``vmap`` of the whole run): the
+B x P node problems run as one grouped node solve, the edge state carries a
+leading batch axis through K5, and each scenario stops on its own residuals
+and is frozen from then on.
+
 The iteration body is written against ``CommOps``, as in the JAX package:
 one implementation serves the single device (``LOCAL_COMM``, all
 identities) and the node x pixel mesh of ``parallel/admm_sharded.py``,
@@ -179,39 +185,38 @@ def _rho_factor(cfg: AdmmConfig, k: int, pri_norm, dual_norm, hist: dict):
                     1.0))
 
 
-def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
-                   hist: dict, comm: CommOps = LOCAL_COMM) -> AdmmState:
-    """One outer consensus iteration over this shard's node block; writes
-    row ``state.k`` of ``hist`` in place and returns the next state. The
-    edge state may carry only this shard's pixel block; ``comm`` bridges it
-    to the node solves, which see full images."""
-    P_loc, P, _ = data.Q.shape
-    k = state.k
-    X, Z, Y = state.node.x, state.Z, state.Y
-    dtype = X.dtype
-    # The effective rho: the config's, or under adapt_rho its multiple by
-    # the carried scale (a 0-d tensor; the off path adds no op).
-    rho = cfg.rho * state.rho_scale if cfg.adapt_rho else cfg.rho
+def _neighbour_terms(Q: torch.Tensor, Z: torch.Tensor, Y: torch.Tensor,
+                     comm: CommOps) -> tuple[torch.Tensor, ...]:
+    """The consensus terms of the node subproblems, a row per node problem:
+    D = sum_j Q_ij, b_cons = sum_j Q_ij v_ij and c = sum_{j,p} Q_ij v_ij^2
+    with v_ij = z_ij - y_ij,i. Z and Y may carry a leading batch axis
+    (rows b-major; D is every scenario's)."""
+    V = Z - Y
+    D_vec = comm.gather_pixels(torch.sum(Q, dim=1))
+    if V.dim() == 4:
+        D_vec = D_vec.repeat(V.shape[0], 1)
+    QV = Q * V
+    b_cons = comm.gather_pixels(torch.sum(QV, dim=-2).flatten(0, -2))
+    c_quad = comm.psum_pixel(torch.sum(QV * V, dim=(-2, -1)).flatten())
+    return D_vec, b_cons, c_quad
 
-    # --- neighbour terms of the node subproblems ---
-    V = Z - Y  # v_ij = z_ij - y_ij,i
-    D_vec = comm.gather_pixels(torch.sum(data.Q, dim=1))
-    QV = data.Q * V
-    b_cons = comm.gather_pixels(torch.sum(QV, dim=1))
-    c_quad = comm.psum_pixel(torch.sum(QV * V, dim=(1, 2)))
 
-    # --- inexact node solve with the adaptive target ---
-    decay = torch.tensor(k + 1.0, dtype=dtype, device=X.device) ** (
+def _solve_setup(cfg: AdmmConfig, data: NodeBlockData, nstate: NodeState,
+                 k: int, rho, D_vec: torch.Tensor):
+    """The node solve's start, target and step bounds at outer ``k``:
+    (start state, eps_k, L, fcv preconditioner). ``rho`` is a float, a
+    0-d tensor under adapt_rho, or per node problem."""
+    x = nstate.x
+    decay = torch.tensor(k + 1.0, dtype=x.dtype, device=x.device) ** (
         1.0 + cfg.node.gamma_decay
     )
     eps_k = cfg.node.eps0 / decay
     if cfg.node.eps_rel > 0:
         eps_k = torch.maximum(eps_k, cfg.node.eps_rel * data.g_scale / decay)
-    nstate = state.node
     if not cfg.node.warm_start:
         nstate = node_solver.init_state(
-            P_loc, data.N, data.b.shape[1], X.device, dtype
-        )._replace(x=state.node.x)
+            x.shape[0], data.N, data.b.shape[1], x.device, x.dtype
+        )._replace(x=x)
     L, fprecond = data.L, data.fprecond
     if cfg.adapt_rho:
         # Under a drifted rho the Lipschitz bound gains (rho_k - rho0)
@@ -226,6 +231,101 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
                 cfg.rho / rho, max=1.0).to(fprecond.step.dtype))
             nstate = nstate._replace(tk=torch.full_like(nstate.tk,
                                                         float("inf")))
+    return nstate, eps_k, L, fprecond
+
+
+def _proposal(cfg: AdmmConfig, Xe: torch.Tensor, Z: torch.Tensor,
+              Y: torch.Tensor) -> torch.Tensor:
+    """a_i = x^_ij + y_ij,i with the over-relaxed x^_ij = alpha x_i +
+    (1 - alpha) z_ij, which replaces x_i in the z/y updates and residuals
+    (x^ - z = a - y - z); ``Xe`` is x_i with a unit j axis."""
+    if cfg.relax_alpha != 1.0:
+        return cfg.relax_alpha * Xe + (1.0 - cfg.relax_alpha) * Z + Y
+    return Xe + Y
+
+
+def _consensus_op(cfg: AdmmConfig, dev: torch.device, P: int) -> Callable:
+    """K5 or its plain version: ``use_pallas``, or by the auto rule the
+    fused kernel on a card at >= 8 nodes."""
+    use_pallas = cfg.use_pallas
+    if use_pallas is None:
+        use_pallas = dev.type == "cuda" and P >= 8
+    return (consensus.consensus_update if use_pallas
+            else consensus.consensus_update_ref)
+
+
+def _history_row(res: node_solver.NodeSolveResult, mse_sino: torch.Tensor,
+                 img_mse: torch.Tensor, pri_pair: torch.Tensor,
+                 dz2_pair: torch.Tensor, eps_k, rho, comm: CommOps):
+    """The residuals (eqs. 4-5) and this outer's history row: (primal
+    norm, dual norm, {field: value}). The per-node arrays are [P_loc], or
+    [B, P] with a batch, and every total is over the last axis; ``rho`` is
+    a float, a 0-d tensor, or per scenario [B]."""
+    shape = mse_sino.shape
+    dtype, dev = mse_sino.dtype, mse_sino.device
+    rho_c = rho[..., None] if isinstance(rho, torch.Tensor) else rho
+    pri_part = torch.sum(pri_pair, dim=-1)  # pixel-partial
+    dz2_part = torch.sum(dz2_pair, dim=-1)
+    pri_norm = torch.sqrt(comm.psum(torch.sum(pri_part, dim=-1)))
+    dual_norm = torch.sqrt(
+        0.5 * rho**2 * comm.psum(torch.sum(dz2_part, dim=-1)))
+    eps_node = torch.atleast_1d(eps_k).to(dtype).expand(
+        mse_sino.numel()).reshape(shape)
+    obj = res.objective.reshape(shape)
+    return pri_norm, dual_norm, {
+        "primal": pri_norm,
+        "dual": dual_norm,
+        "pri_per_node": torch.sqrt(comm.psum_pixel(pri_part)),
+        "dual_per_node": torch.sqrt(rho_c**2 * comm.psum_pixel(dz2_part)),
+        "obj_per_node": obj,
+        "obj_total": comm.psum_repl(torch.sum(obj, dim=-1)),
+        "mse_sino_per_node": mse_sino,
+        "mse_sino_total": comm.psum_repl(torch.sum(mse_sino, dim=-1)),
+        "img_mse_per_node": img_mse,
+        "img_mse_total": comm.psum_repl(torch.sum(img_mse, dim=-1)),
+        "g_norm": res.g_norm.reshape(shape),
+        "eps_target": comm.pmax_repl(torch.amax(eps_node, dim=-1)),
+        "eps_per_node": eps_node,
+        "inner_iters": res.inner_iters.reshape(shape).to(dtype),
+        "accept_code": res.accept_code.reshape(shape).to(dtype),
+        "rho": torch.as_tensor(rho, dtype=dtype, device=dev).expand(
+            shape[:-1]),
+    }
+
+
+def _adapt_rho(cfg: AdmmConfig, k: int, pri_norm, dual_norm, hist: dict,
+               rho_scale: torch.Tensor, Yn: torch.Tensor):
+    """rho adaptation after this outer's residuals (row k of ``hist``
+    written): (new rho_scale, Yn), the scaled duals absorbing the inverse
+    factor (y = lambda / rho). On a mesh the residuals are all-reduced, so
+    every shard takes the same factor."""
+    if cfg.adapt_rho:
+        factor = _rho_factor(cfg, k, pri_norm, dual_norm, hist)
+        if factor is not None:
+            new_scale = torch.clamp(rho_scale * factor.to(rho_scale.dtype),
+                                    1.0 / cfg.rho_clamp, cfg.rho_clamp)
+            Yn = Yn * (rho_scale / new_scale)[..., None, None, None]
+            rho_scale = new_scale
+    return rho_scale, Yn
+
+
+def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
+                   hist: dict, comm: CommOps = LOCAL_COMM) -> AdmmState:
+    """One outer consensus iteration over this shard's node block; writes
+    row ``state.k`` of ``hist`` in place and returns the next state. The
+    edge state may carry only this shard's pixel block; ``comm`` bridges it
+    to the node solves, which see full images."""
+    P = data.Q.shape[1]
+    k = state.k
+    X, Z, Y = state.node.x, state.Z, state.Y
+    # The effective rho: the config's, or under adapt_rho its multiple by
+    # the carried scale (a 0-d tensor; the off path adds no op).
+    rho = cfg.rho * state.rho_scale if cfg.adapt_rho else cfg.rho
+
+    # --- inexact node solve (eq. 1) with the adaptive target ---
+    D_vec, b_cons, c_quad = _neighbour_terms(data.Q, Z, Y, comm)
+    nstate, eps_k, L, fprecond = _solve_setup(cfg, data, state.node, k, rho,
+                                              D_vec)
     res = node_solver.solve_nodes(
         data.fwd, data.adj, data.b, D_vec, b_cons, c_quad,
         cfg.lam_tv, rho, L, nstate, eps_k, cfg.node, data.N,
@@ -240,20 +340,9 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
     img_mse = torch.sum(err * err, dim=1)
 
     # --- edge fusion (eq. 2), dual update (eq. 3), residuals (eqs. 4-5) ---
-    # Over-relaxation: x^_ij = alpha x_i + (1 - alpha) z_ij replaces x_i in
-    # the z/y updates and residuals (x^ - z = a - y - z). a_i = x^_ij + y_ij,i
-    # laid out [i_loc, j, n_loc].
-    Xn_e = comm.my_pixels(Xn)  # this shard's pixel block of the new iterate
-    if cfg.relax_alpha != 1.0:
-        Xh = cfg.relax_alpha * Xn_e[:, None, :] + (1.0 - cfg.relax_alpha) * Z
-        A_prop = Xh + Y
-    else:
-        A_prop = Xn_e[:, None, :] + Y
-    use_pallas = cfg.use_pallas
-    if use_pallas is None:  # auto: the fused kernel on a card at >= 8 nodes
-        use_pallas = X.device.type == "cuda" and P >= 8
-    update = (consensus.consensus_update if use_pallas
-              else consensus.consensus_update_ref)
+    # a_i laid out [i_loc, j, n_loc] over this shard's pixel block.
+    A_prop = _proposal(cfg, comm.my_pixels(Xn)[:, None, :], Z, Y)
+    update = _consensus_op(cfg, X.device, P)
     if comm.pair_transpose is None:  # every pair is local
         Zn, Yn, pri_pair, dz2_pair = update(A_prop, Y, Z, data.adjm, data.W,
                                             cfg.z_fusion)
@@ -263,48 +352,14 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
             a_t=comm.pair_transpose(A_prop),
             w_own=comm.my_pixels(data.W).contiguous(),
             w_all=comm.my_pixels(data.W_all).contiguous())
-    pri_part = torch.sum(pri_pair, dim=1)  # [P_loc], pixel-partial
-    dz2_part = torch.sum(dz2_pair, dim=1)
-    r2 = comm.psum(torch.sum(pri_part))
-    s2 = 0.5 * rho**2 * comm.psum(torch.sum(dz2_part))
-    pri_norm = torch.sqrt(r2)
-    dual_norm = torch.sqrt(s2)
-
-    eps_vec = torch.atleast_1d(eps_k).to(dtype)
-    updates = {
-        "primal": pri_norm,
-        "dual": dual_norm,
-        "pri_per_node": torch.sqrt(comm.psum_pixel(pri_part)),
-        "dual_per_node": torch.sqrt(rho**2 * comm.psum_pixel(dz2_part)),
-        "obj_per_node": res.objective,
-        "obj_total": comm.psum_repl(torch.sum(res.objective)),
-        "mse_sino_per_node": mse_sino,
-        "mse_sino_total": comm.psum_repl(torch.sum(mse_sino)),
-        "img_mse_per_node": img_mse,
-        "img_mse_total": comm.psum_repl(torch.sum(img_mse)),
-        "g_norm": res.g_norm,
-        "eps_target": comm.pmax_repl(torch.max(eps_vec)),
-        "eps_per_node": eps_vec.expand(P_loc),
-        "inner_iters": res.inner_iters.to(dtype),
-        "accept_code": res.accept_code.to(dtype),
-        "rho": torch.as_tensor(rho, dtype=dtype, device=X.device),
-    }
+    pri_norm, dual_norm, updates = _history_row(
+        res, mse_sino, img_mse, pri_pair, dz2_pair, eps_k, rho, comm)
     for name, arr in hist.items():
         arr[k] = updates[name].to(arr.dtype)
 
     stop = bool((pri_norm < cfg.eps_pri) & (dual_norm < cfg.eps_dual))
-
-    # --- rho adaptation, after this outer's residuals: the scaled duals
-    # absorb the inverse factor (y = lambda / rho). The residuals are
-    # all-reduced, so every shard takes the same factor.
-    rho_scale = state.rho_scale
-    if cfg.adapt_rho:
-        factor = _rho_factor(cfg, k, pri_norm, dual_norm, hist)
-        if factor is not None:
-            new_scale = torch.clamp(rho_scale * factor.to(rho_scale.dtype),
-                                    1.0 / cfg.rho_clamp, cfg.rho_clamp)
-            Yn = Yn * (rho_scale / new_scale)
-            rho_scale = new_scale
+    rho_scale, Yn = _adapt_rho(cfg, k, pri_norm, dual_norm, hist,
+                               state.rho_scale, Yn)
     return AdmmState(node=res.state, Z=Zn, Y=Yn, k=k + 1, stop=stop,
                      rho_scale=rho_scale)
 
@@ -440,3 +495,158 @@ def run_admm_snapshots(
     if snapshot_dir is not None:
         artifacts.flush_async()
     return res
+
+
+def _tile_precond(fp: node_solver.FourierPrecond | None,
+                  B: int) -> node_solver.FourierPrecond | None:
+    """fcv's preconditioner of the P nodes, repeated for a b-major batch of
+    B x P node problems (the operator, D and rho are the scenarios')."""
+    if fp is None:
+        return None
+    return node_solver.FourierPrecond(m_hat=fp.m_hat.repeat(B, 1, 1),
+                                      step=fp.step.repeat(B),
+                                      sigma=fp.sigma.repeat(B))
+
+
+def _batched_iteration(data: NodeBlockData, cfg: AdmmConfig,
+                       state: AdmmState, hist: dict, running: torch.Tensor,
+                       all_running: bool) -> AdmmState:
+    """One outer iteration of every scenario of a batch (see
+    :func:`run_admm_batched`): ``admm_iteration``'s equations with the
+    node axis of the node solves B x P long, b-major, the edge state
+    [B, P, P, n] and every total and residual per scenario. Writes row
+    ``state.k`` of the scenarios in ``running`` [B] (the time-major
+    ``hist`` [T, B, ...]); their new state is returned, the others' as it
+    was. ``all_running`` is the host's copy of ``running.all()``."""
+    P, _, n = data.Q.shape
+    B = running.shape[0]
+    k = state.k
+    Z, Y = state.Z, state.Y
+    # rho per scenario ([B], and per node problem [B * P]) under adapt_rho.
+    if cfg.adapt_rho:
+        rho_b = cfg.rho * state.rho_scale
+        rho = rho_b.repeat_interleave(P)
+    else:
+        rho_b = rho = cfg.rho
+
+    D_vec, b_cons, c_quad = _neighbour_terms(data.Q, Z, Y, LOCAL_COMM)
+    nstate, eps_k, L, fprecond = _solve_setup(cfg, data, state.node, k, rho,
+                                              D_vec)
+    res = node_solver.solve_nodes(
+        data.fwd, data.adj, data.b, D_vec, b_cons, c_quad, cfg.lam_tv, rho,
+        L, nstate, eps_k, cfg.node, data.N, fprecond=fprecond, groups=B,
+        group_active=None if all_running else running,
+    )
+    Xn = res.state.x
+
+    r_meas = data.fwd(Xn) - data.b
+    mse_sino = torch.sum(r_meas * r_meas, dim=1).reshape(B, P)
+    err = Xn.reshape(B, P, n) - data.x_true[:, None, :]
+    img_mse = torch.sum(err * err, dim=2)
+
+    A_prop = _proposal(cfg, Xn.reshape(B, P, 1, n), Z, Y)
+    update = _consensus_op(cfg, Xn.device, P)
+    Zn, Yn, pri_pair, dz2_pair = update(A_prop, Y, Z, data.adjm, data.W,
+                                        cfg.z_fusion)
+    pri_norm, dual_norm, updates = _history_row(
+        res, mse_sino, img_mse, pri_pair, dz2_pair, eps_k, rho_b, LOCAL_COMM)
+    for name, arr in hist.items():
+        new = updates[name].to(arr.dtype)
+        arr[k] = torch.where(running.reshape((B,) + (1,) * (new.dim() - 1)),
+                             new, arr[k])
+
+    stop = (pri_norm < cfg.eps_pri) & (dual_norm < cfg.eps_dual)
+    rho_scale, Yn = _adapt_rho(cfg, k, pri_norm, dual_norm, hist,
+                               state.rho_scale, Yn)
+    new = AdmmState(node=res.state, Z=Zn, Y=Yn, k=k + 1,
+                    stop=state.stop | (running & stop), rho_scale=rho_scale)
+    if all_running:  # nothing to freeze
+        return new
+    # A stopped scenario keeps its state, as under JAX's vmap.
+    def keep(a, b, per_node=False):
+        m = running.repeat_interleave(P) if per_node else running
+        return torch.where(m.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    node = NodeState(*(keep(a, b, True)
+                       for a, b in zip(new.node, state.node)))
+    return new._replace(node=node, Z=keep(new.Z, Z), Y=keep(new.Y, Y),
+                        rho_scale=keep(new.rho_scale, state.rho_scale))
+
+
+def run_admm_batched(
+    problem: Problem,
+    b_batch: torch.Tensor,
+    x_true_batch: torch.Tensor | None = None,
+    cfg: AdmmConfig | None = None,
+    lanczos_v0: torch.Tensor | None = None,
+) -> AdmmResult:
+    """Scenario batching: one operator and graph against a batch of
+    sinogram sets, the JAX package's ``run_admm_batched`` (its ``vmap`` of
+    the whole run; BASELINE config 4).
+
+    b_batch: [B, P, m]; x_true_batch: [B, n] (default: the problem's
+    phantom for every scenario). Each scenario runs as
+    :func:`run_admm` would run it alone: it stops on its own residuals,
+    and is frozen from then on (its later history rows stay NaN) while the
+    others go on; the loop ends when every scenario has stopped or at
+    ``max_iters``. The scenarios' node problems run as one grouped node
+    solve of B x P nodes (b-major) and their edge states as one [B, P, P,
+    n] consensus update (K5 under ``use_pallas``, by the auto rule on a
+    card at >= 8 nodes). The fcv preconditioner and the Lipschitz bounds
+    are built once: they depend on the operator, D and rho alone.
+
+    Returns an ``AdmmResult`` with a leading batch axis on every array:
+    x [B, P, n], each history field [B, T, ...], n_iters [B] and the
+    state (node fields [B, P, ...], Z and Y [B, P, P, n], k [B], stop [B],
+    rho_scale [B]). ``lanczos_v0`` is :func:`run_admm`'s."""
+    cfg = cfg if cfg is not None else problem.cfg.admm
+    check_config(cfg)
+    dev, dtype = problem.device, problem.b.dtype
+    P, n, N = problem.num_nodes, problem.n, problem.N
+    b_batch = torch.as_tensor(b_batch, dtype=dtype, device=dev)
+    B, m = b_batch.shape[0], b_batch.shape[-1]
+    if tuple(b_batch.shape) != (B, P, problem.m_flat):
+        raise ValueError(f"b_batch has shape {tuple(b_batch.shape)}, "
+                         f"expected [B, {P}, {problem.m_flat}]")
+    if x_true_batch is None:
+        x_true_batch = problem.x_true.expand(B, n)
+    x_true_batch = torch.as_tensor(x_true_batch, dtype=dtype, device=dev)
+    b_flat = b_batch.reshape(B * P, m)
+
+    base = block_data(problem, cfg, lanczos_v0)
+    g_scale = None
+    if cfg.node.eps_rel > 0:  # ||A_i^T b_i|| of each scenario's data
+        g_scale = torch.linalg.norm(problem.adjoint(b_flat), dim=1)
+    data = base._replace(b=b_flat, L=base.L.repeat(B), x_true=x_true_batch,
+                         g_scale=g_scale,
+                         fprecond=_tile_precond(base.fprecond, B))
+
+    state = AdmmState(
+        node=node_solver.init_state(B * P, N, m, dev, dtype),
+        Z=torch.zeros((B, P, P, n), dtype=dtype, device=dev),
+        Y=torch.zeros((B, P, P, n), dtype=dtype, device=dev),
+        k=0,
+        stop=torch.zeros((B,), dtype=torch.bool, device=dev),
+        rho_scale=torch.ones((B,), dtype=dtype, device=dev),
+    )
+    hist = {name: torch.full((cfg.max_iters, B, P) if per_node
+                             else (cfg.max_iters, B), float("nan"),
+                             dtype=dtype, device=dev)
+            for name, per_node in HISTORY_FIELDS}
+    n_iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+    running = torch.ones((B,), dtype=torch.bool, device=dev)
+    go, all_running = cfg.max_iters > 0, True
+    while go:
+        state = _batched_iteration(data, cfg, state, hist, running,
+                                   all_running)
+        n_iters = torch.where(running, state.k, n_iters)
+        running = ~state.stop
+        run_host = running.cpu()  # the one host sync of an outer
+        go = state.k < cfg.max_iters and bool(run_host.any())
+        all_running = bool(run_host.all())
+    node = NodeState(*(v.reshape((B, P) + tuple(v.shape[1:]))
+                       for v in state.node))
+    state = state._replace(node=node, k=n_iters)
+    return AdmmResult(x=node.x, history={k: v.transpose(0, 1)
+                                         for k, v in hist.items()},
+                      n_iters=n_iters, state=state)

@@ -23,12 +23,20 @@ is checked against the target eps_k; the loop stops when every node meets
 it, when no node improved by ``plateau_tol`` since the last check, or at
 ``max_inner``. Loop control runs on the host: one device sync per check.
 Nodes that meet the target keep iterating until all finish.
+
+``groups=B`` solves B independent problems of P nodes each, laid out
+b-major on the node axis (node b*P + p): the JAX package's ``vmap`` of the
+solve over scenarios. Each group makes its own stop decision (its target,
+plateau and divergence tests reduce over its own nodes) and a group whose
+loop has ended is frozen, state, residuals and inner count, while the
+others step on; still one device sync per check.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from dip_admm_tpu_torch.config import NodeSolverConfig
@@ -69,7 +77,9 @@ class NodeSolveResult(NamedTuple):
     # [P] iterations to first acceptance (check_every granularity); nodes
     # that never met the target record the full trip count.
     inner_iters: torch.Tensor
-    trip_count: int  # iterations the batched solve executed
+    # iterations the batched solve executed: an int, or with groups > 1 a
+    # [B] tensor, each group's own
+    trip_count: int | torch.Tensor
     # [P] 0 = accepted at eps_k, 1 = plateau exit before the budget,
     # 2 = ran the full inner budget without meeting the target.
     accept_code: torch.Tensor
@@ -199,8 +209,8 @@ def solve_nodes(
     D_vec: torch.Tensor,  # [P, n] = sum_j Q_ij (masked)
     b_cons: torch.Tensor,  # [P, n] = sum_j Q_ij v_ij
     c_quad: torch.Tensor,  # [P] = sum_{j,p} Q_ij v_ij^2 (objective constant)
-    lam_tv: float,
-    rho: float | torch.Tensor,  # a 0-d tensor under adapt_rho
+    lam_tv: float | torch.Tensor,  # a scalar or per node [P]
+    rho: float | torch.Tensor,  # a 0-d tensor under adapt_rho, or per node
     L: torch.Tensor,  # [P] Lipschitz bounds ||A^T A|| + rho*max(D)
     state: NodeState,
     eps_k: torch.Tensor,  # scalar or [P] adaptive stationarity target
@@ -208,27 +218,43 @@ def solve_nodes(
     N: int,
     fprecond: FourierPrecond | None = None,  # required for algorithm="fcv"
     any_reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    groups: int = 1,
+    group_active: torch.Tensor | None = None,
 ) -> NodeSolveResult:
-    """Batched inexact node solves. ``any_reduce`` ORs the continue flag
+    """Batched inexact node solves. ``any_reduce`` ORs the continue flags
     (and the final residual's recompute flag) across the shards of a mesh,
     so every shard runs the same inner trip count and the same collectives;
-    it is applied where the host syncs on the flag anyway."""
+    it is applied where the host syncs on the flag anyway.
+
+    ``groups`` splits the P nodes into that many independent problems
+    (see the module docstring); ``rho`` may then be a per-node [P] tensor.
+    ``group_active`` [groups] bool leaves the groups that are False
+    untouched from the start (the frozen scenarios of a batched run,
+    whose results the caller discards)."""
     if cfg.algorithm not in ALGORITHMS:
         raise ValueError(f"unknown inner algorithm {cfg.algorithm!r}")
     P, n = D_vec.shape
+    if P % groups:
+        raise ValueError(f"{P} nodes do not split into {groups} groups")
     dtype = state.x.dtype
     dev = state.x.device
-    lam = float(lam_tv)
     Ksq = tv.GRAD_OPNORM_SQ
     if any_reduce is None:
         any_reduce = lambda v: v  # noqa: E731
+    # Per-node lam_tv and rho enter as columns (and lam as [P, 1, 1] for
+    # the TV duals); scalars stay Python floats or 0-d tensors.
+    per_node = lambda v: isinstance(v, torch.Tensor) and v.dim() > 0  # noqa: E731
+    lam = lam_tv if per_node(lam_tv) else float(lam_tv)
+    lam_c = lam[:, None] if per_node(lam) else lam
+    lam_im = lam[:, None, None] if per_node(lam) else lam
+    rho_c = rho[:, None] if per_node(rho) else rho
 
     def grad_f(x):
-        return adj(fwd(x) - b) + rho * (D_vec * x - b_cons)
+        return adj(fwd(x) - b) + rho_c * (D_vec * x - b_cons)
 
     def g_residual(x):
         sub = tv.tv_subgradient(x.reshape(P, N, N)).reshape(P, -1)
-        return grad_f(x) + lam * sub
+        return grad_f(x) + lam_c * sub
 
     def cv_step(metric, sig_im):
         """A Condat-Vu step whose primal step is ``metric(d, st)``."""
@@ -237,7 +263,7 @@ def solve_nodes(
             x_new = st.x - metric(grad_f(st.x) + ktu, st)
             gx, gy = tv.grad((2.0 * x_new - st.x).reshape(P, N, N))
             ux, uy = tv.project_l2_ball(st.ux + sig_im * gx,
-                                        st.uy + sig_im * gy, lam)
+                                        st.uy + sig_im * gy, lam_im)
             return st._replace(x=x_new, ux=ux, uy=uy)
         return step
 
@@ -269,13 +295,14 @@ def solve_nodes(
             x = torch.where(bad[:, None], st.xp, st.x)
             st = st._replace(tk=torch.where(bad, st.tk * 0.5, st.tk), x=x,
                              xp=x)
-            return st, torch.where(bad, g_prev, g_norm), torch.any(bad)
+            return (st, torch.where(bad, g_prev, g_norm),
+                    bad.reshape(groups, -1).any(dim=1))
     elif cfg.algorithm == "pcv":
         # Per-pixel steps from the Gershgorin row sums of A^T A + rho D,
         # A^T(A 1) for a nonnegative operator (a Jacobi preconditioner);
         # T_p (L_p/2 + sigma_p ||K||^2) <= 1 holds pixel by pixel.
         L_row = adj(fwd(torch.ones((P, n), dtype=dtype, device=dev)))
-        L_row = torch.clamp(L_row + rho * D_vec, min=1e-6)
+        L_row = torch.clamp(L_row + rho_c * D_vec, min=1e-6)
         sigma_p = (cfg.sigma_scale * L_row / (2.0 * Ksq)).to(dtype)
         T = (0.99 / (L_row / 2.0 + sigma_p * Ksq)).to(dtype)
         step = cv_step(lambda d, st: T * d, sigma_p.reshape(P, N, N))
@@ -289,8 +316,8 @@ def solve_nodes(
         sig_a = 1.0 / torch.clamp(rowsum, min=1e-6)
         # TV rows have two unit entries (sigma = 1/2), TV columns <= 4.
         T = (1.0 / (torch.clamp(colsum, min=0.0) + 4.0)).to(dtype)
-        rden = 1.0 + T * rho * D_vec
-        rnum = T * rho * b_cons
+        rden = 1.0 + T * rho_c * D_vec
+        rnum = T * rho_c * b_cons
 
         def step(st):
             kty = adj(st.ua) + tv.grad_adjoint(st.ux, st.uy).reshape(P, -1)
@@ -300,7 +327,7 @@ def solve_nodes(
             ua = (v - sig_a * b) / (1.0 + sig_a)  # prox of 0.5||.-b||^2's dual
             gx, gy = tv.grad(xb.reshape(P, N, N))
             ux, uy = tv.project_l2_ball(st.ux + 0.5 * gx, st.uy + 0.5 * gy,
-                                        lam)
+                                        lam_im)
             return st._replace(x=x_new, ux=ux, uy=uy, ua=ua)
     else:  # fista
         # Accelerated proximal gradient: a gradient step at the momentum
@@ -327,14 +354,27 @@ def solve_nodes(
             t_new = torch.where(restart, torch.ones_like(t_new), t_new)
             return st._replace(x=x_new, ux=ux, uy=uy, xp=st.x, tk=t_new)
 
-    k = 0
+    B = groups
+    ce = cfg.check_every
     g_prev = torch.full((P,), float("inf"), dtype=dtype, device=dev)
     g_norm = g_prev
     g_min = g_prev
     acc = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    active = True
-    while k < cfg.max_inner and active:
-        for _ in range(cfg.check_every):
+    # The groups still stepping, kept on the host, where the one sync of
+    # each check brings their stop flags. Every group still stepping has
+    # run every check so far, so they share the count k; a group's own
+    # count (k_grp) stops where it froze.
+    run = (np.ones(B, dtype=bool) if group_active is None
+           else group_active.cpu().numpy().astype(bool))
+    k_grp = np.zeros(B, dtype=np.int64)
+    k = 0
+    while k < cfg.max_inner and run.any():
+        # A group whose loop has ended keeps its state, residuals and
+        # acceptance exactly (the select JAX's vmap of the while_loop
+        # makes); while every group steps, nothing is selected.
+        frozen = not run.all()
+        st0, g0, gmin0, acc0 = st, g_prev, g_min, acc
+        for _ in range(ce):
             st = step(st)
         g_norm = torch.linalg.norm(g_residual(st.x), dim=1)
         adjusted = False
@@ -342,20 +382,30 @@ def solve_nodes(
             st, g_norm, adjusted = post_check(st, g_norm, g_prev, g_min)
         g_min = torch.minimum(
             g_min, torch.where(torch.isfinite(g_norm), g_norm, float("inf")))
-        acc = torch.where((acc < 0) & (g_norm <= eps_k),
-                          k + cfg.check_every, acc).to(torch.int32)
-        unmet = torch.any(g_norm > eps_k)
+        acc = torch.where((acc < 0) & (g_norm <= eps_k), k + ce,
+                          acc).to(torch.int32)
+        unmet = (g_norm > eps_k).reshape(B, -1).any(dim=1)
         if cfg.plateau_tol > 0:
-            improving = torch.any(torch.where(
+            improving = torch.where(
                 torch.isinf(g_prev), True,
                 (g_prev - g_norm) > cfg.plateau_tol * torch.abs(g_prev),
-            ))
+            ).reshape(B, -1).any(dim=1)
             # A step adjustment is progress, though the rolled-back
             # residual shows none.
             unmet = unmet & (improving | adjusted)
-        active = bool(any_reduce(unmet))  # the one host sync per check
+        if frozen:
+            keep = torch.as_tensor(np.repeat(run, P // B), device=dev)
+            st = NodeState(*(torch.where(
+                keep.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+                for new, old in zip(st, st0)))
+            g_norm = torch.where(keep, g_norm, g0)
+            g_min = torch.where(keep, g_min, gmin0)
+            acc = torch.where(keep, acc, acc0)
+        k += ce
+        k_grp[run] = k
+        # the one host sync per check
+        run = run & any_reduce(unmet).cpu().numpy()
         g_prev = g_norm
-        k += cfg.check_every
     x = st.x
     # A residual still at inf (the loop never ran, or every check rolled a
     # node back from its first one) is recomputed, as the JAX solver does.
@@ -363,7 +413,10 @@ def solve_nodes(
         g_norm = torch.where(torch.isinf(g_norm),
                              torch.linalg.norm(g_residual(x), dim=1), g_norm)
 
-    inner_per_node = torch.where(acc >= 0, acc, k)
+    # Each node's group's count: k while no group stopped early.
+    k_node = (k if (k_grp == k).all() else torch.as_tensor(
+        np.repeat(k_grp, P // B), dtype=torch.int32, device=dev))
+    inner_per_node = torch.where(acc >= 0, acc, k_node)
     r = fwd(x) - b
     data_term = 0.5 * torch.sum(r * r, dim=1)
     tv_term = lam * tv.tv_value(x.reshape(P, N, N))
@@ -372,7 +425,8 @@ def solve_nodes(
         + c_quad
     )
     accept_code = torch.where(
-        acc >= 0, 0, 1 if k < cfg.max_inner else 2
+        acc >= 0, 0, 1 + (k_node >= cfg.max_inner)
     ).to(torch.int32)
+    trip = k if B == 1 else torch.as_tensor(k_grp)
     return NodeSolveResult(st, g_norm, data_term + tv_term + quad,
-                           inner_per_node, k, accept_code)
+                           inner_per_node, trip, accept_code)

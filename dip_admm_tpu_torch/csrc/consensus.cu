@@ -2,7 +2,8 @@
 // kernel consensus_update of dip_admm_tpu/ops/pallas/consensus.py (both
 // bodies, _kernel_midpoint and _kernel_weighted), written again for CUDA.
 //
-//   K5 dip_consensus         <- consensus_update, single device
+//   K5 dip_consensus         <- consensus_update, single device, over a
+//                               leading batch of B independent edge states
 //   K5 dip_consensus_sharded <- consensus_update with its caller's a_t
 //
 // For every edge slot (i, j) and pixel p, with a the proposals x^ + y:
@@ -54,6 +55,13 @@
 //   their partials to a scratch; an atomic count per pair lets the pair's
 //   last block add them in tile order), was slower on the card at the
 //   main-path shapes (PERF.md, section 6, PR 14).
+// - Batch (scenario batching): a, y, z [B, P, P, n] against one graph and
+//   one set of weights. Batch b is grid row blockIdx.z, its pointers
+//   offset by b P P n (the partials by b P P); every lane computes what a
+//   call on that lane alone computes, bit for bit. The offsets are a
+//   template case of their own (BATCHED, B > 1), so that B = 1 runs the
+//   unbatched kernel's code: with them in every kernel the weighted form
+//   took 6% longer at B = 1 (PERF.md, section 6).
 // - C = 8, the portable cluster size (16 and 4 were slower, and other
 //   block sizes no faster: PERF.md, section 6, PR 14). 256-thread
 //   blocks with 256 bytes of shared memory; at 256^2/8 36 clusters (288 blocks) and in a 2 x 2 mesh
@@ -195,12 +203,23 @@ __device__ __forceinline__ void stream_vec(const Args& g, long rij, long rji,
   }
 }
 
-// grid (C, pairs), clusters of C blocks along x: cluster y is unordered
+// grid (C, pairs, B), clusters of C blocks along x: cluster y is unordered
 // pair y (single device; i <= j in row-major order) or ordered pair y
 // (sharded); block rank r streams pixels [r * chunk, (r + 1) * chunk).
-template <bool WEIGHTED, bool SHARDED, bool VEC>
+template <bool WEIGHTED, bool SHARDED, bool VEC, bool BATCHED>
 __global__ void __launch_bounds__(NT) consensus(Args g) {
   const int P = g.P, n = g.n;
+  if (BATCHED) {  // batch lane blockIdx.z
+    const long lane = blockIdx.z;
+    const long so = lane * P * P * n;
+    g.a += so;
+    g.y += so;
+    g.z += so;
+    g.zn += so;
+    g.yn += so;
+    g.pri += lane * P * P;
+    g.dz2 += lane * P * P;
+  }
   int i, j;
   if (SHARDED) {
     i = blockIdx.y / P;
@@ -276,12 +295,13 @@ __global__ void __launch_bounds__(NT) consensus(Args g) {
   }
 }
 
-// The launch configuration of a grid of clusters of C blocks along x.
+// The launch configuration of a grid of clusters of C blocks along x, the
+// pairs along y and the batch along z.
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  ClusterLaunch(int pairs, cudaStream_t s) {
-    cfg.gridDim = dim3(C, pairs);
+  ClusterLaunch(int pairs, int batch, cudaStream_t s) {
+    cfg.gridDim = dim3(C, pairs, batch);
     cfg.blockDim = dim3(NT);
     cfg.stream = s;
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -294,15 +314,20 @@ struct ClusterLaunch {
 };
 
 template <bool WEIGHTED, bool SHARDED, bool VEC>
-cudaError_t launch3(const Args& g, int pairs, cudaStream_t s) {
-  ClusterLaunch l(pairs, s);
-  return cudaLaunchKernelEx(&l.cfg, consensus<WEIGHTED, SHARDED, VEC>, g);
+cudaError_t launch3(const Args& g, int pairs, int batch, cudaStream_t s) {
+  ClusterLaunch l(pairs, batch, s);
+  if (!SHARDED && batch > 1)
+    return cudaLaunchKernelEx(&l.cfg, consensus<WEIGHTED, SHARDED, VEC, true>,
+                              g);
+  return cudaLaunchKernelEx(&l.cfg, consensus<WEIGHTED, SHARDED, VEC, false>,
+                            g);
 }
 
 template <bool SHARDED, bool VEC>
-cudaError_t launch2(const Args& g, int weighted, int pairs, cudaStream_t s) {
-  return weighted ? launch3<true, SHARDED, VEC>(g, pairs, s)
-                  : launch3<false, SHARDED, VEC>(g, pairs, s);
+cudaError_t launch2(const Args& g, int weighted, int pairs, int batch,
+                    cudaStream_t s) {
+  return weighted ? launch3<true, SHARDED, VEC>(g, pairs, batch, s)
+                  : launch3<false, SHARDED, VEC>(g, pairs, batch, s);
 }
 
 bool aligned(const void* p) {
@@ -310,26 +335,28 @@ bool aligned(const void* p) {
 }
 
 template <bool SHARDED>
-cudaError_t launch(Args g, int P_loc, int weighted, cudaStream_t s) {
+cudaError_t launch(Args g, int P_loc, int batch, int weighted,
+                   cudaStream_t s) {
   const int P = g.P;
   const int pairs = SHARDED ? P_loc * P : P * (P + 1) / 2;
-  if (pairs < 1 || pairs > 65535 || g.n < 1) return cudaErrorInvalidValue;
+  if (pairs < 1 || pairs > 65535 || g.n < 1 || batch < 1 || batch > 65535)
+    return cudaErrorInvalidValue;
   bool vec = g.n % 4 == 0 && aligned(g.a) && aligned(g.y) && aligned(g.z) &&
              aligned(g.zn) && aligned(g.yn) && (!SHARDED || aligned(g.at));
   if (weighted) vec = vec && aligned(g.w_own) && aligned(g.w_all);
-  return vec ? launch2<SHARDED, true>(g, weighted, pairs, s)
-             : launch2<SHARDED, false>(g, weighted, pairs, s);
+  return vec ? launch2<SHARDED, true>(g, weighted, pairs, batch, s)
+             : launch2<SHARDED, false>(g, weighted, pairs, batch, s);
 }
 
 }  // namespace
 
-// a, y, z: [P, P, n] f32; adjm: [P, P] f32; w: [P, n] f32 (weighted only,
-// else ignored); zn, yn: [P, P, n] f32 out; pri, dz2: [P, P] f32 out.
-// weighted: 0 = midpoint, 1 = weighted.
+// a, y, z: [B, P, P, n] f32; adjm: [P, P] f32; w: [P, n] f32 (weighted
+// only, else ignored), both shared by the batch; zn, yn: [B, P, P, n] f32
+// out; pri, dz2: [B, P, P] f32 out. weighted: 0 = midpoint, 1 = weighted.
 extern "C" int dip_consensus(const void* a, const void* y, const void* z,
                              const void* adjm, const void* w, void* zn,
-                             void* yn, void* pri, void* dz2, int P, int n,
-                             int weighted, void* stream) {
+                             void* yn, void* pri, void* dz2, int B, int P,
+                             int n, int weighted, void* stream) {
   Args g{};
   g.a = static_cast<const float*>(a);
   g.y = static_cast<const float*>(y);
@@ -343,7 +370,7 @@ extern "C" int dip_consensus(const void* a, const void* y, const void* z,
   g.P = P;
   g.n = n;
   return static_cast<int>(
-      launch<false>(g, P, weighted, static_cast<cudaStream_t>(stream)));
+      launch<false>(g, P, B, weighted, static_cast<cudaStream_t>(stream)));
 }
 
 // The sharded form: a, y, z, a_t: [P_loc, P, n] f32 over this rank's pixel
@@ -371,7 +398,8 @@ extern "C" int dip_consensus_sharded(const void* a, const void* y,
   g.P = P;
   g.n = n;
   return static_cast<int>(
-      launch<true>(g, P_loc, weighted, static_cast<cudaStream_t>(stream)));
+      launch<true>(g, P_loc, 1, weighted,
+                   static_cast<cudaStream_t>(stream)));
 }
 
 // cudaOccupancyMaxActiveClusters of the kernel (sharded: 0 or 1, weighted:
@@ -379,11 +407,11 @@ extern "C" int dip_consensus_sharded(const void* a, const void* y,
 // many clusters the card holds at once (negative: the CUDA error).
 extern "C" int dip_consensus_clusters(int sharded, int weighted) {
   void (*kern)(Args) =
-      sharded ? (weighted ? consensus<true, true, true>
-                          : consensus<false, true, true>)
-              : (weighted ? consensus<true, false, true>
-                          : consensus<false, false, true>);
-  ClusterLaunch l(1, nullptr);
+      sharded ? (weighted ? consensus<true, true, true, false>
+                          : consensus<false, true, true, false>)
+              : (weighted ? consensus<true, false, true, false>
+                          : consensus<false, false, true, false>);
+  ClusterLaunch l(1, 1, nullptr);
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kern, &l.cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);

@@ -58,7 +58,7 @@ SIGNATURES = {
         "dip_hat_t": [_P] * 4 + [_I] * 5 + [_P],
     },
     "consensus": {
-        "dip_consensus": [_P] * 9 + [_I] * 3 + [_P],
+        "dip_consensus": [_P] * 9 + [_I] * 4 + [_P],
         "dip_consensus_sharded": [_P] * 11 + [_I] * 4 + [_P],
         "dip_consensus_clusters": [_I] * 2,
     },

@@ -7,7 +7,12 @@ on a CPU tensor it runs :func:`consensus_update_ref`.
 
 Single device: the transposed proposals a_ji are read from ``a`` itself,
 so the caller passes no ``a_t``; the kernel reads each proposal once and
-updates both (i, j) and (j, i) from it. The sharded form takes the JAX
+updates both (i, j) and (j, i) from it. It also takes a leading batch axis,
+a, y, z [B, P, P, n] against one graph and one set of weights (scenario
+batching, ``core/admm.run_admm_batched``), in the same one launch; each
+lane gives what a call on it alone gives, bit for bit. (The JAX package
+turns its kernel off under batching and computes the same function with
+XLA ops.) The sharded form takes the JAX
 kernel's contract: the node x pixel mesh (``parallel/admm_sharded.py``)
 gathers ``a_t`` [P_loc, P, n_loc] with an ``all_to_all`` and passes the
 fusion weights as ``w_own`` [P_loc, n_loc] and ``w_all`` [P, n_loc]; it
@@ -37,16 +42,17 @@ def consensus_update_ref(a, y, z, adjm, w=None, fusion="midpoint", *,
     """Fused z/y/residual update of every edge slot, in plain torch ops.
 
     a, y, z: [P, P, n] proposals a_ij = x^_ij + y_ij, duals and previous
-    consensus; adjm: [P, P] edge mask; w: [P, n] fusion weights (weighted
-    only). Returns (z_new, y_new, pri_pair, dz2_pair) with the per-(i, j)
-    partials pri = sum_p (a - y - z_new)^2 and dz2 = sum_p (z_new - z)^2
-    over [P, P], masked.
+    consensus, or [B, P, P, n], a batch of them; adjm: [P, P] edge mask;
+    w: [P, n] fusion weights (weighted only). Returns (z_new, y_new,
+    pri_pair, dz2_pair) with the per-(i, j) partials pri = sum_p (a - y -
+    z_new)^2 and dz2 = sum_p (z_new - z)^2 over [P, P] ([B, P, P]),
+    masked.
 
     Sharded form: ``a_t`` [P_loc, P, n] holds a_ji for a, y, z [P_loc, P,
     n] and adjm [P_loc, P], with the weights ``w_own`` [P_loc, n] and
     ``w_all`` [P, n] in place of ``w``."""
     if a_t is None:
-        a_t = a.transpose(0, 1)
+        a_t = a.transpose(-3, -2)
         w_own = w_all = w
     am = adjm[:, :, None].to(a.dtype)
     if fusion == "midpoint":
@@ -64,11 +70,18 @@ def consensus_update_ref(a, y, z, adjm, w=None, fusion="midpoint", *,
 def _check_update(a, y, z, adjm, w, fusion, a_t, w_own, w_all):
     """The tensor checks of :func:`consensus_update`: (P_loc, P, n)."""
     name = "consensus_update"
-    P_loc, P, n = a.shape
+    if a.dim() == 4 and a_t is None:
+        B, P_loc, P, n = a.shape
+        lead = (B,)
+    elif a.dim() == 3:
+        (P_loc, P, n), B, lead = a.shape, 0, ()
+    else:
+        raise ValueError(f"{name}: a has shape {tuple(a.shape)}; expected "
+                         "[P, P, n], [B, P, P, n] or (with a_t) [P_loc, P, n]")
     tensors = dict(a=a, y=y, z=z, adjm=adjm)
-    shapes = dict(a=(P_loc, P, n), y=(P_loc, P, n), z=(P_loc, P, n),
-                  a_t=(P_loc, P, n), adjm=(P_loc, P), w=(P, n),
-                  w_own=(P_loc, n), w_all=(P, n))
+    edge = lead + (P_loc, P, n)
+    shapes = dict(a=edge, y=edge, z=edge, a_t=(P_loc, P, n),
+                  adjm=(P_loc, P), w=(P, n), w_own=(P_loc, n), w_all=(P, n))
     if a_t is not None:
         tensors["a_t"] = a_t
         if fusion == "weighted":
@@ -92,6 +105,9 @@ def _check_update(a, y, z, adjm, w, fusion, a_t, w_own, w_all):
     if P_loc * P > 65535:
         raise ValueError(f"{name}: {P_loc} x {P} pairs exceed the grid's "
                          "pair axis")
+    if B > 65535:
+        raise ValueError(f"{name}: a batch of {B} exceeds the grid's batch "
+                         "axis")
     return P_loc, P, n
 
 
@@ -103,8 +119,8 @@ _SHARDED = _launch.Entry("consensus", "dip_consensus_sharded",
 
 def consensus_update(a, y, z, adjm, w=None, fusion="midpoint", *,
                      a_t=None, w_own=None, w_all=None):
-    """K5: see :func:`consensus_update_ref` (its sharded form with
-    ``a_t``)."""
+    """K5: see :func:`consensus_update_ref` (its batched form with a 4-d
+    ``a``, its sharded form with ``a_t``)."""
     if fusion not in FUSIONS:
         raise ValueError(f"fusion must be one of {FUSIONS}, got {fusion!r}")
     sharded = a_t is not None
@@ -117,10 +133,15 @@ def consensus_update(a, y, z, adjm, w=None, fusion="midpoint", *,
         return consensus_update_ref(a, y, z, adjm, w, fusion, a_t=a_t,
                                     w_own=w_own, w_all=w_all)
     P_loc, P, n = _checks(a, y, z, adjm, w, fusion, a_t, w_own, w_all)
+    B = a.shape[0] if a.dim() == 4 else 0  # checked: only without a_t
     # Four allocations shaped like checked inputs: cheaper on the host than
     # two and the views that split them.
     zn, yn = torch.empty_like(a), torch.empty_like(a)
-    pri, dz2 = torch.empty_like(adjm), torch.empty_like(adjm)
+    if B:
+        pri = torch.empty((B, P, P), dtype=a.dtype, device=a.device)
+        dz2 = torch.empty((B, P, P), dtype=a.dtype, device=a.device)
+    else:
+        pri, dz2 = torch.empty_like(adjm), torch.empty_like(adjm)
     outs = (zn.data_ptr(), yn.data_ptr(), pri.data_ptr(), dz2.data_ptr())
     if sharded:
         _SHARDED(a.data_ptr(), y.data_ptr(), z.data_ptr(), a_t.data_ptr(),
@@ -130,8 +151,8 @@ def consensus_update(a, y, z, adjm, w=None, fusion="midpoint", *,
         consensus_update.sharded_launches += 1
     else:
         _SINGLE(a.data_ptr(), y.data_ptr(), z.data_ptr(), adjm.data_ptr(),
-                w.data_ptr() if weighted else None, *outs, P, n, weighted,
-                _stream())
+                w.data_ptr() if weighted else None, *outs, max(B, 1), P, n,
+                weighted, _stream())
         consensus_update.launches += 1
     return zn, yn, pri, dz2
 

@@ -216,27 +216,33 @@ def joseph_tables(cfg: GeometryConfig, angles: torch.Tensor,
 
 
 def _apply_taps(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor):
-    """out[p, r] = sum_j w[p, r, j] x[p, idx[p, r, j]] in j order."""
+    """out[p, r] = sum_j w[p, r, j] x[p, idx[p, r, j]] in j order, for x
+    [PB, ...] of PB = B * P images against the P nodes' taps, image p
+    taking node p % P's (b-major)."""
     P, R, T = idx.shape
-    g = torch.gather(x, 1, idx.reshape(P, R * T)).reshape(P, R, T)
-    return torch.sum(g * w, dim=-1)
+    B = x.shape[0] // P
+    g = torch.gather(x.reshape(B, P, -1), 2,
+                     idx.reshape(1, P, R * T).expand(B, P, R * T))
+    return torch.sum(g.reshape(B, P, R, T) * w, dim=-1).reshape(B * P, R)
 
 
 def project_nodes(cfg: GeometryConfig, imgs: torch.Tensor,
                   tables: dict) -> torch.Tensor:
-    """Forward-project every node's image: [P, N, N] -> [P, m_max, D]."""
-    P = imgs.shape[0]
-    out = _apply_taps(imgs.reshape(P, -1), tables["idx"], tables["w"])
-    return out.reshape(P, -1, cfg.n_det)
+    """Forward-project every node's image: [P, N, N] -> [P, m_max, D]; a
+    batch of B * P images (b-major) against the same P nodes' tables gives
+    [B * P, m_max, D]."""
+    PB = imgs.shape[0]
+    out = _apply_taps(imgs.reshape(PB, -1), tables["idx"], tables["w"])
+    return out.reshape(PB, -1, cfg.n_det)
 
 
 def backproject_nodes(cfg: GeometryConfig, sinos: torch.Tensor,
                       tables: dict) -> torch.Tensor:
-    """Adjoint per node: [P, m_max, D] -> [P, N, N]."""
-    P = sinos.shape[0]
-    ext = torch.nn.functional.pad(sinos.reshape(P, -1), (0, 1))  # ray R = 0
+    """Adjoint per node: [P, m_max, D] -> [P, N, N] (or B * P of each)."""
+    PB = sinos.shape[0]
+    ext = torch.nn.functional.pad(sinos.reshape(PB, -1), (0, 1))  # ray R = 0
     out = _apply_taps(ext, tables["src"], tables["tw"])
-    return out.reshape(P, cfg.N, cfg.N)
+    return out.reshape(PB, cfg.N, cfg.N)
 
 
 def colnorms_sq_nodes(tables: dict) -> torch.Tensor:
@@ -329,17 +335,30 @@ def dense_matrix(cfg: GeometryConfig, angles: torch.Tensor,
     return out
 
 
+def _batch_bmm(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A_p v_{b, p} for A [P, r, c] and v [B * P, c] (b-major): one
+    [P, r, c] x [P, c, B] product -> [B * P, r]."""
+    P = A.shape[0]
+    B = v.shape[0] // P
+    if B == 1:  # the unbatched product, [P, c, 1] in its own layout
+        return torch.bmm(A, v.reshape(P, -1, 1)).reshape(P, -1)
+    out = torch.bmm(A, v.reshape(B, P, -1).permute(1, 2, 0))  # [P, r, B]
+    return out.permute(2, 0, 1).reshape(B * P, -1)
+
+
 def project_nodes_dense(cfg: GeometryConfig, imgs: torch.Tensor,
                         tables: dict) -> torch.Tensor:
-    """A_i x_i for every node: [P, N, N] -> [P, m_max, D] (float32)."""
-    P = imgs.shape[0]
-    out = torch.bmm(tables["A"], imgs.reshape(P, -1, 1))
-    return out.reshape(P, -1, cfg.n_det)
+    """A_i x_i for every node: [P, N, N] -> [P, m_max, D] (float32); a
+    batch of B * P images (b-major) -> [B * P, m_max, D] in one product."""
+    PB = imgs.shape[0]
+    out = _batch_bmm(tables["A"], imgs.reshape(PB, -1))
+    return out.reshape(PB, -1, cfg.n_det)
 
 
 def backproject_nodes_dense(cfg: GeometryConfig, sinos: torch.Tensor,
                             tables: dict) -> torch.Tensor:
-    """A_i^T r_i for every node: [P, m_max, D] -> [P, N, N] (float32)."""
-    P = sinos.shape[0]
-    out = torch.bmm(tables["A"].transpose(1, 2), sinos.reshape(P, -1, 1))
-    return out.reshape(P, cfg.N, cfg.N)
+    """A_i^T r_i for every node: [P, m_max, D] -> [P, N, N] (float32), or
+    B * P of each."""
+    PB = sinos.shape[0]
+    out = _batch_bmm(tables["A"].transpose(1, 2), sinos.reshape(PB, -1))
+    return out.reshape(PB, cfg.N, cfg.N)

@@ -155,19 +155,27 @@ def _rebin_apply_t(bar, t):
             + torch.einsum("pfd,mf->pmd", ph_im, t["Bim"]))
 
 
+def _mask_rows(s: torch.Tensor, fan_valid: torch.Tensor) -> torch.Tensor:
+    """[PB, m, D] sinograms times the fan row mask [P, m] of node p % P
+    (PB = B * P images, b-major)."""
+    P, m = fan_valid.shape
+    return (s.reshape(-1, P, m, s.shape[-1])
+            * fan_valid[None, :, :, None]).reshape(s.shape)
+
+
 def _project(project_par, cfg, imgs, tables):
     t = tables
     T_p = t["fan_valid"].shape[1] // 2
     p = project_par(_parallel_cfg(cfg), imgs, t["shared"]["par"], T_p)
-    p2 = torch.cat([p, p.flip(2)], dim=1)  # [P, m, D], 2 pi-periodic
+    p2 = torch.cat([p, p.flip(2)], dim=1)  # [PB, m, D], 2 pi-periodic
     out = _rebin_apply(p2, t["shared"])
-    return (out * t["fan_valid"][:, :, None]).to(imgs.dtype)
+    return _mask_rows(out, t["fan_valid"]).to(imgs.dtype)
 
 
 def _backproject(backproject_par, cfg, sinos, tables):
     t = tables
     T_p = t["fan_valid"].shape[1] // 2
-    ob = sinos.to(torch.float32) * t["fan_valid"][:, :, None]
+    ob = _mask_rows(sinos.to(torch.float32), t["fan_valid"])
     p2_bar = _rebin_apply_t(ob, t["shared"])
     p_bar = p2_bar[:, :T_p] + p2_bar[:, T_p:].flip(2)
     return backproject_par(_parallel_cfg(cfg), p_bar.to(sinos.dtype),

@@ -7,6 +7,8 @@
         --out runs/strategies
     python -m dip_admm_tpu_torch.runners.cli --device cpu --mesh 2 \\
         --mesh-pixel 2 --N 32 --nodes 4 --max-iters 2
+    python -m dip_admm_tpu_torch.runners.cli --device cuda \\
+        --solver {pdhg-consensus,centralized,centralized-tv}
 
 Builds the problem (projector mode ``dense``, ``joseph``, ``fft_skew`` or
 ``fft_grouped``, parallel or fan beam, or ``fft_shear``, ``fft_pallas`` or
@@ -17,7 +19,13 @@ and knn in turn (``--all-strategies``), writes the JAX package's artifacts
 under ``--out`` (default ``Recon_Out_ADMM_<date>_<time>``), one directory
 per strategy, and prints the JSON summary the JAX CLI prints
 (``{strategy: {tag, n_iters, final_primal, final_dual, mean_psnr, graph,
-out_dir}}``, and ``artifacts_skipped`` where matplotlib is missing). It
+out_dir}}``, and ``artifacts_skipped`` where matplotlib is missing).
+``--solver`` runs one of the alternative solvers instead, as the JAX CLI
+does: ``pdhg-consensus`` (the penalized-consensus PDHG solver,
+``--pdhg-outer``, ``--pdhg-lam``, ``--pdhg-gamma``, ``--anchor-weights``),
+``centralized`` (aggregate ridge least squares, ``--ridge-lam``) or
+``centralized-tv`` (aggregate TV least squares at ``--lam-tv``), and prints
+``{solver: summary}`` with the JAX CLI's keys. It
 takes the subset of the JAX CLI's flags that the port implements; any
 other flag or value is rejected. ``--device`` has no default, and
 ``--device cuda`` on a host without a GPU is an error.
@@ -166,6 +174,28 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="fused edge-consensus kernel (default: auto, on a "
                         "CUDA device with >= 8 nodes)")
+    p.add_argument("--solver",
+                   choices=["admm", "pdhg-consensus", "centralized",
+                            "centralized-tv"],
+                   default="admm",
+                   help="admm = decentralized consensus ADMM; "
+                        "pdhg-consensus = penalized-consensus PDHG (the "
+                        "reference's legacy solver); centralized = aggregate "
+                        "ridge least squares; centralized-tv = aggregate "
+                        "TV least squares")
+    p.add_argument("--pdhg-outer", type=int, default=100,
+                   help="pdhg-consensus outer iterations")
+    p.add_argument("--pdhg-lam", type=float, default=0.005,
+                   help="pdhg-consensus lambda (node and aggregate TV)")
+    p.add_argument("--pdhg-gamma", type=float, default=2.0,
+                   help="pdhg-consensus quadratic anchor weight")
+    p.add_argument("--anchor-weights", choices=["oracle", "residual"],
+                   default="oracle",
+                   help="pdhg-consensus anchor weighting: oracle = column "
+                        "norms over |x_i - x_true|, residual = over the "
+                        "node's sinogram residual")
+    p.add_argument("--ridge-lam", type=float, default=1e-3,
+                   help="centralized ridge regularization")
     return p
 
 
@@ -249,6 +279,16 @@ def _run(args, device, out_root, mesh=None) -> dict | None:
             serialization.save_problem(problem, args.save_problem)
 
     def go():
+        if args.solver == "pdhg-consensus":
+            return {args.solver: experiment.run_pdhg_consensus(
+                cfg, out_root, n_outer=args.pdhg_outer, lam=args.pdhg_lam,
+                gamma=args.pdhg_gamma, anchor_weights=args.anchor_weights,
+                mode=mode, device=device, problem=problem)}
+        if args.solver in ("centralized", "centralized-tv"):
+            return {args.solver: experiment.run_centralized(
+                cfg, out_root, tv=args.solver == "centralized-tv",
+                ridge_lam=args.ridge_lam, mode=mode, device=device,
+                problem=problem)}
         if args.all_strategies:
             return experiment.run_all_strategies(
                 cfg, out_root, mesh=mesh, mode=mode,
@@ -290,6 +330,15 @@ def main(argv=None) -> dict:
         parser.error("--mesh and --mesh-pixel must be >= 1")
     if args.mesh is None and args.mesh_pixel != 1:
         parser.error("--mesh-pixel needs --mesh")
+    if args.solver != "admm":
+        if args.mesh is not None:
+            parser.error(f"--mesh runs the admm solver, not --solver "
+                         f"{args.solver}")
+        if (args.all_strategies, args.snapshot_every, args.checkpoint_every,
+                args.resume) != (False, None, None, None):
+            parser.error("--all-strategies, --snapshot-every, "
+                         "--checkpoint-every and --resume run the admm "
+                         f"solver, not --solver {args.solver}")
     if args.all_strategies and (args.snapshot_every, args.checkpoint_every,
                                 args.resume) != (None, None, None):
         parser.error("--snapshot-every, --checkpoint-every and --resume run "

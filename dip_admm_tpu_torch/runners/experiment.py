@@ -9,6 +9,9 @@ JAX package's artifact set under ``<out_root>/<tag>``; with
 to ``<out_dir>/checkpoint.npz`` after each, and ``resume`` continues from
 such a checkpoint (of either package). ``run_all_strategies`` and
 ``evaluate_strategies`` run mst, chain and knn on one problem.
+``run_pdhg_consensus`` and ``run_centralized`` run the alternative solvers
+(penalized-consensus PDHG, centralized ridge and TV) with the JAX
+package's summary keys and artifact names.
 
 On a mesh every rank calls these functions with the same arguments and
 builds the problem on its device; the result is gathered on every rank,
@@ -164,12 +167,7 @@ def run_one_strategy(
         artifacts.save_history_artifacts(hist, n_iters, out_dir, tag,
                                          m_per_node=m_per_node, N=N)
         artifacts.flush_async()
-    skipped = artifacts.take_skipped()
-    if skipped:
-        names = [os.path.relpath(p, out_dir) for p in skipped]
-        summary["artifacts_skipped"] = names
-        print(f"artifacts: matplotlib is not installed; {len(names)} plots "
-              f"of {tag} not drawn: {' '.join(names)}", file=sys.stderr)
+    _note_skipped(summary, out_dir, tag)
     return x, hist, summary
 
 
@@ -192,6 +190,118 @@ def run_all_strategies(
         _, _, results[strategy] = run_one_strategy(
             cfg, out_root, strategy=strategy, mesh=mesh, problem=problem)
     return results
+
+
+def _mean_psnr(x: np.ndarray, x_true: np.ndarray) -> float:
+    return float(np.mean([psnr(xi, x_true, data_range=float(x_true.max()))
+                          for xi in np.atleast_2d(x)]))
+
+
+def run_pdhg_consensus(
+    cfg: ProblemConfig,
+    out_root: Optional[str] = None,
+    n_outer: int = 100,
+    lam: float = 0.005,
+    gamma: float = 2.0,
+    anchor_weights: str = "oracle",
+    mode: Optional[str] = None,
+    write_artifacts: bool = True,
+    device: torch.device | str = "cuda",
+    problem: Optional[loader.Problem] = None,
+) -> dict:
+    """The penalized-consensus PDHG solver as an experiment: builds the
+    problem on ``device`` (or takes ``problem``), runs
+    ``solvers.pdhg_consensus`` and returns the JAX package's summary
+    (per-node and aggregate PSNR and final image MSE); with ``out_root`` it
+    writes ``<out_root>/pdhg_consensus/`` (the node and aggregate images
+    and the four MSE curves)."""
+    from dip_admm_tpu_torch.solvers import pdhg_consensus
+
+    if problem is None:
+        problem = loader.build_problem(cfg, device, mode=mode)
+    pcfg = pdhg_consensus.PdhgConsensusConfig(
+        n_outer=n_outer, lam_tv=lam, lam_agg=lam, gamma=gamma,
+        anchor_weights=anchor_weights)
+    res = pdhg_consensus.solve(problem, pcfg)
+    x = res.x_nodes.cpu().numpy()
+    x_agg = res.x_agg.cpu().numpy()
+    x_true = problem.x_true.cpu().numpy()
+    curves = {k: getattr(res, k).cpu().numpy() for k in (
+        "img_mse_nodes", "sino_mse_nodes", "img_mse_agg", "sino_mse_agg")}
+    summary = {
+        "solver": "pdhg-consensus",
+        "n_outer": n_outer,
+        "mean_node_psnr": _mean_psnr(x, x_true),
+        "agg_psnr": _mean_psnr(x_agg, x_true),
+        "final_img_mse_nodes": curves["img_mse_nodes"][-1].tolist(),
+        "final_img_mse_agg": float(curves["img_mse_agg"][-1]),
+    }
+    if write_artifacts and out_root is not None:
+        out_dir = os.path.join(out_root, "pdhg_consensus")
+        artifacts.save_recons(x, problem.N, out_dir, "pdhg_nodes")
+        artifacts.save_recons(x_agg[None, :], problem.N, out_dir,
+                              "pdhg_aggregate")
+        artifacts.save_mse_curves(curves, out_dir)
+        artifacts.flush_async()
+        summary["out_dir"] = out_dir
+        _note_skipped(summary, out_dir, "pdhg_consensus")
+    return summary
+
+
+def run_centralized(
+    cfg: ProblemConfig,
+    out_root: Optional[str] = None,
+    tv: bool = False,
+    ridge_lam: float = 1e-3,
+    mode: Optional[str] = None,
+    write_artifacts: bool = True,
+    device: torch.device | str = "cuda",
+    problem: Optional[loader.Problem] = None,
+) -> dict:
+    """A centralized aggregate baseline as an experiment: ridge least
+    squares (``tv=False``) or TV least squares at ``cfg.admm.lam_tv``, on
+    a problem built on ``device`` (or ``problem``); the JAX package's
+    summary, and with ``out_root`` the image under
+    ``<out_root>/centralized_ridge/`` or ``centralized_tv/``."""
+    from dip_admm_tpu_torch.solvers import centralized
+
+    if problem is None:
+        problem = loader.build_problem(cfg, device, mode=mode)
+    if tv:
+        x, g_norm = centralized.tv_reconstruction(problem,
+                                                  lam_tv=cfg.admm.lam_tv)
+        extra = {"final_stationarity": float(g_norm)}
+        tag = "centralized_tv"
+    else:
+        x = centralized.ridge_reconstruction(problem, lam=ridge_lam)
+        extra = {"ridge_lam": ridge_lam}
+        tag = "centralized_ridge"
+    x = x.cpu().numpy()
+    x_true = problem.x_true.cpu().numpy()
+    summary = {
+        "solver": tag,
+        "psnr": _mean_psnr(x, x_true),
+        "img_mse": float(np.mean((x - x_true) ** 2)),
+        **extra,
+    }
+    if write_artifacts and out_root is not None:
+        out_dir = os.path.join(out_root, tag)
+        artifacts.save_recons(x[None, :], problem.N, out_dir, tag)
+        artifacts.flush_async()
+        summary["out_dir"] = out_dir
+        _note_skipped(summary, out_dir, tag)
+    return summary
+
+
+def _note_skipped(summary: dict, out_dir: str, tag: str) -> None:
+    """Name the plots that were not drawn (no matplotlib) in the summary
+    and on stderr."""
+    skipped = artifacts.take_skipped()
+    if skipped:
+        names = [os.path.relpath(p, out_dir) for p in skipped]
+        summary["artifacts_skipped"] = names
+        print(f"artifacts: matplotlib is not installed; {len(names)} plots "
+              f"of {tag} not drawn: {' '.join(names)}", file=sys.stderr)
 
 
 def evaluate_strategies(cfg: ProblemConfig, mesh=None,

@@ -5,7 +5,7 @@ one GPU, and the per-call times of the skew transpose row stage, the eval
 tail, the shear row stages and the select and grouped filter-sums, for
 comparing two checkouts in one call on one card.
 
-    python3 scripts/torch_ab_rates.py ROOT [--only grouped]
+    python3 scripts/torch_ab_rates.py ROOT [--only grouped|rates]
 
 runs, from the checkout at ROOT (its own ``chip_smoke.py`` and kernels):
 the build; K2 (``skew_sum_planes_t``), K3 (``eval_shear``) and K4
@@ -30,7 +30,11 @@ on the fan 256^2/8 problem's shared ``fft_grouped`` tables and on the
 device time (``torch.profiler``), on the slot spectra and cotangents that
 checkout's projector makes, with each problem's apply pair and 20
 recommended outers of it (phase 10's and phase 14's grouped runs). With
-``--only grouped`` it runs the build and that last part alone.
+``--only grouped`` it runs the build and that last part alone; with
+``--only rates`` the build, then the dense flagship (64^2/5, 200 outers
+of cv with the 1e-3 stop; phase 22's run) and 20 parity and 20
+recommended outers of the 256^2/8 bench problem, each twice (the first
+run of each warms the process up).
 It prints a line for each. Alternate the checkouts, e.g. with the parent
 unpacked by ``git archive`` into ``build/parent``:
 
@@ -206,6 +210,33 @@ def _grouped(failures) -> None:
     torch.cuda.empty_cache()
 
 
+def _rates(failures) -> None:
+    """The outer rates of the dense flagship and of the bench problem's
+    parity and recommended runs, each run twice."""
+    from dip_admm_tpu_torch.data import loader
+
+    dev = torch.device("cuda", 0)
+    cfg = cs._dense_cfg()
+    flagship = loader.build_problem(cfg, dev)
+    for rep in range(2):
+        _, _, _, line = cs._dense_drive(torch, flagship, cfg.admm,
+                                        "dense_flagship", failures,
+                                        cs.REF_DENSE_PSNR)
+        print(f"{ROOT} flagship[{rep}]: {line}", flush=True)
+    del flagship
+    cfg = cs._bench_cfg("bfloat16")
+    problem = loader.build_problem(cfg, dev)
+    for rep in range(2):
+        _, _, line = cs._drive(torch, problem, cfg.admm, cs.REF_PSNR, "main",
+                               failures)
+        print(f"{ROOT} parity[{rep}]: {line}", flush=True)
+        _, _, line = cs._drive(torch, problem, cs._recommended(cfg.admm),
+                               cs.REF_REC_PSNR, "recommended", failures)
+        print(f"{ROOT} recommended[{rep}]: {line}", flush=True)
+    del problem
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     from dip_admm_tpu_torch.data import loader
 
@@ -216,8 +247,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     failures: list[str] = []
     cs.phase_build()
-    if ONLY == "grouped":
-        _grouped(failures)
+    if ONLY in ("grouped", "rates"):
+        (_grouped if ONLY == "grouped" else _rates)(failures)
         print(f"{ROOT} failures={failures}", flush=True)
         return 1 if failures else 0
     dev = torch.device("cuda", 0)

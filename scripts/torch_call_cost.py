@@ -9,7 +9,8 @@ checkout).
 
 From the checkout at ROOT (its own kernels, built from its ``csrc/``), on
 seeded inputs at the main-path shapes (K5: the 256^2/8 edge state [8, 8,
-65536], its sharded form at a 2 x 2 mesh rank's block [4, 8, 32768]; K17
+65536], its sharded form at a 2 x 2 mesh rank's block [4, 8, 32768], and
+where the checkout's K5 takes a batch, a batch of four [4, 8, 8, 65536]; K17
 and K18: the 512^2/8 eval tail, PB = PT = 8, T = 192, D = 512, Np = 2048,
 rising and falling detector coordinates; both also at D = 509 with
 coordinates below 0, above Np - 1 and NaN), one line a kernel:
@@ -167,6 +168,17 @@ def cases():
         out.append((f"consensus_update_sharded[{fusion}]",
                     cons.consensus_update, cons.consensus_update_ref,
                     (*blk[:3], m_blk), kw))
+    from dip_admm_tpu_torch.ops.kernels import _build
+    if len(_build.SIGNATURES["consensus"]["dip_consensus"]) == 14:
+        # a checkout whose K5 takes a batch count: the batched_256 phase's
+        # [4, 8, 8, 65536] edge state (its own generator, so that the
+        # other cases' inputs are the same in every checkout)
+        gb = torch.Generator(device="cuda").manual_seed(1)
+        ab, yb, zb = (torch.randn((4, P, P, n), generator=gb, device="cuda")
+                      for _ in range(3))
+        out.append(("consensus_update[batch 4, midpoint]",
+                    cons.consensus_update, cons.consensus_update_ref,
+                    (ab, yb, zb, adjm, None, "midpoint"), {}))
     pc, s, g, ob = _hat_inputs(gen, 8, 8, 192, 512, 2048)
     out.append(("hat_eval", he.hat_eval, he.hat_eval_ref, (g, pc, s), {}))
     out.append(("hat_eval_t", he.hat_eval_t, he.hat_eval_t_ref,
@@ -215,9 +227,10 @@ def measure() -> None:
 # (name, pointers before the ints, ints): the C entries' argument lists of
 # the first designs of K17 (dip_hat_fwd, 10 arguments) and K5
 # (dip_consensus, 15; dip_consensus_sharded, 18) and of the lean ones
-# (dip_consensus, 13; dip_consensus_sharded, 16), each ending in the stream.
+# (dip_consensus, 14 with its batch count; dip_consensus_sharded, 16), each
+# ending in the stream.
 NOOPS = (("noop_hat", 4, 5), ("noop_cons_old", 10, 4),
-         ("noop_cons_sharded_old", 12, 5), ("noop_cons", 9, 3),
+         ("noop_cons_sharded_old", 12, 5), ("noop_cons", 9, 4),
          ("noop_cons_sharded", 11, 4))
 
 
@@ -387,7 +400,7 @@ def split() -> None:
                                                 adjm)), _stream())),
             ("ctypes", lambda: lib.noop_cons_old(*range(1, 11), 8, 65536,
                                                  2048, 0, st),
-             lambda: lib.noop_cons(*range(1, 10), 8, 65536, 0, st)),
+             lambda: lib.noop_cons(*range(1, 10), 1, 8, 65536, 0, st)),
         ),
     }
     launch = interleaved({"one": lambda: lib.launch_empty(768, st)},

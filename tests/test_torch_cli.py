@@ -155,8 +155,6 @@ def test_cli_auto_mode_is_dense_at_n_le_128():
     ("--device", "cpu", "--dtype", "bfloat16"),
     ("--device", "cpu", "--matrix-free"),
     ("--device", "cpu", "--mode", "fft"),
-    ("--device", "cpu", "--solver", "pdhg-consensus"),
-    ("--device", "cpu", "--solver", "centralized"),
     ("--device", "cpu", "--z-fusion", "mean"),
 ])
 def test_cli_rejects_unported_flags(args):

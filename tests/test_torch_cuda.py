@@ -479,6 +479,41 @@ def test_consensus_both_forms_one_launch_bitwise(fusion, layout):
             == before["consensus_update_sharded"] + 4)
 
 
+@pytest.mark.parametrize("layout", [(3969, False), (4096, False)],
+                         ids=["odd-n", "aligned"])
+@pytest.mark.parametrize("fusion", ["midpoint", "weighted"])
+def test_consensus_batch_is_one_launch_equal_to_its_lanes(fusion, layout):
+    """K5 over a [3, 8, 8, n] batch: one device launch (the batch on the
+    grid's z axis), each lane bit for bit the unbatched call on it, z' and
+    y' equal to the plain version's (the partials at 1e-5), B = 1 equal to
+    the unbatched call; a batch with a_t (the sharded form) is refused."""
+    dev = _device()
+    n, _ = layout
+    gen = torch.Generator(device=dev).manual_seed(9)
+    a, y, z = (torch.randn((3, 8, 8, n), generator=gen, device=dev)
+               for _ in range(3))
+    _, _, _, adjm, w = _consensus_inputs(dev, n)
+    before = cons.consensus_update.launches
+    got = cons.consensus_update(a, y, z, adjm, w, fusion)
+    want = cons.consensus_update_ref(a, y, z, adjm, w, fusion)
+    torch.cuda.synchronize()
+    assert cons.consensus_update.launches == before + 1
+    assert [tuple(g.shape) for g in got] == [(3, 8, 8, n)] * 2 + [(3, 8,
+                                                                   8)] * 2
+    assert all(torch.equal(g, r) for g, r in zip(got[:2], want[:2]))
+    _assert_close(got[2:], want[2:], 1e-5)
+    for s in range(3):
+        lane = cons.consensus_update(a[s], y[s], z[s], adjm, w, fusion)
+        assert all(torch.equal(g[s], v) for g, v in zip(got, lane))
+    one = cons.consensus_update(a[:1], y[:1], z[:1], adjm, w, fusion)
+    assert all(torch.equal(g[0], v[0]) for g, v in zip(one, got))
+    assert _device_launches(
+        lambda: cons.consensus_update(a, y, z, adjm, w, fusion)) == 1
+    with pytest.raises(ValueError):
+        cons.consensus_update(a, y, z, adjm, w, fusion, a_t=a,
+                              w_own=w, w_all=w)
+
+
 def test_consensus_clusters_fit_the_card():
     _device()
     for sharded in (False, True):

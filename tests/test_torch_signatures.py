@@ -34,3 +34,13 @@ def _entries(name: str) -> dict:
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_declared_argtypes_match_the_c_entries(name):
     assert _entries(name) == _build.SIGNATURES[name]
+
+
+def test_consensus_takes_its_batch_count():
+    """K5's single-device entry takes the batch count B of its [B, P, P, n]
+    edge state before P; the sharded entry has no batch."""
+    src = (_build.CSRC / "consensus.cu").read_text()
+    params = {fn: [" ".join(p.split()).split()[-1].lstrip("*")
+                   for p in ps.split(",")] for fn, ps in ENTRY.findall(src)}
+    assert params["dip_consensus"][9:13] == ["B", "P", "n", "weighted"]
+    assert "B" not in params["dip_consensus_sharded"]
