@@ -273,6 +273,44 @@ kernel):
                  GraphProblem with TV (5 outers, fcv): finite, the
                  GraphProblem's primal residual falling, K1-K4 launching;
                  seconds and K1-K4 launches printed.
+35. matrix_free - the bench problem on mode fft (the split-table
+                 projector of torch FFTs and products, no kernel) with f32
+                 tables: build s, table GiB, the adjoint identity, the
+                 apply pair (CUDA events) beside the tables' bytes both
+                 ways over the memory rate, the bf16-table pair within
+                 2e-3 of the f32 pair's max, 20 recommended outers (K5
+                 once an outer, no projector kernel; PSNR within 0.5 dB of
+                 34.19: mode fft is fft_skew's operator), and the 64^2/4
+                 run of ``scripts/jax_dense_anchors.py matrix_free``
+                 within 0.5 dB of JAX's CPU value.
+36. multihost  - two processes started with an environment rendezvous on
+                 127.0.0.1 (``_multihost_rank``: ``multihost.initialize``,
+                 ``global_mesh``, ``distribute_problem`` of the mode-fft
+                 problem, 3 cv outers through ``run_admm_sharded``, K5's
+                 sharded form once an outer on each): x, Z, Y within 1e-3
+                 (relative norm) of the single-device run.
+37. matrix_free_fan - phase 35 on the fan bench problem (12.66 dB) and
+                 the 64^2/4 fan anchor run.
+38. fold_eval  - 256^2/8 fft_grouped (bf16) with ``fold_eval``'s WC
+                 tables: WC GiB and build s, both pairs in one call, the
+                 folded pair within 1e-2 of the unfolded pair's max (K13
+                 and K14 once each, no hat kernel), the adjoint identity
+                 with f32 WC tables, 20 recommended outers (K13/K14, K5;
+                 PSNR within 0.5 dB of 34.19).
+39. mesh_segments - two gloo ranks on the card, the bench problem through
+                 ``run_one_strategy`` on a 2-node mesh: 6 recommended
+                 outers checkpointed every 2, the same cut at 4 and
+                 resumed from that checkpoint (within 1e-6 of the unbroken
+                 run, rank 0's checkpoints of the gathered state), and
+                 snapshots every 2 under the JAX package's file names.
+40. dtype      - 64^2/5 dense, 5 outers, under the problem dtypes
+                 bfloat16 and float64: each field's and the state's dtype
+                 the JAX package's, results finite, PSNR printed.
+41. native_graphs - the native graph builder (``graph/native.py``) on
+                 the host at n = 65536 (the mode-fft bench problem's
+                 column norms), knn k = 2 and mst: masks equal to the torch
+                 build's on the card; seconds of each.
+                 Phases 35-41 print their seconds (``phase_s``).
 
 Every kernel line gives the kernel's time, its plain version's, its bound
 (the larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s f32
@@ -280,8 +318,8 @@ or 989 TFLOP/s bf16, counted from this call's inputs) and, where one
 PyTorch call computes the same function, that call's time
 (``library_ms``). The launch counters are set to 0 just before each of the
 ten runs (on each rank of the mesh runs), before the stage path and before
-each run of the dense phases and of phases 26, 27 and 29-34, and read just
-after. Then a JSON line with each kernel's route, source,
+each run of the dense phases and of phases 26, 27, 29-36 and 38-40 (on
+each rank of phases 36 and 39), and read just after. Then a JSON line with each kernel's route, source,
 launches in those runs together (a kernel that launched in none fails the
 run), error, times and bound (K1-K5, K7-K10, K15 and K16 at the parallel
 256^2 shapes (K5's batched form at [4, 8, 8, 65536] in its error), K6
@@ -2247,8 +2285,8 @@ def _dense_drive(torch, problem, admm_cfg, tag, failures, ref_psnr=None,
     pri = float(res.history["primal"][n - 1])
     dual = float(res.history["dual"][n - 1])
     inner = res.history["inner_iters"][:n].float().mean().item()
-    x = res.x.cpu().numpy()
-    mean_psnr = _mean_psnr(x, problem.x_true.cpu().numpy())
+    x = res.x.float().cpu().numpy()  # numpy has no bfloat16
+    mean_psnr = _mean_psnr(x, problem.x_true.float().cpu().numpy())
     use_k5 = admm_cfg.use_pallas
     if use_k5 is None:  # run_admm's auto rule
         use_k5 = problem.device.type == "cuda" and problem.num_nodes >= 8
@@ -3139,6 +3177,438 @@ def phase_solvers_large(torch, dev, bench, failures) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phases 35-41: mode fft, fold_eval, segments on a mesh, multihost, the
+# problem dtype, the native graph builder
+# ---------------------------------------------------------------------------
+
+# JAX package on the CPU, scripts/jax_dense_anchors.py matrix_free: mode
+# fft (f32 tables) on a 64^2 Shepp-Logan with 4 nodes, 20 recommended
+# outers (JAX's Lanczos start), parallel and fan beam. At the bench size
+# mode fft computes fft_skew's operator (f32 tables, exactly), so its runs
+# are held to REF_REC_PSNR and REF_FAN_PSNR; the bench size is not run on
+# a CPU (its tables and hat weights take several GiB).
+REF_MF_64_PSNR = {"parallel": 23.352, "fan": 13.833}
+MF_BF16_RTOL = 2e-3  # bf16-table pair against the f32-table pair
+FOLD_RTOL = 1e-2  # the folded (bf16 WC) pair against the unfolded pair
+MULTIHOST_RTOL = 1e-3  # x, Z, Y against the single-device run
+MULTIHOST_OUTERS = 3
+SEGMENT_OUTERS, SEGMENT_EVERY = 6, 2
+# The JAX package's per-field dtypes of a 64^2/5 dense build (and the
+# loop state's) under each problem dtype, without x64.
+DTYPE_WANT = {
+    "bfloat16": {"angles": "bfloat16", "A": "float32", "b": "float32",
+                 "W": "bfloat16", "Q": "bfloat16", "x_true": "bfloat16",
+                 "opnorm": "bfloat16", "x": "float32"},
+    "float64": {k: "float32" for k in ("angles", "A", "b", "W", "Q",
+                                       "x_true", "opnorm", "x")},
+}
+
+
+def _mf_small_cfg(fan: bool):
+    """The matrix_free anchors' configuration (REF_MF_64_PSNR)."""
+    cfg = _dense_cfg(N=64, nodes=4, phantom="shepp", max_iters=20,
+                     eps_pri=0.0, eps_dual=0.0)
+    return dataclasses.replace(
+        cfg, geometry=dataclasses.replace(cfg.geometry, fan_beam=fan),
+        admm=_recommended(cfg.admm))
+
+
+def _mf_run(torch, dev, fan, failures) -> tuple[dict, object, str]:
+    """The bench problem (fan or parallel, 256^2/8) on mode fft with f32
+    tables: build, adjoint identity, the apply pair (f32 tables, and bf16
+    tables against it), 20 recommended outers; then the 64^2/4 anchor run.
+    Returns (counts of the runs, the bench problem, the line)."""
+    from dip_admm_tpu_torch.data import loader
+
+    tag = "matrix_free_fan" if fan else "matrix_free"
+    cfg = _bench_cfg("float32", fan_beam=fan)
+    problem, build_s, peak = _build_timed(torch, cfg, dev, mode="fft")
+    gen = torch.Generator(device=dev).manual_seed(35)
+    x = torch.randn((problem.num_nodes, problem.n), generator=gen,
+                    device=dev)
+    y = torch.randn((problem.num_nodes, problem.m_flat), generator=gen,
+                    device=dev)
+    adj_rel = _adjoint_rel(torch, problem.forward, problem.adjoint, x, y)
+    pair_ms = _time_ms(torch, lambda: problem.adjoint(problem.forward(x)))
+    gib = _table_gib(problem.fft_tables)
+    bound = 1e3 * 2 * gib * 2**30 / HBM_BYTES_PER_S  # the tables, both ways
+    t16 = loader.build_fft_tables(
+        dataclasses.replace(cfg, fft_table_dtype="bfloat16"), problem.angles,
+        problem.angle_valid, "fft")
+    fwd16, adj16 = loader.make_node_ops("fft", cfg.geometry, t16)
+    ref = problem.adjoint(problem.forward(x))
+    bf16_rel = _max_rel(adj16(fwd16(x)), ref)
+    pair16_ms = _time_ms(torch, lambda: adj16(fwd16(x)))
+    del t16, fwd16, adj16, ref
+    torch.cuda.empty_cache()
+    checks = {"adjoint": adj_rel <= ADJOINT_TOL,
+              "bf16_pair": bf16_rel <= MF_BF16_RTOL}
+    for k, ok in checks.items():
+        if not ok:
+            failures.append(f"{tag} check {k} failed")
+    ref_psnr = REF_FAN_PSNR if fan else REF_REC_PSNR
+    _, counts, _, line = _dense_drive(torch, problem, _recommended(cfg.admm),
+                                      tag, failures, ref_psnr)
+    small = _mf_small_cfg(fan)
+    p64 = loader.build_problem(small, dev, mode="fft")
+    v0 = torch.as_tensor(np.load(LANCZOS_V0)[f"n{p64.n}"], device=dev)
+    _, counts64, _, line64 = _dense_drive(
+        torch, p64, small.admm, f"{tag}_64", failures,
+        REF_MF_64_PSNR["fan" if fan else "parallel"], lanczos_v0=v0)
+    print(f"{tag}: N=256 nodes=8 table_dtype=float32 build_s={build_s} "
+          f"build_peak_gib={peak} table_gib={gib} pair_ms={pair_ms} "
+          f"pair_bound_ms={bound} (the tables' bytes both ways) "
+          f"bf16_table_pair_ms={pair16_ms} bf16_pair_rel_diff={bf16_rel} "
+          f"adjoint_rel={adj_rel} {line} | 64^2/4 anchor run: {line64} "
+          f"ok={all(checks.values())}", flush=True)
+    return [counts, counts64], problem
+
+
+def phase_fold_eval(torch, dev, failures) -> list:
+    """256^2/8 fft_grouped with fold_eval (bf16 tables): the WC build,
+    both pairs in one call, the folded pair against the unfolded one, the
+    adjoint identity with f32 WC tables, and 20 recommended outers (K13/K14
+    and K5 launching)."""
+    from dip_admm_tpu_torch.ops import radon_fft
+
+    cfg = _bench_cfg("bfloat16")
+    geo = cfg.geometry
+    problem, build_s, _ = _build_timed(torch, cfg, dev, mode="fft_grouped")
+    a, v = problem.angles, problem.angle_valid
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    folded = radon_fft.precompute_grouped(geo, a, v, torch.bfloat16,
+                                          fold_eval=True)
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    wc_gib = _table_gib({k: folded.get(k) for k in ("WCre", "WCim")})
+    fwd = radon_fft.project_nodes_grouped
+    adj = radon_fft.backproject_nodes_grouped
+    gen = torch.Generator(device=dev).manual_seed(37)
+    x = torch.randn((geo.num_nodes, geo.N, geo.N), generator=gen, device=dev)
+    plain = problem.fft_tables
+    ref = adj(geo, fwd(geo, x, plain), plain)
+    _reset_counts()
+    got = adj(geo, fwd(geo, x, folded), folded)
+    torch.cuda.synchronize()
+    pair_counts = _counts()
+    fold_rel = _max_rel(got, ref)
+    ms = {k: _pair_ms(torch, fwd, adj, geo, t, x)
+          for k, t in (("unfolded", plain), ("folded", folded))}
+    t32 = radon_fft.precompute_grouped(geo, a, v, torch.float32,
+                                       fold_eval=True)
+    y = torch.randn((geo.num_nodes, a.shape[1], geo.n_det), generator=gen,
+                    device=dev)
+    adj_rel = _adjoint_rel(torch, lambda z: fwd(geo, z, t32),
+                           lambda z: adj(geo, z, t32), x, y)
+    del t32, ref, got
+    torch.cuda.empty_cache()
+    checks = {
+        "wc_built": "WCre" in folded,
+        "fold_vs_unfolded": fold_rel <= FOLD_RTOL,
+        "adjoint_f32_wc": adj_rel <= ADJOINT_TOL,
+        "k13_k14": all(pair_counts[k] == 1 for k in GROUPED),
+        "no_hat_kernel": all(pair_counts[k] == 0 for k in HAT),
+    }
+    for k, ok in checks.items():
+        if not ok:
+            failures.append(f"fold_eval check {k} failed")
+    fp = dataclasses.replace(problem, fft_tables=folded)
+    _, counts, line = _drive(torch, fp, _recommended(cfg.admm), REF_REC_PSNR,
+                             "fold_eval", failures, kernels=GROUPED)
+    print(f"fold_eval: N=256 nodes=8 table_dtype=bfloat16 build_s={build_s} "
+          f"wc_build_s={fold_s} wc_gib={wc_gib} "
+          f"pair_ms={json.dumps(ms)} fold_rel_diff={fold_rel} "
+          f"adjoint_rel_f32_wc={adj_rel} pair_launches="
+          f"{json.dumps({k: pair_counts[k] for k in GROUPED + HAT})} {line} "
+          f"ok={all(checks.values())}", flush=True)
+    return [counts]
+
+
+def _segments_rank(rank, device, root):
+    """One rank of the mesh_segments phase: the bench problem under the
+    recommended preset on a 2-node mesh, through ``run_one_strategy``:
+    SEGMENT_OUTERS outers checkpointed every SEGMENT_EVERY, the same cut at
+    the middle checkpoint and resumed from it, and snapshots every
+    SEGMENT_EVERY. Returns the rank's launch counts of those runs."""
+    import torch
+
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.parallel import mesh as meshlib
+    from dip_admm_tpu_torch.runners import experiment
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(device)
+    cfg = _bench_cfg("bfloat16")
+    cfg = dataclasses.replace(cfg, admm=_recommended(cfg.admm))
+    problem = loader.build_problem(cfg, device)
+    mesh = meshlib.make_mesh(2, 1, device)
+    middle = SEGMENT_OUTERS // 2 // SEGMENT_EVERY * SEGMENT_EVERY
+
+    def run(name, outers, **kw):
+        c = dataclasses.replace(cfg, admm=dataclasses.replace(
+            cfg.admm, max_iters=outers))
+        experiment.run_one_strategy(c, os.path.join(root, name), mesh=mesh,
+                                    problem=problem, write_artifacts=False,
+                                    device=device, **kw)
+
+    mesh.barrier()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    run("unbroken", SEGMENT_OUTERS, checkpoint_every=SEGMENT_EVERY)
+    run("part", middle, checkpoint_every=SEGMENT_EVERY)
+    run("resumed", SEGMENT_OUTERS, checkpoint_every=SEGMENT_EVERY,
+        resume=os.path.join(root, "part", "knn_k2", "checkpoint.npz"))
+    run("snapshots", SEGMENT_OUTERS, snapshot_every=SEGMENT_EVERY)
+    torch.cuda.synchronize()
+    return {"counts": _counts(), "s": time.perf_counter() - t0,
+            "transport": mesh.transport}
+
+
+def phase_mesh_segments(torch, failures) -> list:
+    """``_segments_rank`` on two gloo ranks sharing the card: the resumed
+    run's state within RESUME_RTOL of the unbroken mesh run's (rank 0's
+    checkpoints, of the gathered state) and the snapshots under the JAX
+    package's file names, the last equal to the unbroken run's x."""
+    from dip_admm_tpu_torch.data import serialization
+    from dip_admm_tpu_torch.parallel import mesh as meshlib
+
+    root = tempfile.mkdtemp(prefix="smoke_mesh_segments_")
+    try:
+        t0 = time.perf_counter()
+        outs = meshlib.launch(_segments_rank, 2, torch.device("cuda", 0),
+                              args=(root,))
+        wall_s = time.perf_counter() - t0
+
+        def ckpt(name):
+            return serialization.load_checkpoint(
+                os.path.join(root, name, "knn_k2", "checkpoint.npz"), "cpu")[0]
+
+        whole, part, resumed = (ckpt(n) for n in ("unbroken", "part",
+                                                  "resumed"))
+        rel = _state_rel(torch, resumed, whole)
+        bitwise = all(torch.equal(a, b) for a, b in (
+            (resumed.node.x, whole.node.x), (resumed.Z, whole.Z),
+            (resumed.Y, whole.Y)))
+        snaps = os.path.join(root, "snapshots", "knn_k2", "snapshots")
+        P = whole.node.x.shape[0]
+        want = {f"iter_{k:04d}_node_{i}.npy"
+                for k in range(SEGMENT_EVERY, SEGMENT_OUTERS + 1,
+                               SEGMENT_EVERY) for i in range(P)}
+        got = {f for f in os.listdir(snaps) if f.endswith(".npy")}
+        last = np.stack([np.load(os.path.join(
+            snaps, f"iter_{SEGMENT_OUTERS:04d}_node_{i}.npy")).reshape(-1)
+            for i in range(P)])
+        checks = {
+            "k": (whole.k, part.k, resumed.k) == (
+                SEGMENT_OUTERS, SEGMENT_OUTERS // 2 // SEGMENT_EVERY
+                * SEGMENT_EVERY, SEGMENT_OUTERS),
+            "resume": rel <= RESUME_RTOL,
+            "snapshot_names": got == want,
+            "snapshot_last": np.array_equal(last, whole.node.x.numpy()),
+            "k5_sharded": all(o["counts"]["consensus_update_sharded"] > 0
+                              for o in outs),
+        }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k, ok in checks.items():
+        if not ok:
+            failures.append(f"mesh_segments check {k} failed")
+    print(f"mesh_segments: mesh=2x1 transport={outs[0]['transport']} "
+          f"outers={SEGMENT_OUTERS} every={SEGMENT_EVERY} "
+          f"rank_run_s={[o['s'] for o in outs]} launch_wall_s={wall_s} "
+          f"resumed_rel_diff={rel} bitwise={bitwise} "
+          f"snapshot_files={len(got)} rank_launches="
+          f"{json.dumps([o['counts'] for o in outs])} "
+          f"ok={all(checks.values())}", flush=True)
+    return [{k: sum(o["counts"][k] for o in outs) for k in outs[0]["counts"]}]
+
+
+def _multihost_rank(out: str) -> None:
+    """One process of the multihost phase, started with an environment
+    rendezvous (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK):
+    ``multihost.initialize``, ``global_mesh`` on the card,
+    ``distribute_problem`` of the 256^2/8 mode-fft problem, and
+    MULTIHOST_OUTERS outers of the parity contract through
+    ``run_admm_sharded``. Writes ``<out>.<rank>.npz``: the rank's launch
+    counts and, on rank 0, the gathered x, Z and Y."""
+    import torch
+
+    from dip_admm_tpu_torch.data import loader
+    from dip_admm_tpu_torch.parallel import admm_sharded, multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize()
+    mesh = multihost.global_mesh(device="cuda:0")
+    cfg = _bench_cfg("float32")
+    run_cfg = dataclasses.replace(cfg.admm, max_iters=MULTIHOST_OUTERS)
+    dp = multihost.distribute_problem(
+        loader.build_problem(cfg, mesh.device, mode="fft"), mesh)
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = admm_sharded.run_admm_sharded(dp, run_cfg, mesh)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _counts()
+    full = admm_sharded.gather_result(res, mesh)
+    arrays = {"x": full.x.cpu().numpy(), "Z": full.state.Z.cpu().numpy(),
+              "Y": full.state.Y.cpu().numpy()} if mesh.rank == 0 else {}
+    np.savez(f"{out}.{mesh.rank}.npz", counts=json.dumps(counts),
+             run_s=run_s, transport=mesh.transport,
+             node_block=np.asarray(dp.node_block), **arrays)
+    torch.distributed.destroy_process_group()
+
+
+def phase_multihost(torch, problem, failures) -> list:
+    """Two processes joined by an environment rendezvous on 127.0.0.1
+    (``_multihost_rank``), against MULTIHOST_OUTERS outers of the same
+    mode-fft problem on one device (``problem``, built alike)."""
+    import socket
+
+    from dip_admm_tpu_torch.core import admm
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="smoke_multihost_")
+    out = os.path.join(tmp, "rank")
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": "2", "PYTHONPATH": here}
+    code = "import sys, chip_smoke; chip_smoke._multihost_rank(sys.argv[1])"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, out], cwd=here,
+                              env={**env, "RANK": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    try:
+        if any(p.returncode for p in procs):
+            failures.append("multihost: a rank failed: " + " | ".join(
+                err[-2000:] for _, err in logs))
+            return []
+        ranks = [np.load(f"{out}.{r}.npz") for r in range(2)]
+        counts = [json.loads(str(z["counts"])) for z in ranks]
+        ref = admm.run_admm(problem, dataclasses.replace(
+            problem.cfg.admm, max_iters=MULTIHOST_OUTERS))
+        rels = {k: _rel(ranks[0][k], v.cpu().numpy()) for k, v in (
+            ("x", ref.x), ("Z", ref.state.Z), ("Y", ref.state.Y))}
+        checks = {
+            "state": max(rels.values()) <= MULTIHOST_RTOL,
+            "blocks": [tuple(z["node_block"]) for z in ranks] == [(0, 4),
+                                                                  (4, 8)],
+            "k5_sharded": all(c["consensus_update_sharded"]
+                              == MULTIHOST_OUTERS for c in counts),
+        }
+        for k, ok in checks.items():
+            if not ok:
+                failures.append(f"multihost check {k} failed")
+        print(f"multihost: processes=2 rendezvous=env(127.0.0.1:{port}) "
+              f"transport={ranks[0]['transport']} mode=fft N=256 nodes=8 "
+              f"outers={MULTIHOST_OUTERS} rank_run_s="
+              f"{[float(z['run_s']) for z in ranks]} wall_s={wall_s} "
+              f"state_rel_diff={json.dumps(rels)} "
+              f"rank_launches={json.dumps(counts)} "
+              f"ok={all(checks.values())}", flush=True)
+        return [{k: sum(c[k] for c in counts) for k in counts[0]}]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_dtype(torch, dev, failures) -> list:
+    """64^2/5 dense (auto), 5 outers, under the problem dtypes bfloat16 and
+    float64: each field's dtype and the loop state's the JAX package's
+    (DTYPE_WANT), the results finite. Then bfloat16 on fft_skew at 64^2/8:
+    b and the loop state in bfloat16, K1-K4 and K5 (which take float32,
+    cast at their wrappers) launching."""
+    from dip_admm_tpu_torch.core import admm
+
+    counts = []
+    for name, want in DTYPE_WANT.items():
+        cfg = dataclasses.replace(_dense_cfg(max_iters=5), dtype=name)
+        problem, build_s, _ = _build_timed(torch, cfg, dev)
+        res, c, _, line = _dense_drive(torch, problem, cfg.admm,
+                                       f"dtype_{name}", failures)
+        counts.append(c)
+        got = {k: str(getattr(problem, k).dtype).replace("torch.", "")
+               for k in want if k != "x"}
+        got["x"] = str(res.x.dtype).replace("torch.", "")
+        ok = got == want and problem.mode == "dense"
+        if not ok:
+            failures.append(f"dtype_{name}: dtypes {got}, want {want}")
+        print(f"dtype: dtype={name} N=64 nodes=5 build_s={build_s} "
+              f"dtypes={json.dumps(got)} {line} dtypes_ok={ok}", flush=True)
+    cfg = dataclasses.replace(_dense_cfg(nodes=8, max_iters=5),
+                              dtype="bfloat16")
+    problem = _build_timed(torch, cfg, dev, mode="fft_skew")[0]
+    torch.cuda.synchronize()
+    _reset_counts()
+    res = admm.run_admm(problem, cfg.admm)
+    torch.cuda.synchronize()
+    counts.append(_counts())
+    x = res.x.float().cpu().numpy()
+    psnr = _mean_psnr(x, problem.x_true.float().cpu().numpy())
+    ok = (problem.b.dtype == res.x.dtype == torch.bfloat16
+          and bool(np.isfinite(x).all())
+          and all(counts[-1][k] > 0 for k in SKEW)
+          and counts[-1]["consensus_update"] == res.n_iters)
+    if not ok:
+        failures.append("dtype: bfloat16 fft_skew run")
+    print(f"dtype: dtype=bfloat16 mode=fft_skew N=64 nodes=8 "
+          f"b={problem.b.dtype} x={res.x.dtype} outers={res.n_iters} "
+          f"mean_psnr={psnr} run_launches={json.dumps(counts[-1])} ok={ok}",
+          flush=True)
+    return counts
+
+
+def phase_native_graphs(torch, dev, W, failures) -> None:
+    """The native graph builder on the host at 256^2/8 (n = 65536), knn
+    k = 2 and mst, on the mode-fft bench problem's column norms: masks
+    equal to the torch build's on the card."""
+    from dip_admm_tpu_torch.graph import native, precisions, topology
+
+    t0 = time.perf_counter()
+    built = native.available()
+    build_s = time.perf_counter() - t0
+    if not built:
+        failures.append("native_graphs: the builder does not build (g++, "
+                        "OpenMP)")
+        return
+    q = precisions.pairwise_q(torch.as_tensor(W, device=dev), "arithmetic")
+    line = []
+    for strategy, k in (("knn", 2), ("mst", 0)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep_t = topology.build_pixel_masks(q, strategy=strategy, k=k)
+        torch.cuda.synchronize()
+        torch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        keep_n = native.build_pixel_masks_native(q, strategy=strategy, k=k)
+        native_s = time.perf_counter() - t0
+        ok = np.array_equal(keep_n, keep_t.cpu().numpy())
+        if not ok:
+            failures.append(f"native_graphs: {strategy} masks differ")
+        line.append(f"{strategy}: native_s={native_s} torch_card_s={torch_s}"
+                    f" equal={ok}")
+    print(f"native_graphs: n={W.shape[1]} nodes={W.shape[0]} "
+          f"threads={native.num_threads()} build_s={build_s} "
+          f"{' '.join(line)}", flush=True)
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -3276,15 +3746,35 @@ def main() -> int:
     solver_counts = phase_solvers(torch, dev, failures)
     t_new = _phase_s("solvers", t_new)
     large_counts = phase_solvers_large(torch, dev, bench, failures)
-    _phase_s("solvers_large", t_new)
+    t_new = _phase_s("solvers_large", t_new)
     del bench
     torch.cuda.empty_cache()
+    mf_counts, mf_problem = _mf_run(torch, dev, False, failures)
+    t_new = _phase_s("matrix_free", t_new)
+    host_counts = phase_multihost(torch, mf_problem, failures)
+    t_new = _phase_s("multihost", t_new)
+    W_bench = mf_problem.W.cpu().numpy()
+    del mf_problem
+    torch.cuda.empty_cache()
+    mf_fan_counts, _ = _mf_run(torch, dev, True, failures)
+    t_new = _phase_s("matrix_free_fan", t_new)
+    torch.cuda.empty_cache()
+    fold_counts = phase_fold_eval(torch, dev, failures)
+    t_new = _phase_s("fold_eval", t_new)
+    torch.cuda.empty_cache()
+    segment_counts = phase_mesh_segments(torch, failures)
+    t_new = _phase_s("mesh_segments", t_new)
+    dtype_counts = phase_dtype(torch, dev, failures)
+    t_new = _phase_s("dtype", t_new)
+    phase_native_graphs(torch, dev, W_bench, failures)
+    _phase_s("native_graphs", t_new)
     runs = (main_counts, rec_counts, mesh_counts, mesh_fan_counts,
             *fan_counts.values(), *p512_counts.values(), *sm_counts.values(),
             stage_counts, flagship_counts, *inner_counts, *dense_counts,
             *strategy_counts, *s256_counts, *resume_counts, *bundle_counts,
             *batch64_counts, *batch256_counts, *solver_counts,
-            *large_counts)
+            *large_counts, *mf_counts, *host_counts, *mf_fan_counts,
+            *fold_counts, *segment_counts, *dtype_counts)
     launches = {name: sum(c[name] for c in runs) for name in REPLACES}
     failures += [f"kernel {name} launched in none of the runs"
                  for name, n in launches.items() if n == 0]

@@ -470,31 +470,51 @@ def run_admm_snapshots(
     ``max_iters // snapshot_div``, at least 1), writing every node's image
     after each segment to ``snapshot_dir`` as ``iter_<k:04d>_node_<i>``
     ``.npy`` and ``.png``. The segments continue one another exactly
-    (the ``state``/``hist``/``until`` contract). A mesh is not supported
-    yet: a rank holds only its node block."""
+    (the ``state``/``hist``/``until`` contract). With ``mesh`` every rank
+    calls it: the segments run through ``run_admm_sharded`` on the rank's
+    blocks, rank 0 writes the images of the gathered state, and every rank
+    returns the gathered result."""
     from dip_admm_tpu_torch.utils import artifacts
 
-    if mesh is not None:
-        raise ValueError("snapshots (--snapshot-every) are not supported on "
-                         "a mesh yet")
     cfg = cfg if cfg is not None else problem.cfg.admm
     if snapshot_every is None:
         snapshot_every = max(1, cfg.max_iters // snapshot_div)
     if snapshot_every < 1:
         raise ValueError(f"snapshot_every must be >= 1, got {snapshot_every}")
-    state, hist = init_state(problem, cfg)
+    run, gather, state, hist = segment_driver(problem, cfg, mesh)
+    write = snapshot_dir is not None and (mesh is None or mesh.rank == 0)
     while True:
         upto = min(state.k + snapshot_every, cfg.max_iters)
-        res = run_admm(problem, cfg, state=state, hist=hist, until=upto)
+        res = run(state=state, hist=hist, until=upto)
         state, hist = res.state, res.history
-        if snapshot_dir is not None:
-            artifacts.save_recons(res.x, problem.N, snapshot_dir,
+        whole = gather(res)
+        if write:
+            artifacts.save_recons(whole.x, problem.N, snapshot_dir,
                                   f"iter_{state.k:04d}")
         if state.stop or state.k >= cfg.max_iters:
             break
-    if snapshot_dir is not None:
+    if write:
         artifacts.flush_async()
-    return res
+    if mesh is not None:
+        mesh.barrier()
+    return whole
+
+
+def segment_driver(problem: Problem, cfg: AdmmConfig, mesh=None):
+    """(run, gather, state, hist) of a segmented run on one device or on
+    ``mesh``: ``run(state=, hist=, until=)`` continues a run (on the rank's
+    blocks under a mesh), ``gather(res)`` gives its whole arrays (the
+    identity on one device), and a fresh state and history to start from."""
+    if mesh is None:
+        state, hist = init_state(problem, cfg)
+        return (lambda **kw: run_admm(problem, cfg, **kw), _identity,
+                state, hist)
+    from dip_admm_tpu_torch.parallel import admm_sharded
+
+    state, hist = admm_sharded.init_state(problem, cfg, mesh)
+    return (lambda **kw: admm_sharded.run_admm_sharded(problem, cfg, mesh,
+                                                       **kw),
+            lambda res: admm_sharded.gather_result(res, mesh), state, hist)
 
 
 def _tile_precond(fp: node_solver.FourierPrecond | None,

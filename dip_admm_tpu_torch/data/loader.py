@@ -1,5 +1,5 @@
 """Problem construction for projector modes ``dense``, ``joseph``,
-``fft_skew`` and ``fft_grouped``, in parallel and fan beam, and
+``fft``, ``fft_skew`` and ``fft_grouped``, in parallel and fan beam, and
 ``fft_shear``, ``fft_pallas`` and ``fft_mxu``, in parallel beam.
 
 A :class:`Problem` carries the per-node angle sets, the noisy sinograms
@@ -16,6 +16,14 @@ Random draws (the measurement noise, the power-method start and the chain
 graph's node orders) come from ``torch.Generator``s seeded from the config;
 callers that must match another implementation pass them in explicitly
 (``noise``, ``opnorm_v0``, ``orders``).
+
+``cfg.dtype`` is the JAX package's problem dtype, with its per-field
+result (JAX without x64): "float64" builds in float32; under "bfloat16" or
+"float16" the angles, phantom, W, Q, x_true and opnorm take that dtype,
+the tables are built in float32 from the rounded angles, and b (and with
+it the loop state) takes the dtype the mode's projector returns for an
+image of that dtype (:data:`_KEEPS_DTYPE`); mode ``fft`` refuses it, as
+there.
 """
 
 from __future__ import annotations
@@ -31,7 +39,11 @@ from dip_admm_tpu_torch.graph import precisions, topology
 from dip_admm_tpu_torch.ops import phantoms, radon, radon_fan, radon_fft
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-MODES = ("dense", "joseph", "fft_skew", "fft_grouped", "fft_pallas",
+# cfg.dtype -> the problem's dtype (float64 is float32, as under JAX
+# without x64).
+_PROBLEM_DTYPES = {"float32": torch.float32, "float64": torch.float32,
+                  "bfloat16": torch.bfloat16, "float16": torch.float16}
+MODES = ("dense", "joseph", "fft", "fft_skew", "fft_grouped", "fft_pallas",
          "fft_shear", "fft_mxu")
 # The largest N at which mode=None picks "dense" (the JAX loader's rule).
 DENSE_MAX_N = 128
@@ -42,6 +54,10 @@ _OPS = {
        for fan in (False, True)},
     **{("joseph", fan): (radon.project_nodes, radon.backproject_nodes)
        for fan in (False, True)},
+    ("fft", False): (radon_fft.project_nodes_phases,
+                     radon_fft.backproject_nodes_phases),
+    ("fft", True): (radon_fan.project_nodes_fan,
+                    radon_fan.backproject_nodes_fan),
     ("fft_skew", False): (radon_fft.project_nodes_skew,
                           radon_fft.backproject_nodes_skew),
     ("fft_skew", True): (radon_fan.project_nodes_fan_skew,
@@ -57,6 +73,10 @@ _OPS = {
     ("fft_mxu", False): (radon_fft.project_nodes_mxu,
                          radon_fft.backproject_nodes_mxu),
 }
+# The (mode, fan_beam) whose JAX projector returns a half-precision image's
+# projection in that dtype; the others return float32.
+_KEEPS_DTYPE = {("fft_skew", False), ("fft_skew", True), ("fft_shear", False),
+                ("fft_grouped", True)}
 
 
 @dataclasses.dataclass
@@ -75,6 +95,9 @@ class Problem:
     x_true: torch.Tensor  # [n]
     opnorm: torch.Tensor  # [P] estimates of ||A_i^T A_i||_2
     fft_tables: dict
+    # (i0, i1) on a rank that holds only the node block [i0, i1) of the
+    # per-node arrays and tables (parallel.multihost.distribute_problem).
+    node_block: Optional[tuple[int, int]] = None
 
     @property
     def num_nodes(self) -> int:
@@ -112,26 +135,35 @@ class Problem:
 
 def _check_mode(mode: str, geo: GeometryConfig) -> None:
     if mode not in MODES:
-        raise NotImplementedError(
-            f"projector mode {mode!r} is not ported yet (only {MODES})"
-        )
+        raise ValueError(f"unknown projector mode {mode!r} (one of {MODES})")
     if (mode, geo.fan_beam) not in _OPS:
         raise NotImplementedError(f"{mode} supports parallel beam only")
 
 
 def make_node_ops(mode: str, geo: GeometryConfig, tables: dict):
-    """Batched per-node (forward, adjoint) callables on flattened data."""
+    """Batched per-node (forward, adjoint) callables on flattened data.
+
+    The projectors, and the kernels in them, take float32: a half-precision
+    input is cast to float32 here, and the result to the dtype the JAX
+    package's projector returns for it (its own for ``_KEEPS_DTYPE``, else
+    float32). A float32 input passes through uncast."""
     _check_mode(mode, geo)
     project, backproject = _OPS[mode, geo.fan_beam]
     N, D = geo.N, geo.n_det
+    keeps = (mode, geo.fan_beam) in _KEEPS_DTYPE
+
+    def out_dtype(x):
+        return x.dtype if keeps else torch.promote_types(x.dtype,
+                                                         torch.float32)
 
     def fwd(x):
-        return project(geo, x.reshape(-1, N, N), tables).reshape(x.shape[0], -1)
+        return project(geo, x.reshape(-1, N, N).to(torch.float32),
+                       tables).reshape(x.shape[0], -1).to(out_dtype(x))
 
     def adj(r):
         return backproject(
-            geo, r.reshape(r.shape[0], -1, D), tables
-        ).reshape(r.shape[0], -1)
+            geo, r.reshape(r.shape[0], -1, D).to(torch.float32), tables
+        ).reshape(r.shape[0], -1).to(out_dtype(r))
 
     return fwd, adj
 
@@ -183,7 +215,11 @@ def build_fft_tables(cfg: ProblemConfig, angles, valid,
     if geo.fan_beam:
         if mode == "fft_skew":
             return radon_fan.precompute_fan_skew(geo, angles, valid, tdt, **nb)
+        if mode == "fft":
+            return radon_fan.precompute_fan_nodes(geo, angles, valid, tdt)
         return radon_fan.precompute_fan_grouped(geo, angles, valid, tdt)
+    if mode == "fft":
+        return radon_fft.precompute_phases_nodes(geo, angles, valid, tdt)
     if mode in ("fft_skew", "fft_shear"):
         return radon_fft.precompute_shear(
             geo, angles, valid, tdt, layout=mode.removeprefix("fft_"), **nb)
@@ -273,8 +309,9 @@ def build_problem(
 ) -> Problem:
     """Assemble a :class:`Problem` on ``device``.
 
-    ``mode`` is "dense", "joseph", "fft_skew", "fft_grouped" or (parallel
-    beam only) "fft_shear", "fft_pallas" or "fft_mxu"; ``mode=None`` follows
+    ``mode`` is "dense", "joseph", "fft", "fft_skew", "fft_grouped" or
+    (parallel beam only) "fft_shear", "fft_pallas" or "fft_mxu";
+    ``mode=None`` follows
     the JAX loader's rule (:func:`resolve_mode`): "dense" at N <= 128 and
     "fft_skew" above, parallel and fan beam alike, and ``dense=True/False``
     is an alias for "dense"/"joseph". ``noise`` [P, m] replaces the
@@ -287,17 +324,23 @@ def build_problem(
     (``phantoms.rand_im(N, seed=cfg.noise_seed + i)``, numpy-seeded as in
     the JAX package); ``phantom_array`` is one [N, N] array for every node
     or a list of P. ``x_true`` is node 0's image. ``orders`` [n, P] are the
-    chain graph's node orders (``topology.build_pixel_masks``)."""
+    chain graph's node orders (``topology.build_pixel_masks``).
+    ``cfg.dtype``: see the module docstring."""
     device = torch.device(device)
     geo = cfg.geometry
     mode = resolve_mode(geo, mode, dense)
     _check_mode(mode, geo)
-    if cfg.dtype != "float32":
-        raise NotImplementedError("only dtype='float32' is ported")
+    if cfg.dtype not in _PROBLEM_DTYPES:
+        raise ValueError(f"dtype {cfg.dtype!r} is not one of "
+                         f"{tuple(_PROBLEM_DTYPES)}")
+    dtype = _PROBLEM_DTYPES[cfg.dtype]
+    if mode == "fft" and dtype != torch.float32:
+        raise ValueError(f"RFFT input must be float32 or float64, got "
+                         f"{cfg.dtype}")
     N, P, D, n = geo.N, geo.num_nodes, geo.n_det, geo.n
 
     angles_np, valid_np, _ = radon.node_angles(geo)
-    angles = torch.as_tensor(angles_np, dtype=torch.float32, device=device)
+    angles = torch.as_tensor(angles_np, dtype=dtype, device=device)
     valid = torch.as_tensor(valid_np, device=device)
 
     if isinstance(phantom_array, (list, tuple)):
@@ -313,11 +356,13 @@ def build_problem(
     else:
         node_phantoms = [phantoms.make_phantom(cfg.phantom, N,
                                                seed=cfg.noise_seed)] * P
-    imgs = torch.stack([torch.as_tensor(np.asarray(ph), dtype=torch.float32)
+    imgs = torch.stack([torch.as_tensor(np.asarray(ph), dtype=dtype)
                         .reshape(-1) for ph in node_phantoms]).to(device)
     x_true = imgs[0].clone()
 
-    tables = build_tables(cfg, angles, valid, mode, row_block)
+    # The geometry in float32, from the angles as the problem holds them.
+    angles32 = angles.to(torch.float32)
+    tables = build_tables(cfg, angles32, valid, mode, row_block)
     fwd, adj = make_node_ops(mode, geo, tables)
     clean = fwd(imgs)
     del imgs
@@ -325,14 +370,15 @@ def build_problem(
     if noise is None:
         gen = torch.Generator(device=device).manual_seed(cfg.noise_seed)
         noise = torch.randn(clean.shape, generator=gen, device=device)
-    row_valid = valid.repeat_interleave(D, dim=1).to(torch.float32)
-    b = clean + cfg.noise_level * noise.to(device) * row_valid
+    row_valid = valid.repeat_interleave(D, dim=1).to(dtype)
+    b = clean + cfg.noise_level * noise.to(device, clean.dtype) * row_valid
 
-    W = node_colnorms(geo, angles, valid, mode, tables)
+    W = node_colnorms(geo, angles32, valid, mode, tables).to(dtype)
     g = cfg.graph
     Q, keep, adjm = build_graph_layer(W, g.q_mode, g.strategy, g.k, g.seed,
                                       orders)
-    opnorm = estimate_opnorms(fwd, adj, P, n, device, v0=opnorm_v0)
+    opnorm = estimate_opnorms(fwd, adj, P, n, device,
+                              v0=opnorm_v0).to(dtype)
     return Problem(
         cfg=cfg, mode=mode, angles=angles, angle_valid=valid, b=b, W=W, Q=Q,
         keep=keep, adj=adjm, x_true=x_true, opnorm=opnorm, fft_tables=tables,

@@ -110,7 +110,8 @@ def save_problem(problem: Problem, path: str,
         arrays["A"] = problem.A
     out = {k: _numpy(v) for k, v in arrays.items()}
     if include_tables and problem.mode.startswith("fft"):
-        for k, v in _flatten(problem.fft_tables).items():
+        tables = _jax_layout(problem.fft_tables, problem.mode)
+        for k, v in _flatten(tables).items():
             if v.dtype == torch.bfloat16:
                 out[_TBL16 + k] = _numpy(v.view(torch.int16)).view(np.uint16)
             else:
@@ -121,6 +122,19 @@ def save_problem(problem: Problem, path: str,
         __mode__=np.frombuffer(problem.mode.encode(), np.uint8),
         **out,
     )
+
+
+def _jax_layout(tables: dict, mode: str) -> dict:
+    """Projector tables as the JAX package lays them out: a fan-beam
+    mode-``fft`` set, kept once under ``"shared"`` in the port
+    (``radon_fan.precompute_fan_nodes``), repeated over the nodes as JAX's
+    vmap builds it; every other set as it is."""
+    if mode == "fft" and "shared" in tables:
+        P = tables["fan_valid"].shape[0]
+        return {**{k: v.expand(P, *v.shape[1:])
+                   for k, v in tables["shared"].items()},
+                "fan_valid": tables["fan_valid"]}
+    return tables
 
 
 _INT_KEYS = ("plane", "posfull", "invposfull", "pfirst")
@@ -135,7 +149,14 @@ def _port_layout(tables: dict, mode: str) -> dict:
     layout of ``fft_skew`` (d-major ``WtT``, derived from a t-major ``Wt``
     if the bundle has only that) and of ``fft_shear`` (``Wt``), int32 index
     tables, and pitched storage for the ``fft_pallas`` and ``fft_grouped``
-    streams. Fan bundles keep their parallel stage under ``shared/par``."""
+    streams. Fan bundles keep their parallel stage under ``shared/par``;
+    a fan mode-``fft`` bundle (one table set a node, all equal but the row
+    mask) keeps its first node's under ``"shared"``
+    (``radon_fan.precompute_fan_nodes``)."""
+    if mode == "fft" and "rebin_re" in tables:
+        fan_valid = tables.pop("fan_valid")
+        return {"shared": {k: v[:1].clone() for k, v in tables.items()},
+                "fan_valid": fan_valid}
     for t in (tables, tables.get("shared", {}).get("par")):
         if not isinstance(t, dict):
             continue
@@ -156,7 +177,7 @@ def _port_layout(tables: dict, mode: str) -> dict:
     return tables
 
 
-_MODES = ("fft_skew", "fft_grouped")  # parallel and fan beam
+_MODES = ("fft", "fft_skew", "fft_grouped")  # parallel and fan beam
 _PARALLEL_MODES = ("fft_shear", "fft_mxu", "fft_pallas")
 _ANY_BEAM = ("dense", "joseph")
 
@@ -164,8 +185,9 @@ _ANY_BEAM = ("dense", "joseph")
 def load_problem(path: str, device: torch.device | str = "cuda") -> Problem:
     """Read a bundle of either package onto ``device``. Bundles of modes
     ``dense`` (its operator stack, the bundle's top-level ``A``),
-    ``joseph`` (its tap tables rebuilt from the angles), ``fft_skew`` and
-    ``fft_grouped``, parallel or fan beam, and parallel-beam bundles of
+    ``joseph`` (its tap tables rebuilt from the angles), ``fft``,
+    ``fft_skew`` and ``fft_grouped``, parallel or fan beam, and
+    parallel-beam bundles of
     ``fft_shear``, ``fft_mxu`` and ``fft_pallas`` are supported, their
     tables in the port's layout (:func:`_port_layout`); an fft bundle
     without tables has them built."""
@@ -177,9 +199,9 @@ def load_problem(path: str, device: torch.device | str = "cuda") -> Problem:
         if not (mode in _ANY_BEAM + _MODES
                 or (mode in _PARALLEL_MODES and not fan)):
             raise NotImplementedError(
-                f"bundle mode {mode!r} (fan_beam={fan}) is not ported yet "
-                f"(only {_ANY_BEAM + _MODES} and parallel {_PARALLEL_MODES})"
-            )
+                f"bundle mode {mode!r} (fan_beam={fan}): {mode} supports "
+                "parallel beam only" if mode in _PARALLEL_MODES
+                else f"bundle mode {mode!r} is unknown")
 
         def t(a):
             return torch.as_tensor(np.array(a), device=device)

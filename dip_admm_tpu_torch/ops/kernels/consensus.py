@@ -112,6 +112,7 @@ def _check_update(a, y, z, adjm, w, fusion, a_t, w_own, w_all):
 
 
 _checks = _launch.Checked(_check_update)
+_HALF = (torch.bfloat16, torch.float16)
 _SINGLE = _launch.Entry("consensus", "dip_consensus", "consensus_update")
 _SHARDED = _launch.Entry("consensus", "dip_consensus_sharded",
                          "consensus_update")
@@ -132,6 +133,16 @@ def consensus_update(a, y, z, adjm, w=None, fusion="midpoint", *,
     if _on_cpu(a):
         return consensus_update_ref(a, y, z, adjm, w, fusion, a_t=a_t,
                                     w_own=w_own, w_all=w_all)
+    if any(t is not None and t.dtype in _HALF
+           for t in (a, y, z, adjm, w, a_t, w_own, w_all)):
+        # K5 computes in float32: a half-precision problem's tensors are
+        # cast in here, and its results out to the state's dtype.
+        def f32(t):
+            return None if t is None else t.to(torch.float32)
+
+        return tuple(o.to(a.dtype) for o in consensus_update(
+            f32(a), f32(y), f32(z), f32(adjm), f32(w), fusion, a_t=f32(a_t),
+            w_own=f32(w_own), w_all=f32(w_all)))
     P_loc, P, n = _checks(a, y, z, adjm, w, fusion, a_t, w_own, w_all)
     B = a.shape[0] if a.dim() == 4 else 0  # checked: only without a_t
     # Four allocations shaped like checked inputs: cheaper on the host than

@@ -155,6 +155,134 @@ def _rebin_apply_t(bar, t):
             + torch.einsum("pfd,mf->pmd", ph_im, t["Bim"]))
 
 
+def precompute_fan(cfg: GeometryConfig, beta: torch.Tensor, valid=None,
+                   table_dtype=torch.float32) -> dict:
+    """Tables of one node's mode-``fft`` fan projection (``beta``,
+    ``valid`` [m]): the parallel stage's phase tables on the rebinned
+    detector grid (``radon_fft.precompute_phases`` at the T_p = m/2
+    parallel angles, every angle valid), the rebin filter ``rebin_re``/
+    ``rebin_im`` [D, m/2 + 1] in ``table_dtype`` and, with ``valid``, the
+    row mask ``fan_valid`` [m]."""
+    assert cfg.fan_beam
+    m = beta.shape[0]
+    if m % 2 != 0:
+        raise ValueError("fan rebinning needs an even angle count per node")
+    dev = beta.device
+    theta, s_l, shift = _rebin_geometry(cfg, m)
+    tables = radon_fft.precompute_phases(_parallel_cfg(cfg), theta.to(dev),
+                                         None, table_dtype, s_l.to(dev))
+    Rre, Rim = _rebin_filter(shift, m)
+    tables["rebin_re"] = Rre.to(device=dev, dtype=table_dtype)
+    tables["rebin_im"] = Rim.to(device=dev, dtype=table_dtype)
+    if valid is not None:
+        tables["fan_valid"] = valid.to(torch.float32)
+    return tables
+
+
+def precompute_fan_nodes(cfg: GeometryConfig, beta: torch.Tensor,
+                         valid: torch.Tensor,
+                         table_dtype=torch.float32) -> dict:
+    """Tables of :func:`project_nodes_fan` (``beta``, ``valid`` [P, m]).
+    Only the row mask differs between nodes, so one node's
+    :func:`precompute_fan` tables are kept once, as a table batch of one
+    under ``"shared"`` (PT = 1, kept whole on every rank of a mesh), beside
+    the per-node ``fan_valid`` [P, m]. The JAX package vmaps the whole set
+    over the nodes; ``data/serialization.py`` converts between the two."""
+    one = precompute_fan(cfg, beta[0], None, table_dtype)
+    return {"shared": {k: v[None] for k, v in one.items()},
+            "fan_valid": valid.to(torch.float32)}
+
+
+def _rebin_fft(p2: torch.Tensor, Rre: torch.Tensor, Rim: torch.Tensor):
+    """The angular rebin of mode ``fft``: [K, PT, m, D] periodic parallel
+    sinograms -> rFFT along the angle axis, times the filter [PT, D, F]
+    (float32), irFFT back (the imaginary parts of DC and Nyquist dropped,
+    see ``radon_fft._edge_mask``)."""
+    m = p2.shape[-2]
+    ph = torch.fft.rfft(p2, dim=-2)  # [K, PT, F, D]
+    R = torch.complex(Rre.to(torch.float32),
+                      Rim.to(torch.float32)).transpose(-1, -2)
+    out = ph * R
+    mask = radon_fft._edge_mask(out.shape[-2], p2.device)[:, None]
+    out = torch.complex(out.real, out.imag * mask)
+    return torch.fft.irfft(out, n=m, dim=-2)
+
+
+def _rebin_fft_t(bar: torch.Tensor, Rre: torch.Tensor, Rim: torch.Tensor):
+    """Exact transpose of :func:`_rebin_fft` (see
+    ``radon_fft._branch_apply_t`` for the two FFT transposes)."""
+    m = bar.shape[-2]
+    F = m // 2 + 1
+    interior = radon_fft._edge_mask(F, bar.device)[:, None]
+    Z = torch.fft.rfft(bar, dim=-2) * ((1.0 + interior) / m)
+    Z = torch.complex(Z.real, Z.imag * interior)
+    R = torch.complex(Rre.to(torch.float32),
+                      Rim.to(torch.float32)).transpose(-1, -2)
+    ph = Z * R.conj()
+    X = torch.complex(ph.real * (2.0 - interior), ph.imag * interior)
+    return torch.fft.irfft(X, n=m, dim=-2) * (m / 2.0)
+
+
+def project_nodes_fan(cfg: GeometryConfig, imgs: torch.Tensor,
+                      tables: dict) -> torch.Tensor:
+    """Mode ``fft``'s batched fan projection [PB, N, N] -> [PB, m, D] on
+    :func:`precompute_fan_nodes` tables: the parallel stage
+    (``radon_fft``'s split-table branches), the flip periodization, the
+    rebin by FFTs along the angle axis and the row mask. No kernel, as the
+    JAX package's XLA path."""
+    t = tables["shared"]
+    PT = t["rebin_re"].shape[0]
+    p = radon_fft.project_nodes_phases(_parallel_cfg(cfg), imgs, t)
+    p2 = radon_fft._kview(torch.cat([p, p.flip(2)], dim=1), PT)
+    out = _rebin_fft(p2, t["rebin_re"], t["rebin_im"])
+    out = out.reshape(imgs.shape[0], *out.shape[2:])
+    return _mask_rows(out, tables["fan_valid"])
+
+
+def backproject_nodes_fan(cfg: GeometryConfig, sinos: torch.Tensor,
+                          tables: dict) -> torch.Tensor:
+    """Exact adjoint of :func:`project_nodes_fan`, composed by hand."""
+    t = tables["shared"]
+    PT = t["rebin_re"].shape[0]
+    T_p = tables["fan_valid"].shape[1] // 2
+    ob = radon_fft._kview(_mask_rows(sinos, tables["fan_valid"]), PT)
+    p2_bar = _rebin_fft_t(ob, t["rebin_re"], t["rebin_im"])
+    p2_bar = p2_bar.reshape(sinos.shape[0], *p2_bar.shape[2:])
+    p_bar = p2_bar[:, :T_p] + p2_bar[:, T_p:].flip(2)
+    return radon_fft.backproject_nodes_phases(_parallel_cfg(cfg), p_bar, t)
+
+
+def _single(tables: dict, valid) -> dict:
+    """One node's :func:`precompute_fan` tables in
+    :func:`precompute_fan_nodes`'s layout, with its row mask (all rows
+    without ``valid``)."""
+    t = dict(tables)
+    fv = t.pop("fan_valid", None)
+    if fv is None:
+        m = 2 * t["p_r"].shape[0]
+        fv = (torch.ones(m, device=t["p_r"].device) if valid is None
+              else valid.to(torch.float32))
+    return {"shared": {k: v[None] for k, v in t.items()},
+            "fan_valid": fv[None]}
+
+
+def project(cfg: GeometryConfig, img: torch.Tensor, beta: torch.Tensor,
+            valid=None, tables: dict | None = None) -> torch.Tensor:
+    """One node's fan projection [N, N] x [m] -> [m, D] (the JAX
+    package's signature)."""
+    if tables is None:
+        tables = precompute_fan(cfg, beta, valid)
+    return project_nodes_fan(cfg, img[None], _single(tables, valid))[0]
+
+
+def backproject(cfg: GeometryConfig, sino: torch.Tensor, beta: torch.Tensor,
+                valid=None, tables: dict | None = None) -> torch.Tensor:
+    """Exact adjoint of :func:`project` [m, D] -> [N, N]."""
+    if tables is None:
+        tables = precompute_fan(cfg, beta, valid)
+    return backproject_nodes_fan(cfg, sino[None], _single(tables, valid))[0]
+
+
 def _mask_rows(s: torch.Tensor, fan_valid: torch.Tensor) -> torch.Tensor:
     """[PB, m, D] sinograms times the fan row mask [P, m] of node p % P
     (PB = B * P images, b-major)."""
@@ -314,3 +442,10 @@ def colnorms_sq_nodes(cfg: GeometryConfig, beta: torch.Tensor,
     # Seam pairs (T_p-1 <-> T_p and m-1 <-> 0 on the periodized circle).
     return W + 2.0 * ein(e3, w_prev * w0.flip(0))
 
+
+
+def colnorms_sq(cfg: GeometryConfig, beta: torch.Tensor,
+                valid=None) -> torch.Tensor:
+    """Single-node :func:`colnorms_sq_nodes` (``beta`` [m] -> [N, N])."""
+    v = None if valid is None else valid[None]
+    return colnorms_sq_nodes(cfg, beta[None], v)[0]

@@ -551,16 +551,8 @@ def precompute_merged_nodes(cfg: GeometryConfig, angles: torch.Tensor,
     ``Ere``/``Eim``) and of the spectrum cotangents (that of ``Cre``/
     ``Cim``) in 16-byte loads. Each node is written into the batch storage
     as it is built, so no table is held twice."""
-    P = angles.shape[0]
-    out = {}
-    for i in range(P):
-        node = precompute_merged(cfg, angles[i], valid[i], table_dtype, dets)
-        for k, v in node.items():
-            if k not in out:
-                out[k] = _batch_storage(k, (P, *v.shape), v, pitched)
-            out[k][i] = v
-        del node
-    return out
+    return _node_batch(angles.shape[0], lambda i: precompute_merged(
+        cfg, angles[i], valid[i], table_dtype, dets), pitched)
 
 
 def _batch_storage(key, shape, like, pitched):
@@ -574,6 +566,11 @@ def _batch_storage(key, shape, like, pitched):
     return torch.empty(shape, **kw)
 
 
+# Fold the irfft + hat + scale tail into the WC tables only up to this many
+# bytes of them (both planes, in the table dtype): the JAX package's cap.
+_FOLD_EVAL_MAX_BYTES = 4.0e9
+
+
 def precompute_grouped(cfg: GeometryConfig, angles: torch.Tensor,
                        valid: torch.Tensor, table_dtype=torch.float32,
                        fold_eval: bool | None = None, dets=None) -> dict:
@@ -585,11 +582,16 @@ def precompute_grouped(cfg: GeometryConfig, angles: torch.Tensor,
     with ``pitched``): ``Hre_g``/``Him_g`` and the row-DFT columns in
     pitched storage, the irfft rows with their F rows padded, so that K13
     and K14 stream H, the slot spectra and the cotangents in 16-byte loads.
-    ``fold_eval`` (the JAX package's precomputed irfft + hat tail, off by
-    default and measured slower there) is not ported."""
-    if fold_eval:
-        raise NotImplementedError("precompute_grouped: fold_eval is not "
-                                  "ported (off by default in the JAX package)")
+
+    ``fold_eval`` (off by default, as in the JAX package, which measured
+    it slower) also folds the irfft, the hat evaluation and the branch
+    scale into one table pair per plane, in slot order, slack rows zero:
+
+        WC_re[p, t, d, f] = s[p, t] sum_v hat(p[p, t, d] - v) Cre[p, f, v]
+
+    (dense [P, Tp, D, F] in the table dtype, built one angle block at a
+    time), so that the tail after K13 is one contraction over f. It is
+    dropped, as there, when the pair would pass ``_FOLD_EVAL_MAX_BYTES``."""
     merged = precompute_merged_nodes(cfg, angles, valid, table_dtype, dets,
                                      pitched=True)
     use_c = merged["sel"][:, :, 0] > 0.5
@@ -610,7 +612,7 @@ def precompute_grouped(cfg: GeometryConfig, angles: torch.Tensor,
     def i32(a):
         return torch.as_tensor(a, dtype=torch.int32, device=dev)
 
-    return {
+    tables = {
         "Hre_g": slots(merged.pop("Hre")),
         "Him_g": slots(merged.pop("Him")),
         "onehot": torch.as_tensor(plan["onehot"], device=dev),
@@ -618,6 +620,39 @@ def precompute_grouped(cfg: GeometryConfig, angles: torch.Tensor,
         "invposfull": i32(plan["invposfull"]),
         **{k: merged[k] for k in ("p", "s", "Ere", "Eim", "Cre", "Cim")},
     }
+    P, Tp = src.shape
+    D, F = merged["p"].shape[-1], merged["Cre"].shape[-2]
+    wc_bytes = 2 * P * Tp * D * F * torch.finfo(table_dtype).bits // 8
+    if fold_eval and wc_bytes <= _FOLD_EVAL_MAX_BYTES:
+        tables.update(_fold_tables(merged, src, int(plan["tt"]), table_dtype))
+    return tables
+
+
+def _fold_tables(merged: dict, src: torch.Tensor, tt: int,
+                 table_dtype) -> dict:
+    """The WC pair of :func:`precompute_grouped`'s ``fold_eval``: the
+    slot-ordered coordinates and scales (slack slots s = 0, so their rows
+    are zero), one tt-angle block at a time, so that the transient hat
+    weights are [P, tt, D, Np] and not [P, Tp, D, Np]."""
+    P, Tp = src.shape
+    D = merged["p"].shape[-1]
+    Cre, Cim = merged["Cre"], merged["Cim"]  # [P, F, Np]
+    F, Np = Cre.shape[-2:]
+    keep = (src >= 0).to(torch.float32)
+    srcc = src.clamp(min=0)
+    p_slot = torch.gather(merged["p"], 1, srcc[:, :, None].expand(-1, -1, D))
+    s_slot = torch.gather(merged["s"], 1, srcc) * keep
+    v_idx = torch.arange(Np, dtype=torch.float32, device=src.device)
+    out = {k: torch.empty((P, Tp, D, F), dtype=table_dtype, device=src.device)
+           for k in ("WCre", "WCim")}
+    for t0 in range(0, Tp, tt):
+        w = torch.clamp(1.0 - torch.abs(p_slot[:, t0:t0 + tt, :, None]
+                                        - v_idx), min=0.0)
+        sc = s_slot[:, t0:t0 + tt, None, None]
+        for key, C in (("WCre", Cre), ("WCim", Cim)):
+            out[key][:, t0:t0 + tt] = sc * torch.einsum("ptdv,pfv->ptdf", w, C)
+        del w
+    return out
 
 
 def precompute_merged_mxu(cfg: GeometryConfig, angles: torch.Tensor,
@@ -826,7 +861,42 @@ def project_nodes_grouped(cfg: GeometryConfig, imgs: torch.Tensor,
     t = tables
     g_re, g_im = filter_sum_grouped(*_slot_spectra(imgs, t), t["Hre_g"],
                                     t["Him_g"])
+    if "WCre" in t:
+        out = _fold_tail(g_re, g_im, t)
+        T = t["p"].shape[-2]
+        return filter_mxu.permute_rows(out, t["posfull"])[:, :T].to(imgs.dtype)
     return _slot_tail(g_re, g_im, t, imgs.dtype)
+
+
+def _wc(t: dict, key: str) -> torch.Tensor:
+    """WC table ``key`` in float32 (a bf16 table's exact upcast)."""
+    return t[key].to(torch.float32)
+
+
+def _fold_tail(g_re, g_im, t):
+    """The folded tail of ``fold_eval`` tables: [PB, Tp, F] slot spectra ->
+    [PB, Tp, D], as the JAX package computes it: the spectra rounded to the
+    WC dtype, then products summed in float32."""
+    PT = t["WCre"].shape[0]
+    wdt = t["WCre"].dtype
+    out = sum(torch.einsum("ptdf,kptf->kptd", _wc(t, k),
+                           _kview(g.to(wdt).to(torch.float32), PT))
+              for k, g in (("WCre", g_re), ("WCim", g_im)))
+    return out.reshape(g_re.shape[0], g_re.shape[1], -1)
+
+
+def _fold_tail_t(sinos, t):
+    """Exact transpose of :func:`_fold_tail` after the slot unpermute:
+    [PB, T, D] cotangents -> the pitched [PB, Tp, F] pair K14 streams."""
+    PT = t["WCre"].shape[0]
+    wdt = t["WCre"].dtype
+    ob = _kview(_pad_unpermute(sinos, t).to(wdt).to(torch.float32), PT)
+    out = []
+    for k in ("WCre", "WCim"):
+        g = torch.einsum("ptdf,kptd->kptf", _wc(t, k), ob)
+        g = g.reshape(sinos.shape[0], -1, g.shape[-1])
+        out.append(pitched_zeros(g.shape, g.dtype, g.device).copy_(g))
+    return out
 
 
 def backproject_nodes_grouped(cfg: GeometryConfig, sinos: torch.Tensor,
@@ -835,9 +905,9 @@ def backproject_nodes_grouped(cfg: GeometryConfig, sinos: torch.Tensor,
     hat-tail transpose, slot re-permute, the grouped transpose (K14), the
     transposed one-hot gather and the row-DFT transpose."""
     t = tables
+    tail_t = _fold_tail_t if "WCre" in t else _slot_tail_t
     rre_s_bar, rim_s_bar = filter_sum_grouped_t(
-        *_slot_tail_t(sinos, t), t["Hre_g"], t["Him_g"],
-        t["onehot"].shape[1])
+        *tail_t(sinos, t), t["Hre_g"], t["Him_g"], t["onehot"].shape[1])
     return _slot_spectra_t(rre_s_bar, rim_s_bar, t, sinos.dtype)
 
 
@@ -869,6 +939,209 @@ def backproject_nodes_mxu(cfg: GeometryConfig, sinos: torch.Tensor,
     return _slot_spectra_t(rre_s_bar, rim_s_bar, t, sinos.dtype)
 
 
+# ---------------------------------------------------------------------------
+# fft: the split-table projector (no kernel)
+# ---------------------------------------------------------------------------
+
+# The filter sums below run over chunks of angles whose float32 products
+# [K, PT, chunk, N, F] stay near this many bytes.
+_CHUNK_BYTES = 2.56e8
+
+
+def precompute_phases(cfg: GeometryConfig, angles: torch.Tensor,
+                      valid: torch.Tensor | None = None,
+                      table_dtype=torch.float32, dets=None) -> dict:
+    """Tables of one node's :func:`project` (``angles``, ``valid`` [T]):
+    each branch's shift-filter phases H [T, N, F] as real and imaginary
+    planes in ``table_dtype`` (the rows of angles outside the branch, or
+    not valid, zero, so the two branch outputs add), its recentred
+    evaluation coordinates ``p_*`` [T, D] and its scale ``s_*`` [T]. The
+    hat weights of the evaluation are rebuilt at each apply."""
+    N = cfg.N
+    Np = _padded_len(N, cfg.n_det)
+    (Pr, Br, Cr, sr), (Pc, Bc, Cc, sc), use_r = _coeffs(
+        cfg, angles.to(torch.float32), dets)
+    m_r = use_r.to(torch.float32)
+    m_c = 1.0 - m_r
+    if valid is not None:
+        m_r = m_r * valid.to(torch.float32)
+        m_c = m_c * valid.to(torch.float32)
+    out = {}
+    for b, (P_, B_, C_, s_, m) in (("r", (Pr, Br, Cr, sr, m_r)),
+                                   ("c", (Pc, Bc, Cc, sc, m_c))):
+        Hre, Him, delta = _branch_phases(P_, B_, C_, N, Np, m)
+        out.update({f"Hre_{b}": Hre.to(table_dtype),
+                    f"Him_{b}": Him.to(table_dtype),
+                    f"p_{b}": P_ - delta[:, None], f"s_{b}": s_})
+    return out
+
+
+def precompute_phases_nodes(cfg: GeometryConfig, angles: torch.Tensor,
+                            valid: torch.Tensor, table_dtype=torch.float32,
+                            dets=None) -> dict:
+    """Node-batched :func:`precompute_phases` (``angles``, ``valid``
+    [P, T]): every leaf with the node count leading, as the JAX loader
+    vmaps it; each node written into the batch as it is built."""
+    return _node_batch(angles.shape[0], lambda i: precompute_phases(
+        cfg, angles[i], valid[i], table_dtype, dets))
+
+
+def _node_batch(P: int, build_one: Callable[[int], dict],
+                pitched: bool = False) -> dict:
+    """The node tables ``build_one(i)``, i < P, written into batch storage
+    (:func:`_batch_storage`), so that no table is held twice."""
+    out = {}
+    for i in range(P):
+        node = build_one(i)
+        for k, v in node.items():
+            if k not in out:
+                out[k] = _batch_storage(k, (P, *v.shape), v, pitched)
+            out[k][i] = v
+        del node
+    return out
+
+
+def _chunk(per_angle_bytes: int) -> int:
+    return max(1, int(_CHUNK_BYTES // max(per_angle_bytes, 1)))
+
+
+def _edge_mask(F: int, device) -> torch.Tensor:
+    """1 on the interior bins, 0 on DC and Nyquist: an irfft reads only the
+    real part of those two, so their imaginary parts are dropped before it
+    (where the FFT library may not ignore them) and in its transpose."""
+    m = torch.ones(F, dtype=torch.float32, device=device)
+    m[0] = 0.0
+    m[-1] = 0.0
+    return m
+
+
+def _phase_sum(rhat: torch.Tensor, Hre: torch.Tensor, Him: torch.Tensor):
+    """g[k, p, t, f] = sum_n rhat[k, p, n, f] H[p, t, n, f] in float32, as
+    real and imaginary parts (the tables' exact upcast): [K, PT, N, F]
+    row spectra against [PT, T, N, F] tables -> ([K, PT, T, F], same)."""
+    K, PT, N, F = rhat.shape
+    T = Hre.shape[1]
+    rre, rim = rhat.real[:, :, None], rhat.imag[:, :, None]
+    g_re = torch.empty((K, PT, T, F), dtype=torch.float32, device=rhat.device)
+    g_im = torch.empty_like(g_re)
+    step = _chunk(K * PT * N * F * 4)
+    for t0 in range(0, T, step):
+        hr = Hre[:, t0:t0 + step].to(torch.float32)
+        hi = Him[:, t0:t0 + step].to(torch.float32)
+        g_re[:, :, t0:t0 + step] = (rre * hr - rim * hi).sum(dim=3)
+        g_im[:, :, t0:t0 + step] = (rre * hi + rim * hr).sum(dim=3)
+    return g_re, g_im
+
+
+def _phase_sum_t(g_re, g_im, Hre, Him):
+    """Exact transpose of :func:`_phase_sum` with respect to the row
+    spectra: ([K, PT, T, F], same) -> [K, PT, N, F] complex."""
+    K, PT, T, F = g_re.shape
+    N = Hre.shape[2]
+    r_re = torch.zeros((K, PT, N, F), dtype=torch.float32,
+                       device=g_re.device)
+    r_im = torch.zeros_like(r_re)
+    step = _chunk(K * PT * N * F * 4)
+    for t0 in range(0, T, step):
+        hr = Hre[:, t0:t0 + step].to(torch.float32)
+        hi = Him[:, t0:t0 + step].to(torch.float32)
+        gr = g_re[:, :, t0:t0 + step, None]
+        gi = g_im[:, :, t0:t0 + step, None]
+        r_re += (gr * hr + gi * hi).sum(dim=2)
+        r_im += (gi * hr - gr * hi).sum(dim=2)
+    return torch.complex(r_re, r_im)
+
+
+def _hat(p: torch.Tensor, Np: int) -> torch.Tensor:
+    """Materialized hat weights w[..., d, v] = max(0, 1 - |p[..., d] - v|),
+    as the JAX package builds them."""
+    v_idx = torch.arange(Np, dtype=torch.float32, device=p.device)
+    return torch.clamp(1.0 - torch.abs(p[..., None] - v_idx), min=0.0)
+
+
+def _branch_apply(rows: torch.Tensor, t: dict, b: str) -> torch.Tensor:
+    """One branch on its image orientation: rows [K, PT, N, N] -> rFFT of
+    the rows padded to Np -> the filter sum against ``Hre_b``/``Him_b``
+    -> irFFT -> hat evaluation at ``p_b`` -> scale ``s_b``: [K, PT, T, D]."""
+    Hre, Him = t[f"Hre_{b}"], t[f"Him_{b}"]
+    F = Hre.shape[-1]
+    Np = 2 * (F - 1)
+    g_re, g_im = _phase_sum(torch.fft.rfft(rows, n=Np, dim=-1), Hre, Him)
+    g = torch.fft.irfft(torch.complex(g_re, g_im * _edge_mask(F, rows.device)),
+                        n=Np, dim=-1)  # [K, PT, T, Np]
+    out = torch.einsum("ptdv,kptv->kptd", _hat(t[f"p_{b}"], Np), g)
+    return t[f"s_{b}"][..., None] * out
+
+
+def _branch_apply_t(ob: torch.Tensor, t: dict, b: str, N: int) -> torch.Tensor:
+    """Exact transpose of :func:`_branch_apply`, composed by hand: the
+    scale, the transposed hat contraction, the irFFT's transpose (an rFFT
+    with the interior bins doubled, over Np), the transposed filter sum and
+    the rFFT's transpose (an irFFT with DC and Nyquist doubled, times
+    Np / 2, cut to the N pixels): [K, PT, T, D] -> [K, PT, N, N]."""
+    Hre, Him = t[f"Hre_{b}"], t[f"Him_{b}"]
+    F = Hre.shape[-1]
+    Np = 2 * (F - 1)
+    dev = ob.device
+    g_bar = torch.einsum("ptdv,kptd->kptv", _hat(t[f"p_{b}"], Np),
+                         t[f"s_{b}"][..., None] * ob)
+    interior = _edge_mask(F, dev)
+    G = torch.fft.rfft(g_bar, dim=-1) * ((1.0 + interior) / Np)
+    r = _phase_sum_t(G.real, G.imag * interior, Hre, Him)
+    edges = 2.0 - interior
+    X = torch.complex(r.real * edges, r.imag * interior)
+    return torch.fft.irfft(X, n=Np, dim=-1)[..., :N] * (Np / 2.0)
+
+
+def project_nodes_phases(cfg: GeometryConfig, imgs: torch.Tensor,
+                         tables: dict) -> torch.Tensor:
+    """Mode ``fft``'s batched forward projection [PB, N, N] -> [PB, T, D]
+    on :func:`precompute_phases_nodes` tables [PT, ...] (PB a multiple of
+    PT, image p against table set p % PT): branch R on the rows, branch C
+    on the transposed image, added. Torch FFTs and products, no kernel,
+    as the JAX package's XLA path."""
+    if cfg.fan_beam:
+        raise NotImplementedError("FFT projector supports parallel beam only")
+    t = tables
+    PT = t["p_r"].shape[0]
+    x = _kview(imgs, PT)
+    out = _branch_apply(x, t, "r") + _branch_apply(x.transpose(-1, -2), t, "c")
+    return out.reshape(imgs.shape[0], *out.shape[2:])
+
+
+def backproject_nodes_phases(cfg: GeometryConfig, sinos: torch.Tensor,
+                             tables: dict) -> torch.Tensor:
+    """Exact adjoint of :func:`project_nodes_phases`, composed by hand."""
+    t, N = tables, cfg.N
+    PT = t["p_r"].shape[0]
+    ob = _kview(sinos, PT)
+    out = (_branch_apply_t(ob, t, "r", N)
+           + _branch_apply_t(ob, t, "c", N).transpose(-1, -2))
+    return out.reshape(sinos.shape[0], N, N)
+
+
+def project(cfg: GeometryConfig, img: torch.Tensor, angles: torch.Tensor,
+            valid: torch.Tensor | None = None,
+            tables: dict | None = None) -> torch.Tensor:
+    """One node's forward projection [N, N] x [T] -> [T, D] (the JAX
+    package's signature); ``tables`` from :func:`precompute_phases` skip
+    their build."""
+    if tables is None:
+        tables = precompute_phases(cfg, angles, valid)
+    t = {k: v[None] for k, v in tables.items()}
+    return project_nodes_phases(cfg, img[None], t)[0]
+
+
+def backproject(cfg: GeometryConfig, sino: torch.Tensor, angles: torch.Tensor,
+                valid: torch.Tensor | None = None,
+                tables: dict | None = None) -> torch.Tensor:
+    """Exact adjoint of :func:`project` [T, D] -> [N, N]."""
+    if tables is None:
+        tables = precompute_phases(cfg, angles, valid)
+    t = {k: v[None] for k, v in tables.items()}
+    return backproject_nodes_phases(cfg, sino[None], t)[0]
+
+
 def colnorms_sq(cfg: GeometryConfig, angles: torch.Tensor,
                 valid: torch.Tensor | None = None,
                 block: int = 32) -> torch.Tensor:
@@ -885,7 +1158,8 @@ def colnorms_sq(cfg: GeometryConfig, angles: torch.Tensor,
 
     ``block`` angles are processed at a time."""
     if cfg.fan_beam:
-        raise NotImplementedError("colnorms_sq: fan beam is not ported yet")
+        raise NotImplementedError("colnorms_sq: parallel beam only (fan "
+                                  "beam: radon_fan.colnorms_sq)")
     dev = angles.device
     f32 = torch.float32
     N, D = cfg.N, cfg.n_det

@@ -26,8 +26,11 @@ of A or of the tap tables) node solves run replicated along the pixel
 axis.
 
 Every rank passes the whole problem (built or loaded identically on each)
-and slices it. States and histories in and out are this rank's blocks, and
-resume as ``run_admm``'s do; :func:`gather_result` assembles whole arrays.
+and slices it, or its own node block of it
+(``parallel.multihost.distribute_problem``). States and histories in and
+out are this rank's blocks, and resume as ``run_admm``'s do;
+:func:`gather_result` assembles whole arrays and :func:`take_blocks` cuts
+them again (a checkpoint resumed on a mesh).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from dip_admm_tpu_torch.core.admm import (
 from dip_admm_tpu_torch.data.loader import Problem, make_node_ops
 from dip_admm_tpu_torch.ops import radon_fan, radon_fft
 from dip_admm_tpu_torch.parallel.mesh import (
-    NODE_AXIS, PIXEL_AXIS, Mesh, shards_for, table_partition,
+    NODE_AXIS, PIXEL_AXIS, Mesh, shards_for, slice_tables,
 )
 
 
@@ -58,6 +61,19 @@ def _blocks(problem: Problem, mesh: Mesh) -> tuple[slice, slice]:
     n_loc = n // mesh.pixel
     i0, p0 = mesh.node_index * P_loc, mesh.pixel_index * n_loc
     return slice(i0, i0 + P_loc), slice(p0, p0 + n_loc)
+
+
+def _local(problem: Problem, nodes: slice) -> slice:
+    """Where this rank's node block lies in the problem's per-node arrays:
+    ``nodes`` in a whole problem, all of them in a distributed one (which
+    must hold this block)."""
+    if problem.node_block is None:
+        return nodes
+    if tuple(problem.node_block) != (nodes.start, nodes.stop):
+        raise ValueError(f"the problem holds the node block "
+                         f"{problem.node_block}, this rank runs "
+                         f"({nodes.start}, {nodes.stop})")
+    return slice(0, nodes.stop - nodes.start)
 
 
 def pixel_compute(problem: Problem, mesh: Mesh) -> bool:
@@ -140,15 +156,18 @@ def block_data(problem: Problem, cfg: AdmmConfig, mesh: Mesh,
     """This rank's constants of a run (as ``core.admm.block_data`` builds
     them on one device) and the collectives that go with them."""
     nodes, pix = _blocks(problem, mesh)
+    loc = _local(problem, nodes)
     comm = make_comm(mesh, pix.stop - pix.start)
     rowshard = pixel_compute(problem, mesh)
-    tables = table_partition(problem.fft_tables, problem.num_nodes, mesh,
-                             rowshard)
+    held = problem.num_nodes if problem.node_block is None else loc.stop
+    tables = slice_tables(problem.fft_tables, held, loc,
+                          (mesh.pixel_index, mesh.pixel) if rowshard
+                          else None)
     fwd, adj = _node_ops(problem, mesh, tables, rowshard)
     D_vec = torch.sum(problem.Q, dim=1)
-    L = (problem.opnorm + cfg.rho * torch.amax(D_vec, dim=-1))[nodes]
-    b = problem.b[nodes]
-    Q = problem.Q[nodes, :, pix].contiguous()
+    L = (problem.opnorm + cfg.rho * torch.amax(D_vec, dim=-1))[loc]
+    b = problem.b[loc]
+    Q = problem.Q[loc, :, pix].contiguous()
     g_scale = None
     if cfg.node.eps_rel > 0:
         g_scale = torch.linalg.norm(adj(b), dim=1)
@@ -161,10 +180,12 @@ def block_data(problem: Problem, cfg: AdmmConfig, mesh: Mesh,
             fwd, adj, comm.gather_pixels(torch.sum(Q, dim=1)), cfg.rho,
             cfg.node, problem.N, v0=lanczos_v0,
         )
+    W_all = (problem.W if problem.node_block is None
+             else mesh.all_gather(problem.W, NODE_AXIS, 0))
     data = NodeBlockData(
-        fwd=fwd, adj=adj, b=b, Q=Q, adjm=problem.adj[nodes].to(b.dtype),
-        W=problem.W[nodes], L=L, x_true=problem.x_true, N=problem.N,
-        g_scale=g_scale, fprecond=fprecond, W_all=problem.W,
+        fwd=fwd, adj=adj, b=b, Q=Q, adjm=problem.adj[loc].to(b.dtype),
+        W=problem.W[loc], L=L, x_true=problem.x_true, N=problem.N,
+        g_scale=g_scale, fprecond=fprecond, W_all=W_all,
     )
     return data, comm
 
@@ -242,3 +263,19 @@ def gather_result(res: AdmmResult, mesh: Mesh) -> AdmmResult:
             for name, v in res.history.items()}
     return AdmmResult(x=node.x, history=hist, n_iters=res.n_iters,
                       state=state)
+
+
+def take_blocks(state: AdmmState, hist: dict, problem: Problem,
+                mesh: Mesh) -> tuple[AdmmState, dict]:
+    """This rank's blocks of a whole state and history (a checkpoint of
+    either package, or :func:`gather_result`'s): its node block of x and
+    of every node field, its node and pixel blocks of Z and Y, and its
+    columns of the per-node history fields. The inverse of
+    :func:`gather_result`."""
+    nodes, pix = _blocks(problem, mesh)
+    node = type(state.node)(*(v[nodes].contiguous() for v in state.node))
+    st = state._replace(node=node, Z=state.Z[nodes, :, pix].contiguous(),
+                        Y=state.Y[nodes, :, pix].contiguous())
+    per_node = dict(admm.HISTORY_FIELDS)
+    return st, {name: v[:, nodes].contiguous() if per_node[name] else v
+                for name, v in hist.items()}

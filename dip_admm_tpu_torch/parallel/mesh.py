@@ -83,6 +83,12 @@ class Mesh:
         self.stats["seconds"] += time.perf_counter() - t0
         return out
 
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh has reached this point (rank
+        0's files written before any rank reads them)."""
+        if self._groups[None][1] > 1:
+            dist.barrier(group=self._groups[None][0])
+
     def all_reduce(self, t: torch.Tensor, axis: str | None = None,
                    op: str = "sum") -> torch.Tensor:
         group, size = self._groups[axis]
@@ -170,12 +176,27 @@ def shards_for(num_nodes: int, mesh: Mesh) -> int:
     return num_nodes // mesh.n_node
 
 
+def table_specs(tables: dict, num_nodes: int) -> dict:
+    """The placement of each projector-table leaf (the JAX package's
+    ``table_partition_specs``), the one rule :func:`slice_tables` and
+    ``multihost.distribute_problem`` follow: ``NODE_AXIS`` for a per-node
+    leaf (leading dim the node count), None for a leaf kept whole. Every
+    leaf under a ``"shared"`` subtree is node-shared geometry and kept
+    whole, even where its leading dim equals the node count."""
+    def spec(tree, shared):
+        return {k: spec(v, shared or k == "shared") if isinstance(v, dict)
+                else (NODE_AXIS if not shared and v.dim() > 0
+                      and v.shape[0] == num_nodes else None)
+                for k, v in tree.items()}
+
+    return spec(tables, False)
+
+
 def slice_tables(tables: dict, num_nodes: int, nodes: slice,
                  rows: tuple[int, int] | None = None) -> dict:
-    """The projector tables of the graph nodes ``nodes`` (the JAX package's
-    ``table_partition_specs`` rule): a leaf under a ``"shared"`` subtree is
-    node-shared and kept whole; any other leaf whose leading dim is the
-    node count is sliced along it. With ``rows`` = (shard, shards), the skew
+    """The projector tables of the graph nodes ``nodes``: each leaf that
+    :func:`table_specs` places on ``NODE_AXIS`` sliced along its node
+    axis, the others whole. With ``rows`` = (shard, shards), the skew
     row-stage tables ``ROW_TABLES`` (top level on the parallel path, under
     ``shared.par`` on the fan path) keep only row-block shard ``shard`` of
     ``shards`` along their row-block axis NB. A node slice is a view that
@@ -188,37 +209,37 @@ def slice_tables(tables: dict, num_nodes: int, nodes: slice,
         NB_loc = v.shape[1] // shards
         return v[:, shard * NB_loc:(shard + 1) * NB_loc].contiguous()
 
-    def part(tree, shared):
+    def part(tree, specs):
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                out[k] = part(v, shared or k == "shared")
+                out[k] = part(v, specs[k])
                 continue
-            if not shared and v.dim() > 0 and v.shape[0] == num_nodes:
+            if specs[k] == NODE_AXIS:
                 v = v[nodes]
             if rows is not None and k in ROW_TABLES:
                 v = row_blocks(v)
             out[k] = v
         return out
 
-    return part(tables, False)
-
-
-def table_partition(tables: dict, num_nodes: int, mesh: Mesh,
-                    pixel_compute: bool = False) -> dict:
-    """This rank's slice of a projector-table tree: its node block over the
-    node axis and, under ``pixel_compute``, its row blocks over the pixel
-    axis (:func:`slice_tables`)."""
-    P_loc = shards_for(num_nodes, mesh)
-    n0 = mesh.node_index * P_loc
-    return slice_tables(tables, num_nodes, slice(n0, n0 + P_loc),
-                        (mesh.pixel_index, mesh.pixel) if pixel_compute
-                        else None)
+    return part(tables, table_specs(tables, num_nodes))
 
 
 # ---------------------------------------------------------------------------
 # Launcher
 # ---------------------------------------------------------------------------
+
+
+def pick_backend(world: int, local_ranks: int | None = None,
+                 on_cards: bool = True) -> str:
+    """The transport of a world of ``world`` ranks, ``local_ranks`` of
+    them on this host (default: all): NCCL when the ranks run on cards and
+    this host has a card for each of its ranks, gloo otherwise (ranks
+    sharing a card, or on the CPU). :func:`launch` and
+    ``multihost.initialize`` both ask here."""
+    local = world if local_ranks is None else local_ranks
+    return ("nccl" if on_cards and world > 1 and torch.cuda.is_available()
+            and torch.cuda.device_count() >= local else "gloo")
 
 
 def _entry(rank, world, init_method, backend, device, threads, fn, args,
@@ -257,8 +278,7 @@ def launch(fn: Callable, world: int, device: torch.device | str,
     import torch.multiprocessing as mp
 
     device = torch.device(device)
-    backend = ("nccl" if device.type == "cuda"
-               and torch.cuda.device_count() >= world > 1 else "gloo")
+    backend = pick_backend(world, on_cards=device.type == "cuda")
     tmp = None
     if init_file is None:
         tmp = tempfile.TemporaryDirectory()

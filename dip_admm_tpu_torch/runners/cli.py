@@ -10,10 +10,12 @@
     python -m dip_admm_tpu_torch.runners.cli --device cuda \\
         --solver {pdhg-consensus,centralized,centralized-tv}
 
-Builds the problem (projector mode ``dense``, ``joseph``, ``fft_skew`` or
-``fft_grouped``, parallel or fan beam, or ``fft_shear``, ``fft_pallas`` or
-``fft_mxu``, parallel beam; by default the JAX package's rule, ``dense`` at
-N <= 128 and ``fft_skew`` above) or loads one (``--load-problem``), runs
+Builds the problem (projector mode ``dense``, ``joseph``, ``fft``,
+``fft_skew`` or ``fft_grouped``, parallel or fan beam, or ``fft_shear``,
+``fft_pallas`` or ``fft_mxu``, parallel beam; by default the JAX package's
+rule, ``dense`` at N <= 128 and ``fft_skew`` above; ``--matrix-free``
+forces ``fft``; ``--dtype`` is the problem dtype) or loads one
+(``--load-problem``), runs
 decentralized consensus ADMM under the ``--strategy`` graph, or mst, chain
 and knn in turn (``--all-strategies``), writes the JAX package's artifacts
 under ``--out`` (default ``Recon_Out_ADMM_<date>_<time>``), one directory
@@ -37,7 +39,9 @@ other flag or value is rejected. ``--device`` has no default, and
 writes the artifacts. On a host with a card per rank they talk over NCCL,
 each on its own card; otherwise over gloo, every rank on ``--device`` (on a
 one-card host the ranks share the card and their collectives pass through
-host memory). Snapshots and checkpoints are not supported on a mesh yet.
+host memory). Snapshots and checkpoints work on a mesh too: rank 0 writes
+them from the gathered state, and on ``--resume`` every rank takes its
+blocks of the checkpoint.
 """
 
 from __future__ import annotations
@@ -130,16 +134,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fft-table-dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="storage dtype of the projector tables")
+    p.add_argument("--dtype",
+                   choices=["float32", "float64", "bfloat16", "float16"],
+                   default="float32",
+                   help="problem dtype, with the JAX package's per-field "
+                        "result (float64 runs in float32; mode fft takes "
+                        "float32 only)")
+    p.add_argument("--matrix-free", action="store_true",
+                   help="force the matrix-free projector (mode fft) where "
+                        "--mode is auto")
     p.add_argument("--mode",
-                   choices=["auto", "dense", "joseph", "fft_skew",
+                   choices=["auto", "dense", "joseph", "fft", "fft_skew",
                             "fft_grouped", "fft_pallas", "fft_shear",
                             "fft_mxu"],
                    default="auto",
                    help="projector (auto = the JAX package's rule: dense at "
                         "N <= 128, fft_skew above, parallel and fan beam; "
-                        "joseph is the matrix-free form of dense; "
-                        "fft_pallas, fft_shear and fft_mxu are parallel "
-                        "beam only)")
+                        "joseph is the matrix-free form of dense; fft is "
+                        "the split-table projector of torch FFTs, no "
+                        "kernel; fft_pallas, fft_shear and fft_mxu are "
+                        "parallel beam only)")
     p.add_argument("--mesh", type=int, default=None,
                    help="shard the nodes over this many ranks")
     p.add_argument("--mesh-pixel", type=int, default=1,
@@ -247,8 +261,18 @@ def config_from_args(args):
         ),
         noise_level=args.noise,
         phantom=args.phantom,
+        dtype=args.dtype,
         fft_table_dtype=args.fft_table_dtype,
     )
+
+
+def mode_from_args(args) -> str | None:
+    """The projector mode (None: ``build_problem``'s rule), as the JAX
+    CLI picks it: an explicit ``--mode``, else ``fft`` under
+    ``--matrix-free``."""
+    if args.mode != "auto":
+        return args.mode
+    return "fft" if args.matrix_free else None
 
 
 def _out_root(args) -> str:
@@ -265,7 +289,7 @@ def _run(args, device, out_root, mesh=None) -> dict | None:
     from dip_admm_tpu_torch.utils import profiling
 
     cfg = config_from_args(args)
-    mode = None if args.mode == "auto" else args.mode
+    mode = mode_from_args(args)
     rank0 = mesh is None or mesh.rank == 0
     problem = None
     if args.load_problem:
@@ -346,7 +370,7 @@ def main(argv=None) -> dict:
     from dip_admm_tpu_torch.runners import experiment
 
     try:
-        experiment.check_segments(args.mesh, args.snapshot_every,
+        experiment.check_segments(args.snapshot_every,
                                   args.checkpoint_every, args.resume)
     except ValueError as e:
         parser.error(str(e))

@@ -15,8 +15,11 @@ package's summary keys and artifact names.
 
 On a mesh every rank calls these functions with the same arguments and
 builds the problem on its device; the result is gathered on every rank,
-and rank 0 alone writes the artifacts. Snapshots and checkpoints need the
-whole state on one device, so they are not supported on a mesh yet.
+and rank 0 alone writes the artifacts, the snapshots and the checkpoints
+(of the state gathered after each segment, in the single-device format);
+on ``resume`` every rank loads the checkpoint and takes its blocks
+(``admm_sharded.take_blocks``), as the JAX package's sharded driver runs
+the same segments.
 """
 
 from __future__ import annotations
@@ -48,12 +51,9 @@ def strategy_tag(graph_cfg) -> str:
     return graph_cfg.strategy
 
 
-def check_segments(mesh, snapshot_every, checkpoint_every, resume) -> None:
+def check_segments(snapshot_every, checkpoint_every, resume) -> None:
     """Raise ValueError for a combination of the segmented drivers' options
     that :func:`run_one_strategy` does not run."""
-    if mesh and (snapshot_every, checkpoint_every, resume) != (None,) * 3:
-        raise ValueError("--snapshot-every, --checkpoint-every and --resume "
-                         "are not supported with --mesh yet")
     if checkpoint_every is not None and snapshot_every is not None:
         raise ValueError("--checkpoint-every and --snapshot-every are "
                          "separate segmented drivers; pass one or the other")
@@ -69,35 +69,40 @@ def check_segments(mesh, snapshot_every, checkpoint_every, resume) -> None:
 def _solve(problem, cfg, mesh, out_dir, snapshot_every, checkpoint_every,
            resume):
     """The loop of :func:`run_one_strategy`: snapshots, checkpointed
-    segments or one run; a mesh run gathered onto every rank."""
-    if mesh is not None:
-        from dip_admm_tpu_torch.parallel import admm_sharded
-
-        res = admm_sharded.run_admm_sharded(problem, cfg.admm, mesh)
-        return admm_sharded.gather_result(res, mesh)
+    segments or one run, on one device or on ``mesh``; a mesh run's
+    result gathered onto every rank."""
     if snapshot_every is not None:
         return admm.run_admm_snapshots(
             problem, cfg.admm, snapshot_dir=os.path.join(out_dir, "snapshots"),
-            snapshot_every=snapshot_every)
+            snapshot_every=snapshot_every, mesh=mesh)
+    run, gather, state, hist = admm.segment_driver(problem, cfg.admm, mesh)
     if checkpoint_every is None:
-        return admm.run_admm(problem, cfg.admm)
-    state = hist = None
+        return gather(run(state=state, hist=hist))
     if resume is not None:
         state, hist = serialization.load_checkpoint(resume, problem.device)
         # a checkpoint of a shorter run: its history grows to max_iters
         hist = admm.grow_history(hist, cfg.admm.max_iters)
+        if mesh is not None:
+            from dip_admm_tpu_torch.parallel import admm_sharded
+
+            state, hist = admm_sharded.take_blocks(state, hist, problem, mesh)
+    write = mesh is None or mesh.rank == 0
     ckpt = os.path.join(out_dir, "checkpoint.npz")
     while True:
-        k0 = 0 if state is None else state.k
-        res = admm.run_admm(problem, cfg.admm, state=state, hist=hist,
-                            until=min(k0 + checkpoint_every,
-                                      cfg.admm.max_iters))
+        res = run(state=state, hist=hist,
+                  until=min(state.k + checkpoint_every, cfg.admm.max_iters))
         state, hist = res.state, res.history
-        serialization.save_checkpoint_async(ckpt, state, hist)
+        whole = gather(res)
+        if write:
+            serialization.save_checkpoint_async(ckpt, whole.state,
+                                                whole.history)
         if state.stop or state.k >= cfg.admm.max_iters:
             break
-    serialization.flush_checkpoints()
-    return res
+    if write:
+        serialization.flush_checkpoints()
+    if mesh is not None:
+        mesh.barrier()
+    return whole
 
 
 def run_one_strategy(
@@ -129,7 +134,7 @@ def run_one_strategy(
             strategy=strategy if strategy is not None else cfg.graph.strategy,
             k=k if k is not None else cfg.graph.k)
         cfg = dataclasses.replace(cfg, graph=g)
-    check_segments(mesh, snapshot_every, checkpoint_every, resume)
+    check_segments(snapshot_every, checkpoint_every, resume)
     tag = strategy_tag(cfg.graph)
     out_dir = os.path.join(out_root, tag)
 
@@ -143,10 +148,11 @@ def run_one_strategy(
     res = _solve(problem, cfg, mesh, out_dir, snapshot_every,
                  checkpoint_every, resume)
     n_iters = res.n_iters
-    x = res.x.cpu().numpy()
-    hist = {name: v.cpu().numpy() for name, v in res.history.items()}
+    # numpy has no bfloat16: a half-precision run's arrays as float32.
+    x = res.x.float().cpu().numpy()
+    hist = {name: v.float().cpu().numpy() for name, v in res.history.items()}
     N = problem.N
-    x_true = problem.x_true.cpu().numpy()
+    x_true = problem.x_true.float().cpu().numpy()
     m_per_node = (problem.angle_valid.sum(dim=1)
                   * cfg.geometry.n_det).cpu().numpy()
     summary = {

@@ -1,5 +1,5 @@
 """Build and load the host C++ helpers of ``native/`` (the async artifact
-writer and the checkpoint packer).
+writer, the checkpoint packer and the per-pixel graph builder).
 
 Each ``native/<name>.cpp`` is compiled with the host's ``g++`` (zlib and
 pthreads) at its first use into ``build/native/`` beside the package,
@@ -24,6 +24,8 @@ SRC_DIR = _ROOT / "native"
 BUILD_DIR = _ROOT / "build" / "native"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 LIBS = ("-lz", "-lpthread")
+# Flags of one helper beyond GXX_FLAGS (the graph builder's OpenMP loop).
+EXTRA_FLAGS = {"pixel_graphs": ("-fopenmp",)}
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -34,11 +36,16 @@ class NativeUnavailable(RuntimeError):
     pass
 
 
+def _flags(name: str) -> tuple:
+    return GXX_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def lib_path(name: str) -> Path:
     """Where the build of ``native/<name>.cpp`` goes (hash of source and
     flags in the name)."""
     src = (SRC_DIR / f"{name}.cpp").read_bytes()
-    key = hashlib.sha1(src + " ".join(GXX_FLAGS + LIBS).encode()).hexdigest()
+    key = hashlib.sha1(src + " ".join(_flags(name) + LIBS).encode()
+                       ).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:12]}.so"
 
 
@@ -59,7 +66,7 @@ def load(name: str) -> ctypes.CDLL:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = ["g++", *GXX_FLAGS, str(src), "-o", tmp, *LIBS]
+            cmd = ["g++", *_flags(name), str(src), "-o", tmp, *LIBS]
             try:
                 subprocess.run(cmd, check=True, capture_output=True, text=True)
             except (subprocess.CalledProcessError, FileNotFoundError) as e:

@@ -1,7 +1,8 @@
 """The JAX package's reference values for the port's dense runs, on the CPU.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/jax_dense_anchors.py \
-        [flagship] [inner] [rho] [strategies] [batched] [solvers]
+        [flagship] [inner] [rho] [strategies] [batched] [solvers] \
+        [matrix_free]
 
 Each run prints one JSON line with its mean PSNR over the nodes (against
 the phantom, data range its max), outers run and mean inner iterations:
@@ -33,7 +34,14 @@ the phantom, data range its max), outers run and mean inner iterations:
   Shepp-Logan, on the ``joseph`` operator (dense's operator without A).
   It also writes JAX's fcv Lanczos start (``jax.random.normal(PRNGKey(0),
   (n,))``) at n = 64^2 and 128^2 to ``scripts/jax_lanczos_v0.npz``, which
-  ``chip_smoke.py`` hands to the port's fcv runs of these phases.
+  ``chip_smoke.py`` hands to the port's fcv runs of these phases;
+- ``matrix_free``: mode ``fft`` (the split-table projector, f32 tables) on
+  a 64^2 Shepp-Logan with 4 nodes, parallel and fan beam (192 fan angles),
+  20 outers of the recommended preset (fcv 15/15, relax 1.8, no early
+  stop; the fcv Lanczos start of ``scripts/jax_lanczos_v0.npz``, which is
+  JAX's own draw). The bench size (256^2/8) is left to the card: its
+  tables and hat weights take several GiB, more than a shared CPU host
+  should give one process.
 
 ``chip_smoke.py`` holds the port on the card to these values.
 """
@@ -55,9 +63,9 @@ from dip_admm_tpu.data import loader
 from dip_admm_tpu.utils.imaging import psnr
 
 
-def _run(tag, cfg, **extra):
+def _run(tag, cfg, mode=None, **extra):
     t0 = time.perf_counter()
-    problem = loader.build_problem(cfg)
+    problem = loader.build_problem(cfg, mode=mode)
     res = admm.run_admm(problem, cfg.admm)
     n = int(res.n_iters)
     x = np.asarray(res.x)
@@ -231,8 +239,20 @@ def main(which) -> None:
         batched(base)
     if "solvers" in which:
         solvers(base)
+    if "matrix_free" in which:
+        rec = _admm(base.admm, max_iters=20, eps_pri=0.0, eps_dual=0.0,
+                    relax_alpha=1.8, node={"algorithm": "fcv",
+                                           "max_inner": 15,
+                                           "check_every": 15})
+        for fan in (False, True):
+            cfg = dataclasses.replace(
+                base, geometry=dataclasses.replace(
+                    base.geometry, num_nodes=4, fan_beam=fan),
+                admm=rec, phantom="shepp")
+            _run("matrix_free_fan" if fan else "matrix_free", cfg,
+                 mode="fft")
 
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ("flagship", "inner", "rho", "strategies",
-                          "batched", "solvers"))
+                          "batched", "solvers", "matrix_free"))

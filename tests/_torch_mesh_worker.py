@@ -1,6 +1,8 @@
 """Rank bodies of the port's mesh tests (``test_torch_sharded.py``,
-``test_torch_rowshard.py``, run by ``parallel.mesh.launch``). The ranks
-import this module, which imports the port and never JAX."""
+``test_torch_rowshard.py`` and ``test_torch_mesh_segments.py``, run by
+``parallel.mesh.launch``; ``test_torch_multihost.py`` starts
+:func:`multihost_rank` in processes of its own). The ranks import this
+module, which imports the port and never JAX."""
 
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from dip_admm_tpu_torch.data import serialization as tser
 from dip_admm_tpu_torch.ops import radon, radon_fan, radon_fft
 from dip_admm_tpu_torch.parallel import admm_sharded
 from dip_admm_tpu_torch.parallel import mesh as meshlib
+from dip_admm_tpu_torch.parallel import multihost
+from dip_admm_tpu_torch.runners import experiment
 
 
 def over(admm_cfg, changes: dict):
@@ -100,7 +104,9 @@ def rowshard_pair(rank, device, spec, x, y):
         cfg, torch.as_tensor(a, dtype=torch.float32, device=device),
         torch.as_tensor(v, device=device), "fft_skew", spec["row_block"])
     mesh = meshlib.make_mesh(1, torch.distributed.get_world_size(), device)
-    loc = meshlib.table_partition(tables, geo.num_nodes, mesh, True)
+    loc = meshlib.slice_tables(tables, geo.num_nodes,
+                               slice(0, geo.num_nodes),
+                               (mesh.pixel_index, mesh.pixel))
     shard = admm_sharded.row_shard(mesh)
     if geo.fan_beam:
         fwd = radon_fan.project_nodes_fan_skew_rowshard
@@ -115,3 +121,75 @@ def rowshard_pair(rank, device, spec, x, y):
     if rank:
         return None
     return {"Ax": Ax.numpy(), "Aty": Aty.numpy(), "NB": nb_full}
+
+
+def segments(rank, device, bundle, root, jax_ckpt):
+    """``run_one_strategy`` on a 2-node mesh over the bundle's problem (4
+    outers): in checkpointed segments of 2; 2 outers, then a resume from
+    their checkpoint; snapshots every 2; a resume from the JAX package's
+    checkpoint ``jax_ckpt``. Each run writes under ``root/<name>``; rank 0
+    returns each run's x."""
+    p = tser.load_problem(bundle, device)
+    mesh = meshlib.make_mesh(2, 1, device)
+
+    def run(name, max_iters, **kw):
+        cfg = dataclasses.replace(p.cfg, admm=dataclasses.replace(
+            p.cfg.admm, max_iters=max_iters))
+        x, _, _ = experiment.run_one_strategy(
+            cfg, f"{root}/{name}", mesh=mesh, problem=p, device=device,
+            write_artifacts=False, **kw)
+        return x
+
+    out = {
+        "unbroken": run("unbroken", 4, checkpoint_every=2),
+        "part": run("part", 2, checkpoint_every=2),
+    }
+    out["resumed"] = run("resumed", 4, checkpoint_every=2,
+                         resume=f"{root}/part/knn_k1/checkpoint.npz")
+    out["snapshots"] = run("snapshots", 4, snapshot_every=2)
+    out["from_jax"] = run("from_jax", 4, checkpoint_every=2, resume=jax_ckpt)
+    return out if rank == 0 else None
+
+
+def multihost_rank(bundle: str, out: str) -> None:
+    """One process of an environment rendezvous (``MASTER_ADDR``,
+    ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``): ``multihost.initialize``,
+    ``global_mesh`` on the CPU, ``distribute_problem`` (each per-node array
+    held to the whole problem's node block, the ``"shared"`` tables and a
+    shared probe leaf whose leading size is the node count kept whole), 3
+    outers of
+    ``run_admm_sharded`` on the distributed problem; rank 0 saves the
+    gathered x, Z and Y to ``out``."""
+    multihost.initialize()
+    mesh = multihost.global_mesh(device="cpu")
+    p = tser.load_problem(bundle, "cpu")
+    P = p.num_nodes
+    probe = torch.arange(P * 3).reshape(P, 3)
+    shared = {**p.fft_tables.get("shared", {}), "probe": probe}
+    whole = dataclasses.replace(p, fft_tables={**p.fft_tables,
+                                               "shared": shared})
+    dp = multihost.distribute_problem(whole, mesh)
+    P_loc = P // mesh.n_node
+    nodes = slice(mesh.node_index * P_loc, (mesh.node_index + 1) * P_loc)
+    assert dp.node_block == (nodes.start, nodes.stop)
+    for name in ("angles", "angle_valid", "b", "W", "Q", "keep", "adj",
+                 "opnorm"):
+        assert torch.equal(getattr(dp, name), getattr(p, name)[nodes]), name
+    assert torch.equal(dp.x_true, p.x_true)
+    for k, v in p.fft_tables.items():
+        if k == "shared":  # fan mode fft: one table set, whole on each rank
+            for s, w in v.items():
+                assert torch.equal(dp.fft_tables[k][s], w), s
+        else:
+            assert torch.equal(dp.fft_tables[k], v[nodes]), k
+    assert torch.equal(dp.fft_tables["shared"].pop("probe"), probe)
+    if not dp.fft_tables["shared"]:
+        del dp.fft_tables["shared"]
+    cfg = dataclasses.replace(p.cfg.admm, max_iters=3)
+    res = admm_sharded.gather_result(
+        admm_sharded.run_admm_sharded(dp, cfg, mesh), mesh)
+    if mesh.rank == 0:
+        np.savez(out, x=res.x.numpy(), Z=res.state.Z.numpy(),
+                 Y=res.state.Y.numpy(), n_iters=res.n_iters,
+                 world=torch.distributed.get_world_size())
+    torch.distributed.destroy_process_group()

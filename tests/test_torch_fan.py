@@ -214,13 +214,6 @@ def test_grouped_tables_match_jax(dtype_name):
     _assert_tables_match(tt, tj)
 
 
-def test_fold_eval_is_not_ported():
-    gt = tcfg.GeometryConfig(N=32, num_nodes=3, angles_total=30)
-    at, vt, _, _ = _angles(gt)
-    with pytest.raises(NotImplementedError):
-        tfft.precompute_grouped(gt, at, vt, fold_eval=True)
-
-
 # ---------------------------------------------------------------------------
 # Operators
 # ---------------------------------------------------------------------------
@@ -413,8 +406,7 @@ def test_fan_mode_none_resolves_to_fft_skew():
     assert p.b.shape == (2, 32 * 24) and torch.isfinite(p.W).all()
 
 
-@pytest.mark.parametrize("mode", ["fft", "fft_pallas", "fft_mxu",
-                                  "fft_shear"])
+@pytest.mark.parametrize("mode", ["fft_pallas", "fft_mxu", "fft_shear"])
 def test_unported_modes_raise(mode):
     cfg = _port_cfg(_cfg_jax("N24P2wide"))
     with pytest.raises(NotImplementedError):

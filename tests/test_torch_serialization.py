@@ -308,7 +308,3 @@ def test_segment_options_are_checked(dense_pair, kw):
         texp.run_one_strategy(pt.cfg, "unused", problem=pt, device="cpu",
                               write_artifacts=False, **kw)
 
-
-def test_mesh_refuses_segments():
-    with pytest.raises(ValueError, match="--mesh"):
-        texp.check_segments(object(), None, 2, None)
