@@ -136,9 +136,7 @@ kernel):
                  grouped run, K5 exactly once per outer on both; finite
                  residuals and a mean PSNR within 0.5 dB of the JAX
                  package's 39.7 dB. Each prints its preconditioner's build
-                 seconds, then a ``torch.profiler`` profile of one more
-                 outer after two warm ones: host seconds, the device's busy
-                 seconds and idle share, and its eight costliest ops.
+                 seconds.
 15. sm_problem - builds the 256^2/8 bench problem (bf16 tables) twice, for
                  ``fft_shear`` and ``fft_mxu``, and prints each build's
                  seconds and table GiB.
@@ -160,8 +158,8 @@ kernel):
                  shear run and K1/K2 must not, K15/K16 must launch on the
                  mxu run, K5 exactly once per outer on both; finite
                  residuals and a mean PSNR within 0.5 dB of 34.19 dB. Each
-                 prints its preconditioner's build seconds and a profile of
-                 one more outer, as phase 14 does.
+                 prints its preconditioner's build seconds, as phase 14
+                 does.
 19. stages     - the stages of the JAX package's
                  ``scripts/bench_shear_stages.py`` at 256^2/8 with bf16
                  tables: the fft_shear pipeline on slot spectra gathered
@@ -178,9 +176,8 @@ kernel):
                  ``dense``; build seconds, A's GiB, the dense apply pair
                  against its bound (A's bytes twice over 3.35 TB/s), the
                  outer rate, mean inner iterations, the outer it stopped
-                 at, a mean PSNR within 0.5 dB of the JAX package's on the
-                 CPU (``scripts/jax_dense_anchors.py``), and a profile of
-                 one more outer.
+                 at and a mean PSNR within 0.5 dB of the JAX package's on
+                 the CPU (``scripts/jax_dense_anchors.py``).
 21. inner_solvers - on that problem, 20 outers at max_inner 50 under each
                  of cv, pcv, ppdhg and fista, each within 0.5 dB of JAX's.
 22. dense_joseph - 64^2/5, parallel and fan: the dense and Joseph builds'
@@ -1922,8 +1919,6 @@ def phase_p512_runs(torch, cfg, problems, failures) -> dict:
                                        failures, kernels)
         print(f"{tag}: precond_build_s={precond_s} certified_step="
               f"{step.tolist()} {line}", flush=True)
-        print(f"{tag}_profile: {_profile_outer(torch, problem, rec)}",
-              flush=True)
     return counts
 
 
@@ -2103,8 +2098,6 @@ def phase_sm_runs(torch, cfg, problems, failures) -> dict:
             failures.append(f"{tag}: the skew row stage K1/K2 launched")
         print(f"{tag}: precond_build_s={precond_s} certified_step="
               f"{step.tolist()} {line}", flush=True)
-        print(f"{tag}_profile: {_profile_outer(torch, problem, rec)}",
-              flush=True)
     return counts
 
 
@@ -2326,9 +2319,7 @@ def phase_dense_flagship(torch, dev, failures) -> tuple[dict, object]:
     stopped = res.n_iters if res.state.stop else None
     print(f"dense_flagship: N=64 nodes=5 build_s={build_s} "
           f"A_gib={_nbytes(problem.A) / 2**30} {pair} {line} "
-          f"stopped_at_outer={stopped} "
-          f"profile_one_outer: {_profile_outer(torch, problem, cfg.admm)}",
-          flush=True)
+          f"stopped_at_outer={stopped}", flush=True)
     return counts, problem
 
 
@@ -3617,43 +3608,6 @@ def _busy_us(intervals) -> float:
             total += b - max(a, end)
             end = b
     return total
-
-
-def _profile_outer(torch, problem, admm_cfg, warmup=2, top=8) -> str:
-    """Device profile of one outer of ``admm_cfg`` after ``warmup`` outers
-    (the preconditioner built before, as ``run_admm`` does): the host
-    seconds under ``torch.profiler`` (whose per-op cost inflates them), the
-    device's busy seconds (the union of its kernel, copy and set intervals),
-    its idle share, and the ``top`` device ops by total time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from dip_admm_tpu_torch.core import admm
-
-    state, hist = admm.init_state(problem, admm_cfg)
-    data = admm.block_data(problem, admm_cfg)
-    for _ in range(warmup):
-        state = admm.admm_iteration(data, admm_cfg, state, hist)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        admm.admm_iteration(data, admm_cfg, state, hist)
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_s = 1e-6 * _busy_us((e.time_range.start, e.time_range.end)
-                             for e in events)
-    by_name: dict = {}
-    for e in events:
-        ms, calls = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + 1e-3 * (e.time_range.end - e.time_range.start),
-                           calls + 1)
-    ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return (f"host_s={host_s} device_busy_s={busy_s} "
-            f"device_idle_share={1.0 - busy_s / host_s} top_device_ms="
-            + json.dumps([{"name": n[:80], "ms": ms, "calls": c}
-                          for n, (ms, c) in ops]))
 
 
 def main() -> int:

@@ -43,6 +43,7 @@ from dip_admm_tpu_torch.core import node_solver
 from dip_admm_tpu_torch.core.node_solver import NodeState
 from dip_admm_tpu_torch.data.loader import Problem
 from dip_admm_tpu_torch.ops.kernels import consensus
+from dip_admm_tpu_torch.utils import profiling
 
 
 def _identity(v):
@@ -207,9 +208,10 @@ def _solve_setup(cfg: AdmmConfig, data: NodeBlockData, nstate: NodeState,
     (start state, eps_k, L, fcv preconditioner). ``rho`` is a float, a
     0-d tensor under adapt_rho, or per node problem."""
     x = nstate.x
-    decay = torch.tensor(k + 1.0, dtype=x.dtype, device=x.device) ** (
-        1.0 + cfg.node.gamma_decay
-    )
+    profiling.count("sync")
+    with profiling.span("sync", site="admm.decay"):
+        decay = torch.tensor(k + 1.0, dtype=x.dtype, device=x.device)
+    decay = decay ** (1.0 + cfg.node.gamma_decay)
     eps_k = cfg.node.eps0 / decay
     if cfg.node.eps_rel > 0:
         eps_k = torch.maximum(eps_k, cfg.node.eps_rel * data.g_scale / decay)
@@ -272,6 +274,12 @@ def _history_row(res: node_solver.NodeSolveResult, mse_sino: torch.Tensor,
     eps_node = torch.atleast_1d(eps_k).to(dtype).expand(
         mse_sino.numel()).reshape(shape)
     obj = res.objective.reshape(shape)
+    if isinstance(rho, torch.Tensor):
+        rho_t = torch.as_tensor(rho, dtype=dtype, device=dev)
+    else:  # a host scalar's copy to a card waits for its queue
+        profiling.count("sync")
+        with profiling.span("sync", site="admm.rho"):
+            rho_t = torch.as_tensor(rho, dtype=dtype, device=dev)
     return pri_norm, dual_norm, {
         "primal": pri_norm,
         "dual": dual_norm,
@@ -288,8 +296,7 @@ def _history_row(res: node_solver.NodeSolveResult, mse_sino: torch.Tensor,
         "eps_per_node": eps_node,
         "inner_iters": res.inner_iters.reshape(shape).to(dtype),
         "accept_code": res.accept_code.reshape(shape).to(dtype),
-        "rho": torch.as_tensor(rho, dtype=dtype, device=dev).expand(
-            shape[:-1]),
+        "rho": rho_t.expand(shape[:-1]),
     }
 
 
@@ -333,31 +340,35 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
     )
     Xn = res.state.x
 
-    # --- metrics in measurement and image space ---
-    r_meas = data.fwd(Xn) - data.b
-    mse_sino = torch.sum(r_meas * r_meas, dim=1)
-    err = Xn - data.x_true[None, :]
-    img_mse = torch.sum(err * err, dim=1)
-
     # --- edge fusion (eq. 2), dual update (eq. 3), residuals (eqs. 4-5) ---
     # a_i laid out [i_loc, j, n_loc] over this shard's pixel block.
-    A_prop = _proposal(cfg, comm.my_pixels(Xn)[:, None, :], Z, Y)
-    update = _consensus_op(cfg, X.device, P)
-    if comm.pair_transpose is None:  # every pair is local
-        Zn, Yn, pri_pair, dz2_pair = update(A_prop, Y, Z, data.adjm, data.W,
-                                            cfg.z_fusion)
-    else:
-        Zn, Yn, pri_pair, dz2_pair = update(
-            A_prop, Y, Z, data.adjm, fusion=cfg.z_fusion,
-            a_t=comm.pair_transpose(A_prop),
-            w_own=comm.my_pixels(data.W).contiguous(),
-            w_all=comm.my_pixels(data.W_all).contiguous())
-    pri_norm, dual_norm, updates = _history_row(
-        res, mse_sino, img_mse, pri_pair, dz2_pair, eps_k, rho, comm)
-    for name, arr in hist.items():
-        arr[k] = updates[name].to(arr.dtype)
+    with profiling.span("admm.consensus"):
+        A_prop = _proposal(cfg, comm.my_pixels(Xn)[:, None, :], Z, Y)
+        update = _consensus_op(cfg, X.device, P)
+        if comm.pair_transpose is None:  # every pair is local
+            Zn, Yn, pri_pair, dz2_pair = update(A_prop, Y, Z, data.adjm,
+                                                data.W, cfg.z_fusion)
+        else:
+            Zn, Yn, pri_pair, dz2_pair = update(
+                A_prop, Y, Z, data.adjm, fusion=cfg.z_fusion,
+                a_t=comm.pair_transpose(A_prop),
+                w_own=comm.my_pixels(data.W).contiguous(),
+                w_all=comm.my_pixels(data.W_all).contiguous())
 
-    stop = bool((pri_norm < cfg.eps_pri) & (dual_norm < cfg.eps_dual))
+    # --- metrics in measurement and image space, and the history row ---
+    with profiling.span("admm.history"):
+        r_meas = data.fwd(Xn) - data.b
+        mse_sino = torch.sum(r_meas * r_meas, dim=1)
+        err = Xn - data.x_true[None, :]
+        img_mse = torch.sum(err * err, dim=1)
+        pri_norm, dual_norm, updates = _history_row(
+            res, mse_sino, img_mse, pri_pair, dz2_pair, eps_k, rho, comm)
+        for name, arr in hist.items():
+            arr[k] = updates[name].to(arr.dtype)
+
+    profiling.count("sync")
+    with profiling.span("sync", site="admm.stop"):
+        stop = bool((pri_norm < cfg.eps_pri) & (dual_norm < cfg.eps_dual))
     rho_scale, Yn = _adapt_rho(cfg, k, pri_norm, dual_norm, hist,
                                state.rho_scale, Yn)
     return AdmmState(node=res.state, Z=Zn, Y=Yn, k=k + 1, stop=stop,
@@ -376,10 +387,11 @@ def block_data(problem: Problem, cfg: AdmmConfig,
         g_scale = torch.linalg.norm(problem.adjoint(problem.b), dim=1)
     fprecond = None
     if cfg.node.algorithm == "fcv":
-        fprecond = node_solver.build_fourier_precond(
-            problem.forward, problem.adjoint, D_vec, cfg.rho, cfg.node,
-            problem.N, v0=lanczos_v0,
-        )
+        with profiling.span("admm.fcv_build"):
+            fprecond = node_solver.build_fourier_precond(
+                problem.forward, problem.adjoint, D_vec, cfg.rho, cfg.node,
+                problem.N, v0=lanczos_v0,
+            )
     return NodeBlockData(
         fwd=problem.forward, adj=problem.adjoint, b=problem.b, Q=problem.Q,
         adjm=problem.adj.to(problem.b.dtype), W=problem.W, L=L,
@@ -400,13 +412,16 @@ def init_state(problem: Problem, cfg: AdmmConfig) -> tuple[AdmmState, dict]:
     dtype = problem.b.dtype
     dev = problem.device
     P, n, N = problem.num_nodes, problem.n, problem.N
+    profiling.count("sync")
+    with profiling.span("sync", site="admm.init"):
+        rho_scale = torch.tensor(1.0, dtype=dtype, device=dev)
     state = AdmmState(
         node=node_solver.init_state(P, N, problem.m_flat, dev, dtype),
         Z=torch.zeros((P, P, n), dtype=dtype, device=dev),
         Y=torch.zeros((P, P, n), dtype=dtype, device=dev),
         k=0,
         stop=False,
-        rho_scale=torch.tensor(1.0, dtype=dtype, device=dev),
+        rho_scale=rho_scale,
     )
     return state, make_history(cfg.max_iters, P, dev, dtype)
 
@@ -431,14 +446,16 @@ def run_admm(
     draws its own from a seeded generator."""
     cfg = cfg if cfg is not None else problem.cfg.admm
     check_config(cfg)
-    if state is None:
-        state, hist = init_state(problem, cfg)
-    if hist is None:
+    if state is not None and hist is None:
         raise ValueError("run_admm: resuming needs the history with the state")
     until = cfg.max_iters if until is None else min(until, cfg.max_iters)
-    data = block_data(problem, cfg, lanczos_v0)
-    while state.k < until and not state.stop:
-        state = admm_iteration(data, cfg, state, hist)
+    with profiling.span("admm.run", B=1, P=problem.num_nodes, N=problem.N):
+        if state is None:
+            state, hist = init_state(problem, cfg)
+        data = block_data(problem, cfg, lanczos_v0)
+        while state.k < until and not state.stop:
+            with profiling.span("admm.outer", k=state.k):
+                state = admm_iteration(data, cfg, state, hist)
     return AdmmResult(x=state.node.x, history=hist, n_iters=state.k,
                       state=state)
 
@@ -559,21 +576,24 @@ def _batched_iteration(data: NodeBlockData, cfg: AdmmConfig,
     )
     Xn = res.state.x
 
-    r_meas = data.fwd(Xn) - data.b
-    mse_sino = torch.sum(r_meas * r_meas, dim=1).reshape(B, P)
-    err = Xn.reshape(B, P, n) - data.x_true[:, None, :]
-    img_mse = torch.sum(err * err, dim=2)
+    with profiling.span("admm.consensus"):
+        A_prop = _proposal(cfg, Xn.reshape(B, P, 1, n), Z, Y)
+        update = _consensus_op(cfg, Xn.device, P)
+        Zn, Yn, pri_pair, dz2_pair = update(A_prop, Y, Z, data.adjm, data.W,
+                                            cfg.z_fusion)
 
-    A_prop = _proposal(cfg, Xn.reshape(B, P, 1, n), Z, Y)
-    update = _consensus_op(cfg, Xn.device, P)
-    Zn, Yn, pri_pair, dz2_pair = update(A_prop, Y, Z, data.adjm, data.W,
-                                        cfg.z_fusion)
-    pri_norm, dual_norm, updates = _history_row(
-        res, mse_sino, img_mse, pri_pair, dz2_pair, eps_k, rho_b, LOCAL_COMM)
-    for name, arr in hist.items():
-        new = updates[name].to(arr.dtype)
-        arr[k] = torch.where(running.reshape((B,) + (1,) * (new.dim() - 1)),
-                             new, arr[k])
+    with profiling.span("admm.history"):
+        r_meas = data.fwd(Xn) - data.b
+        mse_sino = torch.sum(r_meas * r_meas, dim=1).reshape(B, P)
+        err = Xn.reshape(B, P, n) - data.x_true[:, None, :]
+        img_mse = torch.sum(err * err, dim=2)
+        pri_norm, dual_norm, updates = _history_row(
+            res, mse_sino, img_mse, pri_pair, dz2_pair, eps_k, rho_b,
+            LOCAL_COMM)
+        for name, arr in hist.items():
+            new = updates[name].to(arr.dtype)
+            arr[k] = torch.where(
+                running.reshape((B,) + (1,) * (new.dim() - 1)), new, arr[k])
 
     stop = (pri_norm < cfg.eps_pri) & (dual_norm < cfg.eps_dual)
     rho_scale, Yn = _adapt_rho(cfg, k, pri_norm, dual_norm, hist,
@@ -633,40 +653,44 @@ def run_admm_batched(
     x_true_batch = torch.as_tensor(x_true_batch, dtype=dtype, device=dev)
     b_flat = b_batch.reshape(B * P, m)
 
-    base = block_data(problem, cfg, lanczos_v0)
-    g_scale = None
-    if cfg.node.eps_rel > 0:  # ||A_i^T b_i|| of each scenario's data
-        g_scale = torch.linalg.norm(problem.adjoint(b_flat), dim=1)
-    data = base._replace(b=b_flat, L=base.L.repeat(B), x_true=x_true_batch,
-                         g_scale=g_scale,
-                         fprecond=_tile_precond(base.fprecond, B))
+    with profiling.span("admm.run", B=B, P=P, N=N):
+        base = block_data(problem, cfg, lanczos_v0)
+        g_scale = None
+        if cfg.node.eps_rel > 0:  # ||A_i^T b_i|| of each scenario's data
+            g_scale = torch.linalg.norm(problem.adjoint(b_flat), dim=1)
+        data = base._replace(b=b_flat, L=base.L.repeat(B),
+                             x_true=x_true_batch, g_scale=g_scale,
+                             fprecond=_tile_precond(base.fprecond, B))
 
-    state = AdmmState(
-        node=node_solver.init_state(B * P, N, m, dev, dtype),
-        Z=torch.zeros((B, P, P, n), dtype=dtype, device=dev),
-        Y=torch.zeros((B, P, P, n), dtype=dtype, device=dev),
-        k=0,
-        stop=torch.zeros((B,), dtype=torch.bool, device=dev),
-        rho_scale=torch.ones((B,), dtype=dtype, device=dev),
-    )
-    hist = {name: torch.full((cfg.max_iters, B, P) if per_node
-                             else (cfg.max_iters, B), float("nan"),
-                             dtype=dtype, device=dev)
-            for name, per_node in HISTORY_FIELDS}
-    n_iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    running = torch.ones((B,), dtype=torch.bool, device=dev)
-    go, all_running = cfg.max_iters > 0, True
-    while go:
-        state = _batched_iteration(data, cfg, state, hist, running,
-                                   all_running)
-        n_iters = torch.where(running, state.k, n_iters)
-        running = ~state.stop
-        run_host = running.cpu()  # the one host sync of an outer
-        go = state.k < cfg.max_iters and bool(run_host.any())
-        all_running = bool(run_host.all())
-    node = NodeState(*(v.reshape((B, P) + tuple(v.shape[1:]))
-                       for v in state.node))
-    state = state._replace(node=node, k=n_iters)
-    return AdmmResult(x=node.x, history={k: v.transpose(0, 1)
-                                         for k, v in hist.items()},
-                      n_iters=n_iters, state=state)
+        state = AdmmState(
+            node=node_solver.init_state(B * P, N, m, dev, dtype),
+            Z=torch.zeros((B, P, P, n), dtype=dtype, device=dev),
+            Y=torch.zeros((B, P, P, n), dtype=dtype, device=dev),
+            k=0,
+            stop=torch.zeros((B,), dtype=torch.bool, device=dev),
+            rho_scale=torch.ones((B,), dtype=dtype, device=dev),
+        )
+        hist = {name: torch.full((cfg.max_iters, B, P) if per_node
+                                 else (cfg.max_iters, B), float("nan"),
+                                 dtype=dtype, device=dev)
+                for name, per_node in HISTORY_FIELDS}
+        n_iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+        running = torch.ones((B,), dtype=torch.bool, device=dev)
+        go, all_running = cfg.max_iters > 0, True
+        while go:
+            with profiling.span("admm.outer", k=state.k):
+                state = _batched_iteration(data, cfg, state, hist, running,
+                                           all_running)
+                n_iters = torch.where(running, state.k, n_iters)
+                running = ~state.stop
+                profiling.count("sync")
+                with profiling.span("sync", site="admm.running"):
+                    run_host = running.cpu()  # the one host sync of an outer
+            go = state.k < cfg.max_iters and bool(run_host.any())
+            all_running = bool(run_host.all())
+        node = NodeState(*(v.reshape((B, P) + tuple(v.shape[1:]))
+                           for v in state.node))
+        state = state._replace(node=node, k=n_iters)
+        return AdmmResult(x=node.x, history={k: v.transpose(0, 1)
+                                             for k, v in hist.items()},
+                          n_iters=n_iters, state=state)

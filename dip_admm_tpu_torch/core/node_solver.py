@@ -41,6 +41,7 @@ import torch
 
 from dip_admm_tpu_torch.config import NodeSolverConfig
 from dip_admm_tpu_torch.ops import tv
+from dip_admm_tpu_torch.utils import profiling
 
 ALGORITHMS = ("cv", "fcv", "pcv", "ppdhg", "fista")
 
@@ -195,7 +196,9 @@ def build_fourier_precond(
     a = torch.stack(alphas, dim=1)  # [P, k]
     b = torch.stack(betas, dim=1)[:, :-1]  # beta_j couples v_j and v_{j+1}
     T = torch.diag_embed(a) + torch.diag_embed(b, 1) + torch.diag_embed(b, -1)
-    lam_max = torch.linalg.eigvalsh(T)[:, -1]
+    profiling.count("sync")
+    with profiling.span("sync", site="fcv.eigvalsh"):
+        lam_max = torch.linalg.eigvalsh(T)[:, -1]
     # Ritz values lower-bound the spectral radius; 0.95 covers what 25
     # steps leave, and the divergence monitor of solve_nodes the rest.
     step = (0.95 / torch.clamp(lam_max, min=1e-30)).to(dtype)
@@ -231,202 +234,220 @@ def solve_nodes(
     ``group_active`` [groups] bool leaves the groups that are False
     untouched from the start (the frozen scenarios of a batched run,
     whose results the caller discards)."""
-    if cfg.algorithm not in ALGORITHMS:
-        raise ValueError(f"unknown inner algorithm {cfg.algorithm!r}")
-    P, n = D_vec.shape
-    if P % groups:
-        raise ValueError(f"{P} nodes do not split into {groups} groups")
-    dtype = state.x.dtype
-    dev = state.x.device
-    Ksq = tv.GRAD_OPNORM_SQ
-    if any_reduce is None:
-        any_reduce = lambda v: v  # noqa: E731
-    # Per-node lam_tv and rho enter as columns (and lam as [P, 1, 1] for
-    # the TV duals); scalars stay Python floats or 0-d tensors.
-    per_node = lambda v: isinstance(v, torch.Tensor) and v.dim() > 0  # noqa: E731
-    lam = lam_tv if per_node(lam_tv) else float(lam_tv)
-    lam_c = lam[:, None] if per_node(lam) else lam
-    lam_im = lam[:, None, None] if per_node(lam) else lam
-    rho_c = rho[:, None] if per_node(rho) else rho
+    with profiling.span("node.solve"):
+        if cfg.algorithm not in ALGORITHMS:
+            raise ValueError(f"unknown inner algorithm {cfg.algorithm!r}")
+        P, n = D_vec.shape
+        if P % groups:
+            raise ValueError(f"{P} nodes do not split into {groups} groups")
+        dtype = state.x.dtype
+        dev = state.x.device
+        Ksq = tv.GRAD_OPNORM_SQ
+        if any_reduce is None:
+            any_reduce = lambda v: v  # noqa: E731
+        # Per-node lam_tv and rho enter as columns (and lam as [P, 1, 1] for
+        # the TV duals); scalars stay Python floats or 0-d tensors.
+        per_node = lambda v: (  # noqa: E731
+            isinstance(v, torch.Tensor) and v.dim() > 0)
+        lam = lam_tv if per_node(lam_tv) else float(lam_tv)
+        lam_c = lam[:, None] if per_node(lam) else lam
+        lam_im = lam[:, None, None] if per_node(lam) else lam
+        rho_c = rho[:, None] if per_node(rho) else rho
 
-    def grad_f(x):
-        return adj(fwd(x) - b) + rho_c * (D_vec * x - b_cons)
+        def grad_f(x):
+            return adj(fwd(x) - b) + rho_c * (D_vec * x - b_cons)
 
-    def g_residual(x):
-        sub = tv.tv_subgradient(x.reshape(P, N, N)).reshape(P, -1)
-        return grad_f(x) + lam_c * sub
+        def g_residual(x):
+            sub = tv.tv_subgradient(x.reshape(P, N, N)).reshape(P, -1)
+            return grad_f(x) + lam_c * sub
 
-    def cv_step(metric, sig_im):
-        """A Condat-Vu step whose primal step is ``metric(d, st)``."""
-        def step(st):
-            ktu = tv.grad_adjoint(st.ux, st.uy).reshape(P, -1)
-            x_new = st.x - metric(grad_f(st.x) + ktu, st)
-            gx, gy = tv.grad((2.0 * x_new - st.x).reshape(P, N, N))
-            ux, uy = tv.project_l2_ball(st.ux + sig_im * gx,
-                                        st.uy + sig_im * gy, lam_im)
-            return st._replace(x=x_new, ux=ux, uy=uy)
-        return step
+        def cv_step(metric, sig_im):
+            """A Condat-Vu step whose primal step is ``metric(d, st)``."""
+            def step(st):
+                ktu = tv.grad_adjoint(st.ux, st.uy).reshape(P, -1)
+                x_new = st.x - metric(grad_f(st.x) + ktu, st)
+                gx, gy = tv.grad((2.0 * x_new - st.x).reshape(P, N, N))
+                ux, uy = tv.project_l2_ball(st.ux + sig_im * gx,
+                                            st.uy + sig_im * gy, lam_im)
+                return st._replace(x=x_new, ux=ux, uy=uy)
+            return step
 
-    st = state
-    post_check = None
-    if cfg.algorithm == "cv":
-        # Balanced steps: sigma*||K||^2 = L/2 => tau = 0.99/(L/2 + sigma*||K||^2).
-        sigma = (cfg.sigma_scale * L / (2.0 * Ksq)).to(dtype)
-        tau_c = (0.99 / (L / 2.0 + sigma * Ksq)).to(dtype)[:, None]
-        step = cv_step(lambda d, st: tau_c * d, sigma[:, None, None])
-    elif cfg.algorithm == "fcv":
-        if fprecond is None:
-            raise ValueError("algorithm='fcv' requires fprecond "
-                             "(build_fourier_precond)")
-        # T = tk * M^-1. The step lives in ``tk`` so the divergence monitor
-        # can adapt it and warm starts carry it; min() maps a fresh state
-        # (inf) to the full certified step. ``xp`` is the rollback point.
-        st = st._replace(tk=torch.minimum(st.tk, fprecond.step), xp=st.x)
-        m_hat = fprecond.m_hat
-        step = cv_step(lambda d, st: st.tk[:, None] * _m_inv(m_hat, d, N),
-                       fprecond.sigma[:, None, None])
+        st = state
+        post_check = None
+        if cfg.algorithm == "cv":
+            # Balanced steps: sigma*||K||^2 = L/2
+            # => tau = 0.99/(L/2 + sigma*||K||^2).
+            sigma = (cfg.sigma_scale * L / (2.0 * Ksq)).to(dtype)
+            tau_c = (0.99 / (L / 2.0 + sigma * Ksq)).to(dtype)[:, None]
+            step = cv_step(lambda d, st: tau_c * d, sigma[:, None, None])
+        elif cfg.algorithm == "fcv":
+            if fprecond is None:
+                raise ValueError("algorithm='fcv' requires fprecond "
+                                 "(build_fourier_precond)")
+            # T = tk * M^-1. The step lives in ``tk`` so the divergence monitor
+            # can adapt it and warm starts carry it; min() maps a fresh state
+            # (inf) to the full certified step. ``xp`` is the rollback point.
+            st = st._replace(tk=torch.minimum(st.tk, fprecond.step), xp=st.x)
+            m_hat = fprecond.m_hat
+            step = cv_step(lambda d, st: st.tk[:, None] * _m_inv(m_hat, d, N),
+                           fprecond.sigma[:, None, None])
 
-        def post_check(st, g_norm, g_prev, g_min):
-            # Divergence monitor: a node whose residual is not finite or
-            # grew past 5x its running minimum halves its step and rolls x
-            # back to the last check; it reports its previous residual.
-            # The TV duals are ball projections, bounded, and stay.
-            bad = ~torch.isfinite(g_norm) | (g_norm > 5.0 * g_min)
-            x = torch.where(bad[:, None], st.xp, st.x)
-            st = st._replace(tk=torch.where(bad, st.tk * 0.5, st.tk), x=x,
-                             xp=x)
-            return (st, torch.where(bad, g_prev, g_norm),
-                    bad.reshape(groups, -1).any(dim=1))
-    elif cfg.algorithm == "pcv":
-        # Per-pixel steps from the Gershgorin row sums of A^T A + rho D,
-        # A^T(A 1) for a nonnegative operator (a Jacobi preconditioner);
-        # T_p (L_p/2 + sigma_p ||K||^2) <= 1 holds pixel by pixel.
-        L_row = adj(fwd(torch.ones((P, n), dtype=dtype, device=dev)))
-        L_row = torch.clamp(L_row + rho_c * D_vec, min=1e-6)
-        sigma_p = (cfg.sigma_scale * L_row / (2.0 * Ksq)).to(dtype)
-        T = (0.99 / (L_row / 2.0 + sigma_p * Ksq)).to(dtype)
-        step = cv_step(lambda d, st: T * d, sigma_p.reshape(P, N, N))
-    elif cfg.algorithm == "ppdhg":
-        # Diagonally preconditioned PDHG (Pock-Chambolle, alpha = 1):
-        # K = [A; grad] in the dual, the consensus quadratic as an exact
-        # primal prox; tau_j = 1/sum_i |K_ij|, sigma_i = 1/sum_j |K_ij|
-        # from A applied to ones (the projector weights are nonnegative).
-        rowsum = fwd(torch.ones((P, n), dtype=dtype, device=dev))
-        colsum = adj(torch.ones_like(b))
-        sig_a = 1.0 / torch.clamp(rowsum, min=1e-6)
-        # TV rows have two unit entries (sigma = 1/2), TV columns <= 4.
-        T = (1.0 / (torch.clamp(colsum, min=0.0) + 4.0)).to(dtype)
-        rden = 1.0 + T * rho_c * D_vec
-        rnum = T * rho_c * b_cons
+            def post_check(st, g_norm, g_prev, g_min):
+                # Divergence monitor: a node whose residual is not finite or
+                # grew past 5x its running minimum halves its step and rolls x
+                # back to the last check; it reports its previous residual.
+                # The TV duals are ball projections, bounded, and stay.
+                bad = ~torch.isfinite(g_norm) | (g_norm > 5.0 * g_min)
+                x = torch.where(bad[:, None], st.xp, st.x)
+                st = st._replace(tk=torch.where(bad, st.tk * 0.5, st.tk), x=x,
+                                 xp=x)
+                return (st, torch.where(bad, g_prev, g_norm),
+                        bad.reshape(groups, -1).any(dim=1))
+        elif cfg.algorithm == "pcv":
+            # Per-pixel steps from the Gershgorin row sums of A^T A + rho D,
+            # A^T(A 1) for a nonnegative operator (a Jacobi preconditioner);
+            # T_p (L_p/2 + sigma_p ||K||^2) <= 1 holds pixel by pixel.
+            L_row = adj(fwd(torch.ones((P, n), dtype=dtype, device=dev)))
+            L_row = torch.clamp(L_row + rho_c * D_vec, min=1e-6)
+            sigma_p = (cfg.sigma_scale * L_row / (2.0 * Ksq)).to(dtype)
+            T = (0.99 / (L_row / 2.0 + sigma_p * Ksq)).to(dtype)
+            step = cv_step(lambda d, st: T * d, sigma_p.reshape(P, N, N))
+        elif cfg.algorithm == "ppdhg":
+            # Diagonally preconditioned PDHG (Pock-Chambolle, alpha = 1):
+            # K = [A; grad] in the dual, the consensus quadratic as an exact
+            # primal prox; tau_j = 1/sum_i |K_ij|, sigma_i = 1/sum_j |K_ij|
+            # from A applied to ones (the projector weights are nonnegative).
+            rowsum = fwd(torch.ones((P, n), dtype=dtype, device=dev))
+            colsum = adj(torch.ones_like(b))
+            sig_a = 1.0 / torch.clamp(rowsum, min=1e-6)
+            # TV rows have two unit entries (sigma = 1/2), TV columns <= 4.
+            T = (1.0 / (torch.clamp(colsum, min=0.0) + 4.0)).to(dtype)
+            rden = 1.0 + T * rho_c * D_vec
+            rnum = T * rho_c * b_cons
 
-        def step(st):
-            kty = adj(st.ua) + tv.grad_adjoint(st.ux, st.uy).reshape(P, -1)
-            x_new = (st.x - T * kty + rnum) / rden
-            xb = 2.0 * x_new - st.x
-            v = st.ua + sig_a * fwd(xb)
-            ua = (v - sig_a * b) / (1.0 + sig_a)  # prox of 0.5||.-b||^2's dual
-            gx, gy = tv.grad(xb.reshape(P, N, N))
-            ux, uy = tv.project_l2_ball(st.ux + 0.5 * gx, st.uy + 0.5 * gy,
-                                        lam_im)
-            return st._replace(x=x_new, ux=ux, uy=uy, ua=ua)
-    else:  # fista
-        # Accelerated proximal gradient: a gradient step at the momentum
-        # point, then prox_{tau lam TV} by Chambolle's dual ascent
-        # warm-started from the node's TV dual field; O'Donoghue-Candes
-        # gradient restart per node. Momentum lives within one subproblem
-        # (b_cons and D change across outers): the t-sequence restarts at
-        # every solve, x and the dual field stay as the warm start.
-        st = st._replace(xp=st.x, tk=torch.ones_like(st.tk))
-        tau = (0.99 / L).to(dtype)
-        tau_c = tau[:, None]
-        w_im = (tau * lam).to(dtype)[:, None, None]
+            def step(st):
+                kty = adj(st.ua) + tv.grad_adjoint(st.ux, st.uy).reshape(P, -1)
+                x_new = (st.x - T * kty + rnum) / rden
+                xb = 2.0 * x_new - st.x
+                v = st.ua + sig_a * fwd(xb)
+                # the prox of 0.5||.-b||^2's dual
+                ua = (v - sig_a * b) / (1.0 + sig_a)
+                gx, gy = tv.grad(xb.reshape(P, N, N))
+                ux, uy = tv.project_l2_ball(st.ux + 0.5 * gx, st.uy + 0.5 * gy,
+                                            lam_im)
+                return st._replace(x=x_new, ux=ux, uy=uy, ua=ua)
+        else:  # fista
+            # Accelerated proximal gradient: a gradient step at the momentum
+            # point, then prox_{tau lam TV} by Chambolle's dual ascent
+            # warm-started from the node's TV dual field; O'Donoghue-Candes
+            # gradient restart per node. Momentum lives within one subproblem
+            # (b_cons and D change across outers): the t-sequence restarts at
+            # every solve, x and the dual field stay as the warm start.
+            st = st._replace(xp=st.x, tk=torch.ones_like(st.tk))
+            tau = (0.99 / L).to(dtype)
+            tau_c = tau[:, None]
+            w_im = (tau * lam).to(dtype)[:, None, None]
 
-        def step(st):
-            t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * st.tk * st.tk))
-            beta = ((st.tk - 1.0) / t_new)[:, None]
-            y = st.x + beta * (st.x - st.xp)
-            w = y - tau_c * grad_f(y)
-            x_im, (ux, uy) = tv.tv_prox_chambolle(
-                w.reshape(P, N, N), w_im, n_iters=cfg.fista_prox_iters,
-                p_init=(st.ux, st.uy))
-            x_new = x_im.reshape(P, -1)
-            restart = torch.sum((y - x_new) * (x_new - st.x), dim=1) > 0.0
-            t_new = torch.where(restart, torch.ones_like(t_new), t_new)
-            return st._replace(x=x_new, ux=ux, uy=uy, xp=st.x, tk=t_new)
+            def step(st):
+                t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * st.tk * st.tk))
+                beta = ((st.tk - 1.0) / t_new)[:, None]
+                y = st.x + beta * (st.x - st.xp)
+                w = y - tau_c * grad_f(y)
+                x_im, (ux, uy) = tv.tv_prox_chambolle(
+                    w.reshape(P, N, N), w_im, n_iters=cfg.fista_prox_iters,
+                    p_init=(st.ux, st.uy))
+                x_new = x_im.reshape(P, -1)
+                restart = torch.sum((y - x_new) * (x_new - st.x), dim=1) > 0.0
+                t_new = torch.where(restart, torch.ones_like(t_new), t_new)
+                return st._replace(x=x_new, ux=ux, uy=uy, xp=st.x, tk=t_new)
 
-    B = groups
-    ce = cfg.check_every
-    g_prev = torch.full((P,), float("inf"), dtype=dtype, device=dev)
-    g_norm = g_prev
-    g_min = g_prev
-    acc = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    # The groups still stepping, kept on the host, where the one sync of
-    # each check brings their stop flags. Every group still stepping has
-    # run every check so far, so they share the count k; a group's own
-    # count (k_grp) stops where it froze.
-    run = (np.ones(B, dtype=bool) if group_active is None
-           else group_active.cpu().numpy().astype(bool))
-    k_grp = np.zeros(B, dtype=np.int64)
-    k = 0
-    while k < cfg.max_inner and run.any():
-        # A group whose loop has ended keeps its state, residuals and
-        # acceptance exactly (the select JAX's vmap of the while_loop
-        # makes); while every group steps, nothing is selected.
-        frozen = not run.all()
-        st0, g0, gmin0, acc0 = st, g_prev, g_min, acc
-        for _ in range(ce):
-            st = step(st)
-        g_norm = torch.linalg.norm(g_residual(st.x), dim=1)
-        adjusted = False
-        if post_check is not None:
-            st, g_norm, adjusted = post_check(st, g_norm, g_prev, g_min)
-        g_min = torch.minimum(
-            g_min, torch.where(torch.isfinite(g_norm), g_norm, float("inf")))
-        acc = torch.where((acc < 0) & (g_norm <= eps_k), k + ce,
-                          acc).to(torch.int32)
-        unmet = (g_norm > eps_k).reshape(B, -1).any(dim=1)
-        if cfg.plateau_tol > 0:
-            improving = torch.where(
-                torch.isinf(g_prev), True,
-                (g_prev - g_norm) > cfg.plateau_tol * torch.abs(g_prev),
-            ).reshape(B, -1).any(dim=1)
-            # A step adjustment is progress, though the rolled-back
-            # residual shows none.
-            unmet = unmet & (improving | adjusted)
-        if frozen:
-            keep = torch.as_tensor(np.repeat(run, P // B), device=dev)
-            st = NodeState(*(torch.where(
-                keep.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
-                for new, old in zip(st, st0)))
-            g_norm = torch.where(keep, g_norm, g0)
-            g_min = torch.where(keep, g_min, gmin0)
-            acc = torch.where(keep, acc, acc0)
-        k += ce
-        k_grp[run] = k
-        # the one host sync per check
-        run = run & any_reduce(unmet).cpu().numpy()
-        g_prev = g_norm
-    x = st.x
-    # A residual still at inf (the loop never ran, or every check rolled a
-    # node back from its first one) is recomputed, as the JAX solver does.
-    if bool(any_reduce(torch.isinf(g_norm).any())):
-        g_norm = torch.where(torch.isinf(g_norm),
-                             torch.linalg.norm(g_residual(x), dim=1), g_norm)
+        B = groups
+        ce = cfg.check_every
+        g_prev = torch.full((P,), float("inf"), dtype=dtype, device=dev)
+        g_norm = g_prev
+        g_min = g_prev
+        acc = torch.full((P,), -1, dtype=torch.int32, device=dev)
+        # The groups still stepping, kept on the host, where the one sync of
+        # each check brings their stop flags. Every group still stepping has
+        # run every check so far, so they share the count k; a group's own
+        # count (k_grp) stops where it froze.
+        if group_active is None:
+            run = np.ones(B, dtype=bool)
+        else:
+            profiling.count("sync")
+            with profiling.span("sync", site="node.group_active"):
+                run = group_active.cpu().numpy().astype(bool)
+        k_grp = np.zeros(B, dtype=np.int64)
+        k = 0
+        while k < cfg.max_inner and run.any():
+            # A group whose loop has ended keeps its state, residuals and
+            # acceptance exactly (the select JAX's vmap of the while_loop
+            # makes); while every group steps, nothing is selected.
+            frozen = not run.all()
+            st0, g0, gmin0, acc0 = st, g_prev, g_min, acc
+            for _ in range(ce):
+                st = step(st)
+            g_norm = torch.linalg.norm(g_residual(st.x), dim=1)
+            adjusted = False
+            if post_check is not None:
+                st, g_norm, adjusted = post_check(st, g_norm, g_prev, g_min)
+            g_min = torch.minimum(
+                g_min,
+                torch.where(torch.isfinite(g_norm), g_norm, float("inf")))
+            acc = torch.where((acc < 0) & (g_norm <= eps_k), k + ce,
+                              acc).to(torch.int32)
+            unmet = (g_norm > eps_k).reshape(B, -1).any(dim=1)
+            if cfg.plateau_tol > 0:
+                improving = torch.where(
+                    torch.isinf(g_prev), True,
+                    (g_prev - g_norm) > cfg.plateau_tol * torch.abs(g_prev),
+                ).reshape(B, -1).any(dim=1)
+                # A step adjustment is progress, though the rolled-back
+                # residual shows none.
+                unmet = unmet & (improving | adjusted)
+            if frozen:
+                keep = torch.as_tensor(np.repeat(run, P // B), device=dev)
+                st = NodeState(*(torch.where(
+                    keep.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+                    for new, old in zip(st, st0)))
+                g_norm = torch.where(keep, g_norm, g0)
+                g_min = torch.where(keep, g_min, gmin0)
+                acc = torch.where(keep, acc, acc0)
+            k += ce
+            k_grp[run] = k
+            profiling.count("inner_steps", ce)
+            # the one host sync per check
+            profiling.count("sync")
+            with profiling.span("sync", site="node.check"):
+                run = run & any_reduce(unmet).cpu().numpy()
+            g_prev = g_norm
+        with profiling.span("node.tail"):
+            x = st.x
+            # A residual still at inf (the loop never ran, or every check
+            # rolled a node back from its first one) is recomputed, as the
+            # JAX solver does.
+            profiling.count("sync")
+            with profiling.span("sync", site="node.isinf"):
+                inf_left = bool(any_reduce(torch.isinf(g_norm).any()))
+            if inf_left:
+                g_norm = torch.where(
+                    torch.isinf(g_norm),
+                    torch.linalg.norm(g_residual(x), dim=1), g_norm)
 
-    # Each node's group's count: k while no group stopped early.
-    k_node = (k if (k_grp == k).all() else torch.as_tensor(
-        np.repeat(k_grp, P // B), dtype=torch.int32, device=dev))
-    inner_per_node = torch.where(acc >= 0, acc, k_node)
-    r = fwd(x) - b
-    data_term = 0.5 * torch.sum(r * r, dim=1)
-    tv_term = lam * tv.tv_value(x.reshape(P, N, N))
-    quad = 0.5 * rho * (
-        torch.sum(D_vec * x**2, dim=1) - 2.0 * torch.sum(b_cons * x, dim=1)
-        + c_quad
-    )
-    accept_code = torch.where(
-        acc >= 0, 0, 1 + (k_node >= cfg.max_inner)
-    ).to(torch.int32)
-    trip = k if B == 1 else torch.as_tensor(k_grp)
-    return NodeSolveResult(st, g_norm, data_term + tv_term + quad,
-                           inner_per_node, trip, accept_code)
+            # Each node's group's count: k while no group stopped early.
+            k_node = (k if (k_grp == k).all() else torch.as_tensor(
+                np.repeat(k_grp, P // B), dtype=torch.int32, device=dev))
+            inner_per_node = torch.where(acc >= 0, acc, k_node)
+            r = fwd(x) - b
+            data_term = 0.5 * torch.sum(r * r, dim=1)
+            tv_term = lam * tv.tv_value(x.reshape(P, N, N))
+            quad = 0.5 * rho * (
+                torch.sum(D_vec * x**2, dim=1)
+                - 2.0 * torch.sum(b_cons * x, dim=1) + c_quad
+            )
+            accept_code = torch.where(
+                acc >= 0, 0, 1 + (k_node >= cfg.max_inner)
+            ).to(torch.int32)
+            trip = k if B == 1 else torch.as_tensor(k_grp)
+            return NodeSolveResult(st, g_norm, data_term + tv_term + quad,
+                                   inner_per_node, trip, accept_code)

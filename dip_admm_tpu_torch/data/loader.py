@@ -37,6 +37,7 @@ import torch
 from dip_admm_tpu_torch.config import GeometryConfig, ProblemConfig
 from dip_admm_tpu_torch.graph import precisions, topology
 from dip_admm_tpu_torch.ops import phantoms, radon, radon_fan, radon_fft
+from dip_admm_tpu_torch.utils import profiling
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # cfg.dtype -> the problem's dtype (float64 is float32, as under JAX
@@ -157,13 +158,17 @@ def make_node_ops(mode: str, geo: GeometryConfig, tables: dict):
                                                          torch.float32)
 
     def fwd(x):
-        return project(geo, x.reshape(-1, N, N).to(torch.float32),
-                       tables).reshape(x.shape[0], -1).to(out_dtype(x))
+        profiling.count("proj.fwd")
+        with profiling.span("proj.fwd"):
+            return project(geo, x.reshape(-1, N, N).to(torch.float32),
+                           tables).reshape(x.shape[0], -1).to(out_dtype(x))
 
     def adj(r):
-        return backproject(
-            geo, r.reshape(r.shape[0], -1, D).to(torch.float32), tables
-        ).reshape(r.shape[0], -1).to(out_dtype(r))
+        profiling.count("proj.adj")
+        with profiling.span("proj.adj"):
+            return backproject(
+                geo, r.reshape(r.shape[0], -1, D).to(torch.float32), tables
+            ).reshape(r.shape[0], -1).to(out_dtype(r))
 
     return fwd, adj
 
@@ -338,47 +343,57 @@ def build_problem(
         raise ValueError(f"RFFT input must be float32 or float64, got "
                          f"{cfg.dtype}")
     N, P, D, n = geo.N, geo.num_nodes, geo.n_det, geo.n
+    if isinstance(phantom_array, (list, tuple)) and len(phantom_array) != P:
+        raise ValueError(f"phantom_array: {len(phantom_array)} images "
+                         f"for {P} nodes")
 
-    angles_np, valid_np, _ = radon.node_angles(geo)
-    angles = torch.as_tensor(angles_np, dtype=dtype, device=device)
-    valid = torch.as_tensor(valid_np, device=device)
+    with profiling.span("loader.build_problem", mode=mode, N=N, P=P):
+        with profiling.span("loader.phantoms"):
+            angles_np, valid_np, _ = radon.node_angles(geo)
+            angles = torch.as_tensor(angles_np, dtype=dtype, device=device)
+            valid = torch.as_tensor(valid_np, device=device)
+            if isinstance(phantom_array, (list, tuple)):
+                node_phantoms = list(phantom_array)
+            elif phantom_array is not None:
+                node_phantoms = [phantom_array] * P
+            elif per_node_phantoms:
+                node_phantoms = [phantoms.rand_im(N, seed=cfg.noise_seed + i)
+                                 for i in range(P)]
+            else:
+                node_phantoms = [phantoms.make_phantom(
+                    cfg.phantom, N, seed=cfg.noise_seed)] * P
+            imgs = torch.stack([torch.as_tensor(np.asarray(ph), dtype=dtype)
+                                .reshape(-1) for ph in node_phantoms]
+                               ).to(device)
+            x_true = imgs[0].clone()
 
-    if isinstance(phantom_array, (list, tuple)):
-        if len(phantom_array) != P:
-            raise ValueError(f"phantom_array: {len(phantom_array)} images "
-                             f"for {P} nodes")
-        node_phantoms = list(phantom_array)
-    elif phantom_array is not None:
-        node_phantoms = [phantom_array] * P
-    elif per_node_phantoms:
-        node_phantoms = [phantoms.rand_im(N, seed=cfg.noise_seed + i)
-                         for i in range(P)]
-    else:
-        node_phantoms = [phantoms.make_phantom(cfg.phantom, N,
-                                               seed=cfg.noise_seed)] * P
-    imgs = torch.stack([torch.as_tensor(np.asarray(ph), dtype=dtype)
-                        .reshape(-1) for ph in node_phantoms]).to(device)
-    x_true = imgs[0].clone()
+        with profiling.span("loader.tables"):
+            # The geometry in float32, from the angles as the problem
+            # holds them.
+            angles32 = angles.to(torch.float32)
+            tables = build_tables(cfg, angles32, valid, mode, row_block)
+        fwd, adj = make_node_ops(mode, geo, tables)
 
-    # The geometry in float32, from the angles as the problem holds them.
-    angles32 = angles.to(torch.float32)
-    tables = build_tables(cfg, angles32, valid, mode, row_block)
-    fwd, adj = make_node_ops(mode, geo, tables)
-    clean = fwd(imgs)
-    del imgs
+        with profiling.span("loader.data"):
+            clean = fwd(imgs)
+            del imgs
+            if noise is None:
+                gen = torch.Generator(device=device).manual_seed(
+                    cfg.noise_seed)
+                noise = torch.randn(clean.shape, generator=gen, device=device)
+            row_valid = valid.repeat_interleave(D, dim=1).to(dtype)
+            b = clean + (cfg.noise_level * noise.to(device, clean.dtype)
+                         * row_valid)
 
-    if noise is None:
-        gen = torch.Generator(device=device).manual_seed(cfg.noise_seed)
-        noise = torch.randn(clean.shape, generator=gen, device=device)
-    row_valid = valid.repeat_interleave(D, dim=1).to(dtype)
-    b = clean + cfg.noise_level * noise.to(device, clean.dtype) * row_valid
-
-    W = node_colnorms(geo, angles32, valid, mode, tables).to(dtype)
-    g = cfg.graph
-    Q, keep, adjm = build_graph_layer(W, g.q_mode, g.strategy, g.k, g.seed,
-                                      orders)
-    opnorm = estimate_opnorms(fwd, adj, P, n, device,
-                              v0=opnorm_v0).to(dtype)
+        with profiling.span("loader.colnorms"):
+            W = node_colnorms(geo, angles32, valid, mode, tables).to(dtype)
+        with profiling.span("loader.graph"):
+            g = cfg.graph
+            Q, keep, adjm = build_graph_layer(W, g.q_mode, g.strategy, g.k,
+                                              g.seed, orders)
+        with profiling.span("loader.opnorms"):
+            opnorm = estimate_opnorms(fwd, adj, P, n, device,
+                                      v0=opnorm_v0).to(dtype)
     return Problem(
         cfg=cfg, mode=mode, angles=angles, angle_valid=valid, b=b, W=W, Q=Q,
         keep=keep, adj=adjm, x_true=x_true, opnorm=opnorm, fft_tables=tables,

@@ -20,6 +20,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from dip_admm_tpu_torch.utils import profiling
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -94,6 +96,7 @@ def build(name: str) -> dict:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    profiling.count("kernels.nvcc")
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -110,9 +113,12 @@ def build(name: str) -> dict:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built first if needed."""
-    lib = ctypes.CDLL(build(name)["path"])
-    for fn, argtypes in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
+    with profiling.span("kernels.load", lib=name) as sp:
+        built = build(name)
+        sp.attrs["built"] = built["built"]
+        lib = ctypes.CDLL(built["path"])
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
     return lib

@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from dip_admm_tpu_torch.utils import profiling
+
 GRAD_OPNORM_SQ = 8.0  # classical bound for the forward-difference 2-D gradient
 
 
@@ -56,7 +58,12 @@ def project_l2_ball(
     (the prox of the conjugate of ``radius * ||.||_{2,1}``). ``radius == 0``
     projects to zero."""
     mag = torch.sqrt(gx**2 + gy**2)
-    r = torch.as_tensor(radius, dtype=mag.dtype, device=mag.device)
+    if isinstance(radius, torch.Tensor):
+        r = torch.as_tensor(radius, dtype=mag.dtype, device=mag.device)
+    else:  # a host scalar's copy to a card waits for its queue
+        profiling.count("sync")
+        with profiling.span("sync", site="tv.radius"):
+            r = torch.as_tensor(radius, dtype=mag.dtype, device=mag.device)
     safe_r = torch.clamp(r, min=1e-30)
     factor = torch.where(r > 0, 1.0 / torch.clamp(mag / safe_r, min=1.0), 0.0)
     return gx * factor, gy * factor

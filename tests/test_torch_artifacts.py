@@ -147,10 +147,30 @@ def test_native_writer_builds_outside_the_sources(tmp_path):
     assert len(rows) == 3 * (1 + 4)
 
 
-def test_profiling_trace_and_time_fn(tmp_path):
+def test_profiling_trace_holds_program_spans(tmp_path):
+    import json
+
+    from dip_admm_tpu_torch.core import admm as tadmm
+    from dip_admm_tpu_torch.data import loader as tloader
+
+    cfg = tcfg.ProblemConfig(
+        geometry=tcfg.GeometryConfig(N=16, num_nodes=3, angles_total=24),
+        admm=tcfg.AdmmConfig(max_iters=2, eps_pri=0.0, eps_dual=0.0,
+                             node=tcfg.NodeSolverConfig(max_inner=4,
+                                                        check_every=2)))
+    problem = tloader.build_problem(cfg, "cpu", mode="dense")
     with profiling.trace(str(tmp_path / "prof")):
-        torch.ones(64).sum()
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
-    t = profiling.time_fn(lambda v: v * 2, torch.ones(8), iters=3, warmup=1)
-    assert set(t) == {"best_s", "median_s", "mean_s", "iters"}
-    assert 0 < t["best_s"] <= t["median_s"]
+        tadmm.run_admm(problem)
+    doc = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    ev = doc["traceEvents"]
+    spans = [e for e in ev if e.get("cat") == "program_span"]
+    names = [e["name"] for e in spans]
+    assert names.count("admm.run") == 1 and names.count("admm.outer") == 2
+    assert names.count("node.solve") == 2 and "sync" in names
+    assert {e["tid"] for e in spans} == {profiling.SPAN_TID}
+    # On the trace's time base: the run's span holds the torch ops it ran.
+    (run,) = [e for e in spans if e["name"] == "admm.run"]
+    ops = [e for e in ev if e.get("ph") == "X"
+           and e["name"].startswith("aten::")
+           and run["ts"] <= e["ts"] <= run["ts"] + run["dur"]]
+    assert len(ops) > 10
