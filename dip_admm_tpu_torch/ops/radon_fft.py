@@ -27,10 +27,13 @@ loads; ``fft_grouped`` keeps it with its rows permuted into
 branch-grouped slot order, pitched the same way, and ``fft_mxu`` so
 permuted and pre-tiled with F padded to a multiple of 128. Around their
 filter-sum kernels (``ops/kernels/filter_sum.py``, ``filter_mxu.py``) the
-row DFT and the inverse DFT are torch matmuls (XLA ops in the JAX
-package), and so is the hat evaluation while its materialized weights stay
-below ``_HAT_MAX_BYTES``; past that the hat kernels of
-``ops/kernels/hat_eval.py`` evaluate it on the fly, as in the JAX package.
+row DFT and the inverse DFT, and their transposes, are float32 torch FFTs
+(the JAX package multiplies by the DFT matrices ``Ere``/``Eim``/``Cre``/
+``Cim`` that the tables still hold, which fix Np, F and the row pitch of
+the spectra and cotangents here), and the hat evaluation is a torch
+product while its materialized weights stay below ``_HAT_MAX_BYTES``; past
+that the hat kernels of ``ops/kernels/hat_eval.py`` evaluate it on the
+fly, as in the JAX package.
 
 The tables mirror ``dip_admm_tpu.ops.radon_fft.precompute_shear`` (one tap
 layout per mode, as the JAX loader keeps them), ``precompute_merged``
@@ -45,6 +48,7 @@ paths run PT = PB; the fan path PT = 1.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -62,6 +66,7 @@ from dip_admm_tpu_torch.ops.kernels.shear_sum import (
     eval_shear, eval_shear_t, shear_sum_planes, shear_sum_planes_t,
     skew_sum_planes, skew_sum_planes_t, skew_sum_planes_t_rows,
 )
+from dip_admm_tpu_torch.utils import profiling
 
 # Window slack multiplier: Np >= (sqrt(2) + 1) * max(N, D) + margin keeps
 # the circular interpolation reads alias-free.
@@ -468,10 +473,14 @@ _HAT_MAX_BYTES = 1.5e9
 
 
 def _dft_mats(N: int, Np: int, device=None):
-    """DFT matrices that replace rfft/irfft by matmuls: the forward DFT of
-    rows zero-padded N -> Np (its first N rows), Ere/Eim [N, F], and the
-    irfft coefficients Cre/Cim [F, Np] (interior bins doubled, the
-    imaginary parts of DC and Nyquist dropped)."""
+    """DFT matrices that stand for rfft/irfft as matmuls: the forward DFT
+    of rows zero-padded N -> Np (its first N rows), Ere/Eim [N, F], and
+    the irfft coefficients Cre/Cim [F, Np] (interior bins doubled, the
+    imaginary parts of DC and Nyquist dropped). The phases are rounded to
+    float32 before their cosines, as the JAX package's are: at Np = 2048
+    an entry is up to 1.5e-4 off the exact DFT. The merged projectors
+    apply these maps as FFTs (:func:`_plane_spectra`, :func:`_eval_tail`
+    and their transposes) and read only the matrices' shapes and pitch."""
     f32 = torch.float32
     F = Np // 2 + 1
     f = torch.arange(F, dtype=f32, device=device)
@@ -699,29 +708,91 @@ def _kview(x: torch.Tensor, PT: int) -> torch.Tensor:
     return x.reshape(x.shape[0] // PT, PT, *x.shape[1:])
 
 
+def _dft_len(t) -> int:
+    """Np, the length the row DFTs pad the rows to: the irfft rows' length
+    (the merged tables), or 2 (F - 1) from the unpadded row-DFT columns
+    of the "shear" tables, which have no irfft rows."""
+    if "Cre" in t:
+        return t["Cre"].shape[-1]
+    return 2 * (t["Ere"].shape[-1] - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_weights(Np: int, device: torch.device) -> dict:
+    """Per-bin weights [2, F] (real part, imaginary part) that the FFT
+    forms of the merged tables' DFT products apply, over the F = Np / 2 +
+    1 bins, made once per length and device. The irffts run unscaled
+    (``norm="forward"``), so their 1 / Np is here, and the imaginary parts
+    of DC and Nyquist, which an irfft does not read (:func:`_edge_mask`),
+    are dropped before it and in its transpose: ``rows_t``, the row DFT's
+    transpose (an irfft of the cotangents with DC and Nyquist doubled,
+    times Np / 2); ``tail``, the irfft; ``tail_t``, its transpose (an rfft
+    with the interior bins doubled, over Np)."""
+    inner = _edge_mask(Np // 2 + 1, device)
+    return {"rows_t": torch.stack([1.0 - 0.5 * inner, 0.5 * inner]),
+            "tail": torch.stack([torch.ones_like(inner), inner]) / Np,
+            "tail_t": torch.stack([1.0 + inner, 2.0 * inner]) / Np}
+
+
+def _to_planes(z, width, F, w=None):
+    """The real and imaginary parts of complex ``z`` [..., Fd], times ``w``
+    [2, Fd] (real part, imaginary part) where given, in float32 rows of
+    ``width`` >= Fd elements whose columns past Fd are zero, as [..., F]
+    views (F <= width): the layout of a dense product against DFT
+    matrices padded to ``width`` (pitched ones give pitched planes). Both
+    planes are written by one copy into one allocation, the second plane
+    at a 32-byte-aligned offset."""
+    Fd = z.shape[-1]
+    shape = (*z.shape[:-1], width)
+    n = math.prod(shape)
+    both = torch.empty((2, -(-n // 8) * 8), dtype=torch.float32,
+                       device=z.device)[:, :n].view(2, *shape)
+    both[..., Fd:].zero_()
+    parts = torch.view_as_real(z).movedim(-1, 0)
+    if w is None:
+        both[..., :Fd].copy_(parts)
+    else:
+        torch.mul(parts, w.view(2, *([1] * (z.dim() - 1)), Fd),
+                  out=both[..., :Fd])
+    return both[0, ..., :F], both[1, ..., :F]
+
+
+def _from_planes(re, im, w):
+    """complex64 [..., Fd] from the first Fd columns of the real and
+    imaginary planes ``re``/``im``, times ``w`` [2, Fd] (real part,
+    imaginary part): the inverse of :func:`_to_planes`."""
+    Fd = w.shape[-1]
+    z = torch.empty((*re.shape[:-1], Fd), dtype=torch.complex64,
+                    device=re.device)
+    zr = torch.view_as_real(z)
+    for i, x in enumerate((re, im)):
+        torch.mul(x[..., :Fd], w[i], out=zr[..., i])
+    return z
+
+
 def _plane_spectra(imgs, t):
-    """Forward DFT of both image orientations' rows: [PB, N, N] ->
-    ([PB, 2, N, F], [PB, 2, N, F]) real/imaginary planes, in the row pitch
-    of ``Ere``/``Eim`` (pitched ``fft_pallas`` tables: pitched spectra, pad
-    columns zero)."""
-    PT = t["Ere"].shape[0]
-    F = t["Ere"].shape[-1]
-    Ere, Eim = (padded(t[k]) for k in ("Ere", "Eim"))
-    rows2 = _kview(torch.stack([imgs, imgs.transpose(1, 2)], dim=1), PT)
-    shape = (imgs.shape[0], 2, imgs.shape[1], Ere.shape[-1])
-    rre2 = torch.einsum("kponv,pvf->kponf", rows2, Ere).reshape(shape)
-    rim2 = torch.einsum("kponv,pvf->kponf", rows2, Eim).reshape(shape)
-    return rre2[..., :F], rim2[..., :F]
+    """Forward DFT of both image orientations' rows, zero-padded to Np:
+    [PB, N, N] -> ([PB, 2, N, F], [PB, 2, N, F]) real/imaginary planes, by
+    a float32 real FFT along the rows, in the row pitch of ``Ere``/``Eim``
+    (pitched ``fft_pallas`` tables: pitched spectra, pad columns zero;
+    ``fft_mxu``'s: dense at their padded F, the columns past Np / 2 + 1
+    zero)."""
+    profiling.count("proj.fft")
+    rows2 = torch.stack([imgs, imgs.transpose(1, 2)], dim=1)
+    spec = torch.fft.rfft(rows2, n=_dft_len(t), dim=-1)
+    return _to_planes(spec, padded(t["Ere"]).shape[-1], t["Ere"].shape[-1])
 
 
 def _plane_spectra_t(rre2_bar, rim2_bar, t, dtype):
-    """Exact transpose of :func:`_plane_spectra`."""
-    PT = t["Ere"].shape[0]
-    PB, _, N, _ = rre2_bar.shape
-    rows2_bar = (
-        torch.einsum("kponf,pvf->kponv", _kview(rre2_bar, PT), t["Ere"])
-        + torch.einsum("kponf,pvf->kponv", _kview(rim2_bar, PT), t["Eim"])
-    ).reshape(PB, 2, N, N)
+    """Exact transpose of :func:`_plane_spectra`: an irfft over Np with DC
+    and Nyquist doubled and their imaginary parts dropped, times Np / 2,
+    cut to the N pixels; then both orientations summed."""
+    profiling.count("proj.fft")
+    Np = _dft_len(t)
+    X = _from_planes(rre2_bar, rim2_bar,
+                     _dft_weights(Np, rre2_bar.device)["rows_t"])
+    rows2_bar = torch.fft.irfft(X, n=Np, dim=-1, norm="forward")
+    rows2_bar = rows2_bar[..., :rre2_bar.shape[2]]
     return (rows2_bar[:, 0] + rows2_bar[:, 1].transpose(1, 2)).to(dtype)
 
 
@@ -740,41 +811,42 @@ def _hat_weights(t, dtype):
 
 
 def _eval_tail(g_re, g_im, t, dtype):
-    """irfft matmul + hat evaluation + branch scale: [PB, T, F] spectra ->
-    [PB, T, D] sinograms, through K17 past ``_HAT_MAX_BYTES`` and the
-    materialized hat weights below it."""
+    """irfft (float32, over Np) + hat evaluation + branch scale: [PB, T, F]
+    spectra -> [PB, T, D] sinograms, through K17 past ``_HAT_MAX_BYTES``
+    and the materialized hat weights below it."""
+    profiling.count("proj.fft")
     PT = t["Cre"].shape[0]
     PB, T, _ = g_re.shape
-    g = (torch.einsum("kptf,pfv->kptv", _kview(g_re, PT), t["Cre"])
-         + torch.einsum("kptf,pfv->kptv", _kview(g_im, PT), t["Cim"]))
+    Np = _dft_len(t)
+    G = _from_planes(g_re, g_im, _dft_weights(Np, g_re.device)["tail"])
+    g = torch.fft.irfft(G, n=Np, dim=-1, norm="forward")  # [PB, T, Np]
     if _hat_on_the_fly(t):
-        out = hat_eval(g.reshape(PB, T, -1).contiguous(), t["p"],
-                       t["s"].unsqueeze(-1))
+        out = hat_eval(g, t["p"], t["s"].unsqueeze(-1))
         return out if dtype == torch.float32 else out.to(dtype)
-    out = torch.einsum("ptdv,kptv->kptd", _hat_weights(t, dtype), g.to(dtype))
+    out = torch.einsum("ptdv,kptv->kptd", _hat_weights(t, dtype),
+                       _kview(g, PT).to(dtype))
     return (t["s"][..., None] * out).reshape(PB, T, -1)
 
 
 def _eval_tail_t(sinos, t):
     """Exact transpose of :func:`_eval_tail`: [PB, T, D] cotangents ->
-    ([PB, T, F], [PB, T, F]) spectrum cotangents."""
+    ([PB, T, F], [PB, T, F]) spectrum cotangents (a float32 rfft with the
+    interior bins doubled, over Np, the imaginary parts of DC and Nyquist
+    dropped), in the padded F of ``Cre``/``Cim`` (``fft_pallas``: pitched
+    rows for K12, pad columns zero)."""
+    profiling.count("proj.fft")
     PT = t["Cre"].shape[0]
     PB, T, _ = sinos.shape
+    Np = _dft_len(t)
     if _hat_on_the_fly(t):
-        g_bar = _kview(hat_eval_t(sinos.to(torch.float32).contiguous(),
-                                  t["p"], t["s"].unsqueeze(-1),
-                                  t["Cre"].shape[-1]), PT)
+        g_bar = hat_eval_t(sinos.to(torch.float32).contiguous(), t["p"],
+                           t["s"].unsqueeze(-1), Np)
     else:
         g_bar = torch.einsum("ptdv,kptd->kptv", _hat_weights(t, sinos.dtype),
                              t["s"][..., None] * _kview(sinos, PT))
-    # In the padded F of Cre/Cim (fft_pallas: pitched rows for K12).
-    F = t["Cre"].shape[1]
-    g_re_bar = torch.einsum("kptv,pfv->kptf", g_bar,
-                            padded(t["Cre"], -2))
-    g_im_bar = torch.einsum("kptv,pfv->kptf", g_bar,
-                            padded(t["Cim"], -2))
-    return (g_re_bar.reshape(PB, T, -1)[..., :F],
-            g_im_bar.reshape(PB, T, -1)[..., :F])
+    G = torch.fft.rfft(g_bar.reshape(PB, T, Np), dim=-1)
+    return _to_planes(G, padded(t["Cre"], -2).shape[-2], t["Cre"].shape[1],
+                      _dft_weights(Np, G.device)["tail_t"])
 
 
 def project_nodes_merged(cfg: GeometryConfig, imgs: torch.Tensor,

@@ -782,6 +782,89 @@ def test_pallas_on_a_node_slice_matches_plain():
         _assert_close(a_, b_.to(dev), 1e-5)
 
 
+@pytest.fixture(scope="module")
+def pallas_512():
+    """The 512^2/8 fft_pallas tables (bf16 H, pitched), as the loader
+    builds them for that problem."""
+    dev = _device()
+    geo = GeometryConfig(N=512, num_nodes=8)
+    a, v, _ = radon.node_angles(geo)
+    return geo, radon_fft.precompute_merged_nodes(
+        geo, torch.as_tensor(a, dtype=torch.float32, device=dev),
+        torch.as_tensor(v, device=dev), torch.bfloat16, pitched=True)
+
+
+def _exact_dft(N, Np, dev):
+    """``radon_fft._dft_mats``' four matrices in float64 with exact phases
+    (v f reduced mod Np in integers; ``_dft_mats`` rounds the phases to
+    float32, up to 1.5e-4 off at Np = 2048): Ere/Eim [N, Fd], Cre/Cim
+    [Fd, Np]."""
+    Fd = Np // 2 + 1
+    f = torch.arange(Fd, dtype=torch.int64, device=dev)
+
+    def cos_sin(a, b):
+        ang = (2.0 * torch.pi / Np) * ((a[:, None] * b[None, :]) % Np).double()
+        return torch.cos(ang), torch.sin(ang)
+
+    cos1, sin1 = cos_sin(torch.arange(N, dtype=torch.int64, device=dev), f)
+    cos2, sin2 = cos_sin(f, torch.arange(Np, dtype=torch.int64, device=dev))
+    c = torch.full((Fd, 1), 2.0, dtype=torch.float64, device=dev)
+    c[0] = c[-1] = 1.0
+    return cos1, -sin1, c * cos2 / Np, -c * sin2 / Np
+
+
+@pytest.mark.parametrize("helper", ["plane_spectra", "plane_spectra_t",
+                                    "eval_tail", "eval_tail_t"])
+def test_pallas_fft_helpers_match_dense_dft_at_512(helper, pallas_512):
+    """The fft_pallas row DFTs and irfft tail as cuFFT transforms at the
+    512^2/8 shapes (Np = 2048, F = 1025 in rows pitched to 1032) against
+    dense products with the exact DFT matrices in float64, to 1e-5 of the
+    output's max; the tails' hat stage is K17/K18 on both sides. The
+    spectra and the cotangents come out pitched, pad columns exactly 0."""
+    geo, t = pallas_512
+    dev = t["p"].device
+    Np = t["Cre"].shape[-1]
+    Ere, Eim, Cre, Cim = _exact_dft(geo.N, Np, dev)
+    F = Cre.shape[0]
+    PB, T, D = t["p"].shape
+    s = t["s"].unsqueeze(-1)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def pitched(shape):
+        return fs.pitched_zeros(shape, torch.float32, dev).copy_(
+            torch.randn(shape, generator=gen, device=dev))
+
+    if helper == "plane_spectra":
+        x = torch.randn((PB, geo.N, geo.N), generator=gen, device=dev)
+        got = radon_fft._plane_spectra(x, t)
+        rows2 = torch.stack([x, x.transpose(1, 2)], dim=1).double()
+        want = (rows2 @ Ere, rows2 @ Eim)
+    elif helper == "plane_spectra_t":
+        r = [pitched((PB, 2, geo.N, F)) for _ in range(2)]
+        got = radon_fft._plane_spectra_t(*r, t, torch.float32)
+        rows2 = r[0].double() @ Ere.T + r[1].double() @ Eim.T
+        want = rows2[:, 0] + rows2[:, 1].transpose(1, 2)
+    elif helper == "eval_tail":
+        g = [pitched((PB, T, F)) for _ in range(2)]
+        got = radon_fft._eval_tail(*g, t, torch.float32)
+        want = he.hat_eval((g[0].double() @ Cre + g[1].double() @ Cim)
+                           .float(), t["p"], s)
+    else:
+        y = torch.randn((PB, T, D), generator=gen, device=dev)
+        got = radon_fft._eval_tail_t(y, t)
+        g_bar = he.hat_eval_t(y, t["p"], s, Np).double()
+        want = (g_bar @ Cre.T, g_bar @ Cim.T)
+    want = tuple(w.float() for w in want) if isinstance(want, tuple) \
+        else want.float()
+    _assert_close(got, want, 1e-5)
+    if helper in ("plane_spectra", "eval_tail_t"):
+        for x in got:
+            assert fs._check_pitched("test", helper, x) == 1032
+            pad = fs.padded(x)[..., F:]
+            assert pad.shape[-1] == 1032 - F
+            assert torch.equal(pad, torch.zeros_like(pad))
+
+
 def _shear_cases(dtype, dev, plane=None):
     """K7 and K8 (wrapper, plain version, arguments) on the "shear" tables
     at N = 48 (16-row blocks: NB = 3), P = 3; ``plane`` replaces the
