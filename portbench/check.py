@@ -1,6 +1,7 @@
 """What decides ``correct``: the plain reference (``reference/``) works
 out, from the same seed-made inputs (phantom, noise, power-method and
-Lanczos starts), its own operator, sinograms, column norms, graph,
+Lanczos starts), its own operator (parallel or fan beam, as the
+configuration's geometry states), sinograms, column norms, graph,
 preconditioner and reconstruction of each sampled reconstruction of the
 window, and the program's outputs are held to it:
 
@@ -23,6 +24,7 @@ import math
 import torch
 
 from portbench import inputs
+from portbench.reference.fan import FanProjector
 from portbench.reference.projector import Projector
 from portbench.reference.recon import psnr, reconstruct
 
@@ -37,16 +39,22 @@ def recipe(conf: dict, mix: dict) -> dict:
 
 def projector(conf: dict, device, tap_dtype=None,
               operand_dtype=None) -> Projector:
+    """The reference operator of the configuration's geometry: the fan
+    beam's (``reference/fan.py``) where it states ``fan_beam``, else the
+    parallel beam's (``reference/projector.py``)."""
     g = conf["geometry"]
-    if g.get("fan_beam") or conf["graph"]["strategy"] != "knn" \
+    if conf["graph"]["strategy"] != "knn" \
             or conf["graph"]["q_mode"] != "arithmetic" \
             or conf["admm"]["z_fusion"] != "midpoint":
-        raise ValueError("the reference runs parallel beam, knn graphs, "
-                         "arithmetic Q and midpoint fusion only")
-    return Projector(g["N"], g["num_nodes"], g.get("angles_total"),
-                     g.get("det_pixels"), g.get("det_width_factor", 1.0),
-                     device=device, tap_dtype=tap_dtype,
-                     operand_dtype=operand_dtype)
+        raise ValueError("the reference runs knn graphs, arithmetic Q and "
+                         "midpoint fusion only")
+    args = (g["N"], g["num_nodes"], g.get("angles_total"),
+            g.get("det_pixels"), g.get("det_width_factor", 1.0))
+    kw = {"device": device, "tap_dtype": tap_dtype,
+          "operand_dtype": operand_dtype}
+    if g.get("fan_beam"):
+        return FanProjector(*args, g["src_radius"], g["det_radius"], **kw)
+    return Projector(*args, **kw)
 
 
 def truth(conf: dict, mix: dict, lane: int, device):

@@ -29,36 +29,49 @@ import numpy as np
 import torch
 
 
-def node_angles(N: int, P: int, angles_total: int | None = None):
+def node_angles(N: int, P: int, angles_total: int | None = None,
+                span: float = np.pi):
     """Per-node angles [P, m_max] float64 and valid [P, m_max] bool: the
     total max(180, 3N) split evenly with the remainder to the first
-    nodes, node k taking the cell centres of [0, pi) cut into its count."""
+    nodes, node k taking the cell centres of [0, span) cut into its
+    count (span 2 pi for a fan's source angles)."""
     total = angles_total if angles_total is not None else max(180, 3 * N)
     counts = [total // P + (1 if i < total % P else 0) for i in range(P)]
     m = max(counts)
     angles = np.zeros((P, m))
     valid = np.zeros((P, m), dtype=bool)
     for k, c in enumerate(counts):
-        angles[k, :c] = (np.arange(c) + 0.5) * np.pi / c
+        angles[k, :c] = (np.arange(c) + 0.5) * span / c
         valid[k, :c] = True
     return angles, valid
+
+
+def detector_grid(D: int, det_width_factor: float, device) -> torch.Tensor:
+    """The centres [D] float64 of D equal cells spanning
+    2 * det_width_factor."""
+    det_w = 2.0 * det_width_factor
+    return (torch.arange(D, dtype=torch.float64, device=device) + 0.5) \
+        * (det_w / D) - det_w / 2.0
 
 
 def _tent(z):
     return torch.clamp(1.0 - torch.abs(z), min=0.0)
 
 
+# Angles of one node whose entries are built at once.
+_CHUNK = 16
+
+
 def _round(w, tap_dtype):
     return w if tap_dtype is None else w.to(tap_dtype).to(w.dtype)
 
 
-def _entries(N, D, dwf, angles, valid, tap_dtype, device, chunk):
-    """(rows, cols, values) of one node's matrix, nonzeros only."""
+def _entries(N, dets, angles, valid, tap_dtype, device):
+    """(rows, cols, values) of one node's matrix, nonzeros only, with
+    detector l read at the position dets[l] (float64)."""
     f64 = torch.float64
     h = 2.0 / N
-    det_w = 2.0 * dwf
-    dets = (torch.arange(D, dtype=f64, device=device) + 0.5) * (det_w / D) \
-        - det_w / 2.0
+    D = dets.numel()
     c0 = -1.0 + 0.5 * h
     th = torch.as_tensor(np.asarray(angles, np.float32), device=device).to(f64)
     cos, sin = torch.cos(th), torch.sin(th)
@@ -74,8 +87,8 @@ def _entries(N, D, dwf, angles, valid, tap_dtype, device, chunk):
     j = torch.arange(4, device=device)
     rows, cols, vals = [], [], []
     keep = torch.nonzero(torch.as_tensor(valid, device=device)).flatten()
-    for t0 in range(0, keep.numel(), chunk):
-        ts = keep[t0:t0 + chunk]
+    for t0 in range(0, keep.numel(), _CHUNK):
+        ts = keep[t0:t0 + _CHUNK]
         p = Pdet[ts][:, :, None, None]  # [Tc, D, 1, 1]
         sig = (B[ts][:, None] * a_idx + C[ts][:, None])[:, None, :, None]
         i = torch.floor(p + sig).long() - 1 + j  # [Tc, D, N, 4]
@@ -114,24 +127,29 @@ class Projector:
 
     def __init__(self, N: int, P: int, angles_total=None, det_pixels=None,
                  det_width_factor: float = 1.0, device="cpu",
-                 tap_dtype=None, operand_dtype=None, chunk: int = 16):
-        self.N, self.P = N, P
+                 tap_dtype=None, operand_dtype=None):
+        D = det_pixels if det_pixels is not None else N
+        dets = detector_grid(D, det_width_factor, device)
+        self._build(N, P, D, *node_angles(N, P, angles_total), device,
+                    operand_dtype, lambda angles, valid: _entries(
+                        N, dets, angles, valid, tap_dtype, device))
+
+    def _build(self, N, P, D, angles, valid, device, operand_dtype, entries):
+        """The shapes, the row mask, and one matrix for each distinct angle
+        set, from ``entries(angles, valid)`` of its first node: (rows,
+        cols, values)."""
+        self.N, self.P, self.D, self.n = N, P, D, N * N
         self.operand_dtype = operand_dtype
-        self.D = det_pixels if det_pixels is not None else N
-        self.n = N * N
-        angles, valid = node_angles(N, P, angles_total)
-        self.m = angles.shape[1] * self.D
+        self.m = angles.shape[1] * D
         self.row_valid = torch.as_tensor(
-            np.repeat(valid, self.D, axis=1), dtype=torch.float32,
-            device=device)
+            np.repeat(valid, D, axis=1), dtype=torch.float32, device=device)
         groups: dict = {}
         for i in range(P):
             key = (angles[i].tobytes(), valid[i].tobytes())
             groups.setdefault(key, []).append(i)
         self.groups = []
-        for (_, _), nodes in groups.items():
-            r, c, v = _entries(N, self.D, det_width_factor, angles[nodes[0]],
-                               valid[nodes[0]], tap_dtype, device, chunk)
+        for nodes in groups.values():
+            r, c, v = entries(angles[nodes[0]], valid[nodes[0]])
             A = _csr(r, c, v, (self.m, self.n))
             AT = _csr(c, r, v, (self.n, self.m))
             del r, c

@@ -89,6 +89,27 @@ def test_fault_is_caught(config, mix, fault):
     assert out["correct"] is False
 
 
+@pytest.mark.parametrize("fault", [None, "no_exchange"])
+def test_tiny_fan_cell(fault):
+    """``par256_p8`` at N = 32 in a fan beam (``tiny.FAN``: width 2.1, 8
+    nodes of 12 source angles) through ``run.run_cell``, held to the fan
+    reference: correct, and not with the exchange between nodes left
+    out."""
+    extra = ["--fault", fault] if fault else []
+    out, _ = _tiny("par256_p8", "fcv_batch16", "--fan", *extra)
+    assert out["correct"] is (fault is None)
+    assert out["forbidden"] == []
+
+
+def test_fan_control_fails_where_program_passes():
+    lim = tiny.LIMITS["par256_p8.fan"]
+    out, _ = _tiny("par256_p8", "fcv_batch16", "--fan", "--control",
+                   lim["control"], "--seeds", "3,4,5")
+    nums = lim["numbers"]
+    assert all(out["lower"][k] <= v["limit"] for k, v in nums.items())
+    assert any(out["upper"][k] > v["limit"] for k, v in nums.items())
+
+
 def test_forbidden_by_whole_top_level_name(monkeypatch):
     import types
 
