@@ -330,7 +330,8 @@ def admm_iteration(data: NodeBlockData, cfg: AdmmConfig, state: AdmmState,
     rho = cfg.rho * state.rho_scale if cfg.adapt_rho else cfg.rho
 
     # --- inexact node solve (eq. 1) with the adaptive target ---
-    D_vec, b_cons, c_quad = _neighbour_terms(data.Q, Z, Y, comm)
+    with profiling.span("admm.neighbours"):
+        D_vec, b_cons, c_quad = _neighbour_terms(data.Q, Z, Y, comm)
     nstate, eps_k, L, fprecond = _solve_setup(cfg, data, state.node, k, rho,
                                               D_vec)
     res = node_solver.solve_nodes(
@@ -566,7 +567,8 @@ def _batched_iteration(data: NodeBlockData, cfg: AdmmConfig,
     else:
         rho_b = rho = cfg.rho
 
-    D_vec, b_cons, c_quad = _neighbour_terms(data.Q, Z, Y, LOCAL_COMM)
+    with profiling.span("admm.neighbours"):
+        D_vec, b_cons, c_quad = _neighbour_terms(data.Q, Z, Y, LOCAL_COMM)
     nstate, eps_k, L, fprecond = _solve_setup(cfg, data, state.node, k, rho,
                                               D_vec)
     res = node_solver.solve_nodes(

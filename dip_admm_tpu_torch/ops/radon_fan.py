@@ -22,6 +22,10 @@ The parallel-stage geometry is the same for every node, so all nodes share
 ONE single-node table set: the node images run through the parallel-stage
 kernels as an image batch PB = P against a table batch PT = 1.
 
+Steps 2-4 of every projector call, and their transposes, are one
+``proj.rebin`` span and count of ``utils.profiling``; the parallel stage
+stays outside it.
+
 Mirrors ``dip_admm_tpu.ops.radon_fan`` (the ``fft_skew`` and ``fft_grouped``
 paths and ``colnorms_sq_nodes``). The small rebin geometry is computed on
 the CPU in float32 with the JAX package's rounding (float64 transcendentals
@@ -39,6 +43,7 @@ import torch
 from dip_admm_tpu_torch.config import GeometryConfig
 from dip_admm_tpu_torch.ops import radon, radon_fft
 from dip_admm_tpu_torch.ops.radon_fft import _cos_sin, _fma
+from dip_admm_tpu_torch.utils import profiling
 
 
 def _parallel_cfg(cfg: GeometryConfig) -> GeometryConfig:
@@ -233,10 +238,12 @@ def project_nodes_fan(cfg: GeometryConfig, imgs: torch.Tensor,
     t = tables["shared"]
     PT = t["rebin_re"].shape[0]
     p = radon_fft.project_nodes_phases(_parallel_cfg(cfg), imgs, t)
-    p2 = radon_fft._kview(torch.cat([p, p.flip(2)], dim=1), PT)
-    out = _rebin_fft(p2, t["rebin_re"], t["rebin_im"])
-    out = out.reshape(imgs.shape[0], *out.shape[2:])
-    return _mask_rows(out, tables["fan_valid"])
+    profiling.count("proj.rebin")
+    with profiling.span("proj.rebin"):
+        p2 = radon_fft._kview(torch.cat([p, p.flip(2)], dim=1), PT)
+        out = _rebin_fft(p2, t["rebin_re"], t["rebin_im"])
+        out = out.reshape(imgs.shape[0], *out.shape[2:])
+        return _mask_rows(out, tables["fan_valid"])
 
 
 def backproject_nodes_fan(cfg: GeometryConfig, sinos: torch.Tensor,
@@ -245,10 +252,12 @@ def backproject_nodes_fan(cfg: GeometryConfig, sinos: torch.Tensor,
     t = tables["shared"]
     PT = t["rebin_re"].shape[0]
     T_p = tables["fan_valid"].shape[1] // 2
-    ob = radon_fft._kview(_mask_rows(sinos, tables["fan_valid"]), PT)
-    p2_bar = _rebin_fft_t(ob, t["rebin_re"], t["rebin_im"])
-    p2_bar = p2_bar.reshape(sinos.shape[0], *p2_bar.shape[2:])
-    p_bar = p2_bar[:, :T_p] + p2_bar[:, T_p:].flip(2)
+    profiling.count("proj.rebin")
+    with profiling.span("proj.rebin"):
+        ob = radon_fft._kview(_mask_rows(sinos, tables["fan_valid"]), PT)
+        p2_bar = _rebin_fft_t(ob, t["rebin_re"], t["rebin_im"])
+        p2_bar = p2_bar.reshape(sinos.shape[0], *p2_bar.shape[2:])
+        p_bar = p2_bar[:, :T_p] + p2_bar[:, T_p:].flip(2)
     return radon_fft.backproject_nodes_phases(_parallel_cfg(cfg), p_bar, t)
 
 
@@ -295,17 +304,21 @@ def _project(project_par, cfg, imgs, tables):
     t = tables
     T_p = t["fan_valid"].shape[1] // 2
     p = project_par(_parallel_cfg(cfg), imgs, t["shared"]["par"], T_p)
-    p2 = torch.cat([p, p.flip(2)], dim=1)  # [PB, m, D], 2 pi-periodic
-    out = _rebin_apply(p2, t["shared"])
-    return _mask_rows(out, t["fan_valid"]).to(imgs.dtype)
+    profiling.count("proj.rebin")
+    with profiling.span("proj.rebin"):
+        p2 = torch.cat([p, p.flip(2)], dim=1)  # [PB, m, D], 2 pi-periodic
+        out = _rebin_apply(p2, t["shared"])
+        return _mask_rows(out, t["fan_valid"]).to(imgs.dtype)
 
 
 def _backproject(backproject_par, cfg, sinos, tables):
     t = tables
     T_p = t["fan_valid"].shape[1] // 2
-    ob = _mask_rows(sinos.to(torch.float32), t["fan_valid"])
-    p2_bar = _rebin_apply_t(ob, t["shared"])
-    p_bar = p2_bar[:, :T_p] + p2_bar[:, T_p:].flip(2)
+    profiling.count("proj.rebin")
+    with profiling.span("proj.rebin"):
+        ob = _mask_rows(sinos.to(torch.float32), t["fan_valid"])
+        p2_bar = _rebin_apply_t(ob, t["shared"])
+        p_bar = p2_bar[:, :T_p] + p2_bar[:, T_p:].flip(2)
     return backproject_par(_parallel_cfg(cfg), p_bar.to(sinos.dtype),
                            t["shared"]["par"]).to(sinos.dtype)
 

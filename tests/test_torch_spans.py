@@ -1,7 +1,9 @@
 """The port's spans and counters (``utils/profiling.py``) on the CPU: the
-span tree of ``run_admm`` and ``run_admm_batched`` at 32²/4 with fcv, the
-exact counts of syncs, projector calls and inner steps, results and launch
-counters unchanged by recording, and spans closed on an exception."""
+span tree of ``run_admm`` and ``run_admm_batched`` at 32²/4 with fcv, in
+parallel and in fan beam (the fan projector's ``proj.rebin`` inside each
+``proj.fwd``/``proj.adj``), the exact counts of syncs, projector calls and
+inner steps, results and launch counters unchanged by recording, and
+spans closed on an exception."""
 
 import pytest
 import torch
@@ -21,14 +23,20 @@ N, P, OUTERS, B = 32, 4, 3, 2
 # steps (node_solver.build_fourier_precond).
 FCV_PAIRS = 26
 ENTRIES = ("single", "batched")
+# The same entries on the fan-beam problem.
+FAN_ENTRIES = ("fan_single", "fan_batched")
+# Fan beam: 12 source angles a node (the rebin needs an even count), the
+# detector wide enough that the fan covers the inscribed disc.
+FAN = {"fan_beam": True, "angles_total": 48, "det_width_factor": 2.1}
 
 
-def _cfg(max_inner=5, check_every=5):
+def _cfg(max_inner=5, check_every=5, fan=False):
     node = tcfg.NodeSolverConfig(algorithm="fcv", max_inner=max_inner,
                                  check_every=check_every, eps0=0.0,
                                  plateau_tol=0.0)
+    geo = {"angles_total": 96, **(FAN if fan else {})}
     return tcfg.ProblemConfig(
-        geometry=tcfg.GeometryConfig(N=N, num_nodes=P, angles_total=96),
+        geometry=tcfg.GeometryConfig(N=N, num_nodes=P, **geo),
         admm=tcfg.AdmmConfig(max_iters=OUTERS, eps_pri=0.0, eps_dual=0.0,
                              relax_alpha=1.8, use_pallas=True, node=node))
 
@@ -36,6 +44,22 @@ def _cfg(max_inner=5, check_every=5):
 @pytest.fixture(scope="module")
 def problem():
     return loader.build_problem(_cfg(), "cpu", mode="fft_skew")
+
+
+@pytest.fixture(scope="module")
+def fan_problem():
+    return loader.build_problem(_cfg(fan=True), "cpu", mode="fft_skew")
+
+
+@pytest.fixture
+def pick(problem, fan_problem):
+    """``pick(entry)``: (the problem, the entry point) of an entry of
+    ENTRIES or FAN_ENTRIES."""
+    def on(entry):
+        if entry.startswith("fan_"):
+            return fan_problem, entry[len("fan_"):]
+        return problem, entry
+    return on
 
 
 def _run(problem, entry, cfg=None, lanes=B):
@@ -70,16 +94,18 @@ def test_off_is_one_shared_no_op():
     assert profiling._REC is None
 
 
-@pytest.mark.parametrize("entry", ENTRIES)
-def test_off_records_nothing(problem, entry):
+@pytest.mark.parametrize("entry", ENTRIES + FAN_ENTRIES)
+def test_off_records_nothing(pick, entry):
     with profiling.recording() as rec:
         pass
-    _run(problem, entry)
+    _run(*pick(entry))
     assert rec.spans == [] and rec.counts == {}
 
 
-@pytest.mark.parametrize("entry", ENTRIES)
-def test_span_tree(problem, entry):
+@pytest.mark.parametrize("entry", ENTRIES + FAN_ENTRIES)
+def test_span_tree(pick, entry):
+    problem, entry = pick(entry)
+    fan = problem.cfg.geometry.fan_beam
     with profiling.recording() as rec:
         _run(problem, entry)
         _run(problem, entry)
@@ -106,12 +132,22 @@ def test_span_tree(problem, entry):
         for outer in outers:
             names = sorted(s.name for s in _children(rec, outer)
                            if s.name != "sync")
-            assert names == ["admm.consensus", "admm.history", "node.solve"]
+            assert names == ["admm.consensus", "admm.history",
+                             "admm.neighbours", "node.solve"]
+    # The fan projector's own work, once inside every projector call.
+    for s in rec.spans:
+        if s.name in ("proj.fwd", "proj.adj"):
+            kids = [c.name for c in _children(rec, s)]
+            assert kids == (["proj.rebin"] if fan else []), kids
+        if s.name == "proj.rebin":
+            assert by_id[s.parent].name in ("proj.fwd", "proj.adj")
+    assert any(s.name == "proj.rebin" for s in rec.spans) == fan
 
 
-@pytest.mark.parametrize("entry", ENTRIES)
+@pytest.mark.parametrize("entry", ENTRIES + FAN_ENTRIES)
 @pytest.mark.parametrize("max_inner,check_every", [(5, 5), (10, 5)])
-def test_counts_are_exact(problem, entry, max_inner, check_every):
+def test_counts_are_exact(pick, entry, max_inner, check_every):
+    problem, entry = pick(entry)
     cfg = _cfg(max_inner, check_every).admm
     with profiling.recording() as rec:
         _run(problem, entry, cfg)
@@ -127,11 +163,13 @@ def test_counts_are_exact(problem, entry, max_inner, check_every):
                  + ["node.isinf", "admm.stop" if single else "admm.running",
                     "admm.decay", "admm.rho"])
     per_call = ["fcv.eigvalsh"] + (["admm.init"] if single else [])
+    proj = {"proj.fwd": FCV_PAIRS + OUTERS * (max_inner + checks + 2),
+            "proj.adj": FCV_PAIRS + OUTERS * (max_inner + checks)}
+    if problem.cfg.geometry.fan_beam:  # a rebin in every projector call
+        proj["proj.rebin"] = proj["proj.fwd"] + proj["proj.adj"]
     assert rec.counts == {
         "sync": OUTERS * len(per_outer) + len(per_call),
-        "inner_steps": OUTERS * max_inner,
-        "proj.fwd": FCV_PAIRS + OUTERS * (max_inner + checks + 2),
-        "proj.adj": FCV_PAIRS + OUTERS * (max_inner + checks),
+        "inner_steps": OUTERS * max_inner, **proj,
     }
     sites = sorted(s.attrs["site"] for s in rec.spans if s.name == "sync")
     assert sites == sorted(per_call + OUTERS * per_outer)
@@ -152,8 +190,9 @@ def test_counts_are_exact(problem, entry, max_inner, check_every):
 
 
 @pytest.mark.parametrize("entry,lanes,per_image_outer", [
-    ("single", 1, 20.1), ("batched", 16, 401 / 320)])
-def test_sync_count_of_the_cells_recipe(problem, entry, lanes,
+    ("single", 1, 20.1), ("batched", 16, 401 / 320),
+    ("fan_single", 1, 20.1)])
+def test_sync_count_of_the_cells_recipe(pick, entry, lanes,
                                         per_image_outer):
     # The benchmark's mixes: fcv at 15 inner steps checked once, 20
     # outers; one slice a run_admm call, or sixteen a run_admm_batched
@@ -164,13 +203,14 @@ def test_sync_count_of_the_cells_recipe(problem, entry, lanes,
     cfg = tcfg.AdmmConfig(max_iters=20, eps_pri=0.0, eps_dual=0.0,
                           relax_alpha=1.8, node=node)
     with profiling.recording() as rec:
-        _run(problem, entry, cfg, lanes)
+        _run(*pick(entry), cfg, lanes)
     assert rec.counts["sync"] / (20 * lanes) == pytest.approx(
         per_image_outer, rel=1e-12)
 
 
-@pytest.mark.parametrize("entry", ENTRIES)
-def test_results_and_launches_unchanged(problem, entry):
+@pytest.mark.parametrize("entry", ENTRIES + FAN_ENTRIES)
+def test_results_and_launches_unchanged(pick, entry):
+    problem, entry = pick(entry)
     for m in (consensus, filter_mxu, filter_sum, hat_eval, shear_sum):
         m.reset_launch_counts()
     off = _run(problem, entry)
