@@ -308,6 +308,26 @@ kernel):
                  column norms), knn k = 2 and mst: masks equal to the torch
                  build's on the card; seconds of each.
                  Phases 35-41 print their seconds (``phase_s``).
+42. cv_step    - the fused Condat-Vu step (``ops/kernels/cv_step.py``,
+                 ``csrc/cv_step.cu``) against the plain composition
+                 (``cv_step.step_ref``) bit for bit, cv and fcv,
+                 per-node scalars and a host rho and radius, at
+                 [8, 512, 512], [128, 256, 256], [32, 512, 512] and the
+                 ragged [4, 509, 509]; each kernel's device ms against its
+                 byte bound (7 fields over 3.35 TB/s) and its share, and
+                 a step's device ms fused and plain; pcv's per-pixel T and
+                 sigma at [32, 512, 512]; float64 (cv, fcv) and bfloat16
+                 (cv) at [8, 512, 512] and [4, 509, 509]. Then
+                 ``solve_nodes`` on a batch of two groups with one frozen,
+                 an fcv solve whose oversized step rolls back, a pcv solve
+                 and cv in float64 and bfloat16, each with the fused step
+                 and with the plain one (``cv_step.step`` replaced by
+                 ``step_ref``): the same state, residuals and steps bit
+                 for bit, and ``node.fused_steps`` equal to
+                 ``inner_steps``. The runs of the phases before it (main,
+                 recommended, the mesh ranks, fan, p512, batched_64,
+                 batched_256) fail where their ``cv_step`` launches differ
+                 from their cv/fcv/pcv inner steps.
 
 Every kernel line gives the kernel's time, its plain version's, its bound
 (the larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s f32
@@ -359,7 +379,8 @@ ADJOINT_TOL = 1e-5
 NODE_SLICE_RTOL = 1e-5  # an operator on a node slice vs on the whole batch
 TIMED_RUNS = 20
 HAT_RTOL = 1e-5
-LIBRARIES = ("shear_sum", "consensus", "filter_sum", "hat_eval", "filter_mxu")
+LIBRARIES = ("shear_sum", "consensus", "filter_sum", "hat_eval", "filter_mxu",
+             "cv_step")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 F32_FLOPS = 67e12  # off the tensor cores
 BF16_FLOPS = 989e12  # dense, on the tensor cores
@@ -528,10 +549,35 @@ def _time_ms(torch, fn) -> float:
 
 def _kernel_modules():
     from dip_admm_tpu_torch.ops.kernels import (
-        consensus, filter_mxu, filter_sum, hat_eval, shear_sum,
+        consensus, cv_step, filter_mxu, filter_sum, hat_eval, shear_sum,
     )
 
-    return shear_sum, consensus, filter_sum, hat_eval, filter_mxu
+    return shear_sum, consensus, filter_sum, hat_eval, filter_mxu, cv_step
+
+
+def _recorded(fn):
+    """fn() under a profiling recorder: (its result, the program's
+    counts)."""
+    from dip_admm_tpu_torch.utils import profiling
+
+    with profiling.recording() as rec:
+        out = fn()
+    return out, dict(rec.counts)
+
+
+def _fused_check(tag, algorithm, counts, program, failures) -> str:
+    """The fused Condat-Vu step (``cv_step``) once an inner step of a cv,
+    fcv or pcv solve and never in another, by the kernel counts of a run
+    and its program counts (``_recorded``); the line's part."""
+    inner = program.get("inner_steps", 0)
+    want = inner if algorithm in ("cv", "fcv", "pcv") else 0
+    got = counts["cv_step"]
+    if got != want or program.get("node.fused_steps", 0) != got:
+        failures.append(f"{tag}: {got} fused steps ({algorithm}, "
+                        f"node.fused_steps "
+                        f"{program.get('node.fused_steps', 0)}) for {inner} "
+                        "inner steps")
+    return f"fused_steps={got} inner_steps={inner}"
 
 
 def _counts() -> dict:
@@ -1172,10 +1218,12 @@ def _drive(torch, problem, admm_cfg, ref_psnr, tag, failures,
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    res = admm.run_admm(problem, admm_cfg)
+    res, program = _recorded(lambda: admm.run_admm(problem, admm_cfg))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = _counts()
+    fused = _fused_check(tag, admm_cfg.node.algorithm, counts, program,
+                         failures)
 
     n = res.n_iters
     pri = float(res.history["primal"][n - 1])
@@ -1198,7 +1246,7 @@ def _drive(torch, problem, admm_cfg, ref_psnr, tag, failures,
     line = (f"run_s={run_s} outer_iters={n} outer_it_per_s={n / run_s} "
             f"mean_inner_iters={inner} final_primal={pri} final_dual={dual} "
             f"mean_psnr={mean_psnr} ref_psnr={ref_psnr} "
-            f"run_launches={json.dumps(counts)} "
+            f"run_launches={json.dumps(counts)} {fused} "
             f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30} "
             f"ok={all(checks.values())}")
     return res, counts, line
@@ -1266,10 +1314,13 @@ def _mesh_rank(rank, device, fan, n_node, pixel, state_outers):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    res = admm_sharded.run_admm_sharded(problem, rec, mesh)
+    res, program = _recorded(
+        lambda: admm_sharded.run_admm_sharded(problem, rec, mesh))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    out = {"counts": _counts(), "run_s": run_s, "n_iters": res.n_iters,
+    out = {"counts": _counts(), "program": program,
+           "algorithm": rec.node.algorithm, "run_s": run_s,
+           "n_iters": res.n_iters,
            "comm": dict(mesh.stats),
            "transport": mesh.transport,
            "pixel_compute": admm_sharded.pixel_compute(problem, mesh),
@@ -1283,8 +1334,8 @@ def _mesh_rank(rank, device, fan, n_node, pixel, state_outers):
         part = admm_sharded.gather_result(admm_sharded.run_admm_sharded(
             problem, rec, mesh, until=state_outers), mesh)
         out["state"] = _state_np(part.state)
-    return out if rank == 0 else {"counts": out["counts"], "comm": out["comm"],
-                                  "run_s": run_s}
+    return out if rank == 0 else {k: out[k] for k in (
+        "counts", "program", "algorithm", "comm", "run_s")}
 
 
 def _rel(a, b) -> float:
@@ -1383,6 +1434,9 @@ def _mesh_run(torch, tag, fan, n_node, pixel, ref_psnr, failures,
     for k, ok in checks.items():
         if not ok:
             failures.append(f"{tag} check {k} failed")
+    fused = [_fused_check(f"{tag} rank {i}", o["algorithm"], o["counts"],
+                          o["program"], failures)
+             for i, o in enumerate(outs)]
     counts = {k: sum(o["counts"][k] for o in outs) for k in r0["counts"]}
     how = (f"host-staged, {world} processes on one card"
            if r0["transport"] == "gloo" else f"{world} cards")
@@ -1398,6 +1452,7 @@ def _mesh_run(torch, tag, fan, n_node, pixel, ref_psnr, failures,
           f"final_dual={r0['dual']} mean_psnr={mean_psnr} ref_psnr="
           f"{ref_psnr}{line} rank0_peak_mem_gib={r0['peak_mem_gib']} "
           f"rank_launches={json.dumps([o['counts'] for o in outs])} "
+          f"rank_fused={json.dumps(fused)} "
           f"ok={all(checks.values())}", flush=True)
     return counts
 
@@ -2291,7 +2346,8 @@ def _dense_drive(torch, problem, admm_cfg, tag, failures, ref_psnr=None,
         "psnr": ref_psnr is None or abs(mean_psnr - ref_psnr) <= PSNR_TOL,
         "k5": counts["consensus_update"] == k5,
         "no_projector_kernel": all(v == 0 for k, v in counts.items()
-                                   if k != "consensus_update"),
+                                   if k not in ("consensus_update",
+                                                "cv_step")),
     }
     for k, ok in checks.items():
         if not ok:
@@ -2850,8 +2906,10 @@ def phase_batched_64(torch, dev, failures) -> list:
     noise = torch.as_tensor(np.stack([batch_noise(s, tuple(clean.shape[1:]))
                                       for s in range(B)]), device=dev)
     b = clean + (cfg.noise_level * noise) * rows
-    res, batch_s, counts = _timed(
-        torch, lambda: admm.run_admm_batched(problem, b, X, cfg.admm))
+    (res, program), batch_s, counts = _timed(torch, lambda: _recorded(
+        lambda: admm.run_admm_batched(problem, b, X, cfg.admm)))
+    fused = _fused_check("batched_64", cfg.admm.node.algorithm, counts,
+                         program, failures)
     runs = [counts]
     four, _, c = _timed(
         torch, lambda: admm.run_admm_batched(problem, b[:4], X[:4], cfg.admm))
@@ -2908,7 +2966,8 @@ def phase_batched_64(torch, dev, failures) -> list:
         "psnr": abs(mean4 - REF_BATCHED_PSNR) <= PSNR_TOL,
         "k5_once_per_outer": counts["consensus_update"] == T,
         "no_projector_kernel": all(v == 0 for k, v in counts.items()
-                                   if k != "consensus_update"),
+                                   if k not in ("consensus_update",
+                                                "cv_step")),
     }
     for k, ok in checks.items():
         if not ok:
@@ -2925,8 +2984,8 @@ def phase_batched_64(torch, dev, failures) -> list:
           f"ref_psnr={REF_BATCHED_PSNR} ref_lanes="
           f"{json.dumps(REF_BATCHED_LANES)} mean_psnr_all="
           f"{float(np.mean([_mean_psnr(x[s], xs[s]) for s in range(B)]))} "
-          f"run_launches={json.dumps(counts)} ok={all(checks.values())}",
-          flush=True)
+          f"run_launches={json.dumps(counts)} {fused} "
+          f"ok={all(checks.values())}", flush=True)
     return runs
 
 
@@ -2971,8 +3030,10 @@ def phase_batched_256(torch, bench, failures) -> tuple[list, dict]:
 
     b = torch.stack([s * bench.b for s in BATCH_256_SCALES])
     xt = torch.stack([s * bench.x_true for s in BATCH_256_SCALES])
-    res, batch_s, counts = _timed(
-        torch, lambda: admm.run_admm_batched(bench, b, xt, cfg))
+    (res, program), batch_s, counts = _timed(torch, lambda: _recorded(
+        lambda: admm.run_admm_batched(bench, b, xt, cfg)))
+    fused = _fused_check("batched_256", cfg.node.algorithm, counts, program,
+                         failures)
     runs = [counts]
     single_s, diffs, lane_psnr = 0.0, [], []
     for s in range(B):
@@ -2998,7 +3059,8 @@ def phase_batched_256(torch, bench, failures) -> tuple[list, dict]:
           f"{B * T / batch_s} single_phantom_it_per_s={B * T / single_s} "
           f"lane_psnr={json.dumps(lane_psnr)} lane_minus_single_db="
           f"{json.dumps(diffs)} ref_psnr_lane0={REF_REC_PSNR} "
-          f"run_launches={json.dumps(counts)} ok={all(checks.values())}",
+          f"run_launches={json.dumps(counts)} {fused} "
+          f"ok={all(checks.values())}",
           flush=True)
     return runs, {"batched_consensus_update": kern}
 
@@ -3076,7 +3138,7 @@ def phase_solvers(torch, dev, failures) -> list:
         got = _mean_psnr(x.reshape(-1, problem.n).cpu().numpy(), x_true)
         ok = (bool(torch.isfinite(x).all())
               and abs(got - REF_SOLVER_PSNR[tag]) <= PSNR_TOL
-              and all(v == 0 for v in c.values()))
+              and all(v == 0 for k, v in c.items() if k != "cv_step"))
         if not ok:
             failures.append(f"solvers {tag}: psnr {got} against "
                             f"{REF_SOLVER_PSNR[tag]}, launches "
@@ -3610,6 +3672,206 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def _cv_args(torch, dev, P, N, gen):
+    """Seeded inputs of one Condat-Vu step of P nodes at N x N, scaled as
+    the solver's (duals near the ball of radius lam, per-node steps); fcv's
+    metric from a random positive symbol: (fields, rho, s, sig, lam,
+    m_hat), the scalars one a node."""
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    n = N * N
+    x, adj, bc = r(P, n), r(P, n), r(P, n)
+    D = torch.rand((P, n), generator=gen, device=dev) * 2.0
+    ux, uy = 0.02 * r(P, N, N), 0.02 * r(P, N, N)
+    u = lambda k, c: torch.rand((P,), generator=gen, device=dev) * k + c  # noqa: E731,E501
+    rho, s, sig, lam = u(1.0, 1.0), u(0.3, 0.01), u(0.5, 0.1), u(0.02, 0.01)
+    m_hat = torch.rand((P, N, N // 2 + 1), generator=gen, device=dev) + 0.5
+    return ((x, ux, uy, adj, D, bc), rho[:, None], s[:, None],
+            sig[:, None, None], lam[:, None, None], m_hat)
+
+
+def _same_bits(torch, a, b) -> bool:
+    if a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    na = torch.isnan(a)
+    i = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return bool(torch.equal(na, torch.isnan(b)) and torch.equal(
+        a[~na].view(i), b[~na].view(i)))
+
+
+def _cv_solve_pair(torch, dev, failures, tag, groups, active, step_scale,
+                   algorithm="fcv", dtype=None):
+    """``solve_nodes`` with the fused step and with the plain one
+    (``cv_step.step`` replaced by ``cv_step.step_ref``, the name the node
+    solver calls) on one problem (a per-pixel diagonal operator): bit for
+    bit, and the fused steps counted once an inner step."""
+    from unittest import mock
+
+    from dip_admm_tpu_torch.config import NodeSolverConfig
+    from dip_admm_tpu_torch.core import node_solver
+    from dip_admm_tpu_torch.ops.kernels import cv_step
+    from dip_admm_tpu_torch.utils import profiling
+
+    dtype = dtype or torch.float32
+    P, N, m = 4 * groups, 64, 64 * 64
+    gen = torch.Generator(device=dev).manual_seed(11 + groups)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev).to(dtype)
+
+    def g(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    w = u(P, m) + 0.5
+    fwd = lambda x: w * x  # noqa: E731
+    adj = lambda r: w * r  # noqa: E731
+    b, D, bc = g(P, m), u(P, m), g(P, m)
+    cfg = NodeSolverConfig(algorithm=algorithm, max_inner=30, check_every=5,
+                           plateau_tol=0.0)
+    rho = torch.full((P,), 2.0, device=dev, dtype=dtype)
+    fp = None
+    if algorithm == "fcv":
+        fp = node_solver.build_fourier_precond(fwd, adj, D, 2.0, cfg, N)
+        fp = fp._replace(step=fp.step * step_scale)
+    L = torch.full((P,), 4.0, device=dev, dtype=dtype)
+    run = {}
+    for name in ("fused", "plain"):
+        plain = mock.patch.object(cv_step, "step", cv_step.step_ref)
+        with profiling.recording() as rec:
+            if name == "plain":
+                plain.start()
+            try:
+                res = node_solver.solve_nodes(
+                    fwd, adj, b, D, bc,
+                    torch.zeros(P, device=dev, dtype=dtype), 0.02, rho, L,
+                    node_solver.init_state(P, N, m, dev, dtype),
+                    torch.tensor(1e-9, device=dev, dtype=dtype), cfg, N,
+                    fprecond=fp, groups=groups, group_active=active)
+                torch.cuda.synchronize()
+            finally:
+                if name == "plain":
+                    plain.stop()
+        run[name] = (res, dict(rec.counts))
+    (rf, cf), (rp, cp) = run["fused"], run["plain"]
+    same = all(_same_bits(torch, a, b_) for a, b_ in zip(
+        (*rf.state, rf.g_norm, rf.objective),
+        (*rp.state, rp.g_norm, rp.objective)))
+    fused = cf.get("node.fused_steps", 0)
+    if not same:
+        failures.append(f"cv_step {tag}: the fused solve differs from the "
+                        "plain one")
+    if fused != cf.get("inner_steps") or cp.get("node.fused_steps"):
+        failures.append(f"cv_step {tag}: {fused} fused steps for "
+                        f"{cf.get('inner_steps')} inner steps (plain: "
+                        f"{cp.get('node.fused_steps')})")
+    halved = (int((rf.state.tk < fp.step).sum()) if fp is not None else 0)
+    print(f"cv_step_{tag}: algorithm={algorithm} dtype={dtype} "
+          f"bitwise={same} fused_steps={fused} "
+          f"inner_steps={cf.get('inner_steps')} "
+          f"syncs_fused={cf.get('sync')} syncs_plain={cp.get('sync')} "
+          f"nodes_halved={halved} trip={rf.trip_count}", flush=True)
+    return halved
+
+
+def _cv_bits(torch, failures, tag, args) -> None:
+    """One fused step against the plain one, bit for bit."""
+    from dip_admm_tpu_torch.ops.kernels import cv_step
+
+    want = cv_step.step_ref(*args)
+    n0 = cv_step.step.launches
+    got = cv_step.step(*args)
+    torch.cuda.synchronize()
+    ok = (cv_step.step.launches == n0 + 1 and all(
+        _same_bits(torch, a, b) for a, b in zip(got, want)))
+    if not ok:
+        failures.append(f"cv_step {tag}: not the plain step's bits")
+
+
+def phase_cv_step(torch, dev, failures) -> None:
+    from dip_admm_tpu_torch.core import node_solver
+    from dip_admm_tpu_torch.ops.kernels import cv_step
+
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    for P, N in ((8, 512), (128, 256), (32, 512), (4, 509)):
+        fields, rho, s, sig, lam, m_hat = _cv_args(torch, dev, P, N, gen)
+        nbytes = 7 * 4 * P * N * N
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        for algo in ("cv", "fcv"):
+            precond = ((lambda d: d) if algo == "cv" else
+                       (lambda d: node_solver._m_inv(m_hat, d, N)))
+            for host in (False, True):
+                la = 0.02 if host else lam
+                args = (*fields, 2.0 if host else rho, precond, s, sig, la)
+                _cv_bits(torch, failures,
+                         f"[{P}, {N}, {N}] {algo} host={host}", args)
+            fused_ms, by, launches = _device_ms(
+                torch, lambda: cv_step.step(*args))
+            plain_ms, _, plain_launches = _device_ms(
+                torch, lambda: cv_step.step_ref(*args))
+            ev_fused = _time_ms(torch, lambda: cv_step.step(*args))
+            ev_plain = _time_ms(torch, lambda: cv_step.step_ref(*args))
+            kern = {name: sum(v for k, v in by.items() if name in k)
+                    for name in ("cv_grad", "cv_update")}
+            print(f"cv_step [{P}, {N}, {N}] {algo}: "
+                  f"step_device_ms={fused_ms} plain_device_ms={plain_ms} "
+                  f"step_event_ms={ev_fused} plain_event_ms={ev_plain} "
+                  f"device_launches={launches} "
+                  f"plain_device_launches={plain_launches} "
+                  f"bound_ms_each={bound_ms} " + " ".join(
+                      f"{k}_ms={v} {k}_share_pct="
+                      f"{100.0 * bound_ms / v if v else None}"
+                      for k, v in kern.items()), flush=True)
+        if N == 512 and P == 32:
+            # pcv's per-pixel T and sigma (the update reads 9 fields)
+            T = torch.rand((P, N * N), generator=gen, device=dev) * 0.3 + .01
+            sig_p = torch.rand((P, N, N), generator=gen, device=dev) * .5 + .1
+            args = (*fields, rho, lambda d: d, T, sig_p, lam)
+            _cv_bits(torch, failures, f"[{P}, {N}, {N}] pcv", args)
+            pcv_ms, by, _ = _device_ms(torch, lambda: cv_step.step(*args))
+            upd = sum(v for k, v in by.items() if "cv_update" in k)
+            upd_bound = 1e3 * 9 * 4 * P * N * N / HBM_BYTES_PER_S
+            print(f"cv_step [{P}, {N}, {N}] pcv: step_device_ms={pcv_ms} "
+                  f"cv_update_ms={upd} update_bound_ms={upd_bound}",
+                  flush=True)
+            del T, sig_p
+        del fields, m_hat
+    # float64 (cv, fcv) and bfloat16 (cv: no cuFFT) at [8, 512, 512] and
+    # the ragged [4, 509, 509], the scalars one a node and host values
+    for P, N in ((8, 512), (4, 509)):
+        fields, rho, s, sig, lam, m_hat = _cv_args(torch, dev, P, N, gen)
+        for dtype, algos in ((torch.float64, ("cv", "fcv")),
+                             (torch.bfloat16, ("cv",))):
+            f = tuple(t.to(dtype) for t in fields)
+            mh = m_hat.to(dtype)
+            for algo in algos:
+                precond = ((lambda d: d) if algo == "cv" else
+                           (lambda d: node_solver._m_inv(mh, d, N)))
+                for host in (False, True):
+                    sc = ((2.0, 0.05, 0.3, 0.02) if host else
+                          tuple(v.to(dtype) for v in (rho, s, sig, lam)))
+                    _cv_bits(torch, failures,
+                             f"[{P}, {N}, {N}] {dtype} {algo} host={host}",
+                             (*f, sc[0], precond, sc[1], sc[2], sc[3]))
+            del f, mh
+        del fields, m_hat
+    torch.cuda.empty_cache()
+    # A batch of two groups, the second frozen from the start (the select
+    # of st0 must see the state the step left untouched), an fcv solve at
+    # four times the certified step, so the divergence monitor halves
+    # steps and rolls x back to xp, pcv's per-pixel steps, and cv in
+    # float64 and bfloat16.
+    _cv_solve_pair(torch, dev, failures, "frozen_group", 2,
+                   torch.tensor([True, False], device=dev), 1.0)
+    halved = _cv_solve_pair(torch, dev, failures, "rollback", 1, None, 4.0)
+    if not halved:
+        failures.append("cv_step rollback: no step was halved")
+    _cv_solve_pair(torch, dev, failures, "pcv", 1, None, 1.0, "pcv")
+    for dtype in (torch.float64, torch.bfloat16):
+        _cv_solve_pair(torch, dev, failures, f"cv_{dtype}".replace(
+            "torch.", ""), 1, None, 1.0, "cv", dtype)
+
+
 def main() -> int:
     try:
         import torch
@@ -3721,7 +3983,9 @@ def main() -> int:
     dtype_counts = phase_dtype(torch, dev, failures)
     t_new = _phase_s("dtype", t_new)
     phase_native_graphs(torch, dev, W_bench, failures)
-    _phase_s("native_graphs", t_new)
+    t_new = _phase_s("native_graphs", t_new)
+    phase_cv_step(torch, dev, failures)
+    _phase_s("cv_step", t_new)
     runs = (main_counts, rec_counts, mesh_counts, mesh_fan_counts,
             *fan_counts.values(), *p512_counts.values(), *sm_counts.values(),
             stage_counts, flagship_counts, *inner_counts, *dense_counts,

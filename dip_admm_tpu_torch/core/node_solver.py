@@ -41,6 +41,7 @@ import torch
 
 from dip_admm_tpu_torch.config import NodeSolverConfig
 from dip_admm_tpu_torch.ops import tv
+from dip_admm_tpu_torch.ops.kernels import cv_step as cv_kernels
 from dip_admm_tpu_torch.utils import profiling
 
 ALGORITHMS = ("cv", "fcv", "pcv", "ppdhg", "fista")
@@ -261,15 +262,15 @@ def solve_nodes(
             sub = tv.tv_subgradient(x.reshape(P, N, N)).reshape(P, -1)
             return grad_f(x) + lam_c * sub
 
-        def cv_step(metric, sig_im):
-            """A Condat-Vu step whose primal step is ``metric(d, st)``."""
+        def cv_step(precond, step_of, sig_im):
+            """A Condat-Vu step whose primal step is ``step_of(st) *
+            precond(d)`` (``ops/kernels/cv_step.py``: two kernels on the
+            card, the plain composition elsewhere)."""
             def step(st):
-                ktu = tv.grad_adjoint(st.ux, st.uy).reshape(P, -1)
-                x_new = st.x - metric(grad_f(st.x) + ktu, st)
-                gx, gy = tv.grad((2.0 * x_new - st.x).reshape(P, N, N))
-                ux, uy = tv.project_l2_ball(st.ux + sig_im * gx,
-                                            st.uy + sig_im * gy, lam_im)
-                return st._replace(x=x_new, ux=ux, uy=uy)
+                x, ux, uy = cv_kernels.step(
+                    st.x, st.ux, st.uy, adj(fwd(st.x) - b), D_vec, b_cons,
+                    rho_c, precond, step_of(st), sig_im, lam_im)
+                return st._replace(x=x, ux=ux, uy=uy)
             return step
 
         st = state
@@ -279,7 +280,8 @@ def solve_nodes(
             # => tau = 0.99/(L/2 + sigma*||K||^2).
             sigma = (cfg.sigma_scale * L / (2.0 * Ksq)).to(dtype)
             tau_c = (0.99 / (L / 2.0 + sigma * Ksq)).to(dtype)[:, None]
-            step = cv_step(lambda d, st: tau_c * d, sigma[:, None, None])
+            step = cv_step(lambda d: d, lambda st: tau_c,
+                           sigma[:, None, None])
         elif cfg.algorithm == "fcv":
             if fprecond is None:
                 raise ValueError("algorithm='fcv' requires fprecond "
@@ -289,7 +291,8 @@ def solve_nodes(
             # (inf) to the full certified step. ``xp`` is the rollback point.
             st = st._replace(tk=torch.minimum(st.tk, fprecond.step), xp=st.x)
             m_hat = fprecond.m_hat
-            step = cv_step(lambda d, st: st.tk[:, None] * _m_inv(m_hat, d, N),
+            step = cv_step(lambda d: _m_inv(m_hat, d, N),
+                           lambda st: st.tk[:, None],
                            fprecond.sigma[:, None, None])
 
             def post_check(st, g_norm, g_prev, g_min):
@@ -311,7 +314,8 @@ def solve_nodes(
             L_row = torch.clamp(L_row + rho_c * D_vec, min=1e-6)
             sigma_p = (cfg.sigma_scale * L_row / (2.0 * Ksq)).to(dtype)
             T = (0.99 / (L_row / 2.0 + sigma_p * Ksq)).to(dtype)
-            step = cv_step(lambda d, st: T * d, sigma_p.reshape(P, N, N))
+            step = cv_step(lambda d: d, lambda st: T,
+                           sigma_p.reshape(P, N, N))
         elif cfg.algorithm == "ppdhg":
             # Diagonally preconditioned PDHG (Pock-Chambolle, alpha = 1):
             # K = [A; grad] in the dual, the consensus quadratic as an exact

@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 # argtypes of every C entry point, by library.
 SIGNATURES = {
     "shear_sum": {
@@ -63,6 +64,11 @@ SIGNATURES = {
         "dip_consensus": [_P] * 9 + [_I] * 4 + [_P],
         "dip_consensus_sharded": [_P] * 11 + [_I] * 4 + [_P],
         "dip_consensus_clusters": [_I] * 2,
+    },
+    "cv_step": {
+        "dip_cv_grad": [_P] * 7 + [_D, _I, _P, _I, _I, _I, _P],
+        "dip_cv_update": [_P] * 5 + [_D, _I, _P, _D, _I, _P, _D, _I]
+        + [_P] * 3 + [_I, _I, _I, _P],
     },
 }
 

@@ -21,7 +21,8 @@ each call:
   alignment themselves; a wrapper whose checks test alignment keeps those
   tests out of the memo, run on every call.
 
-Used by K5 (``consensus.py``) and K17/K18 (``hat_eval.py``).
+Used by K5 (``consensus.py``), K17/K18 (``hat_eval.py``) and the fused
+Condat-Vu step (``cv_step.py``).
 """
 
 from __future__ import annotations

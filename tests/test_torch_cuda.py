@@ -1625,3 +1625,134 @@ def test_eval_wrappers_reject_bad_inputs():
     assert odd.is_contiguous() and odd.data_ptr() % 16
     with pytest.raises(ValueError):
         kern_t(odd, *args_t[1:])  # the Wd stream reads ob in 16-byte loads
+
+
+# The fused Condat-Vu step (csrc/cv_step.cu): the same bits as the plain
+# step, NaN where it is NaN, in float32, float64 and bfloat16 and with pcv's
+# per-pixel s and sig; the inputs keep their values.
+_CV_INT = {torch.float32: torch.int32, torch.float64: torch.int64,
+           torch.bfloat16: torch.int16}
+
+
+def _cv_inputs(dev, P, N, scalars, algo, nan=None, offset=False,
+               dtype=torch.float32):
+    from dip_admm_tpu_torch.core import node_solver
+
+    gen = torch.Generator(device=dev).manual_seed(P * 131 + N)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    n = N * N
+    f = [r(P, n), r(P, n), r(P, n), r(P, n).abs(), 0.02 * r(P, N, N),
+         0.02 * r(P, N, N)]
+    f = [t.to(dtype) for t in f]
+    if offset:  # a view one element past a 16-byte boundary: the ragged path
+        f[0] = torch.empty(P * n + 1, device=dev, dtype=dtype)[1:].view(
+            P, n).copy_(f[0])
+    x, adj, bc, D, ux, uy = f
+    if nan == "x":
+        x[0, N + 2] = float("nan")
+    elif nan == "ux":
+        ux[-1, N // 2, 3] = float("nan")
+    per = [torch.rand((P,), generator=gen, device=dev) * k + c
+           for k, c in ((1.0, 1.0), (0.3, 0.01), (0.5, 0.1), (0.02, 0.01))]
+    per[3][0] = 0.0  # node 0's radius 0
+    if scalars == "host":
+        rho, s, sig, lam = (float(v[1 % P]) for v in per)
+    elif scalars == "device0d":
+        rho, s, sig, lam = (v[0].clone().to(dtype) for v in per)
+    elif scalars == "per_pixel":  # pcv's T [P, n] and sigma [P, N, N]
+        rho, lam = per[0][:, None].to(dtype), per[3][:, None, None].to(dtype)
+        s = (torch.rand((P, n), generator=gen, device=dev) * 0.3
+             + 0.01).to(dtype)
+        sig = (torch.rand((P, N, N), generator=gen, device=dev) * 0.5
+               + 0.1).to(dtype)
+    else:
+        rho, s, sig, lam = (per[0][:, None], per[1][:, None],
+                            per[2][:, None, None], per[3][:, None, None])
+        rho, s, sig, lam = (v.to(dtype) for v in (rho, s, sig, lam))
+    if algo == "fcv":
+        m_hat = (torch.rand((P, N, N // 2 + 1), generator=gen, device=dev)
+                 + .5).to(dtype)
+        precond = lambda d: node_solver._m_inv(m_hat, d, N)  # noqa: E731
+    else:
+        precond = lambda d: d  # noqa: E731
+    return (x, ux, uy, adj, D, bc, rho, precond, s, sig, lam)
+
+
+def _cv_check(args):
+    from dip_admm_tpu_torch.ops.kernels import cv_step
+
+    before = [a.clone() for a in args[:6]]
+    want = cv_step.step_ref(*args)
+    n0 = cv_step.step.launches
+    got = cv_step.step(*args)
+    torch.cuda.synchronize()
+    assert cv_step.step.launches == n0 + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        nan_a = torch.isnan(a)
+        assert torch.equal(nan_a, torch.isnan(b))
+        i = _CV_INT[a.dtype]
+        assert torch.equal(a[~nan_a].view(i), b[~nan_a].view(i))
+    for a, b in zip(args[:6], before):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.parametrize("nan", [None, "x", "ux"])
+@pytest.mark.parametrize("scalars", ["host", "device0d", "per_node",
+                                     "per_pixel"])
+@pytest.mark.parametrize("algo", ["cv", "fcv"])
+@pytest.mark.parametrize("P,N,offset", [(3, 32, False), (1, 31, False),
+                                        (3, 64, True), (2, 256, False)])
+def test_cv_step_kernels_equal_the_plain_step(P, N, offset, algo, scalars,
+                                              nan):
+    _cv_check(_cv_inputs(_device(), P, N, scalars, algo, nan, offset))
+
+
+# float64 with and without its FFT metric; bfloat16 has no cuFFT, so cv.
+@pytest.mark.parametrize("dtype,algo", [
+    (torch.float64, "cv"), (torch.float64, "fcv"), (torch.bfloat16, "cv")])
+@pytest.mark.parametrize("scalars", ["host", "device0d", "per_node",
+                                     "per_pixel"])
+@pytest.mark.parametrize("P,N,offset", [(3, 32, False), (1, 31, False),
+                                        (3, 64, True), (2, 256, False)])
+def test_cv_step_kernels_in_every_dtype(P, N, offset, scalars, dtype, algo):
+    for nan in (None, "x"):
+        _cv_check(_cv_inputs(_device(), P, N, scalars, algo, nan, offset,
+                             dtype))
+
+
+@pytest.mark.parametrize("scalars", ["host", "device0d", "per_node",
+                                     "per_pixel"])
+def test_cv_step_widens_narrower_inputs_as_torch_does(scalars):
+    """A float32 state beside bfloat16 adj_out, D_vec, b_cons and operands
+    (the dense bfloat16 problem's D_vec and b_cons): the plain step's
+    bits."""
+    x, ux, uy, adj, D, bc, rho, precond, s, sig, lam = _cv_inputs(
+        _device(), 3, 64, scalars, "cv")
+    bf = lambda v: (v.bfloat16()  # noqa: E731
+                    if isinstance(v, torch.Tensor) else v)
+    _cv_check((x, ux, uy, bf(adj), bf(D), bf(bc), bf(rho), precond, bf(s),
+               bf(sig), bf(lam)))
+
+
+@pytest.mark.parametrize("case", ["float16", "pixel_rho", "s_float64",
+                                  "narrower_dual"])
+def test_cv_step_refuses_on_the_card_what_it_cannot_mirror(case):
+    from dip_admm_tpu_torch.ops.kernels import cv_step
+
+    dev = _device()
+    x, ux, uy, adj, D, bc, rho, precond, s, sig, lam = _cv_inputs(
+        dev, 2, 32, "per_node", "cv")
+    if case == "float16":
+        x, ux, uy, adj, D, bc = (t.half() for t in (x, ux, uy, adj, D, bc))
+    elif case == "pixel_rho":
+        rho = torch.rand_like(x)
+    elif case == "narrower_dual":
+        ux = ux.bfloat16()
+    else:
+        s = s.double()
+    n0 = cv_step.step.launches
+    with pytest.raises(ValueError, match="cv_step"):
+        cv_step.step(x, ux, uy, adj, D, bc, rho, precond, s, sig, lam)
+    assert cv_step.step.launches == n0

@@ -1,15 +1,17 @@
 """The lean launch path's memoized checks (``ops/kernels/_launch.py``) on the
-CPU: the checks of K5 and K17 behind ``_launch.Checked`` raise on a bad
-input exactly as on a first call (same type, same message) after a good
-signature was cached, a signature that differs from a cached one only in
-its strides is checked afresh, and only a signature whose checks passed is
-kept. Wrong-device inputs are ``meta`` tensors beside CPU ones."""
+CPU: the checks of K5, K17 and the fused Condat-Vu step behind
+``_launch.Checked`` raise on a bad input exactly as on a first call (same
+type, same message) after a good signature was cached, a signature that
+differs from a cached one only in its strides is checked afresh, and only a
+signature whose checks passed is kept. Wrong-device inputs are ``meta``
+tensors beside CPU ones."""
 
 import pytest
 import torch
 
 from dip_admm_tpu_torch.ops.kernels import _launch
 from dip_admm_tpu_torch.ops.kernels import consensus as cons
+from dip_admm_tpu_torch.ops.kernels import cv_step as cv
 from dip_admm_tpu_torch.ops.kernels import hat_eval as he
 
 P, N = 4, 64
@@ -30,6 +32,13 @@ def _hat_args():
     pc = torch.rand((PT, T, D), generator=gen) * NP
     s = torch.rand((PT, T, 1), generator=gen)
     return [g, pc, s]
+
+
+def _cv_args():
+    gen = torch.Generator().manual_seed(2)
+    x, adj, D, bc = (torch.randn((P, N * N), generator=gen) for _ in range(4))
+    ux, uy = (torch.randn((P, N, N), generator=gen) for _ in range(2))
+    return [x, ux, uy, adj, D, bc]
 
 
 def _restrided(x):
@@ -57,6 +66,11 @@ CASES = {
                     lambda x: x[:, :4].contiguous()),
     "k17-device": (he._check_fwd, _hat_args, 1, lambda x: x.to("meta")),
     "k17-stride-changed": (he._check_fwd, _hat_args, 0, _restrided),
+    "cv-step-shape": (cv._check_step, _cv_args, 1,
+                      lambda x: x[:, :N // 2].contiguous()),
+    "cv-step-device": (cv._check_step, _cv_args, 4, lambda x: x.to("meta")),
+    "cv-step-noncontiguous": (cv._check_step, _cv_args, 2,
+                              lambda x: x.transpose(1, 2)),
 }
 
 

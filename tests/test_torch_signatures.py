@@ -1,8 +1,8 @@
 """The ctypes argument types that ``ops/kernels/_build.py`` declares for
 each C entry point match the entry's parameters in ``csrc/<library>.cu``
-(a pointer for each pointer, a C int for each int, in order): a mismatch
-shows only when the card calls the entry, so it is checked here on the
-CPU, from the sources."""
+(a pointer for each pointer, a C int for each int, a C double for each
+double, in order): a mismatch shows only when the card calls the entry, so
+it is checked here on the CPU, from the sources."""
 
 import ctypes
 import re
@@ -24,6 +24,8 @@ def _entries(name: str) -> dict:
             p = " ".join(p.split())
             if "*" in p:
                 kinds.append(ctypes.c_void_p)
+            elif p.startswith("double "):
+                kinds.append(ctypes.c_double)
             else:
                 assert p.startswith("int "), (fn, p)
                 kinds.append(ctypes.c_int)
