@@ -18,7 +18,7 @@ gathers ``a_t`` [P_loc, P, n_loc] with an ``all_to_all`` and passes the
 fusion weights as ``w_own`` [P_loc, n_loc] and ``w_all`` [P, n_loc]; it
 launches ``dip_consensus_sharded``. Any n is taken (16-byte streams where
 n % 4 == 0, else a scalar path), so the JAX package's ``pick_tile`` has no
-counterpart. Each call is one launch, through the lean launch path of
+counterpart. Each call is one launch, through the launch path of
 ``_launch.py``; what bounds it and why its cluster reduction is
 deterministic is in the source note of ``csrc/consensus.cu``.
 
@@ -31,8 +31,8 @@ from __future__ import annotations
 
 import torch
 
-from dip_admm_tpu_torch.ops.kernels import _build, _launch
-from dip_admm_tpu_torch.ops.kernels.shear_sum import _on_cpu, _stream
+from dip_admm_tpu_torch.ops.kernels import _launch
+from dip_admm_tpu_torch.ops.kernels._launch import _on_cpu, _stream
 
 FUSIONS = ("midpoint", "weighted")
 
@@ -168,22 +168,15 @@ def consensus_update(a, y, z, adjm, w=None, fusion="midpoint", *,
     return zn, yn, pri, dz2
 
 
+_CLUSTERS = _launch.Entry("consensus", "dip_consensus_clusters")
+
+
 def max_active_clusters(sharded: bool, weighted: bool) -> int:
     """How many of the kernel's clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``); the kernel's launch needs one."""
-    return _build.load("consensus").dip_consensus_clusters(int(sharded),
-                                                            int(weighted))
+    return _CLUSTERS(int(sharded), int(weighted))
 
 
-consensus_update.launches = 0
-consensus_update.sharded_launches = 0
-
-
-def launch_counts() -> dict:
-    return {"consensus_update": consensus_update.launches,
-            "consensus_update_sharded": consensus_update.sharded_launches}
-
-
-def reset_launch_counts() -> None:
-    consensus_update.launches = 0
-    consensus_update.sharded_launches = 0
+launch_counts, reset_launch_counts = _launch.counters(
+    consensus_update,
+    consensus_update_sharded=(consensus_update, "sharded_launches"))

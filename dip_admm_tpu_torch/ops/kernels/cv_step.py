@@ -15,7 +15,7 @@ step ([P, 1, 1]; pcv: [P, N, N]). ``rho`` and ``lam`` are Python floats,
 
 On a CUDA device :func:`step` launches ``dip_cv_grad`` (d) and
 ``dip_cv_update`` (x+, u+) of ``csrc/cv_step.cu`` around ``precond``,
-through the lean launch path of ``_launch.py``, and counts
+through the launch path of ``_launch.py``, and counts
 ``node.fused_steps``; the kernels give the plain composition's bits in
 float32, float64 and bfloat16, the dtype of the state (x, ux, uy). A field
 or operand in a narrower dtype (a bfloat16 D_vec beside a float32 state)
@@ -38,7 +38,7 @@ import torch
 
 from dip_admm_tpu_torch.ops import tv
 from dip_admm_tpu_torch.ops.kernels import _launch
-from dip_admm_tpu_torch.ops.kernels.shear_sum import _stream
+from dip_admm_tpu_torch.ops.kernels._launch import _stream
 from dip_admm_tpu_torch.utils import profiling
 
 # The kernels' dtype codes.
@@ -169,12 +169,5 @@ def step(x, ux, uy, adj_out, D_vec, b_cons, rho, precond, s, sig, lam):
     return x_new, ux_new, uy_new
 
 
-step.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"cv_step": step.launches}
-
-
-def reset_launch_counts() -> None:
-    step.launches = 0
+launch_counts, reset_launch_counts = _launch.counters(
+    cv_step=(step, "launches"))

@@ -27,7 +27,8 @@ blocks. With bf16 tables the forward rounds r_s to bf16 before the product
 (the TPU kernel casts its spectra to the table dtype for the MXU); the
 transpose upcasts H and stays f32. On a CPU tensor a wrapper runs its
 plain PyTorch version (``*_ref``); on a CUDA tensor it launches the
-hand-written kernel of ``csrc/filter_mxu.cu`` or raises. Each wrapper
+hand-written kernel of ``csrc/filter_mxu.cu`` or raises, through the launch
+path of ``_launch.py`` (the alignment tests run on every call). Each wrapper
 counts its launches in ``<wrapper>.launches``; ``launch_counts`` and
 ``reset_launch_counts`` read and clear them.
 """
@@ -38,12 +39,12 @@ import numpy as np
 import torch
 import torch.nn.functional as fn
 
-from dip_admm_tpu_torch.ops.kernels import _build
+from dip_admm_tpu_torch.ops.kernels import _launch
+from dip_admm_tpu_torch.ops.kernels._launch import (
+    _batches, _check, _on_cpu, _shape, _stream,
+)
 from dip_admm_tpu_torch.ops.kernels.filter_sum import (
     filter_sum_grouped_ref, filter_sum_grouped_t_ref,
-)
-from dip_admm_tpu_torch.ops.kernels.shear_sum import (
-    _batches, _check, _on_cpu, _raise_if, _rnd, _shape, _stream,
 )
 
 _FW = 128  # frequencies per tile of the tiled table
@@ -185,9 +186,10 @@ def untile_table(Ht: torch.Tensor) -> torch.Tensor:
 def filter_sum_mxu_ref(rre, rim, Hre_t, Him_t):
     """K15's function (module docstring) on the untiled table, with the
     spectra rounded to bf16 when the table is bf16."""
-    lowp = Hre_t.dtype == torch.bfloat16
-    return filter_sum_grouped_ref(_rnd(rre, lowp), _rnd(rim, lowp),
-                                  untile_table(Hre_t), untile_table(Him_t))
+    if Hre_t.dtype == torch.bfloat16:
+        rre, rim = (r.to(torch.bfloat16).float() for r in (rre, rim))
+    return filter_sum_grouped_ref(rre, rim, untile_table(Hre_t),
+                                  untile_table(Him_t))
 
 
 def filter_sum_mxu_t_ref(gre_b, gim_b, Hre_t, Him_t, TB: int):
@@ -201,22 +203,39 @@ def filter_sum_mxu_t_ref(gre_b, gim_b, Hre_t, Him_t, TB: int):
 # Wrappers
 # ---------------------------------------------------------------------------
 
+_MXU_FWD = _launch.Entry("filter_mxu", "dip_mxu_fwd", "filter_sum_mxu")
+_MXU_T = _launch.Entry("filter_mxu", "dip_mxu_t", "filter_sum_mxu_t")
 
-def _check_tiled(name, tensors, Hre_t, Him_t, TB):
-    """Device, type, contiguity, 16-byte alignment (the kernels' vector
-    loads) and the table's shape; returns (PT, FB, NB, Tp, tn)."""
+
+def _check_tiled(name, fwd, names, a, b, Hre_t, Him_t, TB):
+    """K15's (``fwd``: a, b the block spectra) or K16's (a, b the
+    cotangents) checks of the metadata: device, type, contiguity and
+    shapes; ``names`` names a and b. Returns (PB, PT, TB, Tp, N, tn, FB,
+    bf16). The 16-byte alignment of the kernels' vector loads is
+    :func:`_aligned`'s, on every call."""
     PT, FB, NB, Tp, L = Hre_t.shape
     _shape(name, Him_t, Hre_t.shape, "Him_t")
     if L % _FW or TB < 1 or Tp % TB:
         raise ValueError(f"{name}: table rows of {L} values, Tp={Tp} and "
                          f"TB={TB} do not tile")
-    first = next(iter(tensors.values()))
-    _check(name, {**tensors, "Hre_t": Hre_t, "Him_t": Him_t}, first.device,
-           Hre_t.dtype)
-    for k, t in {**tensors, "Hre_t": Hre_t, "Him_t": Him_t}.items():
+    _check(name, {**dict(zip(names, (a, b))), "Hre_t": Hre_t,
+                  "Him_t": Him_t}, a.device, Hre_t.dtype)
+    PB, tn = a.shape[0], L // _FW
+    _batches(name, PB, PT)
+    N, Fpad = NB * tn, FB * _FW
+    for k, t in zip(names, (a, b)):
+        _shape(name, t, (PB, TB, N, Fpad) if fwd else (PB, Tp, Fpad), k)
+    return PB, PT, TB, Tp, N, tn, FB, int(Hre_t.dtype == torch.bfloat16)
+
+
+def _aligned(name, fwd, names, a, b, Hre_t, Him_t, TB):
+    """The kernels' 16-byte vector loads: per call, by address."""
+    for k, t in zip((*names, "Hre_t", "Him_t"), (a, b, Hre_t, Him_t)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {k} is not 16-byte aligned")
-    return PT, FB, NB, Tp, L // _FW
+
+
+_checks = _launch.Checked(_check_tiled, _aligned)
 
 
 def filter_sum_mxu(rre, rim, Hre_t, Him_t):
@@ -224,23 +243,12 @@ def filter_sum_mxu(rre, rim, Hre_t, Him_t):
     Fpad]; returns the [PB, Tp, Fpad] pair in slot order."""
     if _on_cpu(rre):
         return filter_sum_mxu_ref(rre, rim, Hre_t, Him_t)
-    name = "filter_sum_mxu"
-    PB, TB = rre.shape[:2]
-    PT, FB, NB, Tp, tn = _check_tiled(name, dict(rre=rre, rim=rim), Hre_t,
-                                      Him_t, TB)
-    _batches(name, PB, PT)
-    N, Fpad = NB * tn, FB * _FW
-    _shape(name, rre, (PB, TB, N, Fpad), "rre")
-    _shape(name, rim, (PB, TB, N, Fpad), "rim")
-    gre = torch.empty((PB, Tp, Fpad), dtype=torch.float32, device=rre.device)
-    gim = torch.empty_like(gre)
-    lib = _build.load("filter_mxu")
-    rc = lib.dip_mxu_fwd(
-        *(t.data_ptr() for t in (rre, rim, Hre_t, Him_t, gre, gim)),
-        PB, PT, TB, Tp, N, tn, FB, int(Hre_t.dtype == torch.bfloat16),
-        _stream(),
-    )
-    _raise_if(rc, name)
+    args = _checks("filter_sum_mxu", True, ("rre", "rim"), rre, rim, Hre_t,
+                   Him_t, rre.shape[1])
+    PB, _, _, Tp, _, _, FB, _ = args
+    gre, gim = (rre.new_empty((PB, Tp, FB * _FW)) for _ in range(2))
+    _MXU_FWD(*(t.data_ptr() for t in (rre, rim, Hre_t, Him_t, gre, gim)),
+             *args, _stream())
     filter_sum_mxu.launches += 1
     return gre, gim
 
@@ -250,37 +258,15 @@ def filter_sum_mxu_t(gre_b, gim_b, Hre_t, Him_t, TB: int):
     blocks (the JAX entry reads it off the plan's ``onehot`` table)."""
     if _on_cpu(gre_b):
         return filter_sum_mxu_t_ref(gre_b, gim_b, Hre_t, Him_t, TB)
-    name = "filter_sum_mxu_t"
-    PB = gre_b.shape[0]
-    PT, FB, NB, Tp, tn = _check_tiled(name, dict(gre_b=gre_b, gim_b=gim_b),
-                                      Hre_t, Him_t, TB)
-    _batches(name, PB, PT)
-    N, Fpad = NB * tn, FB * _FW
-    _shape(name, gre_b, (PB, Tp, Fpad), "gre_b")
-    _shape(name, gim_b, (PB, Tp, Fpad), "gim_b")
-    rre = torch.empty((PB, TB, N, Fpad), dtype=torch.float32,
-                      device=gre_b.device)
-    rim = torch.empty_like(rre)
-    lib = _build.load("filter_mxu")
-    rc = lib.dip_mxu_t(
-        *(t.data_ptr() for t in (gre_b, gim_b, Hre_t, Him_t, rre, rim)),
-        PB, PT, TB, Tp, N, tn, FB, int(Hre_t.dtype == torch.bfloat16),
-        _stream(),
-    )
-    _raise_if(rc, name)
+    args = _checks("filter_sum_mxu_t", False, ("gre_b", "gim_b"), gre_b,
+                   gim_b, Hre_t, Him_t, TB)
+    PB, _, _, _, N, _, FB, _ = args
+    rre, rim = (gre_b.new_empty((PB, TB, N, FB * _FW)) for _ in range(2))
+    _MXU_T(*(t.data_ptr() for t in (gre_b, gim_b, Hre_t, Him_t, rre, rim)),
+           *args, _stream())
     filter_sum_mxu_t.launches += 1
     return rre, rim
 
 
-KERNELS = (filter_sum_mxu, filter_sum_mxu_t)
-for _k in KERNELS:
-    _k.launches = 0
-
-
-def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+launch_counts, reset_launch_counts = _launch.counters(filter_sum_mxu,
+                                                      filter_sum_mxu_t)

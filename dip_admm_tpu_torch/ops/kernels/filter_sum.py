@@ -55,7 +55,9 @@ the widened operand comes out pitched.
 
 On a CPU tensor a wrapper runs its plain PyTorch version (``*_ref``); on a
 CUDA tensor it launches the hand-written kernel of ``csrc/filter_sum.cu``
-or raises. What bounds the kernels and how they are laid out is in the
+or raises, through the launch path of ``_launch.py`` (the pitch tests of
+the shape and strides memoized, those of the address and the storage run
+on every call). What bounds the kernels and how they are laid out is in the
 source note there. Each wrapper counts its launches in
 ``<wrapper>.launches``; ``launch_counts`` and ``reset_launch_counts`` read
 and clear them.
@@ -65,9 +67,9 @@ from __future__ import annotations
 
 import torch
 
-from dip_admm_tpu_torch.ops.kernels import _build
-from dip_admm_tpu_torch.ops.kernels.shear_sum import (
-    _batches, _check, _on_cpu, _raise_if, _shape, _stream,
+from dip_admm_tpu_torch.ops.kernels import _launch
+from dip_admm_tpu_torch.ops.kernels._launch import (
+    _batches, _check, _on_cpu, _shape, _stream,
 )
 
 
@@ -120,21 +122,38 @@ def _check_pitched(name: str, what: str, x: torch.Tensor) -> int:
     """The row pitch of ``x`` [..., F] in elements, if the kernels can
     stream its rows, the last row's padding included (see the module
     docstring); else ValueError."""
+    pitch = _row_pitch(name, what, x)
+    _check_held(name, what, x)
+    return pitch
+
+
+def _row_pitch(name: str, what: str, x: torch.Tensor) -> int:
+    """:func:`_check_pitched`'s tests of the shape and strides alone."""
     F, pitch = x.shape[-1], x.stride(-2)
-    ok = (x.stride(-1) == 1 and pitch % PITCH == 0 and pitch >= F
-          and x.data_ptr() % 16 == 0
-          and _end(x, (*x.shape[:-1], pitch)) <= x.untyped_storage().nbytes())
+    ok = x.stride(-1) == 1 and pitch % PITCH == 0 and pitch >= F
     dense = pitch
     for d in range(x.dim() - 2, -1, -1):
         ok = ok and (x.stride(d) == dense or x.shape[d] == 1)
         dense *= x.shape[d]
     if not ok:
-        raise ValueError(
-            f"{name}: {what} needs rows of a pitch that is a multiple of "
-            f"{PITCH} elements (>= F), dense over it, 16-byte aligned and "
-            f"held whole by its storage (filter_sum.pitched_zeros); got "
-            f"shape {tuple(x.shape)}, strides {x.stride()}")
+        raise _unstreamable(name, what, x)
     return pitch
+
+
+def _check_held(name: str, what: str, x: torch.Tensor) -> None:
+    """:func:`_check_pitched`'s tests of the address and the storage, on a
+    ``x`` that passed :func:`_row_pitch`."""
+    if x.data_ptr() % 16 or _end(x, (*x.shape[:-1], x.stride(-2))) > (
+            x.untyped_storage().nbytes()):
+        raise _unstreamable(name, what, x)
+
+
+def _unstreamable(name: str, what: str, x: torch.Tensor) -> ValueError:
+    return ValueError(
+        f"{name}: {what} needs rows of a pitch that is a multiple of "
+        f"{PITCH} elements (>= F), dense over it, 16-byte aligned and "
+        f"held whole by its storage (filter_sum.pitched_zeros); got "
+        f"shape {tuple(x.shape)}, strides {x.stride()}")
 
 
 # ---------------------------------------------------------------------------
@@ -215,21 +234,10 @@ def filter_sum_grouped_t_ref(gre_b, gim_b, Hre_g, Him_g, TB):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-
-def _check_tables(name, Hre_g, Him_g, TB):
-    PT, Tp, N, F = Hre_g.shape
-    _shape(name, Him_g, (PT, Tp, N, F), "Him_g")
-    if TB < 1 or Tp % TB:
-        raise ValueError(f"{name}: Tp={Tp} is not a multiple of TB={TB}")
-    return PT, Tp, N, F
-
-
-def _check_sel(name, tensors, streamed, device, table_dtype):
-    """``_check`` on ``tensors``, the names in ``streamed`` held to
-    :func:`_check_pitched` in place of contiguity. Returns their row
-    pitches."""
-    _check(name, tensors, device, table_dtype, strided=streamed)
-    return {k: _check_pitched(name, k, tensors[k]) for k in streamed}
+_SEL_FWD = _launch.Entry("filter_sum", "dip_sel_fwd", "filter_sum_sel")
+_SEL_T = _launch.Entry("filter_sum", "dip_sel_t", "filter_sum_sel_t")
+_GRP_FWD = _launch.Entry("filter_sum", "dip_grp_fwd", "filter_sum_grouped")
+_GRP_T = _launch.Entry("filter_sum", "dip_grp_t", "filter_sum_grouped_t")
 
 
 def _shared_pitch(name, pitch, a, b) -> int:
@@ -239,33 +247,54 @@ def _shared_pitch(name, pitch, a, b) -> int:
     return pitch[a]
 
 
+def _check_streams(name, fwd, names, a, b, Hre, Him, sel, TB):
+    """The checks of the metadata of K11's and K13's (``fwd``: a, b the
+    spectra) or K12's and K14's (a, b the cotangents) arguments; ``names``
+    names a, b and the tables. K11/K12 pass ``sel`` and TB = 2 (the
+    planes), K13/K14 the slot blocks TB. The four streamed tensors are held
+    to :func:`_row_pitch` in place of contiguity. Returns (PB, PT, Tp, N,
+    F, table pitch, operand pitch, bf16); the tests of the address are
+    :func:`_held`'s."""
+    PB = a.shape[0]
+    PT, Tp, N, F = Hre.shape
+    _shape(name, Him, (PT, Tp, N, F), names[3])
+    if sel is not None:
+        _shape(name, sel, (PT, Tp, 1), "sel")
+    elif TB < 1 or Tp % TB:
+        raise ValueError(f"{name}: Tp={Tp} is not a multiple of TB={TB}")
+    _batches(name, PB, PT)
+    for k, t in zip(names, (a, b)):
+        _shape(name, t, (PB, TB, N, F) if fwd else (PB, Tp, F), k)
+    streamed = dict(zip(names, (a, b, Hre, Him)))
+    _check(name, streamed if sel is None else {**streamed, "sel": sel},
+           a.device, Hre.dtype, strided=names)
+    pitch = {k: _row_pitch(name, k, t) for k, t in streamed.items()}
+    return (PB, PT, Tp, N, F, _shared_pitch(name, pitch, *names[2:]),
+            _shared_pitch(name, pitch, *names[:2]),
+            int(Hre.dtype == torch.bfloat16))
+
+
+def _held(name, fwd, names, *tensors):
+    """:func:`_check_held` on the four streamed tensors, on every call."""
+    for k, t in zip(names, tensors):
+        _check_held(name, k, t)
+
+
+_checks = _launch.Checked(_check_streams, _held)
+
+
 def filter_sum_sel(rre2, rim2, Hre, Him, sel):
     """K11: see :func:`filter_sum_sel_ref`. The kernel reads only the plane
     each angle selects (sel > 0.5); for sel in {0, 1} that is the same sum.
     On the card ``rre2``/``rim2`` and the tables must be pitched."""
     if _on_cpu(rre2):
         return filter_sum_sel_ref(rre2, rim2, Hre, Him, sel)
-    name = "filter_sum_sel"
-    PB = rre2.shape[0]
-    PT, T, N, F = Hre.shape
-    _shape(name, Him, (PT, T, N, F), "Him")
-    _shape(name, sel, (PT, T, 1), "sel")
-    _batches(name, PB, PT)
-    _shape(name, rre2, (PB, 2, N, F), "rre2")
-    _shape(name, rim2, (PB, 2, N, F), "rim2")
-    pitch = _check_sel(name, dict(rre2=rre2, rim2=rim2, Hre=Hre, Him=Him,
-                                  sel=sel), ("rre2", "rim2", "Hre", "Him"),
-                       rre2.device, Hre.dtype)
-    hp = _shared_pitch(name, pitch, "Hre", "Him")
-    rp = _shared_pitch(name, pitch, "rre2", "rim2")
-    gre = torch.empty((PB, T, F), dtype=torch.float32, device=rre2.device)
-    gim = torch.empty_like(gre)
-    lib = _build.load("filter_sum")
-    rc = lib.dip_sel_fwd(
-        *(t.data_ptr() for t in (rre2, rim2, Hre, Him, sel, gre, gim)),
-        PB, PT, T, N, F, hp, rp, int(Hre.dtype == torch.bfloat16), _stream(),
-    )
-    _raise_if(rc, name)
+    PB, PT, T, N, F, hp, rp, bf16 = _checks(
+        "filter_sum_sel", True, ("rre2", "rim2", "Hre", "Him"), rre2, rim2,
+        Hre, Him, sel, 2)
+    gre, gim = rre2.new_empty((PB, T, F)), rre2.new_empty((PB, T, F))
+    _SEL_FWD(*(t.data_ptr() for t in (rre2, rim2, Hre, Him, sel, gre, gim)),
+             PB, PT, T, N, F, hp, rp, bf16, _stream())
     filter_sum_sel.launches += 1
     return gre, gim
 
@@ -277,29 +306,13 @@ def filter_sum_sel_t(gre_b, gim_b, Hre, Him, sel):
     zeros)."""
     if _on_cpu(gre_b):
         return filter_sum_sel_t_ref(gre_b, gim_b, Hre, Him, sel)
-    name = "filter_sum_sel_t"
-    PB = gre_b.shape[0]
-    PT, T, N, F = Hre.shape
-    _shape(name, Him, (PT, T, N, F), "Him")
-    _shape(name, sel, (PT, T, 1), "sel")
-    _batches(name, PB, PT)
-    _shape(name, gre_b, (PB, T, F), "gre_b")
-    _shape(name, gim_b, (PB, T, F), "gim_b")
-    pitch = _check_sel(name, dict(gre_b=gre_b, gim_b=gim_b, Hre=Hre,
-                                  Him=Him, sel=sel),
-                       ("gre_b", "gim_b", "Hre", "Him"), gre_b.device,
-                       Hre.dtype)
-    hp = _shared_pitch(name, pitch, "Hre", "Him")
-    gp = _shared_pitch(name, pitch, "gre_b", "gim_b")
+    PB, PT, T, N, F, hp, gp, bf16 = _checks(
+        "filter_sum_sel_t", False, ("gre_b", "gim_b", "Hre", "Him"), gre_b,
+        gim_b, Hre, Him, sel, 2)
     rre, rim = (_pitched((PB, 2, N, F), torch.float32, gre_b.device, -1,
                          torch.empty) for _ in range(2))
-    lib = _build.load("filter_sum")
-    rc = lib.dip_sel_t(
-        *(t.data_ptr() for t in (gre_b, gim_b, Hre, Him, sel, rre, rim)),
-        PB, PT, T, N, F, hp, gp, rre.stride(-2),
-        int(Hre.dtype == torch.bfloat16), _stream(),
-    )
-    _raise_if(rc, name)
+    _SEL_T(*(t.data_ptr() for t in (gre_b, gim_b, Hre, Him, sel, rre, rim)),
+           PB, PT, T, N, F, hp, gp, rre.stride(-2), bf16, _stream())
     filter_sum_sel_t.launches += 1
     return rre, rim
 
@@ -311,38 +324,19 @@ def grouped_images(PB: int, PT: int) -> int:
     return 2 if (PB // PT) % 2 == 0 else 1
 
 
-def _check_grouped(name, tensors, Hre_g, device):
-    """``_check_sel`` on a grouped kernel's tensors, all of them streamed:
-    (table pitch, operand pitch)."""
-    pitch = _check_sel(name, tensors, tuple(tensors), device, Hre_g.dtype)
-    ops = [k for k in tensors if k not in ("Hre_g", "Him_g")]
-    return (_shared_pitch(name, pitch, "Hre_g", "Him_g"),
-            _shared_pitch(name, pitch, *ops))
-
-
 def filter_sum_grouped(rre_s, rim_s, Hre_g, Him_g):
     """K13: see :func:`filter_sum_grouped_ref`. On the card ``rre_s``/
     ``rim_s`` and the tables must be pitched."""
     if _on_cpu(rre_s):
         return filter_sum_grouped_ref(rre_s, rim_s, Hre_g, Him_g)
-    name = "filter_sum_grouped"
-    PB, TB = rre_s.shape[:2]
-    PT, Tp, N, F = _check_tables(name, Hre_g, Him_g, TB)
-    _batches(name, PB, PT)
-    _shape(name, rre_s, (PB, TB, N, F), "rre_s")
-    _shape(name, rim_s, (PB, TB, N, F), "rim_s")
-    hp, rp = _check_grouped(name, dict(rre_s=rre_s, rim_s=rim_s, Hre_g=Hre_g,
-                                       Him_g=Him_g), Hre_g, rre_s.device)
-    K = grouped_images(PB, PT)
-    gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=rre_s.device)
-    gim = torch.empty_like(gre)
-    lib = _build.load("filter_sum")
-    rc = lib.dip_grp_fwd(
-        *(t.data_ptr() for t in (rre_s, rim_s, Hre_g, Him_g, gre, gim)),
-        PB, PT, TB, Tp, N, F, hp, rp, K, int(Hre_g.dtype == torch.bfloat16),
-        _stream(),
-    )
-    _raise_if(rc, name)
+    TB = rre_s.shape[1]
+    PB, PT, Tp, N, F, hp, rp, bf16 = _checks(
+        "filter_sum_grouped", True, ("rre_s", "rim_s", "Hre_g", "Him_g"),
+        rre_s, rim_s, Hre_g, Him_g, None, TB)
+    gre, gim = rre_s.new_empty((PB, Tp, F)), rre_s.new_empty((PB, Tp, F))
+    _GRP_FWD(*(t.data_ptr() for t in (rre_s, rim_s, Hre_g, Him_g, gre, gim)),
+             PB, PT, TB, Tp, N, F, hp, rp, grouped_images(PB, PT), bf16,
+             _stream())
     filter_sum_grouped.launches += 1
     return gre, gim
 
@@ -355,38 +349,18 @@ def filter_sum_grouped_t(gre_b, gim_b, Hre_g, Him_g, TB: int):
     pad columns written as zeros)."""
     if _on_cpu(gre_b):
         return filter_sum_grouped_t_ref(gre_b, gim_b, Hre_g, Him_g, TB)
-    name = "filter_sum_grouped_t"
-    PB = gre_b.shape[0]
-    PT, Tp, N, F = _check_tables(name, Hre_g, Him_g, TB)
-    _batches(name, PB, PT)
-    _shape(name, gre_b, (PB, Tp, F), "gre_b")
-    _shape(name, gim_b, (PB, Tp, F), "gim_b")
-    hp, gp = _check_grouped(name, dict(gre_b=gre_b, gim_b=gim_b, Hre_g=Hre_g,
-                                       Him_g=Him_g), Hre_g, gre_b.device)
-    K = grouped_images(PB, PT)
+    PB, PT, Tp, N, F, hp, gp, bf16 = _checks(
+        "filter_sum_grouped_t", False, ("gre_b", "gim_b", "Hre_g", "Him_g"),
+        gre_b, gim_b, Hre_g, Him_g, None, TB)
     rre, rim = (_pitched((PB, TB, N, F), torch.float32, gre_b.device, -1,
                          torch.empty) for _ in range(2))
-    lib = _build.load("filter_sum")
-    rc = lib.dip_grp_t(
-        *(t.data_ptr() for t in (gre_b, gim_b, Hre_g, Him_g, rre, rim)),
-        PB, PT, TB, Tp, N, F, hp, gp, rre.stride(-2), K,
-        int(Hre_g.dtype == torch.bfloat16), _stream(),
-    )
-    _raise_if(rc, name)
+    _GRP_T(*(t.data_ptr() for t in (gre_b, gim_b, Hre_g, Him_g, rre, rim)),
+           PB, PT, TB, Tp, N, F, hp, gp, rre.stride(-2),
+           grouped_images(PB, PT), bf16, _stream())
     filter_sum_grouped_t.launches += 1
     return rre, rim
 
 
-KERNELS = (filter_sum_sel, filter_sum_sel_t, filter_sum_grouped,
-           filter_sum_grouped_t)
-for _k in KERNELS:
-    _k.launches = 0
-
-
-def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+launch_counts, reset_launch_counts = _launch.counters(
+    filter_sum_sel, filter_sum_sel_t, filter_sum_grouped,
+    filter_sum_grouped_t)

@@ -27,7 +27,7 @@ does; everything is f32.
 On a CPU tensor a wrapper runs its plain PyTorch version (``*_ref``, which
 materializes w as the JAX package's reference does); on a CUDA tensor it
 launches the hand-written kernel of ``csrc/hat_eval.cu`` or raises, through
-the lean launch path of ``_launch.py`` (checks memoized by the inputs'
+the launch path of ``_launch.py`` (checks memoized by the inputs'
 metadata, the C entry bound once). What
 bounds the kernels and how they are laid out is in the source note there.
 Each wrapper counts its launches in ``<wrapper>.launches``;
@@ -39,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from dip_admm_tpu_torch.ops.kernels import _launch
-from dip_admm_tpu_torch.ops.kernels.shear_sum import (
+from dip_admm_tpu_torch.ops.kernels._launch import (
     _batches, _check, _on_cpu, _shape, _stream,
 )
 
@@ -153,15 +153,4 @@ def hat_eval_t(ob, pc, s, Np: int):
     return gbar
 
 
-KERNELS = (hat_eval, hat_eval_t)
-for _k in KERNELS:
-    _k.launches = 0
-
-
-def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+launch_counts, reset_launch_counts = _launch.counters(hat_eval, hat_eval_t)

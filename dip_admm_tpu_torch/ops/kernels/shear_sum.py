@@ -84,16 +84,20 @@ vmap, which folds an image batch into the node axis and keeps one table
 set. The parallel paths run PT = PB; the fan-beam path runs its PB = P node
 images against the one shared parallel-stage table set (PT = 1).
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches`` (one per
-call that launches, none for the plain version); ``launch_counts`` and
-``reset_launch_counts`` read and clear them.
+Each wrapper launches through ``_launch.py`` and counts its kernel
+launches in ``<wrapper>.launches`` (one per call that launches, none for
+the plain version); ``launch_counts`` and ``reset_launch_counts`` read and
+clear them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dip_admm_tpu_torch.ops.kernels import _build
+from dip_admm_tpu_torch.ops.kernels import _launch
+from dip_admm_tpu_torch.ops.kernels._launch import (
+    _batches, _check, _on_cpu, _shape, _stream,
+)
 
 
 def _rnd(x: torch.Tensor, lowp: bool) -> torch.Tensor:
@@ -326,79 +330,32 @@ def eval_shear_t_ref(ob, Wd, TEre, TEim, PhiDre, PhiDim):
     return gre, gim
 
 
-# ---------------------------------------------------------------------------
-# Launch helpers
-# ---------------------------------------------------------------------------
-
-
-def _stream() -> int:
-    """The current CUDA stream of the current device, as an int. The raw
-    query skips the ``torch.cuda.Stream`` object that ``current_stream()``
-    builds (about 6 us of host time per launch on an H100 host)."""
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
-
-
-def _check(name: str, tensors: dict, device, table_dtype, strided=()):
-    """Device, type and contiguity of a kernel's tensors; those named in
-    ``strided`` are exempt from contiguity (their caller checks their
-    strides)."""
-    if table_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: unsupported table dtype {table_dtype}")
-    for k, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {k} is on {t.device}, expected {device}")
-        if k not in strided and not t.is_contiguous():
-            raise ValueError(f"{name}: {k} must be contiguous")
-    for k, t in tensors.items():
-        if k == "plane":
-            if t.dtype != torch.int32:
-                raise TypeError(f"{name}: {k} must be int32, got {t.dtype}")
-        elif k in ("WtT", "Wt", "Dre", "Dim", "DreT", "DimT", "Wd", "Hre",
-                   "Him", "Hre_g", "Him_g", "Hre_t", "Him_t"):
-            if t.dtype != table_dtype:
-                raise TypeError(
-                    f"{name}: {k} is {t.dtype}, the tables are {table_dtype}"
-                )
-        elif t.dtype != torch.float32:
-            raise TypeError(f"{name}: {k} must be float32, got {t.dtype}")
-
-
-def _shape(name, t, shape, what):
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-
-
-def _raise_if(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-
-
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.is_cuda:  # the card's path first: it costs one attribute read
-        return False
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return False
-
 
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
+_SKEW_FWD = _launch.Entry("shear_sum", "dip_skew_fwd", "skew_sum_planes")
+_SKEW_T = _launch.Entry("shear_sum", "dip_skew_t", "skew_sum_planes_t")
+_SKEW_T_ROWS = _launch.Entry("shear_sum", "dip_skew_t",
+                             "skew_sum_planes_t_rows")
+_EVAL_FWD = _launch.Entry("shear_sum", "dip_eval_fwd", "eval_shear")
+_EVAL_T = _launch.Entry("shear_sum", "dip_eval_t", "eval_shear_t")
+_SHEAR_PLANES = _launch.Entry("shear_sum", "dip_shear_fwd",
+                              "shear_sum_planes")
+_SHEAR_PLANES_T = _launch.Entry("shear_sum", "dip_shear_t",
+                                "shear_sum_planes_t")
+_SHEAR = _launch.Entry("shear_sum", "dip_shear_fwd", "shear_sum")
+_SHEAR_T = _launch.Entry("shear_sum", "dip_shear_t", "shear_sum_t")
+# The bf16 kernels' scratch sizes, which depend on shapes alone.
+_SKEW_FWD_SCRATCH = _launch.Entry("shear_sum", "dip_skew_fwd_scratch")
+_SKEW_T_SCRATCH = _launch.Entry("shear_sum", "dip_skew_t_scratch")
+_SHEAR_SCRATCH = _launch.Entry("shear_sum", "dip_shear_scratch")
 
-def _batches(name: str, PB: int, PT: int) -> None:
-    if PT < 1 or PB % PT:
-        raise ValueError(f"{name}: image batch {PB} is not a multiple of the "
-                         f"table batch {PT}")
 
-
-def skew_sum_planes(rows2, WtT, SEre, SEim, Dre, Dim, plane):
-    """K1: see :func:`skew_sum_planes_ref`."""
-    if _on_cpu(rows2):
-        return skew_sum_planes_ref(rows2, WtT, SEre, SEim, Dre, Dim, plane)
+def _check_skew_fwd(rows2, WtT, SEre, SEim, Dre, Dim, plane):
+    """K1's checks: (the entry's integer arguments, the output's shape, the
+    scratch's shape and dtype)."""
     name = "skew_sum_planes"
     PT, NB, D2, Tp, nb = WtT.shape
     PB = rows2.shape[0]
@@ -417,25 +374,29 @@ def skew_sum_planes(rows2, WtT, SEre, SEim, Dre, Dim, plane):
         raise ValueError(f"{name}: inconsistent Tp={Tp}, TB={TB}, WS={WS}, "
                          f"D2={D2}, WZ={WZ}")
     tt = Tp // TB
-    dev = rows2.device
-    lib = _build.load("shear_sum")
+    bf16 = WtT.dtype == torch.bfloat16
     # The kernel's scratch: with f32 tables the skew sum z in f32; with
     # bf16 tables one bf16 buffer for z, the rounded rows and D in the
     # tensor-core kernels' layouts, sized by the library.
-    if WtT.dtype == torch.bfloat16:
-        n = lib.dip_skew_fwd_scratch(PB, TB, NB, tt, nb, D2, WS, F)
-        z = torch.empty(n, dtype=torch.bfloat16, device=dev)
-    else:
-        z = torch.empty((PB, TB, NB, tt, WZ), dtype=torch.float32, device=dev)
-    gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=dev)
-    gim = torch.empty_like(gre)
-    rc = lib.dip_skew_fwd(
-        *(t.data_ptr() for t in (
-            rows2, WtT, SEre, SEim, Dre, Dim, plane, z, gre, gim)),
-        PB, PT, NB, D2, Tp, nb, TB, WS, WZ, F,
-        int(WtT.dtype == torch.bfloat16), _stream(),
-    )
-    _raise_if(rc, name)
+    z = (((_SKEW_FWD_SCRATCH(PB, TB, NB, tt, nb, D2, WS, F),), torch.bfloat16)
+         if bf16 else ((PB, TB, NB, tt, WZ), torch.float32))
+    return (PB, PT, NB, D2, Tp, nb, TB, WS, WZ, F, int(bf16)), (PB, Tp, F), z
+
+
+_skew_fwd_checks = _launch.Checked(_check_skew_fwd)
+
+
+def skew_sum_planes(rows2, WtT, SEre, SEim, Dre, Dim, plane):
+    """K1: see :func:`skew_sum_planes_ref`."""
+    if _on_cpu(rows2):
+        return skew_sum_planes_ref(rows2, WtT, SEre, SEim, Dre, Dim, plane)
+    args, out, (zshape, zdtype) = _skew_fwd_checks(rows2, WtT, SEre, SEim,
+                                                   Dre, Dim, plane)
+    z = rows2.new_empty(zshape, dtype=zdtype)
+    gre, gim = rows2.new_empty(out), rows2.new_empty(out)
+    _SKEW_FWD(*(t.data_ptr() for t in (
+        rows2, WtT, SEre, SEim, Dre, Dim, plane, z, gre, gim)), *args,
+        _stream())
     skew_sum_planes.launches += 1
     return gre, gim
 
@@ -445,8 +406,8 @@ def skew_sum_planes_t(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane):
     if _on_cpu(gre_b):
         return skew_sum_planes_t_ref(gre_b, gim_b, WtT, SEre, SEim, DreT,
                                      DimT, plane)
-    x2 = _skew_t_launch("skew_sum_planes_t", gre_b, gim_b, WtT, SEre, SEim,
-                        DreT, DimT, plane, WtT.shape[1] * WtT.shape[-1])
+    x2 = _skew_t_launch(_SKEW_T, gre_b, gim_b, WtT, SEre, SEim, DreT, DimT,
+                        plane, WtT.shape[1] * WtT.shape[-1])
     skew_sum_planes_t.launches += 1
     return x2
 
@@ -458,15 +419,15 @@ def skew_sum_planes_t_rows(gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane,
     if _on_cpu(gre_b):
         return skew_sum_planes_t_rows_ref(gre_b, gim_b, WtT, SEre, SEim, DreT,
                                           DimT, plane, row_width)
-    x2 = _skew_t_launch("skew_sum_planes_t_rows", gre_b, gim_b, WtT, SEre,
-                        SEim, DreT, DimT, plane, row_width)
+    x2 = _skew_t_launch(_SKEW_T_ROWS, gre_b, gim_b, WtT, SEre, SEim, DreT,
+                        DimT, plane, row_width)
     skew_sum_planes_t_rows.launches += 1
     return x2
 
 
-def _skew_t_launch(name, gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane,
-                   WS):
-    """Checks and launch of ``dip_skew_t`` (K2, and K6 at WS > NB * nb)."""
+def _check_skew_t(name, gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane,
+                  WS):
+    """K2's and K6's checks, as :func:`_check_skew_fwd`'s."""
     PT, NB, D2, Tp, nb = WtT.shape
     PB = gre_b.shape[0]
     F, WZ = DreT.shape
@@ -486,49 +447,63 @@ def _skew_t_launch(name, gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane,
                          f"D2={D2}, WZ={WZ}")
     tt = Tp // TB
     C8 = -(-tt // 8)
-    if WtT.dtype == torch.bfloat16 and (WZ % 8 or C8 > 8 or TB > 64 or (
+    bf16 = WtT.dtype == torch.bfloat16
+    if bf16 and (WZ % 8 or C8 > 8 or TB > 64 or (
             D2 * C8 + 128) * C8 >= 65536):
         raise ValueError(f"{name}: the bf16 kernels take WZ % 8 == 0, at "
                          f"most 64 slots and 64 angle blocks, and "
                          f"(D2 * C8 + 128) * C8 < 65536 for C8 = ceil(tt / 8) "
                          f"(WZ={WZ}, tt={tt}, TB={TB}, D2={D2})")
-    dev = gre_b.device
-    lib = _build.load("shear_sum")
     # The kernel's scratch: with f32 tables zbar in f32; with bf16 tables
     # one bf16 buffer for the phased cotangent and zbar in the tensor-core
     # kernels' layouts, sized by the library.
-    if WtT.dtype == torch.bfloat16:
-        n = lib.dip_skew_t_scratch(PB, TB, NB, tt, D2, WS, F)
-        zbar = torch.empty(n, dtype=torch.bfloat16, device=dev)
-    else:
-        zbar = torch.empty((PB, TB, NB, tt, WZ), dtype=torch.float32,
-                           device=dev)
+    zbar = (((_SKEW_T_SCRATCH(PB, TB, NB, tt, D2, WS, F),), torch.bfloat16)
+            if bf16 else ((PB, TB, NB, tt, WZ), torch.float32))
+    return ((PB, PT, NB, D2, Tp, nb, TB, WS, WZ, F, int(bf16)),
+            (PB, 2, NB * nb, WS), zbar)
+
+
+_skew_t_checks = _launch.Checked(_check_skew_t)
+
+
+def _skew_t_launch(entry, gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane,
+                   WS):
+    """Checks and launch of ``dip_skew_t`` (K2, and K6 at WS > NB * nb)
+    through ``entry``, which names the wrapper."""
+    args, out, (zshape, zdtype) = _skew_t_checks(
+        entry.what, gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane, WS)
+    zbar = gre_b.new_empty(zshape, dtype=zdtype)
     # The kernels write every element, zeros where no angle block reads a
     # plane (the JAX kernel leaves such a plane uninitialized).
-    x2 = torch.empty((PB, 2, NB * nb, WS), dtype=torch.float32, device=dev)
-    rc = lib.dip_skew_t(
-        *(t.data_ptr() for t in (
-            gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane, zbar, x2)),
-        PB, PT, NB, D2, Tp, nb, TB, WS, WZ, F,
-        int(WtT.dtype == torch.bfloat16), _stream(),
-    )
-    _raise_if(rc, name)
+    x2 = gre_b.new_empty(out)
+    entry(*(t.data_ptr() for t in (
+        gre_b, gim_b, WtT, SEre, SEim, DreT, DimT, plane, zbar, x2)), *args,
+        _stream())
     return x2
 
 
-def _check_shear(name, spectra, Wt, SEre, SEim, Phire, Phiim, plane=None,
-                 TB=None):
-    """Checks of K7-K10's arguments; returns (PB, PT, NB, Tp, D2, nb, TB,
-    F). ``spectra``: the image-side pair by name; K7/K8 pass ``plane``,
-    K9/K10 the angle-block count ``TB``."""
-    first = next(iter(spectra.values()))
-    tensors = dict(**spectra, Wt=Wt, SEre=SEre, SEim=SEim, Phire=Phire,
-                   Phiim=Phiim)
+def _bf16_shear_limits(name, Wt) -> ValueError:
+    PT, NB, Tp, D2, nb = Wt.shape
+    return ValueError(f"{name}: the bf16 kernels take nb % 8 == 0, "
+                      f"nb <= 128, D2 % 16 == 0, D2 <= 256, Tp <= 4096, "
+                      f"NB <= 128 and Wt 16-byte aligned with fewer than "
+                      f"2^31 elements (nb={nb}, D2={D2}, Tp={Tp}, NB={NB})")
+
+
+def _check_shear(name, fwd, names, a, b, Wt, SEre, SEim, Phire, Phiim, plane,
+                 TB):
+    """K7-K10's checks. The image-side pair (a, b), named ``names``, is the
+    row spectra with ``fwd``, else the cotangents; K7/K8 pass ``plane``,
+    K9/K10 the angle-block count ``TB``. Returns (the entry's integer
+    arguments, the output's shape, the int32 scratch's size with bf16
+    tables, else None); Wt's alignment is :func:`_aligned_shear`'s."""
+    tensors = dict(zip(names, (a, b)), Wt=Wt, SEre=SEre, SEim=SEim,
+                   Phire=Phire, Phiim=Phiim)
     if plane is not None:
         tensors["plane"] = plane
-    _check(name, tensors, first.device, Wt.dtype)
+    _check(name, tensors, a.device, Wt.dtype)
     PT, NB, Tp, D2, nb = Wt.shape
-    PB, F = first.shape[0], first.shape[-1]
+    PB, F = a.shape[0], a.shape[-1]
     TB = plane.shape[1] if plane is not None else TB
     _batches(name, PB, PT)
     _shape(name, SEre, (PT, NB, Tp, F), "SEre")
@@ -539,38 +514,44 @@ def _check_shear(name, spectra, Wt, SEre, SEim, Phire, Phiim, plane=None,
         _shape(name, plane, (PT, TB), "plane")
     if TB < 1 or Tp % TB:
         raise ValueError(f"{name}: Tp={Tp} is not a multiple of TB={TB}")
-    if Wt.dtype == torch.bfloat16 and (
-            nb % 8 or nb > 128 or D2 % 16 or D2 > 256 or Tp > 4096 or
-            NB > 128 or Wt.data_ptr() % 16 or Wt.numel() >= 2**31):
-        raise ValueError(f"{name}: the bf16 kernels take nb % 8 == 0, "
-                         f"nb <= 128, D2 % 16 == 0, D2 <= 256, Tp <= 4096, "
-                         f"NB <= 128 and Wt 16-byte aligned with fewer than "
-                         f"2^31 elements (nb={nb}, D2={D2}, Tp={Tp}, NB={NB})")
-    return PB, PT, NB, Tp, D2, nb, TB, F
-
-
-def _shear_launch(entry, name, a, b, Wt, SEre, SEim, Phire, Phiim, plane,
-                  out_shape, dims):
-    """Launch ``dip_shear_fwd`` or ``dip_shear_t`` (``entry``) on the pair
-    (a, b) into a new [out_shape] pair; ``plane`` None for K9/K10; ``dims``
-    as ``_check_shear`` returns them. With bf16 tables the library's
-    scratch holds the tap-tile mask."""
-    PB, PT, NB, Tp, D2, nb, TB, F = dims
-    dev = a.device
-    lib = _build.load("shear_sum")
     bf16 = Wt.dtype == torch.bfloat16
-    scratch = (torch.empty(lib.dip_shear_scratch(PT, NB, Tp, D2),
-                           dtype=torch.int32, device=dev) if bf16 else None)
-    o_re = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    o_im = torch.empty_like(o_re)
-    rc = getattr(lib, entry)(
-        *(t.data_ptr() for t in (a, b, Wt, SEre, SEim, Phire, Phiim)),
-        None if plane is None else plane.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        o_re.data_ptr(), o_im.data_ptr(),
-        PB, PT, NB, Tp, D2, nb, TB, F, int(bf16), _stream(),
-    )
-    _raise_if(rc, name)
+    if bf16 and (nb % 8 or nb > 128 or D2 % 16 or D2 > 256 or Tp > 4096
+                 or NB > 128 or Wt.numel() >= 2**31):
+        raise _bf16_shear_limits(name, Wt)
+    # K7/K8 read or write both planes, K9/K10 one slot an angle block.
+    rows = (PB, TB if plane is None else 2, NB * nb, F)
+    spectra = (PB, Tp, F)
+    for k, t in zip(names, (a, b)):
+        _shape(name, t, rows if fwd else spectra, k)
+    # With bf16 tables the library's scratch holds the tap-tile mask.
+    scratch = _SHEAR_SCRATCH(PT, NB, Tp, D2) if bf16 else None
+    return ((PB, PT, NB, Tp, D2, nb, TB, F, int(bf16)),
+            spectra if fwd else rows, scratch)
+
+
+def _aligned_shear(name, fwd, names, a, b, Wt, *_):
+    """The bf16 kernels' 16-byte loads of Wt: per call, by address."""
+    if Wt.dtype == torch.bfloat16 and Wt.data_ptr() % 16:
+        raise _bf16_shear_limits(name, Wt)
+
+
+_shear_checks = _launch.Checked(_check_shear, _aligned_shear)
+
+
+def _shear_launch(entry, names, a, b, Wt, SEre, SEim, Phire, Phiim,
+                  plane=None, TB=None):
+    """Checks and launch of ``dip_shear_fwd`` or ``dip_shear_t``
+    (``entry``, which names the wrapper) on the pair (a, b) into a new
+    pair; ``plane`` None for K9/K10."""
+    args, out, n = _shear_checks(entry.what, entry.fn == "dip_shear_fwd",
+                                 names, a, b, Wt, SEre, SEim, Phire, Phiim,
+                                 plane, TB)
+    scratch = None if n is None else a.new_empty(n, dtype=torch.int32)
+    o_re, o_im = a.new_empty(out), a.new_empty(out)
+    entry(*(t.data_ptr() for t in (a, b, Wt, SEre, SEim, Phire, Phiim)),
+          None if plane is None else plane.data_ptr(),
+          None if scratch is None else scratch.data_ptr(),
+          o_re.data_ptr(), o_im.data_ptr(), *args, _stream())
     return o_re, o_im
 
 
@@ -579,14 +560,8 @@ def shear_sum_planes(rre2, rim2, Wt, SEre, SEim, Phire, Phiim, plane):
     if _on_cpu(rre2):
         return shear_sum_planes_ref(rre2, rim2, Wt, SEre, SEim, Phire, Phiim,
                                     plane)
-    name = "shear_sum_planes"
-    dims = _check_shear(name, dict(rre2=rre2, rim2=rim2), Wt, SEre, SEim,
-                        Phire, Phiim, plane)
-    PB, _, NB, Tp, _, nb, _, F = dims
-    _shape(name, rre2, (PB, 2, NB * nb, F), "rre2")
-    _shape(name, rim2, (PB, 2, NB * nb, F), "rim2")
-    out = _shear_launch("dip_shear_fwd", name, rre2, rim2, Wt, SEre, SEim,
-                        Phire, Phiim, plane, (PB, Tp, F), dims)
+    out = _shear_launch(_SHEAR_PLANES, ("rre2", "rim2"), rre2, rim2, Wt,
+                        SEre, SEim, Phire, Phiim, plane)
     shear_sum_planes.launches += 1
     return out
 
@@ -597,14 +572,8 @@ def shear_sum_planes_t(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, plane):
     if _on_cpu(gre_b):
         return shear_sum_planes_t_ref(gre_b, gim_b, Wt, SEre, SEim, Phire,
                                       Phiim, plane)
-    name = "shear_sum_planes_t"
-    dims = _check_shear(name, dict(gre_b=gre_b, gim_b=gim_b), Wt, SEre,
-                        SEim, Phire, Phiim, plane)
-    PB, _, NB, Tp, _, nb, _, F = dims
-    _shape(name, gre_b, (PB, Tp, F), "gre_b")
-    _shape(name, gim_b, (PB, Tp, F), "gim_b")
-    out = _shear_launch("dip_shear_t", name, gre_b, gim_b, Wt, SEre, SEim,
-                        Phire, Phiim, plane, (PB, 2, NB * nb, F), dims)
+    out = _shear_launch(_SHEAR_PLANES_T, ("gre_b", "gim_b"), gre_b, gim_b,
+                        Wt, SEre, SEim, Phire, Phiim, plane)
     shear_sum_planes_t.launches += 1
     return out
 
@@ -614,15 +583,8 @@ def shear_sum(rre_s, rim_s, Wt, SEre, SEim, Phire, Phiim):
     reading slot tb of the gathered spectra instead of a plane."""
     if _on_cpu(rre_s):
         return shear_sum_ref(rre_s, rim_s, Wt, SEre, SEim, Phire, Phiim)
-    name = "shear_sum"
-    dims = _check_shear(name, dict(rre_s=rre_s, rim_s=rim_s), Wt, SEre,
+    out = _shear_launch(_SHEAR, ("rre_s", "rim_s"), rre_s, rim_s, Wt, SEre,
                         SEim, Phire, Phiim, TB=rre_s.shape[1])
-    PB, _, NB, Tp, _, nb, TB, F = dims
-    _shape(name, rre_s, (PB, TB, NB * nb, F), "rre_s")
-    _shape(name, rim_s, (PB, TB, NB * nb, F), "rim_s")
-    # no plane table: angle block tb reads slot tb
-    out = _shear_launch("dip_shear_fwd", name, rre_s, rim_s, Wt, SEre, SEim,
-                        Phire, Phiim, None, (PB, Tp, F), dims)
     shear_sum.launches += 1
     return out
 
@@ -633,38 +595,46 @@ def shear_sum_t(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim, TB: int):
     if _on_cpu(gre_b):
         return shear_sum_t_ref(gre_b, gim_b, Wt, SEre, SEim, Phire, Phiim,
                                TB)
-    name = "shear_sum_t"
-    dims = _check_shear(name, dict(gre_b=gre_b, gim_b=gim_b), Wt, SEre,
+    out = _shear_launch(_SHEAR_T, ("gre_b", "gim_b"), gre_b, gim_b, Wt, SEre,
                         SEim, Phire, Phiim, TB=TB)
-    PB, _, NB, Tp, _, nb, _, F = dims
-    _shape(name, gre_b, (PB, Tp, F), "gre_b")
-    _shape(name, gim_b, (PB, Tp, F), "gim_b")
-    # no plane table: slot tb from angle block tb
-    out = _shear_launch("dip_shear_t", name, gre_b, gim_b, Wt, SEre, SEim,
-                        Phire, Phiim, None, (PB, TB, NB * nb, F), dims)
     shear_sum_t.launches += 1
     return out
 
 
-def _eval_checks(name, tensors, Wd, PB, F, aligned=("Wd",)):
-    """Checks of K3/K4's arguments (``tensors`` by name, Wd among them):
-    PhiD in f32, the kernel rounds it; the tensors named in ``aligned``,
-    which the Wd streams read with 16-byte loads, start 16-byte aligned.
-    Returns (PT, DB, Tp, D2p, db)."""
-    _check(name, tensors, Wd.device, Wd.dtype)
+def _check_eval(name, Wd, TEre, TEim, PhiDre, PhiDim, *images):
+    """K3's (``images``: gre, gim) or K4's (ob) checks, PhiD in f32 (the
+    kernel rounds it): (the entry's integer arguments, the shape of R or
+    Rbar, the output's). The alignment of what the Wd streams read with
+    16-byte loads is :func:`_aligned_eval`'s."""
+    fwd = len(images) == 2
+    names = ("gre", "gim") if fwd else ("ob",)
+    _check(name, dict(zip(names, images), Wd=Wd, TEre=TEre, TEim=TEim,
+                      PhiDre=PhiDre, PhiDim=PhiDim), Wd.device, Wd.dtype)
     PT, DB, Tp, D2p, db = Wd.shape
+    PB, F = images[0].shape[0], (images[0] if fwd else TEre).shape[-1]
     _batches(name, PB, PT)
-    for k in ("TEre", "TEim"):
-        _shape(name, tensors[k], (PT, DB, Tp, F), k)
-    for k in ("PhiDre", "PhiDim"):
-        _shape(name, tensors[k], (D2p, F), k)
+    _shape(name, TEre, (PT, DB, Tp, F), "TEre")
+    _shape(name, TEim, (PT, DB, Tp, F), "TEim")
+    _shape(name, PhiDre, (D2p, F), "PhiDre")
+    _shape(name, PhiDim, (D2p, F), "PhiDim")
     if D2p % 16:
         raise ValueError(f"{name}: the kernels take D2p % 16 == 0 "
                          f"(D2p={D2p})")
-    for k in aligned:
-        if tensors[k].data_ptr() % 16:
+    for k, t in zip(names, images):
+        _shape(name, t, (PB, Tp, F) if fwd else (PB, Tp, DB * db), k)
+    return ((PB, PT, DB, Tp, D2p, db, F, int(Wd.dtype == torch.bfloat16)),
+            (PB, DB, Tp, D2p), (PB, Tp, DB * db) if fwd else (PB, Tp, F))
+
+
+def _aligned_eval(name, Wd, TEre, TEim, PhiDre, PhiDim, *images):
+    """Wd, and K4's ob, start 16-byte aligned: per call, by address."""
+    streamed = dict(Wd=Wd) if len(images) == 2 else dict(Wd=Wd, ob=images[0])
+    for k, t in streamed.items():
+        if t.data_ptr() % 16:
             raise ValueError(f"{name}: {k} must start 16-byte aligned")
-    return PT, DB, Tp, D2p, db
+
+
+_eval_checks = _launch.Checked(_check_eval, _aligned_eval)
 
 
 def eval_shear(gre, gim, Wd, TEre, TEim, PhiDre, PhiDim):
@@ -673,23 +643,11 @@ def eval_shear(gre, gim, Wd, TEre, TEim, PhiDre, PhiDim):
     dense Wd in its own type."""
     if _on_cpu(gre):
         return eval_shear_ref(gre, gim, Wd, TEre, TEim, PhiDre, PhiDim)
-    name = "eval_shear"
-    PB, F = gre.shape[0], gre.shape[-1]
-    PT, DB, Tp, D2p, db = _eval_checks(
-        name, dict(gre=gre, gim=gim, Wd=Wd, TEre=TEre, TEim=TEim,
-                   PhiDre=PhiDre, PhiDim=PhiDim), Wd, PB, F)
-    _shape(name, gre, (PB, Tp, F), "gre")
-    _shape(name, gim, (PB, Tp, F), "gim")
-    R = torch.empty((PB, DB, Tp, D2p), dtype=torch.float32, device=gre.device)
-    out = torch.empty((PB, Tp, DB * db), dtype=torch.float32,
-                      device=gre.device)
-    rc = _build.load("shear_sum").dip_eval_fwd(
-        *(t.data_ptr() for t in (gre, gim, Wd, TEre, TEim, PhiDre, PhiDim, R,
-                                 out)),
-        PB, PT, DB, Tp, D2p, db, F, int(Wd.dtype == torch.bfloat16),
-        _stream(),
-    )
-    _raise_if(rc, name)
+    args, r, o = _eval_checks("eval_shear", Wd, TEre, TEim, PhiDre, PhiDim,
+                              gre, gim)
+    R, out = gre.new_empty(r), gre.new_empty(o)
+    _EVAL_FWD(*(t.data_ptr() for t in (gre, gim, Wd, TEre, TEim, PhiDre,
+                                       PhiDim, R, out)), *args, _stream())
     eval_shear.launches += 1
     return out
 
@@ -700,37 +658,17 @@ def eval_shear_t(ob, Wd, TEre, TEim, PhiDre, PhiDim):
     products (bf16 tensor cores with bf16 tables)."""
     if _on_cpu(ob):
         return eval_shear_t_ref(ob, Wd, TEre, TEim, PhiDre, PhiDim)
-    name = "eval_shear_t"
-    PB, F = ob.shape[0], TEre.shape[-1]
-    PT, DB, Tp, D2p, db = _eval_checks(
-        name, dict(ob=ob, Wd=Wd, TEre=TEre, TEim=TEim, PhiDre=PhiDre,
-                   PhiDim=PhiDim), Wd, PB, F, aligned=("Wd", "ob"))
-    _shape(name, ob, (PB, Tp, DB * db), "ob")
-    Rbar = torch.empty((PB, DB, Tp, D2p), dtype=Wd.dtype, device=ob.device)
-    gre = torch.empty((PB, Tp, F), dtype=torch.float32, device=ob.device)
-    gim = torch.empty_like(gre)
-    rc = _build.load("shear_sum").dip_eval_t(
-        *(t.data_ptr() for t in (ob, Wd, TEre, TEim, PhiDre, PhiDim, Rbar, gre,
-                                 gim)),
-        PB, PT, DB, Tp, D2p, db, F, int(Wd.dtype == torch.bfloat16),
-        _stream(),
-    )
-    _raise_if(rc, name)
+    args, r, o = _eval_checks("eval_shear_t", Wd, TEre, TEim, PhiDre, PhiDim,
+                              ob)
+    Rbar = ob.new_empty(r, dtype=Wd.dtype)
+    gre, gim = ob.new_empty(o), ob.new_empty(o)
+    _EVAL_T(*(t.data_ptr() for t in (ob, Wd, TEre, TEim, PhiDre, PhiDim, Rbar,
+                                     gre, gim)), *args, _stream())
     eval_shear_t.launches += 1
     return gre, gim
 
 
-KERNELS = (skew_sum_planes, skew_sum_planes_t, eval_shear, eval_shear_t,
-           skew_sum_planes_t_rows, shear_sum_planes, shear_sum_planes_t,
-           shear_sum, shear_sum_t)
-for _k in KERNELS:
-    _k.launches = 0
-
-
-def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+launch_counts, reset_launch_counts = _launch.counters(
+    skew_sum_planes, skew_sum_planes_t, eval_shear, eval_shear_t,
+    skew_sum_planes_t_rows, shear_sum_planes, shear_sum_planes_t, shear_sum,
+    shear_sum_t)

@@ -32,9 +32,10 @@ coordinates below 0, above Np - 1 and NaN), one line a kernel:
   exact in f64). K17 and K18 print their NaN outputs beside the plain
   version's (``nan_outputs``, ``plain_nan_outputs``).
 
-With ``--split`` (a checkout with ``ops/kernels/_launch.py``), the host's
-cost of each step of the K17, K18 and K5 wrappers, as their first designs
-took them and as the lean launch path takes them (checks, allocations,
+With ``--split`` (a checkout whose ``ops/kernels/_launch.py`` holds the
+wrappers' helpers), the host's cost of each step of the K17, K18 and K5
+wrappers, as their first designs took them and as the lean launch path
+takes them (checks, allocations,
 ``_build.load`` and attribute lookup, the pointers and stream, the ctypes
 call alone on a C function that returns at once, the launch alone of an
 empty kernel), in microseconds a call, and K17's and K18's whole wrappers
@@ -289,7 +290,7 @@ def split() -> None:
     from dip_admm_tpu_torch.ops.kernels import _build
     from dip_admm_tpu_torch.ops.kernels import consensus as cons
     from dip_admm_tpu_torch.ops.kernels import hat_eval as he
-    from dip_admm_tpu_torch.ops.kernels.shear_sum import (
+    from dip_admm_tpu_torch.ops.kernels._launch import (
         _batches, _check, _raise_if, _shape, _stream,
     )
 

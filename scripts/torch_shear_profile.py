@@ -159,12 +159,15 @@ def build():
 
 
 def profile(lib, kern, args, calls=10):
-    """Runs ``kern`` (a wrapper of shear_sum.py) on ``args`` through
-    ``lib``; returns (K7 line, K8 line) of the counters of these calls."""
-    from dip_admm_tpu_torch.ops.kernels import _build
+    """Runs ``kern`` (K7 or K8 of shear_sum.py) on ``args`` through ``lib``,
+    to which the wrappers' bound entries point for these calls; returns (K7
+    line, K8 line) of the counters of these calls."""
+    from dip_admm_tpu_torch.ops.kernels import shear_sum as ss
 
-    load = _build.load
-    _build.load = lambda name: lib
+    entries = (ss._SHEAR_PLANES, ss._SHEAR_PLANES_T, ss._SHEAR_SCRATCH)
+    bound = [e._c for e in entries]
+    for e in entries:
+        e._c = getattr(lib, e.fn)
     try:
         kern(*args)
         torch.cuda.synchronize()
@@ -173,7 +176,8 @@ def profile(lib, kern, args, calls=10):
             kern(*args)
         torch.cuda.synchronize()
     finally:
-        _build.load = load
+        for e, c in zip(entries, bound):
+            e._c = c
     h = (ctypes.c_ulonglong * (N7 + N8))()
     lib.dip_cycles(ctypes.addressof(h), 0)
     k7, k8 = h[:N7], h[N7:]
